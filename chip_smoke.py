@@ -1,0 +1,448 @@
+"""Runs the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
+
+Drives ``lmrs_tpu_torch`` on the card and fails (non-zero exit) on
+anything wrong.  Phases, one JSON object per line:
+
+1. device   — CUDA must be available; the card's name and power limit
+              (``nvidia-smi --query-gpu=name,power.limit``).
+2. build    — every kernel built from ``lmrs_tpu_torch/csrc`` (one nvcc per
+              source, all at once); build seconds.
+3. kernels  — each kernel against its plain PyTorch version at the main
+              path's shapes (bf16): max |err| (tolerance 2e-2), pool writes
+              bit-exact, kernel / plain / library times (CUDA events, L2
+              flushed before each launch) and the bound for this run's work.
+4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts
+              and 16 teacher-forced decode steps through ``forward_paged``,
+              on the card (bf16, kernels) and on the CPU (f32, plain
+              versions), same weights; max logit difference, and greedy
+              agreement wherever the CPU top-2 margin exceeds the tolerance.
+5. main     — ``TranscriptSummarizer`` at full bench-8b (32 layers,
+              random-init bf16, byte tokenizer) with the hierarchical reduce;
+              launch counters zeroed just before and read just after.
+6. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+
+No phase catches its own failure: any exception exits non-zero before the
+last line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (H100 SXM data sheet)
+H100_HBM_BYTES = 3.35e12   # HBM3 bandwidth (H100 SXM data sheet)
+TOL = 2e-2                 # bf16 kernel vs bf16 plain version, |out| ~ O(1)
+LOGIT_TOL = 0.25           # bf16 card vs f32 CPU logits through 2 layers
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean device ms of ``fn`` over ``reps`` launches, each timed with CUDA
+    events after a 256 MB write that evicts the 50 MB L2 (the main path
+    finds each layer's data cold)."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()  # warm-up
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+# ------------------------------------------------------------ phase 3
+
+def check_flash(gen: torch.Generator) -> dict:
+    import torch.nn.functional as F
+
+    from lmrs_tpu_torch.ops import flash_attention as fa
+
+    S, H, K, hd = 2048, 32, 8, 128
+    dev = "cuda"
+
+    def qkv(b):
+        return (torch.randn(b, S, H, hd, generator=gen, device=dev).bfloat16(),
+                torch.randn(b, S, K, hd, generator=gen, device=dev).bfloat16(),
+                torch.randn(b, S, K, hd, generator=gen, device=dev).bfloat16())
+
+    # packed: 4 segments + a padded tail (segment -1), as the main path's
+    # packed prefill dispatches them
+    seg_lens = [700, 512, 333, 260]
+    s_real = sum(seg_lens)
+    seg = torch.full((1, S), -1, dtype=torch.int32, device=dev)
+    off = 0
+    for i, n in enumerate(seg_lens):
+        seg[0, off:off + n] = i
+        off += n
+    q, k, v = qkv(1)
+    lens = torch.tensor([s_real], dtype=torch.int32, device=dev)
+    got = fa.flash_attention(q, k, v, lens, seg)
+    want = fa.flash_attention_ref(q, k, v, lens, seg)
+    torch.cuda.synchronize()
+    err_packed = (got.float() - want.float()).abs().max().item()
+    # unpacked, lengths < S
+    q2, k2, v2 = qkv(1)
+    lens2 = torch.tensor([1537], dtype=torch.int32, device=dev)
+    got2 = fa.flash_attention(q2, k2, v2, lens2)
+    want2 = fa.flash_attention_ref(q2, k2, v2, lens2)
+    torch.cuda.synchronize()
+    err_unpacked = (got2.float() - want2.float()).abs().max().item()
+    err = max(err_packed, err_unpacked)
+    if not err <= TOL:
+        raise AssertionError(f"flash kernel vs plain: max |err| {err} > {TOL}")
+
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, lens, seg))
+    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, lens, seg), reps=3)
+    # library yardstick: SDPA with the same block-diagonal causal mask
+    idx = torch.arange(S, device=dev)
+    mask = ((idx[None, :] <= idx[:, None]) & (seg[0][:, None] == seg[0][None, :])
+            & (idx[None, :] < s_real))[None, None]
+    # [B, H, S, hd] with the kv heads repeated (outside the timed call)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    flops = 4.0 * H * hd * sum(n * (n + 1) / 2 for n in seg_lens)
+    # q, k, v read and out written in bf16, plus lengths and segment ids
+    nbytes = 2.0 * (2 * S * H * hd + 2 * S * K * hd) + 4.0 * (1 + S)
+    b_ms, b_by = bound(flops, nbytes)
+    return {"name": "flash_prefill", "route": "cuda",
+            "source": "lmrs_tpu_torch/csrc/flash_prefill.cu",
+            "replaces": "lmrs_tpu/ops/flash_attention.py:208",
+            "max_abs_err": err, "max_abs_err_packed": err_packed,
+            "max_abs_err_unpacked": err_unpacked, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "shape": f"packed S={S} segs={seg_lens} H={H} K={K} hd={hd} bf16"}
+
+
+def check_decode(gen: torch.Generator) -> dict:
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    B, H, K, hd, ps, W, P = 8, 32, 8, 128, 128, 16, 256
+    dev = "cuda"
+    # mixed lengths: empty row, 1 token, a page boundary (128, 129), the
+    # table's full width (2048), and ordinary mid-page rows
+    lens_l = [0, 1, 128, 129, 700, 1500, 2048, 1000]
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    tables = perm[: B * W].view(B, W).to(torch.int32)
+    tables[0] = 0  # the empty row carries the null table
+    kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    k_pages = torch.randn(P, K, ps, hd, generator=gen, device=dev).bfloat16()
+    v_pages = torch.randn(P, K, ps, hd, generator=gen, device=dev).bfloat16()
+    q = torch.randn(B, H, hd, generator=gen, device=dev).bfloat16()
+    k_new = torch.randn(B, K, hd, generator=gen, device=dev).bfloat16()
+    v_new = torch.randn(B, K, hd, generator=gen, device=dev).bfloat16()
+    kp1, vp1 = k_pages.clone(), v_pages.clone()
+    kp2, vp2 = k_pages.clone(), v_pages.clone()
+    got = pa.paged_decode_fused(q, k_new, v_new, kp1, vp1, tables, kv_lens)
+    want = pa.paged_decode_fused_ref(q, k_new, v_new, kp2, vp2, tables, kv_lens)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= TOL:
+        raise AssertionError(f"decode kernel vs plain: max |err| {err} > {TOL}")
+    if not (torch.equal(kp1, kp2) and torch.equal(vp1, vp2)):
+        raise AssertionError("decode kernel pool writes differ from the plain version")
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("decode kernel: the kv_len == 0 row is not zero")
+
+    ms = time_ms(lambda: pa.paged_decode_fused(q, k_new, v_new, kp1, vp1,
+                                               tables, kv_lens))
+    plain_ms = time_ms(lambda: pa.paged_decode_fused_ref(
+        q, k_new, v_new, kp2, vp2, tables, kv_lens), reps=3)
+    live = sum(min(n, W * ps) for n in lens_l)
+    written = sum(1 for n in lens_l if 0 < n <= W * ps)
+    flops = 4.0 * H * hd * live
+    # bf16: live K/V read, q read, out written, k_new/v_new read and written
+    # into the pool for each row that writes; int32 tables and lengths
+    nbytes = (2.0 * (2 * live * K * hd + 2 * B * H * hd
+                     + 2 * B * K * hd + 2 * written * K * hd)
+              + 4.0 * (B * W + B))
+    b_ms, b_by = bound(flops, nbytes)
+    return {"name": "paged_decode_fused", "route": "cuda",
+            "source": "lmrs_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "lmrs_tpu/ops/paged_attention.py:1495",
+            "max_abs_err": err, "pool_writes_exact": True, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} bf16"}
+
+
+# ------------------------------------------------------------ phase 4
+
+def check_model() -> dict:
+    import dataclasses
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.transformer import forward_paged, init_params
+
+    cfg = dataclasses.replace(model_preset("bench-8b"), n_layers=2)
+    ps, n_pool, steps = 128, 48, 16
+    params_cpu = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    params_gpu = {k: (v.to("cuda", torch.bfloat16) if k != "layers" else
+                      [{n: t.to("cuda", torch.bfloat16) for n, t in lp.items()}
+                       for lp in v])
+                  for k, v in params_cpu.items()}
+    g = torch.Generator().manual_seed(3)
+    prompt_lens = [517, 300, 129]
+    prompts = [torch.randint(3, 259, (n,), generator=g) for n in prompt_lens]
+    # pages: prompt + decode steps per sequence, disjoint, page 0 reserved
+    tables, nxt = [], 1
+    for n in prompt_lens:
+        need = -(-(n + steps) // ps)
+        tables.append(list(range(nxt, nxt + need)))
+        nxt += need
+    W = max(len(t) for t in tables)
+    table = torch.tensor([t + [0] * (W - len(t)) for t in tables])
+    shape = (cfg.n_layers * n_pool, cfg.n_kv_heads, ps, cfg.hd)
+    pools = {"cpu": (torch.zeros(shape), torch.zeros(shape)),
+             "cuda": (torch.zeros(shape, dtype=torch.bfloat16, device="cuda"),
+                      torch.zeros(shape, dtype=torch.bfloat16, device="cuda"))}
+    params = {"cpu": params_cpu, "cuda": params_gpu}
+
+    tokens = torch.cat(prompts)[None]
+    positions = torch.cat([torch.arange(n) for n in prompt_lens])[None]
+    seg = torch.cat([torch.full((n,), i) for i, n in enumerate(prompt_lens)])[None]
+    tok_pages = torch.cat([torch.tensor(t)[torch.arange(n) // ps]
+                           for t, n in zip(tables, prompt_lens)])[None]
+    last_idx = torch.tensor(prompt_lens).cumsum(0) - 1
+    total = torch.tensor([sum(prompt_lens)], dtype=torch.int32)
+
+    def run(dev, toks, pos, lens, **kw):
+        kp, vp = pools[dev]
+        return forward_paged(params[dev], cfg, toks.to(dev), pos.to(dev), kp, vp,
+                             table.to(dev), lens.to(dev), cfg.max_seq_len,
+                             **{k: v.to(dev) for k, v in kw.items()}).float().cpu()
+
+    diffs, agree, checked = [], 0, 0
+
+    def compare(a, b):
+        nonlocal agree, checked
+        diffs.append((a - b).abs().max().item())
+        top2 = torch.topk(a, 2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
+        same = a.argmax(-1) == b.argmax(-1)
+        checked += int(sure.sum())
+        agree += int((same & sure).sum())
+        if not bool(same[sure].all()):
+            raise AssertionError("greedy disagreement above the margin tolerance")
+
+    lo_cpu = run("cpu", tokens, positions, total, token_pages=tok_pages,
+                 segment_ids=seg, packed_last_idx=last_idx)[0]
+    lo_gpu = run("cuda", tokens, positions, total, token_pages=tok_pages,
+                 segment_ids=seg, packed_last_idx=last_idx)[0]
+    compare(lo_cpu, lo_gpu)
+    lens = torch.tensor(prompt_lens)
+    cur = lo_cpu.argmax(-1)  # teacher forcing: the CPU's greedy tokens
+    for _ in range(steps):
+        pos = lens[:, None]
+        kv = (lens + 1).to(torch.int32)
+        a = run("cpu", cur[:, None], pos, kv)[:, 0]
+        b = run("cuda", cur[:, None], pos, kv)[:, 0]
+        compare(a, b)
+        cur = a.argmax(-1)
+        lens = lens + 1
+    max_diff = max(diffs)
+    if not max_diff <= LOGIT_TOL:
+        raise AssertionError(f"model logits: max |diff| {max_diff} > {LOGIT_TOL}")
+    del params, pools, params_gpu
+    torch.cuda.empty_cache()
+    return {"phase": "model", "config": "bench-8b widths, n_layers=2",
+            "prompts": prompt_lens, "decode_steps": steps,
+            "max_logit_diff": max_diff, "logit_tol": LOGIT_TOL,
+            "greedy_checked": checked, "greedy_agree": agree}
+
+
+# ------------------------------------------------------------ phase 5
+
+def profile_decode_step(engine, rows: int = 8, context: int = 1800,
+                        steps: int = 4) -> dict:
+    """Where one decode step's time goes at the main path's shape (8 rows,
+    ~1800-token contexts, full bench-8b): host wall per step (synchronized)
+    and, from ``torch.profiler``, device kernel time by kind.  Uses real
+    pages from the engine's allocator and returns them afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmrs_tpu_torch.models.transformer import forward_paged
+
+    sched = engine._scheduler
+    cache, cfg = sched.cache, sched.model_cfg
+    n_pages = -(-(context + steps + 2) // cache.page_size)
+    seqs = [cache.allocator.alloc(n_pages) for _ in range(rows)]
+    try:
+        table = torch.tensor([s + [0] * (cache.max_pages_per_slot - len(s))
+                              for s in seqs], device="cuda")
+        tok = torch.full((rows,), 65, dtype=torch.long, device="cuda")
+
+        def one_step(i):
+            lens = torch.full((rows,), context + i, dtype=torch.long, device="cuda")
+            forward_paged(sched.params, cfg, tok[:, None], lens[:, None],
+                          cache.k, cache.v, table, (lens + 1).to(torch.int32),
+                          cfg.max_seq_len)
+
+        one_step(0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(steps):
+            one_step(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                one_step(i)
+            torch.cuda.synchronize()
+        kinds = {"paged_decode": 0.0, "gemm": 0.0, "other": 0.0}
+        n_kernels = 0
+        for evt in prof.events():
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                us = evt.time_range.elapsed_us()  # a kernel's own duration
+                name = evt.name.lower()
+                kind = ("paged_decode" if "paged_decode" in name else
+                        "gemm" if ("gemm" in name or "cutlass" in name
+                                   or "sm90_xmma" in name or "nvjet" in name)
+                        else "other")
+                kinds[kind] += us / 1e3
+                n_kernels += 1
+        busy = sum(kinds.values()) / steps
+        return {"rows": rows, "context": context, "wall_ms_per_step": wall_ms,
+                "device_busy_ms_per_step": busy if n_kernels else "not measured",
+                "device_idle_share": (1 - busy / wall_ms) if n_kernels else "not measured",
+                "kernel_ms_per_step": {k: v / steps for k, v in kinds.items()},
+                "kernels_per_step": n_kernels / steps}
+    finally:
+        for s in seqs:
+            cache.allocator.free(s)
+
+
+def run_main_path() -> dict:
+    from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
+                                       PipelineConfig, ReduceConfig)
+    from lmrs_tpu_torch.ops.flash_attention import flash_attention
+    from lmrs_tpu_torch.ops.paged_attention import paged_decode_fused
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    cfg = PipelineConfig(
+        engine=EngineConfig(model="bench-8b", max_tokens=64, seed=0,
+                            temperature=0.3),
+        # byte tokens: 1400-token chunks + header + template stay inside the
+        # 2048 window at a 64-token budget
+        chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=1400),
+        # a reduce budget small enough that the summaries form a tree
+        reduce=ReduceConfig(max_tokens_per_batch=600, reserve_tokens=100))
+    transcript = load_demo_transcript(max_segments=200)
+    summarizer = TranscriptSummarizer(cfg, device="cuda")
+    engine = summarizer.executor.engine  # builds + random-inits the model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    paged_decode_fused.launches = 0
+    t0 = time.time()
+    stats = summarizer.summarize(transcript)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"flash_prefill": flash_attention.launches,
+                "paged_decode_fused": paged_decode_fused.launches}
+    em = stats["engine_metrics"]
+    violations = engine.audit()
+    if not stats["summary"]:
+        raise AssertionError("main path produced an empty summary")
+    if stats["failed_requests"] != 0:
+        raise AssertionError(f"failed_requests = {stats['failed_requests']}")
+    if violations:
+        raise AssertionError(f"allocator audit: {violations}")
+    if not stats["hierarchical"]:
+        raise AssertionError("the reduce did not form a tree")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    step = profile_decode_step(engine)
+    if engine.audit():
+        raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
+    summarizer.shutdown()
+    return {"phase": "main", "decode_step_profile": step, "model": "bench-8b (32 layers, random-init bf16)",
+            "segments": stats["num_input_segments"],
+            "chunks": stats["num_chunks"], "requests": em["requests"],
+            "reduce_levels": stats["reduce_levels"],
+            "prefill_tokens": em["prefill_tokens"],
+            "prefill_dispatches": em["prefill_dispatches"],
+            "packed_prefill_dispatches": em["packed_prefill_dispatches"],
+            "decode_tokens": em["decode_tokens"],
+            "decode_blocks": em["decode_blocks"],
+            "decode_block_seconds": em["decode_block_seconds"],
+            "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+            "wall_seconds": wall, "stage_times": stats["stage_times"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "failed_requests": stats["failed_requests"],
+            "summary_chars": len(stats["summary"]), "launches": launches}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import lmrs_tpu_torch
+    from lmrs_tpu_torch.ops import kernels
+
+    here = Path(__file__).resolve().parent
+    if Path(lmrs_tpu_torch.__file__).resolve().parents[1] != here:
+        print("chip_smoke: lmrs_tpu_torch must come from this checkout "
+              f"({here}), not {lmrs_tpu_torch.__file__}", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    t0 = time.time()
+    info = kernels.build_all()
+    emit({"phase": "build", "seconds": round(time.time() - t0, 3),
+          "per_source": {n: {k: v for k, v in i.items() if k != "ptxas"}
+                         for n, i in info.items()},
+          "ptxas": {n: [ln for ln in i["ptxas"].splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for n, i in info.items()}})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [check_flash(gen), check_decode(gen)]
+    for r in rows:
+        emit({"phase": "kernels", **r})
+    emit(check_model())
+    main_out = run_main_path()
+    emit(main_out)
+    launches = main_out["launches"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: ({**r, "launches": launches[r["name"]]})[k]
+                       for k in keys} for r in rows]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

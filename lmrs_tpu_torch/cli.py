@@ -1,0 +1,153 @@
+"""``lmrs-torch``: summarize a transcript through the PyTorch/CUDA port.
+
+Flag spellings follow the reference CLI (``lmrs``).  Runs on the card by
+default; ``--device cpu`` runs the plain PyTorch path.  Flags of features
+this slice does not carry (mixed batches, prefix cache, host/disk KV,
+speculation, int8, meshes) are refused with the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import sys
+from pathlib import Path
+
+from lmrs_tpu_torch.config import (ChunkConfig, DataConfig, EngineConfig,
+                                   PipelineConfig, ReduceConfig)
+from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+from lmrs_tpu_torch.utils.timing import format_duration
+
+logger = logging.getLogger("lmrs_torch.cli")
+
+# flag -> the slice of the port that brings it
+_LATER = {
+    "mixed_batch": "ragged spans + mixed batches + prefix cache",
+    "prefix_cache": "ragged spans + mixed batches + prefix cache",
+    "no_prefix_cache": "ragged spans + mixed batches + prefix cache",
+    "host_kv": "KV movement (host/disk KV tiers)",
+    "speculate_k": "speculation",
+    "quantize": "int8",
+    "kv_quantize": "int8",
+    "mesh": "multi-GPU",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="lmrs-torch",
+        description="Map-reduce summarization of long transcripts on PyTorch/CUDA")
+    p.add_argument("--input", "-i", required=True, help="input transcript JSON")
+    p.add_argument("--output", "-o", help="write the final summary to this file")
+    p.add_argument("--model", default=None, help="model preset (e.g. bench-8b)")
+    p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
+    p.add_argument("--tokenizer", default="approx",
+                   help='token-count authority: "approx" or "byte"')
+    p.add_argument("--max-tokens", type=int, default=None,
+                   help="generation budget per request")
+    p.add_argument("--max-tokens-per-chunk", type=int, default=4000)
+    p.add_argument("--overlap-tokens", type=int, default=200)
+    p.add_argument("--max-batch-slots", type=int, default=None)
+    p.add_argument("--max-segment-duration", type=float, default=120.0)
+    p.add_argument("--time-interval", type=float, default=None)
+    p.add_argument("--no-merge", action="store_true")
+    p.add_argument("--no-hierarchical", action="store_true")
+    p.add_argument("--limit-segments", type=int, default=None)
+    p.add_argument("--report", action="store_true",
+                   help="write <output>.report.json stats")
+    p.add_argument("--prompt-file")
+    p.add_argument("--system-prompt-file")
+    p.add_argument("--aggregator-prompt-file")
+    p.add_argument("--summary-type", default="summary")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--quiet", "-q", action="store_true")
+    # not in this slice: accepted only to refuse them by name
+    p.add_argument("--mixed-batch", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--prefix-cache", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--no-prefix-cache", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--speculate-k", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--quantize", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--kv-quantize", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> PipelineConfig:
+    for name, later in _LATER.items():
+        val = getattr(args, name)
+        if val not in (None, False):
+            raise ValueError(f"--{name.replace('_', '-')} is not in this slice "
+                             f"of the port; it arrives with the {later} slice")
+    engine = EngineConfig(seed=args.seed)
+    if args.model:
+        engine = dataclasses.replace(engine, model=args.model)
+    if args.max_tokens is not None:
+        engine = dataclasses.replace(engine, max_tokens=args.max_tokens)
+    if args.max_batch_slots is not None:
+        engine = dataclasses.replace(engine, max_batch_slots=args.max_batch_slots)
+    return PipelineConfig(
+        data=DataConfig(merge_same_speaker=not args.no_merge,
+                        time_interval_seconds=args.time_interval,
+                        max_segment_duration=args.max_segment_duration,
+                        limit_segments=args.limit_segments),
+        chunk=ChunkConfig(max_tokens_per_chunk=args.max_tokens_per_chunk,
+                          overlap_tokens=args.overlap_tokens,
+                          tokenizer=args.tokenizer),
+        engine=engine,
+        reduce=ReduceConfig(hierarchical=not args.no_hierarchical),
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    try:
+        cfg = config_from_args(args)
+    except ValueError as e:
+        parser.error(str(e))
+    try:
+        transcript = json.loads(Path(args.input).read_text(encoding="utf-8"))
+    except (OSError, json.JSONDecodeError) as e:
+        logger.error("could not read transcript %s: %s", args.input, e)
+        return 1
+    summarizer = TranscriptSummarizer(cfg, device=args.device)
+    try:
+        stats = summarizer.summarize(
+            transcript, prompt_file=args.prompt_file,
+            system_prompt_file=args.system_prompt_file,
+            aggregator_prompt_file=args.aggregator_prompt_file,
+            summary_type=args.summary_type)
+    finally:
+        summarizer.shutdown()
+    summary = stats["summary"]
+    if not args.quiet:
+        em = stats["engine_metrics"]
+        print("\n" + "=" * 60 + "\nSUMMARY\n" + "=" * 60)
+        print(summary)
+        print("=" * 60)
+        print(f"segments: {stats['num_input_segments']} -> {stats['num_segments']}  "
+              f"chunks: {stats['num_chunks']}  "
+              f"tokens: {stats['total_tokens_used']}  "
+              f"failed: {stats['failed_requests']}  "
+              f"wall: {format_duration(stats['processing_time'])}  "
+              f"decode {em.get('decode_tokens_per_sec')} tok/s")
+    if args.output:
+        try:
+            Path(args.output).write_text(summary, encoding="utf-8")
+            if args.report:
+                report = {k: v for k, v in stats.items() if k != "summary"}
+                Path(str(args.output) + ".report.json").write_text(
+                    json.dumps(report, indent=2), encoding="utf-8")
+        except OSError as e:
+            logger.error("could not write output %s: %s", args.output, e)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,168 @@
+"""Typed configuration tree of the port (trimmed copy of the reference's
+``config.py``).
+
+``EngineConfig`` carries only the fields this slice of the port honours:
+the continuous scheduler with packed fresh prefill and decode blocks.
+Mixed batches, the prefix cache, host/disk KV, speculation, int8 and
+device meshes have no field here; the CLI refuses their flags by name.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from lmrs_tpu_torch.utils import env as _envmod
+
+
+@dataclass
+class DataConfig:
+    """Preprocessing stage knobs."""
+
+    merge_same_speaker: bool = True
+    time_interval_seconds: float | None = None
+    max_segment_duration: float = 120.0
+    preserve_timestamps: bool = True
+    limit_segments: int | None = None
+
+
+@dataclass
+class ChunkConfig:
+    """Chunker knobs; ``tokenizer`` names the token-count authority."""
+
+    max_tokens_per_chunk: int = 4000
+    overlap_tokens: int = 200
+    context_tokens: int = 150
+    tokenizer: str = "approx"  # "approx" | "byte"
+
+
+@dataclass
+class ModelConfig:
+    """Decoder-only transformer hyperparameters."""
+
+    name: str = "tiny"
+    vocab_size: int = 512
+    dim: int = 256
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    hidden_dim: int = 688
+    max_seq_len: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    # Gemma-style differences
+    logit_softcap: float | None = None
+    embed_scale: bool = False  # multiply embeddings by sqrt(dim)
+    head_dim: int | None = None  # explicit per-head dim
+    activation: str = "silu"  # "silu" (Llama) | "gelu" (Gemma)
+
+    @property
+    def hd(self) -> int:
+        """Per-head dimension; ``head_dim`` overrides the dim/n_heads default."""
+        return self.head_dim or self.dim // self.n_heads
+
+
+@dataclass
+class EngineConfig:
+    """Generation engine knobs of this slice (continuous scheduler only).
+
+    ``prefill_chunk`` caps the tokens of one prefill dispatch (a packed
+    bin's capacity).  A prompt is always prefilled in one dispatch here, so
+    a longer prompt gets an error result; chunked continuation prefill
+    arrives with the ragged-span slice.
+    """
+
+    backend: str = "torch"
+    model: str = field(default_factory=lambda: _envmod.env_str("LMRS_MODEL", "tiny"))
+    scheduler: str = "continuous"
+    max_batch_slots: int = 8
+    page_size: int = 128
+    num_pages: int = 512
+    prefill_chunk: int = 4096
+    decode_block: int = 16  # decode steps per host sync
+    temperature: float = field(
+        default_factory=lambda: _envmod.env_float("TEMPERATURE", 0.3))
+    max_tokens: int = field(
+        default_factory=lambda: _envmod.env_int("MAX_TOKENS", 1000))
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        if self.backend != "torch":
+            raise ValueError(f"unknown engine backend {self.backend!r}; "
+                             "the port has the 'torch' backend only")
+        if self.scheduler != "continuous":
+            raise ValueError(
+                f"scheduler {self.scheduler!r} is not ported; the static "
+                "engine path is a later slice of the port")
+        for name in ("max_batch_slots", "page_size", "num_pages",
+                     "prefill_chunk", "decode_block", "max_tokens"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1 "
+                                 f"(got {getattr(self, name)})")
+        if self.temperature < 0:
+            raise ValueError(f"temperature must be >= 0 "
+                             f"(got {self.temperature})")
+
+
+@dataclass
+class ReduceConfig:
+    """Reduce-tree knobs."""
+
+    max_tokens_per_batch: int = 6000
+    hierarchical: bool = True
+    reserve_tokens: int = 1000
+    max_summaries_per_batch: int = 10
+    max_levels: int = 4
+    temperature: float = 0.2
+
+
+@dataclass
+class PipelineConfig:
+    """Top-level config: one object wires the whole pipeline."""
+
+    data: DataConfig = field(default_factory=DataConfig)
+    chunk: ChunkConfig = field(default_factory=ChunkConfig)
+    engine: EngineConfig = field(default_factory=EngineConfig)
+    model: ModelConfig | None = None  # None: the preset named by engine.model
+    reduce: ReduceConfig = field(default_factory=ReduceConfig)
+
+
+_PRESETS: dict[str, dict] = {
+    "tiny": {},
+    "tiny-gemma": dict(
+        logit_softcap=30.0, embed_scale=True, rope_theta=10000.0,
+        tie_embeddings=True, activation="gelu", norm_eps=1e-6,
+    ),
+    "llama3-8b": dict(
+        vocab_size=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        hidden_dim=14336, max_seq_len=8192, rope_theta=500000.0,
+        tie_embeddings=False,
+    ),
+    "bench-1b": dict(
+        vocab_size=512, dim=2048, n_layers=18, n_heads=16, n_kv_heads=8,
+        hidden_dim=7168, max_seq_len=2048, rope_theta=500000.0,
+        tie_embeddings=True,
+    ),
+    "bench-8b": dict(
+        # Llama-3-8B widths with the full vocabulary; window 2048
+        vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
+        n_kv_heads=8, hidden_dim=14336, max_seq_len=2048,
+        rope_theta=500000.0, tie_embeddings=False,
+    ),
+    "quality-tiny": dict(
+        vocab_size=512, dim=96, n_layers=2, n_heads=4, n_kv_heads=2,
+        hidden_dim=256, max_seq_len=1024, dtype="float32",
+    ),
+    "bench-smoke": dict(
+        vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        hidden_dim=256, max_seq_len=2048,
+    ),
+}
+
+
+def model_preset(name: str) -> ModelConfig:
+    """Named model configurations (same widths as the reference presets)."""
+    if name not in _PRESETS:
+        raise ValueError(f"unknown model preset {name!r}; have {sorted(_PRESETS)}")
+    return ModelConfig(name=name, **_PRESETS[name])

@@ -1,0 +1,77 @@
+"""PyTorch/CUDA generation engine (the port of the reference's
+``engine/jax_engine.py``, continuous scheduler only).
+
+Exposes the surface ``MapExecutor`` and ``ResultAggregator`` use:
+``generate_batch``, ``schedules_internally``, ``engine_metrics``,
+``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
+is asked for; the kernels take bfloat16, so a CUDA engine needs a bfloat16
+model.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import torch
+
+from lmrs_tpu_torch.config import EngineConfig, ModelConfig
+from lmrs_tpu_torch.data.tokenizer import ByteTokenizer, get_tokenizer
+from lmrs_tpu_torch.engine.api import GenerationRequest, GenerationResult
+from lmrs_tpu_torch.engine.scheduler import ContinuousScheduler
+from lmrs_tpu_torch.models.transformer import init_params, model_dtype, param_count
+from lmrs_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger("lmrs_torch.engine")
+
+
+class TorchEngine:
+    """Single-device engine over the paged KV cache."""
+
+    def __init__(self, engine_cfg: EngineConfig, model_cfg: ModelConfig,
+                 device=None, params=None, tokenizer=None):
+        self.cfg = engine_cfg
+        self.model_cfg = model_cfg
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and model_dtype(model_cfg) != torch.bfloat16:
+            raise ValueError(
+                f"model {model_cfg.name} is {model_cfg.dtype}; the CUDA "
+                "kernels take bfloat16 — use a bfloat16 model on the card "
+                "(or device='cpu')")
+        if tokenizer is None:
+            tokenizer = (ByteTokenizer() if model_cfg.vocab_size < 100000
+                         else get_tokenizer("approx"))
+        if (tokenizer.vocab_size > model_cfg.vocab_size
+                or tokenizer.eos_id >= model_cfg.vocab_size):
+            raise ValueError(
+                f"tokenizer vocab ({tokenizer.vocab_size}, eos "
+                f"{tokenizer.eos_id}) does not fit model vocab "
+                f"({model_cfg.vocab_size})")
+        self.tokenizer = tokenizer
+        t0 = time.time()
+        if params is None:
+            logger.warning("no checkpoint for %s: using random-init weights "
+                           "(throughput-correct, content-free)", model_cfg.name)
+            params = init_params(model_cfg, engine_cfg.seed, self.device)
+        self.params = params
+        logger.info("model %s: %.1fM params on %s in %.1fs", model_cfg.name,
+                    param_count(params) / 1e6, self.device, time.time() - t0)
+        self._scheduler = ContinuousScheduler(engine_cfg, model_cfg, params,
+                                              tokenizer, self.device)
+        # slot + page admission replaces the executor's wave cap
+        self.schedules_internally = True
+
+    def generate_batch(self, requests: list[GenerationRequest],
+                       on_result=None) -> list[GenerationResult]:
+        if not requests:
+            return []
+        return self._scheduler.run(requests, on_result=on_result)
+
+    def engine_metrics(self) -> dict:
+        return self._scheduler.metrics_report()
+
+    def audit(self) -> list[str]:
+        return self._scheduler.audit()
+
+    def shutdown(self) -> None:
+        """Nothing to stop: the engine runs on the caller's thread."""

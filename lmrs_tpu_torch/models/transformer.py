@@ -1,0 +1,180 @@
+"""Decoder-only transformer (Llama-3 / Gemma family) on a paged KV cache.
+
+The port of the reference's ``models/transformer.py`` for the routes this
+slice serves: fresh prefill, packed fresh prefill and single-token decode
+(``forward_paged``).  Params are a plain dict of tensors (see
+``init_params``); each layer's q/k/v projections are stored fused as one
+[D, (H + 2K)·hd] matrix and gate/up as one [D, 2F] matrix, so a layer is
+four matmuls.  The dense products stay ``torch.matmul`` (the reference left
+them to XLA); attention goes through the two kernel modules:
+
+* prefill (S > 1): K/V scattered into the pool, then
+  ``ops.flash_attention.flash_attention`` over the current tokens;
+* decode (S == 1): ``ops.paged_attention.paged_decode_fused`` writes the
+  token's K/V and attends the live pages in one kernel.
+
+A CUDA tensor runs the kernels, a CPU tensor their plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from lmrs_tpu_torch.config import ModelConfig
+from lmrs_tpu_torch.ops.flash_attention import flash_attention
+from lmrs_tpu_torch.ops.norms import rms_norm
+from lmrs_tpu_torch.ops.paged_attention import paged_decode_fused
+from lmrs_tpu_torch.ops.rope import apply_rope, rope_table
+
+Params = dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype: torch.dtype | None = None) -> Params:
+    """Random-init params on ``device``: truncated normal in [-2, 2] over
+    sqrt(fan_in), drawn in f32 from one ``torch.Generator`` and cast; norm
+    scales zero (the (1 + scale) convention makes that the identity).
+    Built layer by layer so only one layer's f32 draw is alive at a time."""
+    dt = dtype or model_dtype(cfg)
+    device = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hd, D, F_ = cfg.hd, cfg.dim, cfg.hidden_dim
+
+    def tn(shape, fan_in):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return (w / math.sqrt(fan_in)).to(dt)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "ln_attn": torch.zeros(D, dtype=dt, device=device),
+            "ln_mlp": torch.zeros(D, dtype=dt, device=device),
+            "wqkv": tn((D, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd), D),
+            "wo": tn((cfg.n_heads * hd, D), cfg.n_heads * hd),
+            "w_gate_up": tn((D, 2 * F_), D),
+            "w_down": tn((F_, D), F_),
+        })
+    params: Params = {
+        "embed": tn((cfg.vocab_size, D), D),
+        "layers": layers,
+        "final_norm": torch.zeros(D, dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = tn((D, cfg.vocab_size), D)
+    return params
+
+
+def param_count(params: Params) -> int:
+    n = sum(t.numel() for k, t in params.items() if k != "layers")
+    return n + sum(t.numel() for lp in params["layers"] for t in lp.values())
+
+
+def gate_act(cfg: ModelConfig, gate: torch.Tensor) -> torch.Tensor:
+    """Gated-FFN activation in f32: SiLU (Llama) or tanh-GELU (Gemma)."""
+    gf = gate.float()
+    if cfg.activation == "gelu":
+        return F.gelu(gf, approximate="tanh")
+    if cfg.activation == "silu":
+        return F.silu(gf)
+    raise ValueError(f"unknown activation {cfg.activation!r}; silu|gelu")
+
+
+def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + output projection to f32 logits (+ optional softcap)."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(x, w).float()
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def forward_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,       # [B, S] int
+    positions: torch.Tensor,    # [B, S] absolute positions
+    k_pages: torch.Tensor,      # [L*P, K, ps, hd] (updated in place)
+    v_pages: torch.Tensor,      # [L*P, K, ps, hd] (updated in place)
+    page_tables: torch.Tensor,  # [B, W] LOGICAL page ids (< P)
+    kv_lens: torch.Tensor,      # [B] valid tokens AFTER this call's writes
+    rope_max: int,
+    token_pages: torch.Tensor | None = None,     # [B, S] packed: per-token page
+    segment_ids: torch.Tensor | None = None,     # [B, S] packed segments (pad -1)
+    packed_last_idx: torch.Tensor | None = None,  # [N] rows to sample (packed)
+    last_pos: torch.Tensor | None = None,        # [B] per-row sampled index
+) -> torch.Tensor:
+    """Forward pass against the paged pool; returns f32 logits — [B, S, V],
+    or [B, N, V] with ``packed_last_idx`` / [B, 1, V] with ``last_pos``
+    (the LM head runs only on the sampled rows).
+
+    S == 1 is decode: ``kv_lens`` includes the token, whose K/V lands at
+    position ``kv_lens - 1`` (= ``positions``).  S > 1 is fresh prefill:
+    the tokens are the whole context (row i at position i), written at
+    (page_tables[b, pos // ps], pos % ps) — or at ``token_pages`` for a
+    PACKED row holding several prompts, whose ``positions`` restart per
+    segment and whose attention is same-segment causal; ``kv_lens`` then
+    holds the total packed length."""
+    dev = tokens.device
+    b, s = tokens.shape
+    hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    ps = k_pages.shape[2]
+    n_pool = k_pages.shape[0] // cfg.n_layers  # logical pages per layer
+    dt = params["embed"].dtype
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = (x.float() * math.sqrt(cfg.dim)).to(dt)
+    sin, cos = rope_table(rope_max, hd, cfg.rope_theta, device=dev)
+    positions = positions.long()
+    tables = page_tables.long()
+    kv_lens = kv_lens.to(dev)
+    is_decode = s == 1
+    if not is_decode:
+        if token_pages is not None:
+            page_idx = token_pages.long()
+        else:
+            col = torch.clamp(positions // ps, 0, tables.shape[1] - 1)
+            page_idx = torch.gather(tables, 1, col)
+        offsets = positions % ps
+
+    for li, lp in enumerate(params["layers"]):
+        h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        qkv = torch.matmul(h, lp["wqkv"])
+        q = qkv[..., : H * hd].view(b, s, H, hd)
+        k = qkv[..., H * hd: (H + K) * hd].view(b, s, K, hd)
+        v = qkv[..., (H + K) * hd:].view(b, s, K, hd)
+        q = apply_rope(q, positions, sin, cos)
+        k = apply_rope(k, positions, sin, cos)
+        base = li * n_pool
+        if is_decode:
+            attn = paged_decode_fused(
+                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+                k_pages, v_pages, tables + base, kv_lens)[:, None]
+        else:
+            g_pages = page_idx + base
+            k_pages[g_pages, :, offsets] = k
+            v_pages[g_pages, :, offsets] = v.contiguous()
+            attn = flash_attention(q, k, v, kv_lens, segment_ids)
+        x = x + torch.matmul(attn.reshape(b, s, H * hd), lp["wo"])
+        h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
+        gate, up = torch.matmul(h, lp["w_gate_up"]).chunk(2, dim=-1)
+        x = x + torch.matmul(gate_act(cfg, gate).to(dt) * up, lp["w_down"])
+
+    if packed_last_idx is not None:
+        x = x[:, packed_last_idx.long()]
+    elif last_pos is not None:
+        idx = torch.clamp(last_pos.long().to(dev), 0, s - 1)
+        x = x[torch.arange(b, device=dev), idx][:, None]
+    return lm_head(params, cfg, x)

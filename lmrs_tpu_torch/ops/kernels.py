@@ -1,0 +1,96 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``lmrs_tpu_torch/csrc/`` has a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
+``ctypes``.  Libraries land in ``build/lmrs_tpu_torch/`` at the repo root,
+named by a hash of the source and the flags, so a changed source rebuilds
+and an unchanged one loads at once.  Building happens at first use (never at
+import): the CPU tests import every module without a CUDA toolkit.
+
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lmrs_tpu_torch"
+SOURCES = ("flash_prefill", "paged_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on the machine with the card")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
+    """Compile every listed source that has no up-to-date library, one
+    ``nvcc`` process each, all started together.  Returns per-source
+    ``{"seconds", "cached", "ptxas"}`` (``ptxas`` = the register/shared
+    memory report of ``-Xptxas -v``).  Raises on a failed compile."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc() if any(not _lib_path(n).exists() for n in names) else ""
+    procs, info = {}, {}
+    t0 = time.time()
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            info[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        info[name] = {"seconds": round(time.time() - t0, 3), "cached": False,
+                      "ptxas": log.strip()}
+    return info
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all((name,))
+        lib = _loaded[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def check_launch(fn_name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error (its
+    ``cudaGetLastError()`` right after the launch)."""
+    if code != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {code}")

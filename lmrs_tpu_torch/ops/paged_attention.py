@@ -1,0 +1,146 @@
+"""Write-fused paged decode attention: the CUDA kernel
+``csrc/paged_decode.cu`` and its plain PyTorch version.
+
+Replaces the reference's Pallas ``paged_decode_pallas_fused``
+(``lmrs_tpu/ops/paged_attention.py:1246``): single-token decode that writes
+the current token's K/V into its page and attends the row's live pages.
+Routing rule: a CUDA tensor goes to the kernel, a CPU tensor to
+``paged_decode_fused_ref``; any failure raises.  Both update the pools IN
+PLACE (the pools are the engine's persistent cache; the reference aliases
+them through its pallas_call instead) and return the attention output.
+
+Pool layout [P_total, K, ps, hd] (page-major, layer axis flattened into the
+page axis; callers pass GLOBAL page ids).  Contract per row b:
+
+* ``kv_lens[b]`` counts the current token; its K/V lands at position
+  ``kv_lens[b] - 1``, i.e. ``pool[tables[b, pos // ps], :, pos % ps]``;
+* the walk covers ``min(kv_lens[b], W * ps)`` tokens — a stale length past
+  the table is clamped, and its write (a position past the table span) is
+  skipped;
+* ``kv_lens[b] == 0`` writes nothing and outputs zeros.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30
+
+
+def paged_decode_ref(
+    q: torch.Tensor,            # [B, H, hd]
+    k_pages: torch.Tensor,      # [P, K, ps, hd]
+    v_pages: torch.Tensor,      # [P, K, ps, hd]
+    page_tables: torch.Tensor,  # [B, W] page ids
+    kv_lens: torch.Tensor,      # [B] tokens in cache (incl. current)
+) -> torch.Tensor:
+    """Gather-softmax over each row's page window (the port of the
+    reference's ``paged_decode_xla``), with the length clamped to the table
+    and zero output for empty rows."""
+    b, h, hd = q.shape
+    _, kh, ps, _ = k_pages.shape
+    w = page_tables.shape[1]
+    tables = page_tables.long()
+    k = k_pages[tables].permute(0, 1, 3, 2, 4).reshape(b, w * ps, kh, hd)
+    v = v_pages[tables].permute(0, 1, 3, 2, 4).reshape(b, w * ps, kh, hd)
+    n_rep = h // kh
+    if n_rep > 1:
+        k = torch.repeat_interleave(k, n_rep, dim=2)
+        v = torch.repeat_interleave(v, n_rep, dim=2)
+    logits = torch.einsum("bhd,bkhd->bhk", q, k).float() * hd ** -0.5
+    lens = torch.clamp(kv_lens.long(), max=w * ps)
+    mask = torch.arange(w * ps, device=q.device)[None, None, :] < lens[:, None, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype), v)
+    return torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+
+
+def _write_new_tokens(k_new, v_new, k_pages, v_pages, page_tables, kv_lens):
+    """Scatter each row's current-token K/V into its page, in place; rows
+    whose position lies outside [0, W * ps) are not written."""
+    ps = k_pages.shape[2]
+    w = page_tables.shape[1]
+    pos = kv_lens.long() - 1
+    ok = (pos >= 0) & (pos < w * ps)
+    rows = torch.nonzero(ok).flatten()
+    if rows.numel():
+        p = pos[rows]
+        page = page_tables.long()[rows, p // ps]
+        k_pages[page, :, p % ps] = k_new[rows]
+        v_pages[page, :, p % ps] = v_new[rows]
+
+
+def paged_decode_fused_ref(
+    q: torch.Tensor,            # [B, H, hd]
+    k_new: torch.Tensor,        # [B, K, hd] current token K (post-rope)
+    v_new: torch.Tensor,        # [B, K, hd]
+    k_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
+    kv_lens: torch.Tensor,      # [B] incl. current token
+) -> torch.Tensor:
+    """Plain PyTorch version: scatter, then gather-softmax."""
+    _write_new_tokens(k_new, v_new, k_pages, v_pages, page_tables, kv_lens)
+    return paged_decode_ref(q, k_pages, v_pages, page_tables, kv_lens)
+
+
+def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens):
+    from lmrs_tpu_torch.ops import kernels
+
+    b, h, hd = q.shape
+    _, kh, ps, _ = k_pages.shape
+    w = page_tables.shape[1]
+    if (k_new.shape != (b, kh, hd) or v_new.shape != k_new.shape
+            or v_pages.shape != k_pages.shape or k_pages.shape[3] != hd):
+        raise ValueError("paged_decode_fused: shape mismatch among q "
+                         f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
+                         f"pools {tuple(k_pages.shape)}")
+    if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8) or ps % 32:
+        raise ValueError(f"paged_decode_fused kernel takes hd in (64, 128), "
+                         f"H/K in (1, 2, 4, 8), page_size % 32 == 0 (got "
+                         f"hd={hd}, H={h}, K={kh}, ps={ps})")
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
+                    ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"paged_decode_fused: {name} must be contiguous "
+                             f"bfloat16 on {q.device}")
+    if page_tables.shape[0] != b or kv_lens.shape != (b,):
+        raise ValueError("paged_decode_fused: tables/kv_lens rows != batch")
+    tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    fn = kernels.load("paged_decode").lmrs_paged_decode_fused_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), b, h, kh, hd, ps, w, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch("lmrs_paged_decode_fused_bf16", rc)
+    paged_decode_fused.launches += 1
+    return out
+
+
+def paged_decode_fused(
+    q: torch.Tensor,            # [B, H, hd]
+    k_new: torch.Tensor,        # [B, K, hd]
+    v_new: torch.Tensor,        # [B, K, hd]
+    k_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
+    kv_lens: torch.Tensor,      # [B] incl. current token
+) -> torch.Tensor:
+    """Write-fused paged decode (see module doc).  Returns [B, H, hd].
+    ``paged_decode_fused.launches`` counts kernel launches."""
+    if q.is_cuda:
+        return _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables,
+                            kv_lens)
+    return paged_decode_fused_ref(q, k_new, v_new, k_pages, v_pages,
+                                  page_tables, kv_lens)
+
+
+paged_decode_fused.launches = 0

@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(bf16; atol 2e-2 on outputs of magnitude ~1, pool writes exact).
+
+Card-only: every test carries the ``cuda`` marker and skips without a GPU.
+The file imports nothing of JAX, so on a machine with a card and no JAX it
+runs alone:  ``python -m pytest tests/test_torch_cuda.py -q --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lmrs_tpu_torch.ops import flash_attention as tfa
+from lmrs_tpu_torch.ops import paged_attention as tpa
+
+TOL = 2e-2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _bf16(dev, *arrays):
+    return [torch.from_numpy(a).to(dev, torch.bfloat16) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_flash_kernel_matches_plain(cuda_device, packed):
+    r = np.random.default_rng(2)
+    b, s, h, kh, hd = 2, 300, 8, 2, 128
+    q, k, v = _bf16(cuda_device, r.standard_normal((b, s, h, hd)).astype(np.float32),
+                    r.standard_normal((b, s, kh, hd)).astype(np.float32),
+                    r.standard_normal((b, s, kh, hd)).astype(np.float32))
+    seg = None
+    if packed:
+        seg = torch.tensor([[0] * 100 + [1] * 150 + [-1] * 50] * b,
+                           dtype=torch.int32, device=cuda_device)
+        lens = torch.tensor([250, 250], dtype=torch.int32, device=cuda_device)
+    else:
+        lens = torch.tensor([300, 129], dtype=torch.int32, device=cuda_device)
+    n0 = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, lens, seg)
+    want = tfa.flash_attention_ref(q, k, v, lens, seg)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_matches_plain(cuda_device):
+    r = np.random.default_rng(3)
+    b, h, kh, hd, ps, n_pages = 4, 8, 2, 128, 32, 16
+    q, k_new, v_new, k_pages, v_pages = _bf16(
+        cuda_device, *(r.standard_normal(shape).astype(np.float32) for shape in
+                       ((b, h, hd), (b, kh, hd), (b, kh, hd),
+                        (n_pages, kh, ps, hd), (n_pages, kh, ps, hd))))
+    tables = torch.tensor([[3, 5, 7], [9, 2, 0], [0, 0, 0], [11, 12, 0]],
+                          dtype=torch.int32, device=cuda_device)
+    # mid-page, page boundary, empty row, stale length past the table
+    lens = torch.tensor([65, 32, 0, 500], dtype=torch.int32, device=cuda_device)
+    kp1, vp1, kp2, vp2 = k_pages.clone(), v_pages.clone(), k_pages.clone(), v_pages.clone()
+    n0 = tpa.paged_decode_fused.launches
+    got = tpa.paged_decode_fused(q, k_new, v_new, kp1, vp1, tables, lens)
+    want = tpa.paged_decode_fused_ref(q, k_new, v_new, kp2, vp2, tables, lens)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_fused.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert torch.equal(kp1, kp2) and torch.equal(vp1, vp2)
+    assert not got[2].any()
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    q = torch.zeros(1, 64, 4, 96, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="hd"):
+        tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q32 = torch.zeros(1, 64, 4, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention(q32, q32[:, :, :2], q32[:, :, :2])

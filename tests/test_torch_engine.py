@@ -1,0 +1,194 @@
+"""Port parity, the slice as a whole: ``TorchEngine`` greedy decoding held
+against a JAX ``forward_paged`` greedy loop from the same weights (teacher
+forced; tokens must agree wherever the reference's top-2 logit margin
+exceeds 1e-3, far above the f32 logit tolerance of 1e-4), one
+``lmrs-torch`` CLI run on the CPU, and the package's isolation from JAX and
+from ``lmrs_tpu``."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lmrs_tpu.config import ModelConfig as JModelConfig
+from lmrs_tpu.models.transformer import forward_paged as j_forward_paged
+from lmrs_tpu.models.transformer import init_params as j_init_params
+from lmrs_tpu_torch.config import EngineConfig
+from lmrs_tpu_torch.config import ModelConfig as TModelConfig
+from lmrs_tpu_torch.engine.api import GenerationRequest
+from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+from lmrs_tpu_torch.models.convert import params_from_jax
+
+from conftest import make_segments
+
+REPO = Path(__file__).resolve().parents[1]
+MARGIN = 1e-3
+CFG = dict(vocab_size=300, dim=128, n_layers=2, n_heads=2, n_kv_heads=1,
+           hidden_dim=160, max_seq_len=128, dtype="float32",
+           tie_embeddings=False)
+
+
+class IdTokenizer:
+    """Byte ids in, decimal ids out: a reversible text form of the
+    generated ids, so the test reads exactly what the engine sampled."""
+
+    pad_id, bos_id, eos_id, vocab_size = 0, 1, 2, 259
+
+    def encode(self, text):
+        return [b + 3 for b in text.encode("utf-8")]
+
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
+
+    def count(self, text):
+        return len(text.encode("utf-8"))
+
+
+_JIT = {}
+
+
+def _jitted_forward(jcfg):
+    """One jitted reference forward per config (eager calls would retrace
+    the layer scan every step)."""
+    if jcfg.name not in _JIT:
+        _JIT[jcfg.name] = jax.jit(
+            lambda params, toks, pos, kp, vp, table, lens, last_pos:
+            j_forward_paged(params, jcfg, toks, pos, kp, vp, table, lens,
+                            jcfg.max_seq_len, last_pos=last_pos))
+    return _JIT[jcfg.name]
+
+
+def _jax_greedy_check(tree, jcfg, prompt_ids, generated, max_new, eos):
+    """Teacher-forced JAX loop over the engine's tokens: returns how many
+    tokens were checked (margin above MARGIN)."""
+    ps = 16
+    n = len(prompt_ids)
+    n_pages = -(-(n + max_new + 1) // ps)
+    shape = (jcfg.n_layers * (n_pages + 1), jcfg.n_kv_heads, ps, jcfg.hd)
+    kp, vp = jnp.zeros(shape), jnp.zeros(shape)
+    table = jnp.arange(1, n_pages + 1, dtype=jnp.int32)[None]
+    params = jax.tree.map(jnp.asarray, tree)
+    fwd = _jitted_forward(jcfg)
+    logits, kp, vp = fwd(
+        params, jnp.asarray([prompt_ids], jnp.int32),
+        jnp.arange(n, dtype=jnp.int32)[None], kp, vp, table,
+        jnp.asarray([n], jnp.int32), jnp.asarray([n - 1], jnp.int32))
+    checked = 0
+    stream = list(generated) + ([eos] if len(generated) < max_new else [])
+    for step, tok in enumerate(stream):
+        row = np.asarray(logits)[0, 0, :IdTokenizer.vocab_size]
+        top2 = np.sort(row)[-2:]
+        if top2[1] - top2[0] > MARGIN:
+            assert int(row.argmax()) == tok, f"step {step}"
+            checked += 1
+        if step == len(stream) - 1:
+            break
+        pos = n + step
+        logits, kp, vp = fwd(
+            params, jnp.asarray([[tok]], jnp.int32),
+            jnp.asarray([[pos]], jnp.int32), kp, vp, table,
+            jnp.asarray([pos + 1], jnp.int32), jnp.asarray([0], jnp.int32))
+    return checked
+
+
+def test_engine_greedy_matches_jax_loop():
+    jcfg = JModelConfig(name="t", **CFG)
+    tcfg = TModelConfig(name="t", **CFG)
+    tree = jax.tree.map(np.asarray, j_init_params(jcfg, jax.random.PRNGKey(7)))
+    tok = IdTokenizer()
+    max_new = 10
+    engine = TorchEngine(
+        EngineConfig(max_batch_slots=2, page_size=16, num_pages=40,
+                     decode_block=4, max_tokens=max_new, prefill_chunk=4096),
+        tcfg, device="cpu", params=params_from_jax(tree, tcfg), tokenizer=tok)
+    # equal lengths: the reference prefill compiles once; 2 slots still
+    # give one packed wave (2 prompts) and one lone fresh prefill
+    prompts = ["alpha beta gamma", "the quick brown!", "x" * 16]
+    results = engine.generate_batch([
+        GenerationRequest(prompt=p, request_id=i, temperature=0.0)
+        for i, p in enumerate(prompts)])
+    assert engine.audit() == []
+    metrics = engine.engine_metrics()
+    assert metrics["packed_prefill_dispatches"] >= 1  # 2 slots: a packed wave
+    assert metrics["prefill_dispatches"] > metrics["packed_prefill_dispatches"]
+    checked = 0
+    for p, res in zip(prompts, results):
+        assert res.error is None
+        gen = [int(t) for t in res.text.split()]
+        assert len(gen) == res.completion_tokens <= max_new
+        checked += _jax_greedy_check(tree, jcfg, [tok.bos_id] + tok.encode(p),
+                                     gen, max_new, tok.eos_id)
+    assert checked >= 20  # the margin rule must leave most tokens checked
+
+
+def test_prompt_past_prefill_chunk_fails_alone():
+    """A prompt one dispatch cannot hold gets its own error result; the
+    rest of the batch completes and the pool is audited clean."""
+    tcfg = TModelConfig(name="t", **CFG)
+    engine = TorchEngine(
+        EngineConfig(max_batch_slots=2, page_size=16, num_pages=20,
+                     decode_block=4, max_tokens=4, prefill_chunk=32),
+        tcfg, device="cpu", tokenizer=IdTokenizer())
+    short, long_ = engine.generate_batch([
+        GenerationRequest(prompt="short", request_id=0, temperature=0.0),
+        GenerationRequest(prompt="y" * 40, request_id=1, temperature=0.0)])
+    assert short.error is None and short.completion_tokens > 0
+    assert long_.finish_reason == "error" and "prefill_chunk" in long_.error
+    assert engine.audit() == []
+
+
+def test_cli_summarizes_on_cpu(tmp_path):
+    from lmrs_tpu_torch.cli import main
+
+    src = tmp_path / "t.json"
+    src.write_text(json.dumps({"segments": make_segments(30)}))
+    out = tmp_path / "s.txt"
+    rc = main(["--input", str(src), "--output", str(out), "--model",
+               "bench-smoke", "--tokenizer", "byte", "--device", "cpu",
+               "--max-tokens", "16", "--report", "-q"])
+    assert rc == 0
+    assert out.read_text(encoding="utf-8")
+    report = json.loads(Path(str(out) + ".report.json").read_text())
+    assert report["failed_requests"] == 0 and report["num_chunks"] >= 1
+
+
+@pytest.mark.parametrize("flag", [["--speculate-k", "2"], ["--no-prefix-cache"],
+                                  ["--kv-quantize", "int8"], ["--mesh", "1,2"]])
+def test_cli_refuses_later_slices(tmp_path, flag, capsys):
+    from lmrs_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["--input", str(tmp_path / "missing.json"), *flag])
+    assert exc.value.code == 2
+    assert "slice" in capsys.readouterr().err
+
+
+def test_engine_raises_without_cuda_unless_cpu_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchEngine(EngineConfig(), TModelConfig(name="t", **CFG))
+
+
+def test_package_imports_no_jax_and_no_reference_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "import lmrs_tpu_torch\n"
+        "for m in pkgutil.walk_packages(lmrs_tpu_torch.__path__, 'lmrs_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "importlib.import_module('chip_smoke')\n"
+        "bad = [k for k in sys.modules if k == 'lmrs_tpu' or k.startswith('lmrs_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert sys.modules['jax'] is None\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
