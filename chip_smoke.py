@@ -11,14 +11,20 @@ anything wrong.  Phases, one JSON object per line:
               path's shapes (bf16): max |err| (tolerance 2e-2), pool writes
               bit-exact, kernel / plain / library times (CUDA events, L2
               flushed before each launch) and the bound for this run's work.
-4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts
-              and 16 teacher-forced decode steps through ``forward_paged``,
-              on the card (bf16, kernels) and on the CPU (f32, plain
-              versions), same weights; max logit difference, and greedy
-              agreement wherever the CPU top-2 margin exceeds the tolerance.
+              The span kernel at two shapes: a mixed step (7 decode rows +
+              a 249-token slice) and a 1,300-token continuation chunk.
+4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts,
+              16 teacher-forced decode steps and one span dispatch (2 decode
+              rows + a 100-token slice) through ``forward_paged``, on the
+              card (bf16, kernels) and on the CPU (f32, plain versions),
+              same weights; max logit difference, and greedy agreement
+              wherever the CPU top-2 margin exceeds the tolerance.
 5. main     — ``TranscriptSummarizer`` at full bench-8b (32 layers,
-              random-init bf16, byte tokenizer) with the hierarchical reduce;
-              launch counters zeroed just before and read just after.
+              random-init bf16, byte tokenizer) with the hierarchical reduce,
+              mixed steps, continuation chunks and the prefix cache; launch
+              counters zeroed just before and read just after; the scheduler
+              counters (mixed steps, prefix hits, preemptions) and a clean
+              audit (allocator + prefix cache).
 6. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure: any exception exits non-zero before the
@@ -189,13 +195,103 @@ def check_decode(gen: torch.Generator) -> dict:
             "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} bf16"}
 
 
+def _span_inputs(gen: torch.Generator, case: str) -> dict:
+    """One span dispatch at bench-8b widths (H=32, K=8, hd=128, ps=128,
+    W=16, 8 table rows), as the main path issues it."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    H, K, hd, ps, W = 32, 8, 128, 128, 16
+    dev = "cuda"
+    if case == "mixed":
+        # a mixed step: 7 decode rows + the 249-token slice a 256-token
+        # budget leaves, from a prefix hit's 384-token base; 512 flat tokens
+        q_lens = [1] * 7 + [249]
+        bases = [100, 400, 700, 1000, 1300, 1600, 1900, 384]
+        tp = 512
+    else:
+        # a continuation chunk: one 1,300-token tail after a 384-token
+        # prefix hit, the other 7 rows idle
+        q_lens, bases, tp = [1300] + [0] * 7, [384] + [0] * 7, None
+    q_starts, total = pa.pack_spans(q_lens)
+    tp = tp or total
+    b = len(q_lens)
+    n_pages = b * W + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=bf(tp, H, hd), k_new=bf(tp, K, hd), v_new=bf(tp, K, hd),
+                k_pages=bf(n_pages, K, ps, hd), v_pages=bf(n_pages, K, ps, hd),
+                page_tables=perm[: b * W].view(b, W).to(torch.int32),
+                kv_lens=i32(bases), q_starts=i32(q_starts), q_lens=i32(q_lens))
+
+
+def check_spans(gen: torch.Generator) -> list[dict]:
+    """The span kernel against its plain version at the mixed-step and
+    continuation shapes; the kernels line takes the mixed step (the span
+    dispatch the main path issues most) and the larger error."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    out = []
+    for case in ("mixed", "continuation"):
+        x = _span_inputs(gen, case)
+        x2 = {k: v.clone() for k, v in x.items()}
+        got = pa.ragged_spans(**x)
+        want = pa.ragged_spans_ref(**x2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"span kernel vs plain ({case}): max |err| "
+                                 f"{err} > {TOL}")
+        exact = (torch.equal(x["k_pages"], x2["k_pages"])
+                 and torch.equal(x["v_pages"], x2["v_pages"]))
+        if not exact:
+            raise AssertionError(f"span kernel pool writes differ from the "
+                                 f"plain version ({case})")
+        ms = time_ms(lambda: pa.ragged_spans(**x))
+        plain_ms = time_ms(lambda: pa.ragged_spans_ref(**x2), reps=3)
+        tp, H, hd = x["q"].shape
+        b, W = x["page_tables"].shape
+        _, K, ps, _ = x["k_pages"].shape
+        cap = W * ps
+        rows = [(int(base), int(n)) for base, n in
+                zip(x["kv_lens"].tolist(), x["q_lens"].tolist()) if n > 0]
+        span = sum(n for _, n in rows)
+        prefix = sum(min(base, cap) for base, _ in rows)
+        written = sum(max(0, min(base + n, cap) - base) for base, n in rows)
+        attended = sum(min(base + j + 1, cap) for base, n in rows
+                       for j in range(n))
+        flops = 4.0 * H * hd * attended
+        # bf16: the prefix K/V read once, q read, out written (every flat
+        # row), the new K/V read and written into the pool; int32 tables,
+        # lengths, starts and span lengths
+        nbytes = (2.0 * (2 * prefix * K * hd + span * H * hd + tp * H * hd
+                         + 2 * span * K * hd + 2 * written * K * hd)
+                  + 4.0 * (b * W + 3 * b))
+        b_ms, b_by = bound(flops, nbytes)
+        out.append({"name": "ragged_spans", "route": "cuda",
+                    "source": "lmrs_tpu_torch/csrc/ragged_spans.cu",
+                    "replaces": "lmrs_tpu/ops/paged_attention.py:1137",
+                    "case": case, "max_abs_err": err,
+                    "pool_writes_exact": exact, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None,
+                    "shape": f"Tp={tp} q_lens={[n for _, n in rows]} "
+                             f"bases={[base for base, _ in rows]} B={b} "
+                             f"W={W} ps={ps} H={H} K={K} hd={hd} bf16"})
+        del x, x2
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def check_model() -> dict:
     import dataclasses
 
+    import numpy as np
+
     from lmrs_tpu_torch.config import model_preset
     from lmrs_tpu_torch.models.transformer import forward_paged, init_params
+    from lmrs_tpu_torch.ops.paged_attention import pack_spans
 
     cfg = dataclasses.replace(model_preset("bench-8b"), n_layers=2)
     ps, n_pool, steps = 128, 48, 16
@@ -263,6 +359,31 @@ def check_model() -> dict:
         compare(a, b)
         cur = a.argmax(-1)
         lens = lens + 1
+    # one span dispatch: rows 0 and 1 decode a token, row 2 takes a
+    # 100-token slice (a mixed step's shape) after its 145-token context
+    q_lens = np.array([1, 1, 100], np.int32)
+    q_starts, total = pack_spans(q_lens)
+    flat = torch.zeros(total, dtype=torch.long)
+    row_flat = np.full((total,), 3, np.int32)
+    for i, n in enumerate(q_lens):
+        row_flat[q_starts[i]: q_starts[i] + n] = i
+    flat[q_starts[0]], flat[q_starts[1]] = cur[0], cur[1]
+    flat[q_starts[2]: q_starts[2] + 100] = torch.randint(3, 259, (100,), generator=g)
+    base = lens.numpy().astype(np.int32)
+    rf = np.clip(row_flat, 0, 2)
+    pos = torch.from_numpy(np.clip(base[rf] + np.arange(total) - q_starts[rf], 0,
+                                   cfg.max_seq_len - 1))
+    gidx = torch.from_numpy(q_starts + q_lens - 1)
+    span_logits = {}
+    for dev in ("cpu", "cuda"):
+        kp, vp = pools[dev]
+        span_logits[dev] = forward_paged(
+            params[dev], cfg, flat[None].to(dev), pos[None].to(dev), kp, vp,
+            table.to(dev), torch.from_numpy(base).to(dev), cfg.max_seq_len,
+            packed_last_idx=gidx.to(dev),
+            spans=tuple(torch.from_numpy(a).to(dev)
+                        for a in (q_starts, q_lens, row_flat)))[0].float().cpu()
+    compare(span_logits["cpu"], span_logits["cuda"])
     max_diff = max(diffs)
     if not max_diff <= LOGIT_TOL:
         raise AssertionError(f"model logits: max |diff| {max_diff} > {LOGIT_TOL}")
@@ -270,18 +391,20 @@ def check_model() -> dict:
     torch.cuda.empty_cache()
     return {"phase": "model", "config": "bench-8b widths, n_layers=2",
             "prompts": prompt_lens, "decode_steps": steps,
+            "span_dispatch": {"q_lens": q_lens.tolist(), "bases": base.tolist()},
             "max_logit_diff": max_diff, "logit_tol": LOGIT_TOL,
             "greedy_checked": checked, "greedy_agree": agree}
 
 
 # ------------------------------------------------------------ phase 5
 
-def profile_decode_step(engine, rows: int = 8, context: int = 1800,
+def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                         steps: int = 4) -> dict:
     """Where one decode step's time goes at the main path's shape (8 rows,
-    ~1800-token contexts, full bench-8b): host wall per step (synchronized)
-    and, from ``torch.profiler``, device kernel time by kind.  Uses real
-    pages from the engine's allocator and returns them afterwards."""
+    ~1500-token contexts: what the 112-page pool holds, full bench-8b):
+    host wall per step (synchronized) and, from ``torch.profiler``, device
+    kernel time by kind.  Uses real pages from the engine's pool (the
+    prefix cache gives up what it retains) and returns them afterwards."""
     from torch.profiler import ProfilerActivity, profile
 
     from lmrs_tpu_torch.models.transformer import forward_paged
@@ -289,7 +412,7 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1800,
     sched = engine._scheduler
     cache, cfg = sched.cache, sched.model_cfg
     n_pages = -(-(context + steps + 2) // cache.page_size)
-    seqs = [cache.allocator.alloc(n_pages) for _ in range(rows)]
+    seqs = [cache.alloc_pages(n_pages) for _ in range(rows)]
     try:
         table = torch.tensor([s + [0] * (cache.max_pages_per_slot - len(s))
                               for s in seqs], device="cuda")
@@ -339,13 +462,20 @@ def run_main_path() -> dict:
     from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
                                        PipelineConfig, ReduceConfig)
     from lmrs_tpu_torch.ops.flash_attention import flash_attention
-    from lmrs_tpu_torch.ops.paged_attention import paged_decode_fused
+    from lmrs_tpu_torch.ops.paged_attention import (paged_decode_fused,
+                                                    ragged_spans)
     from lmrs_tpu_torch.pipeline import TranscriptSummarizer
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
 
     cfg = PipelineConfig(
+        # the defaults (mixed steps, prefix cache, 4096-token chunks) with
+        # the pool budgeted at 112 pages: the first wave's prompts take 109,
+        # so decode growth preempts the youngest slot and the slots fall
+        # out of lockstep, as uneven completions make them in serving (with
+        # uniform budgets and no EOS all 8 would finish on one block and no
+        # prefill would ever meet a decoding row)
         engine=EngineConfig(model="bench-8b", max_tokens=64, seed=0,
-                            temperature=0.3),
+                            temperature=0.3, num_pages=112),
         # byte tokens: 1400-token chunks + header + template stay inside the
         # 2048 window at a 64-token budget
         chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=1400),
@@ -358,12 +488,14 @@ def run_main_path() -> dict:
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
     paged_decode_fused.launches = 0
+    ragged_spans.launches = 0
     t0 = time.time()
     stats = summarizer.summarize(transcript)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {"flash_prefill": flash_attention.launches,
-                "paged_decode_fused": paged_decode_fused.launches}
+                "paged_decode_fused": paged_decode_fused.launches,
+                "ragged_spans": ragged_spans.launches}
     em = stats["engine_metrics"]
     violations = engine.audit()
     if not stats["summary"]:
@@ -377,6 +509,10 @@ def run_main_path() -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    if em["mixed_batch"]["dispatches"] <= 0:
+        raise AssertionError("no mixed step ran on the main path")
+    if em["prefix_cache"]["tokens_reused"] <= 0:
+        raise AssertionError("no prefix-cache hit on the main path")
     step = profile_decode_step(engine)
     if engine.audit():
         raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
@@ -392,6 +528,11 @@ def run_main_path() -> dict:
             "decode_blocks": em["decode_blocks"],
             "decode_block_seconds": em["decode_block_seconds"],
             "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+            "mixed_step_seconds": em["mixed_step_seconds"],
+            "mixed_batch": em["mixed_batch"], "rpa": em["rpa"],
+            "prefix_cache": em["prefix_cache"],
+            "preemptions": em["preemptions"], "stalls": em["stalls"],
+            "audit": violations,
             "wall_seconds": wall, "stage_times": stats["stage_times"],
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "failed_requests": stats["failed_requests"],
@@ -427,8 +568,10 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for n, i in info.items()}})
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_flash(gen), check_decode(gen)]
-    for r in rows:
+    spans = check_spans(gen)
+    rows = [check_flash(gen), check_decode(gen),
+            {**spans[0], "max_abs_err": max(r["max_abs_err"] for r in spans)}]
+    for r in rows[:2] + spans:
         emit({"phase": "kernels", **r})
     emit(check_model())
     main_out = run_main_path()

@@ -2,8 +2,8 @@
 
 Flag spellings follow the reference CLI (``lmrs``).  Runs on the card by
 default; ``--device cpu`` runs the plain PyTorch path.  Flags of features
-this slice does not carry (mixed batches, prefix cache, host/disk KV,
-speculation, int8, meshes) are refused with the slice that brings them.
+the port does not carry yet (host/disk KV, speculation, int8, meshes) are
+refused with the slice that brings them.
 """
 
 from __future__ import annotations
@@ -24,9 +24,6 @@ logger = logging.getLogger("lmrs_torch.cli")
 
 # flag -> the slice of the port that brings it
 _LATER = {
-    "mixed_batch": "ragged spans + mixed batches + prefix cache",
-    "prefix_cache": "ragged spans + mixed batches + prefix cache",
-    "no_prefix_cache": "ragged spans + mixed batches + prefix cache",
     "host_kv": "KV movement (host/disk KV tiers)",
     "speculate_k": "speculation",
     "quantize": "int8",
@@ -63,10 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--summary-type", default="summary")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quiet", "-q", action="store_true")
-    # not in this slice: accepted only to refuse them by name
-    p.add_argument("--mixed-batch", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--prefix-cache", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--no-prefix-cache", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable shared-prefix KV reuse (the map/reduce "
+                        "preambles re-prefill per request)")
+    # not in the port yet: accepted only to refuse them by name
     p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--speculate-k", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--quantize", default=None, help=argparse.SUPPRESS)
@@ -79,9 +76,10 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
     for name, later in _LATER.items():
         val = getattr(args, name)
         if val not in (None, False):
-            raise ValueError(f"--{name.replace('_', '-')} is not in this slice "
-                             f"of the port; it arrives with the {later} slice")
-    engine = EngineConfig(seed=args.seed)
+            raise ValueError(f"--{name.replace('_', '-')} is not in the port "
+                             f"yet; it arrives with the {later} slice")
+    engine = EngineConfig(seed=args.seed,
+                          prefix_cache=not args.no_prefix_cache)
     if args.model:
         engine = dataclasses.replace(engine, model=args.model)
     if args.max_tokens is not None:

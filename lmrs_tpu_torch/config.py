@@ -1,9 +1,10 @@
 """Typed configuration tree of the port (trimmed copy of the reference's
 ``config.py``).
 
-``EngineConfig`` carries only the fields this slice of the port honours:
-the continuous scheduler with packed fresh prefill and decode blocks.
-Mixed batches, the prefix cache, host/disk KV, speculation, int8 and
+``EngineConfig`` carries only the fields the port honours: the
+continuous scheduler with packed fresh prefill, decode blocks, mixed
+prefill/decode steps, chunked continuation prefill and the shared-prefix
+KV cache (the reference's defaults).  Host/disk KV, speculation, int8 and
 device meshes have no field here; the CLI refuses their flags by name.
 """
 
@@ -65,12 +66,16 @@ class ModelConfig:
 
 @dataclass
 class EngineConfig:
-    """Generation engine knobs of this slice (continuous scheduler only).
+    """Generation engine knobs (continuous scheduler only).
 
-    ``prefill_chunk`` caps the tokens of one prefill dispatch (a packed
-    bin's capacity).  A prompt is always prefilled in one dispatch here, so
-    a longer prompt gets an error result; chunked continuation prefill
-    arrives with the ragged-span slice.
+    ``prefill_chunk`` caps the prompt tokens one prefill dispatch advances
+    a slot by; a longer prompt, or the tail after a
+    prefix-cache hit, prefills in continuation chunks through the ragged
+    span kernel.  ``mixed_batch``: once any slot decodes, a prompt slice
+    of at most ``mixed_token_budget`` minus the decoding rows rides each
+    decode step.  ``prefix_cache``: completed prompts donate their
+    full-page KV prefix to a radix tree that later admissions reuse
+    (``prefix_cache_max_pages`` caps it; 0 = bounded by the pool).
     """
 
     backend: str = "torch"
@@ -81,6 +86,10 @@ class EngineConfig:
     num_pages: int = 512
     prefill_chunk: int = 4096
     decode_block: int = 16  # decode steps per host sync
+    mixed_batch: bool = True
+    mixed_token_budget: int = 256
+    prefix_cache: bool = True
+    prefix_cache_max_pages: int = 0
     temperature: float = field(
         default_factory=lambda: _envmod.env_float("TEMPERATURE", 0.3))
     max_tokens: int = field(
@@ -100,6 +109,13 @@ class EngineConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1 "
                                  f"(got {getattr(self, name)})")
+        if self.mixed_token_budget < 32:
+            raise ValueError(f"mixed_token_budget must be >= 32 "
+                             f"(got {self.mixed_token_budget}); use "
+                             "mixed_batch=False to disable mixed dispatch")
+        if self.prefix_cache_max_pages < 0:
+            raise ValueError(f"prefix_cache_max_pages must be >= 0 "
+                             f"(got {self.prefix_cache_max_pages})")
         if self.temperature < 0:
             raise ValueError(f"temperature must be >= 0 "
                              f"(got {self.temperature})")

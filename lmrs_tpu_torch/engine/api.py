@@ -24,6 +24,38 @@ class GenerationRequest:
     top_k: int = 0
     stop: tuple[str, ...] = ()
     seed: int | None = None
+    # Prefix-cache hint (engine/prefix_cache.py): how many LEADING CHARACTERS
+    # of ``prompt`` are expected to be shared with other requests (the map /
+    # reduce preamble before per-chunk content).  None = no hint, cache the
+    # whole full-page prompt prefix; 0 = the prompt body shares nothing (a
+    # shared system prompt, encoded ahead of the prompt, is still cached);
+    # negative = never cache this request's prefix.  Approximate by design:
+    # the cap is rounded up to a KV page at token level.
+    cache_prefix: int | None = None
+
+
+def preamble_text(system_prompt: str | None, prompt: str,
+                  cache_prefix: int | None) -> str:
+    """A request's SHARED-PREAMBLE text region: the system prompt plus the
+    ``cache_prefix``-hinted head of the prompt — exactly the region the
+    scheduler donates to the prefix cache.  Empty when the hint is
+    negative (the request declares nothing shared)."""
+    if cache_prefix is not None and cache_prefix < 0:
+        return ""
+    head = prompt[:cache_prefix] if cache_prefix is not None else ""
+    return ((system_prompt + "\n\n") if system_prompt else "") + head
+
+
+def preamble_key(system_prompt: str | None, prompt: str,
+                 cache_prefix: int | None) -> str | None:
+    """Stable hash of ``preamble_text``; None when the request declares
+    nothing shared (negative hint, or the preamble text is empty)."""
+    text = preamble_text(system_prompt, prompt, cache_prefix)
+    if not text:
+        return None
+    import hashlib
+
+    return hashlib.sha256(text.encode("utf-8", "replace")).hexdigest()[:16]
 
 
 @dataclass

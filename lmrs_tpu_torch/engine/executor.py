@@ -18,7 +18,7 @@ from lmrs_tpu_torch.config import EngineConfig
 from lmrs_tpu_torch.data.chunker import Chunk
 from lmrs_tpu_torch.engine.api import (Engine, GenerationRequest,
                                        GenerationResult)
-from lmrs_tpu_torch.prompts import safe_format
+from lmrs_tpu_torch.prompts import safe_format, shared_prefix_chars
 
 logger = logging.getLogger("lmrs_torch.executor")
 
@@ -68,7 +68,11 @@ class MapExecutor:
             prompt=prompt, request_id=request_id,
             system_prompt=chunk.system_prompt or system_prompt,
             max_new_tokens=self.config.max_tokens,
-            temperature=self.config.temperature, seed=self.config.seed)
+            temperature=self.config.temperature, seed=self.config.seed,
+            # prefix-cache hint: everything before the per-chunk transcript
+            # substitution is the map preamble every chunk shares
+            cache_prefix=shared_prefix_chars(
+                prompt_template, "transcript", summary_type=summary_type))
 
     def run_requests(self, requests: list[GenerationRequest]) -> list[GenerationResult]:
         """One engine call for the whole list (the engine schedules

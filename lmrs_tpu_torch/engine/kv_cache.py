@@ -1,6 +1,7 @@
 """Paged KV cache: a page pool on the device + a host-side page allocator
-(the port of the reference's ``engine/kv_cache.py``, pool and allocator
-only — export/import of page sets is a later slice).
+(the port of the reference's ``engine/kv_cache.py``: pool, ref-counted
+allocator, page growth and the prefix cache's reclaim hook — export/import
+of page sets is a later slice).
 
 Pool layout [n_layers * num_pages, K, page_size, hd], PAGE-major with the
 layer axis flattened into the page axis: layer ``li``'s copy of logical page
@@ -51,14 +52,11 @@ class PageAllocator:
             self._refs[p] = 1
         return pages
 
-    def refcount(self, page: int) -> int:
-        if not 0 <= page < self.num_pages:
-            raise ValueError(f"bad page id {page}")
-        return self._refs[page]
-
-    def free(self, pages: list[int]) -> None:
-        """Release one reference per listed page (validated before any
-        mutation, so a rejected call leaves the pool untouched)."""
+    def _check(self, pages: list[int], op: str) -> None:
+        """Validate a free/incref batch BEFORE any mutation: range-check
+        every id, and require each page's refcount to cover its
+        multiplicity in the call — a rejected call leaves the pool
+        untouched."""
         need: dict[int, int] = {}
         for p in pages:
             if not self.RESERVED <= p < self.num_pages:
@@ -66,8 +64,26 @@ class PageAllocator:
             need[p] = need.get(p, 0) + 1
         for p, n in need.items():
             if self._refs[p] < n:
-                raise ValueError(f"free of page {p} with refcount "
-                                 f"{self._refs[p]} (x{n}): double-free")
+                raise ValueError(
+                    f"{op} of page {p} with refcount {self._refs[p]} "
+                    f"(x{n} in call): double-free / unowned page")
+
+    def incref(self, pages: list[int]) -> None:
+        """Add one reference per listed page (prefix-cache sharing).  Only
+        live (refcount > 0) pages may gain holders."""
+        self._check(pages, "incref")
+        for p in pages:
+            self._refs[p] += 1
+
+    def refcount(self, page: int) -> int:
+        if not 0 <= page < self.num_pages:
+            raise ValueError(f"bad page id {page}")
+        return self._refs[page]
+
+    def free(self, pages: list[int]) -> None:
+        """Release one reference per listed page; pages reaching refcount 0
+        return to the free list.  Raises on double-free (see ``_check``)."""
+        self._check(pages, "free")
         for p in pages:
             self._refs[p] -= 1
             if self._refs[p] == 0:
@@ -79,6 +95,9 @@ class SequencePages:
     """Page table of one active sequence."""
 
     pages: list[int]
+
+    def capacity(self, page_size: int) -> int:
+        return len(self.pages) * page_size
 
 
 class PagedKVCache:
@@ -94,6 +113,11 @@ class PagedKVCache:
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
         self.allocator = PageAllocator(num_pages)
+        # page-pressure reclaim hook (engine/prefix_cache.py): an allocation
+        # that would exceed the free list first asks it to release
+        # reclaimable pages (LRU cache eviction), so cached pages never
+        # starve admission or growth
+        self.reclaim_cb = None
         logger.info("paged KV cache: %d pages x %d tokens (%.1f MiB)",
                     num_pages, page_size,
                     2 * self.k.numel() * self.k.element_size() / 2**20)
@@ -101,11 +125,20 @@ class PagedKVCache:
     def pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
-    def open_sequence(self, n_tokens: int) -> SequencePages:
-        """Allocate pages for a sequence that reaches ``n_tokens`` (capped
-        at max_pages_per_slot)."""
-        n = min(self.pages_needed(n_tokens), self.max_pages_per_slot)
-        return SequencePages(pages=self.allocator.alloc(n))
+    def alloc_pages(self, n: int) -> list[int]:
+        """``allocator.alloc`` with the reclaim hook applied: under pressure,
+        ask the prefix cache to evict before declaring OutOfPages."""
+        if n > self.allocator.free_count and self.reclaim_cb is not None:
+            self.reclaim_cb(n - self.allocator.free_count)
+        return self.allocator.alloc(n)
+
+    def grow(self, seq: SequencePages, n_tokens: int) -> None:
+        """Ensure capacity for n_tokens, allocating more pages as needed."""
+        need = self.pages_needed(n_tokens) - len(seq.pages)
+        if need > 0:
+            if len(seq.pages) + need > self.max_pages_per_slot:
+                raise OutOfPages("sequence exceeds max_pages_per_slot")
+            seq.pages.extend(self.alloc_pages(need))
 
     def close_sequence(self, seq: SequencePages) -> None:
         self.allocator.free(seq.pages)

@@ -1,23 +1,32 @@
-"""Continuous-batching scheduler over the paged KV cache (the main-path
-subset of the reference's ``engine/scheduler.py``).
+"""Continuous-batching scheduler over the paged KV cache (the port of the
+reference's ``engine/scheduler.py`` on its default path: mixed steps,
+chunked continuation prefill and the prefix cache through the ragged span
+kernel; no speculation, int8 KV, handoff, cancellation, deadlines or
+observability hooks).
 
-* A request is admitted when a slot is free AND the pool holds pages for
-  its prompt + token budget + one decode block of overshoot (admission =
-  free pages; a slot never grows, so no preemption is needed).
-* Admitted prompts prefill in one dispatch each wave: first-fit-decreasing
-  bins of at most ``prefill_chunk`` tokens (``_pack_bins``); a bin holding
-  several prompts runs as ONE packed [1, S] row with segment ids
-  (``_dispatch_packed``), a lone prompt takes the fresh per-prompt route
-  (``_dispatch_fresh``).  The LM head runs on the sampled rows only.
-* All decoding slots advance together in blocks of ``decode_block`` steps
-  (``_decode_block``): a Python loop whose tokens, lengths and EOS flags
-  stay on the device, with ONE host fetch per block.  The prefill's first
-  tokens stay on the device too and ride back with that fetch.
-* Finished slots (EOS, stop sequence, budget) free their pages and the
-  next queued request is admitted.
-
-Chunked prefill, mixed steps, the prefix cache, speculation and preemption
-belong to later slices of the port.
+* Admission: a request takes a free slot when the pool holds its PROMPT
+  pages minus those a prefix-cache match supplies (the cache evicts before
+  back-pressure is declared); the slot starts prefill at the match
+  boundary (``prefill_pos``).
+* Prefill, when no slot decodes: every prefilling slot advances one chunk
+  per iteration.  Whole prompts go in first-fit-decreasing packed bins of
+  at most ``max_len`` tokens (``_dispatch_packed``; a lone prompt takes
+  ``_dispatch_fresh``); continuation chunks — a prefix hit's tail, a
+  prompt longer than ``prefill_chunk`` — ride ONE ragged span dispatch
+  (``_dispatch_rpa_chunks``).
+* Mixed steps, once any slot decodes: every decoding row advances ONE
+  token and the oldest prefilling slot's next slice (clipped to
+  ``mixed_token_budget`` minus the decoding rows) rides the same span
+  dispatch (``_mixed_iteration``), with one host fetch per step.
+* Decode blocks otherwise: ``decode_block`` steps for every decoding slot,
+  tokens kept on the device, ONE host fetch per block; the prefills' first
+  tokens ride that fetch.
+* Slot growth: decoding slots grow their pages before each dispatch; under
+  pool pressure the youngest decode slot is preempted back to the queue
+  and later re-prefills prompt + generated tokens
+  (``_ensure_decode_capacity``).
+* Every completed prefill (and every preempted decode slot) donates its
+  preamble pages to the prefix cache (``_cache_insert``).
 """
 
 from __future__ import annotations
@@ -32,10 +41,12 @@ import torch
 
 from lmrs_tpu_torch.config import EngineConfig, ModelConfig
 from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
-                                       apply_stop_sequences)
-from lmrs_tpu_torch.engine.kv_cache import (PagedKVCache, SequencePages,
-                                            audit_allocator)
+                                       apply_stop_sequences, preamble_text)
+from lmrs_tpu_torch.engine.kv_cache import (OutOfPages, PagedKVCache,
+                                            SequencePages, audit_allocator)
+from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
 from lmrs_tpu_torch.models.transformer import forward_paged
+from lmrs_tpu_torch.ops.paged_attention import pack_spans
 from lmrs_tpu_torch.ops.sampling import sample_logits
 
 logger = logging.getLogger("lmrs_torch.scheduler")
@@ -51,13 +62,20 @@ def _pow2_bucket(n: int, lo: int) -> int:
 @dataclass
 class _SlotState:
     req: GenerationRequest
-    prompt_ids: list[int]
+    prompt_ids: list[int]  # ids to prefill (after a preemption: prompt + prior)
     max_new: int
     seq: SequencePages
     generated: list[int] = field(default_factory=list)
     kv_len: int = 0
     phase: str = "prefill"  # "prefill" until the prompt is in the pool
-    t_start: float = 0.0
+    prefill_pos: int = 0    # prompt tokens already in the pool
+    t_start: float = 0.0    # first admission (kept across preemptions)
+    t_admit: float = 0.0    # this slot life's admission
+    # preemption: the continuation re-prefills prompt + prior tokens;
+    # ``n_prompt`` is the ORIGINAL prompt length, ``prior`` the tokens
+    # generated before the preemption (still output tokens)
+    n_prompt: int = 0
+    prior: list[int] = field(default_factory=list)
 
 
 class ContinuousScheduler:
@@ -73,17 +91,23 @@ class ContinuousScheduler:
         self.B = engine_cfg.max_batch_slots
         self.max_len = model_cfg.max_seq_len
         self.decode_block = engine_cfg.decode_block
-        # tokens one prefill dispatch may carry: a packed bin's capacity,
-        # and the longest prompt this slice takes (no chunked prefill)
-        self.prefill_cap = min(engine_cfg.prefill_chunk, self.max_len)
+        self.prefill_chunk = engine_cfg.prefill_chunk
+        self._mixed = engine_cfg.mixed_batch
+        self.mixed_token_budget = engine_cfg.mixed_token_budget
         ps = engine_cfg.page_size
         max_pages_per_slot = -(-self.max_len // ps)
         # an explicit pool size is a memory budget, floored at one
-        # full-length sequence + the null page (every request then fits
-        # alone, so admission can never deadlock)
+        # full-length sequence + the null page (a slot alone in the pool
+        # always grows, so preemption guarantees progress)
         num_pages = max(engine_cfg.num_pages, max_pages_per_slot + 1)
         self.cache = PagedKVCache(model_cfg, num_pages, ps, max_pages_per_slot,
                                   device=device, dtype=params["embed"].dtype)
+        self._prefix_cache: PrefixCache | None = None
+        if engine_cfg.prefix_cache:
+            self._prefix_cache = PrefixCache(
+                self.cache.allocator, ps,
+                max_pages=engine_cfg.prefix_cache_max_pages)
+            self.cache.reclaim_cb = self._prefix_cache.evict
         self.generator = torch.Generator(device=device).manual_seed(
             engine_cfg.seed + 1)
         # a model vocabulary wider than the tokenizer's (a byte tokenizer on
@@ -95,10 +119,14 @@ class ContinuousScheduler:
         self._double_finish = 0
         self._finished_ids: set[int] = set()
         self.counters = {
-            "prefill_tokens": 0, "prefill_dispatches": 0,
+            "requests": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
             "packed_dispatches": 0, "decode_tokens": 0, "decode_blocks": 0,
-            "decode_block_seconds": 0.0, "run_seconds": 0.0,
-            "occupancy_sum": 0.0, "peak_pages": 0, "requests": 0,
+            "decode_block_seconds": 0.0, "mixed_dispatches": 0,
+            "mixed_step_seconds": 0.0, "mixed_fill_sum": 0.0,
+            "prefill_tokens_piggybacked": 0, "rpa_dispatches": 0,
+            "rpa_span_tokens": 0, "prefix_queries": 0, "prefix_hits": 0,
+            "prefix_tokens_reused": 0, "preemptions": 0, "stalls": 0,
+            "run_seconds": 0.0, "occupancy_sum": 0.0, "peak_pages": 0,
         }
 
     # ------------------------------------------------------------- run loop
@@ -110,6 +138,8 @@ class ContinuousScheduler:
         request completes, and ``submit(more)`` feeds new requests into the
         same run.  request_ids must be unique within a run."""
         t_run = time.time()
+        # queue entries: (req, prefill_ids, max_new, n_prompt, prior,
+        # t_start) — the last three carry a preempted request's state
         queue: deque[tuple] = deque()
         all_requests: list[GenerationRequest] = []
         results: dict[int, GenerationResult] = {}
@@ -119,18 +149,8 @@ class ContinuousScheduler:
             for req in new_requests:
                 all_requests.append(req)
                 ids, max_new = self._encode(req)
-                if len(ids) > self.prefill_cap:
-                    # one dispatch cannot hold it: an error result for this
-                    # request alone (chunked prefill is a later slice)
-                    results[req.request_id] = GenerationResult(
-                        request_id=req.request_id, prompt_tokens=len(ids),
-                        finish_reason="error",
-                        error=f"prompt of {len(ids)} tokens exceeds "
-                              f"prefill_chunk={self.cfg.prefill_chunk}; "
-                              "chunked prefill is not in this slice")
-                    fresh.append(req.request_id)
-                    continue
-                queue.append((req, ids, max_new))
+                queue.append((req, ids, max_new, len(ids), [], None))
+                self.counters["requests"] += 1
 
         self._finished_ids = set()
         submit(requests)
@@ -142,32 +162,70 @@ class ContinuousScheduler:
         temps = np.zeros((B,), np.float32)
         top_k = np.zeros((B,), np.int64)
         top_p = np.ones((B,), np.float32)
-        usable = self.cache.num_pages - 1
 
         def admit() -> None:
             for b in range(B):
-                if slots[b] is not None or not queue:
+                if slots[b] is not None:
                     continue
-                req, ids, max_new = queue[0]
-                reserve = min(len(ids) + max_new + self.decode_block, self.max_len)
-                need = min(self.cache.pages_needed(reserve),
-                           self.cache.max_pages_per_slot)
+                if not queue:
+                    break
+                req, ids, max_new, n_prompt, prior, t0 = queue[0]
+                # prefix-cache probe: the matched pages come with a
+                # reference of their own; the match leaves >= 1 token
+                cached_pages: list[int] = []
+                cached_tokens = 0
+                if self._prefix_cache is not None:
+                    cached_pages, cached_tokens = self._prefix_cache.match(ids)
+                # admission reserves PROMPT pages only; decode pages grow
+                # per dispatch (_ensure_decode_capacity)
+                need = min(self.cache.pages_needed(len(ids)),
+                           self.cache.max_pages_per_slot) - len(cached_pages)
+                free = self.cache.allocator.free_count
+                if need > free and self._prefix_cache is not None:
+                    # evict unshared cache before declaring back-pressure
+                    self._prefix_cache.evict(need - free)
                 if need > self.cache.allocator.free_count:
-                    break  # back-pressure: wait for a slot to free pages
+                    if cached_pages:  # release the match references
+                        self.cache.allocator.free(cached_pages)
+                    break  # back-pressure: wait for pages to free up
                 queue.popleft()
-                slots[b] = _SlotState(req=req, prompt_ids=ids, max_new=max_new,
-                                      seq=self.cache.open_sequence(reserve),
-                                      t_start=time.time())
+                seq = SequencePages(
+                    pages=cached_pages + self.cache.alloc_pages(need))
+                if self._prefix_cache is not None:
+                    self.counters["prefix_queries"] += 1
+                    if cached_tokens:
+                        self.counters["prefix_hits"] += 1
+                        self.counters["prefix_tokens_reused"] += cached_tokens
+                now = time.time()
+                # a continuation keeps its ORIGINAL t_start, so the same
+                # request never becomes the perpetual youngest victim
+                slots[b] = _SlotState(
+                    req=req, prompt_ids=ids, max_new=max_new, seq=seq,
+                    prefill_pos=cached_tokens,
+                    t_start=t0 if t0 is not None else now, t_admit=now,
+                    n_prompt=n_prompt, prior=list(prior))
+                # a row mid-prefill carries length 0 into any dispatch
                 kv_lens[b] = 0
                 last_tok[b] = 0
                 active[b] = False
                 temps[b] = req.temperature
                 top_k[b] = req.top_k
                 top_p[b] = min(max(req.top_p, 0.0), 1.0)
-                self.counters["requests"] += 1
-                self.counters["peak_pages"] = max(
-                    self.counters["peak_pages"],
-                    usable - self.cache.allocator.free_count)
+                self._note_peak_pages()
+
+        def finish_first_tokens(deferred, tok0s, finish_all: bool) -> None:
+            """Record the first tokens of this iteration's prefills."""
+            for b, p, row in deferred:
+                st = slots[b]
+                if st is None:
+                    continue  # preempted: its continuation resamples tok0
+                st.generated.append(int(tok0s[p][row]))
+                last_tok[b] = st.generated[-1]
+                if finish_all or not active[b]:
+                    # a stalled row emitted nothing this dispatch, but its
+                    # first token is real output: check for an early finish
+                    self._maybe_finish(b, slots, results, fresh, active,
+                                       kv_lens, last_tok)
 
         try:
             while True:
@@ -177,23 +235,32 @@ class ContinuousScheduler:
                 if not (queue or any(s is not None for s in slots)):
                     break
                 admit()
+                if self._mixed and self._mixed_iteration(
+                        slots, queue, results, fresh, kv_lens, last_tok,
+                        active, temps, top_k, top_p):
+                    continue
                 pending = self._advance_prefills(slots)
-                for _, rows in pending:
-                    for b, _row in rows:
-                        st = slots[b]
-                        st.phase = "decode"
-                        st.kv_len = len(st.prompt_ids)
-                        kv_lens[b] = st.kv_len
-                        active[b] = True
+                deferred = []  # (slot, pending index, row)
+                for p, (_, rows) in enumerate(pending):
+                    for b, row in rows:
+                        self._enter_decode(b, slots[b], kv_lens, active)
+                        deferred.append((b, p, row))
                 if not active.any():
+                    continue
+                stalled = self._ensure_decode_capacity(slots, queue, kv_lens,
+                                                       last_tok, active)
+                if not active.any():
+                    # no dispatch carries these first tokens: fetch now
+                    if deferred:
+                        tok0s = [t.numpy() for t in
+                                 _one_fetch([t for t, _ in pending])]
+                        finish_first_tokens(deferred, tok0s, finish_all=True)
+                    self._rearm(stalled, slots, active)
                     continue
                 toks, n_valid, tok0s = self._decode_block(
                     slots, last_tok, kv_lens, active, temps, top_k, top_p,
                     pending)
-                # first tokens of this wave's prefills, then the block's
-                for p, (_, rows) in enumerate(pending):
-                    for b, row in rows:
-                        slots[b].generated.append(int(tok0s[p][row]))
+                finish_first_tokens(deferred, tok0s, finish_all=False)
                 for b in range(B):
                     st = slots[b]
                     if st is None or not active[b]:
@@ -206,13 +273,17 @@ class ContinuousScheduler:
                     self.counters["decode_tokens"] += len(new)
                     self._maybe_finish(b, slots, results, fresh, active,
                                        kv_lens, last_tok)
+                self._rearm(stalled, slots, active)
         except Exception:
             # the engine must survive for the next batch: free every live
-            # slot's pages (the caller turns the exception into errors)
+            # slot's pages and drop the cache (the caller turns the
+            # exception into error results)
             for b in range(B):
                 if slots[b] is not None:
                     self.cache.close_sequence(slots[b].seq)
                     slots[b] = None
+            if self._prefix_cache is not None:
+                self._prefix_cache.clear()
             raise
         finally:
             self.counters["run_seconds"] += time.time() - t_run
@@ -246,7 +317,7 @@ class ContinuousScheduler:
                       last_tok) -> None:
         st = slots[b]
         gen, text, stop_hit, hit_eos = self._trim_tokens(
-            st.generated, st.max_new, st.req.stop)
+            st.prior + st.generated, st.max_new, st.req.stop)
         if not (hit_eos or stop_hit or len(gen) >= st.max_new):
             return
         rid = st.req.request_id
@@ -254,7 +325,7 @@ class ContinuousScheduler:
             self._double_finish += 1
         self._finished_ids.add(rid)
         results[rid] = GenerationResult(
-            request_id=rid, text=text, prompt_tokens=len(st.prompt_ids),
+            request_id=rid, text=text, prompt_tokens=st.n_prompt,
             completion_tokens=len(gen),
             finish_reason="stop" if (hit_eos or stop_hit) else "length",
             stop_sequence=stop_hit, device_seconds=time.time() - st.t_start)
@@ -262,8 +333,266 @@ class ContinuousScheduler:
         self.cache.close_sequence(st.seq)
         slots[b] = None
         active[b] = False
-        kv_lens[b] = 0  # a freed row carries length 0: the kernel skips it
+        kv_lens[b] = 0  # a freed row carries length 0: the kernels skip it
         last_tok[b] = 0
+
+    def _enter_decode(self, b: int, st: _SlotState, kv_lens, active) -> None:
+        """The slot's whole prompt is in the pool: it decodes from now on,
+        and donates its preamble pages to the prefix cache at once (the
+        dispatch writing them is already issued, so later admissions of the
+        same run can hit)."""
+        st.phase = "decode"
+        st.kv_len = len(st.prompt_ids)
+        kv_lens[b] = st.kv_len
+        active[b] = True
+        self._cache_insert(st)
+
+    @staticmethod
+    def _rearm(stalled, slots, active) -> None:
+        for b in stalled:  # stalled rows rejoin the next dispatch
+            if slots[b] is not None:
+                active[b] = True
+
+    def _note_peak_pages(self) -> None:
+        in_use = self.cache.num_pages - 1 - self.cache.allocator.free_count
+        self.counters["peak_pages"] = max(self.counters["peak_pages"], in_use)
+
+    # ------------------------------------------------- growth and preemption
+
+    def _ensure_decode_capacity(self, slots, queue, kv_lens, last_tok,
+                                active, extra_tokens: int | None = None
+                                ) -> list[int]:
+        """Grow each active decode slot's pages to cover the coming
+        dispatch (``extra_tokens`` overrides the decode-block growth: a
+        mixed step advances decode rows by ONE token).  On pool exhaustion,
+        preempt the YOUNGEST other decode slot and retry; with no other
+        decode slot the row is STALLED for this dispatch (masked off, its
+        progress kept).  Returns the stalled rows; the caller re-activates
+        them after the dispatch."""
+        block = self.decode_block if extra_tokens is None else extra_tokens
+        stalled: list[int] = []
+        for b in range(self.B):
+            st = slots[b]
+            if st is None or not active[b] or st.phase != "decode":
+                continue
+            target = min(st.kv_len + block, self.max_len)
+            while True:
+                try:
+                    self.cache.grow(st.seq, target)
+                    break
+                except OutOfPages:
+                    victim = self._youngest_decode_slot(slots, active,
+                                                        exclude=b)
+                    if victim is None:
+                        stalled.append(b)
+                        active[b] = False
+                        self.counters["stalls"] += 1
+                        break
+                    self._preempt(victim, slots, queue, kv_lens, last_tok,
+                                  active)
+        self._note_peak_pages()
+        return stalled
+
+    def _youngest_decode_slot(self, slots, active, exclude: int) -> int | None:
+        """Latest-admitted active decode slot, or None if only ``exclude``
+        (the slot being grown) qualifies."""
+        best, best_t = None, -1.0
+        for b in range(self.B):
+            st = slots[b]
+            if (b == exclude or st is None or not active[b]
+                    or st.phase != "decode"):
+                continue
+            if st.t_start >= best_t:
+                best, best_t = b, st.t_start
+        return best
+
+    def _preempt(self, b, slots, queue, kv_lens, last_tok, active) -> None:
+        """Free a decode slot's pages and requeue it as a continuation:
+        prompt + generated tokens re-prefill once pages free up.  Its
+        prompt prefix stays cached (evictable), so the continuation
+        re-matches instead of re-prefilling it."""
+        st = slots[b]
+        if st.phase == "decode":
+            self._cache_insert(st)
+        self.cache.close_sequence(st.seq)
+        entry = (st.req, st.prompt_ids + st.generated, st.max_new,
+                 st.n_prompt, st.prior + st.generated, st.t_start)
+        # older continuations keep queue priority among those at the head
+        pos = 0
+        while (pos < len(queue) and queue[pos][5] is not None
+               and queue[pos][5] <= st.t_start):
+            pos += 1
+        queue.insert(pos, entry)
+        slots[b] = None
+        active[b] = False
+        kv_lens[b] = 0
+        last_tok[b] = 0
+        self.counters["preemptions"] += 1
+        logger.debug("preempted slot %d (request %d) under page pressure",
+                     b, st.req.request_id)
+
+    def _cache_insert(self, st: _SlotState) -> None:
+        """Donate a fully-prefilled slot's prompt-page prefix to the prefix
+        cache.  The ``cache_prefix`` hint (leading PROMPT chars expected to
+        be shared) caps adoption so per-chunk bodies don't bloat the tree;
+        a hint of 0 still donates a shared system prompt."""
+        if self._prefix_cache is None:
+            return
+        cap = None
+        hint = st.req.cache_prefix
+        if hint is not None:
+            if hint < 0:
+                return
+            text = preamble_text(st.req.system_prompt, st.req.prompt, hint)
+            if not text:
+                return  # hint 0 and no system prompt: nothing shared
+            cap = 1 + len(self.tokenizer.encode(text))
+        self._prefix_cache.insert(st.prompt_ids, st.seq.pages, max_tokens=cap)
+
+    # ------------------------------------------------------ span dispatches
+
+    def _pick_mixed_prefill(self, slots) -> int | None:
+        """The prefilling slot whose slice rides this mixed step: oldest
+        admission first, ties on slot index; ONE slot per step."""
+        best, best_t = None, float("inf")
+        for b in range(self.B):
+            st = slots[b]
+            if st is None or st.phase != "prefill":
+                continue
+            if st.t_admit < best_t:
+                best, best_t = b, st.t_admit
+        return best
+
+    def _mixed_iteration(self, slots, queue, results, fresh, kv_lens,
+                         last_tok, active, temps, top_k, top_p) -> bool:
+        """One mixed step: every live decode row advances ONE token and one
+        prefilling slot's next slice rides the SAME span dispatch.  Returns
+        False (nothing dispatched) when there is nothing to mix or the
+        budget leaves no room for a slice."""
+        pf = self._pick_mixed_prefill(slots)
+        has_decode = any(st is not None and active[b] and st.phase == "decode"
+                         for b, st in enumerate(slots))
+        if pf is None or not has_decode:
+            return False
+        stalled = self._ensure_decode_capacity(slots, queue, kv_lens,
+                                               last_tok, active,
+                                               extra_tokens=1)
+        rows = [b for b, st in enumerate(slots)
+                if st is not None and active[b] and st.phase == "decode"]
+        budget_left = self.mixed_token_budget - len(rows)
+        if not rows or budget_left < 16:
+            self._rearm(stalled, slots, active)
+            return False
+        st_pf = slots[pf]
+        pos = st_pf.prefill_pos
+        c = min(len(st_pf.prompt_ids) - pos, budget_left, self.prefill_chunk)
+        is_final = pos + c >= len(st_pf.prompt_ids)
+        q_lens = np.zeros((self.B,), np.int32)
+        base = np.zeros((self.B,), np.int32)
+        span_tokens: dict[int, list[int]] = {}
+        for b in rows:
+            q_lens[b], base[b] = 1, slots[b].kv_len
+            span_tokens[b] = [int(last_tok[b])]
+        q_lens[pf], base[pf] = c, pos
+        span_tokens[pf] = st_pf.prompt_ids[pos: pos + c]
+        t0 = time.time()
+        nxt = self._dispatch_spans(slots, q_lens, base, span_tokens,
+                                   temps, top_k, top_p)
+        nxt = _one_fetch([nxt])[0].numpy()
+        c_ = self.counters
+        c_["mixed_step_seconds"] += time.time() - t0
+        c_["mixed_dispatches"] += 1
+        c_["mixed_fill_sum"] += (len(rows) + c) / self.mixed_token_budget
+        c_["prefill_tokens_piggybacked"] += c
+        c_["prefill_tokens"] += c
+        c_["occupancy_sum"] += len(rows) / self.B
+        st_pf.prefill_pos = pos + c
+        for b in rows:
+            st = slots[b]
+            st.generated.append(int(nxt[b]))
+            st.kv_len += 1
+            kv_lens[b] = st.kv_len
+            last_tok[b] = st.generated[-1]
+            c_["decode_tokens"] += 1
+            self._maybe_finish(b, slots, results, fresh, active, kv_lens,
+                               last_tok)
+        if is_final:
+            # the slice completed the prompt: enter decode with the token
+            # this very step sampled at the slice's last position
+            self._enter_decode(pf, st_pf, kv_lens, active)
+            st_pf.generated.append(int(nxt[pf]))
+            last_tok[pf] = st_pf.generated[-1]
+            self._maybe_finish(pf, slots, results, fresh, active, kv_lens,
+                               last_tok)
+        self._rearm(stalled, slots, active)
+        return True
+
+    def _dispatch_spans(self, slots, q_lens, base, span_tokens, temps,
+                        top_k, top_p) -> torch.Tensor:
+        """One ragged span forward: row b's ``span_tokens[b]`` at positions
+        ``base[b]..``, packed into a flat buffer; samples one token per row
+        at its span's last token (device tensor [B], not fetched)."""
+        dev = self.device
+        q_starts, total = pack_spans(q_lens)
+        tokens = np.zeros((1, total), np.int64)
+        row_flat = np.full((total,), self.B, np.int32)
+        max_pages = 1
+        for b, toks in span_tokens.items():
+            if base[b] + q_lens[b] > slots[b].seq.capacity(self.cache.page_size):
+                # a write past the slot's pages would land on the null page
+                raise RuntimeError(f"span of slot {b} ({base[b]}+{q_lens[b]} "
+                                   "tokens) exceeds its pages")
+            s = q_starts[b]
+            tokens[0, s: s + len(toks)] = toks
+            row_flat[s: s + len(toks)] = b
+            max_pages = max(max_pages,
+                            self.cache.pages_needed(base[b] + q_lens[b]))
+        w = min(_pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
+        table = self.cache.page_table_array(
+            [slots[b].seq if b in span_tokens else None
+             for b in range(self.B)])[:, :w]
+        # out-of-span tokens clamp to position 0: masked from every real
+        # query, and the kernel writes nothing for them
+        rf = np.clip(row_flat, 0, self.B - 1)
+        positions = np.clip(base[rf] + np.arange(total) - q_starts[rf], 0,
+                            self.max_len - 1)[None]
+        # an inactive row samples some in-buffer token, never used
+        gidx = np.minimum(q_starts + np.maximum(q_lens, 1) - 1, total - 1)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        logits = forward_paged(
+            self.params, self.model_cfg, t(tokens), t(positions),
+            self.cache.k, self.cache.v, t(table), t(base), self.max_len,
+            packed_last_idx=t(gidx),
+            spans=(t(q_starts), t(q_lens), t(row_flat)))
+        self.counters["rpa_dispatches"] += 1
+        self.counters["rpa_span_tokens"] += int(q_lens.sum())
+        return self._sample(logits[0], temps, top_k, top_p)
+
+    def _dispatch_rpa_chunks(self, items) -> tuple[torch.Tensor, list]:
+        """Continuation chunks as ragged SPANS, all in one dispatch.
+        Returns ``(tok0 device tensor [B] indexed by SLOT, [(slot, slot)])``
+        for the chunks that complete their prompt."""
+        q_lens = np.zeros((self.B,), np.int32)
+        base = np.zeros((self.B,), np.int32)
+        span_tokens: dict[int, list[int]] = {}
+        slots_view: list[_SlotState | None] = [None] * self.B
+        finals = []
+        for b, st, chunk, pos, is_final in items:
+            q_lens[b], base[b] = len(chunk), pos
+            span_tokens[b] = chunk
+            slots_view[b] = st
+            st.prefill_pos = pos + len(chunk)
+            self.counters["prefill_tokens"] += len(chunk)
+            if is_final:
+                finals.append((b, b))
+        temps, tks, tps = self._sampler_params(
+            [st.req if st is not None else None for st in slots_view])
+        tok0 = self._dispatch_spans(slots_view, q_lens, base, span_tokens,
+                                    temps, tks, tps)
+        self.counters["prefill_dispatches"] += 1
+        return tok0, finals
+
+    # ------------------------------------------------------------ prefill
 
     @staticmethod
     def _pack_bins(items: list, capacity: int) -> list[list]:
@@ -282,16 +611,35 @@ class ContinuousScheduler:
         return [lst for _, lst in bins]
 
     def _advance_prefills(self, slots) -> list[tuple[torch.Tensor, list]]:
-        """Prefill every slot still in prefill phase; returns
-        [(tok0 device tensor [N], [(slot, row)])] — first tokens NOT fetched."""
-        items = [(b, st) for b, st in enumerate(slots)
-                 if st is not None and st.phase == "prefill"]
+        """Advance every prefilling slot by one prompt chunk; returns
+        [(tok0 device tensor, [(slot, row)])] for the slots whose whole
+        prompt is now in the pool — first tokens NOT fetched.  A prompt
+        that fits one chunk from position 0 is prefilled fresh (packed
+        bins of at most ``max_len`` tokens); every other chunk rides one
+        ragged span dispatch."""
+        whole, chunks = [], []
+        for b, st in enumerate(slots):
+            if st is None or st.phase != "prefill":
+                continue
+            pos = st.prefill_pos
+            chunk = st.prompt_ids[pos: pos + self.prefill_chunk]
+            is_final = pos + len(chunk) >= len(st.prompt_ids)
+            if pos == 0 and is_final:
+                whole.append((b, st))
+            else:
+                chunks.append((b, st, chunk, pos, is_final))
         pending = []
-        for bin_items in self._pack_bins(items, self.prefill_cap):
+        for bin_items in self._pack_bins(whole, self.max_len):
             if len(bin_items) == 1:
                 pending.append(self._dispatch_fresh(*bin_items[0]))
             else:
                 pending.append(self._dispatch_packed(bin_items))
+            for _, st in bin_items:
+                st.prefill_pos = len(st.prompt_ids)
+        if chunks:
+            tok0, rows = self._dispatch_rpa_chunks(chunks)
+            if rows:
+                pending.append((tok0, rows))
         return pending
 
     def _sample(self, logits, temps, top_k, top_p) -> torch.Tensor:
@@ -301,10 +649,13 @@ class ContinuousScheduler:
         return sample_logits(logits, temps, top_k, top_p,
                              generator=self.generator)
 
-    def _sampler_params(self, reqs):
-        return (np.array([r.temperature for r in reqs], np.float32),
-                np.array([r.top_k for r in reqs], np.int64),
-                np.array([min(max(r.top_p, 0.0), 1.0) for r in reqs], np.float32))
+    @staticmethod
+    def _sampler_params(reqs):
+        """Per-row sampler arrays; a None row samples greedily (unused)."""
+        return (np.array([r.temperature if r else 0.0 for r in reqs], np.float32),
+                np.array([r.top_k if r else 0 for r in reqs], np.int64),
+                np.array([min(max(r.top_p, 0.0), 1.0) if r else 1.0
+                          for r in reqs], np.float32))
 
     def _dispatch_fresh(self, b: int, st: _SlotState):
         """One prompt, one [1, n] row: pages from the slot's table."""
@@ -359,6 +710,8 @@ class ContinuousScheduler:
         self.counters["prefill_dispatches"] += 1
         self.counters["packed_dispatches"] += 1
         return tok0, [(b, si) for si, (b, _) in enumerate(items)]
+
+    # ------------------------------------------------------------- decode
 
     def _decode_block(self, slots, last_tok, kv_lens, active, temps, top_k,
                       top_p, pending=()):
@@ -415,39 +768,72 @@ class ContinuousScheduler:
     # ------------------------------------------------------------ reporting
 
     def audit(self, live_seqs=None) -> list[str]:
-        """Invariant audit (empty list = clean): page conservation and
-        refcount balance against the live sequences (none between runs),
-        and no request finished twice."""
+        """Invariant audit (empty list = clean): the prefix cache's tree
+        structure, page conservation and refcount balance against the live
+        sequences (none between runs) plus the cache's retained pages, and
+        no request finished twice."""
         holders: dict[int, int] = {}
         for seq in live_seqs or ():
             for p in seq.pages:
                 holders[p] = holders.get(p, 0) + 1
-        violations = audit_allocator(self.cache.allocator,
-                                     self.cache.num_pages, holders)
+        violations: list[str] = []
+        if self._prefix_cache is not None:
+            violations += self._prefix_cache.audit()
+            for p in self._prefix_cache.retained_pages():
+                holders[p] = holders.get(p, 0) + 1
+        violations += audit_allocator(self.cache.allocator,
+                                      self.cache.num_pages, holders)
         if self._double_finish:
             violations.append(f"{self._double_finish} request(s) finished "
                               "more than once")
         return violations
 
     def metrics_report(self) -> dict:
+        """Cumulative engine metrics.  ``decode_tokens_per_sec`` is decode
+        tokens over the host time of the dispatches that produced them
+        (decode blocks and mixed steps, each ending in its host fetch)."""
         c = self.counters
-        blk = c["decode_block_seconds"]
-        return {
+        dec_s = c["decode_block_seconds"] + c["mixed_step_seconds"]
+        dec_disp = c["decode_blocks"] + c["mixed_dispatches"]
+        mixed = c["mixed_dispatches"]
+        out = {
             "requests": c["requests"],
             "prefill_tokens": c["prefill_tokens"],
             "prefill_dispatches": c["prefill_dispatches"],
             "packed_prefill_dispatches": c["packed_dispatches"],
             "decode_tokens": c["decode_tokens"],
             "decode_blocks": c["decode_blocks"],
-            "decode_block_seconds": round(blk, 4),
-            "decode_tokens_per_sec": round(c["decode_tokens"] / blk, 2) if blk else 0.0,
+            "decode_block_seconds": round(c["decode_block_seconds"], 4),
+            "mixed_step_seconds": round(c["mixed_step_seconds"], 4),
+            "decode_tokens_per_sec": round(c["decode_tokens"] / dec_s, 2) if dec_s else 0.0,
             "mean_decode_occupancy": round(
-                c["occupancy_sum"] / c["decode_blocks"], 4) if c["decode_blocks"] else 0.0,
+                c["occupancy_sum"] / dec_disp, 4) if dec_disp else 0.0,
             "peak_kv_pages": c["peak_pages"],
             "peak_kv_page_utilization": round(
                 c["peak_pages"] / (self.cache.num_pages - 1), 4),
+            "preemptions": c["preemptions"],
+            "stalls": c["stalls"],
+            "mixed_batch": {
+                "enabled": self._mixed,
+                "token_budget": self.mixed_token_budget,
+                "dispatches": mixed,
+                "fill_ratio": round(c["mixed_fill_sum"] / mixed, 3) if mixed else 0.0,
+                "prefill_tokens_piggybacked": c["prefill_tokens_piggybacked"],
+            },
+            "rpa": {"dispatches": c["rpa_dispatches"],
+                    "span_tokens": c["rpa_span_tokens"]},
             "run_seconds": round(c["run_seconds"], 4),
         }
+        if self._prefix_cache is not None:
+            q, hits = c["prefix_queries"], c["prefix_hits"]
+            out["prefix_cache"] = {
+                "hit_rate": round(hits / q, 3) if q else 0.0,
+                "hits": hits, "queries": q,
+                "tokens_reused": c["prefix_tokens_reused"],
+                "prefill_tokens_saved": c["prefix_tokens_reused"],
+                **self._prefix_cache.stats(),
+            }
+        return out
 
 
 def _one_fetch(tensors: list[torch.Tensor]) -> list[torch.Tensor]:

@@ -1,17 +1,20 @@
 """Decoder-only transformer (Llama-3 / Gemma family) on a paged KV cache.
 
-The port of the reference's ``models/transformer.py`` for the routes this
-slice serves: fresh prefill, packed fresh prefill and single-token decode
-(``forward_paged``).  Params are a plain dict of tensors (see
+The port of the reference's ``models/transformer.py`` for the routes the
+port serves: fresh prefill, packed fresh prefill, single-token decode and
+ragged spans (``forward_paged``).  Params are a plain dict of tensors (see
 ``init_params``); each layer's q/k/v projections are stored fused as one
 [D, (H + 2K)·hd] matrix and gate/up as one [D, 2F] matrix, so a layer is
 four matmuls.  The dense products stay ``torch.matmul`` (the reference left
-them to XLA); attention goes through the two kernel modules:
+them to XLA); attention goes through the kernel modules:
 
 * prefill (S > 1): K/V scattered into the pool, then
   ``ops.flash_attention.flash_attention`` over the current tokens;
 * decode (S == 1): ``ops.paged_attention.paged_decode_fused`` writes the
-  token's K/V and attends the live pages in one kernel.
+  token's K/V and attends the live pages in one kernel;
+* spans (``spans=``): ``ops.paged_attention.ragged_spans`` writes every
+  span token's K/V and attends prefix + span — mixed steps, continuation
+  chunks and prefix-cache hit tails.
 
 A CUDA tensor runs the kernels, a CPU tensor their plain versions.
 """
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 from lmrs_tpu_torch.config import ModelConfig
 from lmrs_tpu_torch.ops.flash_attention import flash_attention
 from lmrs_tpu_torch.ops.norms import rms_norm
-from lmrs_tpu_torch.ops.paged_attention import paged_decode_fused
+from lmrs_tpu_torch.ops.paged_attention import paged_decode_fused, ragged_spans
 from lmrs_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -115,6 +118,7 @@ def forward_paged(
     segment_ids: torch.Tensor | None = None,     # [B, S] packed segments (pad -1)
     packed_last_idx: torch.Tensor | None = None,  # [N] rows to sample (packed)
     last_pos: torch.Tensor | None = None,        # [B] per-row sampled index
+    spans: tuple | None = None,  # (q_starts [B], q_lens [B], row_flat [Tp])
 ) -> torch.Tensor:
     """Forward pass against the paged pool; returns f32 logits — [B, S, V],
     or [B, N, V] with ``packed_last_idx`` / [B, 1, V] with ``last_pos``
@@ -126,7 +130,15 @@ def forward_paged(
     (page_tables[b, pos // ps], pos % ps) — or at ``token_pages`` for a
     PACKED row holding several prompts, whose ``positions`` restart per
     segment and whose attention is same-segment causal; ``kv_lens`` then
-    holds the total packed length."""
+    holds the total packed length.
+
+    SPAN mode (``spans``): ``tokens`` is ONE flat [1, Tp] row holding every
+    table row's query span (row b's span at ``q_starts[b]``, ``q_lens[b]``
+    tokens), ``positions`` their absolute positions, and ``kv_lens`` the
+    context BEFORE this dispatch: span token j of row b sits at
+    ``kv_lens[b] + j``.  ``row_flat`` is the caller's owner map of the
+    flat tokens (the kernel derives ownership from the spans itself).
+    Gather the sampled rows with ``packed_last_idx``."""
     dev = tokens.device
     b, s = tokens.shape
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -140,8 +152,10 @@ def forward_paged(
     positions = positions.long()
     tables = page_tables.long()
     kv_lens = kv_lens.to(dev)
-    is_decode = s == 1
-    if not is_decode:
+    is_decode = s == 1 and spans is None
+    if spans is not None:
+        span_starts, span_lens, _row_flat = spans
+    elif not is_decode:
         if token_pages is not None:
             page_idx = token_pages.long()
         else:
@@ -158,7 +172,12 @@ def forward_paged(
         q = apply_rope(q, positions, sin, cos)
         k = apply_rope(k, positions, sin, cos)
         base = li * n_pool
-        if is_decode:
+        if spans is not None:
+            attn = ragged_spans(
+                q[0].contiguous(), k[0].contiguous(), v[0].contiguous(),
+                k_pages, v_pages, tables + base, kv_lens, span_starts,
+                span_lens, max_pos=rope_max)[None]
+        elif is_decode:
             attn = paged_decode_fused(
                 q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
                 k_pages, v_pages, tables + base, kv_lens)[:, None]

@@ -1,16 +1,22 @@
-"""Write-fused paged decode attention: the CUDA kernel
-``csrc/paged_decode.cu`` and its plain PyTorch version.
+"""Paged attention over the page pool: two CUDA kernels and their plain
+PyTorch versions.
 
-Replaces the reference's Pallas ``paged_decode_pallas_fused``
-(``lmrs_tpu/ops/paged_attention.py:1246``): single-token decode that writes
-the current token's K/V into its page and attends the row's live pages.
-Routing rule: a CUDA tensor goes to the kernel, a CPU tensor to
-``paged_decode_fused_ref``; any failure raises.  Both update the pools IN
-PLACE (the pools are the engine's persistent cache; the reference aliases
-them through its pallas_call instead) and return the attention output.
+* ``paged_decode_fused`` (``csrc/paged_decode.cu``) replaces the
+  reference's Pallas ``paged_decode_pallas_fused``
+  (``lmrs_tpu/ops/paged_attention.py:1246``): single-token decode that
+  writes the current token's K/V into its page and attends the row's live
+  pages.
+* ``ragged_spans`` (``csrc/ragged_spans.cu``) replaces the Pallas
+  ``ragged_spans_pallas`` (``:962``): one dispatch of (row, query-span)
+  pairs — decode rows, a mixed step's prefill slice, continuation chunks.
+
+Routing rule: a CUDA tensor goes to the kernel, a CPU tensor to the plain
+version; any failure raises.  Both update the pools IN PLACE (the pools are
+the engine's persistent cache; the reference aliases them through its
+pallas_call instead) and return the attention output.
 
 Pool layout [P_total, K, ps, hd] (page-major, layer axis flattened into the
-page axis; callers pass GLOBAL page ids).  Contract per row b:
+page axis; callers pass GLOBAL page ids).  Decode contract per row b:
 
 * ``kv_lens[b]`` counts the current token; its K/V lands at position
   ``kv_lens[b] - 1``, i.e. ``pool[tables[b, pos // ps], :, pos % ps]``;
@@ -18,15 +24,21 @@ page axis; callers pass GLOBAL page ids).  Contract per row b:
   the table is clamped, and its write (a position past the table span) is
   skipped;
 * ``kv_lens[b] == 0`` writes nothing and outputs zeros.
+
+The span contract is in ``ragged_spans``' docstring.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
+# Alignment of the span starts in the flat token buffer (the reference's
+# query-tile height); kept so both packages pack spans identically.
+SPAN_QT = 8
 
 
 def paged_decode_ref(
@@ -144,3 +156,142 @@ def paged_decode_fused(
 
 
 paged_decode_fused.launches = 0
+
+
+# ------------------------------------------------------- ragged span kernel
+
+
+def pack_spans(q_lens, floor: int = 16) -> tuple[np.ndarray, int]:
+    """Host-side span packer: per-row query lengths (0 = inactive row) ->
+    ``(q_starts, total)``; span i occupies flat tokens [q_starts[i],
+    q_starts[i] + q_lens[i]) of a buffer whose spans start SPAN_QT-aligned,
+    and ``total`` is the aligned token count (at least ``floor``)."""
+    q_lens = np.asarray(q_lens, np.int64)
+    aligned = -(-q_lens // SPAN_QT) * SPAN_QT
+    q_starts = np.concatenate([[0], np.cumsum(aligned)[:-1]])
+    return q_starts.astype(np.int32), int(max(floor, aligned.sum()))
+
+
+def ragged_spans_ref(
+    q: torch.Tensor,            # [Tp, H, hd] flat query tokens (all spans)
+    k_new: torch.Tensor,        # [Tp, K, hd] the tokens' K (post-rope)
+    v_new: torch.Tensor,        # [Tp, K, hd]
+    k_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
+    kv_lens: torch.Tensor,      # [B] context BEFORE this dispatch
+    q_starts: torch.Tensor,     # [B] flat span offsets
+    q_lens: torch.Tensor,       # [B] span lengths (0 = inactive row)
+    max_pos: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version (the port of the reference's
+    ``ragged_spans_xla`` without ancestor masks and int8): every row's
+    in-span writes first, then each row's span attends its page window
+    with per-token causal limits.  Softmax in f32."""
+    tp, h, hd = q.shape
+    _, kh, ps, _ = k_pages.shape
+    b, w = page_tables.shape
+    n_rep = h // kh
+    cap = w * ps if max_pos is None else min(w * ps, max_pos)
+    tables = page_tables.long()
+    starts, lens, bases = (x.tolist() for x in (q_starts, q_lens, kv_lens))
+    rows = [r for r in range(b) if lens[r] > 0]
+    out = torch.zeros_like(q)
+    for r in rows:  # 1. writes: in-span tokens at positions < cap only
+        pos = bases[r] + torch.arange(lens[r], device=q.device)
+        keep = torch.nonzero(pos < cap).flatten()
+        p = pos[keep]
+        page = tables[r, p // ps]
+        k_pages[page, :, p % ps] = k_new[starts[r] + keep]
+        v_pages[page, :, p % ps] = v_new[starts[r] + keep]
+    col = torch.arange(w * ps, device=q.device)
+    for r in rows:  # 2. attention over the row's window
+        s, n = starts[r], lens[r]
+        kw = k_pages[tables[r]].permute(1, 0, 2, 3).reshape(kh, w * ps, hd)
+        vw = v_pages[tables[r]].permute(1, 0, 2, 3).reshape(kh, w * ps, hd)
+        qr = q[s:s + n].reshape(n, kh, n_rep, hd).permute(1, 2, 0, 3)
+        logits = torch.matmul(qr.float(), kw.float().transpose(1, 2)[:, None])
+        pos = bases[r] + torch.arange(n, device=q.device)
+        mask = (col[None, :] <= pos[:, None]) & (col[None, :] < cap)
+        logits = torch.where(mask, logits * hd ** -0.5,
+                             torch.full_like(logits, NEG_INF))
+        probs = torch.softmax(logits, dim=-1) * mask.any(-1, keepdim=True)
+        o = torch.matmul(probs, vw.float()[:, None])  # [kh, n_rep, n, hd]
+        out[s:s + n] = o.permute(2, 0, 1, 3).reshape(n, h, hd).to(q.dtype)
+    return out
+
+
+def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
+                q_starts, q_lens, max_pos):
+    from lmrs_tpu_torch.ops import kernels
+
+    tp, h, hd = q.shape
+    _, kh, ps, _ = k_pages.shape
+    b, w = page_tables.shape
+    if (k_new.shape != (tp, kh, hd) or v_new.shape != k_new.shape
+            or v_pages.shape != k_pages.shape or k_pages.shape[3] != hd):
+        raise ValueError("ragged_spans: shape mismatch among q "
+                         f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
+                         f"pools {tuple(k_pages.shape)}")
+    if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8):
+        raise ValueError(f"ragged_spans kernel takes hd in (64, 128) and "
+                         f"H/K in (1, 2, 4, 8) (got hd={hd}, H={h}, K={kh})")
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
+                    ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"ragged_spans: {name} must be contiguous "
+                             f"bfloat16 on {q.device}")
+    idx = [x.to(device=q.device, dtype=torch.int32).contiguous()
+           for x in (page_tables, kv_lens, q_starts, q_lens)]
+    if any(x.shape != (b,) for x in idx[1:]):
+        raise ValueError(f"ragged_spans: kv_lens/q_starts/q_lens must be [{b}]")
+    out = torch.empty_like(q)
+    fn = kernels.load("ragged_spans").lmrs_ragged_spans_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), *(x.data_ptr() for x in idx),
+            out.data_ptr(), tp, b, h, kh, hd, ps, w,
+            w * ps if max_pos is None else max_pos, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch("lmrs_ragged_spans_bf16", rc)
+    ragged_spans.launches += 1
+    return out
+
+
+def ragged_spans(
+    q: torch.Tensor,            # [Tp, H, hd]
+    k_new: torch.Tensor,        # [Tp, K, hd]
+    v_new: torch.Tensor,        # [Tp, K, hd]
+    k_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
+    kv_lens: torch.Tensor,      # [B] context BEFORE this dispatch
+    q_starts: torch.Tensor,     # [B] flat span offsets
+    q_lens: torch.Tensor,       # [B] span lengths (0 = inactive row)
+    max_pos: int | None = None,
+) -> torch.Tensor:
+    """One ragged dispatch of (row, query-span) pairs.  Returns [Tp, H, hd];
+    ``ragged_spans.launches`` counts kernel launches.  Contract:
+
+    * token j of row b is flat token ``q_starts[b] + j`` and sits at
+      absolute position ``kv_lens[b] + j``;
+    * only in-span tokens are written, and only at positions ``< W * ps``
+      and ``< max_pos`` (the pool elsewhere is untouched);
+    * an in-span token attends columns ``col <= its position`` and
+      ``col < min(W * ps, max_pos)`` of its row's table;
+    * a flat token of no span gets a zero output row; a ``q_len == 0`` row
+      is skipped.
+
+    The reference's Pallas kernel differs in two places the consumer never
+    reads: it writes tile-padding K/V at future positions and leaves
+    out-of-span output rows untouched."""
+    if q.is_cuda:
+        return _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables,
+                           kv_lens, q_starts, q_lens, max_pos)
+    return ragged_spans_ref(q, k_new, v_new, k_pages, v_pages, page_tables,
+                            kv_lens, q_starts, q_lens, max_pos)
+
+
+ragged_spans.launches = 0

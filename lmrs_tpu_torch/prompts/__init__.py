@@ -139,6 +139,18 @@ def list_builtin_prompts() -> list[str]:
     return sorted(p.stem for p in _ASSET_DIR.glob("*.txt"))
 
 
+def shared_prefix_chars(template: str, *varying: str, **constant) -> int | None:
+    """Length of the prompt prefix SHARED by every request built from
+    ``template``: substitute the constant placeholders, then cut at the
+    first occurrence of any per-request (``varying``) placeholder.  Feeds
+    ``GenerationRequest.cache_prefix`` (the prefix cache caps page adoption
+    there, so per-request bodies never bloat the radix tree).  None when
+    the template has no varying placeholder (the whole prompt is shared)."""
+    head = safe_format(template, **constant)
+    cuts = [c for c in (head.find("{" + v + "}") for v in varying) if c >= 0]
+    return min(cuts) if cuts else None
+
+
 def safe_format(template: str, **kw) -> str:
     """Substitute only known ``{placeholder}`` names; leave every other brace
     untouched.  ``str.format`` would crash on literal braces in user prompt

@@ -19,7 +19,8 @@ from lmrs_tpu_torch.engine.api import GenerationRequest
 from lmrs_tpu_torch.engine.executor import MapExecutor
 from lmrs_tpu_torch.prompts import (DEFAULT_BATCH_REDUCE_PROMPT,
                                     DEFAULT_FINAL_REDUCE_PROMPT,
-                                    DEFAULT_REDUCE_PROMPT, safe_format)
+                                    DEFAULT_REDUCE_PROMPT, safe_format,
+                                    shared_prefix_chars)
 
 logger = logging.getLogger("lmrs_torch.reduce")
 
@@ -79,7 +80,12 @@ class ResultAggregator:
             prompt=prompt, request_id=request_id,
             max_new_tokens=self.executor.config.max_tokens,
             temperature=self.config.temperature,
-            seed=self.executor.config.seed)
+            seed=self.executor.config.seed,
+            # prefix-cache hint: the reduce preamble repeats per tree node;
+            # summaries/metadata/count all vary per request, so the shared
+            # prefix ends at whichever placeholder the template puts first
+            cache_prefix=shared_prefix_chars(
+                template, "summaries", "metadata", "num_summaries"))
 
     def _reduce_wave(self, jobs: list[tuple[list[str], str, dict | None]]) -> list[str]:
         """One level's reduce calls as a single engine wave."""

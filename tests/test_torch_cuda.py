@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(bf16; atol 2e-2 on outputs of magnitude ~1, pool writes exact).
+(bf16; atol 2e-2 on outputs of magnitude ~1, pool writes exact), and the
+wrappers' refusals of what a kernel does not take.
 
 Card-only: every test carries the ``cuda`` marker and skips without a GPU.
 The file imports nothing of JAX, so on a machine with a card and no JAX it
@@ -71,6 +72,65 @@ def test_decode_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
     assert torch.equal(kp1, kp2) and torch.equal(vp1, vp2)
     assert not got[2].any()
+
+
+def _span_case(dev, case):
+    """The span dispatches chip_smoke.py holds the kernel to: a mixed step
+    (7 decode rows + a 249-token slice at base 384, 512 flat tokens) and a
+    1,300-token continuation at base 384; bench-8b widths, W=16, ps=128."""
+    r = np.random.default_rng(4)
+    h, kh, hd, ps, w, b = 32, 8, 128, 128, 16, 8
+    if case == "mixed":
+        q_lens = [1] * 7 + [249]
+        bases = [100, 400, 700, 1000, 1300, 1600, 1900, 384]
+    else:
+        q_lens, bases = [1300] + [0] * 7, [384] + [0] * 7
+    q_starts, total = tpa.pack_spans(q_lens)
+    tp = 512 if case == "mixed" else total
+    n_pages = b * w + 1
+    q, k_new, v_new, k_pages, v_pages = _bf16(
+        dev, *(r.standard_normal(shape).astype(np.float32) for shape in
+               ((tp, h, hd), (tp, kh, hd), (tp, kh, hd),
+                (n_pages, kh, ps, hd), (n_pages, kh, ps, hd))))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+                v_pages=v_pages,
+                page_tables=i32(r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1),
+                kv_lens=i32(bases), q_starts=i32(q_starts), q_lens=i32(q_lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "continuation"])
+def test_span_kernel_matches_plain(cuda_device, case):
+    x = _span_case(cuda_device, case)
+    x2 = {k: v.clone() for k, v in x.items()}
+    n0 = tpa.ragged_spans.launches
+    got = tpa.ragged_spans(**x)
+    want = tpa.ragged_spans_ref(**x2)
+    torch.cuda.synchronize()
+    assert tpa.ragged_spans.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert torch.equal(x["k_pages"], x2["k_pages"])
+    assert torch.equal(x["v_pages"], x2["v_pages"])
+    in_span = torch.zeros(got.shape[0], dtype=torch.bool, device=cuda_device)
+    for s, n in zip(x["q_starts"].tolist(), x["q_lens"].tolist()):
+        in_span[s:s + n] = True
+    assert not got[~in_span].any()  # out-of-span rows: zero
+
+
+@pytest.mark.cuda
+def test_span_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = _span_case(cuda_device, "mixed")
+    with pytest.raises(ValueError, match="hd"):  # head dim outside 64/128
+        tpa.ragged_spans(**{**x, "q": x["q"][..., :96].contiguous(),
+                            "k_new": x["k_new"][..., :96].contiguous(),
+                            "v_new": x["v_new"][..., :96].contiguous(),
+                            "k_pages": x["k_pages"][..., :96].contiguous(),
+                            "v_pages": x["v_pages"][..., :96].contiguous()})
+    with pytest.raises(ValueError, match="bfloat16"):
+        tpa.ragged_spans(**{**x, "q": x["q"].float()})
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.ragged_spans(**{**x, "q": x["q"].transpose(0, 1).contiguous().transpose(0, 1)})
 
 
 @pytest.mark.cuda

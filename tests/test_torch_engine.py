@@ -128,8 +128,9 @@ def test_engine_greedy_matches_jax_loop():
 
 
 def test_prompt_past_prefill_chunk_fails_alone():
-    """A prompt one dispatch cannot hold gets its own error result; the
-    rest of the batch completes and the pool is audited clean."""
+    """A prompt longer than one prefill chunk no longer fails: it prefills
+    in continuation chunks through the span route and completes beside the
+    rest of the batch; the pool is audited clean."""
     tcfg = TModelConfig(name="t", **CFG)
     engine = TorchEngine(
         EngineConfig(max_batch_slots=2, page_size=16, num_pages=20,
@@ -139,8 +140,52 @@ def test_prompt_past_prefill_chunk_fails_alone():
         GenerationRequest(prompt="short", request_id=0, temperature=0.0),
         GenerationRequest(prompt="y" * 40, request_id=1, temperature=0.0)])
     assert short.error is None and short.completion_tokens > 0
-    assert long_.finish_reason == "error" and "prefill_chunk" in long_.error
+    assert long_.error is None and long_.completion_tokens > 0
+    assert long_.prompt_tokens == 41
+    assert engine.engine_metrics()["rpa"]["dispatches"] >= 1
     assert engine.audit() == []
+
+
+def test_engine_default_path_matches_jax_loop():
+    """The default path under pressure: 2 slots, a 9-page pool and prompts
+    longer than the 32-token prefill chunk.  The first wave prefills in
+    continuation chunks, the shared 3-page preamble is cached, page growth
+    preempts the younger slot, whose continuation (and every later
+    request) hits the cache and prefills through mixed steps beside the
+    decoding slot.  Greedy tokens agree with the JAX teacher-forced loop;
+    every route shows in the metrics and the audit is clean."""
+    jcfg = JModelConfig(name="t", **CFG)
+    tcfg = TModelConfig(name="t", **CFG)
+    tree = jax.tree.map(np.asarray, j_init_params(jcfg, jax.random.PRNGKey(7)))
+    tok = IdTokenizer()
+    max_new = 24
+    engine = TorchEngine(
+        EngineConfig(max_batch_slots=2, page_size=16, num_pages=9,
+                     decode_block=4, max_tokens=max_new, prefill_chunk=32,
+                     mixed_token_budget=32),
+        tcfg, device="cpu", params=params_from_jax(tree, tcfg), tokenizer=tok)
+    preamble = "You are summarizing. Keep facts and numbers!!!\n"  # 47 chars
+    bodies = ["alpha beta g", "the quick br", "x" * 12, "0123456789ab"]
+    results = engine.generate_batch([
+        GenerationRequest(prompt=preamble + body, request_id=i,
+                          temperature=0.0, cache_prefix=len(preamble))
+        for i, body in enumerate(bodies)])
+    assert engine.audit() == []
+    m = engine.engine_metrics()
+    assert m["preemptions"] >= 1
+    assert m["mixed_batch"]["dispatches"] >= 1
+    assert m["prefix_cache"]["hits"] >= 1
+    assert m["prefix_cache"]["tokens_reused"] >= 48
+    assert m["rpa"]["dispatches"] > m["mixed_batch"]["dispatches"]  # chunks
+    checked = 0
+    for body, res in zip(bodies, results):
+        assert res.error is None and res.prompt_tokens == 60
+        gen = [int(t) for t in res.text.split()]
+        assert len(gen) == res.completion_tokens <= max_new
+        checked += _jax_greedy_check(
+            tree, jcfg, [tok.bos_id] + tok.encode(preamble + body), gen,
+            max_new, tok.eos_id)
+    assert checked >= 40  # the margin rule must leave most tokens checked
 
 
 def test_cli_summarizes_on_cpu(tmp_path):
@@ -158,7 +203,24 @@ def test_cli_summarizes_on_cpu(tmp_path):
     assert report["failed_requests"] == 0 and report["num_chunks"] >= 1
 
 
-@pytest.mark.parametrize("flag", [["--speculate-k", "2"], ["--no-prefix-cache"],
+def test_cli_no_prefix_cache_runs(tmp_path):
+    from lmrs_tpu_torch.cli import config_from_args, build_parser, main
+
+    args = build_parser().parse_args(["--input", "x.json", "--no-prefix-cache"])
+    assert config_from_args(args).engine.prefix_cache is False
+    src = tmp_path / "t.json"
+    src.write_text(json.dumps({"segments": make_segments(10)}))
+    out = tmp_path / "s.txt"
+    rc = main(["--input", str(src), "--output", str(out), "--model",
+               "bench-smoke", "--tokenizer", "byte", "--device", "cpu",
+               "--max-tokens", "4", "--no-prefix-cache", "--report", "-q"])
+    assert rc == 0
+    report = json.loads(Path(str(out) + ".report.json").read_text())
+    assert report["failed_requests"] == 0
+    assert "prefix_cache" not in report["engine_metrics"]
+
+
+@pytest.mark.parametrize("flag", [["--speculate-k", "2"], ["--host-kv"],
                                   ["--kv-quantize", "int8"], ["--mesh", "1,2"]])
 def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     from lmrs_tpu_torch.cli import main

@@ -81,3 +81,71 @@ def test_prompts_match_reference(tmp_path):
 def test_stop_sequences_match_reference(stops):
     text = "abcdbcd"
     assert tapi.apply_stop_sequences(text, stops) == japi.apply_stop_sequences(text, stops)
+
+
+def test_prefix_hints_match_reference():
+    """``shared_prefix_chars`` on the default map / reduce templates and
+    ``preamble_text`` / ``preamble_key`` for every hint kind."""
+    for template, varying, const in [
+            (tprompts.DEFAULT_MAP_PROMPT, ("transcript",), {"summary_type": "notes"}),
+            (tprompts.DEFAULT_REDUCE_PROMPT, ("summaries", "metadata", "num_summaries"), {}),
+            ("no placeholder", ("transcript",), {})]:
+        assert (tprompts.shared_prefix_chars(template, *varying, **const)
+                == jprompts.shared_prefix_chars(template, *varying, **const))
+    for system in (None, "Be brief."):
+        for hint in (None, 0, 5, -1):
+            args = (system, "shared head | body", hint)
+            assert tapi.preamble_text(*args) == japi.preamble_text(*args)
+            assert tapi.preamble_key(*args) == japi.preamble_key(*args)
+
+
+def test_prefix_cache_matches_reference():
+    """One sequence of insert, match (full, partial -> split, miss), budget
+    trimming and LRU eviction against the reference's PrefixCache on its
+    own allocator: every return value, the retained pages, the stats and
+    the refcounts agree, and both audits stay clean."""
+    from lmrs_tpu.engine.kv_cache import PageAllocator as JAlloc
+    from lmrs_tpu.engine.prefix_cache import PrefixCache as JCache
+    from lmrs_tpu_torch.engine.kv_cache import PageAllocator as TAlloc
+    from lmrs_tpu_torch.engine.prefix_cache import PrefixCache as TCache
+
+    ps, n_pages = 4, 40
+    ja, ta = JAlloc(n_pages), TAlloc(n_pages)
+    jc, tc = JCache(ja, ps, max_pages=9), TCache(ta, ps, max_pages=9)
+    a = list(range(100, 118))                      # 18 tokens: 4 full pages
+    b = a[:8] + list(range(200, 210))              # shares 2 pages with a
+    c = list(range(300, 313))
+    log = []
+
+    def both(fn):
+        out = (fn(jc, ja), fn(tc, ta))
+        log.append(out)
+        assert out[0] == out[1], (len(log), out)
+        return out[1]
+
+    def seq(ids):  # a live sequence: pages for every token
+        pj = ja.alloc(-(-len(ids) // ps))
+        pt = ta.alloc(len(pj))
+        assert pj == pt
+        return pt
+
+    pa, pb, pc = seq(a), seq(b), seq(c)
+    both(lambda cache, _: cache.insert(a, pa))                   # 4 pages
+    both(lambda cache, _: cache.match(a + [1]))                  # full hit
+    both(lambda cache, _: cache.match(b))                        # split at 8
+    both(lambda cache, _: cache.insert(b, pb))                   # 2 new pages
+    both(lambda cache, _: cache.insert(c, pc, max_tokens=5))     # cap: 2 pages
+    both(lambda cache, _: cache.match([7, 7, 7, 7, 7]))          # miss
+    tail = seq([0])
+    both(lambda cache, _: cache.insert(b + [9] * 6, pb + tail))  # budget trim
+    for pages in (pa, pb, pc, tail):  # sequences close: nodes evictable
+        ja.free(pages)
+        ta.free(pages)
+    both(lambda cache, _: cache.evict(3))
+    both(lambda cache, _: sorted(cache.retained_pages()))
+    both(lambda cache, _: cache.stats())
+    both(lambda cache, alloc: [alloc.refcount(p) for p in range(n_pages)])
+    both(lambda cache, _: cache.audit())
+    assert tc.audit() == [] and tc.cached_pages > 0
+    both(lambda cache, _: cache.clear())
+    both(lambda cache, alloc: (cache.cached_pages, alloc.free_count))
