@@ -12,20 +12,31 @@ anything wrong.  Phases, one JSON object per line:
               bit-exact, kernel / plain / library times (CUDA events, L2
               flushed before each launch) and the bound for this run's work.
               The span kernel at two shapes: a mixed step (7 decode rows +
-              a 249-token slice) and a 1,300-token continuation chunk.
+              a 249-token slice) and a 1,300-token continuation chunk.  The
+              multi-token verify kernel at the speculative step's shape (8
+              rows x 5 tokens, pools exact outside the null page) and the
+              walk-only decode kernel at the decode kernel's shape (pools
+              untouched).
 4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts,
-              16 teacher-forced decode steps and one span dispatch (2 decode
-              rows + a 100-token slice) through ``forward_paged``, on the
-              card (bf16, kernels) and on the CPU (f32, plain versions),
-              same weights; max logit difference, and greedy agreement
-              wherever the CPU top-2 margin exceeds the tolerance.
+              16 teacher-forced decode steps, one span dispatch (2 decode
+              rows + a 100-token slice) and one 5-token verify step
+              (``multi_decode``) through ``forward_paged``, on the card
+              (bf16, kernels) and on the CPU (f32, plain versions), same
+              weights; max logit difference, and greedy agreement wherever
+              the CPU top-2 margin exceeds the tolerance.
 5. main     — ``TranscriptSummarizer`` at full bench-8b (32 layers,
               random-init bf16, byte tokenizer) with the hierarchical reduce,
               mixed steps, continuation chunks and the prefix cache; launch
               counters zeroed just before and read just after; the scheduler
               counters (mixed steps, prefix hits, preemptions) and a clean
               audit (allocator + prefix cache).
-6. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+6. spec     — the same transcript and config with linear speculation
+              (``speculate_k=4, mixed_batch=False``) at full depth; counters
+              zeroed just before and read just after: the verify kernel,
+              flash prefill and the span kernel (prefix-hit tails) launched,
+              the write-fused decode kernel not at all (every decode
+              dispatch is a speculative block); a clean audit.
+7. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure: any exception exits non-zero before the
 last line.
@@ -282,6 +293,108 @@ def check_spans(gen: torch.Generator) -> list[dict]:
     return out
 
 
+def check_multi(gen: torch.Generator) -> dict:
+    """The verify step of the speculative path: 8 rows x T=5 tokens at
+    bench-8b widths.  kv_lens count the 5 tokens; row 2's span (125..129)
+    straddles a page boundary and row 5's (2045..2049) overhangs the
+    2048-token window, so its last two tokens are neither written nor
+    attended.  No table here is the null page; the pool comparison leaves
+    it out all the same, as the kernel's contract says."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    B, T, H, K, hd, ps, W, max_pos = 8, 5, 32, 8, 128, 128, 16, 2048
+    dev = "cuda"
+    lens_l = [6, 133, 130, 700, 1500, 2050, 1000, 305]
+    P = B * W + 1
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    tables = perm.view(B, W).to(torch.int32)
+    kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    q, k_new, v_new = bf(B, T, H, hd), bf(B, T, K, hd), bf(B, T, K, hd)
+    k_pages, v_pages = bf(P, K, ps, hd), bf(P, K, ps, hd)
+    kp1, vp1, kp2, vp2 = k_pages.clone(), v_pages.clone(), k_pages, v_pages
+    got = pa.paged_decode_multi(q, k_new, v_new, kp1, vp1, tables, kv_lens,
+                                max_pos)
+    want = pa.paged_decode_multi_ref(q, k_new, v_new, kp2, vp2, tables,
+                                     kv_lens, max_pos)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= TOL:
+        raise AssertionError(f"multi kernel vs plain: max |err| {err} > {TOL}")
+    exact = torch.equal(kp1[1:], kp2[1:]) and torch.equal(vp1[1:], vp2[1:])
+    if not exact:
+        raise AssertionError("multi kernel pool writes differ from the plain "
+                             "version outside the null page")
+    ms = time_ms(lambda: pa.paged_decode_multi(q, k_new, v_new, kp1, vp1,
+                                               tables, kv_lens, max_pos))
+    plain_ms = time_ms(lambda: pa.paged_decode_multi_ref(
+        q, k_new, v_new, kp2, vp2, tables, kv_lens, max_pos), reps=3)
+    cap = min(W * ps, max_pos)
+    bases = [max(n - T, 0) for n in lens_l]
+    prior = sum(min(b, cap) for b in bases)
+    written = sum(max(0, min(b + T, cap) - b) for b in bases)
+    attended = sum(min(b + j + 1, cap) for b in bases for j in range(T))
+    flops = 4.0 * H * hd * attended
+    # bf16: the prior K/V read once, q read, out written, the new K/V read
+    # and its in-window rows written into the pool; int32 tables and lengths
+    nbytes = (2.0 * (2 * prior * K * hd + 2 * B * T * H * hd
+                     + 2 * B * T * K * hd + 2 * written * K * hd)
+              + 4.0 * (B * W + B))
+    b_ms, b_by = bound(flops, nbytes)
+    return {"name": "paged_decode_multi", "route": "cuda",
+            "source": "lmrs_tpu_torch/csrc/paged_decode_multi.cu",
+            "replaces": "lmrs_tpu/ops/paged_attention.py:852",
+            "max_abs_err": err, "pool_writes_exact_outside_null_page": exact,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "shape": f"B={B} T={T} W={W} ps={ps} H={H} K={K} hd={hd} "
+                     f"kv_lens={lens_l} max_pos={max_pos} bf16"}
+
+
+def check_walk(gen: torch.Generator) -> dict:
+    """The walk-only decode kernel at the write-fused kernel's shape; it
+    has no caller on any path, so this check is its only launch."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    B, H, K, hd, ps, W, P = 8, 32, 8, 128, 128, 16, 256
+    dev = "cuda"
+    lens_l = [0, 1, 128, 129, 700, 1500, 2048, 1000]
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    tables = perm[: B * W].view(B, W).to(torch.int32)
+    tables[0] = 0  # the empty row carries the null table
+    kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    k_pages = torch.randn(P, K, ps, hd, generator=gen, device=dev).bfloat16()
+    v_pages = torch.randn(P, K, ps, hd, generator=gen, device=dev).bfloat16()
+    q = torch.randn(B, H, hd, generator=gen, device=dev).bfloat16()
+    kp0, vp0 = k_pages.clone(), v_pages.clone()
+    got = pa.paged_decode(q, k_pages, v_pages, tables, kv_lens)
+    want = pa.paged_decode_ref(q, k_pages, v_pages, tables, kv_lens)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= TOL:
+        raise AssertionError(f"walk-only kernel vs plain: max |err| {err} > {TOL}")
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("walk-only kernel: the kv_len == 0 row is not zero")
+    if not (torch.equal(k_pages, kp0) and torch.equal(v_pages, vp0)):
+        raise AssertionError("walk-only kernel wrote into the pools")
+    del kp0, vp0
+    ms = time_ms(lambda: pa.paged_decode(q, k_pages, v_pages, tables, kv_lens))
+    plain_ms = time_ms(lambda: pa.paged_decode_ref(q, k_pages, v_pages, tables,
+                                                   kv_lens), reps=3)
+    live = sum(min(n, W * ps) for n in lens_l)
+    flops = 4.0 * H * hd * live
+    # bf16: live K/V read, q read, out written; int32 tables and lengths
+    nbytes = 2.0 * (2 * live * K * hd + 2 * B * H * hd) + 4.0 * (B * W + B)
+    b_ms, b_by = bound(flops, nbytes)
+    return {"name": "paged_decode", "route": "cuda",
+            "source": "lmrs_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "lmrs_tpu/ops/paged_attention.py:1687",
+            "max_abs_err": err, "pools_untouched": True, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} bf16"}
+
+
 # ------------------------------------------------------------ phase 4
 
 def check_model() -> dict:
@@ -329,7 +442,8 @@ def check_model() -> dict:
         kp, vp = pools[dev]
         return forward_paged(params[dev], cfg, toks.to(dev), pos.to(dev), kp, vp,
                              table.to(dev), lens.to(dev), cfg.max_seq_len,
-                             **{k: v.to(dev) for k, v in kw.items()}).float().cpu()
+                             **{k: (v.to(dev) if torch.is_tensor(v) else v)
+                                for k, v in kw.items()}).float().cpu()
 
     diffs, agree, checked = [], 0, 0
 
@@ -384,6 +498,15 @@ def check_model() -> dict:
             spans=tuple(torch.from_numpy(a).to(dev)
                         for a in (q_starts, q_lens, row_flat)))[0].float().cpu()
     compare(span_logits["cpu"], span_logits["cuda"])
+    # one verify step (speculative decoding's shape): 5 tokens per row after
+    # each row's context so far; kv_lens count the 5 tokens
+    ctx = torch.from_numpy(base + q_lens).long()
+    t = 5
+    multi_tokens = torch.randint(3, 259, (3, t), generator=g)
+    multi_logits = {dev: run(dev, multi_tokens, ctx[:, None] + torch.arange(t),
+                             (ctx + t).to(torch.int32), multi_decode=True)
+                    for dev in ("cpu", "cuda")}
+    compare(multi_logits["cpu"], multi_logits["cuda"])
     max_diff = max(diffs)
     if not max_diff <= LOGIT_TOL:
         raise AssertionError(f"model logits: max |diff| {max_diff} > {LOGIT_TOL}")
@@ -392,6 +515,7 @@ def check_model() -> dict:
     return {"phase": "model", "config": "bench-8b widths, n_layers=2",
             "prompts": prompt_lens, "decode_steps": steps,
             "span_dispatch": {"q_lens": q_lens.tolist(), "bases": base.tolist()},
+            "verify_step": {"tokens": t, "contexts": ctx.tolist()},
             "max_logit_diff": max_diff, "logit_tol": LOGIT_TOL,
             "greedy_checked": checked, "greedy_agree": agree}
 
@@ -399,30 +523,34 @@ def check_model() -> dict:
 # ------------------------------------------------------------ phase 5
 
 def profile_decode_step(engine, rows: int = 8, context: int = 1500,
-                        steps: int = 4) -> dict:
+                        steps: int = 4, tokens: int = 1) -> dict:
     """Where one decode step's time goes at the main path's shape (8 rows,
     ~1500-token contexts: what the 112-page pool holds, full bench-8b):
     host wall per step (synchronized) and, from ``torch.profiler``, device
-    kernel time by kind.  Uses real pages from the engine's pool (the
-    prefix cache gives up what it retains) and returns them afterwards."""
+    kernel time by kind.  ``tokens`` > 1 profiles the speculative verify
+    step instead (``multi_decode``, that many tokens per row; the model
+    forward only, without drafting and acceptance).  Uses real pages from
+    the engine's pool (the prefix cache gives up what it retains) and
+    returns them afterwards."""
     from torch.profiler import ProfilerActivity, profile
 
     from lmrs_tpu_torch.models.transformer import forward_paged
 
     sched = engine._scheduler
     cache, cfg = sched.cache, sched.model_cfg
-    n_pages = -(-(context + steps + 2) // cache.page_size)
+    n_pages = -(-(context + steps + 1 + tokens) // cache.page_size)
     seqs = [cache.alloc_pages(n_pages) for _ in range(rows)]
     try:
         table = torch.tensor([s + [0] * (cache.max_pages_per_slot - len(s))
                               for s in seqs], device="cuda")
-        tok = torch.full((rows,), 65, dtype=torch.long, device="cuda")
+        tok = torch.full((rows, tokens), 65, dtype=torch.long, device="cuda")
+        offs = torch.arange(tokens, device="cuda")
 
         def one_step(i):
             lens = torch.full((rows,), context + i, dtype=torch.long, device="cuda")
-            forward_paged(sched.params, cfg, tok[:, None], lens[:, None],
-                          cache.k, cache.v, table, (lens + 1).to(torch.int32),
-                          cfg.max_seq_len)
+            forward_paged(sched.params, cfg, tok, lens[:, None] + offs,
+                          cache.k, cache.v, table, (lens + tokens).to(torch.int32),
+                          cfg.max_seq_len, multi_decode=tokens > 1)
 
         one_step(0)
         torch.cuda.synchronize()
@@ -448,7 +576,8 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                 kinds[kind] += us / 1e3
                 n_kernels += 1
         busy = sum(kinds.values()) / steps
-        return {"rows": rows, "context": context, "wall_ms_per_step": wall_ms,
+        return {"rows": rows, "tokens": tokens, "context": context,
+                "wall_ms_per_step": wall_ms,
                 "device_busy_ms_per_step": busy if n_kernels else "not measured",
                 "device_idle_share": (1 - busy / wall_ms) if n_kernels else "not measured",
                 "kernel_ms_per_step": {k: v / steps for k, v in kinds.items()},
@@ -458,11 +587,17 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
             cache.allocator.free(s)
 
 
-def run_main_path() -> dict:
+def summarize_once(**engine_kw) -> tuple:
+    """``TranscriptSummarizer`` over the demo transcript at full bench-8b,
+    launch counters zeroed just before ``summarize`` and read just after;
+    the checks every path must pass (a summary, no failed request, a clean
+    audit, a hierarchical reduce).  Returns (summarizer, engine, stats,
+    wall seconds, launches)."""
     from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
                                        PipelineConfig, ReduceConfig)
     from lmrs_tpu_torch.ops.flash_attention import flash_attention
     from lmrs_tpu_torch.ops.paged_attention import (paged_decode_fused,
+                                                    paged_decode_multi,
                                                     ragged_spans)
     from lmrs_tpu_torch.pipeline import TranscriptSummarizer
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
@@ -475,7 +610,7 @@ def run_main_path() -> dict:
         # uniform budgets and no EOS all 8 would finish on one block and no
         # prefill would ever meet a decoding row)
         engine=EngineConfig(model="bench-8b", max_tokens=64, seed=0,
-                            temperature=0.3, num_pages=112),
+                            temperature=0.3, num_pages=112, **engine_kw),
         # byte tokens: 1400-token chunks + header + template stay inside the
         # 2048 window at a 64-token budget
         chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=1400),
@@ -486,28 +621,35 @@ def run_main_path() -> dict:
     engine = summarizer.executor.engine  # builds + random-inits the model
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    paged_decode_fused.launches = 0
-    ragged_spans.launches = 0
+    counted = {"flash_prefill": flash_attention,
+               "paged_decode_fused": paged_decode_fused,
+               "ragged_spans": ragged_spans,
+               "paged_decode_multi": paged_decode_multi}
+    for fn in counted.values():
+        fn.launches = 0
     t0 = time.time()
     stats = summarizer.summarize(transcript)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"flash_prefill": flash_attention.launches,
-                "paged_decode_fused": paged_decode_fused.launches,
-                "ragged_spans": ragged_spans.launches}
-    em = stats["engine_metrics"]
+    launches = {name: fn.launches for name, fn in counted.items()}
     violations = engine.audit()
     if not stats["summary"]:
-        raise AssertionError("main path produced an empty summary")
+        raise AssertionError("empty summary")
     if stats["failed_requests"] != 0:
         raise AssertionError(f"failed_requests = {stats['failed_requests']}")
     if violations:
         raise AssertionError(f"allocator audit: {violations}")
     if not stats["hierarchical"]:
         raise AssertionError("the reduce did not form a tree")
-    for name, n in launches.items():
-        if n <= 0:
+    return summarizer, engine, stats, wall, launches
+
+
+def run_main_path() -> dict:
+    summarizer, engine, stats, wall, launches = summarize_once()
+    em = stats["engine_metrics"]
+    violations = engine.audit()
+    for name in ("flash_prefill", "paged_decode_fused", "ragged_spans"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     if em["mixed_batch"]["dispatches"] <= 0:
         raise AssertionError("no mixed step ran on the main path")
@@ -534,6 +676,47 @@ def run_main_path() -> dict:
             "preemptions": em["preemptions"], "stalls": em["stalls"],
             "audit": violations,
             "wall_seconds": wall, "stage_times": stats["stage_times"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "failed_requests": stats["failed_requests"],
+            "summary_chars": len(stats["summary"]), "launches": launches}
+
+
+# ------------------------------------------------------------ phase 6
+
+def run_spec_path() -> dict:
+    """Phase 5's transcript and config with linear speculation: every
+    decode dispatch is a speculative block through the verify kernel."""
+    summarizer, engine, stats, wall, launches = summarize_once(
+        speculate_k=4, mixed_batch=False)
+    em = stats["engine_metrics"]
+    for name in ("paged_decode_multi", "flash_prefill", "ragged_spans"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the spec path")
+    if launches["paged_decode_fused"] != 0:
+        raise AssertionError("a plain decode step ran on the spec path "
+                             f"({launches['paged_decode_fused']} launches)")
+    if em["mixed_batch"]["dispatches"] != 0:
+        raise AssertionError("a mixed step ran on the spec path")
+    step = profile_decode_step(engine, tokens=5)
+    if engine.audit():
+        raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
+    summarizer.shutdown()
+    return {"phase": "spec", "speculate_k": 4, "mixed_batch": False,
+            "model": "bench-8b (32 layers, random-init bf16)",
+            "verify_step_profile": step,
+            "requests": em["requests"], "reduce_levels": stats["reduce_levels"],
+            "prefill_tokens": em["prefill_tokens"],
+            "prefill_dispatches": em["prefill_dispatches"],
+            "decode_tokens": em["decode_tokens"],
+            "decode_blocks": em["decode_blocks"],
+            "decode_block_seconds": em["decode_block_seconds"],
+            "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+            "spec_accepted_tokens": em["spec_accepted_tokens"],
+            "rpa": em["rpa"], "prefix_cache": em["prefix_cache"],
+            "prefix_hit_tokens": em["prefix_cache"]["tokens_reused"],
+            "preemptions": em["preemptions"], "stalls": em["stalls"],
+            "audit": engine.audit(), "wall_seconds": wall,
+            "stage_times": stats["stage_times"],
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "failed_requests": stats["failed_requests"],
             "summary_chars": len(stats["summary"]), "launches": launches}
@@ -567,19 +750,34 @@ def main() -> int:
           "ptxas": {n: [ln for ln in i["ptxas"].splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, i in info.items()}})
+    from lmrs_tpu_torch.ops.paged_attention import paged_decode
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     spans = check_spans(gen)
     rows = [check_flash(gen), check_decode(gen),
-            {**spans[0], "max_abs_err": max(r["max_abs_err"] for r in spans)}]
-    for r in rows[:2] + spans:
+            {**spans[0], "max_abs_err": max(r["max_abs_err"] for r in spans)},
+            check_multi(gen)]
+    paged_decode.launches = 0
+    rows.append(check_walk(gen))
+    walk_launches = paged_decode.launches
+    for r in rows[:2] + spans + rows[3:]:
         emit({"phase": "kernels", **r})
     emit(check_model())
     main_out = run_main_path()
     emit(main_out)
-    launches = main_out["launches"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: ({**r, "launches": launches[r["name"]]})[k]
+    spec_out = run_spec_path()
+    emit(spec_out)
+    launches = {**{n: (main_out["launches"][n], "main path (phase 5)") for n in
+                   ("flash_prefill", "paged_decode_fused", "ragged_spans")},
+                "paged_decode_multi": (spec_out["launches"]["paged_decode_multi"],
+                                       "speculative path (phase 6)"),
+                "paged_decode": (walk_launches,
+                                 "phase 3 check and timing (no caller on any path)")}
+    keys = ("name", "route", "source", "replaces", "launches", "launched_by",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    emit({"kernels": [{k: ({**r, "launches": launches[r["name"]][0],
+                            "launched_by": launches[r["name"]][1]})[k]
                        for k in keys} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

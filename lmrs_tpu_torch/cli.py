@@ -2,8 +2,11 @@
 
 Flag spellings follow the reference CLI (``lmrs``).  Runs on the card by
 default; ``--device cpu`` runs the plain PyTorch path.  Flags of features
-the port does not carry yet (host/disk KV, speculation, int8, meshes) are
-refused with the slice that brings them.
+the port does not carry yet (host/disk KV, tree speculation, int8, meshes)
+are refused with the slice that brings them.  ``--speculate-k`` is among
+them: under the default mixed steps the reference CLI runs it as tree
+speculation.  Linear speculation is reached through the engine config,
+``EngineConfig(speculate_k=K, mixed_batch=False)``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ logger = logging.getLogger("lmrs_torch.cli")
 # flag -> the slice of the port that brings it
 _LATER = {
     "host_kv": "KV movement (host/disk KV tiers)",
-    "speculate_k": "speculation",
+    "speculate_k": "tree speculation",
     "quantize": "int8",
     "kv_quantize": "int8",
     "mesh": "multi-GPU",

@@ -90,6 +90,10 @@ class EngineConfig:
     mixed_token_budget: int = 256
     prefix_cache: bool = True
     prefix_cache_max_pages: int = 0
+    # linear speculative decoding: k n-gram drafts verified per step (0 =
+    # off); needs mixed_batch=False (see __post_init__)
+    speculate_k: int = 0
+    speculate_ngram: int = 3
     temperature: float = field(
         default_factory=lambda: _envmod.env_float("TEMPERATURE", 0.3))
     max_tokens: int = field(
@@ -116,6 +120,13 @@ class EngineConfig:
         if self.prefix_cache_max_pages < 0:
             raise ValueError(f"prefix_cache_max_pages must be >= 0 "
                              f"(got {self.prefix_cache_max_pages})")
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0 (got {self.speculate_k})")
+        if self.speculate_k > 0 and self.mixed_batch:
+            raise ValueError(
+                "speculate_k > 0 with mixed_batch=True is tree speculation in "
+                "the reference package, which the port has not ported yet; "
+                "mixed_batch=False gives the linear speculative path")
         if self.temperature < 0:
             raise ValueError(f"temperature must be >= 0 "
                              f"(got {self.temperature})")

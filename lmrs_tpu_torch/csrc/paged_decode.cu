@@ -1,14 +1,21 @@
-// Write-fused paged decode attention for Hopper (sm_90a), bf16.
+// Paged decode attention for Hopper (sm_90a), bf16: write-fused and
+// walk-only.
 //
-// Replaces the TPU kernel lmrs_tpu/ops/paged_attention.py
-// `paged_decode_pallas_fused` (per-row grid, pallas_call at :1495; its
-// row-group grid at :1361 computes the same function).  Same function:
-// write the current token's K/V into its page of the pool IN PLACE, then
-// attend each query head over the row's live pages (kv_lens includes the
-// current token) with an online softmax.  Live pages are clamped to the
-// table width, so a stale length beyond the table never reads past it, and
-// a position past the table span is not written.  Rows with kv_len == 0
-// write nothing and output zeros.
+// `lmrs_paged_decode_fused_bf16` replaces the TPU kernel
+// lmrs_tpu/ops/paged_attention.py `paged_decode_pallas_fused` (per-row
+// grid, pallas_call at :1495; its row-group grid at :1361 computes the same
+// function).  Same function: write the current token's K/V into its page of
+// the pool IN PLACE, then attend each query head over the row's live pages
+// (kv_lens includes the current token) with an online softmax.  Live pages
+// are clamped to the table width, so a stale length beyond the table never
+// reads past it, and a position past the table span is not written.  Rows
+// with kv_len == 0 write nothing and output zeros.
+//
+// `lmrs_paged_decode_bf16` replaces the walk-only `paged_decode_pallas`
+// (per-row grid, pallas_call at :1687; row-group grid at :1650): the same
+// kernel compiled with WRITE = false, which drops the write (the sync after
+// it stays: it also publishes q in shared memory).  Same clamp to W·ps;
+// kv_len == 0 gives a zero row, as the TPU kernel's acc / where(l > 0, l, 1).
 //
 // Layout: q [B, H, hd]; k_new/v_new [B, K, hd]; pools [P_total, K, ps, hd]
 // (page-major, layer-flattened: callers pass GLOBAL page ids); tables
@@ -42,7 +49,7 @@ constexpr int CHUNK = 32;  // tokens per warp step (one per lane)
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD, int NREP>
+template <int HD, int NREP, bool WRITE>
 __global__ void __launch_bounds__(NWARPS * 32)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_new,
@@ -66,7 +73,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const long long page_stride = (long long)KH * ps * HD;
 
   // 1. write the current token's K/V into its page (position len - 1)
-  if (len > 0 && len <= W * ps) {
+  if (WRITE && len > 0 && len <= W * ps) {
     const int pos = len - 1;
     const long long off = tab[pos / ps] * page_stride +
                           ((long long)kvh * ps + pos % ps) * HD;
@@ -180,29 +187,31 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, bool WRITE>
 int launch_hd(int nrep, dim3 grid, dim3 block, cudaStream_t st,
               const __nv_bfloat16* q, const __nv_bfloat16* kn,
               const __nv_bfloat16* vn, __nv_bfloat16* kp, __nv_bfloat16* vp,
               const int* tab, const int* lens, __nv_bfloat16* out, int KH,
               int ps, int W, float sl2) {
+#define LMRS_DECODE(NR)                                               \
+  paged_decode_kernel<HD, NR, WRITE><<<grid, block, 0, st>>>(         \
+      q, kn, vn, kp, vp, tab, lens, out, KH, ps, W, sl2)
   switch (nrep) {
-    case 1: paged_decode_kernel<HD, 1><<<grid, block, 0, st>>>(q, kn, vn, kp, vp, tab, lens, out, KH, ps, W, sl2); break;
-    case 2: paged_decode_kernel<HD, 2><<<grid, block, 0, st>>>(q, kn, vn, kp, vp, tab, lens, out, KH, ps, W, sl2); break;
-    case 4: paged_decode_kernel<HD, 4><<<grid, block, 0, st>>>(q, kn, vn, kp, vp, tab, lens, out, KH, ps, W, sl2); break;
-    case 8: paged_decode_kernel<HD, 8><<<grid, block, 0, st>>>(q, kn, vn, kp, vp, tab, lens, out, KH, ps, W, sl2); break;
+    case 1: LMRS_DECODE(1); break;
+    case 2: LMRS_DECODE(2); break;
+    case 4: LMRS_DECODE(4); break;
+    case 8: LMRS_DECODE(8); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LMRS_DECODE
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int lmrs_paged_decode_fused_bf16(
-    const void* q, const void* k_new, const void* v_new, void* k_pages,
-    void* v_pages, const void* tables, const void* kv_lens, void* out,
-    int B, int H, int KH, int hd, int ps, int W, float sm_scale,
-    void* stream) {
+template <bool WRITE>
+int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
+           void* v_pages, const void* tables, const void* kv_lens, void* out,
+           int B, int H, int KH, int hd, int ps, int W, float sm_scale,
+           void* stream) {
   dim3 grid(B, KH);
   dim3 block(NWARPS * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -217,12 +226,34 @@ extern "C" int lmrs_paged_decode_fused_bf16(
       static_cast<__nv_bfloat16*>(out), KH, ps, W, sl2
   int rc;
   if (hd == 128) {
-    rc = launch_hd<128>(LMRS_DECODE_ARGS);
+    rc = launch_hd<128, WRITE>(LMRS_DECODE_ARGS);
   } else if (hd == 64) {
-    rc = launch_hd<64>(LMRS_DECODE_ARGS);
+    rc = launch_hd<64, WRITE>(LMRS_DECODE_ARGS);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LMRS_DECODE_ARGS
   return rc;
+}
+
+}  // namespace
+
+extern "C" int lmrs_paged_decode_fused_bf16(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* tables, const void* kv_lens, void* out,
+    int B, int H, int KH, int hd, int ps, int W, float sm_scale,
+    void* stream) {
+  return launch<true>(q, k_new, v_new, k_pages, v_pages, tables, kv_lens, out,
+                      B, H, KH, hd, ps, W, sm_scale, stream);
+}
+
+// Walk-only: the pools are only read (the WRITE = false kernel never
+// stores through them), and k_new / v_new are unused.
+extern "C" int lmrs_paged_decode_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* kv_lens, void* out, int B, int H, int KH,
+    int hd, int ps, int W, float sm_scale, void* stream) {
+  return launch<false>(q, nullptr, nullptr, const_cast<void*>(k_pages),
+                       const_cast<void*>(v_pages), tables, kv_lens, out, B, H,
+                       KH, hd, ps, W, sm_scale, stream);
 }

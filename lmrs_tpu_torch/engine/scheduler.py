@@ -1,8 +1,8 @@
 """Continuous-batching scheduler over the paged KV cache (the port of the
 reference's ``engine/scheduler.py`` on its default path: mixed steps,
 chunked continuation prefill and the prefix cache through the ragged span
-kernel; no speculation, int8 KV, handoff, cancellation, deadlines or
-observability hooks).
+kernel; and its linear speculative path; no tree speculation, int8 KV,
+handoff, cancellation, deadlines or observability hooks).
 
 * Admission: a request takes a free slot when the pool holds its PROMPT
   pages minus those a prefix-cache match supplies (the cache evicts before
@@ -21,6 +21,13 @@ observability hooks).
 * Decode blocks otherwise: ``decode_block`` steps for every decoding slot,
   tokens kept on the device, ONE host fetch per block; the prefills' first
   tokens ride that fetch.
+* Speculative blocks instead, with ``speculate_k = k > 0`` (and mixed steps
+  off): ``decode_block // (k + 1)`` steps, each drafting k tokens per row
+  by n-gram lookup over a device-side token history, verifying them in one
+  [B, k+1] ``forward_paged(multi_decode=True)`` and accepting by the
+  exact-distribution rule (``_spec_decode_block``); ONE host fetch per
+  block.  First tokens are fetched at decode admission, to seed the row's
+  history.
 * Slot growth: decoding slots grow their pages before each dispatch; under
   pool pressure the youngest decode slot is preempted back to the queue
   and later re-prefills prompt + generated tokens
@@ -47,7 +54,8 @@ from lmrs_tpu_torch.engine.kv_cache import (OutOfPages, PagedKVCache,
 from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
 from lmrs_tpu_torch.models.transformer import forward_paged
 from lmrs_tpu_torch.ops.paged_attention import pack_spans
-from lmrs_tpu_torch.ops.sampling import sample_logits
+from lmrs_tpu_torch.ops.sampling import filtered_probs, sample_logits
+from lmrs_tpu_torch.ops.speculative import draft_lookup, verify_tokens
 
 logger = logging.getLogger("lmrs_torch.scheduler")
 
@@ -91,6 +99,14 @@ class ContinuousScheduler:
         self.B = engine_cfg.max_batch_slots
         self.max_len = model_cfg.max_seq_len
         self.decode_block = engine_cfg.decode_block
+        # speculation: each step verifies spec_k drafts + 1 bonus token, so
+        # fewer steps per block keep tokens per block ~ decode_block
+        self.spec_k = engine_cfg.speculate_k
+        self.decode_steps = (max(1, self.decode_block // (self.spec_k + 1))
+                             if self.spec_k else self.decode_block)
+        # [B, max_len] token history on the device (seeded per row at
+        # decode admission, appended inside each speculative block)
+        self._spec_buf: torch.Tensor | None = None
         self.prefill_chunk = engine_cfg.prefill_chunk
         self._mixed = engine_cfg.mixed_batch
         self.mixed_token_budget = engine_cfg.mixed_token_budget
@@ -127,6 +143,7 @@ class ContinuousScheduler:
             "rpa_span_tokens": 0, "prefix_queries": 0, "prefix_hits": 0,
             "prefix_tokens_reused": 0, "preemptions": 0, "stalls": 0,
             "run_seconds": 0.0, "occupancy_sum": 0.0, "peak_pages": 0,
+            "spec_accepted_tokens": 0,
         }
 
     # ------------------------------------------------------------- run loop
@@ -221,6 +238,7 @@ class ContinuousScheduler:
                     continue  # preempted: its continuation resamples tok0
                 st.generated.append(int(tok0s[p][row]))
                 last_tok[b] = st.generated[-1]
+                self._seed_history(b, st)
                 if finish_all or not active[b]:
                     # a stalled row emitted nothing this dispatch, but its
                     # first token is real output: check for an early finish
@@ -245,6 +263,13 @@ class ContinuousScheduler:
                     for b, row in rows:
                         self._enter_decode(b, slots[b], kv_lens, active)
                         deferred.append((b, p, row))
+                if deferred and self.spec_k:
+                    # speculation seeds each new decode row's history with
+                    # its first token: fetch the first tokens now
+                    tok0s = [t.numpy() for t in
+                             _one_fetch([t for t, _ in pending])]
+                    finish_first_tokens(deferred, tok0s, finish_all=True)
+                    deferred = []
                 if not active.any():
                     continue
                 stalled = self._ensure_decode_capacity(slots, queue, kv_lens,
@@ -257,15 +282,21 @@ class ContinuousScheduler:
                         finish_first_tokens(deferred, tok0s, finish_all=True)
                     self._rearm(stalled, slots, active)
                     continue
-                toks, n_valid, tok0s = self._decode_block(
-                    slots, last_tok, kv_lens, active, temps, top_k, top_p,
-                    pending)
-                finish_first_tokens(deferred, tok0s, finish_all=False)
+                if self.spec_k:
+                    emitted = self._spec_decode_block(
+                        slots, last_tok, kv_lens, active, temps, top_k, top_p)
+                else:
+                    toks, n_valid, tok0s = self._decode_block(
+                        slots, last_tok, kv_lens, active, temps, top_k,
+                        top_p, pending)
+                    finish_first_tokens(deferred, tok0s, finish_all=False)
+                    emitted = [toks[b, : int(n_valid[b])].tolist()
+                               for b in range(B)]
                 for b in range(B):
                     st = slots[b]
                     if st is None or not active[b]:
                         continue
-                    new = toks[b, : int(n_valid[b])].tolist()
+                    new = emitted[b]
                     st.generated.extend(new)
                     st.kv_len += len(new)
                     kv_lens[b] = st.kv_len
@@ -369,7 +400,8 @@ class ContinuousScheduler:
         decode slot the row is STALLED for this dispatch (masked off, its
         progress kept).  Returns the stalled rows; the caller re-activates
         them after the dispatch."""
-        block = self.decode_block if extra_tokens is None else extra_tokens
+        block = (self.decode_block + self.spec_k if extra_tokens is None
+                 else extra_tokens)
         stalled: list[int] = []
         for b in range(self.B):
             st = slots[b]
@@ -713,6 +745,17 @@ class ContinuousScheduler:
 
     # ------------------------------------------------------------- decode
 
+    def _decode_table(self, slots) -> torch.Tensor:
+        """The decoding slots' page tables on the device, cut to a
+        power-of-two window over the widest one (slots grown for the coming
+        dispatch); other rows carry the null page."""
+        max_pages = max([1] + [len(st.seq.pages) for st in slots
+                               if st is not None and st.phase == "decode"])
+        w = min(_pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
+        return torch.from_numpy(self.cache.page_table_array(
+            [st.seq if (st is not None and st.phase == "decode") else None
+             for st in slots])[:, :w]).to(self.device)
+
     def _decode_block(self, slots, last_tok, kv_lens, active, temps, top_k,
                       top_p, pending=()):
         """``decode_block`` decode steps for every active slot, tokens kept
@@ -720,15 +763,7 @@ class ContinuousScheduler:
         tokens of ``pending`` as host arrays) from ONE fetch."""
         dev = self.device
         B, n_steps = self.B, self.decode_block
-        max_pages = 1
-        for st in slots:
-            if st is not None and st.phase == "decode":
-                max_pages = max(max_pages, len(st.seq.pages))
-        w = min(_pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
-        table = self.cache.page_table_array(
-            [st.seq if (st is not None and st.phase == "decode") else None
-             for st in slots])[:, :w]
-        table_d = torch.from_numpy(table).to(dev)
+        table_d = self._decode_table(slots)
         tok = torch.from_numpy(last_tok.copy()).to(dev)
         for tok0, rows in pending:  # first tokens: on-device scatter, no sync
             idx = torch.tensor([b for b, _ in rows], device=dev)
@@ -764,6 +799,90 @@ class ContinuousScheduler:
         self.counters["decode_blocks"] += 1
         self.counters["occupancy_sum"] += float(active.mean())
         return fetched[0], fetched[1], fetched[2:]
+
+    # ------------------------------------------------ speculative decode
+
+    def _seed_history(self, b: int, st: _SlotState) -> None:
+        """Load slot b's token history (prompt + generated, the last
+        ``max_len``) into the device buffer: one row upload at decode
+        admission; the speculative blocks append from then on."""
+        if not self.spec_k:
+            return
+        if self._spec_buf is None:
+            self._spec_buf = torch.zeros((self.B, self.max_len),
+                                         dtype=torch.int32, device=self.device)
+        hist = (st.prompt_ids + st.generated)[-self.max_len:]
+        row = np.zeros((self.max_len,), np.int32)
+        row[: len(hist)] = hist
+        self._spec_buf[b] = torch.from_numpy(row).to(self.device)
+
+    def _spec_decode_block(self, slots, last_tok, kv_lens, active, temps,
+                           top_k, top_p) -> list[list[int]]:
+        """One speculative block: ``decode_steps`` draft-verify steps for
+        every active slot, on the device; returns the per-slot emitted
+        token lists from ONE fetch.  Every row passes ``lens + 1 + k`` as
+        its length, empty slots included (their table is the null page and
+        their outputs are dropped), as the reference does."""
+        dev = self.device
+        B, k = self.B, self.spec_k
+        T = k + 1
+        table = self._decode_table(slots)
+        eos, max_len = self.tokenizer.eos_id, self.max_len
+        ngram = max(2, self.cfg.speculate_ngram)
+        buf = self._spec_buf
+        rows = torch.arange(B, device=dev)
+        offs = torch.arange(T, device=dev)[None]
+        tok = torch.from_numpy(last_tok.copy()).to(dev)
+        lens = torch.from_numpy(kv_lens.astype(np.int64)).to(dev)
+        done = ~torch.from_numpy(active.copy()).to(dev)
+        # sampler params per (row, token); inactive rows greedy (dropped)
+        t_bt = np.repeat(np.where(active, temps, 0.0).astype(np.float32), T)
+        tk_bt, tp_bt = np.repeat(top_k, T), np.repeat(top_p, T)
+        toks, counts = [], []
+        t0 = time.time()
+        for _ in range(self.decode_steps):
+            # the current token enters the history at its KV position
+            buf[rows, torch.clamp(lens, max=max_len - 1)] = tok.int()
+            draft, n_valid = draft_lookup(buf, lens + 1, k, pad_id=eos, n=ngram)
+            logits = forward_paged(
+                self.params, self.model_cfg,
+                torch.cat([tok[:, None], draft.long()], dim=1),
+                torch.clamp(lens[:, None] + offs, max=max_len - 1),
+                self.cache.k, self.cache.v, table,
+                # UNclamped: the write base is lens (see forward_paged)
+                (lens + 1 + k).to(torch.int32), max_len, multi_decode=True)
+            if self._vocab_limit is not None:  # as in _sample
+                logits[..., self._vocab_limit:] = float("-inf")
+            probs = filtered_probs(logits.reshape(B * T, -1), t_bt, tk_bt,
+                                   tp_bt).reshape(B, T, -1)
+            emit, count = verify_tokens(probs, draft, n_valid, self.generator)
+            emit = torch.where(done[:, None], torch.full_like(emit, eos), emit)
+            count = torch.where(done, torch.zeros_like(count), count)
+            hit_eos = ((offs < count[:, None]) & (emit == eos)).any(dim=1)
+            # accepted tokens extend the history (the last one lands at the
+            # next step's write index: idempotent)
+            buf[rows[:, None], torch.clamp(lens[:, None] + 1 + offs,
+                                           max=max_len - 1)] = emit
+            lens = torch.clamp(lens + count, max=max_len)
+            nxt = torch.gather(emit, 1, torch.clamp(count - 1, min=0)[:, None]
+                               .long())[:, 0]
+            tok = torch.where(done, tok, nxt.long())
+            done = done | hit_eos
+            toks.append(emit)
+            counts.append(count)
+        toks_h, counts_h = (x.numpy() for x in _one_fetch(
+            [torch.stack(toks, 1), torch.stack(counts, 1)]))
+        self.counters["decode_block_seconds"] += time.time() - t0
+        self.counters["decode_blocks"] += 1
+        self.counters["occupancy_sum"] += float(active.mean())
+        emitted: list[list[int]] = []
+        for b in range(B):
+            row: list[int] = []
+            for s, c in enumerate(counts_h[b].tolist()):
+                row.extend(toks_h[b, s, :c].tolist())
+                self.counters["spec_accepted_tokens"] += max(0, c - 1)
+            emitted.append(row)
+        return emitted
 
     # ------------------------------------------------------------ reporting
 
@@ -824,6 +943,8 @@ class ContinuousScheduler:
                     "span_tokens": c["rpa_span_tokens"]},
             "run_seconds": round(c["run_seconds"], 4),
         }
+        if self.spec_k:
+            out["spec_accepted_tokens"] = c["spec_accepted_tokens"]
         if self._prefix_cache is not None:
             q, hits = c["prefix_queries"], c["prefix_hits"]
             out["prefix_cache"] = {

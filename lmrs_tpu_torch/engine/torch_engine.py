@@ -68,6 +68,8 @@ class TorchEngine:
         return self._scheduler.run(requests, on_result=on_result)
 
     def engine_metrics(self) -> dict:
+        """The scheduler's cumulative metrics (``metrics_report``), with
+        ``spec_accepted_tokens`` when speculation is on."""
         return self._scheduler.metrics_report()
 
     def audit(self) -> list[str]:

@@ -1,8 +1,8 @@
 """Decoder-only transformer (Llama-3 / Gemma family) on a paged KV cache.
 
 The port of the reference's ``models/transformer.py`` for the routes the
-port serves: fresh prefill, packed fresh prefill, single-token decode and
-ragged spans (``forward_paged``).  Params are a plain dict of tensors (see
+port serves: fresh prefill, packed fresh prefill, single-token decode,
+multi-token verify and ragged spans (``forward_paged``).  Params are a plain dict of tensors (see
 ``init_params``); each layer's q/k/v projections are stored fused as one
 [D, (H + 2K)·hd] matrix and gate/up as one [D, 2F] matrix, so a layer is
 four matmuls.  The dense products stay ``torch.matmul`` (the reference left
@@ -12,6 +12,9 @@ them to XLA); attention goes through the kernel modules:
   ``ops.flash_attention.flash_attention`` over the current tokens;
 * decode (S == 1): ``ops.paged_attention.paged_decode_fused`` writes the
   token's K/V and attends the live pages in one kernel;
+* multi-token verify (``multi_decode``): ``ops.paged_attention.
+  paged_decode_multi`` writes the T tokens' K/V and attends them with
+  per-token causality in one kernel — speculative decoding's step;
 * spans (``spans=``): ``ops.paged_attention.ragged_spans`` writes every
   span token's K/V and attends prefix + span — mixed steps, continuation
   chunks and prefix-cache hit tails.
@@ -30,7 +33,9 @@ import torch.nn.functional as F
 from lmrs_tpu_torch.config import ModelConfig
 from lmrs_tpu_torch.ops.flash_attention import flash_attention
 from lmrs_tpu_torch.ops.norms import rms_norm
-from lmrs_tpu_torch.ops.paged_attention import paged_decode_fused, ragged_spans
+from lmrs_tpu_torch.ops.paged_attention import (paged_decode_fused,
+                                                paged_decode_multi,
+                                                ragged_spans)
 from lmrs_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -119,6 +124,7 @@ def forward_paged(
     packed_last_idx: torch.Tensor | None = None,  # [N] rows to sample (packed)
     last_pos: torch.Tensor | None = None,        # [B] per-row sampled index
     spans: tuple | None = None,  # (q_starts [B], q_lens [B], row_flat [Tp])
+    multi_decode: bool = False,  # speculative verify: T tokens per row
 ) -> torch.Tensor:
     """Forward pass against the paged pool; returns f32 logits — [B, S, V],
     or [B, N, V] with ``packed_last_idx`` / [B, 1, V] with ``last_pos``
@@ -138,7 +144,13 @@ def forward_paged(
     context BEFORE this dispatch: span token j of row b sits at
     ``kv_lens[b] + j``.  ``row_flat`` is the caller's owner map of the
     flat tokens (the kernel derives ownership from the spans itself).
-    Gather the sampled rows with ``packed_last_idx``."""
+    Gather the sampled rows with ``packed_last_idx``.
+
+    MULTI-TOKEN mode (``multi_decode``): each row's S tokens sit at
+    consecutive positions ``kv_lens - S + j``, where ``kv_lens`` counts the
+    S tokens and is NOT clamped (the write base must be the true position;
+    tokens at or past ``rope_max`` are neither written nor attended).  The
+    LM head runs on all S rows."""
     dev = tokens.device
     b, s = tokens.shape
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -152,10 +164,10 @@ def forward_paged(
     positions = positions.long()
     tables = page_tables.long()
     kv_lens = kv_lens.to(dev)
-    is_decode = s == 1 and spans is None
+    is_decode = s == 1 and spans is None and not multi_decode
     if spans is not None:
         span_starts, span_lens, _row_flat = spans
-    elif not is_decode:
+    elif not (is_decode or multi_decode):
         if token_pages is not None:
             page_idx = token_pages.long()
         else:
@@ -177,6 +189,10 @@ def forward_paged(
                 q[0].contiguous(), k[0].contiguous(), v[0].contiguous(),
                 k_pages, v_pages, tables + base, kv_lens, span_starts,
                 span_lens, max_pos=rope_max)[None]
+        elif multi_decode:
+            attn = paged_decode_multi(
+                q.contiguous(), k.contiguous(), v.contiguous(), k_pages,
+                v_pages, tables + base, kv_lens, max_pos=rope_max)
         elif is_decode:
             attn = paged_decode_fused(
                 q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),

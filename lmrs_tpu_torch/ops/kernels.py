@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lmrs_tpu_torch"
-SOURCES = ("flash_prefill", "paged_decode", "ragged_spans")
+SOURCES = ("flash_prefill", "paged_decode", "ragged_spans",
+           "paged_decode_multi")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

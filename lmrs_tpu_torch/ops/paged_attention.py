@@ -1,4 +1,4 @@
-"""Paged attention over the page pool: two CUDA kernels and their plain
+"""Paged attention over the page pool: CUDA kernels and their plain
 PyTorch versions.
 
 * ``paged_decode_fused`` (``csrc/paged_decode.cu``) replaces the
@@ -6,14 +6,20 @@ PyTorch versions.
   (``lmrs_tpu/ops/paged_attention.py:1246``): single-token decode that
   writes the current token's K/V into its page and attends the row's live
   pages.
+* ``paged_decode`` (the same source, compiled without the write) replaces
+  the walk-only Pallas ``paged_decode_pallas`` (``:1566``).
+* ``paged_decode_multi`` (``csrc/paged_decode_multi.cu``) replaces the
+  Pallas ``paged_decode_pallas_multi`` (``:649``): the speculative verify
+  step, T consecutive tokens per row written and attended with per-token
+  causality.
 * ``ragged_spans`` (``csrc/ragged_spans.cu``) replaces the Pallas
   ``ragged_spans_pallas`` (``:962``): one dispatch of (row, query-span)
   pairs — decode rows, a mixed step's prefill slice, continuation chunks.
 
 Routing rule: a CUDA tensor goes to the kernel, a CPU tensor to the plain
-version; any failure raises.  Both update the pools IN PLACE (the pools are
-the engine's persistent cache; the reference aliases them through its
-pallas_call instead) and return the attention output.
+version; any failure raises.  The writing ones update the pools IN PLACE
+(the pools are the engine's persistent cache; the reference aliases them
+through its pallas_call instead) and return the attention output.
 
 Pool layout [P_total, K, ps, hd] (page-major, layer axis flattened into the
 page axis; callers pass GLOBAL page ids).  Decode contract per row b:
@@ -25,7 +31,8 @@ page axis; callers pass GLOBAL page ids).  Decode contract per row b:
   skipped;
 * ``kv_lens[b] == 0`` writes nothing and outputs zeros.
 
-The span contract is in ``ragged_spans``' docstring.
+The multi-token and span contracts are in ``paged_decode_multi``' and
+``ragged_spans``' docstrings.
 """
 
 from __future__ import annotations
@@ -99,42 +106,77 @@ def paged_decode_fused_ref(
     return paged_decode_ref(q, k_pages, v_pages, page_tables, kv_lens)
 
 
+def _check_bf16(op: str, dev, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device != dev or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous bfloat16 on {dev}")
+
+
 def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens):
+    """Both decode kernels of ``csrc/paged_decode.cu``: write-fused, or
+    walk-only when ``k_new`` is None."""
     from lmrs_tpu_torch.ops import kernels
 
+    op = "paged_decode" if k_new is None else "paged_decode_fused"
     b, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     w = page_tables.shape[1]
-    if (k_new.shape != (b, kh, hd) or v_new.shape != k_new.shape
+    new = {} if k_new is None else {"k_new": k_new, "v_new": v_new}
+    if (any(t.shape != (b, kh, hd) for t in new.values())
             or v_pages.shape != k_pages.shape or k_pages.shape[3] != hd):
-        raise ValueError("paged_decode_fused: shape mismatch among q "
-                         f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
+        raise ValueError(f"{op}: shape mismatch among q {tuple(q.shape)}, "
+                         f"k_new {None if k_new is None else tuple(k_new.shape)}, "
                          f"pools {tuple(k_pages.shape)}")
     if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8) or ps % 32:
-        raise ValueError(f"paged_decode_fused kernel takes hd in (64, 128), "
+        raise ValueError(f"{op} kernel takes hd in (64, 128), "
                          f"H/K in (1, 2, 4, 8), page_size % 32 == 0 (got "
                          f"hd={hd}, H={h}, K={kh}, ps={ps})")
-    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
-                    ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"paged_decode_fused: {name} must be contiguous "
-                             f"bfloat16 on {q.device}")
+    _check_bf16(op, q.device, q=q, k_pages=k_pages, v_pages=v_pages, **new)
     if page_tables.shape[0] != b or kv_lens.shape != (b,):
-        raise ValueError("paged_decode_fused: tables/kv_lens rows != batch")
+        raise ValueError(f"{op}: tables/kv_lens rows != batch")
     tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    fn = kernels.load("paged_decode").lmrs_paged_decode_fused_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
-    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), b, h, kh, hd, ps, w, hd ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check_launch("lmrs_paged_decode_fused_bf16", rc)
-    paged_decode_fused.launches += 1
+    lib = kernels.load("paged_decode")
+    tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    args = (tables.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h, kh, hd,
+            ps, w, hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if k_new is None:
+        fn = lib.lmrs_paged_decode_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + tail
+        fn.restype = ctypes.c_int
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *args)
+        kernels.check_launch("lmrs_paged_decode_bf16", rc)
+        paged_decode.launches += 1
+    else:
+        fn = lib.lmrs_paged_decode_fused_bf16
+        fn.argtypes = [ctypes.c_void_p] * 8 + tail
+        fn.restype = ctypes.c_int
+        rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                k_pages.data_ptr(), v_pages.data_ptr(), *args)
+        kernels.check_launch("lmrs_paged_decode_fused_bf16", rc)
+        paged_decode_fused.launches += 1
     return out
+
+
+def paged_decode(
+    q: torch.Tensor,            # [B, H, hd]
+    k_pages: torch.Tensor,      # [P_total, K, ps, hd]
+    v_pages: torch.Tensor,      # [P_total, K, ps, hd]
+    page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
+    kv_lens: torch.Tensor,      # [B] tokens in cache
+) -> torch.Tensor:
+    """Walk-only paged decode: attend each row's live pages, no write (the
+    contract of ``paged_decode_ref``: length clamped to W·ps, zero output
+    for an empty row).  Returns [B, H, hd]; ``paged_decode.launches`` counts
+    kernel launches."""
+    if q.is_cuda:
+        return _decode_cuda(q, None, None, k_pages, v_pages, page_tables,
+                            kv_lens)
+    return paged_decode_ref(q, k_pages, v_pages, page_tables, kv_lens)
+
+
+paged_decode.launches = 0
 
 
 def paged_decode_fused(
@@ -156,6 +198,126 @@ def paged_decode_fused(
 
 
 paged_decode_fused.launches = 0
+
+
+# ---------------------------------------------- multi-token verify kernel
+
+# query rows (T tokens x H/K heads) the multi kernel holds per kv head
+MULTI_QROWS = 64
+
+
+def paged_decode_multi_ref(
+    q: torch.Tensor,            # [B, T, H, hd]
+    k_new: torch.Tensor,        # [B, T, K, hd] the T tokens' K (post-rope)
+    v_new: torch.Tensor,        # [B, T, K, hd]
+    k_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
+    kv_lens: torch.Tensor,      # [B] incl. the T tokens (unclamped)
+    max_pos: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version (the port of the reference's
+    ``paged_decode_multi_xla`` without int8): scatter the in-span tokens,
+    then gather-softmax each row's window with per-token causal limits.
+    Softmax in f32.  An out-of-span token is skipped, where the XLA twin
+    parks it on the null page."""
+    b, t, h, hd = q.shape
+    _, kh, ps, _ = k_pages.shape
+    w = page_tables.shape[1]
+    cap = w * ps if max_pos is None else min(w * ps, max_pos)
+    tables = page_tables.long()
+    base = torch.clamp(kv_lens.long() - t, min=0)
+    pos = base[:, None] + torch.arange(t, device=q.device)[None]  # [B, T]
+    rows, toks = torch.nonzero(pos < cap, as_tuple=True)
+    p = pos[rows, toks]
+    page = tables[rows, p // ps]
+    k_pages[page, :, p % ps] = k_new[rows, toks]
+    v_pages[page, :, p % ps] = v_new[rows, toks]
+    n_rep = h // kh
+    # [B, W, K, ps, hd] -> [B, K, W*ps, hd]
+    kw = k_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, kh, w * ps, hd)
+    vw = v_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, kh, w * ps, hd)
+    qg = q.reshape(b, t, kh, n_rep, hd).permute(0, 2, 3, 1, 4)  # [B,K,n,T,hd]
+    logits = torch.matmul(qg.float(), kw.float().transpose(-1, -2)[:, :, None])
+    col = torch.arange(w * ps, device=q.device)
+    mask = (col[None, None] <= pos[:, :, None]) & (col < cap)  # [B, T, C]
+    logits = torch.where(mask[:, None, None], logits * hd ** -0.5,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.matmul(probs, vw.float()[:, :, None])  # [B, K, n_rep, T, hd]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+
+
+def _multi_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
+                max_pos):
+    from lmrs_tpu_torch.ops import kernels
+
+    b, t, h, hd = q.shape
+    _, kh, ps, _ = k_pages.shape
+    w = page_tables.shape[1]
+    if (k_new.shape != (b, t, kh, hd) or v_new.shape != k_new.shape
+            or v_pages.shape != k_pages.shape or k_pages.shape[3] != hd):
+        raise ValueError("paged_decode_multi: shape mismatch among q "
+                         f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
+                         f"pools {tuple(k_pages.shape)}")
+    if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8):
+        raise ValueError(f"paged_decode_multi kernel takes hd in (64, 128) "
+                         f"and H/K in (1, 2, 4, 8) (got hd={hd}, H={h}, K={kh})")
+    if not 1 <= t * (h // kh) <= MULTI_QROWS:
+        raise ValueError(f"paged_decode_multi kernel takes T x H/K <= "
+                         f"{MULTI_QROWS} query rows per kv head (got T={t}, "
+                         f"H/K={h // kh})")
+    _check_bf16("paged_decode_multi", q.device, q=q, k_new=k_new, v_new=v_new,
+                k_pages=k_pages, v_pages=v_pages)
+    if page_tables.shape[0] != b or kv_lens.shape != (b,):
+        raise ValueError("paged_decode_multi: tables/kv_lens rows != batch")
+    tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    fn = kernels.load("paged_decode_multi").lmrs_paged_decode_multi_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), b, t, h, kh, hd, ps, w,
+            w * ps if max_pos is None else max_pos, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch("lmrs_paged_decode_multi_bf16", rc)
+    paged_decode_multi.launches += 1
+    return out
+
+
+def paged_decode_multi(
+    q: torch.Tensor,            # [B, T, H, hd]
+    k_new: torch.Tensor,        # [B, T, K, hd]
+    v_new: torch.Tensor,        # [B, T, K, hd]
+    k_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
+    page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
+    kv_lens: torch.Tensor,      # [B] incl. the T tokens (unclamped)
+    max_pos: int | None = None,
+) -> torch.Tensor:
+    """Multi-token verify (speculative decoding): returns [B, T, H, hd];
+    ``paged_decode_multi.launches`` counts kernel launches.  Contract:
+
+    * ``base = max(kv_lens[b] - T, 0)`` and token j sits at ``base + j``
+      (callers pass the UNclamped length, so base is the true position
+      even when the tokens overhang ``max_pos``);
+    * a token is written only when its position is ``< W * ps`` and
+      ``< max_pos`` (skipped otherwise; the pool elsewhere is untouched);
+    * query token j attends columns ``<= base + j`` and ``< max_pos``.
+
+    Rows whose table is the null page (the scheduler's empty slots) write
+    page 0 concurrently on the card; their outputs are not used."""
+    if q.is_cuda:
+        return _multi_cuda(q, k_new, v_new, k_pages, v_pages, page_tables,
+                           kv_lens, max_pos)
+    return paged_decode_multi_ref(q, k_new, v_new, k_pages, v_pages,
+                                  page_tables, kv_lens, max_pos)
+
+
+paged_decode_multi.launches = 0
 
 
 # ------------------------------------------------------- ragged span kernel
@@ -236,11 +398,8 @@ def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
     if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8):
         raise ValueError(f"ragged_spans kernel takes hd in (64, 128) and "
                          f"H/K in (1, 2, 4, 8) (got hd={hd}, H={h}, K={kh})")
-    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
-                    ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"ragged_spans: {name} must be contiguous "
-                             f"bfloat16 on {q.device}")
+    _check_bf16("ragged_spans", q.device, q=q, k_new=k_new, v_new=v_new,
+                k_pages=k_pages, v_pages=v_pages)
     idx = [x.to(device=q.device, dtype=torch.int32).contiguous()
            for x in (page_tables, kv_lens, q_starts, q_lens)]
     if any(x.shape != (b,) for x in idx[1:]):

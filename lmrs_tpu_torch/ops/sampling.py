@@ -44,6 +44,36 @@ def filter_logits(
                        torch.full_like(scaled, float("-inf")))
 
 
+def filtered_probs(
+    logits: torch.Tensor,        # [B, V] f32
+    temperature: np.ndarray,     # [B] 0.0 => greedy
+    top_k: np.ndarray,           # [B] int, 0 => disabled
+    top_p: np.ndarray,           # [B] f32, 1.0 => disabled
+) -> torch.Tensor:
+    """The per-row sampling distribution [B, V] (f32): the softmax of the
+    filtered logits for temperature > 0, a one-hot argmax for greedy rows —
+    the acceptance target of speculative decoding (``ops/speculative.py``).
+    The same host-side gates as ``sample_logits``: no sort unless a sampled
+    row has top-k/top-p, no softmax when every row is greedy."""
+    logits = logits.float()
+    greedy = torch.nn.functional.one_hot(
+        torch.argmax(logits, dim=-1), logits.shape[-1]).float()
+    temperature = np.asarray(temperature, np.float32)
+    sampled_rows = temperature > 0
+    if not sampled_rows.any():
+        return greedy
+    dev = logits.device
+    t = torch.as_tensor(temperature, device=dev)
+    top_k = np.asarray(top_k)
+    top_p = np.asarray(top_p, np.float32)
+    if (sampled_rows & ((top_k > 0) | (top_p < 1.0))).any():
+        masked = filter_logits(logits, t, torch.as_tensor(top_k, device=dev),
+                               torch.as_tensor(top_p, device=dev))
+    else:
+        masked = logits / torch.where(t > 0, t, torch.ones_like(t))[:, None]
+    return torch.where((t > 0)[:, None], torch.softmax(masked, dim=-1), greedy)
+
+
 def sample_logits(
     logits: torch.Tensor,        # [B, V] f32
     temperature: np.ndarray,     # [B] 0.0 => greedy

@@ -133,6 +133,103 @@ def test_span_kernel_refuses_what_it_does_not_take(cuda_device):
         tpa.ragged_spans(**{**x, "q": x["q"].transpose(0, 1).contiguous().transpose(0, 1)})
 
 
+def _multi_case(dev, null_row=False):
+    """chip_smoke.py's verify step: 8 rows x T=5 at bench-8b widths, W=16,
+    ps=128, max_pos 2048; row 2's span straddles a page boundary, row 5's
+    overhangs the window.  ``null_row``: row 0 carries the null table and
+    the length T, as an empty slot does in the scheduler."""
+    r = np.random.default_rng(5)
+    b, t, h, kh, hd, ps, w = 8, 5, 32, 8, 128, 128, 16
+    lens = [6, 133, 130, 700, 1500, 2050, 1000, 305]
+    n_pages = b * w + 1
+    tables = r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1
+    if null_row:
+        tables[0], lens[0] = 0, t
+    q, k_new, v_new, k_pages, v_pages = _bf16(
+        dev, *(r.standard_normal(shape).astype(np.float32) for shape in
+               ((b, t, h, hd), (b, t, kh, hd), (b, t, kh, hd),
+                (n_pages, kh, ps, hd), (n_pages, kh, ps, hd))))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+                v_pages=v_pages, page_tables=i32(tables), kv_lens=i32(lens),
+                max_pos=2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("null_row", [False, True])
+def test_multi_kernel_matches_plain(cuda_device, null_row):
+    """Outputs on the rows with real tables; pools outside the null page
+    (null-table rows write page 0 concurrently on the card)."""
+    x = _multi_case(cuda_device, null_row)
+    x2 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in x.items()}
+    n0 = tpa.paged_decode_multi.launches
+    got = tpa.paged_decode_multi(**x)
+    want = tpa.paged_decode_multi_ref(**x2)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_multi.launches == n0 + 1
+    real = slice(1 if null_row else 0, None)
+    torch.testing.assert_close(got[real].float(), want[real].float(),
+                               atol=TOL, rtol=0)
+    assert torch.equal(x["k_pages"][1:], x2["k_pages"][1:])
+    assert torch.equal(x["v_pages"][1:], x2["v_pages"][1:])
+
+
+@pytest.mark.cuda
+def test_walk_only_kernel_matches_plain(cuda_device):
+    """The write-fused decode kernel's shape without the write: empty
+    row, page boundaries, the table's full width; the pools stay
+    untouched."""
+    r = np.random.default_rng(6)
+    b, h, kh, hd, ps, w, n_pages = 8, 32, 8, 128, 128, 16, 256
+    q, k_pages, v_pages = _bf16(
+        cuda_device, *(r.standard_normal(shape).astype(np.float32) for shape in
+                       ((b, h, hd), (n_pages, kh, ps, hd), (n_pages, kh, ps, hd))))
+    tables = torch.tensor(r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1,
+                          dtype=torch.int32, device=cuda_device)
+    tables[0] = 0
+    lens = torch.tensor([0, 1, 128, 129, 700, 1500, 2048, 1000],
+                        dtype=torch.int32, device=cuda_device)
+    kp0, vp0 = k_pages.clone(), v_pages.clone()
+    n0 = tpa.paged_decode.launches
+    got = tpa.paged_decode(q, k_pages, v_pages, tables, lens)
+    want = tpa.paged_decode_ref(q, k_pages, v_pages, tables, lens)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert not got[0].any()
+    assert torch.equal(k_pages, kp0) and torch.equal(v_pages, vp0)
+
+
+@pytest.mark.cuda
+def test_multi_and_walk_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = _multi_case(cuda_device)
+    cut = {k: x[k][..., :96].contiguous()
+           for k in ("q", "k_new", "v_new", "k_pages", "v_pages")}
+    with pytest.raises(ValueError, match="hd"):  # head dim outside 64/128
+        tpa.paged_decode_multi(**{**x, **cut})
+    with pytest.raises(ValueError, match="bfloat16"):
+        tpa.paged_decode_multi(**{**x, "q": x["q"].float()})
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.paged_decode_multi(**{**x, "q": x["q"].transpose(1, 2).contiguous()
+                                  .transpose(1, 2)})
+    # 17 tokens x 4 heads = 68 query rows per kv head: above the kernel's 64
+    t17 = {k: x[k][:, :1].expand(-1, 17, -1, -1).contiguous()
+           for k in ("q", "k_new", "v_new")}
+    with pytest.raises(ValueError, match="query rows"):
+        tpa.paged_decode_multi(**{**x, **t17})
+    q1 = x["q"][:, 0].contiguous()
+    with pytest.raises(ValueError, match="hd"):
+        tpa.paged_decode(cut["q"][:, 0].contiguous(), cut["k_pages"],
+                         cut["v_pages"], x["page_tables"], x["kv_lens"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        tpa.paged_decode(q1.float(), x["k_pages"], x["v_pages"],
+                         x["page_tables"], x["kv_lens"])
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.paged_decode(q1.transpose(0, 1).contiguous().transpose(0, 1),
+                         x["k_pages"], x["v_pages"], x["page_tables"],
+                         x["kv_lens"])
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     q = torch.zeros(1, 64, 4, 96, dtype=torch.bfloat16, device=cuda_device)
