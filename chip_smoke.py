@@ -16,14 +16,22 @@ anything wrong.  Phases, one JSON object per line:
               multi-token verify kernel at the speculative step's shape (8
               rows x 5 tokens, pools exact outside the null page) and the
               walk-only decode kernel at the decode kernel's shape (pools
-              untouched).
+              untouched).  The int8 variants of the write-fused decode,
+              span and verify kernels at the same shapes over int8 pools
+              (random values, scales from ``kv_scale_from`` on random bf16
+              K/V, one row whose new K/V are exact .5 ties of x / s): the
+              same tolerance, int8 pool writes bit-exact.
 4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts,
               16 teacher-forced decode steps, one span dispatch (2 decode
               rows + a 100-token slice) and one 5-token verify step
               (``multi_decode``) through ``forward_paged``, on the card
               (bf16, kernels) and on the CPU (f32, plain versions), same
               weights; max logit difference, and greedy agreement wherever
-              the CPU top-2 margin exceeds the tolerance.
+              the CPU top-2 margin exceeds the tolerance.  Then the same
+              check with int8 weights and int8 KV pages (``quantize_params``
+              on the CPU, the same int8 values and scales on the card; the
+              span dispatch re-prefills row 2 from position 0, a base-0 row
+              that owns its slot's scales).
 5. main     — ``TranscriptSummarizer`` at full bench-8b (32 layers,
               random-init bf16, byte tokenizer) with the hierarchical reduce,
               mixed steps, continuation chunks and the prefix cache; launch
@@ -36,7 +44,16 @@ anything wrong.  Phases, one JSON object per line:
               flash prefill and the span kernel (prefix-hit tails) launched,
               the write-fused decode kernel not at all (every decode
               dispatch is a speculative block); a clean audit.
-7. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+7. int8      — phase 5's transcript and config with ``quantize="int8",
+              kv_quantize="int8"`` at full depth (params quantized on the
+              card after random init; the prefix cache is then off):
+              flash prefill and the int8 span and decode kernels launched,
+              mixed steps > 0, no prefix-cache query, a clean audit; a
+              decode-step profile split into the decode kernel, the int8
+              weight products and the rest.
+8. int8-spec — phase 7 with ``speculate_k=4, mixed_batch=False``: the int8
+              verify kernel launched, the int8 decode kernel not at all.
+9. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure: any exception exits non-zero before the
 last line.
@@ -66,6 +83,45 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+KV_TIE = 2.0 ** -5         # a scale that divides half-integer multiples to .5
+
+
+def int8_case(x: dict, tie_tokens, tie_row: int, gen: torch.Generator) -> dict:
+    """A bf16 kernel case in its int8 form: random int8 pools, K/V scales
+    [rows, K, hd] from ``kv_scale_from`` on random bf16 K/V, and row
+    ``tie_row`` with scale 2^-5 whose new K/V (flat tokens ``tie_tokens``)
+    are half-integer multiples of it: every x / s is an exact .5 tie, and
+    four values saturate past 127 (bf16 holds all of them exactly)."""
+    from lmrs_tpu_torch.ops.quant import kv_scale_from
+
+    y = dict(x)
+    for name in ("k_pages", "v_pages"):
+        y[name] = torch.randint(-127, 128, x[name].shape, generator=gen,
+                                device="cuda", dtype=torch.int8)
+    rows, kh, hd = (x["page_tables"].shape[0], x["k_pages"].shape[1],
+                    x["k_pages"].shape[3])
+    for name, new in (("kscale", "k_new"), ("vscale", "v_new")):
+        kv = torch.randn(rows, 64, kh, hd, generator=gen, device="cuda").bfloat16()
+        sc = kv_scale_from(kv, torch.ones(rows, 64, dtype=torch.bool, device="cuda"))
+        sc[tie_row] = KV_TIE
+        y[name] = sc.contiguous()
+        m = torch.randint(-127, 127, y[new][tie_tokens].shape, generator=gen,
+                          device="cuda")
+        ties = (m + 0.5) * KV_TIE
+        ties.view(-1)[:4] = torch.tensor([160.0, -160.0, 130.0, -130.0],
+                                         device="cuda") * KV_TIE
+        y[new] = y[new].clone()
+        y[new][tie_tokens] = ties.bfloat16()
+    return y
+
+
+def pool_bytes(x: dict) -> tuple[int, float]:
+    """(bytes per K or V pool value, bytes of the scale operands)."""
+    e = x["k_pages"].element_size()
+    return e, (4.0 * (x["kscale"].numel() + x["vscale"].numel())
+               if "kscale" in x else 0.0)
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -154,7 +210,7 @@ def check_flash(gen: torch.Generator) -> dict:
             "shape": f"packed S={S} segs={seg_lens} H={H} K={K} hd={hd} bf16"}
 
 
-def check_decode(gen: torch.Generator) -> dict:
+def check_decode(gen: torch.Generator, int8: bool = False) -> dict:
     from lmrs_tpu_torch.ops import paged_attention as pa
 
     B, H, K, hd, ps, W, P = 8, 32, 8, 128, 128, 16, 256
@@ -165,45 +221,47 @@ def check_decode(gen: torch.Generator) -> dict:
     perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
     tables = perm[: B * W].view(B, W).to(torch.int32)
     tables[0] = 0  # the empty row carries the null table
-    kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-    k_pages = torch.randn(P, K, ps, hd, generator=gen, device=dev).bfloat16()
-    v_pages = torch.randn(P, K, ps, hd, generator=gen, device=dev).bfloat16()
-    q = torch.randn(B, H, hd, generator=gen, device=dev).bfloat16()
-    k_new = torch.randn(B, K, hd, generator=gen, device=dev).bfloat16()
-    v_new = torch.randn(B, K, hd, generator=gen, device=dev).bfloat16()
-    kp1, vp1 = k_pages.clone(), v_pages.clone()
-    kp2, vp2 = k_pages.clone(), v_pages.clone()
-    got = pa.paged_decode_fused(q, k_new, v_new, kp1, vp1, tables, kv_lens)
-    want = pa.paged_decode_fused_ref(q, k_new, v_new, kp2, vp2, tables, kv_lens)
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    x = dict(q=bf(B, H, hd), k_new=bf(B, K, hd), v_new=bf(B, K, hd),
+             k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+             page_tables=tables,
+             kv_lens=torch.tensor(lens_l, dtype=torch.int32, device=dev))
+    if int8:
+        x = int8_case(x, 4, 4, gen)  # row 4's new K/V: exact ties
+    x2 = {k: v.clone() for k, v in x.items()}
+    got = pa.paged_decode_fused(**x)
+    want = pa.paged_decode_fused_ref(**x2)
     torch.cuda.synchronize()
+    name = "paged_decode_fused_int8" if int8 else "paged_decode_fused"
     err = (got.float() - want.float()).abs().max().item()
     if not err <= TOL:
-        raise AssertionError(f"decode kernel vs plain: max |err| {err} > {TOL}")
-    if not (torch.equal(kp1, kp2) and torch.equal(vp1, vp2)):
-        raise AssertionError("decode kernel pool writes differ from the plain version")
+        raise AssertionError(f"{name} kernel vs plain: max |err| {err} > {TOL}")
+    if not (torch.equal(x["k_pages"], x2["k_pages"])
+            and torch.equal(x["v_pages"], x2["v_pages"])):
+        raise AssertionError(f"{name} kernel pool writes differ from the plain version")
     if got[0].abs().max().item() != 0.0:
-        raise AssertionError("decode kernel: the kv_len == 0 row is not zero")
+        raise AssertionError(f"{name} kernel: the kv_len == 0 row is not zero")
 
-    ms = time_ms(lambda: pa.paged_decode_fused(q, k_new, v_new, kp1, vp1,
-                                               tables, kv_lens))
-    plain_ms = time_ms(lambda: pa.paged_decode_fused_ref(
-        q, k_new, v_new, kp2, vp2, tables, kv_lens), reps=3)
+    ms = time_ms(lambda: pa.paged_decode_fused(**x))
+    plain_ms = time_ms(lambda: pa.paged_decode_fused_ref(**x2), reps=3)
     live = sum(min(n, W * ps) for n in lens_l)
     written = sum(1 for n in lens_l if 0 < n <= W * ps)
+    e, scale_bytes = pool_bytes(x)
     flops = 4.0 * H * hd * live
-    # bf16: live K/V read, q read, out written, k_new/v_new read and written
-    # into the pool for each row that writes; int32 tables and lengths
-    nbytes = (2.0 * (2 * live * K * hd + 2 * B * H * hd
-                     + 2 * B * K * hd + 2 * written * K * hd)
-              + 4.0 * (B * W + B))
+    # live K/V read (e bytes a value), q read, out written (bf16), k_new/
+    # v_new read (bf16) and written into the pool for each row that
+    # writes, the rows' f32 scales (int8); int32 tables and lengths
+    nbytes = (e * 2.0 * live * K * hd + 2.0 * (2 * B * H * hd + 2 * B * K * hd)
+              + e * 2.0 * written * K * hd + scale_bytes + 4.0 * (B * W + B))
     b_ms, b_by = bound(flops, nbytes)
-    return {"name": "paged_decode_fused", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "lmrs_tpu_torch/csrc/paged_decode.cu",
             "replaces": "lmrs_tpu/ops/paged_attention.py:1495",
             "max_abs_err": err, "pool_writes_exact": True, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
-            "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} bf16"}
+            "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} "
+                     f"{'int8 pools' if int8 else 'bf16'}"}
 
 
 def _span_inputs(gen: torch.Generator, case: str) -> dict:
@@ -236,27 +294,34 @@ def _span_inputs(gen: torch.Generator, case: str) -> dict:
                 kv_lens=i32(bases), q_starts=i32(q_starts), q_lens=i32(q_lens))
 
 
-def check_spans(gen: torch.Generator) -> list[dict]:
+def check_spans(gen: torch.Generator, int8: bool = False) -> list[dict]:
     """The span kernel against its plain version at the mixed-step and
     continuation shapes; the kernels line takes the mixed step (the span
-    dispatch the main path issues most) and the larger error."""
+    dispatch the main path issues most) and the larger error.  ``int8``:
+    the int8 variant, with the slice row (mixed) or the continuation row
+    carrying the exact ties."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
+    name = "ragged_spans_int8" if int8 else "ragged_spans"
     out = []
     for case in ("mixed", "continuation"):
         x = _span_inputs(gen, case)
+        if int8:
+            row = 7 if case == "mixed" else 0
+            s0, n0 = int(x["q_starts"][row]), int(x["q_lens"][row])
+            x = int8_case(x, slice(s0, s0 + n0), row, gen)
         x2 = {k: v.clone() for k, v in x.items()}
         got = pa.ragged_spans(**x)
         want = pa.ragged_spans_ref(**x2)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if not err <= TOL:
-            raise AssertionError(f"span kernel vs plain ({case}): max |err| "
+            raise AssertionError(f"{name} kernel vs plain ({case}): max |err| "
                                  f"{err} > {TOL}")
         exact = (torch.equal(x["k_pages"], x2["k_pages"])
                  and torch.equal(x["v_pages"], x2["v_pages"]))
         if not exact:
-            raise AssertionError(f"span kernel pool writes differ from the "
+            raise AssertionError(f"{name} kernel pool writes differ from the "
                                  f"plain version ({case})")
         ms = time_ms(lambda: pa.ragged_spans(**x))
         plain_ms = time_ms(lambda: pa.ragged_spans_ref(**x2), reps=3)
@@ -272,14 +337,17 @@ def check_spans(gen: torch.Generator) -> list[dict]:
         attended = sum(min(base + j + 1, cap) for base, n in rows
                        for j in range(n))
         flops = 4.0 * H * hd * attended
-        # bf16: the prefix K/V read once, q read, out written (every flat
-        # row), the new K/V read and written into the pool; int32 tables,
-        # lengths, starts and span lengths
-        nbytes = (2.0 * (2 * prefix * K * hd + span * H * hd + tp * H * hd
-                         + 2 * span * K * hd + 2 * written * K * hd)
+        e, scale_bytes = pool_bytes(x)
+        # the prefix K/V read once (e bytes a value), q read, out written
+        # (every flat row), the new K/V read (bf16) and written into the
+        # pool, the rows' f32 scales (int8); int32 tables, lengths, starts
+        # and span lengths
+        nbytes = (e * 2.0 * prefix * K * hd
+                  + 2.0 * (span * H * hd + tp * H * hd + 2 * span * K * hd)
+                  + e * 2.0 * written * K * hd + scale_bytes
                   + 4.0 * (b * W + 3 * b))
         b_ms, b_by = bound(flops, nbytes)
-        out.append({"name": "ragged_spans", "route": "cuda",
+        out.append({"name": name, "route": "cuda",
                     "source": "lmrs_tpu_torch/csrc/ragged_spans.cu",
                     "replaces": "lmrs_tpu/ops/paged_attention.py:1137",
                     "case": case, "max_abs_err": err,
@@ -288,12 +356,13 @@ def check_spans(gen: torch.Generator) -> list[dict]:
                     "library_ms": None,
                     "shape": f"Tp={tp} q_lens={[n for _, n in rows]} "
                              f"bases={[base for base, _ in rows]} B={b} "
-                             f"W={W} ps={ps} H={H} K={K} hd={hd} bf16"})
+                             f"W={W} ps={ps} H={H} K={K} hd={hd} "
+                             f"{'int8 pools' if int8 else 'bf16'}"})
         del x, x2
     return out
 
 
-def check_multi(gen: torch.Generator) -> dict:
+def check_multi(gen: torch.Generator, int8: bool = False) -> dict:
     """The verify step of the speculative path: 8 rows x T=5 tokens at
     bench-8b widths.  kv_lens count the 5 tokens; row 2's span (125..129)
     straddles a page boundary and row 5's (2045..2049) overhangs the
@@ -310,45 +379,49 @@ def check_multi(gen: torch.Generator) -> dict:
     tables = perm.view(B, W).to(torch.int32)
     kv_lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
-    q, k_new, v_new = bf(B, T, H, hd), bf(B, T, K, hd), bf(B, T, K, hd)
-    k_pages, v_pages = bf(P, K, ps, hd), bf(P, K, ps, hd)
-    kp1, vp1, kp2, vp2 = k_pages.clone(), v_pages.clone(), k_pages, v_pages
-    got = pa.paged_decode_multi(q, k_new, v_new, kp1, vp1, tables, kv_lens,
-                                max_pos)
-    want = pa.paged_decode_multi_ref(q, k_new, v_new, kp2, vp2, tables,
-                                     kv_lens, max_pos)
+    x = dict(q=bf(B, T, H, hd), k_new=bf(B, T, K, hd), v_new=bf(B, T, K, hd),
+             k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+             page_tables=tables, kv_lens=kv_lens)
+    if int8:
+        x = int8_case(x, 3, 3, gen)  # row 3's 5 tokens: exact ties
+    x2 = {k: v.clone() for k, v in x.items()}
+    name = "paged_decode_multi_int8" if int8 else "paged_decode_multi"
+    got = pa.paged_decode_multi(**x, max_pos=max_pos)
+    want = pa.paged_decode_multi_ref(**x2, max_pos=max_pos)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     if not err <= TOL:
-        raise AssertionError(f"multi kernel vs plain: max |err| {err} > {TOL}")
-    exact = torch.equal(kp1[1:], kp2[1:]) and torch.equal(vp1[1:], vp2[1:])
+        raise AssertionError(f"{name} kernel vs plain: max |err| {err} > {TOL}")
+    exact = all(torch.equal(x[k][1:], x2[k][1:]) for k in ("k_pages", "v_pages"))
     if not exact:
-        raise AssertionError("multi kernel pool writes differ from the plain "
+        raise AssertionError(f"{name} kernel pool writes differ from the plain "
                              "version outside the null page")
-    ms = time_ms(lambda: pa.paged_decode_multi(q, k_new, v_new, kp1, vp1,
-                                               tables, kv_lens, max_pos))
-    plain_ms = time_ms(lambda: pa.paged_decode_multi_ref(
-        q, k_new, v_new, kp2, vp2, tables, kv_lens, max_pos), reps=3)
+    ms = time_ms(lambda: pa.paged_decode_multi(**x, max_pos=max_pos))
+    plain_ms = time_ms(lambda: pa.paged_decode_multi_ref(**x2, max_pos=max_pos),
+                       reps=3)
     cap = min(W * ps, max_pos)
     bases = [max(n - T, 0) for n in lens_l]
     prior = sum(min(b, cap) for b in bases)
     written = sum(max(0, min(b + T, cap) - b) for b in bases)
     attended = sum(min(b + j + 1, cap) for b in bases for j in range(T))
     flops = 4.0 * H * hd * attended
-    # bf16: the prior K/V read once, q read, out written, the new K/V read
-    # and its in-window rows written into the pool; int32 tables and lengths
-    nbytes = (2.0 * (2 * prior * K * hd + 2 * B * T * H * hd
-                     + 2 * B * T * K * hd + 2 * written * K * hd)
-              + 4.0 * (B * W + B))
+    e, scale_bytes = pool_bytes(x)
+    # the prior K/V read once (e bytes a value), q read, out written, the
+    # new K/V read (bf16) and its in-window rows written into the pool, the
+    # rows' f32 scales (int8); int32 tables and lengths
+    nbytes = (e * 2.0 * prior * K * hd
+              + 2.0 * (2 * B * T * H * hd + 2 * B * T * K * hd)
+              + e * 2.0 * written * K * hd + scale_bytes + 4.0 * (B * W + B))
     b_ms, b_by = bound(flops, nbytes)
-    return {"name": "paged_decode_multi", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "lmrs_tpu_torch/csrc/paged_decode_multi.cu",
             "replaces": "lmrs_tpu/ops/paged_attention.py:852",
             "max_abs_err": err, "pool_writes_exact_outside_null_page": exact,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
             "shape": f"B={B} T={T} W={W} ps={ps} H={H} K={K} hd={hd} "
-                     f"kv_lens={lens_l} max_pos={max_pos} bf16"}
+                     f"kv_lens={lens_l} max_pos={max_pos} "
+                     f"{'int8 pools' if int8 else 'bf16'}"}
 
 
 def check_walk(gen: torch.Generator) -> dict:
@@ -397,7 +470,10 @@ def check_walk(gen: torch.Generator) -> dict:
 
 # ------------------------------------------------------------ phase 4
 
-def check_model() -> dict:
+def check_model(int8: bool = False) -> dict:
+    """``int8``: the same weights quantized (``quantize_params`` on the
+    CPU; the card gets the same int8 values and scales), int8 KV pools with
+    per-slot scale buffers on both devices."""
     import dataclasses
 
     import numpy as np
@@ -405,13 +481,21 @@ def check_model() -> dict:
     from lmrs_tpu_torch.config import model_preset
     from lmrs_tpu_torch.models.transformer import forward_paged, init_params
     from lmrs_tpu_torch.ops.paged_attention import pack_spans
+    from lmrs_tpu_torch.ops.quant import is_quantized, quantize_params
 
     cfg = dataclasses.replace(model_preset("bench-8b"), n_layers=2)
     ps, n_pool, steps = 128, 48, 16
     params_cpu = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
-    params_gpu = {k: (v.to("cuda", torch.bfloat16) if k != "layers" else
-                      [{n: t.to("cuda", torch.bfloat16) for n, t in lp.items()}
-                       for lp in v])
+    if int8:
+        params_cpu = quantize_params(params_cpu)
+
+    def to_card(t):
+        if is_quantized(t):
+            return {k: v.to("cuda") for k, v in t.items()}
+        return t.to("cuda", torch.bfloat16)
+
+    params_gpu = {k: (to_card(v) if k != "layers" else
+                      [{n: to_card(t) for n, t in lp.items()} for lp in v])
                   for k, v in params_cpu.items()}
     g = torch.Generator().manual_seed(3)
     prompt_lens = [517, 300, 129]
@@ -425,10 +509,16 @@ def check_model() -> dict:
     W = max(len(t) for t in tables)
     table = torch.tensor([t + [0] * (W - len(t)) for t in tables])
     shape = (cfg.n_layers * n_pool, cfg.n_kv_heads, ps, cfg.hd)
-    pools = {"cpu": (torch.zeros(shape), torch.zeros(shape)),
-             "cuda": (torch.zeros(shape, dtype=torch.bfloat16, device="cuda"),
-                      torch.zeros(shape, dtype=torch.bfloat16, device="cuda"))}
+    pool_dt = {"cpu": torch.int8 if int8 else torch.float32,
+               "cuda": torch.int8 if int8 else torch.bfloat16}
+    pools = {d: (torch.zeros(shape, dtype=pool_dt[d], device=d),
+                 torch.zeros(shape, dtype=pool_dt[d], device=d))
+             for d in ("cpu", "cuda")}
     params = {"cpu": params_cpu, "cuda": params_gpu}
+    # int8: per-slot scale buffers (3 slots = the 3 prompts' rows)
+    sshape = (cfg.n_layers, len(prompt_lens), cfg.n_kv_heads, cfg.hd)
+    scales = {d: ((torch.ones(sshape, device=d), torch.ones(sshape, device=d))
+                  if int8 else None) for d in ("cpu", "cuda")}
 
     tokens = torch.cat(prompts)[None]
     positions = torch.cat([torch.arange(n) for n in prompt_lens])[None]
@@ -442,6 +532,7 @@ def check_model() -> dict:
         kp, vp = pools[dev]
         return forward_paged(params[dev], cfg, toks.to(dev), pos.to(dev), kp, vp,
                              table.to(dev), lens.to(dev), cfg.max_seq_len,
+                             kv_scales=scales[dev],
                              **{k: (v.to(dev) if torch.is_tensor(v) else v)
                                 for k, v in kw.items()}).float().cpu()
 
@@ -458,10 +549,10 @@ def check_model() -> dict:
         if not bool(same[sure].all()):
             raise AssertionError("greedy disagreement above the margin tolerance")
 
-    lo_cpu = run("cpu", tokens, positions, total, token_pages=tok_pages,
-                 segment_ids=seg, packed_last_idx=last_idx)[0]
-    lo_gpu = run("cuda", tokens, positions, total, token_pages=tok_pages,
-                 segment_ids=seg, packed_last_idx=last_idx)[0]
+    packed_kw = dict(token_pages=tok_pages, segment_ids=seg,
+                     packed_last_idx=last_idx, scale_rows=torch.arange(3))
+    lo_cpu = run("cpu", tokens, positions, total, **packed_kw)[0]
+    lo_gpu = run("cuda", tokens, positions, total, **packed_kw)[0]
     compare(lo_cpu, lo_gpu)
     lens = torch.tensor(prompt_lens)
     cur = lo_cpu.argmax(-1)  # teacher forcing: the CPU's greedy tokens
@@ -474,7 +565,9 @@ def check_model() -> dict:
         cur = a.argmax(-1)
         lens = lens + 1
     # one span dispatch: rows 0 and 1 decode a token, row 2 takes a
-    # 100-token slice (a mixed step's shape) after its 145-token context
+    # 100-token slice (a mixed step's shape) after its 145-token context —
+    # int8: row 2 re-prefills from position 0 instead (a preempted
+    # request's continuation), a base-0 row that owns its slot's scales
     q_lens = np.array([1, 1, 100], np.int32)
     q_starts, total = pack_spans(q_lens)
     flat = torch.zeros(total, dtype=torch.long)
@@ -484,6 +577,8 @@ def check_model() -> dict:
     flat[q_starts[0]], flat[q_starts[1]] = cur[0], cur[1]
     flat[q_starts[2]: q_starts[2] + 100] = torch.randint(3, 259, (100,), generator=g)
     base = lens.numpy().astype(np.int32)
+    if int8:
+        base[2] = 0
     rf = np.clip(row_flat, 0, 2)
     pos = torch.from_numpy(np.clip(base[rf] + np.arange(total) - q_starts[rf], 0,
                                    cfg.max_seq_len - 1))
@@ -494,7 +589,7 @@ def check_model() -> dict:
         span_logits[dev] = forward_paged(
             params[dev], cfg, flat[None].to(dev), pos[None].to(dev), kp, vp,
             table.to(dev), torch.from_numpy(base).to(dev), cfg.max_seq_len,
-            packed_last_idx=gidx.to(dev),
+            packed_last_idx=gidx.to(dev), kv_scales=scales[dev],
             spans=tuple(torch.from_numpy(a).to(dev)
                         for a in (q_starts, q_lens, row_flat)))[0].float().cpu()
     compare(span_logits["cpu"], span_logits["cuda"])
@@ -510,9 +605,15 @@ def check_model() -> dict:
     max_diff = max(diffs)
     if not max_diff <= LOGIT_TOL:
         raise AssertionError(f"model logits: max |diff| {max_diff} > {LOGIT_TOL}")
-    del params, pools, params_gpu
+    if int8:
+        sdiff = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(scales["cuda"], scales["cpu"]))
+    del params, pools, params_gpu, scales
     torch.cuda.empty_cache()
-    return {"phase": "model", "config": "bench-8b widths, n_layers=2",
+    return {"phase": "model-int8" if int8 else "model",
+            "config": "bench-8b widths, n_layers=2"
+                      + (", quantize=int8, kv_quantize=int8" if int8 else ""),
+            **({"scale_buffers_max_rel_diff": sdiff} if int8 else {}),
             "prompts": prompt_lens, "decode_steps": steps,
             "span_dispatch": {"q_lens": q_lens.tolist(), "bases": base.tolist()},
             "verify_step": {"tokens": t, "contexts": ctx.tolist()},
@@ -522,6 +623,9 @@ def check_model() -> dict:
 
 # ------------------------------------------------------------ phase 5
 
+WEIGHT_SPAN = "int8_weight_product"
+
+
 def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                         steps: int = 4, tokens: int = 1) -> dict:
     """Where one decode step's time goes at the main path's shape (8 rows,
@@ -529,17 +633,28 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
     host wall per step (synchronized) and, from ``torch.profiler``, device
     kernel time by kind.  ``tokens`` > 1 profiles the speculative verify
     step instead (``multi_decode``, that many tokens per row; the model
-    forward only, without drafting and acceptance).  Uses real pages from
-    the engine's pool (the prefix cache gives up what it retains) and
-    returns them afterwards."""
-    from torch.profiler import ProfilerActivity, profile
+    forward only, without drafting and acceptance).  With int8 weights the
+    products (``qmatmul``: the int8 -> bf16 conversion, the GEMM and the
+    scale multiply) run under a profiler range of their own, and their
+    device time is reported apart.  Uses real pages from the engine's pool
+    (the prefix cache gives up what it retains) and returns them
+    afterwards."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from lmrs_tpu_torch.models.transformer import forward_paged
+    from lmrs_tpu_torch.models import transformer
+    from lmrs_tpu_torch.ops.quant import is_quantized
 
     sched = engine._scheduler
     cache, cfg = sched.cache, sched.model_cfg
+    int8_weights = is_quantized(sched.params["layers"][0]["wqkv"])
     n_pages = -(-(context + steps + 1 + tokens) // cache.page_size)
     seqs = [cache.alloc_pages(n_pages) for _ in range(rows)]
+    qmatmul = transformer.qmatmul
+
+    def traced_qmatmul(x, w):
+        with record_function(WEIGHT_SPAN):
+            return qmatmul(x, w)
+
     try:
         table = torch.tensor([s + [0] * (cache.max_pages_per_slot - len(s))
                               for s in seqs], device="cuda")
@@ -548,9 +663,11 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
 
         def one_step(i):
             lens = torch.full((rows,), context + i, dtype=torch.long, device="cuda")
+            forward_paged = transformer.forward_paged
             forward_paged(sched.params, cfg, tok, lens[:, None] + offs,
                           cache.k, cache.v, table, (lens + tokens).to(torch.int32),
-                          cfg.max_seq_len, multi_decode=tokens > 1)
+                          cfg.max_seq_len, multi_decode=tokens > 1,
+                          kv_scales=sched.kv_scales)
 
         one_step(0)
         torch.cuda.synchronize()
@@ -559,13 +676,25 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
             one_step(i)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(steps):
-                one_step(i)
-            torch.cuda.synchronize()
+        if int8_weights:
+            transformer.qmatmul = traced_qmatmul
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(steps):
+                    one_step(i)
+                torch.cuda.synchronize()
+        finally:
+            transformer.qmatmul = qmatmul
         kinds = {"paged_decode": 0.0, "gemm": 0.0, "other": 0.0}
         n_kernels = 0
+        weights_us = 0.0
         for evt in prof.events():
+            if evt.name == WEIGHT_SPAN:
+                if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                    # the range's kernels (GEMMs, casts, scale multiplies)
+                    weights_us += evt.device_time_total
+                continue
             if str(getattr(evt, "device_type", "")).endswith("CUDA"):
                 us = evt.time_range.elapsed_us()  # a kernel's own duration
                 name = evt.name.lower()
@@ -576,29 +705,49 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                 kinds[kind] += us / 1e3
                 n_kernels += 1
         busy = sum(kinds.values()) / steps
-        return {"rows": rows, "tokens": tokens, "context": context,
-                "wall_ms_per_step": wall_ms,
-                "device_busy_ms_per_step": busy if n_kernels else "not measured",
-                "device_idle_share": (1 - busy / wall_ms) if n_kernels else "not measured",
-                "kernel_ms_per_step": {k: v / steps for k, v in kinds.items()},
-                "kernels_per_step": n_kernels / steps}
+        out = {"rows": rows, "tokens": tokens, "context": context,
+               "wall_ms_per_step": wall_ms,
+               "device_busy_ms_per_step": busy if n_kernels else "not measured",
+               "device_idle_share": (1 - busy / wall_ms) if n_kernels else "not measured",
+               "kernel_ms_per_step": {k: v / steps for k, v in kinds.items()},
+               "kernels_per_step": n_kernels / steps}
+        if int8_weights:
+            w_ms = weights_us / 1e3 / steps
+            out["int8_split_ms_per_step"] = (
+                {"decode_kernel": kinds["paged_decode"] / steps,
+                 "int8_weight_products": w_ms,
+                 "rest": busy - kinds["paged_decode"] / steps - w_ms}
+                if weights_us > 0 else "not measured")
+        return out
     finally:
         for s in seqs:
             cache.allocator.free(s)
 
 
-def summarize_once(**engine_kw) -> tuple:
-    """``TranscriptSummarizer`` over the demo transcript at full bench-8b,
-    launch counters zeroed just before ``summarize`` and read just after;
-    the checks every path must pass (a summary, no failed request, a clean
-    audit, a hierarchical reduce).  Returns (summarizer, engine, stats,
-    wall seconds, launches)."""
-    from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
-                                       PipelineConfig, ReduceConfig)
+def kernel_counters() -> dict:
+    """Every kernel's launch counter: name -> (wrapper, attribute)."""
     from lmrs_tpu_torch.ops.flash_attention import flash_attention
-    from lmrs_tpu_torch.ops.paged_attention import (paged_decode_fused,
+    from lmrs_tpu_torch.ops.paged_attention import (paged_decode,
+                                                    paged_decode_fused,
                                                     paged_decode_multi,
                                                     ragged_spans)
+
+    out = {"flash_prefill": (flash_attention, "launches"),
+           "paged_decode": (paged_decode, "launches")}
+    for fn in (paged_decode_fused, ragged_spans, paged_decode_multi):
+        out[fn.__name__] = (fn, "launches")
+        out[fn.__name__ + "_int8"] = (fn, "launches_int8")
+    return out
+
+
+def summarize_once(**engine_kw) -> tuple:
+    """``TranscriptSummarizer`` over the demo transcript at full bench-8b,
+    every launch counter zeroed just before ``summarize`` and read just
+    after; the checks every path must pass (a summary, no failed request,
+    a clean audit, a hierarchical reduce).  Returns (summarizer, engine,
+    stats, wall seconds, launches)."""
+    from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
+                                       PipelineConfig, ReduceConfig)
     from lmrs_tpu_torch.pipeline import TranscriptSummarizer
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
 
@@ -621,17 +770,14 @@ def summarize_once(**engine_kw) -> tuple:
     engine = summarizer.executor.engine  # builds + random-inits the model
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counted = {"flash_prefill": flash_attention,
-               "paged_decode_fused": paged_decode_fused,
-               "ragged_spans": ragged_spans,
-               "paged_decode_multi": paged_decode_multi}
-    for fn in counted.values():
-        fn.launches = 0
+    counted = kernel_counters()
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
     t0 = time.time()
     stats = summarizer.summarize(transcript)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
     violations = engine.audit()
     if not stats["summary"]:
         raise AssertionError("empty summary")
@@ -644,13 +790,23 @@ def summarize_once(**engine_kw) -> tuple:
     return summarizer, engine, stats, wall, launches
 
 
+def require_launches(launches: dict, path: str, want: tuple,
+                     never: tuple = ()) -> None:
+    for name in want:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path}")
+    for name in never:
+        if launches[name] != 0:
+            raise AssertionError(f"kernel {name} ran {launches[name]} times "
+                                 f"on the {path}")
+
+
 def run_main_path() -> dict:
     summarizer, engine, stats, wall, launches = summarize_once()
     em = stats["engine_metrics"]
     violations = engine.audit()
-    for name in ("flash_prefill", "paged_decode_fused", "ragged_spans"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    require_launches(launches, "main path",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"))
     if em["mixed_batch"]["dispatches"] <= 0:
         raise AssertionError("no mixed step ran on the main path")
     if em["prefix_cache"]["tokens_reused"] <= 0:
@@ -689,12 +845,9 @@ def run_spec_path() -> dict:
     summarizer, engine, stats, wall, launches = summarize_once(
         speculate_k=4, mixed_batch=False)
     em = stats["engine_metrics"]
-    for name in ("paged_decode_multi", "flash_prefill", "ragged_spans"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the spec path")
-    if launches["paged_decode_fused"] != 0:
-        raise AssertionError("a plain decode step ran on the spec path "
-                             f"({launches['paged_decode_fused']} launches)")
+    require_launches(launches, "spec path",
+                     ("paged_decode_multi", "flash_prefill", "ragged_spans"),
+                     never=("paged_decode_fused",))
     if em["mixed_batch"]["dispatches"] != 0:
         raise AssertionError("a mixed step ran on the spec path")
     step = profile_decode_step(engine, tokens=5)
@@ -720,6 +873,66 @@ def run_spec_path() -> dict:
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "failed_requests": stats["failed_requests"],
             "summary_chars": len(stats["summary"]), "launches": launches}
+
+
+# ------------------------------------------------------------ phases 7-8
+
+def run_int8_path(spec: bool = False) -> dict:
+    """Phase 5's transcript and config with int8 weights and int8 KV pages
+    (the prefix cache is then off); ``spec``: plus linear speculation
+    (phase 8)."""
+    kw = dict(quantize="int8", kv_quantize="int8")
+    if spec:
+        kw.update(speculate_k=4, mixed_batch=False)
+    summarizer, engine, stats, wall, launches = summarize_once(**kw)
+    em = stats["engine_metrics"]
+    sched = engine._scheduler
+    if sched.cache.k.dtype != torch.int8:
+        raise AssertionError("the int8 path's pools are not int8")
+    if "prefix_cache" in em or sched.counters["prefix_queries"] != 0:
+        raise AssertionError("the prefix cache ran under int8 KV")
+    bf16_kernels = ("paged_decode_fused", "ragged_spans", "paged_decode_multi")
+    if spec:
+        path = "int8 spec path"
+        require_launches(launches, path,
+                         ("paged_decode_multi_int8", "flash_prefill"),
+                         never=("paged_decode_fused_int8",) + bf16_kernels)
+        if em["mixed_batch"]["dispatches"] != 0:
+            raise AssertionError("a mixed step ran on the int8 spec path")
+    else:
+        path = "int8 path"
+        require_launches(launches, path,
+                         ("flash_prefill", "ragged_spans_int8",
+                          "paged_decode_fused_int8"), never=bf16_kernels)
+        if em["mixed_batch"]["dispatches"] <= 0:
+            raise AssertionError("no mixed step ran on the int8 path")
+    step = profile_decode_step(engine, tokens=5 if spec else 1)
+    if engine.audit():
+        raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summarizer.shutdown()
+    out = {"phase": "int8-spec" if spec else "int8",
+           "model": "bench-8b (32 layers, random-init, int8 weights + int8 KV)",
+           ("verify_step_profile" if spec else "decode_step_profile"): step,
+           "requests": em["requests"], "reduce_levels": stats["reduce_levels"],
+           "prefill_tokens": em["prefill_tokens"],
+           "prefill_dispatches": em["prefill_dispatches"],
+           "packed_prefill_dispatches": em["packed_prefill_dispatches"],
+           "decode_tokens": em["decode_tokens"],
+           "decode_blocks": em["decode_blocks"],
+           "decode_block_seconds": em["decode_block_seconds"],
+           "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+           "mixed_step_seconds": em["mixed_step_seconds"],
+           "mixed_batch": em["mixed_batch"], "rpa": em["rpa"],
+           "prefix_queries": sched.counters["prefix_queries"],
+           "preemptions": em["preemptions"], "stalls": em["stalls"],
+           "audit": engine.audit(), "wall_seconds": wall,
+           "stage_times": stats["stage_times"], "peak_memory_gib": peak,
+           "failed_requests": stats["failed_requests"],
+           "summary_chars": len(stats["summary"]), "launches": launches}
+    if spec:
+        out["spec_accepted_tokens"] = em["spec_accepted_tokens"]
+    return out
 
 
 def main() -> int:
@@ -752,33 +965,52 @@ def main() -> int:
                     for n, i in info.items()}})
     from lmrs_tpu_torch.ops.paged_attention import paged_decode
 
+    def timed(fn, *args, **kw) -> dict:
+        t = time.time()
+        out = fn(*args, **kw)
+        return {**out, "phase_seconds": round(time.time() - t, 3)}
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     spans = check_spans(gen)
+    spans8 = check_spans(gen, int8=True)
     rows = [check_flash(gen), check_decode(gen),
             {**spans[0], "max_abs_err": max(r["max_abs_err"] for r in spans)},
             check_multi(gen)]
     paged_decode.launches = 0
     rows.append(check_walk(gen))
     walk_launches = paged_decode.launches
-    for r in rows[:2] + spans + rows[3:]:
+    rows8 = [check_decode(gen, int8=True),
+             {**spans8[0], "max_abs_err": max(r["max_abs_err"] for r in spans8)},
+             check_multi(gen, int8=True)]
+    for r in rows[:2] + spans + rows[3:] + rows8[:1] + spans8 + rows8[2:]:
         emit({"phase": "kernels", **r})
-    emit(check_model())
-    main_out = run_main_path()
+    emit(timed(check_model))
+    emit(timed(check_model, int8=True))
+    main_out = timed(run_main_path)
     emit(main_out)
-    spec_out = run_spec_path()
+    spec_out = timed(run_spec_path)
     emit(spec_out)
-    launches = {**{n: (main_out["launches"][n], "main path (phase 5)") for n in
-                   ("flash_prefill", "paged_decode_fused", "ragged_spans")},
-                "paged_decode_multi": (spec_out["launches"]["paged_decode_multi"],
-                                       "speculative path (phase 6)"),
-                "paged_decode": (walk_launches,
-                                 "phase 3 check and timing (no caller on any path)")}
+    int8_out = timed(run_int8_path)
+    emit(int8_out)
+    int8_spec_out = timed(run_int8_path, spec=True)
+    emit(int8_spec_out)
+    by = {"flash_prefill": (main_out, "main path (phase 5)"),
+          "paged_decode_fused": (main_out, "main path (phase 5)"),
+          "ragged_spans": (main_out, "main path (phase 5)"),
+          "paged_decode_multi": (spec_out, "speculative path (phase 6)"),
+          "paged_decode_fused_int8": (int8_out, "int8 path (phase 7)"),
+          "ragged_spans_int8": (int8_out, "int8 path (phase 7)"),
+          "paged_decode_multi_int8": (int8_spec_out,
+                                      "int8 speculative path (phase 8)")}
+    launches = {n: (out["launches"][n], path) for n, (out, path) in by.items()}
+    launches["paged_decode"] = (walk_launches, "phase 3 check and timing "
+                                "(no caller on any path)")
     keys = ("name", "route", "source", "replaces", "launches", "launched_by",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [{k: ({**r, "launches": launches[r["name"]][0],
                             "launched_by": launches[r["name"]][1]})[k]
-                       for k in keys} for r in rows]})
+                       for k in keys} for r in rows + rows8]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

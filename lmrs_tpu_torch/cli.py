@@ -1,9 +1,10 @@
 """``lmrs-torch``: summarize a transcript through the PyTorch/CUDA port.
 
 Flag spellings follow the reference CLI (``lmrs``).  Runs on the card by
-default; ``--device cpu`` runs the plain PyTorch path.  Flags of features
-the port does not carry yet (host/disk KV, tree speculation, int8, meshes)
-are refused with the slice that brings them.  ``--speculate-k`` is among
+default; ``--device cpu`` runs the plain PyTorch path.  ``--quantize int8``
+and ``--kv-quantize int8`` select int8 weights and int8 KV pages.  Flags of
+features the port does not carry yet (host/disk KV, tree speculation,
+meshes) are refused with the slice that brings them.  ``--speculate-k`` is among
 them: under the default mixed steps the reference CLI runs it as tree
 speculation.  Linear speculation is reached through the engine config,
 ``EngineConfig(speculate_k=K, mixed_batch=False)``.
@@ -29,8 +30,6 @@ logger = logging.getLogger("lmrs_torch.cli")
 _LATER = {
     "host_kv": "KV movement (host/disk KV tiers)",
     "speculate_k": "tree speculation",
-    "quantize": "int8",
-    "kv_quantize": "int8",
     "mesh": "multi-GPU",
 }
 
@@ -66,11 +65,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-prefix-cache", action="store_true",
                    help="disable shared-prefix KV reuse (the map/reduce "
                         "preambles re-prefill per request)")
+    p.add_argument("--quantize", default=None,
+                   help="int8: int8 weight-only projections")
+    p.add_argument("--kv-quantize", default=None,
+                   help="int8: int8 KV pages with per-slot scales (turns the "
+                        "prefix cache off)")
     # not in the port yet: accepted only to refuse them by name
     p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--speculate-k", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--quantize", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--kv-quantize", default=None, help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     return p
 
@@ -82,7 +84,9 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
             raise ValueError(f"--{name.replace('_', '-')} is not in the port "
                              f"yet; it arrives with the {later} slice")
     engine = EngineConfig(seed=args.seed,
-                          prefix_cache=not args.no_prefix_cache)
+                          prefix_cache=not args.no_prefix_cache,
+                          quantize=args.quantize,
+                          kv_quantize=args.kv_quantize)
     if args.model:
         engine = dataclasses.replace(engine, model=args.model)
     if args.max_tokens is not None:

@@ -4,8 +4,10 @@
 ``EngineConfig`` carries only the fields the port honours: the
 continuous scheduler with packed fresh prefill, decode blocks, mixed
 prefill/decode steps, chunked continuation prefill and the shared-prefix
-KV cache (the reference's defaults).  Host/disk KV, speculation, int8 and
-device meshes have no field here; the CLI refuses their flags by name.
+KV cache (the reference's defaults), linear speculation (``speculate_k``
+with mixed steps off) and int8 weights and KV pages (``quantize``,
+``kv_quantize``).  Host/disk KV, tree speculation and device meshes have
+no field here; the CLI refuses their flags by name.
 """
 
 from __future__ import annotations
@@ -76,6 +78,10 @@ class EngineConfig:
     decode step.  ``prefix_cache``: completed prompts donate their
     full-page KV prefix to a radix tree that later admissions reuse
     (``prefix_cache_max_pages`` caps it; 0 = bounded by the pool).
+    ``quantize="int8"``: int8 weight-only projections (``ops/quant.py``).
+    ``kv_quantize="int8"``: int8 KV pages with per-(slot, kv head,
+    channel) scales; it needs ``page_size % 32 == 0`` and turns the prefix
+    cache off (the scheduler says so), as in the reference.
     """
 
     backend: str = "torch"
@@ -94,6 +100,8 @@ class EngineConfig:
     # off); needs mixed_batch=False (see __post_init__)
     speculate_k: int = 0
     speculate_ngram: int = 3
+    quantize: str | None = None     # None | "int8" (weight-only)
+    kv_quantize: str | None = None  # None | "int8" (KV pages)
     temperature: float = field(
         default_factory=lambda: _envmod.env_float("TEMPERATURE", 0.3))
     max_tokens: int = field(
@@ -104,6 +112,12 @@ class EngineConfig:
         if self.backend != "torch":
             raise ValueError(f"unknown engine backend {self.backend!r}; "
                              "the port has the 'torch' backend only")
+        if self.quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {self.quantize!r}; "
+                             "supported: int8")
+        if self.kv_quantize not in (None, "int8"):
+            raise ValueError(f"unknown kv_quantize mode {self.kv_quantize!r}; "
+                             "supported: int8")
         if self.scheduler != "continuous":
             raise ValueError(
                 f"scheduler {self.scheduler!r} is not ported; the static "

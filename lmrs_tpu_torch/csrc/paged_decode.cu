@@ -1,5 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), bf16: write-fused and
-// walk-only.
+// Paged decode attention for Hopper (sm_90a): write-fused (bf16 or int8
+// pools) and walk-only (bf16).
 //
 // `lmrs_paged_decode_fused_bf16` replaces the TPU kernel
 // lmrs_tpu/ops/paged_attention.py `paged_decode_pallas_fused` (per-row
@@ -16,6 +16,17 @@
 // kernel compiled with WRITE = false, which drops the write (the sync after
 // it stays: it also publishes q in shared memory).  Same clamp to W·ps;
 // kv_len == 0 gives a zero row, as the TPU kernel's acc / where(l > 0, l, 1).
+//
+// `lmrs_paged_decode_fused_int8` is the same TPU kernel's int8-pool body
+// (its `kscale`/`vscale` operands, :1358-1359): the kernel compiled with
+// QUANT = true over int8 pools and the dispatch rows' per-(kv head,
+// channel) f32 scales [B, K, hd].  The write quantizes the new row,
+// rintf(__fdiv_rn(x, s)) clamped to +-127 — round half to even and an
+// IEEE division, bit for bit what torch.round(x / s) gives (never build
+// with --use_fast_math: the division would turn approximate).  The walk
+// folds K's dequant into q (q·(s⊙k8) = (q⊙s)·k8, in f32 in shared memory)
+// and V's into the output after normalizing; int8 K/V rows load as 16
+// values per 16-byte load and widen to f32 exactly.
 //
 // Layout: q [B, H, hd]; k_new/v_new [B, K, hd]; pools [P_total, K, ps, hd]
 // (page-major, layer-flattened: callers pass GLOBAL page ids); tables
@@ -36,11 +47,16 @@
 // bound by device memory (3.35 TB/s).  This first version uses one block per
 // (row, kv head) — B·K blocks, fewer than the 132 SMs at B=8, K=8 — and no
 // split over the sequence, so it reaches a fraction of that rate at short
-// contexts; the measured time is in PERF.md.
+// contexts; the measured time is in PERF.md.  Int8 pools halve the live
+// K/V bytes (1 byte per value); the serial walk of the longest row, not the
+// bytes, sets this version's time, so the int8 build runs near the bf16
+// one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_int8.cuh"
 
 namespace {
 
@@ -49,18 +65,27 @@ constexpr int CHUNK = 32;  // tokens per warp step (one per lane)
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD, int NREP, bool WRITE>
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+
+// QUANT: int8 pools with per-(row, kv head, channel) scales kscale/vscale
+// [B, K, hd]; otherwise bf16 pools and the scale pointers are unused.
+template <int HD, int NREP, bool WRITE, bool QUANT>
 __global__ void __launch_bounds__(NWARPS * 32)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_new,
                     const __nv_bfloat16* __restrict__ v_new,
-                    __nv_bfloat16* __restrict__ k_pages,
-                    __nv_bfloat16* __restrict__ v_pages,
+                    pool_t<QUANT>* __restrict__ k_pages,
+                    pool_t<QUANT>* __restrict__ v_pages,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
                     const int* __restrict__ tables,
                     const int* __restrict__ kv_lens,
                     __nv_bfloat16* __restrict__ out,
                     int KH, int ps, int W, float scale_log2) {
+  using PT = pool_t<QUANT>;
   constexpr int DPL = HD / 32;  // output channels per lane
+  constexpr int VEC = 16 / sizeof(PT);  // pool values per 16-byte load
   __shared__ float qs[NREP][HD];
   __shared__ float m_w[NWARPS][NREP], l_w[NWARPS][NREP];
   __shared__ float acc_w[NWARPS][NREP][HD];
@@ -79,14 +104,22 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                           ((long long)kvh * ps + pos % ps) * HD;
     const long long src = ((long long)b * KH + kvh) * HD;
     for (int d = tid; d < HD; d += NWARPS * 32) {
-      k_pages[off + d] = k_new[src + d];
-      v_pages[off + d] = v_new[src + d];
+      if constexpr (QUANT) {
+        k_pages[off + d] = quant8(__bfloat162float(k_new[src + d]), kscale[src + d]);
+        v_pages[off + d] = quant8(__bfloat162float(v_new[src + d]), vscale[src + d]);
+      } else {
+        k_pages[off + d] = k_new[src + d];
+        v_pages[off + d] = v_new[src + d];
+      }
     }
   }
+  const long long srow = ((long long)b * KH + kvh) * HD;  // this row's scales
   for (int i = tid; i < NREP * HD; i += NWARPS * 32) {
     const int r = i / HD, d = i % HD;
-    qs[r][d] = __bfloat162float(q[((long long)b * H + kvh * NREP + r) * HD + d]) *
+    float qv = __bfloat162float(q[((long long)b * H + kvh * NREP + r) * HD + d]) *
                scale_log2;
+    if constexpr (QUANT) qv *= kscale[srow + d];  // K's dequant, folded into q
+    qs[r][d] = qv;
   }
   __syncthreads();  // the write and q are visible to every warp
 
@@ -115,14 +148,14 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       for (int r = 0; r < NREP; ++r) s[r] = 0.f;
       const uint4* krow = reinterpret_cast<const uint4*>(k_pages + base + lane * HD);
 #pragma unroll
-      for (int v8 = 0; v8 < HD / 8; ++v8) {
-        const uint4 raw = krow[v8];
-        const __nv_bfloat16* kv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      for (int vi = 0; vi < HD / VEC; ++vi) {
+        const uint4 raw = krow[vi];
+        const PT* kv = reinterpret_cast<const PT*>(&raw);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float kf = __bfloat162float(kv[j]);
+        for (int j = 0; j < VEC; ++j) {
+          const float kf = to_f(kv[j]);
 #pragma unroll
-          for (int r = 0; r < NREP; ++r) s[r] += qs[r][v8 * 8 + j] * kf;
+          for (int r = 0; r < NREP; ++r) s[r] += qs[r][vi * VEC + j] * kf;
         }
       }
     }
@@ -146,10 +179,10 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     // P·V: lane owns channels lane*DPL .. +DPL-1
     for (int t = 0; t < n_valid; ++t) {
-      const __nv_bfloat16* vrow = v_pages + base + (long long)t * HD + lane * DPL;
+      const PT* vrow = v_pages + base + (long long)t * HD + lane * DPL;
       float vf[DPL];
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) vf[j] = __bfloat162float(vrow[j]);
+      for (int j = 0; j < DPL; ++j) vf[j] = to_f(vrow[j]);
 #pragma unroll
       for (int r = 0; r < NREP; ++r) {
         const float pt = __shfl_sync(0xffffffff, p[r], t);
@@ -182,20 +215,21 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       l += l_w[w][r] * f;
       o += acc_w[w][r][d] * f;
     }
-    out[((long long)b * H + kvh * NREP + r) * HD + d] =
-        __float2bfloat16(l > 0.f ? o / l : 0.f);
+    float res = l > 0.f ? o / l : 0.f;
+    if constexpr (QUANT) res *= vscale[srow + d];  // V's dequant
+    out[((long long)b * H + kvh * NREP + r) * HD + d] = __float2bfloat16(res);
   }
 }
 
-template <int HD, bool WRITE>
+template <int HD, bool WRITE, bool QUANT, typename PT>
 int launch_hd(int nrep, dim3 grid, dim3 block, cudaStream_t st,
               const __nv_bfloat16* q, const __nv_bfloat16* kn,
-              const __nv_bfloat16* vn, __nv_bfloat16* kp, __nv_bfloat16* vp,
-              const int* tab, const int* lens, __nv_bfloat16* out, int KH,
-              int ps, int W, float sl2) {
-#define LMRS_DECODE(NR)                                               \
-  paged_decode_kernel<HD, NR, WRITE><<<grid, block, 0, st>>>(         \
-      q, kn, vn, kp, vp, tab, lens, out, KH, ps, W, sl2)
+              const __nv_bfloat16* vn, PT* kp, PT* vp, const float* ks,
+              const float* vs, const int* tab, const int* lens,
+              __nv_bfloat16* out, int KH, int ps, int W, float sl2) {
+#define LMRS_DECODE(NR)                                                \
+  paged_decode_kernel<HD, NR, WRITE, QUANT><<<grid, block, 0, st>>>(   \
+      q, kn, vn, kp, vp, ks, vs, tab, lens, out, KH, ps, W, sl2)
   switch (nrep) {
     case 1: LMRS_DECODE(1); break;
     case 2: LMRS_DECODE(2); break;
@@ -207,11 +241,12 @@ int launch_hd(int nrep, dim3 grid, dim3 block, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WRITE>
+template <bool WRITE, bool QUANT>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
-           void* v_pages, const void* tables, const void* kv_lens, void* out,
-           int B, int H, int KH, int hd, int ps, int W, float sm_scale,
-           void* stream) {
+           void* v_pages, const void* kscale, const void* vscale,
+           const void* tables, const void* kv_lens, void* out, int B, int H,
+           int KH, int hd, int ps, int W, float sm_scale, void* stream) {
+  using PT = pool_t<QUANT>;
   dim3 grid(B, KH);
   dim3 block(NWARPS * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -220,15 +255,16 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
 #define LMRS_DECODE_ARGS                                                        \
   nrep, grid, block, st, static_cast<const __nv_bfloat16*>(q),                  \
       static_cast<const __nv_bfloat16*>(k_new),                                 \
-      static_cast<const __nv_bfloat16*>(v_new),                                 \
-      static_cast<__nv_bfloat16*>(k_pages), static_cast<__nv_bfloat16*>(v_pages), \
-      static_cast<const int*>(tables), static_cast<const int*>(kv_lens),        \
-      static_cast<__nv_bfloat16*>(out), KH, ps, W, sl2
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<PT*>(k_pages),      \
+      static_cast<PT*>(v_pages), static_cast<const float*>(kscale),             \
+      static_cast<const float*>(vscale), static_cast<const int*>(tables),       \
+      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(out), KH,   \
+      ps, W, sl2
   int rc;
   if (hd == 128) {
-    rc = launch_hd<128, WRITE>(LMRS_DECODE_ARGS);
+    rc = launch_hd<128, WRITE, QUANT>(LMRS_DECODE_ARGS);
   } else if (hd == 64) {
-    rc = launch_hd<64, WRITE>(LMRS_DECODE_ARGS);
+    rc = launch_hd<64, WRITE, QUANT>(LMRS_DECODE_ARGS);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }
@@ -243,8 +279,20 @@ extern "C" int lmrs_paged_decode_fused_bf16(
     void* v_pages, const void* tables, const void* kv_lens, void* out,
     int B, int H, int KH, int hd, int ps, int W, float sm_scale,
     void* stream) {
-  return launch<true>(q, k_new, v_new, k_pages, v_pages, tables, kv_lens, out,
-                      B, H, KH, hd, ps, W, sm_scale, stream);
+  return launch<true, false>(q, k_new, v_new, k_pages, v_pages, nullptr,
+                             nullptr, tables, kv_lens, out, B, H, KH, hd, ps,
+                             W, sm_scale, stream);
+}
+
+// int8 pools; kscale/vscale are the dispatch rows' f32 scales [B, K, hd].
+extern "C" int lmrs_paged_decode_fused_int8(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* kscale, const void* vscale, const void* tables,
+    const void* kv_lens, void* out, int B, int H, int KH, int hd, int ps,
+    int W, float sm_scale, void* stream) {
+  return launch<true, true>(q, k_new, v_new, k_pages, v_pages, kscale, vscale,
+                            tables, kv_lens, out, B, H, KH, hd, ps, W,
+                            sm_scale, stream);
 }
 
 // Walk-only: the pools are only read (the WRITE = false kernel never
@@ -253,7 +301,8 @@ extern "C" int lmrs_paged_decode_bf16(
     const void* q, const void* k_pages, const void* v_pages,
     const void* tables, const void* kv_lens, void* out, int B, int H, int KH,
     int hd, int ps, int W, float sm_scale, void* stream) {
-  return launch<false>(q, nullptr, nullptr, const_cast<void*>(k_pages),
-                       const_cast<void*>(v_pages), tables, kv_lens, out, B, H,
-                       KH, hd, ps, W, sm_scale, stream);
+  return launch<false, false>(q, nullptr, nullptr, const_cast<void*>(k_pages),
+                              const_cast<void*>(v_pages), nullptr, nullptr,
+                              tables, kv_lens, out, B, H, KH, hd, ps, W,
+                              sm_scale, stream);
 }

@@ -1,5 +1,5 @@
-// Multi-token verify paged attention for Hopper (sm_90a), bf16: the
-// speculative-decoding step.
+// Multi-token verify paged attention for Hopper (sm_90a), bf16 or int8
+// pools: the speculative-decoding step.
 //
 // Replaces the TPU kernel lmrs_tpu/ops/paged_attention.py
 // `paged_decode_pallas_multi` (per-row grid, pallas_call at :852; its
@@ -12,6 +12,17 @@
 // col <= base + j with col < cap, f32 online softmax.  Contract difference
 // from the TPU kernel's XLA twin: an out-of-span token is SKIPPED, where
 // the twin parks it on the null page; the pools agree everywhere else.
+//
+// `lmrs_paged_decode_multi_int8` is the same TPU kernel's int8-pool body
+// (its `kscale`/`vscale` operands, :771-772): compiled with QUANT = true
+// over int8 pools and the rows' f32 scales [B, K, hd].  The write
+// quantizes the T new rows with the row's frozen scales,
+// rintf(__fdiv_rn(x, s)) clamped to +-127 (bit for bit torch.round(x / s);
+// never build with --use_fast_math); the walk widens staged int8 K/V to
+// bf16 (exact), folds K's dequant into q (q⊙s rounded to bf16 for the mma
+// A operand, one rounding more than the reference's f32 product) and V's
+// into the output, and attends the T tokens' quantized rows from the pool,
+// as the reference does.
 //
 // Layout: q [B, T, H, hd]; k_new/v_new [B, T, K, hd]; pools
 // [P_total, K, ps, hd] (page-major, layer-flattened: callers pass GLOBAL
@@ -62,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kv_int8.cuh"
+
 namespace {
 
 constexpr int QROWS = 64;     // query rows per block (16 per warp): T * n_rep
@@ -86,12 +99,14 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 
 // Query row r of the block is token r / NREP, query head kvh * NREP +
 // r % NREP; rows r >= T * NREP are padding.
-template <int HD, int NREP>
+template <int HD, int NREP, bool QUANT>
 __global__ void __launch_bounds__(NWARPS * 32)
 paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k_new,
                           const __nv_bfloat16* __restrict__ v_new,
-                          __nv_bfloat16* k_pages, __nv_bfloat16* v_pages,
+                          pool_t<QUANT>* k_pages, pool_t<QUANT>* v_pages,
+                          const float* __restrict__ kscale,
+                          const float* __restrict__ vscale,
                           const int* __restrict__ tables,
                           const int* __restrict__ kv_lens,
                           __nv_bfloat16* __restrict__ out, int T, int KH,
@@ -108,6 +123,11 @@ paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
   const long long page_stride = (long long)KH * ps * HD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
+  // int8: this row's scales (K's quantize the writes and fold into q, V's
+  // quantize the writes and fold into out)
+  const long long srow = ((long long)b * KH + kvh) * HD;
+  const float* krow_s = QUANT ? kscale + srow : nullptr;
+  const float* vrow_s = QUANT ? vscale + srow : nullptr;
 
   // 1. write this kv head's T new K/V rows (positions < cap only)
   for (int i = tid; i < T * (HD / 8); i += NWARPS * 32) {
@@ -117,10 +137,8 @@ paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
     const long long dst = tab[pos / ps] * page_stride +
                           ((long long)kvh * ps + pos % ps) * HD + c;
     const long long src = (((long long)b * T + j) * KH + kvh) * HD + c;
-    *reinterpret_cast<uint4*>(k_pages + dst) =
-        *reinterpret_cast<const uint4*>(k_new + src);
-    *reinterpret_cast<uint4*>(v_pages + dst) =
-        *reinterpret_cast<const uint4*>(v_new + src);
+    store8(k_pages + dst, k_new + src, QUANT ? krow_s + c : nullptr);
+    store8(v_pages + dst, v_new + src, QUANT ? vrow_s + c : nullptr);
   }
   __syncthreads();  // the writes are visible to every warp's tile loads
 
@@ -148,8 +166,8 @@ paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
       const int c0 = ks * 16 + tig * 2;
       uint32_t lo = 0, hi = 0;
       if (valid[half]) {
-        lo = *reinterpret_cast<const uint32_t*>(q + qoff[half] + c0);
-        hi = *reinterpret_cast<const uint32_t*>(q + qoff[half] + c0 + 8);
+        lo = q_pair(q + qoff[half] + c0, QUANT ? krow_s + c0 : nullptr);
+        hi = q_pair(q + qoff[half] + c0 + 8, QUANT ? krow_s + c0 + 8 : nullptr);
       }
       qf[ks][half] = lo;
       qf[ks][2 + half] = hi;
@@ -173,8 +191,8 @@ paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
       if (col < kv_hi) {
         const long long off = tab[col / ps] * page_stride +
                               ((long long)kvh * ps + col % ps) * HD + c;
-        kv4 = *reinterpret_cast<const uint4*>(k_pages + off);
-        vv4 = *reinterpret_cast<const uint4*>(v_pages + off);
+        kv4 = load8(k_pages + off);
+        vv4 = load8(v_pages + off);
       }
       *reinterpret_cast<uint4*>(&Ks[r * KSTR + c]) = kv4;
       const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
@@ -270,22 +288,26 @@ paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
       const int col = n * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(out + qoff[half] + col) =
-          pack_bf16(o_acc[n][half * 2] * inv, o_acc[n][half * 2 + 1] * inv);
+      float o0 = o_acc[n][half * 2] * inv, o1 = o_acc[n][half * 2 + 1] * inv;
+      if constexpr (QUANT) {
+        o0 *= vrow_s[col];
+        o1 *= vrow_s[col + 1];
+      }
+      *reinterpret_cast<uint32_t*>(out + qoff[half] + col) = pack_bf16(o0, o1);
     }
   }
 }
 
-template <int HD>
+template <int HD, bool QUANT>
 int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
-              const __nv_bfloat16* vn, __nv_bfloat16* kp, __nv_bfloat16* vp,
-              const int* tab, const int* lens, __nv_bfloat16* out, int B,
-              int T, int KH, int ps, int W, int cap, float sl2,
-              cudaStream_t st) {
+              const __nv_bfloat16* vn, pool_t<QUANT>* kp, pool_t<QUANT>* vp,
+              const float* ks, const float* vs, const int* tab,
+              const int* lens, __nv_bfloat16* out, int B, int T, int KH,
+              int ps, int W, int cap, float sl2, cudaStream_t st) {
   const dim3 grid(B, KH), block(NWARPS * 32);
-#define LMRS_MULTI(NR)                                              \
-  paged_decode_multi_kernel<HD, NR><<<grid, block, 0, st>>>(      \
-      q, kn, vn, kp, vp, tab, lens, out, T, KH, ps, W, cap, sl2)
+#define LMRS_MULTI(NR)                                                \
+  paged_decode_multi_kernel<HD, NR, QUANT><<<grid, block, 0, st>>>( \
+      q, kn, vn, kp, vp, ks, vs, tab, lens, out, T, KH, ps, W, cap, sl2)
   switch (nrep) {
     case 1: LMRS_MULTI(1); break;
     case 2: LMRS_MULTI(2); break;
@@ -297,13 +319,12 @@ int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int lmrs_paged_decode_multi_bf16(
-    const void* q, const void* k_new, const void* v_new, void* k_pages,
-    void* v_pages, const void* tables, const void* kv_lens, void* out, int B,
-    int T, int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
-    void* stream) {
+template <bool QUANT>
+int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
+           void* v_pages, const void* kscale, const void* vscale,
+           const void* tables, const void* kv_lens, void* out, int B, int T,
+           int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
+           void* stream) {
   if (B <= 0) return 0;
   if (T < 1 || T * (H / KH) > QROWS) return static_cast<int>(cudaErrorInvalidValue);
   const int cap = min(W * ps, max_pos);
@@ -313,17 +334,41 @@ extern "C" int lmrs_paged_decode_multi_bf16(
   H / KH, static_cast<const __nv_bfloat16*>(q),                                \
       static_cast<const __nv_bfloat16*>(k_new),                                \
       static_cast<const __nv_bfloat16*>(v_new),                                \
-      static_cast<__nv_bfloat16*>(k_pages), static_cast<__nv_bfloat16*>(v_pages), \
+      static_cast<pool_t<QUANT>*>(k_pages), static_cast<pool_t<QUANT>*>(v_pages), \
+      static_cast<const float*>(kscale), static_cast<const float*>(vscale),    \
       static_cast<const int*>(tables), static_cast<const int*>(kv_lens),       \
       static_cast<__nv_bfloat16*>(out), B, T, KH, ps, W, cap, sl2, st
   int rc;
   if (hd == 128) {
-    rc = launch_hd<128>(LMRS_MULTI_ARGS);
+    rc = launch_hd<128, QUANT>(LMRS_MULTI_ARGS);
   } else if (hd == 64) {
-    rc = launch_hd<64>(LMRS_MULTI_ARGS);
+    rc = launch_hd<64, QUANT>(LMRS_MULTI_ARGS);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LMRS_MULTI_ARGS
   return rc;
+}
+
+}  // namespace
+
+extern "C" int lmrs_paged_decode_multi_bf16(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* tables, const void* kv_lens, void* out, int B,
+    int T, int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
+    void* stream) {
+  return launch<false>(q, k_new, v_new, k_pages, v_pages, nullptr, nullptr,
+                       tables, kv_lens, out, B, T, H, KH, hd, ps, W, max_pos,
+                       sm_scale, stream);
+}
+
+// int8 pools; kscale/vscale are the rows' f32 scales [B, K, hd].
+extern "C" int lmrs_paged_decode_multi_int8(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* kscale, const void* vscale, const void* tables,
+    const void* kv_lens, void* out, int B, int T, int H, int KH, int hd,
+    int ps, int W, int max_pos, float sm_scale, void* stream) {
+  return launch<true>(q, k_new, v_new, k_pages, v_pages, kscale, vscale,
+                      tables, kv_lens, out, B, T, H, KH, hd, ps, W, max_pos,
+                      sm_scale, stream);
 }

@@ -1,4 +1,4 @@
-// Ragged-span paged attention for Hopper (sm_90a), bf16.
+// Ragged-span paged attention for Hopper (sm_90a), bf16 or int8 pools.
 //
 // Replaces the TPU kernel lmrs_tpu/ops/paged_attention.py
 // `ragged_spans_pallas` (pallas_call at :1137).  Same function: one
@@ -11,6 +11,19 @@
 // the consumer): only in-span tokens at positions < cap are written (the
 // TPU kernel also writes tile padding at future positions), and a flat
 // token of no span gets a zero output row (the TPU kernel leaves it).
+//
+// `lmrs_ragged_spans_int8` is the same TPU kernel's int8-pool body (its
+// `kscale`/`vscale` operands, :1097-1102): both passes compiled with
+// QUANT = true over int8 pools and per-row f32 scales [B, K, hd].  The
+// write pass quantizes each flat token with ITS OWN row's scales (the
+// reference's kv_scales[rf], ragged_spans_xla), rintf(__fdiv_rn(x, s))
+// clamped to +-127 — bit for bit torch.round(x / s) (never build with
+// --use_fast_math).  The attention pass widens each staged int8 K/V value
+// to bf16 (exact) in the same shared-memory tiles, folds K's dequant into
+// q before the walk (q⊙s rounded to bf16 for the mma A operand: one more
+// rounding than the reference's f32 product) and V's into the output, and
+// attends in-span tokens from the pool — their quantized values, as the
+// reference does.
 //
 // Layout: q [Tp, H, hd]; k_new/v_new [Tp, K, hd]; pools [P_total, K, ps, hd]
 // (page-major, layer-flattened: callers pass GLOBAL page ids); tables
@@ -50,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kv_int8.cuh"
+
 namespace {
 
 constexpr int QROWS = 64;     // query rows per block (16 per warp)
@@ -76,11 +91,13 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 // over the B spans (B is the slot count, a handful); a token of no span
 // zeroes its output row, an in-span token at a position < cap writes its
 // K/V for every kv head.
-template <int HD>
+template <int HD, bool QUANT>
 __global__ void span_write_kernel(const __nv_bfloat16* __restrict__ k_new,
                                   const __nv_bfloat16* __restrict__ v_new,
-                                  __nv_bfloat16* __restrict__ k_pages,
-                                  __nv_bfloat16* __restrict__ v_pages,
+                                  pool_t<QUANT>* __restrict__ k_pages,
+                                  pool_t<QUANT>* __restrict__ v_pages,
+                                  const float* __restrict__ kscale,
+                                  const float* __restrict__ vscale,
                                   __nv_bfloat16* __restrict__ out,
                                   const int* __restrict__ tables,
                                   const int* __restrict__ kv_lens,
@@ -108,20 +125,21 @@ __global__ void span_write_kernel(const __nv_bfloat16* __restrict__ k_new,
     const int kvh = i / (HD / 8), c = (i % (HD / 8)) * 8;
     const long long dst = dst0 + (long long)kvh * ps * HD + c;
     const long long src = ((long long)t * KH + kvh) * HD + c;
-    *reinterpret_cast<uint4*>(k_pages + dst) =
-        *reinterpret_cast<const uint4*>(k_new + src);
-    *reinterpret_cast<uint4*>(v_pages + dst) =
-        *reinterpret_cast<const uint4*>(v_new + src);
+    const long long sc = ((long long)row * KH + kvh) * HD + c;  // row's scales
+    store8(k_pages + dst, k_new + src, QUANT ? kscale + sc : nullptr);
+    store8(v_pages + dst, v_new + src, QUANT ? vscale + sc : nullptr);
   }
 }
 
 // Pass 2: one block per (query tile, row, kv head).  Query row r of the
 // tile is span token j0 + r / NREP, query head kvh * NREP + r % NREP.
-template <int HD, int NREP>
+template <int HD, int NREP, bool QUANT>
 __global__ void __launch_bounds__(NWARPS * 32)
 span_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k_pages,
-                 const __nv_bfloat16* __restrict__ v_pages,
+                 const pool_t<QUANT>* __restrict__ k_pages,
+                 const pool_t<QUANT>* __restrict__ v_pages,
+                 const float* __restrict__ kscale,
+                 const float* __restrict__ vscale,
                  __nv_bfloat16* __restrict__ out,
                  const int* __restrict__ tables,
                  const int* __restrict__ kv_lens,
@@ -144,6 +162,10 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const long long page_stride = (long long)KH * ps * HD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
+  // int8: this row's K scales (folded into q) and V scales (into out)
+  const long long srow = ((long long)b * KH + kvh) * HD;
+  const float* krow_s = QUANT ? kscale + srow : nullptr;
+  const float* vrow_s = QUANT ? vscale + srow : nullptr;
 
   // this thread's two query rows: flat token, head, causal limit
   long long qoff[2];
@@ -168,8 +190,8 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
       const int c0 = ks * 16 + tig * 2;
       uint32_t lo = 0, hi = 0;
       if (valid[half]) {
-        lo = *reinterpret_cast<const uint32_t*>(q + qoff[half] + c0);
-        hi = *reinterpret_cast<const uint32_t*>(q + qoff[half] + c0 + 8);
+        lo = q_pair(q + qoff[half] + c0, QUANT ? krow_s + c0 : nullptr);
+        hi = q_pair(q + qoff[half] + c0 + 8, QUANT ? krow_s + c0 + 8 : nullptr);
       }
       qf[ks][half] = lo;
       qf[ks][2 + half] = hi;
@@ -193,8 +215,8 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
       if (col < kv_hi) {
         const long long off = tab[col / ps] * page_stride +
                               ((long long)kvh * ps + col % ps) * HD + c;
-        kv4 = *reinterpret_cast<const uint4*>(k_pages + off);
-        vv4 = *reinterpret_cast<const uint4*>(v_pages + off);
+        kv4 = load8(k_pages + off);
+        vv4 = load8(v_pages + off);
       }
       *reinterpret_cast<uint4*>(&Ks[r * KSTR + c]) = kv4;
       const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
@@ -289,28 +311,33 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
       const int col = n * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(out + qoff[half] + col) =
-          pack_bf16(o_acc[n][half * 2] * inv, o_acc[n][half * 2 + 1] * inv);
+      float o0 = o_acc[n][half * 2] * inv, o1 = o_acc[n][half * 2 + 1] * inv;
+      if constexpr (QUANT) {
+        o0 *= vrow_s[col];
+        o1 *= vrow_s[col + 1];
+      }
+      *reinterpret_cast<uint32_t*>(out + qoff[half] + col) = pack_bf16(o0, o1);
     }
   }
 }
 
-template <int HD>
+template <int HD, bool QUANT>
 int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
-              const __nv_bfloat16* vn, __nv_bfloat16* kp, __nv_bfloat16* vp,
-              const int* tab, const int* lens, const int* qs, const int* ql,
+              const __nv_bfloat16* vn, pool_t<QUANT>* kp, pool_t<QUANT>* vp,
+              const float* ks, const float* vs, const int* tab,
+              const int* lens, const int* qs, const int* ql,
               __nv_bfloat16* out, int Tp, int B, int KH, int ps, int W,
               int cap, float sl2, cudaStream_t st) {
   const int H = KH * nrep;
-  span_write_kernel<HD><<<Tp, 128, 0, st>>>(kn, vn, kp, vp, out, tab, lens,
-                                             qs, ql, B, H, KH, ps, W, cap);
+  span_write_kernel<HD, QUANT><<<Tp, 128, 0, st>>>(
+      kn, vn, kp, vp, ks, vs, out, tab, lens, qs, ql, B, H, KH, ps, W, cap);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(NWARPS * 32);
 #define LMRS_SPAN_ATTN(NR)                                                   \
-  span_attn_kernel<HD, NR><<<dim3((Tp + QROWS / NR - 1) / (QROWS / NR), B, \
-                                  KH), block, 0, st>>>(                      \
-      q, kp, vp, out, tab, lens, qs, ql, Tp, KH, ps, W, cap, sl2)
+  span_attn_kernel<HD, NR, QUANT><<<dim3((Tp + QROWS / NR - 1) / (QROWS / NR), \
+                                         B, KH), block, 0, st>>>(            \
+      q, kp, vp, ks, vs, out, tab, lens, qs, ql, Tp, KH, ps, W, cap, sl2)
   switch (nrep) {
     case 1: LMRS_SPAN_ATTN(1); break;
     case 2: LMRS_SPAN_ATTN(2); break;
@@ -322,14 +349,12 @@ int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int lmrs_ragged_spans_bf16(
-    const void* q, const void* k_new, const void* v_new, void* k_pages,
-    void* v_pages, const void* tables, const void* kv_lens,
-    const void* q_starts, const void* q_lens, void* out, int Tp, int B,
-    int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
-    void* stream) {
+template <bool QUANT>
+int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
+           void* v_pages, const void* kscale, const void* vscale,
+           const void* tables, const void* kv_lens, const void* q_starts,
+           const void* q_lens, void* out, int Tp, int B, int H, int KH,
+           int hd, int ps, int W, int max_pos, float sm_scale, void* stream) {
   if (Tp <= 0 || B <= 0) return 0;
   const int cap = min(W * ps, max_pos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -338,18 +363,44 @@ extern "C" int lmrs_ragged_spans_bf16(
   H / KH, static_cast<const __nv_bfloat16*>(q),                                \
       static_cast<const __nv_bfloat16*>(k_new),                                \
       static_cast<const __nv_bfloat16*>(v_new),                                \
-      static_cast<__nv_bfloat16*>(k_pages), static_cast<__nv_bfloat16*>(v_pages), \
+      static_cast<pool_t<QUANT>*>(k_pages), static_cast<pool_t<QUANT>*>(v_pages), \
+      static_cast<const float*>(kscale), static_cast<const float*>(vscale),    \
       static_cast<const int*>(tables), static_cast<const int*>(kv_lens),       \
       static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),      \
       static_cast<__nv_bfloat16*>(out), Tp, B, KH, ps, W, cap, sl2, st
   int rc;
   if (hd == 128) {
-    rc = launch_hd<128>(LMRS_SPAN_ARGS);
+    rc = launch_hd<128, QUANT>(LMRS_SPAN_ARGS);
   } else if (hd == 64) {
-    rc = launch_hd<64>(LMRS_SPAN_ARGS);
+    rc = launch_hd<64, QUANT>(LMRS_SPAN_ARGS);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LMRS_SPAN_ARGS
   return rc;
+}
+
+}  // namespace
+
+extern "C" int lmrs_ragged_spans_bf16(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* tables, const void* kv_lens,
+    const void* q_starts, const void* q_lens, void* out, int Tp, int B,
+    int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
+    void* stream) {
+  return launch<false>(q, k_new, v_new, k_pages, v_pages, nullptr, nullptr,
+                       tables, kv_lens, q_starts, q_lens, out, Tp, B, H, KH,
+                       hd, ps, W, max_pos, sm_scale, stream);
+}
+
+// int8 pools; kscale/vscale are the table rows' f32 scales [B, K, hd].
+extern "C" int lmrs_ragged_spans_int8(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* kscale, const void* vscale, const void* tables,
+    const void* kv_lens, const void* q_starts, const void* q_lens, void* out,
+    int Tp, int B, int H, int KH, int hd, int ps, int W, int max_pos,
+    float sm_scale, void* stream) {
+  return launch<true>(q, k_new, v_new, k_pages, v_pages, kscale, vscale,
+                      tables, kv_lens, q_starts, q_lens, out, Tp, B, H, KH,
+                      hd, ps, W, max_pos, sm_scale, stream);
 }

@@ -1,8 +1,10 @@
 """Continuous-batching scheduler over the paged KV cache (the port of the
-reference's ``engine/scheduler.py`` on its default path: mixed steps,
-chunked continuation prefill and the prefix cache through the ragged span
-kernel; and its linear speculative path; no tree speculation, int8 KV,
-handoff, cancellation, deadlines or observability hooks).
+reference's ``engine/scheduler.py``): its default path — packed fresh
+prefill, decode blocks, mixed steps, chunked continuation prefill, slot
+growth with preemption and the prefix cache, through the ragged span
+kernel — its linear speculative path, and int8 KV pages with per-slot
+scales on both; no tree speculation, host/disk KV, handoff, cancellation,
+deadlines or observability hooks.
 
 * Admission: a request takes a free slot when the pool holds its PROMPT
   pages minus those a prefix-cache match supplies (the cache evicts before
@@ -34,6 +36,14 @@ handoff, cancellation, deadlines or observability hooks).
   (``_ensure_decode_capacity``).
 * Every completed prefill (and every preempted decode slot) donates its
   preamble pages to the prefix cache (``_cache_insert``).
+* Int8 KV (``kv_quantize="int8"``): int8 pools and [L, B, K, hd] f32 K/V
+  scale buffers, one row per slot (``kv_scales``), passed to every
+  dispatch.  A slot's scales are fixed by the dispatch that computes its
+  prompt's first tokens (fresh, packed — segments map to slots through
+  ``scale_rows`` — or a span starting at position 0) and reused by every
+  later token; a preempted request re-prefills from position 0 and fixes
+  new ones.  The prefix cache is off: a hit slot would read donor pages
+  quantized with the donor's scales.
 """
 
 from __future__ import annotations
@@ -116,10 +126,28 @@ class ContinuousScheduler:
         # full-length sequence + the null page (a slot alone in the pool
         # always grows, so preemption guarantees progress)
         num_pages = max(engine_cfg.num_pages, max_pages_per_slot + 1)
-        self.cache = PagedKVCache(model_cfg, num_pages, ps, max_pages_per_slot,
-                                  device=device, dtype=params["embed"].dtype)
+        kv_quant = engine_cfg.kv_quantize == "int8"
+        if kv_quant and ps % 32:
+            # kept from the reference (its int8 tiles are 32 rows), so a
+            # configuration behaves the same in both packages
+            raise ValueError(f"kv_quantize=int8 needs page_size % 32 == 0 "
+                             f"(got {ps})")
+        self.cache = PagedKVCache(
+            model_cfg, num_pages, ps, max_pages_per_slot, device=device,
+            dtype=torch.int8 if kv_quant else params["embed"].dtype)
+        # int8 KV: per-(slot, kv head, channel) K and V scales, updated in
+        # place by the dispatches that fix them (models/transformer.py)
+        self.kv_scales: tuple[torch.Tensor, torch.Tensor] | None = None
+        if kv_quant:
+            sshape = (model_cfg.n_layers, self.B, model_cfg.n_kv_heads,
+                      model_cfg.hd)
+            self.kv_scales = (torch.ones(sshape, device=device),
+                              torch.ones(sshape, device=device))
         self._prefix_cache: PrefixCache | None = None
-        if engine_cfg.prefix_cache:
+        if engine_cfg.prefix_cache and kv_quant:
+            logger.info("prefix cache disabled: incompatible with int8 KV "
+                        "(per-slot scales cannot cover donor pages)")
+        elif engine_cfg.prefix_cache:
             self._prefix_cache = PrefixCache(
                 self.cache.allocator, ps,
                 max_pages=engine_cfg.prefix_cache_max_pages)
@@ -595,7 +623,8 @@ class ContinuousScheduler:
             self.params, self.model_cfg, t(tokens), t(positions),
             self.cache.k, self.cache.v, t(table), t(base), self.max_len,
             packed_last_idx=t(gidx),
-            spans=(t(q_starts), t(q_lens), t(row_flat)))
+            spans=(t(q_starts), t(q_lens), t(row_flat)),
+            kv_scales=self.kv_scales)
         self.counters["rpa_dispatches"] += 1
         self.counters["rpa_span_tokens"] += int(q_lens.sum())
         return self._sample(logits[0], temps, top_k, top_p)
@@ -700,7 +729,8 @@ class ContinuousScheduler:
         logits = forward_paged(
             self.params, self.model_cfg, tokens, positions, self.cache.k,
             self.cache.v, table, lens, self.max_len,
-            last_pos=torch.tensor([n - 1], device=dev))
+            last_pos=torch.tensor([n - 1], device=dev),
+            kv_scales=self.kv_scales, scale_rows=torch.tensor([b], device=dev))
         tok0 = self._sample(logits[:, 0], *self._sampler_params([st.req]))
         self.counters["prefill_tokens"] += n
         self.counters["prefill_dispatches"] += 1
@@ -735,7 +765,8 @@ class ContinuousScheduler:
             torch.zeros((1, 1), dtype=torch.long, device=dev),  # unused
             torch.tensor([s_real], dtype=torch.int32, device=dev), self.max_len,
             token_pages=t(token_pages), segment_ids=t(seg_ids),
-            packed_last_idx=t(last_idx))
+            packed_last_idx=t(last_idx), kv_scales=self.kv_scales,
+            scale_rows=torch.tensor([b for b, _ in items], device=dev))
         tok0 = self._sample(logits[0], *self._sampler_params(
             [st.req for _, st in items]))
         self.counters["prefill_tokens"] += s_real
@@ -783,7 +814,8 @@ class ContinuousScheduler:
                                 torch.zeros_like(lens)).to(torch.int32)
             logits = forward_paged(
                 self.params, self.model_cfg, tok[:, None], pos[:, None],
-                self.cache.k, self.cache.v, table_d, kv_in, self.max_len)
+                self.cache.k, self.cache.v, table_d, kv_in, self.max_len,
+                kv_scales=self.kv_scales)
             nxt = self._sample(logits[:, 0], t_rows, top_k, top_p)
             nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
             toks.append(nxt)
@@ -850,7 +882,8 @@ class ContinuousScheduler:
                 torch.clamp(lens[:, None] + offs, max=max_len - 1),
                 self.cache.k, self.cache.v, table,
                 # UNclamped: the write base is lens (see forward_paged)
-                (lens + 1 + k).to(torch.int32), max_len, multi_decode=True)
+                (lens + 1 + k).to(torch.int32), max_len, multi_decode=True,
+                kv_scales=self.kv_scales)
             if self._vocab_limit is not None:  # as in _sample
                 logits[..., self._vocab_limit:] = float("-inf")
             probs = filtered_probs(logits.reshape(B * T, -1), t_bt, tk_bt,

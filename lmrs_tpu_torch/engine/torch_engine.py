@@ -5,7 +5,9 @@ Exposes the surface ``MapExecutor`` and ``ResultAggregator`` use:
 ``generate_batch``, ``schedules_internally``, ``engine_metrics``,
 ``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
 is asked for; the kernels take bfloat16, so a CUDA engine needs a bfloat16
-model.
+model.  ``quantize="int8"`` quantizes the projections where the params live
+(after random init, or the caller's full-precision params), as the
+reference does for a model whose full-precision tree fits.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from lmrs_tpu_torch.data.tokenizer import ByteTokenizer, get_tokenizer
 from lmrs_tpu_torch.engine.api import GenerationRequest, GenerationResult
 from lmrs_tpu_torch.engine.scheduler import ContinuousScheduler
 from lmrs_tpu_torch.models.transformer import init_params, model_dtype, param_count
+from lmrs_tpu_torch.ops.quant import quantize_params
 from lmrs_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("lmrs_torch.engine")
@@ -53,6 +56,8 @@ class TorchEngine:
             logger.warning("no checkpoint for %s: using random-init weights "
                            "(throughput-correct, content-free)", model_cfg.name)
             params = init_params(model_cfg, engine_cfg.seed, self.device)
+        if engine_cfg.quantize == "int8":
+            params = quantize_params(params)
         self.params = params
         logger.info("model %s: %.1fM params on %s in %.1fs", model_cfg.name,
                     param_count(params) / 1e6, self.device, time.time() - t0)

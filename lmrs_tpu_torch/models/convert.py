@@ -4,6 +4,12 @@
 The norm scales keep their meaning: both packages compute
 ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``, so a scale leaf is copied
 as is (zero-init = identity), never rebased to ``1 + scale``.
+
+Quantized trees (the reference's ``quantize_params``: each projection a
+``{"q": int8, "s": f32}`` leaf with per-output-channel scales) carry
+across too: the fused port matrices concatenate the int8 values and the
+scales in the same order, and the leaves keep their dtypes whatever
+``dtype`` says.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 
 from lmrs_tpu_torch.config import ModelConfig
 from lmrs_tpu_torch.models.transformer import Params
+from lmrs_tpu_torch.ops.quant import is_quantized
 
 
 def _tensor(a: Any, device, dtype: torch.dtype | None) -> torch.Tensor:
@@ -30,32 +37,40 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
                     dtype: torch.dtype | None = None) -> Params:
     """Convert the reference tree (``init_params`` layout: wq/wk/wv
     [L, D, H|K, hd], wo [L, H, hd, D], mlp w_gate/w_up [L, D, F], w_down
-    [L, F, D], embed [V, D], optional lm_head [D, V]) into port params on
-    ``device``.  ``dtype`` None keeps each leaf's dtype."""
+    [L, F, D], embed [V, D], optional lm_head [D, V]; projections plain or
+    quantized) into port params on ``device``.  ``dtype`` None keeps each
+    leaf's dtype; quantized leaves always keep int8 values and f32
+    scales."""
     if "moe" in tree["layers"]:
         raise ValueError("mixture-of-experts weights are not ported yet")
     device = torch.device("cpu" if device is None else device)
     lt = tree["layers"]
-    D, hd = cfg.dim, cfg.hd
+    D = cfg.dim
 
-    def leaf(a, li):
-        return np.asarray(a)[li]
+    def proj(leaves, li, rows):
+        """Layer li's matrices as one [rows, out] port matrix (fused
+        along the output axis) — or one quantized leaf."""
+        if is_quantized(leaves[0]):
+            q = np.concatenate([np.asarray(a["q"])[li].reshape(rows, -1)
+                                for a in leaves], axis=1)
+            sc = np.concatenate([np.asarray(a["s"])[li].reshape(1, -1)
+                                 for a in leaves], axis=1)
+            return {"q": _tensor(q, device, None), "s": _tensor(sc, device, None)}
+        w = np.concatenate([np.asarray(a)[li].reshape(rows, -1)
+                            for a in leaves], axis=1)
+        return _tensor(w, device, dtype)
 
+    attn, mlp = lt["attn"], lt["mlp"]
+    hq = cfg.n_heads * cfg.hd
     layers = []
     for li in range(cfg.n_layers):
-        wq = leaf(lt["attn"]["wq"], li).reshape(D, cfg.n_heads * hd)
-        wk = leaf(lt["attn"]["wk"], li).reshape(D, cfg.n_kv_heads * hd)
-        wv = leaf(lt["attn"]["wv"], li).reshape(D, cfg.n_kv_heads * hd)
         layers.append({
-            "ln_attn": _tensor(leaf(lt["ln_attn"]["scale"], li), device, dtype),
-            "ln_mlp": _tensor(leaf(lt["ln_mlp"]["scale"], li), device, dtype),
-            "wqkv": _tensor(np.concatenate([wq, wk, wv], axis=1), device, dtype),
-            "wo": _tensor(leaf(lt["attn"]["wo"], li).reshape(cfg.n_heads * hd, D),
-                          device, dtype),
-            "w_gate_up": _tensor(np.concatenate(
-                [leaf(lt["mlp"]["w_gate"], li), leaf(lt["mlp"]["w_up"], li)],
-                axis=1), device, dtype),
-            "w_down": _tensor(leaf(lt["mlp"]["w_down"], li), device, dtype),
+            "ln_attn": _tensor(np.asarray(lt["ln_attn"]["scale"])[li], device, dtype),
+            "ln_mlp": _tensor(np.asarray(lt["ln_mlp"]["scale"])[li], device, dtype),
+            "wqkv": proj([attn["wq"], attn["wk"], attn["wv"]], li, D),
+            "wo": proj([attn["wo"]], li, hq),
+            "w_gate_up": proj([mlp["w_gate"], mlp["w_up"]], li, D),
+            "w_down": proj([mlp["w_down"]], li, cfg.hidden_dim),
         })
     params: Params = {
         "embed": _tensor(tree["embed"]["weight"], device, dtype),
@@ -63,33 +78,58 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
         "final_norm": _tensor(tree["final_norm"]["scale"], device, dtype),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = _tensor(tree["lm_head"]["weight"], device, dtype)
+        head = tree["lm_head"]["weight"]
+        params["lm_head"] = (
+            {"q": _tensor(head["q"], device, None),
+             "s": _tensor(head["s"], device, None)}
+            if is_quantized(head) else _tensor(head, device, dtype))
     return params
 
 
 def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
     """Inverse of ``params_from_jax``: numpy tree in the reference layout
-    (bf16 leaves come back as float32, which holds every bf16 value)."""
+    (bf16 leaves come back as float32, which holds every bf16 value;
+    quantized leaves come back as ``{"q", "s"}`` in the reference's
+    shapes, ``s`` with size-1 contracting axes)."""
     def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    D, hd, H, K = cfg.dim, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    def split(w, widths, shapes, n_contract=1):
+        """Cut a port matrix along its output axis into the reference's
+        leaves of ``shapes`` (the first ``n_contract`` axes contract)."""
+        cuts = np.cumsum(widths)[:-1]
+        if not is_quantized(w):
+            return [p.reshape(sh) for p, sh in
+                    zip(np.split(arr(w), cuts, axis=1), shapes)]
+        qs = np.split(arr(w["q"]), cuts, axis=1)
+        ss = np.split(arr(w["s"]), cuts, axis=1)
+        return [{"q": q.reshape(sh),
+                 "s": sc.reshape((1,) * n_contract + tuple(sh[n_contract:]))}
+                for q, sc, sh in zip(qs, ss, shapes)]
+
+    def stack(leaves):
+        if is_quantized(leaves[0]):
+            return {k: np.stack([x[k] for x in leaves]) for k in ("q", "s")}
+        return np.stack(leaves)
+
+    D, hd, H, K, F_ = cfg.dim, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.hidden_dim
     per = {name: [] for name in ("ln_attn", "ln_mlp", "wq", "wk", "wv", "wo",
                                  "w_gate", "w_up", "w_down")}
     for lp in params["layers"]:
-        qkv = arr(lp["wqkv"])
-        per["wq"].append(qkv[:, : H * hd].reshape(D, H, hd))
-        per["wk"].append(qkv[:, H * hd:(H + K) * hd].reshape(D, K, hd))
-        per["wv"].append(qkv[:, (H + K) * hd:].reshape(D, K, hd))
-        per["wo"].append(arr(lp["wo"]).reshape(H, hd, D))
-        gu = arr(lp["w_gate_up"])
-        per["w_gate"].append(gu[:, : cfg.hidden_dim])
-        per["w_up"].append(gu[:, cfg.hidden_dim:])
-        per["w_down"].append(arr(lp["w_down"]))
+        wq, wk, wv = split(lp["wqkv"], [H * hd, K * hd, K * hd],
+                           [(D, H, hd), (D, K, hd), (D, K, hd)])
+        per["wq"].append(wq)
+        per["wk"].append(wk)
+        per["wv"].append(wv)
+        per["wo"].append(split(lp["wo"], [D], [(H, hd, D)], n_contract=2)[0])
+        gate, up = split(lp["w_gate_up"], [F_, F_], [(D, F_), (D, F_)])
+        per["w_gate"].append(gate)
+        per["w_up"].append(up)
+        per["w_down"].append(split(lp["w_down"], [D], [(F_, D)])[0])
         per["ln_attn"].append(arr(lp["ln_attn"]))
         per["ln_mlp"].append(arr(lp["ln_mlp"]))
-    st = {k: np.stack(v) for k, v in per.items()}
+    st = {k: stack(v) for k, v in per.items()}
     tree = {
         "embed": {"weight": arr(params["embed"])},
         "layers": {
@@ -103,5 +143,6 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
         "final_norm": {"scale": arr(params["final_norm"])},
     }
     if "lm_head" in params:
-        tree["lm_head"] = {"weight": arr(params["lm_head"])}
+        V = cfg.vocab_size
+        tree["lm_head"] = {"weight": split(params["lm_head"], [V], [(D, V)])[0]}
     return tree

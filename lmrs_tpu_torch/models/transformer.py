@@ -19,6 +19,12 @@ them to XLA); attention goes through the kernel modules:
   span token's K/V and attends prefix + span — mixed steps, continuation
   chunks and prefix-cache hit tails.
 
+Int8 (the reference's ``quantize``/``kv_quantize``): a projection may be a
+quantized ``{"q", "s"}`` leaf (``ops/quant.py``), multiplied by
+``qmatmul``; int8 pools come with ``kv_scales`` — per-(slot, kv head,
+channel) K and V scales [L, B, K, hd], updated IN PLACE as prompts' first
+tokens fix them — and the kernels' int8 variants.
+
 A CUDA tensor runs the kernels, a CPU tensor their plain versions.
 """
 
@@ -36,6 +42,8 @@ from lmrs_tpu_torch.ops.norms import rms_norm
 from lmrs_tpu_torch.ops.paged_attention import (paged_decode_fused,
                                                 paged_decode_multi,
                                                 ragged_spans)
+from lmrs_tpu_torch.ops.quant import (is_quantized, kv_quant_tokens,
+                                      kv_scale_from, qmatmul, segment_scales)
 from lmrs_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -85,8 +93,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 
 
 def param_count(params: Params) -> int:
-    n = sum(t.numel() for k, t in params.items() if k != "layers")
-    return n + sum(t.numel() for lp in params["layers"] for t in lp.values())
+    def numel(t):
+        return t["q"].numel() if is_quantized(t) else t.numel()
+
+    n = sum(numel(t) for k, t in params.items() if k != "layers")
+    return n + sum(numel(t) for lp in params["layers"] for t in lp.values())
 
 
 def gate_act(cfg: ModelConfig, gate: torch.Tensor) -> torch.Tensor:
@@ -103,7 +114,7 @@ def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm + output projection to f32 logits (+ optional softcap)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x, w).float()
+    logits = qmatmul(x, w).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -125,6 +136,8 @@ def forward_paged(
     last_pos: torch.Tensor | None = None,        # [B] per-row sampled index
     spans: tuple | None = None,  # (q_starts [B], q_lens [B], row_flat [Tp])
     multi_decode: bool = False,  # speculative verify: T tokens per row
+    kv_scales: tuple | None = None,  # int8 pools: (k [L, Bs, K, hd], v) f32
+    scale_rows: torch.Tensor | None = None,  # [n] slot of each dispatch row
 ) -> torch.Tensor:
     """Forward pass against the paged pool; returns f32 logits — [B, S, V],
     or [B, N, V] with ``packed_last_idx`` / [B, 1, V] with ``last_pos``
@@ -150,13 +163,27 @@ def forward_paged(
     consecutive positions ``kv_lens - S + j``, where ``kv_lens`` counts the
     S tokens and is NOT clamped (the write base must be the true position;
     tokens at or past ``rope_max`` are neither written nor attended).  The
-    LM head runs on all S rows."""
+    LM head runs on all S rows.
+
+    INT8 pools (``kv_scales``): the scale buffers' slot ``scale_rows[i]``
+    belongs to dispatch row i (packed: to SEGMENT i); None = the identity
+    (rows are slots: spans, decode, verify).  A prompt's first tokens fix
+    its slot's scales, written into the buffers in place: a fresh prefill
+    from its valid tokens, a packed one per segment from the segment's own
+    tokens, a span row with ``kv_lens == 0`` from its span's tokens; every
+    other row quantizes with (and clamps to) its slot's frozen scales.
+    Fresh and packed prefill attend their ORIGINAL K/V and store the
+    quantized rows; every pool reader dequantizes."""
     dev = tokens.device
     b, s = tokens.shape
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     ps = k_pages.shape[2]
     n_pool = k_pages.shape[0] // cfg.n_layers  # logical pages per layer
     dt = params["embed"].dtype
+    if kv_scales is not None:
+        ksc_all, vsc_all = kv_scales
+        rows_i = (torch.arange(page_tables.shape[0], device=dev)
+                  if scale_rows is None else scale_rows.long().to(dev))
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = (x.float() * math.sqrt(cfg.dim)).to(dt)
@@ -177,35 +204,48 @@ def forward_paged(
 
     for li, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        qkv = torch.matmul(h, lp["wqkv"])
+        qkv = qmatmul(h, lp["wqkv"])
         q = qkv[..., : H * hd].view(b, s, H, hd)
         k = qkv[..., H * hd: (H + K) * hd].view(b, s, K, hd)
         v = qkv[..., (H + K) * hd:].view(b, s, K, hd)
         q = apply_rope(q, positions, sin, cos)
         k = apply_rope(k, positions, sin, cos)
         base = li * n_pool
+        ks = vs = None  # this dispatch's per-row scales (int8 pools)
+        if kv_scales is not None:
+            ks, vs = _layer_scales(ksc_all[li], vsc_all[li], k, v, rows_i,
+                                   kv_lens, spans, segment_ids,
+                                   fresh=not (is_decode or multi_decode))
         if spans is not None:
             attn = ragged_spans(
                 q[0].contiguous(), k[0].contiguous(), v[0].contiguous(),
                 k_pages, v_pages, tables + base, kv_lens, span_starts,
-                span_lens, max_pos=rope_max)[None]
+                span_lens, max_pos=rope_max, kscale=ks, vscale=vs)[None]
         elif multi_decode:
             attn = paged_decode_multi(
                 q.contiguous(), k.contiguous(), v.contiguous(), k_pages,
-                v_pages, tables + base, kv_lens, max_pos=rope_max)
+                v_pages, tables + base, kv_lens, max_pos=rope_max,
+                kscale=ks, vscale=vs)
         elif is_decode:
             attn = paged_decode_fused(
                 q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-                k_pages, v_pages, tables + base, kv_lens)[:, None]
+                k_pages, v_pages, tables + base, kv_lens, kscale=ks,
+                vscale=vs)[:, None]
         else:
             g_pages = page_idx + base
-            k_pages[g_pages, :, offsets] = k
-            v_pages[g_pages, :, offsets] = v.contiguous()
+            k_store, v_store = k, v.contiguous()
+            if ks is not None:  # quantized rows into the pool
+                k_store = kv_quant_tokens(k, ks)
+                v_store = kv_quant_tokens(v, vs)
+            k_pages[g_pages, :, offsets] = k_store
+            v_pages[g_pages, :, offsets] = v_store
+            # the current tokens are the whole context: attend them as
+            # computed, never their quantized copies
             attn = flash_attention(q, k, v, kv_lens, segment_ids)
-        x = x + torch.matmul(attn.reshape(b, s, H * hd), lp["wo"])
+        x = x + qmatmul(attn.reshape(b, s, H * hd), lp["wo"])
         h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        gate, up = torch.matmul(h, lp["w_gate_up"]).chunk(2, dim=-1)
-        x = x + torch.matmul(gate_act(cfg, gate).to(dt) * up, lp["w_down"])
+        gate, up = qmatmul(h, lp["w_gate_up"]).chunk(2, dim=-1)
+        x = x + qmatmul(gate_act(cfg, gate).to(dt) * up, lp["w_down"])
 
     if packed_last_idx is not None:
         x = x[:, packed_last_idx.long()]
@@ -213,3 +253,42 @@ def forward_paged(
         idx = torch.clamp(last_pos.long().to(dev), 0, s - 1)
         x = x[torch.arange(b, device=dev), idx][:, None]
     return lm_head(params, cfg, x)
+
+
+def _layer_scales(ksc, vsc, k, v, rows_i, kv_lens, spans, segment_ids,
+                  fresh: bool):
+    """One layer's int8 scales for this dispatch (the reference's scale
+    ownership, ``transformer.py:474-577``).  ``ksc``/``vsc`` [Bs, K, hd] are
+    the layer's slices of the scale buffers, updated in place where a row
+    owns its slot's scales.  Returns the scales the kernels and the pool
+    scatter quantize with: per dispatch row [n, K, hd] for spans, decode
+    and verify; broadcastable per token for fresh [B, 1, K, hd] and packed
+    [1, S, K, hd] (each token its segment's) prefill."""
+    if spans is not None:
+        # a span row whose base is 0 holds its prompt's first tokens and
+        # owns its slot's scales, from its own span tokens; the rest reuse
+        nb = spans[0].shape[0]
+        seg = torch.clamp(spans[2].long(), 0, nb)  # out-of-span: dropped
+        own = ((kv_lens == 0) & (spans[1] > 0))[:, None, None]
+        s_k = torch.where(own, segment_scales(k[0], seg, nb), ksc[rows_i])
+        s_v = torch.where(own, segment_scales(v[0], seg, nb), vsc[rows_i])
+        ksc[rows_i], vsc[rows_i] = s_k, s_v
+        return s_k, s_v
+    if segment_ids is not None:
+        # packed prefill: one scale row per segment, from its tokens only
+        n_seg = rows_i.shape[0]
+        seg = segment_ids[0].long()
+        seg = torch.where(seg >= 0, seg, torch.full_like(seg, n_seg))
+        s_k = segment_scales(k[0], seg, n_seg)
+        s_v = segment_scales(v[0], seg, n_seg)
+        ksc[rows_i], vsc[rows_i] = s_k, s_v
+        gi = torch.clamp(seg, 0, n_seg - 1)
+        return s_k[gi][None], s_v[gi][None]
+    if fresh:
+        # a fresh prefill's rows own their slots' scales
+        valid = (torch.arange(k.shape[1], device=k.device)[None, :]
+                 < kv_lens.to(k.device)[:, None])
+        s_k, s_v = kv_scale_from(k, valid), kv_scale_from(v, valid)
+        ksc[rows_i], vsc[rows_i] = s_k, s_v
+        return s_k[:, None], s_v[:, None]
+    return ksc[rows_i], vsc[rows_i]  # decode / verify: frozen scales

@@ -2,9 +2,11 @@
 
 Each source under ``lmrs_tpu_torch/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``.  Libraries land in ``build/lmrs_tpu_torch/`` at the repo root,
-named by a hash of the source and the flags, so a changed source rebuilds
-and an unchanged one loads at once.  Building happens at first use (never at
+``ctypes``.  The int8-pool kernels are further ``extern "C"`` symbols of the
+same sources, sharing ``csrc/kv_int8.cuh``.  Libraries land in
+``build/lmrs_tpu_torch/`` at the repo root, named by a hash of the source,
+the shared headers and the flags, so a changed source rebuilds and an
+unchanged one loads at once.  Building happens at first use (never at
 import): the CPU tests import every module without a CUDA toolkit.
 
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
@@ -25,6 +27,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lmrs_tpu_torch"
 SOURCES = ("flash_prefill", "paged_decode", "ragged_spans",
            "paged_decode_multi")
+# never --use_fast_math: the int8 kernels' quantizing division must stay
+# IEEE to match torch.round(x / s) bit for bit (csrc/kv_int8.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +48,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -16,6 +16,16 @@ PyTorch versions.
   ``ragged_spans_pallas`` (``:962``): one dispatch of (row, query-span)
   pairs — decode rows, a mixed step's prefill slice, continuation chunks.
 
+Int8 pools: each writing wrapper also takes ``kscale``/``vscale`` [B, K,
+hd] f32, the dispatch rows' per-(kv head, channel) scales (the reference's
+``kscale``/``vscale`` operands).  The pools are then int8: new K/V rows are
+quantized in the write (``ops/quant.kv_quant_tokens``; the span kernel
+quantizes each flat token with its own row's scales) and every read
+dequantizes — the kernels fold K's scale into q before the walk and V's
+into the output after it.  Int8 pools without scales, or scales with bf16
+pools, raise (the reference asserts the same).  The int8 variants count
+their launches apart, in ``<wrapper>.launches_int8``.
+
 Routing rule: a CUDA tensor goes to the kernel, a CPU tensor to the plain
 version; any failure raises.  The writing ones update the pools IN PLACE
 (the pools are the engine's persistent cache; the reference aliases them
@@ -42,6 +52,8 @@ import ctypes
 import numpy as np
 import torch
 
+from lmrs_tpu_torch.ops.quant import kv_dequant, kv_quant, kv_quant_tokens
+
 NEG_INF = -1e30
 # Alignment of the span starts in the flat token buffer (the reference's
 # query-tile height); kept so both packages pack spans identically.
@@ -54,32 +66,44 @@ def paged_decode_ref(
     v_pages: torch.Tensor,      # [P, K, ps, hd]
     page_tables: torch.Tensor,  # [B, W] page ids
     kv_lens: torch.Tensor,      # [B] tokens in cache (incl. current)
+    kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
+    vscale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Gather-softmax over each row's page window (the port of the
-    reference's ``paged_decode_xla``), with the length clamped to the table
-    and zero output for empty rows."""
+    reference's ``paged_decode_xla``; int8 pools dequantized with the rows'
+    scales), with the length clamped to the table and zero output for empty
+    rows.  Scores, softmax and the P·V product in f32, as in the kernels."""
     b, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     w = page_tables.shape[1]
     tables = page_tables.long()
     k = k_pages[tables].permute(0, 1, 3, 2, 4).reshape(b, w * ps, kh, hd)
     v = v_pages[tables].permute(0, 1, 3, 2, 4).reshape(b, w * ps, kh, hd)
+    if kscale is not None:  # in f32: the twin's cast to q's dtype would
+        # round K and V to bf16 on the card, where the kernels do not
+        k = kv_dequant(k, kscale, torch.float32)
+        v = kv_dequant(v, vscale, torch.float32)
     n_rep = h // kh
     if n_rep > 1:
         k = torch.repeat_interleave(k, n_rep, dim=2)
         v = torch.repeat_interleave(v, n_rep, dim=2)
-    logits = torch.einsum("bhd,bkhd->bhk", q, k).float() * hd ** -0.5
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * hd ** -0.5
     lens = torch.clamp(kv_lens.long(), max=w * ps)
     mask = torch.arange(w * ps, device=q.device)[None, None, :] < lens[:, None, None]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype), v)
+    out = torch.einsum("bhk,bkhd->bhd", probs, v.float()).to(q.dtype)
     return torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
 
 
-def _write_new_tokens(k_new, v_new, k_pages, v_pages, page_tables, kv_lens):
-    """Scatter each row's current-token K/V into its page, in place; rows
-    whose position lies outside [0, W * ps) are not written."""
+def _write_new_tokens(k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
+                      kscale=None, vscale=None):
+    """Scatter each row's current-token K/V into its page, in place (int8
+    pools: quantized with the rows' scales); rows whose position lies
+    outside [0, W * ps) are not written."""
+    if kscale is not None:
+        k_new = kv_quant_tokens(k_new, kscale)
+        v_new = kv_quant_tokens(v_new, vscale)
     ps = k_pages.shape[2]
     w = page_tables.shape[1]
     pos = kv_lens.long() - 1
@@ -100,24 +124,58 @@ def paged_decode_fused_ref(
     v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
     page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
     kv_lens: torch.Tensor,      # [B] incl. current token
+    kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
+    vscale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version: scatter, then gather-softmax."""
-    _write_new_tokens(k_new, v_new, k_pages, v_pages, page_tables, kv_lens)
-    return paged_decode_ref(q, k_pages, v_pages, page_tables, kv_lens)
+    """Plain PyTorch version: scatter (quantized for int8 pools), then
+    gather-softmax."""
+    _write_new_tokens(k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
+                      kscale, vscale)
+    return paged_decode_ref(q, k_pages, v_pages, page_tables, kv_lens,
+                            kscale, vscale)
 
 
-def _check_bf16(op: str, dev, **tensors) -> None:
+def _check(op: str, dev, dtype: torch.dtype, **tensors) -> None:
     for name, t in tensors.items():
-        if t.device != dev or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{op}: {name} must be contiguous bfloat16 on {dev}")
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous {dtype} on {dev}")
 
 
-def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens):
-    """Both decode kernels of ``csrc/paged_decode.cu``: write-fused, or
-    walk-only when ``k_new`` is None."""
+def _check_quant(op: str, k_pages, v_pages, kscale, vscale) -> bool:
+    """True for int8 pools; raises unless int8 pools come with both scale
+    tensors and scales come only with int8 pools."""
+    quantized = kscale is not None
+    if (vscale is not None) != quantized:
+        raise ValueError(f"{op}: kscale and vscale come together")
+    if quantized != (k_pages.dtype == torch.int8) or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"{op}: int8 pools need kscale/vscale and scales "
+                         f"need int8 pools (pools {k_pages.dtype}, scales "
+                         f"{'given' if quantized else 'absent'})")
+    return quantized
+
+
+def _scale_args(op: str, dev, kscale, vscale, rows: int, kh: int,
+                hd: int) -> list[int]:
+    """The scales' device pointers for an int8 kernel ([] for bf16)."""
+    if kscale is None:
+        return []
+    for name, t in (("kscale", kscale), ("vscale", vscale)):
+        if t.shape != (rows, kh, hd):
+            raise ValueError(f"{op}: {name} must be [{rows}, {kh}, {hd}] "
+                             f"(got {tuple(t.shape)})")
+    _check(op, dev, torch.float32, kscale=kscale, vscale=vscale)
+    return [kscale.data_ptr(), vscale.data_ptr()]
+
+
+def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
+                 kscale=None, vscale=None):
+    """The decode kernels of ``csrc/paged_decode.cu``: write-fused (bf16 or
+    int8 pools), or walk-only when ``k_new`` is None."""
     from lmrs_tpu_torch.ops import kernels
 
-    op = "paged_decode" if k_new is None else "paged_decode_fused"
+    quant = kscale is not None
+    op = ("paged_decode" if k_new is None else
+          "paged_decode_fused_int8" if quant else "paged_decode_fused")
     b, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     w = page_tables.shape[1]
@@ -131,7 +189,10 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens):
         raise ValueError(f"{op} kernel takes hd in (64, 128), "
                          f"H/K in (1, 2, 4, 8), page_size % 32 == 0 (got "
                          f"hd={hd}, H={h}, K={kh}, ps={ps})")
-    _check_bf16(op, q.device, q=q, k_pages=k_pages, v_pages=v_pages, **new)
+    _check(op, q.device, torch.bfloat16, q=q, **new)
+    _check(op, q.device, torch.int8 if quant else torch.bfloat16,
+           k_pages=k_pages, v_pages=v_pages)
+    scales = _scale_args(op, q.device, kscale, vscale, b, kh, hd)
     if page_tables.shape[0] != b or kv_lens.shape != (b,):
         raise ValueError(f"{op}: tables/kv_lens rows != batch")
     tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
@@ -142,19 +203,22 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens):
     args = (tables.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h, kh, hd,
             ps, w, hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if k_new is None:
-        fn = lib.lmrs_paged_decode_bf16
-        fn.argtypes = [ctypes.c_void_p] * 6 + tail
-        fn.restype = ctypes.c_int
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *args)
-        kernels.check_launch("lmrs_paged_decode_bf16", rc)
-        paged_decode.launches += 1
+        name = "lmrs_paged_decode_bf16"
+        ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     else:
-        fn = lib.lmrs_paged_decode_fused_bf16
-        fn.argtypes = [ctypes.c_void_p] * 8 + tail
-        fn.restype = ctypes.c_int
-        rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                k_pages.data_ptr(), v_pages.data_ptr(), *args)
-        kernels.check_launch("lmrs_paged_decode_fused_bf16", rc)
+        name = ("lmrs_paged_decode_fused_int8" if quant
+                else "lmrs_paged_decode_fused_bf16")
+        ptrs = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                k_pages.data_ptr(), v_pages.data_ptr(), *scales]
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 3) + tail
+    fn.restype = ctypes.c_int
+    kernels.check_launch(name, fn(*ptrs, *args))
+    if k_new is None:
+        paged_decode.launches += 1
+    elif quant:
+        paged_decode_fused.launches_int8 += 1
+    else:
         paged_decode_fused.launches += 1
     return out
 
@@ -169,7 +233,8 @@ def paged_decode(
     """Walk-only paged decode: attend each row's live pages, no write (the
     contract of ``paged_decode_ref``: length clamped to W·ps, zero output
     for an empty row).  Returns [B, H, hd]; ``paged_decode.launches`` counts
-    kernel launches."""
+    kernel launches.  bf16 pools only: the reference's walk-only kernel
+    has no scale operand."""
     if q.is_cuda:
         return _decode_cuda(q, None, None, k_pages, v_pages, page_tables,
                             kv_lens)
@@ -187,17 +252,22 @@ def paged_decode_fused(
     v_pages: torch.Tensor,      # [P_total, K, ps, hd] (updated in place)
     page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
     kv_lens: torch.Tensor,      # [B] incl. current token
+    kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
+    vscale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Write-fused paged decode (see module doc).  Returns [B, H, hd].
-    ``paged_decode_fused.launches`` counts kernel launches."""
+    ``paged_decode_fused.launches`` counts the bf16 kernel's launches,
+    ``.launches_int8`` the int8 one's."""
+    _check_quant("paged_decode_fused", k_pages, v_pages, kscale, vscale)
     if q.is_cuda:
         return _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables,
-                            kv_lens)
+                            kv_lens, kscale, vscale)
     return paged_decode_fused_ref(q, k_new, v_new, k_pages, v_pages,
-                                  page_tables, kv_lens)
+                                  page_tables, kv_lens, kscale, vscale)
 
 
 paged_decode_fused.launches = 0
+paged_decode_fused.launches_int8 = 0
 
 
 # ---------------------------------------------- multi-token verify kernel
@@ -215,12 +285,17 @@ def paged_decode_multi_ref(
     page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
     kv_lens: torch.Tensor,      # [B] incl. the T tokens (unclamped)
     max_pos: int | None = None,
+    kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
+    vscale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version (the port of the reference's
-    ``paged_decode_multi_xla`` without int8): scatter the in-span tokens,
-    then gather-softmax each row's window with per-token causal limits.
-    Softmax in f32.  An out-of-span token is skipped, where the XLA twin
-    parks it on the null page."""
+    ``paged_decode_multi_xla``): scatter the in-span tokens (int8 pools:
+    quantized with the rows' scales), then gather-softmax each row's window
+    (int8: dequantized in f32) with per-token causal limits.  Scores and
+    softmax in f32.  An out-of-span token is skipped, where the XLA twin parks it on
+    the null page."""
+    if kscale is not None:
+        k_new, v_new = kv_quant(k_new, kscale), kv_quant(v_new, vscale)
     b, t, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     w = page_tables.shape[1]
@@ -234,9 +309,13 @@ def paged_decode_multi_ref(
     k_pages[page, :, p % ps] = k_new[rows, toks]
     v_pages[page, :, p % ps] = v_new[rows, toks]
     n_rep = h // kh
-    # [B, W, K, ps, hd] -> [B, K, W*ps, hd]
-    kw = k_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, kh, w * ps, hd)
-    vw = v_pages[tables].permute(0, 2, 1, 3, 4).reshape(b, kh, w * ps, hd)
+    # [B, W, K, ps, hd] -> [B, W*ps, K, hd] (int8: dequantized in f32)
+    kw = k_pages[tables].permute(0, 1, 3, 2, 4).reshape(b, w * ps, kh, hd)
+    vw = v_pages[tables].permute(0, 1, 3, 2, 4).reshape(b, w * ps, kh, hd)
+    if kscale is not None:
+        kw = kv_dequant(kw, kscale, torch.float32)
+        vw = kv_dequant(vw, vscale, torch.float32)
+    kw, vw = kw.transpose(1, 2), vw.transpose(1, 2)  # [B, K, W*ps, hd]
     qg = q.reshape(b, t, kh, n_rep, hd).permute(0, 2, 3, 1, 4)  # [B,K,n,T,hd]
     logits = torch.matmul(qg.float(), kw.float().transpose(-1, -2)[:, :, None])
     col = torch.arange(w * ps, device=q.device)
@@ -249,42 +328,51 @@ def paged_decode_multi_ref(
 
 
 def _multi_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
-                max_pos):
+                max_pos, kscale=None, vscale=None):
     from lmrs_tpu_torch.ops import kernels
 
+    quant = kscale is not None
+    op = "paged_decode_multi_int8" if quant else "paged_decode_multi"
     b, t, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     w = page_tables.shape[1]
     if (k_new.shape != (b, t, kh, hd) or v_new.shape != k_new.shape
             or v_pages.shape != k_pages.shape or k_pages.shape[3] != hd):
-        raise ValueError("paged_decode_multi: shape mismatch among q "
+        raise ValueError(f"{op}: shape mismatch among q "
                          f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
                          f"pools {tuple(k_pages.shape)}")
     if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8):
-        raise ValueError(f"paged_decode_multi kernel takes hd in (64, 128) "
+        raise ValueError(f"{op} kernel takes hd in (64, 128) "
                          f"and H/K in (1, 2, 4, 8) (got hd={hd}, H={h}, K={kh})")
     if not 1 <= t * (h // kh) <= MULTI_QROWS:
-        raise ValueError(f"paged_decode_multi kernel takes T x H/K <= "
+        raise ValueError(f"{op} kernel takes T x H/K <= "
                          f"{MULTI_QROWS} query rows per kv head (got T={t}, "
                          f"H/K={h // kh})")
-    _check_bf16("paged_decode_multi", q.device, q=q, k_new=k_new, v_new=v_new,
-                k_pages=k_pages, v_pages=v_pages)
+    _check(op, q.device, torch.bfloat16, q=q, k_new=k_new, v_new=v_new)
+    _check(op, q.device, torch.int8 if quant else torch.bfloat16,
+           k_pages=k_pages, v_pages=v_pages)
+    scales = _scale_args(op, q.device, kscale, vscale, b, kh, hd)
     if page_tables.shape[0] != b or kv_lens.shape != (b,):
-        raise ValueError("paged_decode_multi: tables/kv_lens rows != batch")
+        raise ValueError(f"{op}: tables/kv_lens rows != batch")
     tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    fn = kernels.load("paged_decode_multi").lmrs_paged_decode_multi_bf16
+    name = ("lmrs_paged_decode_multi_int8" if quant
+            else "lmrs_paged_decode_multi_bf16")
+    fn = getattr(kernels.load("paged_decode_multi"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * (8 + len(scales)) + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), *scales, tables.data_ptr(),
             lens.data_ptr(), out.data_ptr(), b, t, h, kh, hd, ps, w,
             w * ps if max_pos is None else max_pos, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check_launch("lmrs_paged_decode_multi_bf16", rc)
-    paged_decode_multi.launches += 1
+    kernels.check_launch(name, rc)
+    if quant:
+        paged_decode_multi.launches_int8 += 1
+    else:
+        paged_decode_multi.launches += 1
     return out
 
 
@@ -297,9 +385,12 @@ def paged_decode_multi(
     page_tables: torch.Tensor,  # [B, W] GLOBAL page ids
     kv_lens: torch.Tensor,      # [B] incl. the T tokens (unclamped)
     max_pos: int | None = None,
+    kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
+    vscale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-token verify (speculative decoding): returns [B, T, H, hd];
-    ``paged_decode_multi.launches`` counts kernel launches.  Contract:
+    ``paged_decode_multi.launches`` counts the bf16 kernel's launches,
+    ``.launches_int8`` the int8 one's.  Contract:
 
     * ``base = max(kv_lens[b] - T, 0)`` and token j sits at ``base + j``
       (callers pass the UNclamped length, so base is the true position
@@ -310,14 +401,17 @@ def paged_decode_multi(
 
     Rows whose table is the null page (the scheduler's empty slots) write
     page 0 concurrently on the card; their outputs are not used."""
+    _check_quant("paged_decode_multi", k_pages, v_pages, kscale, vscale)
     if q.is_cuda:
         return _multi_cuda(q, k_new, v_new, k_pages, v_pages, page_tables,
-                           kv_lens, max_pos)
+                           kv_lens, max_pos, kscale, vscale)
     return paged_decode_multi_ref(q, k_new, v_new, k_pages, v_pages,
-                                  page_tables, kv_lens, max_pos)
+                                  page_tables, kv_lens, max_pos, kscale,
+                                  vscale)
 
 
 paged_decode_multi.launches = 0
+paged_decode_multi.launches_int8 = 0
 
 
 # ------------------------------------------------------- ragged span kernel
@@ -345,11 +439,15 @@ def ragged_spans_ref(
     q_starts: torch.Tensor,     # [B] flat span offsets
     q_lens: torch.Tensor,       # [B] span lengths (0 = inactive row)
     max_pos: int | None = None,
+    kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
+    vscale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version (the port of the reference's
-    ``ragged_spans_xla`` without ancestor masks and int8): every row's
-    in-span writes first, then each row's span attends its page window
-    with per-token causal limits.  Softmax in f32."""
+    ``ragged_spans_xla`` without ancestor masks): every row's in-span
+    writes first (int8 pools: each token quantized with its own row's
+    scales), then each row's span attends its page window (int8:
+    dequantized in f32 with the row's scales) with per-token causal limits.
+    Scores and softmax in f32."""
     tp, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     b, w = page_tables.shape
@@ -364,13 +462,22 @@ def ragged_spans_ref(
         keep = torch.nonzero(pos < cap).flatten()
         p = pos[keep]
         page = tables[r, p // ps]
-        k_pages[page, :, p % ps] = k_new[starts[r] + keep]
-        v_pages[page, :, p % ps] = v_new[starts[r] + keep]
+        kr, vr = k_new[starts[r] + keep], v_new[starts[r] + keep]
+        if kscale is not None:
+            kr = kv_quant_tokens(kr, kscale[r])
+            vr = kv_quant_tokens(vr, vscale[r])
+        k_pages[page, :, p % ps] = kr
+        v_pages[page, :, p % ps] = vr
     col = torch.arange(w * ps, device=q.device)
     for r in rows:  # 2. attention over the row's window
         s, n = starts[r], lens[r]
-        kw = k_pages[tables[r]].permute(1, 0, 2, 3).reshape(kh, w * ps, hd)
-        vw = v_pages[tables[r]].permute(1, 0, 2, 3).reshape(kh, w * ps, hd)
+        # [W, K, ps, hd] -> [1, W*ps, K, hd] (int8: dequantized in f32)
+        kw = k_pages[tables[r]].permute(0, 2, 1, 3).reshape(1, w * ps, kh, hd)
+        vw = v_pages[tables[r]].permute(0, 2, 1, 3).reshape(1, w * ps, kh, hd)
+        if kscale is not None:
+            kw = kv_dequant(kw, kscale[r:r + 1], torch.float32)
+            vw = kv_dequant(vw, vscale[r:r + 1], torch.float32)
+        kw, vw = kw[0].transpose(0, 1), vw[0].transpose(0, 1)  # [K, W*ps, hd]
         qr = q[s:s + n].reshape(n, kh, n_rep, hd).permute(1, 2, 0, 3)
         logits = torch.matmul(qr.float(), kw.float().transpose(1, 2)[:, None])
         pos = bases[r] + torch.arange(n, device=q.device)
@@ -384,38 +491,46 @@ def ragged_spans_ref(
 
 
 def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
-                q_starts, q_lens, max_pos):
+                q_starts, q_lens, max_pos, kscale=None, vscale=None):
     from lmrs_tpu_torch.ops import kernels
 
+    quant = kscale is not None
+    op = "ragged_spans_int8" if quant else "ragged_spans"
     tp, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     b, w = page_tables.shape
     if (k_new.shape != (tp, kh, hd) or v_new.shape != k_new.shape
             or v_pages.shape != k_pages.shape or k_pages.shape[3] != hd):
-        raise ValueError("ragged_spans: shape mismatch among q "
+        raise ValueError(f"{op}: shape mismatch among q "
                          f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
                          f"pools {tuple(k_pages.shape)}")
     if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8):
-        raise ValueError(f"ragged_spans kernel takes hd in (64, 128) and "
+        raise ValueError(f"{op} kernel takes hd in (64, 128) and "
                          f"H/K in (1, 2, 4, 8) (got hd={hd}, H={h}, K={kh})")
-    _check_bf16("ragged_spans", q.device, q=q, k_new=k_new, v_new=v_new,
-                k_pages=k_pages, v_pages=v_pages)
+    _check(op, q.device, torch.bfloat16, q=q, k_new=k_new, v_new=v_new)
+    _check(op, q.device, torch.int8 if quant else torch.bfloat16,
+           k_pages=k_pages, v_pages=v_pages)
+    scales = _scale_args(op, q.device, kscale, vscale, b, kh, hd)
     idx = [x.to(device=q.device, dtype=torch.int32).contiguous()
            for x in (page_tables, kv_lens, q_starts, q_lens)]
     if any(x.shape != (b,) for x in idx[1:]):
-        raise ValueError(f"ragged_spans: kv_lens/q_starts/q_lens must be [{b}]")
+        raise ValueError(f"{op}: kv_lens/q_starts/q_lens must be [{b}]")
     out = torch.empty_like(q)
-    fn = kernels.load("ragged_spans").lmrs_ragged_spans_bf16
+    name = "lmrs_ragged_spans_int8" if quant else "lmrs_ragged_spans_bf16"
+    fn = getattr(kernels.load("ragged_spans"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * (10 + len(scales)) + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), *(x.data_ptr() for x in idx),
-            out.data_ptr(), tp, b, h, kh, hd, ps, w,
-            w * ps if max_pos is None else max_pos, hd ** -0.5,
+            k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            *(x.data_ptr() for x in idx), out.data_ptr(), tp, b, h, kh, hd, ps,
+            w, w * ps if max_pos is None else max_pos, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check_launch("lmrs_ragged_spans_bf16", rc)
-    ragged_spans.launches += 1
+    kernels.check_launch(name, rc)
+    if quant:
+        ragged_spans.launches_int8 += 1
+    else:
+        ragged_spans.launches += 1
     return out
 
 
@@ -430,9 +545,12 @@ def ragged_spans(
     q_starts: torch.Tensor,     # [B] flat span offsets
     q_lens: torch.Tensor,       # [B] span lengths (0 = inactive row)
     max_pos: int | None = None,
+    kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
+    vscale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One ragged dispatch of (row, query-span) pairs.  Returns [Tp, H, hd];
-    ``ragged_spans.launches`` counts kernel launches.  Contract:
+    ``ragged_spans.launches`` counts the bf16 kernel's launches,
+    ``.launches_int8`` the int8 one's.  Contract:
 
     * token j of row b is flat token ``q_starts[b] + j`` and sits at
       absolute position ``kv_lens[b] + j``;
@@ -446,11 +564,13 @@ def ragged_spans(
     The reference's Pallas kernel differs in two places the consumer never
     reads: it writes tile-padding K/V at future positions and leaves
     out-of-span output rows untouched."""
+    _check_quant("ragged_spans", k_pages, v_pages, kscale, vscale)
     if q.is_cuda:
         return _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables,
-                           kv_lens, q_starts, q_lens, max_pos)
+                           kv_lens, q_starts, q_lens, max_pos, kscale, vscale)
     return ragged_spans_ref(q, k_new, v_new, k_pages, v_pages, page_tables,
-                            kv_lens, q_starts, q_lens, max_pos)
+                            kv_lens, q_starts, q_lens, max_pos, kscale, vscale)
 
 
 ragged_spans.launches = 0
+ragged_spans.launches_int8 = 0

@@ -238,3 +238,115 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     q32 = torch.zeros(1, 64, 4, 128, device=cuda_device)
     with pytest.raises(ValueError, match="bfloat16"):
         tfa.flash_attention(q32, q32[:, :, :2], q32[:, :, :2])
+
+
+# ------------------------------------------------------------- int8 pools
+
+TIE = 2.0 ** -5  # a scale that divides half-integer multiples to exact .5
+
+
+def _int8ify(x, tie_tokens, tie_row, seed):
+    """Turn a bf16 case into its int8 form: random int8 pools, scales
+    [rows, K, hd] from ``kv_scale_from`` on random bf16 K/V, and one row
+    whose scale is 2^-5 and whose new K/V (flat tokens ``tie_tokens``) are
+    half-integer multiples of it, so every x / s is an exact tie (and a
+    few values saturate past 127); bf16 holds them all exactly."""
+    from lmrs_tpu_torch.ops.quant import kv_scale_from
+
+    dev = x["q"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = dict(x)
+    for name in ("k_pages", "v_pages"):
+        y[name] = torch.randint(-127, 128, x[name].shape, generator=gen,
+                                device=dev, dtype=torch.int8)
+    rows, kh, hd = x["page_tables"].shape[0], x["k_pages"].shape[1], x["k_pages"].shape[3]
+    for name, new in (("kscale", "k_new"), ("vscale", "v_new")):
+        kv = torch.randn(rows, 64, kh, hd, generator=gen, device=dev).bfloat16()
+        s = kv_scale_from(kv, torch.ones(rows, 64, dtype=torch.bool, device=dev))
+        s[tie_row] = TIE
+        y[name] = s.contiguous()
+        m = torch.randint(-127, 127, y[new][tie_tokens].shape, generator=gen,
+                          device=dev)
+        ties = (m + 0.5) * TIE
+        ties.view(-1)[:4] = torch.tensor([160, -160, 130, -130], device=dev) * TIE
+        y[new] = y[new].clone()
+        y[new][tie_tokens] = ties.bfloat16()
+    return y
+
+
+def _run_pair(fn, ref, x, counter):
+    x2 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in x.items()}
+    n0 = counter.launches_int8
+    got, want = fn(**x), ref(**x2)
+    torch.cuda.synchronize()
+    assert counter.launches_int8 == n0 + 1
+    return got, want, x2
+
+
+@pytest.mark.cuda
+def test_int8_decode_kernel_matches_plain(cuda_device):
+    """chip_smoke.py's decode shape (8 rows, empty row, page boundaries,
+    full window) over int8 pools; row 4's new K/V are exact ties."""
+    r = np.random.default_rng(7)
+    b, h, kh, hd, ps, w, n_pages = 8, 32, 8, 128, 128, 16, 256
+    q, k_new, v_new = _bf16(cuda_device, *(r.standard_normal(s).astype(np.float32)
+                                           for s in ((b, h, hd), (b, kh, hd), (b, kh, hd))))
+    tables = torch.tensor(r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1,
+                          dtype=torch.int32, device=cuda_device)
+    tables[0] = 0
+    x = dict(q=q, k_new=k_new, v_new=v_new,
+             k_pages=torch.zeros(n_pages, kh, ps, hd, device=cuda_device),
+             v_pages=torch.zeros(n_pages, kh, ps, hd, device=cuda_device),
+             page_tables=tables,
+             kv_lens=torch.tensor([0, 1, 128, 129, 700, 1500, 2048, 1000],
+                                  dtype=torch.int32, device=cuda_device))
+    x = _int8ify(x, 4, 4, seed=7)
+    got, want, x2 = _run_pair(tpa.paged_decode_fused, tpa.paged_decode_fused_ref,
+                              x, tpa.paged_decode_fused)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert torch.equal(x["k_pages"], x2["k_pages"])
+    assert torch.equal(x["v_pages"], x2["v_pages"])
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "continuation"])
+def test_int8_span_kernel_matches_plain(cuda_device, case):
+    """The span cases over int8 pools: each flat token quantizes with its
+    own row's scales; the mixed step's slice row (7) and the continuation
+    row (0) carry the exact ties."""
+    x = _span_case(cuda_device, case)
+    row = 7 if case == "mixed" else 0
+    s, n = int(x["q_starts"][row]), int(x["q_lens"][row])
+    x = _int8ify(x, slice(s, s + n), row, seed=8)
+    got, want, x2 = _run_pair(tpa.ragged_spans, tpa.ragged_spans_ref, x,
+                              tpa.ragged_spans)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert torch.equal(x["k_pages"], x2["k_pages"])
+    assert torch.equal(x["v_pages"], x2["v_pages"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("null_row", [False, True])
+def test_int8_multi_kernel_matches_plain(cuda_device, null_row):
+    """The verify step over int8 pools; row 3's 5 tokens are exact ties.
+    Pools outside the null page."""
+    x = _int8ify(_multi_case(cuda_device, null_row), 3, 3, seed=9)
+    got, want, x2 = _run_pair(tpa.paged_decode_multi, tpa.paged_decode_multi_ref,
+                              x, tpa.paged_decode_multi)
+    real = slice(1 if null_row else 0, None)
+    torch.testing.assert_close(got[real].float(), want[real].float(),
+                               atol=TOL, rtol=0)
+    assert torch.equal(x["k_pages"][1:], x2["k_pages"][1:])
+    assert torch.equal(x["v_pages"][1:], x2["v_pages"][1:])
+
+
+@pytest.mark.cuda
+def test_int8_kernels_refuse_mismatched_scales(cuda_device):
+    x = _int8ify(_multi_case(cuda_device), 3, 3, seed=10)
+    with pytest.raises(ValueError, match="kscale"):  # int8 pools, no scales
+        tpa.paged_decode_multi(**{**x, "kscale": None, "vscale": None})
+    with pytest.raises(ValueError, match="must be"):  # [B, K, hd] f32 only
+        tpa.paged_decode_multi(**{**x, "kscale": x["kscale"][:, :4].contiguous()})
+    with pytest.raises(ValueError, match="float32"):
+        tpa.paged_decode_multi(**{**x, "kscale": x["kscale"].bfloat16()})
