@@ -10,7 +10,12 @@ anything wrong.  Phases, one JSON object per line:
 3. kernels  — each kernel against its plain PyTorch version at the main
               path's shapes (bf16): max |err| (tolerance 2e-2), pool writes
               bit-exact, kernel / plain / library times (CUDA events, L2
-              flushed before each launch) and the bound for this run's work.
+              flushed and a device spin queued before each launch, so the
+              wrapper's host work is not timed) and the bound for this
+              run's work.  The five split builds (decode bf16/int8,
+              walk-only, spans bf16/int8) also at their split boundaries
+              with a bit-identical repeat launch, and at the main path's
+              shapes beside other split sizes.
               The span kernel at two shapes: a mixed step (7 decode rows +
               a 249-token slice) and a 1,300-token continuation chunk.  The
               multi-token verify kernel at the speculative step's shape (8
@@ -125,22 +130,12 @@ def pool_bytes(x: dict) -> tuple[int, float]:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Mean device ms of ``fn`` over ``reps`` launches, each timed with CUDA
-    events after a 256 MB write that evicts the 50 MB L2 (the main path
-    finds each layer's data cold)."""
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    fn()  # warm-up
-    total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    """Median device ms of ``fn`` over ``reps`` launches, L2 flushed before
+    each and the wrapper's host work kept out of the timed window
+    (``lmrs_tpu_torch.utils.kernel_ab.time_ms``)."""
+    from lmrs_tpu_torch.utils.kernel_ab import time_ms as timed
+
+    return timed(fn, reps)
 
 
 # ------------------------------------------------------------ phase 3
@@ -244,16 +239,7 @@ def check_decode(gen: torch.Generator, int8: bool = False) -> dict:
 
     ms = time_ms(lambda: pa.paged_decode_fused(**x))
     plain_ms = time_ms(lambda: pa.paged_decode_fused_ref(**x2), reps=3)
-    live = sum(min(n, W * ps) for n in lens_l)
-    written = sum(1 for n in lens_l if 0 < n <= W * ps)
-    e, scale_bytes = pool_bytes(x)
-    flops = 4.0 * H * hd * live
-    # live K/V read (e bytes a value), q read, out written (bf16), k_new/
-    # v_new read (bf16) and written into the pool for each row that
-    # writes, the rows' f32 scales (int8); int32 tables and lengths
-    nbytes = (e * 2.0 * live * K * hd + 2.0 * (2 * B * H * hd + 2 * B * K * hd)
-              + e * 2.0 * written * K * hd + scale_bytes + 4.0 * (B * W + B))
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = decode_bound(x)
     return {"name": name, "route": "cuda",
             "source": "lmrs_tpu_torch/csrc/paged_decode.cu",
             "replaces": "lmrs_tpu/ops/paged_attention.py:1495",
@@ -262,6 +248,51 @@ def check_decode(gen: torch.Generator, int8: bool = False) -> dict:
             "library_ms": None,
             "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} "
                      f"{'int8 pools' if int8 else 'bf16'}"}
+
+
+def decode_bound(x: dict, write: bool = True) -> tuple[float, str]:
+    """Bound of one decode launch on these inputs: the live K/V read (e
+    bytes a value), q read, out written (bf16), and for the write-fused
+    kernel k_new/v_new read (bf16) and written into the pool for each row
+    that writes, the rows' f32 scales (int8); int32 tables and lengths."""
+    B, H, hd = x["q"].shape
+    _, K, ps, _ = x["k_pages"].shape
+    W = x["page_tables"].shape[1]
+    lens_l = x["kv_lens"].tolist()
+    live = sum(min(max(n, 0), W * ps) for n in lens_l)
+    written = sum(1 for n in lens_l if 0 < n <= W * ps) if write else 0
+    e, scale_bytes = pool_bytes(x)
+    flops = 4.0 * H * hd * live
+    nbytes = (e * 2.0 * live * K * hd
+              + 2.0 * (2 * B * H * hd + (2 * B * K * hd if write else 0))
+              + e * 2.0 * written * K * hd + scale_bytes + 4.0 * (B * W + B))
+    return bound(flops, nbytes)
+
+
+def span_bound(x: dict) -> tuple[float, str]:
+    """Bound of one span dispatch on these inputs: the prefix K/V read once
+    (e bytes a value), q read, out written (every flat row), the new K/V
+    read (bf16) and written into the pool, the rows' f32 scales (int8);
+    int32 tables, lengths, starts and span lengths.  Operations: 4·H·hd
+    per (query token, attended column)."""
+    tp, H, hd = x["q"].shape
+    b, W = x["page_tables"].shape
+    _, K, ps, _ = x["k_pages"].shape
+    cap = W * ps
+    rows = [(int(base), int(n)) for base, n in
+            zip(x["kv_lens"].tolist(), x["q_lens"].tolist()) if n > 0]
+    span = sum(n for _, n in rows)
+    prefix = sum(min(base, cap) for base, _ in rows)
+    written = sum(max(0, min(base + n, cap) - base) for base, n in rows)
+    attended = sum(min(base + j + 1, cap) for base, n in rows
+                   for j in range(n))
+    flops = 4.0 * H * hd * attended
+    e, scale_bytes = pool_bytes(x)
+    nbytes = (e * 2.0 * prefix * K * hd
+              + 2.0 * (span * H * hd + tp * H * hd + 2 * span * K * hd)
+              + e * 2.0 * written * K * hd + scale_bytes
+              + 4.0 * (b * W + 3 * b))
+    return bound(flops, nbytes)
 
 
 def _span_inputs(gen: torch.Generator, case: str) -> dict:
@@ -328,25 +359,9 @@ def check_spans(gen: torch.Generator, int8: bool = False) -> list[dict]:
         tp, H, hd = x["q"].shape
         b, W = x["page_tables"].shape
         _, K, ps, _ = x["k_pages"].shape
-        cap = W * ps
         rows = [(int(base), int(n)) for base, n in
                 zip(x["kv_lens"].tolist(), x["q_lens"].tolist()) if n > 0]
-        span = sum(n for _, n in rows)
-        prefix = sum(min(base, cap) for base, _ in rows)
-        written = sum(max(0, min(base + n, cap) - base) for base, n in rows)
-        attended = sum(min(base + j + 1, cap) for base, n in rows
-                       for j in range(n))
-        flops = 4.0 * H * hd * attended
-        e, scale_bytes = pool_bytes(x)
-        # the prefix K/V read once (e bytes a value), q read, out written
-        # (every flat row), the new K/V read (bf16) and written into the
-        # pool, the rows' f32 scales (int8); int32 tables, lengths, starts
-        # and span lengths
-        nbytes = (e * 2.0 * prefix * K * hd
-                  + 2.0 * (span * H * hd + tp * H * hd + 2 * span * K * hd)
-                  + e * 2.0 * written * K * hd + scale_bytes
-                  + 4.0 * (b * W + 3 * b))
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = span_bound(x)
         out.append({"name": name, "route": "cuda",
                     "source": "lmrs_tpu_torch/csrc/ragged_spans.cu",
                     "replaces": "lmrs_tpu/ops/paged_attention.py:1137",
@@ -454,11 +469,8 @@ def check_walk(gen: torch.Generator) -> dict:
     ms = time_ms(lambda: pa.paged_decode(q, k_pages, v_pages, tables, kv_lens))
     plain_ms = time_ms(lambda: pa.paged_decode_ref(q, k_pages, v_pages, tables,
                                                    kv_lens), reps=3)
-    live = sum(min(n, W * ps) for n in lens_l)
-    flops = 4.0 * H * hd * live
-    # bf16: live K/V read, q read, out written; int32 tables and lengths
-    nbytes = 2.0 * (2 * live * K * hd + 2 * B * H * hd) + 4.0 * (B * W + B)
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = decode_bound(dict(q=q, k_pages=k_pages, page_tables=tables,
+                                   kv_lens=kv_lens), write=False)
     return {"name": "paged_decode", "route": "cuda",
             "source": "lmrs_tpu_torch/csrc/paged_decode.cu",
             "replaces": "lmrs_tpu/ops/paged_attention.py:1687",
@@ -466,6 +478,187 @@ def check_walk(gen: torch.Generator) -> dict:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
             "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} bf16"}
+
+
+def _split_decode_inputs(gen: torch.Generator, int8: bool) -> dict:
+    """Decode rows at the split boundaries, bench-8b widths (ps=128, W=16):
+    exactly DECODE_SPLIT tokens, one more (the write opens a new split),
+    W·ps, a stale length past W·ps, 0 (null table) and 1."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    B, H, K, hd, ps, W = 6, 32, 8, 128, 128, 16
+    split = pa.DECODE_SPLIT
+    dev = "cuda"
+    P = B * W + 1
+    tables = (torch.randperm(P - 1, generator=gen, device=dev)[: B * W] + 1
+              ).view(B, W).to(torch.int32)
+    tables[4] = 0
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    x = dict(q=bf(B, H, hd), k_new=bf(B, K, hd), v_new=bf(B, K, hd),
+             k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+             page_tables=tables,
+             kv_lens=torch.tensor([split, split + 1, W * ps, W * ps + 100, 0, 1],
+                                  dtype=torch.int32, device=dev))
+    return int8_case(x, 1, 1, gen) if int8 else x
+
+
+def _split_span_inputs(gen: torch.Generator, int8: bool) -> dict:
+    """Span rows at the split boundaries: decode rows whose columns end on a
+    SPAN_SPLIT boundary and one past it, a 48-token continuation at base
+    1000 (3 query tiles, so split) whose walk crosses three splits, a
+    900-token continuation at base 300 (walked unsplit), a decode row at
+    W·ps - 1, a stale base past W·ps, an inactive row and a fresh one-token
+    row."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    H, K, hd, ps, W = 32, 8, 128, 128, 16
+    split = pa.SPAN_SPLIT
+    dev = "cuda"
+    rows = [(split - 1, 1), (split, 1), (1000, 48), (300, 900),
+            (W * ps - 1, 1), (W * ps + 50, 1), (0, 0), (0, 1)]
+    q_lens = [n for _, n in rows]
+    q_starts, tp = pa.pack_spans(q_lens)
+    b = len(rows)
+    P = b * W + 1
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    x = dict(q=bf(tp, H, hd), k_new=bf(tp, K, hd), v_new=bf(tp, K, hd),
+             k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+             page_tables=(torch.randperm(P - 1, generator=gen, device=dev)[: b * W]
+                          + 1).view(b, W).to(torch.int32),
+             kv_lens=i32([base for base, _ in rows]), q_starts=i32(q_starts),
+             q_lens=i32(q_lens))
+    if int8:
+        s0, n0 = int(q_starts[2]), q_lens[2]
+        x = int8_case(x, slice(s0, s0 + n0), 2, gen)
+    return x
+
+
+def _boundary_check(name: str, fn, ref, x: dict, pools: str) -> dict:
+    """Kernel vs plain within TOL, the pools bit-exact (``pools`` =
+    "written") or untouched ("untouched"), and a second launch on the same
+    inputs (pools restored) bit-identical to the first."""
+    x0 = {k: v.clone() for k, v in x.items()}
+    x2 = {k: v.clone() for k, v in x.items()}
+    got = fn(**x)
+    want = ref(**x2)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= TOL:
+        raise AssertionError(f"{name} at the split boundaries: max |err| {err} > {TOL}")
+    base = x2 if pools == "written" else x0
+    if not all(torch.equal(x[k], base[k]) for k in ("k_pages", "v_pages")):
+        raise AssertionError(f"{name} at the split boundaries: pools differ "
+                             f"from the plain version ({pools})")
+    again = fn(**{k: v.clone() for k, v in x0.items()})
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    return {"name": name, "max_abs_err": err, "pools": pools + " (exact)",
+            "repeat_bit_identical": True}
+
+
+def check_split_boundaries(gen: torch.Generator) -> list[dict]:
+    """The five split builds at their split-boundary cases, each held
+    against its plain version, with bit-exact pools and a bit-identical
+    repeat launch."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    out = []
+    for int8 in (False, True):
+        x = _split_decode_inputs(gen, int8)
+        out.append({**_boundary_check(
+            "paged_decode_fused_int8" if int8 else "paged_decode_fused",
+            pa.paged_decode_fused, pa.paged_decode_fused_ref, x, "written"),
+            "kv_lens": x["kv_lens"].tolist()})
+        if not int8:
+            walk = {k: x[k] for k in ("q", "k_pages", "v_pages", "page_tables",
+                                      "kv_lens")}
+            out.append({**_boundary_check("paged_decode", pa.paged_decode,
+                                          pa.paged_decode_ref, walk, "untouched"),
+                        "kv_lens": x["kv_lens"].tolist()})
+        y = _split_span_inputs(gen, int8)
+        out.append({**_boundary_check(
+            "ragged_spans_int8" if int8 else "ragged_spans", pa.ragged_spans,
+            pa.ragged_spans_ref, y, "written"),
+            "bases": y["kv_lens"].tolist(), "q_lens": y["q_lens"].tolist()})
+    return out
+
+
+def _timed_split(attr: str, value: int, fn) -> float:
+    """``time_ms(fn)`` with the wrapper's split set to ``value``."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    keep = getattr(pa, attr)
+    setattr(pa, attr, value)
+    try:
+        return time_ms(fn)
+    finally:
+        setattr(pa, attr, keep)
+
+
+def time_main_shapes(gen: torch.Generator) -> list[dict]:
+    """The five split builds at the main path's shapes: decode at 8 rows x
+    1,501 tokens (``profile_decode_step``'s step: 1,500 cached + the current
+    token), spans at phase 5's mixed step (7 decode rows at 1,500 tokens +
+    a 249-token slice at base 384); each with its bound, its plain version's
+    time, and its time at other split sizes (phase 3's shapes too)."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    B, H, K, hd, ps, W = 8, 32, 8, 128, 128, 16
+    dev = "cuda"
+    rows = []
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    P = B * W + 1
+    dec = dict(q=bf(B, H, hd), k_new=bf(B, K, hd), v_new=bf(B, K, hd),
+               k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+               page_tables=(torch.randperm(P - 1, generator=gen, device=dev)
+                            + 1).view(B, W).to(torch.int32),
+               kv_lens=torch.full((B,), 1501, dtype=torch.int32, device=dev))
+    span = _span_inputs(gen, "mixed")
+    span["kv_lens"] = torch.tensor([1500] * 7 + [384], dtype=torch.int32,
+                                   device=dev)
+    sweep_d, sweep_s = (128, 256, 512), (256, 512, 1024)
+    for name, x, fn, ref, write in (
+            ("paged_decode_fused", dec, pa.paged_decode_fused,
+             pa.paged_decode_fused_ref, True),
+            ("paged_decode_fused_int8", int8_case(dec, 0, 0, gen),
+             pa.paged_decode_fused, pa.paged_decode_fused_ref, True),
+            ("paged_decode", {k: dec[k] for k in ("q", "k_pages", "v_pages",
+                                                  "page_tables", "kv_lens")},
+             pa.paged_decode, pa.paged_decode_ref, False),
+            ("ragged_spans", span, pa.ragged_spans, pa.ragged_spans_ref, None),
+            ("ragged_spans_int8",
+             int8_case(span, slice(int(span["q_starts"][7]),
+                                   int(span["q_starts"][7]) + 249), 7, gen),
+             pa.ragged_spans, pa.ragged_spans_ref, None)):
+        call = (lambda x=x, fn=fn: fn(**x))
+        is_span = write is None
+        b_ms, b_by = span_bound(x) if is_span else decode_bound(x, write)
+        attr, values = (("SPAN_SPLIT", sweep_s) if is_span
+                        else ("DECODE_SPLIT", sweep_d))
+        rows.append({"name": name, "ms": time_ms(call),
+                     "plain_ms": time_ms(lambda x=x, ref=ref: ref(**x), reps=3),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "split": getattr(pa, attr),
+                     "ms_by_split": {v: _timed_split(attr, v, call) for v in values},
+                     "shape": ("mixed step: 7 decode rows at 1500 + 249 tokens "
+                               "at 384" if is_span else "B=8 x 1501 tokens")
+                              + f", H={H} K={K} hd={hd} ps={ps} W={W}"})
+    # phase 3's shapes at the other split sizes (its own times are in the
+    # kernels rows)
+    g3 = _span_inputs(gen, "mixed")
+    rows.append({"name": "ragged_spans", "shape": "phase 3 mixed step",
+                 "ms_by_split": {v: _timed_split("SPAN_SPLIT", v,
+                                                 lambda: pa.ragged_spans(**g3))
+                                 for v in sweep_s}})
+    d3 = dict(dec, kv_lens=torch.tensor([0, 1, 128, 129, 700, 1500, 2048, 1000],
+                                        dtype=torch.int32, device=dev))
+    rows.append({"name": "paged_decode_fused", "shape": "phase 3 decode",
+                 "ms_by_split": {v: _timed_split("DECODE_SPLIT", v,
+                                                 lambda: pa.paged_decode_fused(**d3))
+                                 for v in sweep_d}})
+    return rows
 
 
 # ------------------------------------------------------------ phase 4
@@ -676,6 +869,15 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
             one_step(i)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / steps
+        # host time to issue one step's launches, from an idle device to
+        # the closing synchronize (not included)
+        issue_ms = 0.0
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            one_step(i)
+            issue_ms += (time.perf_counter() - t1) * 1e3
+        torch.cuda.synchronize()
         if int8_weights:
             transformer.qmatmul = traced_qmatmul
         try:
@@ -707,6 +909,7 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
         busy = sum(kinds.values()) / steps
         out = {"rows": rows, "tokens": tokens, "context": context,
                "wall_ms_per_step": wall_ms,
+               "host_issue_ms_per_step": issue_ms / steps,
                "device_busy_ms_per_step": busy if n_kernels else "not measured",
                "device_idle_share": (1 - busy / wall_ms) if n_kernels else "not measured",
                "kernel_ms_per_step": {k: v / steps for k, v in kinds.items()},
@@ -984,6 +1187,10 @@ def main() -> int:
              check_multi(gen, int8=True)]
     for r in rows[:2] + spans + rows[3:] + rows8[:1] + spans8 + rows8[2:]:
         emit({"phase": "kernels", **r})
+    for r in check_split_boundaries(gen):
+        emit({"phase": "kernels-split-boundaries", **r})
+    for r in time_main_shapes(gen):
+        emit({"phase": "kernels-main-shape", **r})
     emit(timed(check_model))
     emit(timed(check_model, int8=True))
     main_out = timed(run_main_path)

@@ -26,6 +26,17 @@ __device__ __forceinline__ int8_t quant8(float x, float s) {
   return static_cast<int8_t>(r);
 }
 
+// the four int8 values of a 32-bit word, low byte first, as f32 — exactly,
+// on the FP32 pipe instead of the slower conversion unit: the float
+// 2^23 + (x + 128) holds x + 128 in its low mantissa bits
+__device__ __forceinline__ void i8x4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;  // each byte now x + 128
+  f[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

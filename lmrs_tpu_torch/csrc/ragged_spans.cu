@@ -18,58 +18,87 @@
 // write pass quantizes each flat token with ITS OWN row's scales (the
 // reference's kv_scales[rf], ragged_spans_xla), rintf(__fdiv_rn(x, s))
 // clamped to +-127 — bit for bit torch.round(x / s) (never build with
-// --use_fast_math).  The attention pass widens each staged int8 K/V value
-// to bf16 (exact) in the same shared-memory tiles, folds K's dequant into
-// q before the walk (q⊙s rounded to bf16 for the mma A operand: one more
-// rounding than the reference's f32 product) and V's into the output, and
-// attends in-span tokens from the pool — their quantized values, as the
-// reference does.
+// --use_fast_math).  The attention pass stages the int8 bytes (half the
+// copy) and widens each staged tile once into bf16 shared-memory tiles
+// (exact, on the FP32 pipe: csrc/kv_int8.cuh i8x4), folds K's
+// dequant into q before the walk (q⊙s rounded to bf16 for the mma A
+// operand: one more rounding than the reference's f32 product) and V's
+// into the output, and attends in-span tokens from the pool — their
+// quantized values, as the reference does.
 //
 // Layout: q [Tp, H, hd]; k_new/v_new [Tp, K, hd]; pools [P_total, K, ps, hd]
 // (page-major, layer-flattened: callers pass GLOBAL page ids); tables
-// [B, W], kv_lens / q_starts / q_lens [B] int32; out [Tp, H, hd].  All
-// contiguous.
+// [B, W], kv_lens / q_starts / q_lens [B] int32; out [Tp, H, hd]; part: f32
+// scratch of K·B·split_tiles·NS·64·(hd + 2) values and counters:
+// K·B·split_tiles ints, zero between launches (NS = ceil(cap / split)
+// splits).  Spans are disjoint inside [0, Tp), as pack_spans lays them out.
+// All contiguous.
 //
 // Design.  The TPU kernel walks one row's query tiles IN ORDER, writing a
 // tile's tokens before walking that tile's prefix.  Blocks on the card run
 // in no order, so a block for a later tile would read K/V an earlier
 // tile's block had not yet written.  The op is therefore two launches on
 // one stream: (1) a write pass, one block per flat token, that also zeroes
-// the output rows of tokens outside every span; (2) an attention pass,
-// one block per (query tile, row, kv head).  A tile is 64 query rows =
-// (64 / n_rep) span tokens x the n_rep query heads of one kv head (16
-// tokens at n_rep = 4), so each K/V tile staged in shared memory serves
-// every query head that reads it.  The block walks the row's pages up to
-// its last token's position in 64-column tiles, through the flash prefill
-// kernel's schedule (csrc/flash_prefill.cu): K row-major and V transposed
-// in padded shared memory, Q·K^T and P·V on mma.sync.m16n8k16 bf16 -> f32,
-// P kept in registers.  64 span tokens x n_rep heads (256 rows) per block
-// would need ~4x the flash kernel's registers per thread: it does not fit
-// at hd = 128.  A decode row has one token, so its tile is n_rep of 64
-// rows: accepted in this version.
+// the output rows of tokens outside every span; (2) an attention pass.  A
+// query tile is 64 query rows = (64 / n_rep) span tokens x the n_rep query
+// heads of one kv head (16 tokens at n_rep = 4), so each K/V tile staged in
+// shared memory serves every query head that reads it; Q·K^T and P·V run on
+// mma.sync.m16n8k16 bf16 -> f32 with P kept in registers (the flash prefill
+// kernel's schedule, csrc/flash_prefill.cu).  64 span tokens x n_rep heads
+// per block would need ~4x the registers per thread: it does not fit at
+// hd = 128.
 //
 // Bound on the H100: the bytes are the live K/V of every row (each read
 // once per kv head), q, out, the new K/V read and written into the pool;
 // the operations are ~4·H·hd per (query token, attended column).  A mixed
-// step (7 decode rows + a 249-token slice) and a 1,300-token continuation
-// over a 384-token prefix are bound by bytes at the step's small total
-// (a few MB, a few µs at 3.35 TB/s) and approach the compute line only for
-// long spans.  This version loads tiles synchronously (no cp.async/TMA, no
-// wgmma) and re-reads a row's K/V once per query tile of that row, so a
-// long span pays (span / 16) walks of its prefix from L2; decode rows get
-// no split over the sequence.  Measured times are in PERF.md.
+// step (7 decode rows + a 249-token slice) is bound by bytes, a
+// 1,300-token continuation over a 384-token prefix by operations; both are
+// a few µs to a few tens of µs of work.  The time is set by the longest
+// serial walk, so the attention pass splits and pipelines it:
+//
+// * Grid (NT, NS, K), all from shapes (kv_lens stays on the device).  The
+//   rows' query tiles are numbered in row order: block x finds its row and
+//   tile by a scan over the B spans; x past the last tile exits.  Block
+//   (x, s, kvh) walks columns [s·split, (s+1)·split) of its tile's range
+//   [0, kv_hi), kv_hi = min(base + the tile's last token + 1, cap); a
+//   block whose split starts at or past kv_hi exits.  split = 512 in the
+//   wrapper (8 column tiles).  Only rows of at most split_tiles (4 in the
+//   wrapper) query tiles
+//   split (decode rows, short spans: few blocks, long walks); a longer
+//   span's tiles are parallel already and walk whole in split 0, which
+//   keeps the scratch at B·split_tiles groups whatever Tp is.
+// * Staging: 64-column K and V tiles, both ROW-MAJOR (rows padded by 16
+//   bytes), through the page table into a two-stage shared-memory ring
+//   with cp.async, 16 bytes a thread on neighbouring addresses; tile i + 1
+//   is in flight while tile i is multiplied (a third stage measured no
+//   faster on the card).  Columns past the split are
+//   zero-filled and masked.  The P·V B fragment comes from the row-major V
+//   tile through ldmatrix.trans.  The int8 build stages the bytes and
+//   widens each tile once per block (not once per warp fragment: the four
+//   warps read the same tile) into bf16 tiles that the same fragment code
+//   reads.
+// * Merge: a tile with one live split writes `out` directly; otherwise each
+//   split stores its rows' (m, l, acc) in `part` and the last block of the
+//   (tile, kv head) to arrive merges the live splits in split order
+//   (split_merge.cuh), so repeated launches are bit-identical.
+// * A decode row's tile holds n_rep real rows of 64 (its one token): the
+//   mma does 64 rows of work for n_rep, which costs operations the mixed
+//   step has to spare, not bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_int8.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
 constexpr int QROWS = 64;     // query rows per block (16 per warp)
 constexpr int BK = 64;        // kv columns per tile
 constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int STAGES = 2;     // tiles in the shared-memory ring (1 in flight)
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -85,6 +114,43 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices from shared memory, transposed (lanes 8i..8i+7
+// give matrix i's row addresses)
+__device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t (&r)[4]) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// channels (c, c + 1) of a bf16 K row as an mma B register
+__device__ __forceinline__ uint32_t kpair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// an int8 tile [BK][HD + 16] widened into a bf16 tile [BK][HD + 8] (exact)
+template <int HD>
+__device__ __forceinline__ void widen_tile(const int8_t* src,
+                                           __nv_bfloat16* dst) {
+  constexpr int CH = HD / 16;  // 16-byte int8 chunks per row
+  for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {
+    const int r = c / CH, col = (c % CH) * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * (HD + 16) + col);
+    float f[16];
+    i8x4(raw.x, f);
+    i8x4(raw.y, f + 4);
+    i8x4(raw.z, f + 8);
+    i8x4(raw.w, f + 12);
+    uint4* o = reinterpret_cast<uint4*>(dst + r * (HD + 8) + col);
+    o[0] = make_uint4(bf16_pair(f[0], f[1]), bf16_pair(f[2], f[3]),
+                      bf16_pair(f[4], f[5]), bf16_pair(f[6], f[7]));
+    o[1] = make_uint4(bf16_pair(f[8], f[9]), bf16_pair(f[10], f[11]),
+                      bf16_pair(f[12], f[13]), bf16_pair(f[14], f[15]));
+  }
 }
 
 // Pass 1: one block per flat token t.  The owning row is found by a scan
@@ -131,10 +197,10 @@ __global__ void span_write_kernel(const __nv_bfloat16* __restrict__ k_new,
   }
 }
 
-// Pass 2: one block per (query tile, row, kv head).  Query row r of the
+// Pass 2: one block per (query tile, split, kv head).  Query row r of the
 // tile is span token j0 + r / NREP, query head kvh * NREP + r % NREP.
 template <int HD, int NREP, bool QUANT>
-__global__ void __launch_bounds__(NWARPS * 32)
+__global__ void __launch_bounds__(NTHREADS)
 span_attn_kernel(const __nv_bfloat16* __restrict__ q,
                  const pool_t<QUANT>* __restrict__ k_pages,
                  const pool_t<QUANT>* __restrict__ v_pages,
@@ -145,19 +211,48 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
                  const int* __restrict__ kv_lens,
                  const int* __restrict__ q_starts,
                  const int* __restrict__ q_lens,
-                 int Tp, int KH, int ps, int W, int cap, float scale_log2) {
+                 float* __restrict__ part, int* __restrict__ counters,
+                 int Tp, int B, int KH, int ps, int W, int cap, int split,
+                 int split_tiles, float scale_log2) {
+  using PT = pool_t<QUANT>;
   constexpr int TOK = QROWS / NREP;  // span tokens per tile
-  constexpr int KSTR = HD + 8;       // padded K row (bf16 elements)
-  constexpr int VSTR = BK + 8;       // padded transposed-V row
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 Vt[HD * VSTR];
+  constexpr int VEC = 16 / sizeof(PT);
+  constexpr int STR = HD + VEC;      // staged row, padded by 16 bytes
+  constexpr int ROWC = HD / VEC;     // 16-byte chunks per row
+  constexpr int WSTR = HD + 8;       // bf16 tile row, padded by 16 bytes
+  extern __shared__ __align__(128) unsigned char smem[];
+  PT* Ks = reinterpret_cast<PT*>(smem);  // [STAGES][BK][STR]
+  PT* Vs = Ks + STAGES * BK * STR;       // [STAGES][BK][STR]
+  // int8: the staged tile widened once per block into bf16 [BK][WSTR]
+  __nv_bfloat16* Kw = reinterpret_cast<__nv_bfloat16*>(Vs + STAGES * BK * STR);
+  __nv_bfloat16* Vw = Kw + BK * WSTR;
 
-  const int b = blockIdx.y, kvh = blockIdx.z;
-  const int j0 = blockIdx.x * TOK;
-  const int ql = q_lens[b];
-  if (j0 >= ql) return;
-  const int H = KH * NREP;
+  const int x = blockIdx.x, sp = blockIdx.y, kvh = blockIdx.z;
+  // flat tile x -> row b and tile t of its span (rows' tiles in row order)
+  int b = -1, t = 0;
+  for (int r = 0, seen = 0; r < B; ++r) {
+    const int n = q_lens[r];
+    const int nt = n > 0 ? (n + TOK - 1) / TOK : 0;
+    if (b < 0 && x < seen + nt) {
+      b = r;
+      t = x - seen;
+    }
+    seen += nt;
+  }
+  if (b < 0) return;
+  const int ql = q_lens[b], j0 = t * TOK;
   const int base = kv_lens[b], qs = q_starts[b];
+  // columns this tile needs: up to its last real token's limit
+  const int kv_hi = min(base + min(j0 + TOK, ql), cap);
+  // a short span (decode rows, a few tiles) splits its walk; a longer one
+  // walks each tile whole in split 0
+  const bool splits = (ql + TOK - 1) / TOK <= split_tiles;
+  const int live = kv_hi <= 0 ? 0 : splits ? (kv_hi + split - 1) / split : 1;
+  const int c_lo = splits ? sp * split : 0;
+  // nothing to attend: split 0 alone writes the tile's zero rows
+  if (live == 0 || !splits ? sp != 0 : c_lo >= kv_hi) return;
+  const int c_hi = splits ? min(c_lo + split, kv_hi) : kv_hi;
+  const int H = KH * NREP;
   const int* tab = tables + (long long)b * W;
   const long long page_stride = (long long)KH * ps * HD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -179,8 +274,9 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
     lim[half] = min(base + j, cap - 1);  // attend col <= lim
     qoff[half] = ((long long)(qs + j) * H + kvh * NREP + r % NREP) * HD;
   }
-  // columns this tile needs: up to its last real token's limit
-  const int kv_hi = min(base + min(j0 + TOK, ql), cap);
+
+  const int jw = j0 + warp * 16 / NREP;  // this warp's first span token
+  const bool warp_live = jw < ql && qs + jw < Tp;
 
   uint32_t qf[HD / 16][4];
 #pragma unroll
@@ -198,125 +294,210 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
+  // stage columns [kv0, kv0 + BK) of this split; past c_hi: zero-filled
+  auto issue = [&](int i) {
+    const int kv0 = c_lo + i * BK;
+    const int p0 = kv0 / ps, o0 = kv0 - p0 * ps;  // the tile's first page
+    PT* kd = Ks + (i % STAGES) * BK * STR;
+    PT* vd = Vs + (i % STAGES) * BK * STR;
+    for (int c = tid; c < BK * ROWC; c += NTHREADS) {
+      const int r = c / ROWC, cc = (c % ROWC) * VEC;
+      const bool ok = kv0 + r < c_hi;
+      int pi = p0, o = o0 + r;  // (page, slot) of column kv0 + r
+      while (o >= ps) {
+        o -= ps;
+        ++pi;
+      }
+      const long long off =
+          ok ? tab[pi] * page_stride + ((long long)kvh * ps + o) * HD + cc : 0;
+      cp_async16(kd + r * STR + cc, k_pages + off, ok ? 16 : 0);
+      cp_async16(vd + r * STR + cc, v_pages + off, ok ? 16 : 0);
+    }
+  };
+
   float o_acc[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
     o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
 
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    // stage K (row-major) and V (transposed) through the page table;
-    // columns at or past kv_hi read as 0 (masked below)
-    for (int idx = tid; idx < BK * (HD / 8); idx += NWARPS * 32) {
-      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-      const int col = kv0 + r;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (col < kv_hi) {
-        const long long off = tab[col / ps] * page_stride +
-                              ((long long)kvh * ps + col % ps) * HD + c;
-        kv4 = load8(k_pages + off);
-        vv4 = load8(v_pages + off);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KSTR + c]) = kv4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
+  const int n_tiles = c_hi > c_lo ? (c_hi - c_lo + BK - 1) / BK : 0;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c + e) * VSTR + r] = ve[e];
+  for (int i = 0; i < STAGES - 1; ++i) {  // prologue: STAGES - 1 tiles in flight
+    if (i < n_tiles) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + STAGES - 1 < n_tiles) issue(i + STAGES - 1);
+    cp_async_commit();  // (empty groups past the last tile keep the count)
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();  // tile i has landed for every thread
+    const __nv_bfloat16* kt;
+    const __nv_bfloat16* vt;
+    if constexpr (QUANT) {
+      widen_tile<HD>(Ks + (i % STAGES) * BK * STR, Kw);
+      widen_tile<HD>(Vs + (i % STAGES) * BK * STR, Vw);
+      __syncthreads();
+      kt = Kw;
+      vt = Vw;
+    } else {
+      kt = Ks + (i % STAGES) * BK * STR;
+      vt = Vs + (i % STAGES) * BK * STR;
     }
-    __syncthreads();
+    const int kv0 = c_lo + i * BK;
+    // a warp whose 16 rows hold no span token (a decode row fills n_rep
+    // rows of warp 0) only stages and syncs
+    if (warp_live) {
+      // S = Q K^T for this warp's 16 rows x 64 columns
+      float s[BK / 8][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const __nv_bfloat16* kp = kt + (j * 8 + g) * WSTR + ks * 16 + tig * 2;
+          mma_bf16(s[j], qf[ks], kpair(kp), kpair(kp + 8));
+        }
+      }
 
-    // S = Q K^T for this warp's 16 rows x 64 columns
-    float s[BK / 8][4];
+      // per-token causal mask, split bound + online softmax (log2 domain);
+      // a tile both of this thread's rows attend in full needs no mask
+      float mx[2] = {NEG, NEG};
+      const int last = kv0 + BK - 1;
+      if (last < c_hi && valid[0] && valid[1] && last <= lim[0] && last <= lim[1]) {
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] *= scale_log2;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1;
+            const int col = kv0 + j * 8 + tig * 2 + (e & 1);
+            const bool ok = valid[half] && col <= lim[half] && col < c_hi;
+            const float val = ok ? s[j][e] * scale_log2 : NEG;
+            s[j][e] = val;
+            mx[half] = fmaxf(mx[half], val);
+          }
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 2));
+        const float m_new = fmaxf(m_run[half], mx[half]);
+        alpha[half] = exp2f(m_run[half] - m_new);
+        m_run[half] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        const __nv_bfloat16* kp = &Ks[(j * 8 + g) * KSTR + ks * 16 + tig * 2];
-        mma_bf16(s[j], qf[ks], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1;
+          // a row masked so far has m == NEG: its p must be 0, not exp(0)
+          const float p = m_run[half] > 0.5f * NEG ? exp2f(s[j][e] - m_run[half]) : 0.f;
+          s[j][e] = p;
+          rs[half] += p;
+        }
       }
-    }
-
-    // per-token causal mask + online softmax (log2 domain)
-    float mx[2] = {NEG, NEG};
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int col = kv0 + j * 8 + tig * 2 + (e & 1);
-        const bool ok = valid[half] && col <= lim[half];
-        const float val = ok ? s[j][e] * scale_log2 : NEG;
-        s[j][e] = val;
-        mx[half] = fmaxf(mx[half], val);
+      for (int half = 0; half < 2; ++half) {
+        rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 1);
+        rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 2);
+        l_run[half] = l_run[half] * alpha[half] + rs[half];
       }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 1));
-      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 2));
-      const float m_new = fmaxf(m_run[half], mx[half]);
-      alpha[half] = exp2f(m_run[half] - m_new);
-      m_run[half] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        // a row masked so far has m == NEG: its p must be 0, not exp(0)
-        const float p = m_run[half] > 0.5f * NEG ? exp2f(s[j][e] - m_run[half]) : 0.f;
-        s[j][e] = p;
-        rs[half] += p;
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 1);
-      rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 2);
-      l_run[half] = l_run[half] * alpha[half] + rs[half];
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o_acc[n][0] *= alpha[0]; o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1]; o_acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators re-packed as bf16 A fragments
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n) {
-        const __nv_bfloat16* vp = &Vt[(n * 8 + g) * VSTR + kk * 16 + tig * 2];
-        mma_bf16(o_acc[n], a, *reinterpret_cast<const uint32_t*>(vp),
-                 *reinterpret_cast<const uint32_t*>(vp + 8));
+        o_acc[n][0] *= alpha[0]; o_acc[n][1] *= alpha[0];
+        o_acc[n][2] *= alpha[1]; o_acc[n][3] *= alpha[1];
+      }
+
+      // O += P V: the S accumulators re-packed as bf16 A fragments; V's B
+      // fragments from the row-major tile through ldmatrix.trans, two
+      // 8-channel blocks at a time
+      const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int n = 0; n < HD / 8; n += 2) {
+          uint32_t bf[4];
+          ldsm_x4_trans(vt + (kk * 16 + vrow) * WSTR + n * 8 + (lane >> 4) * 8, bf);
+          mma_bf16(o_acc[n], a, bf[0], bf[1]);
+          mma_bf16(o_acc[n + 1], a, bf[2], bf[3]);
+        }
       }
     }
+    __syncthreads();  // tile i consumed before its stage is refilled
   }
 
-  // finalize: out = acc / l (0 where nothing was attended)
+  if (live <= 1) {  // one live split (or none): out = acc / l directly
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!valid[half]) continue;
+      const float inv = l_run[half] > 0.f ? 1.f / l_run[half] : 0.f;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const int col = n * 8 + tig * 2;
+        float o0 = o_acc[n][half * 2] * inv, o1 = o_acc[n][half * 2 + 1] * inv;
+        if constexpr (QUANT) {
+          o0 *= vrow_s[col];
+          o1 *= vrow_s[col + 1];
+        }
+        *reinterpret_cast<uint32_t*>(out + qoff[half] + col) = pack_bf16(o0, o1);
+      }
+    }
+    return;
+  }
+  // store this split's partial state; the last split to arrive merges
+  const int NS = gridDim.y;
+  // partial groups: (kv head, row, tile) over the split rows' tiles
+  const long long group = ((long long)kvh * B + b) * split_tiles + t;
+  const long long n_acc = (long long)gridDim.z * B * split_tiles * NS * QROWS * HD;
+  float* p_acc = part + group * NS * QROWS * HD;  // split 0, row 0
+  float* p_ml = part + n_acc + group * NS * QROWS * 2;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    if (!valid[half]) continue;
-    const float inv = l_run[half] > 0.f ? 1.f / l_run[half] : 0.f;
+    const long long r = (long long)sp * QROWS + warp * 16 + g + half * 8;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const int col = n * 8 + tig * 2;
-      float o0 = o_acc[n][half * 2] * inv, o1 = o_acc[n][half * 2 + 1] * inv;
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(p_acc + r * HD + n * 8 + tig * 2) =
+          make_float2(o_acc[n][half * 2], o_acc[n][half * 2 + 1]);
+    if (tig == 0)
+      *reinterpret_cast<float2*>(p_ml + r * 2) = make_float2(m_run[half], l_run[half]);
+  }
+  if (!split_arrive(counters + group, live)) return;
+  constexpr int CPL = HD / 32;  // output channels per lane in the merge
+  for (int i = 0; i < 16; ++i) {
+    const int r = warp * 16 + i;
+    const int j = j0 + r / NREP;
+    if (!(j < ql && qs + j < Tp)) continue;
+    float o[CPL];
+    split_merge_row<CPL>(p_ml + r * 2, p_acc + (long long)r * HD, live,
+                         QROWS * 2, (long long)QROWS * HD, lane * CPL, o);
+    __nv_bfloat16* dst =
+        out + ((long long)(qs + j) * H + kvh * NREP + r % NREP) * HD + lane * CPL;
+#pragma unroll
+    for (int c = 0; c < CPL; c += 2) {
+      float o0 = o[c], o1 = o[c + 1];
       if constexpr (QUANT) {
-        o0 *= vrow_s[col];
-        o1 *= vrow_s[col + 1];
+        o0 *= vrow_s[lane * CPL + c];
+        o1 *= vrow_s[lane * CPL + c + 1];
       }
-      *reinterpret_cast<uint32_t*>(out + qoff[half] + col) = pack_bf16(o0, o1);
+      *reinterpret_cast<uint32_t*>(dst + c) = pack_bf16(o0, o1);
     }
   }
 }
@@ -326,18 +507,29 @@ int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
               const __nv_bfloat16* vn, pool_t<QUANT>* kp, pool_t<QUANT>* vp,
               const float* ks, const float* vs, const int* tab,
               const int* lens, const int* qs, const int* ql,
-              __nv_bfloat16* out, int Tp, int B, int KH, int ps, int W,
-              int cap, float sl2, cudaStream_t st) {
+              __nv_bfloat16* out, float* part, int* cnt, int Tp, int B,
+              int KH, int ps, int W, int cap, int split, int split_tiles,
+              float sl2, cudaStream_t st) {
   const int H = KH * nrep;
   span_write_kernel<HD, QUANT><<<Tp, 128, 0, st>>>(
       kn, vn, kp, vp, ks, vs, out, tab, lens, qs, ql, B, H, KH, ps, W, cap);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(NWARPS * 32);
-#define LMRS_SPAN_ATTN(NR)                                                   \
-  span_attn_kernel<HD, NR, QUANT><<<dim3((Tp + QROWS / NR - 1) / (QROWS / NR), \
-                                         B, KH), block, 0, st>>>(            \
-      q, kp, vp, ks, vs, out, tab, lens, qs, ql, Tp, KH, ps, W, cap, sl2)
+  const int ns = cap > 0 ? (cap + split - 1) / split : 1;
+  // the staged ring, plus the widened bf16 K and V tiles for int8 pools
+  const int smem =
+      STAGES * 2 * BK * (HD + 16 / (int)sizeof(pool_t<QUANT>)) * (int)sizeof(pool_t<QUANT>) +
+      (QUANT ? 2 * BK * (HD + 8) * 2 : 0);
+#define LMRS_SPAN_ATTN(NR)                                                     \
+  {                                                                            \
+    auto kern = span_attn_kernel<HD, NR, QUANT>;                               \
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                               smem);                                          \
+    if (err != cudaSuccess) return static_cast<int>(err);                      \
+    kern<<<dim3((Tp + QROWS / NR - 1) / (QROWS / NR) + B, ns, KH), NTHREADS,   \
+           smem, st>>>(q, kp, vp, ks, vs, out, tab, lens, qs, ql, part, cnt,   \
+                       Tp, B, KH, ps, W, cap, split, split_tiles, sl2);        \
+  }
   switch (nrep) {
     case 1: LMRS_SPAN_ATTN(1); break;
     case 2: LMRS_SPAN_ATTN(2); break;
@@ -353,9 +545,12 @@ template <bool QUANT>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
            void* v_pages, const void* kscale, const void* vscale,
            const void* tables, const void* kv_lens, const void* q_starts,
-           const void* q_lens, void* out, int Tp, int B, int H, int KH,
-           int hd, int ps, int W, int max_pos, float sm_scale, void* stream) {
+           const void* q_lens, void* out, void* part, void* counters, int Tp,
+           int B, int H, int KH, int hd, int ps, int W, int max_pos,
+           int split, int split_tiles, float sm_scale, void* stream) {
   if (Tp <= 0 || B <= 0) return 0;
+  if (split <= 0 || split % BK || split_tiles < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int cap = min(W * ps, max_pos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = sm_scale * LOG2E;
@@ -367,7 +562,9 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
       static_cast<const float*>(kscale), static_cast<const float*>(vscale),    \
       static_cast<const int*>(tables), static_cast<const int*>(kv_lens),       \
       static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),      \
-      static_cast<__nv_bfloat16*>(out), Tp, B, KH, ps, W, cap, sl2, st
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),             \
+      static_cast<int*>(counters), Tp, B, KH, ps, W, cap, split, split_tiles, \
+      sl2, st
   int rc;
   if (hd == 128) {
     rc = launch_hd<128, QUANT>(LMRS_SPAN_ARGS);
@@ -382,15 +579,17 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
 
 }  // namespace
 
+// part / counters: the attention pass's split scratch (see Layout above).
 extern "C" int lmrs_ragged_spans_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
     void* v_pages, const void* tables, const void* kv_lens,
-    const void* q_starts, const void* q_lens, void* out, int Tp, int B,
-    int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
-    void* stream) {
+    const void* q_starts, const void* q_lens, void* out, void* part,
+    void* counters, int Tp, int B, int H, int KH, int hd, int ps, int W,
+    int max_pos, int split, int split_tiles, float sm_scale, void* stream) {
   return launch<false>(q, k_new, v_new, k_pages, v_pages, nullptr, nullptr,
-                       tables, kv_lens, q_starts, q_lens, out, Tp, B, H, KH,
-                       hd, ps, W, max_pos, sm_scale, stream);
+                       tables, kv_lens, q_starts, q_lens, out, part, counters,
+                       Tp, B, H, KH, hd, ps, W, max_pos, split, split_tiles,
+                       sm_scale, stream);
 }
 
 // int8 pools; kscale/vscale are the table rows' f32 scales [B, K, hd].
@@ -398,9 +597,11 @@ extern "C" int lmrs_ragged_spans_int8(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
     void* v_pages, const void* kscale, const void* vscale, const void* tables,
     const void* kv_lens, const void* q_starts, const void* q_lens, void* out,
-    int Tp, int B, int H, int KH, int hd, int ps, int W, int max_pos,
-    float sm_scale, void* stream) {
+    void* part, void* counters, int Tp, int B, int H, int KH, int hd, int ps,
+    int W, int max_pos, int split, int split_tiles, float sm_scale,
+    void* stream) {
   return launch<true>(q, k_new, v_new, k_pages, v_pages, kscale, vscale,
-                      tables, kv_lens, q_starts, q_lens, out, Tp, B, H, KH,
-                      hd, ps, W, max_pos, sm_scale, stream);
+                      tables, kv_lens, q_starts, q_lens, out, part, counters,
+                      Tp, B, H, KH, hd, ps, W, max_pos, split, split_tiles,
+                      sm_scale, stream);
 }

@@ -3,7 +3,8 @@
 Each source under ``lmrs_tpu_torch/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``.  The int8-pool kernels are further ``extern "C"`` symbols of the
-same sources, sharing ``csrc/kv_int8.cuh``.  Libraries land in
+same sources, sharing ``csrc/kv_int8.cuh``; the split-sequence decode and
+span kernels share ``csrc/split_merge.cuh``.  Libraries land in
 ``build/lmrs_tpu_torch/`` at the repo root, named by a hash of the source,
 the shared headers and the flags, so a changed source rebuilds and an
 unchanged one loads at once.  Building happens at first use (never at

@@ -43,6 +43,18 @@ page axis; callers pass GLOBAL page ids).  Decode contract per row b:
 
 The multi-token and span contracts are in ``paged_decode_multi``' and
 ``ragged_spans``' docstrings.
+
+Split-sequence kernels: the decode kernels walk each row in splits of
+``DECODE_SPLIT`` tokens and the span kernel's attention pass each query
+tile's columns in splits of ``SPAN_SPLIT`` (spans of at most
+``SPAN_SPLIT_TILES`` query tiles), one block per split; the
+number of splits comes from shapes alone (``W * ps``), never from reading
+``kv_lens`` on the host.  Each wrapper hands its kernel an f32 scratch
+(``torch.empty``) for the splits' partial softmax states and a cached int32
+counter buffer that the kernels leave zero; the last block of a split
+group merges the partials in split order, so repeated launches are
+bit-identical.  Launches that share the counters must be ordered: the port
+runs them on one stream.
 """
 
 from __future__ import annotations
@@ -58,6 +70,30 @@ NEG_INF = -1e30
 # Alignment of the span starts in the flat token buffer (the reference's
 # query-tile height); kept so both packages pack spans identically.
 SPAN_QT = 8
+# tokens per decode split and columns per span split (multiples of the
+# kernels' 32-token and 64-column tiles; csrc/paged_decode.cu,
+# csrc/ragged_spans.cu)
+DECODE_SPLIT = 256
+SPAN_SPLIT = 512
+# query rows of a span attention block (span tokens x the n_rep heads)
+SPAN_QROWS = 64
+# spans of at most this many query tiles split their walks (decode rows,
+# short spans); longer ones walk whole, their tiles being parallel already,
+# which keeps the span scratch independent of the dispatch's token count
+SPAN_SPLIT_TILES = 4
+
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _split_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 split counters on ``dev``: zero when made, and
+    every launch leaves them zero (the last block of a group resets its
+    own).  One buffer per device, grown when a launch needs more."""
+    buf = _counters.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _counters[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=dev)
+    return buf
 
 
 def paged_decode_ref(
@@ -198,10 +234,16 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
     tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    n_split = -(-(w * ps) // DECODE_SPLIT)  # from shapes: no host read
+    part = torch.empty(b * kh * n_split * (h // kh) * (hd + 2),
+                       dtype=torch.float32, device=q.device)
+    counters = _split_counters(q.device, b * kh)
     lib = kernels.load("paged_decode")
-    tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    args = (tables.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h, kh, hd,
-            ps, w, hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    args = (tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), b, h, kh, hd, ps, w,
+            DECODE_SPLIT, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if k_new is None:
         name = "lmrs_paged_decode_bf16"
         ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
@@ -211,7 +253,7 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
         ptrs = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                 k_pages.data_ptr(), v_pages.data_ptr(), *scales]
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 3) + tail
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 5) + tail
     fn.restype = ctypes.c_int
     kernels.check_launch(name, fn(*ptrs, *args))
     if k_new is None:
@@ -516,15 +558,25 @@ def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
     if any(x.shape != (b,) for x in idx[1:]):
         raise ValueError(f"{op}: kv_lens/q_starts/q_lens must be [{b}]")
     out = torch.empty_like(q)
+    # the attention pass's split scratch, from shapes alone: the split
+    # rows' query tiles (B x SPAN_SPLIT_TILES) x splits of the columns
+    pos_cap = w * ps if max_pos is None else max_pos
+    cap = min(w * ps, pos_cap)
+    n_split = -(-cap // SPAN_SPLIT) if cap > 0 else 1
+    groups = kh * b * SPAN_SPLIT_TILES
+    part = torch.empty(groups * n_split * SPAN_QROWS * (hd + 2),
+                       dtype=torch.float32, device=q.device)
+    counters = _split_counters(q.device, groups)
     name = "lmrs_ragged_spans_int8" if quant else "lmrs_ragged_spans_bf16"
     fn = getattr(kernels.load("ragged_spans"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (10 + len(scales)) + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * (12 + len(scales)) + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), *scales,
-            *(x.data_ptr() for x in idx), out.data_ptr(), tp, b, h, kh, hd, ps,
-            w, w * ps if max_pos is None else max_pos, hd ** -0.5,
+            *(x.data_ptr() for x in idx), out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), tp, b, h, kh, hd, ps, w, pos_cap,
+            SPAN_SPLIT, SPAN_SPLIT_TILES, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(name, rc)
     if quant:

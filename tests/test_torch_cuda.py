@@ -350,3 +350,101 @@ def test_int8_kernels_refuse_mismatched_scales(cuda_device):
         tpa.paged_decode_multi(**{**x, "kscale": x["kscale"][:, :4].contiguous()})
     with pytest.raises(ValueError, match="float32"):
         tpa.paged_decode_multi(**{**x, "kscale": x["kscale"].bfloat16()})
+
+
+# ------------------------------------------- split-sequence boundaries
+
+def _split_decode_case(dev, seed):
+    """Decode rows at the split boundaries (bench-8b widths, ps=128, W=16):
+    exactly DECODE_SPLIT tokens, one more (the write opens a new split),
+    W·ps, a stale length past W·ps, 0 (null table) and 1."""
+    r = np.random.default_rng(seed)
+    b, h, kh, hd, ps, w = 6, 32, 8, 128, 128, 16
+    split = tpa.DECODE_SPLIT
+    lens = [split, split + 1, w * ps, w * ps + 100, 0, 1]
+    n_pages = b * w + 1
+    tables = r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1
+    tables[4] = 0
+    q, k_new, v_new, k_pages, v_pages = _bf16(
+        dev, *(r.standard_normal(s).astype(np.float32) for s in
+               ((b, h, hd), (b, kh, hd), (b, kh, hd), (n_pages, kh, ps, hd),
+                (n_pages, kh, ps, hd))))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+                v_pages=v_pages, page_tables=i32(tables), kv_lens=i32(lens))
+
+
+def _split_span_case(dev, seed):
+    """Span rows at the split boundaries: decode rows whose column range
+    ends on a SPAN_SPLIT boundary and one past it, a 48-token continuation
+    at base 1000 (3 query tiles: split) whose walk crosses three splits, a
+    900-token continuation at base 300 (walked unsplit), a decode row at
+    W·ps - 1, a stale base past W·ps, an inactive row and a fresh one-token
+    row."""
+    r = np.random.default_rng(seed)
+    h, kh, hd, ps, w = 32, 8, 128, 128, 16
+    split = tpa.SPAN_SPLIT
+    rows = [(split - 1, 1), (split, 1), (1000, 48), (300, 900),
+            (w * ps - 1, 1), (w * ps + 50, 1), (0, 0), (0, 1)]
+    q_lens = [n for _, n in rows]
+    q_starts, tp = tpa.pack_spans(q_lens)
+    b = len(rows)
+    n_pages = b * w + 1
+    q, k_new, v_new, k_pages, v_pages = _bf16(
+        dev, *(r.standard_normal(s).astype(np.float32) for s in
+               ((tp, h, hd), (tp, kh, hd), (tp, kh, hd), (n_pages, kh, ps, hd),
+                (n_pages, kh, ps, hd))))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+                v_pages=v_pages,
+                page_tables=i32(r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1),
+                kv_lens=i32([base for base, _ in rows]), q_starts=i32(q_starts),
+                q_lens=i32(q_lens))
+
+
+def _check_split_kernel(fn, ref, x, pool_keys=("k_pages", "v_pages")):
+    """Kernel vs plain within TOL, pools bit-exact, and a second launch on
+    the same inputs (pools restored) bit-identical to the first."""
+    x0 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in x.items()}
+    x2 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in x.items()}
+    got = fn(**x)
+    want = ref(**x2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    for k in pool_keys:
+        assert torch.equal(x[k], x2[k]), k
+    again = fn(**{k: (v.clone() if torch.is_tensor(v) else v) for k, v in x0.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "walk"])
+def test_decode_kernels_at_split_boundaries(cuda_device, kind):
+    x = _split_decode_case(cuda_device, 21)
+    if kind == "int8":
+        x = _int8ify(x, 1, 1, seed=22)  # row 1 (SPLIT + 1): exact ties
+    if kind == "walk":
+        kp0, vp0 = x["k_pages"].clone(), x["v_pages"].clone()
+        walk = {k: x[k] for k in ("q", "k_pages", "v_pages", "page_tables", "kv_lens")}
+        got = _check_split_kernel(tpa.paged_decode, tpa.paged_decode_ref, walk)
+        assert torch.equal(x["k_pages"], kp0) and torch.equal(x["v_pages"], vp0)
+    else:
+        got = _check_split_kernel(tpa.paged_decode_fused,
+                                  tpa.paged_decode_fused_ref, x)
+    assert not got[4].any()  # the kv_len == 0 row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_span_kernels_at_split_boundaries(cuda_device, int8):
+    x = _split_span_case(cuda_device, 23)
+    if int8:
+        s, n = int(x["q_starts"][2]), int(x["q_lens"][2])
+        x = _int8ify(x, slice(s, s + n), 2, seed=24)  # the continuation's ties
+    got = _check_split_kernel(tpa.ragged_spans, tpa.ragged_spans_ref, x)
+    in_span = torch.zeros(got.shape[0], dtype=torch.bool, device=cuda_device)
+    for s, n in zip(x["q_starts"].tolist(), x["q_lens"].tolist()):
+        in_span[s:s + n] = True
+    assert not got[~in_span].any()
