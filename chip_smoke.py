@@ -25,7 +25,16 @@ anything wrong.  Phases, one JSON object per line:
               span and verify kernels at the same shapes over int8 pools
               (random values, scales from ``kv_scale_from`` on random bf16
               K/V, one row whose new K/V are exact .5 ties of x / s): the
-              same tolerance, int8 pool writes bit-exact.
+              same tolerance, int8 pool writes bit-exact.  The seven split
+              builds (the five above and the verify kernel, bf16 and int8)
+              at their split boundaries, and at the main path's shapes
+              (the verify kernel at the speculative step: 8 rows x 5 tokens
+              after 1,500) beside other split sizes.
+3b. hd32    — every kernel's hd-32 build (the ``tiny`` presets' head dim;
+              H=8, K=4) against its plain version at the split boundaries:
+              flash prefill (packed and not), decode bf16/int8, walk-only,
+              spans bf16/int8, verify bf16/int8; pools exact, repeat
+              launches bit-identical.
 4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts,
               16 teacher-forced decode steps, one span dispatch (2 decode
               rows + a 100-token slice) and one 5-token verify step
@@ -37,6 +46,12 @@ anything wrong.  Phases, one JSON object per line:
               on the CPU, the same int8 values and scales on the card; the
               span dispatch re-prefills row 2 from position 0, a base-0 row
               that owns its slot's scales).
+4b. default — the CLI's ``main`` with no ``--model`` (the default
+              ``EngineConfig``: preset ``tiny``, hd 32, random-init) on the
+              demo transcript; counters zeroed just before and read just
+              after: no failed request, a non-empty summary without an error
+              string, and flash prefill, the write-fused decode kernel and
+              the span kernel launched.
 5. main     — ``TranscriptSummarizer`` at full bench-8b (32 layers,
               random-init bf16, byte tokenizer) with the hierarchical reduce,
               mixed steps, continuation chunks and the prefix cache; launch
@@ -414,20 +429,7 @@ def check_multi(gen: torch.Generator, int8: bool = False) -> dict:
     ms = time_ms(lambda: pa.paged_decode_multi(**x, max_pos=max_pos))
     plain_ms = time_ms(lambda: pa.paged_decode_multi_ref(**x2, max_pos=max_pos),
                        reps=3)
-    cap = min(W * ps, max_pos)
-    bases = [max(n - T, 0) for n in lens_l]
-    prior = sum(min(b, cap) for b in bases)
-    written = sum(max(0, min(b + T, cap) - b) for b in bases)
-    attended = sum(min(b + j + 1, cap) for b in bases for j in range(T))
-    flops = 4.0 * H * hd * attended
-    e, scale_bytes = pool_bytes(x)
-    # the prior K/V read once (e bytes a value), q read, out written, the
-    # new K/V read (bf16) and its in-window rows written into the pool, the
-    # rows' f32 scales (int8); int32 tables and lengths
-    nbytes = (e * 2.0 * prior * K * hd
-              + 2.0 * (2 * B * T * H * hd + 2 * B * T * K * hd)
-              + e * 2.0 * written * K * hd + scale_bytes + 4.0 * (B * W + B))
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = multi_bound(x, max_pos)
     return {"name": name, "route": "cuda",
             "source": "lmrs_tpu_torch/csrc/paged_decode_multi.cu",
             "replaces": "lmrs_tpu/ops/paged_attention.py:852",
@@ -437,6 +439,28 @@ def check_multi(gen: torch.Generator, int8: bool = False) -> dict:
             "shape": f"B={B} T={T} W={W} ps={ps} H={H} K={K} hd={hd} "
                      f"kv_lens={lens_l} max_pos={max_pos} "
                      f"{'int8 pools' if int8 else 'bf16'}"}
+
+
+def multi_bound(x: dict, max_pos: int) -> tuple[float, str]:
+    """Bound of one verify launch on these inputs: the prior K/V read once
+    (e bytes a value), q read, out written, the new K/V read (bf16) and its
+    in-window rows written into the pool, the rows' f32 scales (int8);
+    int32 tables and lengths.  Operations: 4·H·hd per (query token,
+    attended column)."""
+    B, T, H, hd = x["q"].shape
+    _, K, ps, _ = x["k_pages"].shape
+    W = x["page_tables"].shape[1]
+    cap = min(W * ps, max_pos)
+    bases = [max(n - T, 0) for n in x["kv_lens"].tolist()]
+    prior = sum(min(b, cap) for b in bases)
+    written = sum(max(0, min(b + T, cap) - b) for b in bases)
+    attended = sum(min(b + j + 1, cap) for b in bases for j in range(T))
+    flops = 4.0 * H * hd * attended
+    e, scale_bytes = pool_bytes(x)
+    nbytes = (e * 2.0 * prior * K * hd
+              + 2.0 * (2 * B * T * H * hd + 2 * B * T * K * hd)
+              + e * 2.0 * written * K * hd + scale_bytes + 4.0 * (B * W + B))
+    return bound(flops, nbytes)
 
 
 def check_walk(gen: torch.Generator) -> dict:
@@ -480,13 +504,18 @@ def check_walk(gen: torch.Generator) -> dict:
             "shape": f"B={B} W={W} ps={ps} H={H} K={K} hd={hd} lens={lens_l} bf16"}
 
 
-def _split_decode_inputs(gen: torch.Generator, int8: bool) -> dict:
-    """Decode rows at the split boundaries, bench-8b widths (ps=128, W=16):
-    exactly DECODE_SPLIT tokens, one more (the write opens a new split),
-    W·ps, a stale length past W·ps, 0 (null table) and 1."""
+BENCH8B = dict(H=32, K=8, hd=128)  # bench-8b's attention widths
+TINY = dict(H=8, K=4, hd=32)       # the default tiny preset's
+
+
+def _split_decode_inputs(gen: torch.Generator, int8: bool, H: int = 32,
+                         K: int = 8, hd: int = 128) -> dict:
+    """Decode rows at the split boundaries, bench-8b widths unless given
+    (ps=128, W=16): exactly DECODE_SPLIT tokens, one more (the write opens a
+    new split), W·ps, a stale length past W·ps, 0 (null table) and 1."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
-    B, H, K, hd, ps, W = 6, 32, 8, 128, 128, 16
+    B, ps, W = 6, 128, 16
     split = pa.DECODE_SPLIT
     dev = "cuda"
     P = B * W + 1
@@ -502,16 +531,17 @@ def _split_decode_inputs(gen: torch.Generator, int8: bool) -> dict:
     return int8_case(x, 1, 1, gen) if int8 else x
 
 
-def _split_span_inputs(gen: torch.Generator, int8: bool) -> dict:
-    """Span rows at the split boundaries: decode rows whose columns end on a
-    SPAN_SPLIT boundary and one past it, a 48-token continuation at base
-    1000 (3 query tiles, so split) whose walk crosses three splits, a
-    900-token continuation at base 300 (walked unsplit), a decode row at
-    W·ps - 1, a stale base past W·ps, an inactive row and a fresh one-token
-    row."""
+def _split_span_inputs(gen: torch.Generator, int8: bool, H: int = 32,
+                       K: int = 8, hd: int = 128) -> dict:
+    """Span rows at the split boundaries (bench-8b widths unless given):
+    decode rows whose columns end on a SPAN_SPLIT boundary and one past it,
+    a 48-token continuation at base 1000 (split: at most 4 query tiles)
+    whose walk crosses three splits, a 900-token continuation at base 300
+    (walked unsplit), a decode row at W·ps - 1, a stale base past W·ps, an
+    inactive row and a fresh one-token row."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
-    H, K, hd, ps, W = 32, 8, 128, 128, 16
+    ps, W = 128, 16
     split = pa.SPAN_SPLIT
     dev = "cuda"
     rows = [(split - 1, 1), (split, 1), (1000, 48), (300, 900),
@@ -534,39 +564,73 @@ def _split_span_inputs(gen: torch.Generator, int8: bool) -> dict:
     return x
 
 
-def _boundary_check(name: str, fn, ref, x: dict, pools: str) -> dict:
+def _split_multi_inputs(gen: torch.Generator, int8: bool, H: int = 32,
+                        K: int = 8, hd: int = 128) -> dict:
+    """Verify rows (T = 5) at MULTI_SPLIT's boundaries (bench-8b widths
+    unless given, ps=128, W=16, max_pos 2048): tokens straddling a split, a
+    last token on a split's last column, tokens overhanging the window, T
+    tokens inside one split, a stale length past W·ps, the null-table row of
+    an empty slot (kv_lens = T, row 5), tokens opening a split and a fresh
+    row.  int8: row 0's new K/V are exact ties."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    T, ps, W = 5, 128, 16
+    split = pa.MULTI_SPLIT
+    lens = [split + 3, split, W * ps + 2, 700, W * ps + 100, T, 2 * split + T, T]
+    B = len(lens)
+    P = B * W + 1
+    tables = (torch.randperm(P - 1, generator=gen, device="cuda")[: B * W] + 1
+              ).view(B, W).to(torch.int32)
+    tables[5] = 0
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").bfloat16()  # noqa: E731
+    x = dict(q=bf(B, T, H, hd), k_new=bf(B, T, K, hd), v_new=bf(B, T, K, hd),
+             k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+             page_tables=tables,
+             kv_lens=torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    x = int8_case(x, 0, 0, gen) if int8 else x
+    return {**x, "max_pos": 2048}
+
+
+MULTI_REAL = [0, 1, 2, 3, 4, 6, 7]  # _split_multi_inputs' rows with real tables
+
+
+def _boundary_check(name: str, fn, ref, x: dict, pools: str,
+                    rows=slice(None), pages=slice(None)) -> dict:
     """Kernel vs plain within TOL, the pools bit-exact (``pools`` =
     "written") or untouched ("untouched"), and a second launch on the same
-    inputs (pools restored) bit-identical to the first."""
-    x0 = {k: v.clone() for k, v in x.items()}
-    x2 = {k: v.clone() for k, v in x.items()}
+    inputs (pools restored) bit-identical to the first.  ``rows`` and
+    ``pages`` leave out the verify kernel's null-table rows and the null
+    page they all write."""
+    clone = lambda d: {k: (v.clone() if torch.is_tensor(v) else v)  # noqa: E731
+                       for k, v in d.items()}
+    x0, x2 = clone(x), clone(x)
     got = fn(**x)
     want = ref(**x2)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    err = (got[rows].float() - want[rows].float()).abs().max().item()
     if not err <= TOL:
         raise AssertionError(f"{name} at the split boundaries: max |err| {err} > {TOL}")
     base = x2 if pools == "written" else x0
-    if not all(torch.equal(x[k], base[k]) for k in ("k_pages", "v_pages")):
+    if not all(torch.equal(x[k][pages], base[k][pages]) for k in ("k_pages", "v_pages")):
         raise AssertionError(f"{name} at the split boundaries: pools differ "
                              f"from the plain version ({pools})")
-    again = fn(**{k: v.clone() for k, v in x0.items()})
+    again = fn(**clone(x0))
     torch.cuda.synchronize()
-    if not torch.equal(got, again):
+    if not torch.equal(got[rows], again[rows]):
         raise AssertionError(f"{name}: two launches on the same inputs differ")
     return {"name": name, "max_abs_err": err, "pools": pools + " (exact)",
             "repeat_bit_identical": True}
 
 
-def check_split_boundaries(gen: torch.Generator) -> list[dict]:
-    """The five split builds at their split-boundary cases, each held
-    against its plain version, with bit-exact pools and a bit-identical
-    repeat launch."""
+def check_split_boundaries(gen: torch.Generator, widths: dict = BENCH8B) -> list[dict]:
+    """The seven split builds at their split-boundary cases, each held
+    against its plain version, with bit-exact pools (the verify kernel's
+    outside the null page) and a bit-identical repeat launch."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
     out = []
     for int8 in (False, True):
-        x = _split_decode_inputs(gen, int8)
+        x = _split_decode_inputs(gen, int8, **widths)
         out.append({**_boundary_check(
             "paged_decode_fused_int8" if int8 else "paged_decode_fused",
             pa.paged_decode_fused, pa.paged_decode_fused_ref, x, "written"),
@@ -577,12 +641,49 @@ def check_split_boundaries(gen: torch.Generator) -> list[dict]:
             out.append({**_boundary_check("paged_decode", pa.paged_decode,
                                           pa.paged_decode_ref, walk, "untouched"),
                         "kv_lens": x["kv_lens"].tolist()})
-        y = _split_span_inputs(gen, int8)
+        y = _split_span_inputs(gen, int8, **widths)
         out.append({**_boundary_check(
             "ragged_spans_int8" if int8 else "ragged_spans", pa.ragged_spans,
             pa.ragged_spans_ref, y, "written"),
             "bases": y["kv_lens"].tolist(), "q_lens": y["q_lens"].tolist()})
+        z = _split_multi_inputs(gen, int8, **widths)
+        out.append({**_boundary_check(
+            "paged_decode_multi_int8" if int8 else "paged_decode_multi",
+            pa.paged_decode_multi, pa.paged_decode_multi_ref, z, "written",
+            rows=MULTI_REAL, pages=slice(1, None)),
+            "kv_lens": z["kv_lens"].tolist(), "null_table_row": 5})
     return out
+
+
+def check_hd32(gen: torch.Generator) -> list[dict]:
+    """Phase 3b: every kernel's hd-32 build at the tiny preset's heads,
+    flash prefill against its plain version (one packed row of 4 segments
+    and a padded tail, and an unpacked row) and the paged kernels at their
+    split boundaries."""
+    from lmrs_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    S = 1024
+    seg = torch.full((1, S), -1, dtype=torch.int32, device="cuda")
+    off = 0
+    for i, n in enumerate([300, 257, 200, 150]):
+        seg[0, off:off + n] = i
+        off += n
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").bfloat16()  # noqa: E731
+    for packed in (True, False):
+        q, k, v = bf(1, S, TINY["H"], 32), bf(1, S, TINY["K"], 32), bf(1, S, TINY["K"], 32)
+        lens = torch.tensor([off if packed else 777], dtype=torch.int32, device="cuda")
+        sg = seg if packed else None
+        got = fa.flash_attention(q, k, v, lens, sg)
+        want = fa.flash_attention_ref(q, k, v, lens, sg)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"flash_prefill hd 32 vs plain: max |err| {err} > {TOL}")
+        out.append({"name": "flash_prefill", "max_abs_err": err,
+                    "case": "packed" if packed else "unpacked"})
+    out += check_split_boundaries(gen, TINY)
+    return [{**r, "hd": 32, "H": TINY["H"], "K": TINY["K"]} for r in out]
 
 
 def _timed_split(attr: str, value: int, fn) -> float:
@@ -598,11 +699,12 @@ def _timed_split(attr: str, value: int, fn) -> float:
 
 
 def time_main_shapes(gen: torch.Generator) -> list[dict]:
-    """The five split builds at the main path's shapes: decode at 8 rows x
+    """The seven split builds at the main path's shapes: decode at 8 rows x
     1,501 tokens (``profile_decode_step``'s step: 1,500 cached + the current
     token), spans at phase 5's mixed step (7 decode rows at 1,500 tokens +
-    a 249-token slice at base 384); each with its bound, its plain version's
-    time, and its time at other split sizes (phase 3's shapes too)."""
+    a 249-token slice at base 384), verify at phase 6's step (8 rows x 5
+    tokens after 1,500); each with its bound, its plain version's time, and
+    its time at other split sizes (phase 3's shapes too)."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
     B, H, K, hd, ps, W = 8, 32, 8, 128, 128, 16
@@ -618,7 +720,7 @@ def time_main_shapes(gen: torch.Generator) -> list[dict]:
     span = _span_inputs(gen, "mixed")
     span["kv_lens"] = torch.tensor([1500] * 7 + [384], dtype=torch.int32,
                                    device=dev)
-    sweep_d, sweep_s = (128, 256, 512), (256, 512, 1024)
+    sweep_d, sweep_s, sweep_v = (128, 256, 512), (256, 512, 1024), (128, 256, 512)
     for name, x, fn, ref, write in (
             ("paged_decode_fused", dec, pa.paged_decode_fused,
              pa.paged_decode_fused_ref, True),
@@ -645,8 +747,35 @@ def time_main_shapes(gen: torch.Generator) -> list[dict]:
                      "shape": ("mixed step: 7 decode rows at 1500 + 249 tokens "
                                "at 384" if is_span else "B=8 x 1501 tokens")
                               + f", H={H} K={K} hd={hd} ps={ps} W={W}"})
+    # the verify step of the speculative path: 8 rows x 5 tokens after
+    # 1,500 cached (profile_decode_step(tokens=5)'s step)
+    T, max_pos = 5, 2048
+    ver = dict(q=bf(B, T, H, hd), k_new=bf(B, T, K, hd), v_new=bf(B, T, K, hd),
+               k_pages=dec["k_pages"], v_pages=dec["v_pages"],
+               page_tables=dec["page_tables"],
+               kv_lens=torch.full((B,), 1500 + T, dtype=torch.int32, device=dev))
+    for name, x in (("paged_decode_multi", ver),
+                    ("paged_decode_multi_int8", int8_case(ver, 0, 0, gen))):
+        call = (lambda x=x: pa.paged_decode_multi(**x, max_pos=max_pos))
+        b_ms, b_by = multi_bound(x, max_pos)
+        rows.append({"name": name, "ms": time_ms(call),
+                     "plain_ms": time_ms(lambda x=x: pa.paged_decode_multi_ref(
+                         **x, max_pos=max_pos), reps=3),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "split": pa.MULTI_SPLIT,
+                     "ms_by_split": {v: _timed_split("MULTI_SPLIT", v, call)
+                                     for v in sweep_v},
+                     "shape": f"B=8 x T={T} tokens after 1500, H={H} K={K} "
+                              f"hd={hd} ps={ps} W={W}"})
     # phase 3's shapes at the other split sizes (its own times are in the
     # kernels rows)
+    v3 = dict(ver, kv_lens=torch.tensor([6, 133, 130, 700, 1500, 2050, 1000, 305],
+                                        dtype=torch.int32, device=dev))
+    rows.append({"name": "paged_decode_multi", "shape": "phase 3 verify",
+                 "ms_by_split": {v: _timed_split(
+                     "MULTI_SPLIT", v,
+                     lambda: pa.paged_decode_multi(**v3, max_pos=max_pos))
+                     for v in sweep_v}})
     g3 = _span_inputs(gen, "mixed")
     rows.append({"name": "ragged_spans", "shape": "phase 3 mixed step",
                  "ms_by_split": {v: _timed_split("SPAN_SPLIT", v,
@@ -812,6 +941,56 @@ def check_model(int8: bool = False) -> dict:
             "verify_step": {"tokens": t, "contexts": ctx.tolist()},
             "max_logit_diff": max_diff, "logit_tol": LOGIT_TOL,
             "greedy_checked": checked, "greedy_agree": agree}
+
+
+# ------------------------------------------------------------ phase 4b
+
+DEFAULT_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "cli-default"
+
+
+def run_cli_default() -> dict:
+    """``lmrs-torch -i demo.json`` with no ``--model``: the default
+    ``EngineConfig`` (preset ``tiny``, hd 32, random-init bf16) on the card,
+    64 tokens a request.  Fails unless no request failed, the summary is
+    non-empty and holds no error string, and flash prefill, the write-fused
+    decode kernel and the span kernel launched."""
+    from lmrs_tpu_torch.cli import main as cli_main
+    from lmrs_tpu_torch.config import EngineConfig
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    DEFAULT_DIR.mkdir(parents=True, exist_ok=True)
+    src, dst = DEFAULT_DIR / "demo.json", DEFAULT_DIR / "summary.txt"
+    src.write_text(json.dumps(load_demo_transcript()), encoding="utf-8")
+    counted = kernel_counters()
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    t0 = time.time()
+    rc = cli_main(["-i", str(src), "-o", str(dst), "--max-tokens", "64",
+                   "--report", "-q"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+    if rc != 0:
+        raise AssertionError(f"lmrs-torch with the default preset exited {rc}")
+    summary = dst.read_text(encoding="utf-8")
+    report = json.loads(Path(str(dst) + ".report.json").read_text(encoding="utf-8"))
+    if report["failed_requests"] != 0:
+        raise AssertionError(f"default preset: failed_requests = "
+                             f"{report['failed_requests']}")
+    if not summary or "[Error" in summary:
+        raise AssertionError(f"default preset: summary {summary[:200]!r}")
+    require_launches(launches, "default preset",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"))
+    em = report["engine_metrics"]
+    return {"phase": "default", "model": EngineConfig().model,
+            "argv": "-i demo.json -o summary.txt --max-tokens 64 --report -q",
+            "wall_seconds": wall, "requests": em["requests"],
+            "failed_requests": report["failed_requests"],
+            "chunks": report["num_chunks"],
+            "reduce_levels": report["reduce_levels"],
+            "mixed_dispatches": em["mixed_batch"]["dispatches"],
+            "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+            "summary_chars": len(summary), "launches": launches}
 
 
 # ------------------------------------------------------------ phase 5
@@ -1191,8 +1370,11 @@ def main() -> int:
         emit({"phase": "kernels-split-boundaries", **r})
     for r in time_main_shapes(gen):
         emit({"phase": "kernels-main-shape", **r})
+    for r in check_hd32(gen):
+        emit({"phase": "hd32", **r})
     emit(timed(check_model))
     emit(timed(check_model, int8=True))
+    emit(timed(run_cli_default))
     main_out = timed(run_main_path)
     emit(main_out)
     spec_out = timed(run_spec_path)

@@ -4,7 +4,9 @@ Flag spellings follow the reference CLI (``lmrs``).  Runs on the card by
 default; ``--device cpu`` runs the plain PyTorch path.  ``--quantize int8``
 and ``--kv-quantize int8`` select int8 weights and int8 KV pages.  Flags of
 features the port does not carry yet (host/disk KV, tree speculation,
-meshes) are refused with the slice that brings them.  ``--speculate-k`` is among
+meshes, chunk dumps and resume, the streaming reduce, the request cap,
+checkpoints, other backends and hosts, profiling and tracing) are refused
+by name with the slice that brings them.  ``--speculate-k`` is among
 them: under the default mixed steps the reference CLI runs it as tree
 speculation.  Linear speculation is reached through the engine config,
 ``EngineConfig(speculate_k=K, mixed_batch=False)``.
@@ -27,10 +29,23 @@ from lmrs_tpu_torch.utils.timing import format_duration
 logger = logging.getLogger("lmrs_torch.cli")
 
 # flag -> the slice of the port that brings it
+_PARITY = "pipeline, executor and CLI parity (A11)"
+_SERVING = "serving surface (A3)"
+_OBS = "observability (A10)"
 _LATER = {
     "host_kv": "KV movement (host/disk KV tiers)",
     "speculate_k": "tree speculation",
     "mesh": "multi-GPU",
+    "save_chunks": _PARITY,
+    "resume_from": _PARITY,
+    "stream_reduce": _PARITY,
+    "max_concurrent_requests": _PARITY,
+    "checkpoint": "weights and tokenizers from local files (A12)",
+    "backend": _SERVING,
+    "hosts": _SERVING,
+    "profile": _OBS,
+    "trace_out": _OBS,
+    "no_trace": _OBS,
 }
 
 
@@ -74,6 +89,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--speculate-k", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    for flag in ("--save-chunks", "--resume-from", "--checkpoint", "--hosts",
+                 "--trace-out"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--backend", "--provider", dest="backend", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--max-concurrent-requests", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    for flag in ("--stream-reduce", "--profile", "--no-trace"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return p
 
 

@@ -289,6 +289,8 @@ extern "C" int lmrs_flash_prefill_bf16(
     flash_prefill_kernel<128><<<grid, block, 0, st>>>(LMRS_FLASH_ARGS);
   } else if (hd == 64) {
     flash_prefill_kernel<64><<<grid, block, 0, st>>>(LMRS_FLASH_ARGS);
+  } else if (hd == 32) {
+    flash_prefill_kernel<32><<<grid, block, 0, st>>>(LMRS_FLASH_ARGS);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -394,6 +394,8 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
     rc = launch_hd<128, WRITE, QUANT>(LMRS_DECODE_ARGS);
   } else if (hd == 64) {
     rc = launch_hd<64, WRITE, QUANT>(LMRS_DECODE_ARGS);
+  } else if (hd == 32) {
+    rc = launch_hd<32, WRITE, QUANT>(LMRS_DECODE_ARGS);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,32 +26,41 @@
 //
 // Layout: q [B, T, H, hd]; k_new/v_new [B, T, K, hd]; pools
 // [P_total, K, ps, hd] (page-major, layer-flattened: callers pass GLOBAL
-// page ids); tables [B, W] int32; kv_lens [B] int32; out [B, T, H, hd].
+// page ids); tables [B, W] int32; kv_lens [B] int32; out [B, T, H, hd];
+// part: f32 scratch of B·K·S·T·(H/K)·(hd + 2) values and counters: B·K
+// ints, zero between launches (S = ceil(min(W·ps, max_pos) / split)).
 // All contiguous.
 //
-// Design.  One block per (row, kv head), 4 warps.  The block first writes
-// its kv head's T new K/V rows, then __syncthreads(), then walks the row's
-// live pages once for all T x n_rep query rows.  The write-then-read order
-// inside one block is enough because a block reads only its own kv head's
-// writes: a row owns the pages it writes (prefix-cache pages are shared but
-// only read — every write lands at a position >= kv_lens - T, past any
-// donated full page), so no other block writes what this one reads.  The
-// pools are therefore not __restrict__: the compiler must not route their
-// reads through the non-coherent read-only path.  The TPU kernel's 8-row
-// read-modify-write windows, its 0/1 select matmul and its row grouping
-// exist for Mosaic's DMA and sublane rules and are not carried over.
+// Design.  One (row, kv head) block walking a whole row would give B·K = 64
+// blocks on 132 SMs at the verify step's shape, and the longest row's
+// serial walk would set the time.  The kernel therefore splits each row
+// over the sequence, as the decode and span kernels do:
 //
-// The T x n_rep query rows (20 at T = 5, n_rep = 4) sit in the 64-row tile
-// of the span kernel (csrc/ragged_spans.cu) — warps whose 16 rows are all
-// padding skip the products but help stage — and the walk is that kernel's
-// schedule: 64-column K/V tiles staged through the page table into padded
-// shared memory (K row-major, V transposed), Q·K^T and P·V on
-// mma.sync.m16n8k16 bf16 -> f32, P kept in registers.  That takes the
-// tensor cores instead of the write-fused decode kernel's per-lane
-// layout, whose per-warp accumulators for 20 rows (qs[20][128] +
-// acc_w[4][20][128] f32, ~50 KB) would not fit the 48 KB of static shared
-// memory; here the block needs 35 KB static.  T x n_rep <= 64 (T <= 16 at n_rep = 4); the wrapper
-// refuses more.
+// * Grid (B, K, S), all from shapes: S = ceil(min(W·ps, max_pos) / split)
+//   (kv_lens stays on the device).  Block (b, kvh, s) owns columns
+//   [s·split, (s+1)·split) of the row's range [0, kv_hi), kv_hi =
+//   min(base + T, cap); a block whose split starts at or past kv_hi
+//   exits, and split 0 alone handles a row with no columns.
+// * The write: each block first writes the new tokens whose positions lie
+//   in its own split's column range (and < cap), fences, then reads.  The T
+//   tokens may straddle a split boundary; each lands in the split that
+//   reads it, so no block ever reads a column another block writes.  The
+//   pools are not __restrict__: they are written and read in one kernel.
+// * The walk (csrc/tile_attn.cuh, shared with the span kernel): the T x
+//   n_rep query rows (20 at T = 5, n_rep = 4) in one 64-row tile — warps
+//   whose 16 rows are all padding skip the products but help stage — and a
+//   two-stage cp.async ring of 64-column K/V tiles, both row-major, V fed to
+//   P·V through ldmatrix.trans; Q·K^T and P·V on mma.sync.m16n8k16 bf16 ->
+//   f32, P kept in registers.  T x n_rep <= 64 (T <= 16 at n_rep = 4); the
+//   wrapper refuses more.
+// * The merge: a row with one live split writes `out` directly; otherwise
+//   each split stores the f32 (m, l, acc) of its T x n_rep real query rows
+//   (padding rows store nothing) and the last block of the (row, kv head)
+//   to arrive, elected by its counter, merges the splits in index order
+//   (split_merge.cuh), so a repeat launch gives the same bits.  Under a
+//   straddle, a query row can attend nothing in the last split (token j
+//   sees only col <= base + j): its partial is m = -1e30, l = 0, acc = 0
+//   and the merge drops it.
 //
 // Rows whose table is the null page (empty slots: the scheduler passes
 // kv_lens = T for them, as the reference does) all write page 0 at the same
@@ -64,43 +73,25 @@
 // operations are ~4·hd per (query head, token, attended column).  At the
 // verify step's shape (8 rows, T = 5, ~6k live tokens, bench-8b widths) the
 // bytes are ~24 MB, ~7 µs at 3.35 TB/s, against well under 1 µs of
-// operations: memory bound.  This version has one block per (row, kv head)
-// — B·K blocks, fewer than the 132 SMs at B = 8, K = 8 — no split over the
-// sequence and synchronous tile loads (no cp.async/TMA, no wgmma), so the
-// longest row's serial walk sets its time; the measured time is in PERF.md.
+// operations: memory bound.  The measured time is in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_int8.cuh"
+#include "split_merge.cuh"
+#include "tile_attn.cuh"
 
 namespace {
 
-constexpr int QROWS = 64;     // query rows per block (16 per warp): T * n_rep
-constexpr int BK = 64;        // kv columns per tile
-constexpr int NWARPS = 4;
-constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Query row r of the block is token r / NREP, query head kvh * NREP +
-// r % NREP; rows r >= T * NREP are padding.
+// r % NREP; rows r >= T * NREP are padding.  Three blocks an SM (at most
+// 170 registers a thread): the hd-128 bf16 build would take 193 and fit
+// two, which puts the speculative step's 384 blocks (8 rows x 8 kv heads x
+// 6 splits) in two waves.
 template <int HD, int NREP, bool QUANT>
-__global__ void __launch_bounds__(NWARPS * 32)
+__global__ void __launch_bounds__(NTHREADS, 3)
 paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k_new,
                           const __nv_bfloat16* __restrict__ v_new,
@@ -109,205 +100,101 @@ paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ vscale,
                           const int* __restrict__ tables,
                           const int* __restrict__ kv_lens,
-                          __nv_bfloat16* __restrict__ out, int T, int KH,
-                          int ps, int W, int cap, float scale_log2) {
-  constexpr int KSTR = HD + 8;  // padded K row (bf16 elements)
-  constexpr int VSTR = BK + 8;  // padded transposed-V row
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 Vt[HD * VSTR];
-
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int H = KH * NREP;
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ part, int* __restrict__ counters,
+                          int T, int KH, int ps, int W, int cap, int split,
+                          float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x, kvh = blockIdx.y, sp = blockIdx.z;
+  const int H = KH * NREP, nrows = T * NREP;
   const int base = max(kv_lens[b] - T, 0);
+  // columns the row needs: up to its last token's limit
+  const int kv_hi = min(base + T, cap);
+  const int live = kv_hi > 0 ? (kv_hi + split - 1) / split : 0;
+  const int c_lo = sp * split;
+  // no column at all: split 0 alone writes the row's zeros
+  if (live == 0 ? sp != 0 : c_lo >= kv_hi) return;
+  const int c_hi = min(c_lo + split, kv_hi);
   const int* tab = tables + (long long)b * W;
   const long long page_stride = (long long)KH * ps * HD;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2;
   // int8: this row's scales (K's quantize the writes and fold into q, V's
   // quantize the writes and fold into out)
   const long long srow = ((long long)b * KH + kvh) * HD;
   const float* krow_s = QUANT ? kscale + srow : nullptr;
   const float* vrow_s = QUANT ? vscale + srow : nullptr;
 
-  // 1. write this kv head's T new K/V rows (positions < cap only)
-  for (int i = tid; i < T * (HD / 8); i += NWARPS * 32) {
-    const int j = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    const int pos = base + j;
-    if (pos >= cap) continue;
-    const long long dst = tab[pos / ps] * page_stride +
-                          ((long long)kvh * ps + pos % ps) * HD + c;
-    const long long src = (((long long)b * T + j) * KH + kvh) * HD + c;
-    store8(k_pages + dst, k_new + src, QUANT ? krow_s + c : nullptr);
-    store8(v_pages + dst, v_new + src, QUANT ? vrow_s + c : nullptr);
+  // 1. write this kv head's new tokens at positions in [c_lo, c_hi)
+  const int j_lo = max(c_lo - base, 0), j_hi = min(c_hi - base, T);
+  if (j_hi > j_lo) {
+    for (int i = tid; i < (j_hi - j_lo) * (HD / 8); i += NTHREADS) {
+      const int j = j_lo + i / (HD / 8), c = (i % (HD / 8)) * 8;
+      const int pos = base + j;
+      const long long dst = tab[pos / ps] * page_stride +
+                            ((long long)kvh * ps + pos % ps) * HD + c;
+      const long long src = (((long long)b * T + j) * KH + kvh) * HD + c;
+      store8(k_pages + dst, k_new + src, QUANT ? krow_s + c : nullptr);
+      store8(v_pages + dst, v_new + src, QUANT ? vrow_s + c : nullptr);
+    }
+    __threadfence();  // before this block's cp.async reads the rows
   }
-  __syncthreads();  // the writes are visible to every warp's tile loads
+  __syncthreads();
 
   // 2. this thread's two query rows: offset, causal limit
-  const bool warp_rows = warp * 16 < T * NREP;  // warp-uniform
+  TileRows<HD> rows;
   long long qoff[2];
-  int lim[2];
-  bool valid[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + g + half * 8;
     const int j = r / NREP;
-    valid[half] = r < T * NREP;
-    lim[half] = min(base + j, cap - 1);  // attend col <= lim
+    rows.valid[half] = r < nrows;
+    rows.lim[half] = min(base + j, cap - 1);  // attend col <= lim
     qoff[half] = (((long long)b * T + j) * H + kvh * NREP + r % NREP) * HD;
   }
-  // columns the block needs: up to its last token's limit
-  const int kv_hi = min(base + T, cap);
+  tile_load_q<HD, QUANT>(rows, q, qoff, krow_s);
+  tile_walk<HD, QUANT>(rows, k_pages, v_pages, tab, page_stride, kvh, ps,
+                       c_lo, c_hi, warp * 16 < nrows, scale_log2, smem);
 
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = ks * 16 + tig * 2;
-      uint32_t lo = 0, hi = 0;
-      if (valid[half]) {
-        lo = q_pair(q + qoff[half] + c0, QUANT ? krow_s + c0 : nullptr);
-        hi = q_pair(q + qoff[half] + c0 + 8, QUANT ? krow_s + c0 + 8 : nullptr);
-      }
-      qf[ks][half] = lo;
-      qf[ks][2 + half] = hi;
-    }
+  // 3. one live split (or none): out directly; else the partial, merged
+  //    by the last block of the (row, kv head)
+  if (live <= 1) {
+    tile_store_out<HD, QUANT>(rows, qoff, vrow_s, out);
+    return;
   }
-
-  float o_acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
-  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
-
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    // stage K (row-major) and V (transposed) through the page table;
-    // columns at or past kv_hi read as 0 (masked below)
-    for (int idx = tid; idx < BK * (HD / 8); idx += NWARPS * 32) {
-      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-      const int col = kv0 + r;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (col < kv_hi) {
-        const long long off = tab[col / ps] * page_stride +
-                              ((long long)kvh * ps + col % ps) * HD + c;
-        kv4 = load8(k_pages + off);
-        vv4 = load8(v_pages + off);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KSTR + c]) = kv4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c + e) * VSTR + r] = ve[e];
-    }
-    __syncthreads();
-    if (!warp_rows) continue;  // all-padding warp: staging only
-
-    // S = Q K^T for this warp's 16 rows x 64 columns
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const __nv_bfloat16* kp = &Ks[(j * 8 + g) * KSTR + ks * 16 + tig * 2];
-        mma_bf16(s[j], qf[ks], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-
-    // per-token causal mask + online softmax (log2 domain)
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int col = kv0 + j * 8 + tig * 2 + (e & 1);
-        const bool ok = valid[half] && col <= lim[half];
-        const float val = ok ? s[j][e] * scale_log2 : NEG;
-        s[j][e] = val;
-        mx[half] = fmaxf(mx[half], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 1));
-      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 2));
-      const float m_new = fmaxf(m_run[half], mx[half]);
-      alpha[half] = exp2f(m_run[half] - m_new);
-      m_run[half] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        // a row masked so far has m == NEG: its p must be 0, not exp(0)
-        const float p = m_run[half] > 0.5f * NEG ? exp2f(s[j][e] - m_run[half]) : 0.f;
-        s[j][e] = p;
-        rs[half] += p;
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 1);
-      rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 2);
-      l_run[half] = l_run[half] * alpha[half] + rs[half];
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o_acc[n][0] *= alpha[0]; o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1]; o_acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators re-packed as bf16 A fragments
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const __nv_bfloat16* vp = &Vt[(n * 8 + g) * VSTR + kk * 16 + tig * 2];
-        mma_bf16(o_acc[n], a, *reinterpret_cast<const uint32_t*>(vp),
-                 *reinterpret_cast<const uint32_t*>(vp + 8));
-      }
-    }
-  }
-
-  // finalize: out = acc / l
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (!valid[half]) continue;
-    const float inv = l_run[half] > 0.f ? 1.f / l_run[half] : 0.f;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const int col = n * 8 + tig * 2;
-      float o0 = o_acc[n][half * 2] * inv, o1 = o_acc[n][half * 2 + 1] * inv;
-      if constexpr (QUANT) {
-        o0 *= vrow_s[col];
-        o1 *= vrow_s[col + 1];
-      }
-      *reinterpret_cast<uint32_t*>(out + qoff[half] + col) = pack_bf16(o0, o1);
-    }
-  }
+  const int NS = gridDim.z;
+  const long long group = (long long)b * KH + kvh;
+  const long long n_acc = (long long)gridDim.x * KH * NS * nrows * HD;
+  float* p_acc = part + group * NS * nrows * HD;  // split 0, row 0
+  float* p_ml = part + n_acc + group * NS * nrows * 2;
+  tile_store_partial<HD>(rows, p_acc + (long long)sp * nrows * HD,
+                         p_ml + (long long)sp * nrows * 2, nrows);
+  if (!split_arrive(counters + group, live)) return;
+  tile_merge<HD, QUANT>(p_acc, p_ml, live, nrows, vrow_s, out,
+                        [&](int r) -> long long {
+                          return (((long long)b * T + r / NREP) * H + kvh * NREP +
+                                  r % NREP) * HD;
+                        });
 }
 
 template <int HD, bool QUANT>
 int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
               const __nv_bfloat16* vn, pool_t<QUANT>* kp, pool_t<QUANT>* vp,
               const float* ks, const float* vs, const int* tab,
-              const int* lens, __nv_bfloat16* out, int B, int T, int KH,
-              int ps, int W, int cap, float sl2, cudaStream_t st) {
-  const dim3 grid(B, KH), block(NWARPS * 32);
-#define LMRS_MULTI(NR)                                                \
-  paged_decode_multi_kernel<HD, NR, QUANT><<<grid, block, 0, st>>>( \
-      q, kn, vn, kp, vp, ks, vs, tab, lens, out, T, KH, ps, W, cap, sl2)
+              const int* lens, __nv_bfloat16* out, float* part, int* cnt,
+              int B, int T, int KH, int ps, int W, int cap, int split,
+              float sl2, cudaStream_t st) {
+  const dim3 grid(B, KH, cap > 0 ? (cap + split - 1) / split : 1);
+  constexpr int smem = tile_smem_bytes<HD, QUANT>();
+#define LMRS_MULTI(NR)                                                         \
+  {                                                                            \
+    auto kern = paged_decode_multi_kernel<HD, NR, QUANT>;                      \
+    const cudaError_t e = cudaFuncSetAttribute(                                \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);              \
+    if (e != cudaSuccess) return static_cast<int>(e);                          \
+    kern<<<grid, NTHREADS, smem, st>>>(q, kn, vn, kp, vp, ks, vs, tab, lens,   \
+                                       out, part, cnt, T, KH, ps, W, cap,      \
+                                       split, sl2);                            \
+  }
   switch (nrep) {
     case 1: LMRS_MULTI(1); break;
     case 2: LMRS_MULTI(2); break;
@@ -322,11 +209,12 @@ int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
 template <bool QUANT>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
            void* v_pages, const void* kscale, const void* vscale,
-           const void* tables, const void* kv_lens, void* out, int B, int T,
-           int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
-           void* stream) {
+           const void* tables, const void* kv_lens, void* out, void* part,
+           void* counters, int B, int T, int H, int KH, int hd, int ps, int W,
+           int max_pos, int split, float sm_scale, void* stream) {
   if (B <= 0) return 0;
-  if (T < 1 || T * (H / KH) > QROWS) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1 || T * (H / KH) > QROWS || split <= 0 || split % BK)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int cap = min(W * ps, max_pos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = sm_scale * LOG2E;
@@ -337,12 +225,15 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
       static_cast<pool_t<QUANT>*>(k_pages), static_cast<pool_t<QUANT>*>(v_pages), \
       static_cast<const float*>(kscale), static_cast<const float*>(vscale),    \
       static_cast<const int*>(tables), static_cast<const int*>(kv_lens),       \
-      static_cast<__nv_bfloat16*>(out), B, T, KH, ps, W, cap, sl2, st
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),             \
+      static_cast<int*>(counters), B, T, KH, ps, W, cap, split, sl2, st
   int rc;
   if (hd == 128) {
     rc = launch_hd<128, QUANT>(LMRS_MULTI_ARGS);
   } else if (hd == 64) {
     rc = launch_hd<64, QUANT>(LMRS_MULTI_ARGS);
+  } else if (hd == 32) {
+    rc = launch_hd<32, QUANT>(LMRS_MULTI_ARGS);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }
@@ -352,23 +243,26 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
 
 }  // namespace
 
+// part: f32 scratch of B·K·S·T·(H/K)·(hd + 2) values, S = ceil(min(W·ps,
+// max_pos) / split); counters: B·K ints, zero (the kernel leaves them zero).
 extern "C" int lmrs_paged_decode_multi_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
-    void* v_pages, const void* tables, const void* kv_lens, void* out, int B,
-    int T, int H, int KH, int hd, int ps, int W, int max_pos, float sm_scale,
-    void* stream) {
+    void* v_pages, const void* tables, const void* kv_lens, void* out,
+    void* part, void* counters, int B, int T, int H, int KH, int hd, int ps,
+    int W, int max_pos, int split, float sm_scale, void* stream) {
   return launch<false>(q, k_new, v_new, k_pages, v_pages, nullptr, nullptr,
-                       tables, kv_lens, out, B, T, H, KH, hd, ps, W, max_pos,
-                       sm_scale, stream);
+                       tables, kv_lens, out, part, counters, B, T, H, KH, hd,
+                       ps, W, max_pos, split, sm_scale, stream);
 }
 
 // int8 pools; kscale/vscale are the rows' f32 scales [B, K, hd].
 extern "C" int lmrs_paged_decode_multi_int8(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
     void* v_pages, const void* kscale, const void* vscale, const void* tables,
-    const void* kv_lens, void* out, int B, int T, int H, int KH, int hd,
-    int ps, int W, int max_pos, float sm_scale, void* stream) {
+    const void* kv_lens, void* out, void* part, void* counters, int B, int T,
+    int H, int KH, int hd, int ps, int W, int max_pos, int split,
+    float sm_scale, void* stream) {
   return launch<true>(q, k_new, v_new, k_pages, v_pages, kscale, vscale,
-                      tables, kv_lens, out, B, T, H, KH, hd, ps, W, max_pos,
-                      sm_scale, stream);
+                      tables, kv_lens, out, part, counters, B, T, H, KH, hd,
+                      ps, W, max_pos, split, sm_scale, stream);
 }

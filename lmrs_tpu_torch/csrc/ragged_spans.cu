@@ -67,7 +67,8 @@
 //   split (decode rows, short spans: few blocks, long walks); a longer
 //   span's tiles are parallel already and walk whole in split 0, which
 //   keeps the scratch at B·split_tiles groups whatever Tp is.
-// * Staging: 64-column K and V tiles, both ROW-MAJOR (rows padded by 16
+// * Staging and the walk (csrc/tile_attn.cuh, shared with the verify
+//   kernel): 64-column K and V tiles, both ROW-MAJOR (rows padded by 16
 //   bytes), through the page table into a two-stage shared-memory ring
 //   with cp.async, 16 bytes a thread on neighbouring addresses; tile i + 1
 //   is in flight while tile i is multiplied (a third stage measured no
@@ -91,67 +92,9 @@
 
 #include "kv_int8.cuh"
 #include "split_merge.cuh"
+#include "tile_attn.cuh"
 
 namespace {
-
-constexpr int QROWS = 64;     // query rows per block (16 per warp)
-constexpr int BK = 64;        // kv columns per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int STAGES = 2;     // tiles in the shared-memory ring (1 in flight)
-constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices from shared memory, transposed (lanes 8i..8i+7
-// give matrix i's row addresses)
-__device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t (&r)[4]) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// channels (c, c + 1) of a bf16 K row as an mma B register
-__device__ __forceinline__ uint32_t kpair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// an int8 tile [BK][HD + 16] widened into a bf16 tile [BK][HD + 8] (exact)
-template <int HD>
-__device__ __forceinline__ void widen_tile(const int8_t* src,
-                                           __nv_bfloat16* dst) {
-  constexpr int CH = HD / 16;  // 16-byte int8 chunks per row
-  for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {
-    const int r = c / CH, col = (c % CH) * 16;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * (HD + 16) + col);
-    float f[16];
-    i8x4(raw.x, f);
-    i8x4(raw.y, f + 4);
-    i8x4(raw.z, f + 8);
-    i8x4(raw.w, f + 12);
-    uint4* o = reinterpret_cast<uint4*>(dst + r * (HD + 8) + col);
-    o[0] = make_uint4(bf16_pair(f[0], f[1]), bf16_pair(f[2], f[3]),
-                      bf16_pair(f[4], f[5]), bf16_pair(f[6], f[7]));
-    o[1] = make_uint4(bf16_pair(f[8], f[9]), bf16_pair(f[10], f[11]),
-                      bf16_pair(f[12], f[13]), bf16_pair(f[14], f[15]));
-  }
-}
 
 // Pass 1: one block per flat token t.  The owning row is found by a scan
 // over the B spans (B is the slot count, a handful); a token of no span
@@ -214,18 +157,8 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
                  float* __restrict__ part, int* __restrict__ counters,
                  int Tp, int B, int KH, int ps, int W, int cap, int split,
                  int split_tiles, float scale_log2) {
-  using PT = pool_t<QUANT>;
   constexpr int TOK = QROWS / NREP;  // span tokens per tile
-  constexpr int VEC = 16 / sizeof(PT);
-  constexpr int STR = HD + VEC;      // staged row, padded by 16 bytes
-  constexpr int ROWC = HD / VEC;     // 16-byte chunks per row
-  constexpr int WSTR = HD + 8;       // bf16 tile row, padded by 16 bytes
   extern __shared__ __align__(128) unsigned char smem[];
-  PT* Ks = reinterpret_cast<PT*>(smem);  // [STAGES][BK][STR]
-  PT* Vs = Ks + STAGES * BK * STR;       // [STAGES][BK][STR]
-  // int8: the staged tile widened once per block into bf16 [BK][WSTR]
-  __nv_bfloat16* Kw = reinterpret_cast<__nv_bfloat16*>(Vs + STAGES * BK * STR);
-  __nv_bfloat16* Vw = Kw + BK * WSTR;
 
   const int x = blockIdx.x, sp = blockIdx.y, kvh = blockIdx.z;
   // flat tile x -> row b and tile t of its span (rows' tiles in row order)
@@ -253,213 +186,34 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
   if (live == 0 || !splits ? sp != 0 : c_lo >= kv_hi) return;
   const int c_hi = splits ? min(c_lo + split, kv_hi) : kv_hi;
   const int H = KH * NREP;
-  const int* tab = tables + (long long)b * W;
-  const long long page_stride = (long long)KH * ps * HD;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   // int8: this row's K scales (folded into q) and V scales (into out)
   const long long srow = ((long long)b * KH + kvh) * HD;
   const float* krow_s = QUANT ? kscale + srow : nullptr;
   const float* vrow_s = QUANT ? vscale + srow : nullptr;
 
   // this thread's two query rows: flat token, head, causal limit
+  TileRows<HD> rows;
   long long qoff[2];
-  int lim[2];
-  bool valid[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + g + half * 8;
     const int j = j0 + r / NREP;
-    valid[half] = j < ql && qs + j < Tp;
-    lim[half] = min(base + j, cap - 1);  // attend col <= lim
+    rows.valid[half] = j < ql && qs + j < Tp;
+    rows.lim[half] = min(base + j, cap - 1);  // attend col <= lim
     qoff[half] = ((long long)(qs + j) * H + kvh * NREP + r % NREP) * HD;
   }
-
+  // a warp whose 16 rows hold no span token (a decode row fills n_rep
+  // rows of warp 0) only stages and syncs
   const int jw = j0 + warp * 16 / NREP;  // this warp's first span token
   const bool warp_live = jw < ql && qs + jw < Tp;
-
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = ks * 16 + tig * 2;
-      uint32_t lo = 0, hi = 0;
-      if (valid[half]) {
-        lo = q_pair(q + qoff[half] + c0, QUANT ? krow_s + c0 : nullptr);
-        hi = q_pair(q + qoff[half] + c0 + 8, QUANT ? krow_s + c0 + 8 : nullptr);
-      }
-      qf[ks][half] = lo;
-      qf[ks][2 + half] = hi;
-    }
-  }
-
-  // stage columns [kv0, kv0 + BK) of this split; past c_hi: zero-filled
-  auto issue = [&](int i) {
-    const int kv0 = c_lo + i * BK;
-    const int p0 = kv0 / ps, o0 = kv0 - p0 * ps;  // the tile's first page
-    PT* kd = Ks + (i % STAGES) * BK * STR;
-    PT* vd = Vs + (i % STAGES) * BK * STR;
-    for (int c = tid; c < BK * ROWC; c += NTHREADS) {
-      const int r = c / ROWC, cc = (c % ROWC) * VEC;
-      const bool ok = kv0 + r < c_hi;
-      int pi = p0, o = o0 + r;  // (page, slot) of column kv0 + r
-      while (o >= ps) {
-        o -= ps;
-        ++pi;
-      }
-      const long long off =
-          ok ? tab[pi] * page_stride + ((long long)kvh * ps + o) * HD + cc : 0;
-      cp_async16(kd + r * STR + cc, k_pages + off, ok ? 16 : 0);
-      cp_async16(vd + r * STR + cc, v_pages + off, ok ? 16 : 0);
-    }
-  };
-
-  float o_acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
-  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
-
-  const int n_tiles = c_hi > c_lo ? (c_hi - c_lo + BK - 1) / BK : 0;
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {  // prologue: STAGES - 1 tiles in flight
-    if (i < n_tiles) issue(i);
-    cp_async_commit();
-  }
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + STAGES - 1 < n_tiles) issue(i + STAGES - 1);
-    cp_async_commit();  // (empty groups past the last tile keep the count)
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();  // tile i has landed for every thread
-    const __nv_bfloat16* kt;
-    const __nv_bfloat16* vt;
-    if constexpr (QUANT) {
-      widen_tile<HD>(Ks + (i % STAGES) * BK * STR, Kw);
-      widen_tile<HD>(Vs + (i % STAGES) * BK * STR, Vw);
-      __syncthreads();
-      kt = Kw;
-      vt = Vw;
-    } else {
-      kt = Ks + (i % STAGES) * BK * STR;
-      vt = Vs + (i % STAGES) * BK * STR;
-    }
-    const int kv0 = c_lo + i * BK;
-    // a warp whose 16 rows hold no span token (a decode row fills n_rep
-    // rows of warp 0) only stages and syncs
-    if (warp_live) {
-      // S = Q K^T for this warp's 16 rows x 64 columns
-      float s[BK / 8][4];
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          const __nv_bfloat16* kp = kt + (j * 8 + g) * WSTR + ks * 16 + tig * 2;
-          mma_bf16(s[j], qf[ks], kpair(kp), kpair(kp + 8));
-        }
-      }
-
-      // per-token causal mask, split bound + online softmax (log2 domain);
-      // a tile both of this thread's rows attend in full needs no mask
-      float mx[2] = {NEG, NEG};
-      const int last = kv0 + BK - 1;
-      if (last < c_hi && valid[0] && valid[1] && last <= lim[0] && last <= lim[1]) {
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[j][e] *= scale_log2;
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int half = e >> 1;
-            const int col = kv0 + j * 8 + tig * 2 + (e & 1);
-            const bool ok = valid[half] && col <= lim[half] && col < c_hi;
-            const float val = ok ? s[j][e] * scale_log2 : NEG;
-            s[j][e] = val;
-            mx[half] = fmaxf(mx[half], val);
-          }
-        }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 1));
-        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffff, mx[half], 2));
-        const float m_new = fmaxf(m_run[half], mx[half]);
-        alpha[half] = exp2f(m_run[half] - m_new);
-        m_run[half] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int half = e >> 1;
-          // a row masked so far has m == NEG: its p must be 0, not exp(0)
-          const float p = m_run[half] > 0.5f * NEG ? exp2f(s[j][e] - m_run[half]) : 0.f;
-          s[j][e] = p;
-          rs[half] += p;
-        }
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 1);
-        rs[half] += __shfl_xor_sync(0xffffffff, rs[half], 2);
-        l_run[half] = l_run[half] * alpha[half] + rs[half];
-      }
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        o_acc[n][0] *= alpha[0]; o_acc[n][1] *= alpha[0];
-        o_acc[n][2] *= alpha[1]; o_acc[n][3] *= alpha[1];
-      }
-
-      // O += P V: the S accumulators re-packed as bf16 A fragments; V's B
-      // fragments from the row-major tile through ldmatrix.trans, two
-      // 8-channel blocks at a time
-      const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int n = 0; n < HD / 8; n += 2) {
-          uint32_t bf[4];
-          ldsm_x4_trans(vt + (kk * 16 + vrow) * WSTR + n * 8 + (lane >> 4) * 8, bf);
-          mma_bf16(o_acc[n], a, bf[0], bf[1]);
-          mma_bf16(o_acc[n + 1], a, bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();  // tile i consumed before its stage is refilled
-  }
+  tile_load_q<HD, QUANT>(rows, q, qoff, krow_s);
+  tile_walk<HD, QUANT>(rows, k_pages, v_pages, tables + (long long)b * W,
+                       (long long)KH * ps * HD, kvh, ps, c_lo, c_hi,
+                       warp_live, scale_log2, smem);
 
   if (live <= 1) {  // one live split (or none): out = acc / l directly
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (!valid[half]) continue;
-      const float inv = l_run[half] > 0.f ? 1.f / l_run[half] : 0.f;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const int col = n * 8 + tig * 2;
-        float o0 = o_acc[n][half * 2] * inv, o1 = o_acc[n][half * 2 + 1] * inv;
-        if constexpr (QUANT) {
-          o0 *= vrow_s[col];
-          o1 *= vrow_s[col + 1];
-        }
-        *reinterpret_cast<uint32_t*>(out + qoff[half] + col) = pack_bf16(o0, o1);
-      }
-    }
+    tile_store_out<HD, QUANT>(rows, qoff, vrow_s, out);
     return;
   }
   // store this split's partial state; the last split to arrive merges
@@ -469,37 +223,15 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const long long n_acc = (long long)gridDim.z * B * split_tiles * NS * QROWS * HD;
   float* p_acc = part + group * NS * QROWS * HD;  // split 0, row 0
   float* p_ml = part + n_acc + group * NS * QROWS * 2;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const long long r = (long long)sp * QROWS + warp * 16 + g + half * 8;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<float2*>(p_acc + r * HD + n * 8 + tig * 2) =
-          make_float2(o_acc[n][half * 2], o_acc[n][half * 2 + 1]);
-    if (tig == 0)
-      *reinterpret_cast<float2*>(p_ml + r * 2) = make_float2(m_run[half], l_run[half]);
-  }
+  tile_store_partial<HD>(rows, p_acc + (long long)sp * QROWS * HD,
+                         p_ml + sp * QROWS * 2, QROWS);
   if (!split_arrive(counters + group, live)) return;
-  constexpr int CPL = HD / 32;  // output channels per lane in the merge
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp * 16 + i;
-    const int j = j0 + r / NREP;
-    if (!(j < ql && qs + j < Tp)) continue;
-    float o[CPL];
-    split_merge_row<CPL>(p_ml + r * 2, p_acc + (long long)r * HD, live,
-                         QROWS * 2, (long long)QROWS * HD, lane * CPL, o);
-    __nv_bfloat16* dst =
-        out + ((long long)(qs + j) * H + kvh * NREP + r % NREP) * HD + lane * CPL;
-#pragma unroll
-    for (int c = 0; c < CPL; c += 2) {
-      float o0 = o[c], o1 = o[c + 1];
-      if constexpr (QUANT) {
-        o0 *= vrow_s[lane * CPL + c];
-        o1 *= vrow_s[lane * CPL + c + 1];
-      }
-      *reinterpret_cast<uint32_t*>(dst + c) = pack_bf16(o0, o1);
-    }
-  }
+  tile_merge<HD, QUANT>(p_acc, p_ml, live, QROWS, vrow_s, out,
+                        [&](int r) -> long long {
+                          const int j = j0 + r / NREP;
+                          if (!(j < ql && qs + j < Tp)) return -1;
+                          return ((long long)(qs + j) * H + kvh * NREP + r % NREP) * HD;
+                        });
 }
 
 template <int HD, bool QUANT>
@@ -516,10 +248,7 @@ int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ns = cap > 0 ? (cap + split - 1) / split : 1;
-  // the staged ring, plus the widened bf16 K and V tiles for int8 pools
-  const int smem =
-      STAGES * 2 * BK * (HD + 16 / (int)sizeof(pool_t<QUANT>)) * (int)sizeof(pool_t<QUANT>) +
-      (QUANT ? 2 * BK * (HD + 8) * 2 : 0);
+  constexpr int smem = tile_smem_bytes<HD, QUANT>();
 #define LMRS_SPAN_ATTN(NR)                                                     \
   {                                                                            \
     auto kern = span_attn_kernel<HD, NR, QUANT>;                               \
@@ -570,6 +299,8 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
     rc = launch_hd<128, QUANT>(LMRS_SPAN_ARGS);
   } else if (hd == 64) {
     rc = launch_hd<64, QUANT>(LMRS_SPAN_ARGS);
+  } else if (hd == 32) {
+    rc = launch_hd<32, QUANT>(LMRS_SPAN_ARGS);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -73,11 +73,15 @@ __device__ __forceinline__ void split_merge_row(const float* ml,
                                                 long long ml_stride,
                                                 long long acc_stride, int c0,
                                                 float (&o)[NV]) {
+  // (unrolled: the loads of four splits are in flight together; the sums
+  // still run in split order)
   float m = SPLIT_NEG;
+#pragma unroll 4
   for (int s = 0; s < live; ++s) m = fmaxf(m, __ldcg(ml + s * ml_stride));
   float l = 0.f;
 #pragma unroll
   for (int j = 0; j < NV; ++j) o[j] = 0.f;
+#pragma unroll 4
   for (int s = 0; s < live; ++s) {
     const float ms = __ldcg(ml + s * ml_stride);
     const float ls = __ldcg(ml + s * ml_stride + 1);

@@ -4,10 +4,12 @@
 Exposes the surface ``MapExecutor`` and ``ResultAggregator`` use:
 ``generate_batch``, ``schedules_internally``, ``engine_metrics``,
 ``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
-is asked for; the kernels take bfloat16, so a CUDA engine needs a bfloat16
-model.  ``quantize="int8"`` quantizes the projections where the params live
-(after random init, or the caller's full-precision params), as the
-reference does for a model whose full-precision tree fits.
+is asked for.  A CUDA engine checks, when it is built, that its kernels take
+the model and engine configuration (``check_cuda_config``), so no request
+reaches a kernel only to be refused there.  ``quantize="int8"`` quantizes
+the projections where the params live (after random init, or the caller's
+full-precision params), as the reference does for a model whose
+full-precision tree fits.
 """
 
 from __future__ import annotations
@@ -22,10 +24,27 @@ from lmrs_tpu_torch.data.tokenizer import ByteTokenizer, get_tokenizer
 from lmrs_tpu_torch.engine.api import GenerationRequest, GenerationResult
 from lmrs_tpu_torch.engine.scheduler import ContinuousScheduler
 from lmrs_tpu_torch.models.transformer import init_params, model_dtype, param_count
+from lmrs_tpu_torch.ops.kernels import check_shapes
 from lmrs_tpu_torch.ops.quant import quantize_params
 from lmrs_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("lmrs_torch.engine")
+
+
+def check_cuda_config(engine_cfg: EngineConfig, model_cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` naming the model if the CUDA kernels would refuse
+    it or the engine configuration: a model that is not bfloat16, or a head
+    dim, head grouping, page size or verify width outside the kernels'
+    builds (``ops/kernels.shape_problems``)."""
+    if model_dtype(model_cfg) != torch.bfloat16:
+        raise ValueError(
+            f"model {model_cfg.name} is {model_cfg.dtype}; the CUDA kernels "
+            "take bfloat16 — use a bfloat16 model on the card (or device='cpu')")
+    k = engine_cfg.speculate_k
+    check_shapes(f"model {model_cfg.name} on cuda", model_cfg.hd,
+                 model_cfg.n_heads, model_cfg.n_kv_heads,
+                 page_size=engine_cfg.page_size,
+                 verify_tokens=k + 1 if k > 0 else None)
 
 
 class TorchEngine:
@@ -36,11 +55,8 @@ class TorchEngine:
         self.cfg = engine_cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and model_dtype(model_cfg) != torch.bfloat16:
-            raise ValueError(
-                f"model {model_cfg.name} is {model_cfg.dtype}; the CUDA "
-                "kernels take bfloat16 — use a bfloat16 model on the card "
-                "(or device='cpu')")
+        if self.device.type == "cuda":
+            check_cuda_config(engine_cfg, model_cfg)
         if tokenizer is None:
             tokenizer = (ByteTokenizer() if model_cfg.vocab_size < 100000
                          else get_tokenizer("approx"))

@@ -63,9 +63,7 @@ def _flash_cuda(q, k, v, lengths, segment_ids) -> torch.Tensor:
     if k.shape != (b, s, kh, hd) or v.shape != k.shape:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if hd not in (64, 128) or h % kh:
-        raise ValueError(f"flash_attention kernel takes hd in (64, 128) and "
-                         f"H % K == 0 (got hd={hd}, H={h}, K={kh})")
+    kernels.check_shapes("flash_attention", hd, h, kh)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q.device)
     if lengths is None:

@@ -3,8 +3,9 @@
 Each source under ``lmrs_tpu_torch/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``.  The int8-pool kernels are further ``extern "C"`` symbols of the
-same sources, sharing ``csrc/kv_int8.cuh``; the split-sequence decode and
-span kernels share ``csrc/split_merge.cuh``.  Libraries land in
+same sources, sharing ``csrc/kv_int8.cuh``; the split-sequence kernels
+share ``csrc/split_merge.cuh``, and the span and verify kernels their tile
+walk, ``csrc/tile_attn.cuh``.  Libraries land in
 ``build/lmrs_tpu_torch/`` at the repo root, named by a hash of the source,
 the shared headers and the flags, so a changed source rebuilds and an
 unchanged one loads at once.  Building happens at first use (never at
@@ -12,6 +13,12 @@ import): the CPU tests import every module without a CUDA toolkit.
 
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
 them together.
+
+``shape_problems`` / ``check_shapes`` state the one shape rule every
+attention kernel here is built for (head dims, query heads per kv head,
+page size, the verify kernel's query rows).  The wrappers check a call
+against it, and ``TorchEngine`` checks a model and engine configuration
+against it before it runs anything on the card.
 """
 
 from __future__ import annotations
@@ -34,6 +41,41 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+# the template builds of the attention kernels (csrc/*.cu dispatch)
+HEAD_DIMS = (32, 64, 128)
+GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head, H / K
+PAGE_MULTIPLE = 32          # decode tiles of 32 tokens lie inside one page
+MULTI_QROWS = 64            # the verify kernel's query tile: T x H/K rows
+
+
+def shape_problems(hd: int, n_heads: int, n_kv_heads: int,
+                   page_size: int | None = None,
+                   verify_tokens: int | None = None) -> list[str]:
+    """What the CUDA attention kernels refuse in these shapes, one phrase
+    each (empty: they take them).  ``page_size`` applies to the paged
+    kernels, ``verify_tokens`` (T) to the multi-token verify kernel."""
+    out = []
+    if hd not in HEAD_DIMS:
+        out.append(f"hd in {HEAD_DIMS} (got hd={hd})")
+    n_rep = n_heads // n_kv_heads if n_kv_heads > 0 else 0
+    if n_rep not in GROUP_SIZES or n_rep * n_kv_heads != n_heads:
+        out.append(f"H/K in {GROUP_SIZES} (got H={n_heads}, K={n_kv_heads})")
+    if page_size is not None and page_size % PAGE_MULTIPLE:
+        out.append(f"page_size % {PAGE_MULTIPLE} == 0 (got {page_size})")
+    if verify_tokens is not None and not 1 <= verify_tokens * n_rep <= MULTI_QROWS:
+        out.append(f"T x H/K <= {MULTI_QROWS} query rows per kv head (got "
+                   f"T={verify_tokens}, H/K={n_rep})")
+    return out
+
+
+def check_shapes(op: str, hd: int, n_heads: int, n_kv_heads: int,
+                 page_size: int | None = None,
+                 verify_tokens: int | None = None) -> None:
+    """Raise ``ValueError`` naming ``op`` if ``shape_problems`` finds any."""
+    problems = shape_problems(hd, n_heads, n_kv_heads, page_size, verify_tokens)
+    if problems:
+        raise ValueError(f"{op}: the CUDA kernels take " + "; ".join(problems))
 
 
 def _nvcc() -> str:

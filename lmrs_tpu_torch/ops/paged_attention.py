@@ -45,10 +45,11 @@ The multi-token and span contracts are in ``paged_decode_multi``' and
 ``ragged_spans``' docstrings.
 
 Split-sequence kernels: the decode kernels walk each row in splits of
-``DECODE_SPLIT`` tokens and the span kernel's attention pass each query
+``DECODE_SPLIT`` tokens, the span kernel's attention pass each query
 tile's columns in splits of ``SPAN_SPLIT`` (spans of at most
-``SPAN_SPLIT_TILES`` query tiles), one block per split; the
-number of splits comes from shapes alone (``W * ps``), never from reading
+``SPAN_SPLIT_TILES`` query tiles) and the verify kernel each row's columns
+in splits of ``MULTI_SPLIT``, one block per split; the number of splits
+comes from shapes alone (``W * ps``, ``max_pos``), never from reading
 ``kv_lens`` on the host.  Each wrapper hands its kernel an f32 scratch
 (``torch.empty``) for the splits' partial softmax states and a cached int32
 counter buffer that the kernels leave zero; the last block of a split
@@ -64,17 +65,19 @@ import ctypes
 import numpy as np
 import torch
 
+from lmrs_tpu_torch.ops import kernels
 from lmrs_tpu_torch.ops.quant import kv_dequant, kv_quant, kv_quant_tokens
 
 NEG_INF = -1e30
 # Alignment of the span starts in the flat token buffer (the reference's
 # query-tile height); kept so both packages pack spans identically.
 SPAN_QT = 8
-# tokens per decode split and columns per span split (multiples of the
-# kernels' 32-token and 64-column tiles; csrc/paged_decode.cu,
-# csrc/ragged_spans.cu)
+# tokens per decode split and columns per span and verify split (multiples
+# of the kernels' 32-token and 64-column tiles; csrc/paged_decode.cu,
+# csrc/ragged_spans.cu, csrc/paged_decode_multi.cu)
 DECODE_SPLIT = 256
 SPAN_SPLIT = 512
+MULTI_SPLIT = 256
 # query rows of a span attention block (span tokens x the n_rep heads)
 SPAN_QROWS = 64
 # spans of at most this many query tiles split their walks (decode rows,
@@ -207,8 +210,6 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
                  kscale=None, vscale=None):
     """The decode kernels of ``csrc/paged_decode.cu``: write-fused (bf16 or
     int8 pools), or walk-only when ``k_new`` is None."""
-    from lmrs_tpu_torch.ops import kernels
-
     quant = kscale is not None
     op = ("paged_decode" if k_new is None else
           "paged_decode_fused_int8" if quant else "paged_decode_fused")
@@ -221,10 +222,7 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
         raise ValueError(f"{op}: shape mismatch among q {tuple(q.shape)}, "
                          f"k_new {None if k_new is None else tuple(k_new.shape)}, "
                          f"pools {tuple(k_pages.shape)}")
-    if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8) or ps % 32:
-        raise ValueError(f"{op} kernel takes hd in (64, 128), "
-                         f"H/K in (1, 2, 4, 8), page_size % 32 == 0 (got "
-                         f"hd={hd}, H={h}, K={kh}, ps={ps})")
+    kernels.check_shapes(op, hd, h, kh, page_size=ps)
     _check(op, q.device, torch.bfloat16, q=q, **new)
     _check(op, q.device, torch.int8 if quant else torch.bfloat16,
            k_pages=k_pages, v_pages=v_pages)
@@ -314,9 +312,6 @@ paged_decode_fused.launches_int8 = 0
 
 # ---------------------------------------------- multi-token verify kernel
 
-# query rows (T tokens x H/K heads) the multi kernel holds per kv head
-MULTI_QROWS = 64
-
 
 def paged_decode_multi_ref(
     q: torch.Tensor,            # [B, T, H, hd]
@@ -371,8 +366,6 @@ def paged_decode_multi_ref(
 
 def _multi_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
                 max_pos, kscale=None, vscale=None):
-    from lmrs_tpu_torch.ops import kernels
-
     quant = kscale is not None
     op = "paged_decode_multi_int8" if quant else "paged_decode_multi"
     b, t, h, hd = q.shape
@@ -383,13 +376,7 @@ def _multi_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
         raise ValueError(f"{op}: shape mismatch among q "
                          f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
                          f"pools {tuple(k_pages.shape)}")
-    if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8):
-        raise ValueError(f"{op} kernel takes hd in (64, 128) "
-                         f"and H/K in (1, 2, 4, 8) (got hd={hd}, H={h}, K={kh})")
-    if not 1 <= t * (h // kh) <= MULTI_QROWS:
-        raise ValueError(f"{op} kernel takes T x H/K <= "
-                         f"{MULTI_QROWS} query rows per kv head (got T={t}, "
-                         f"H/K={h // kh})")
+    kernels.check_shapes(op, hd, h, kh, verify_tokens=t)
     _check(op, q.device, torch.bfloat16, q=q, k_new=k_new, v_new=v_new)
     _check(op, q.device, torch.int8 if quant else torch.bfloat16,
            k_pages=k_pages, v_pages=v_pages)
@@ -399,17 +386,24 @@ def _multi_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
     tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    # the splits' partial states, from shapes alone: T x H/K query rows per
+    # (row, kv head, split of the columns below min(W·ps, max_pos))
+    pos_cap = w * ps if max_pos is None else max_pos
+    n_split = max(-(-min(w * ps, pos_cap) // MULTI_SPLIT), 1)
+    part = torch.empty(b * kh * n_split * t * (h // kh) * (hd + 2),
+                       dtype=torch.float32, device=q.device)
+    counters = _split_counters(q.device, b * kh)
     name = ("lmrs_paged_decode_multi_int8" if quant
             else "lmrs_paged_decode_multi_bf16")
     fn = getattr(kernels.load("paged_decode_multi"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (8 + len(scales)) + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * (10 + len(scales)) + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), *scales, tables.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), b, t, h, kh, hd, ps, w,
-            w * ps if max_pos is None else max_pos, hd ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), b, t, h, kh, hd, ps, w, pos_cap, MULTI_SPLIT,
+            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(name, rc)
     if quant:
         paged_decode_multi.launches_int8 += 1
@@ -534,8 +528,6 @@ def ragged_spans_ref(
 
 def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
                 q_starts, q_lens, max_pos, kscale=None, vscale=None):
-    from lmrs_tpu_torch.ops import kernels
-
     quant = kscale is not None
     op = "ragged_spans_int8" if quant else "ragged_spans"
     tp, h, hd = q.shape
@@ -546,9 +538,7 @@ def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
         raise ValueError(f"{op}: shape mismatch among q "
                          f"{tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
                          f"pools {tuple(k_pages.shape)}")
-    if hd not in (64, 128) or h % kh or (h // kh) not in (1, 2, 4, 8):
-        raise ValueError(f"{op} kernel takes hd in (64, 128) and "
-                         f"H/K in (1, 2, 4, 8) (got hd={hd}, H={h}, K={kh})")
+    kernels.check_shapes(op, hd, h, kh)
     _check(op, q.device, torch.bfloat16, q=q, k_new=k_new, v_new=v_new)
     _check(op, q.device, torch.int8 if quant else torch.bfloat16,
            k_pages=k_pages, v_pages=v_pages)

@@ -11,14 +11,17 @@ limit, and for each kernel and shape the median device ms of one call
 (``time_ms``).  Only the public wrappers are called, so an older checkout
 of the port times the same way.  ``--e2e`` times the end-to-end paths
 instead, through the checkout's own ``chip_smoke.py`` (on the same path):
-phase 5's bf16 run and phase 7's int8 run (wall seconds, decode tokens/s)
-and each one's decode-step profile.  Needs a card; exits 1 without one.
+phases 5-8 (bf16, bf16 with linear speculation, int8, int8 with
+speculation: wall seconds, decode tokens/s) and each one's decode-step or
+verify-step profile.  Needs a card; exits 1 without one.
 
 Shapes (bench-8b widths: H=32, K=8, hd=128, ps=128, W=16): decode at
 ``chip_smoke.py`` phase 3's 8 rows (kv_lens 0/1/128/129/700/1500/2048/1000)
 and at the main path's 8 x 1,501 tokens; spans at phase 3's mixed step and
 1,300-token continuation and at the main path's mixed step (7 decode rows at
-1,500 + a 249-token slice at base 384); bf16 and int8 pools.
+1,500 + a 249-token slice at base 384); verify (8 rows x 5 tokens,
+max_pos 2048) at phase 3's kv_lens 6/133/130/700/1500/2050/1000/305 and at
+the speculative path's 8 x 5 tokens after 1,500; bf16 and int8 pools.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ def cases(gen: torch.Generator) -> dict:
                  q_starts=i32(q_starts.tolist()), q_lens=i32(q_lens))
         out[f"spans_bf16/{shape}"] = ("ragged_spans", x)
         out[f"spans_int8/{shape}"] = ("ragged_spans", _int8(x, 8, gen))
+    T = 5
+    for shape, lens in (("phase3", [6, 133, 130, 700, 1500, 2050, 1000, 305]),
+                        ("main", [1500 + T] * 8)):
+        x = dict(q=bf(8, T, H, hd), k_new=bf(8, T, K, hd), v_new=bf(8, T, K, hd),
+                 k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+                 page_tables=tables, kv_lens=i32(lens), max_pos=2048)
+        out[f"verify_bf16/{shape}"] = ("paged_decode_multi", x)
+        out[f"verify_int8/{shape}"] = ("paged_decode_multi", _int8(x, 8, gen))
     return out
 
 
@@ -108,7 +119,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="")
     ap.add_argument("--e2e", action="store_true",
-                    help="time phases 5 and 7 instead of the kernels")
+                    help="time phases 5-8 instead of the kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
@@ -136,21 +147,25 @@ def main() -> int:
 
 
 def end_to_end() -> dict:
-    """Phase 5 (bf16) and phase 7 (int8 weights and KV) of the checkout's
-    ``chip_smoke.py``: wall seconds, decode tokens/s, the decode-step
-    profile."""
+    """Phases 5 (bf16), 6 (bf16, linear speculation), 7 (int8 weights and
+    KV) and 8 (int8, speculation) of the checkout's ``chip_smoke.py``: wall
+    seconds, decode tokens/s, and the decode-step profile (the verify-step
+    profile, 8 rows x 5 tokens, for 6 and 8)."""
     import chip_smoke
 
+    spec = {"speculate_k": 4, "mixed_batch": False}
+    int8 = {"quantize": "int8", "kv_quantize": "int8"}
     res = {}
-    for name, kw in (("bf16", {}),
-                     ("int8", {"quantize": "int8", "kv_quantize": "int8"})):
+    for name, kw in (("bf16", {}), ("bf16_spec", spec), ("int8", int8),
+                     ("int8_spec", {**int8, **spec})):
         summarizer, engine, stats, wall, _ = chip_smoke.summarize_once(**kw)
-        step = chip_smoke.profile_decode_step(engine)
+        step = chip_smoke.profile_decode_step(
+            engine, tokens=5 if "speculate_k" in kw else 1)
         summarizer.shutdown()
         res[name] = {"wall_seconds": wall,
                      "decode_tokens_per_sec":
                          stats["engine_metrics"]["decode_tokens_per_sec"],
-                     "decode_step_profile": step}
+                     "step_profile": step}
         del summarizer, engine
         torch.cuda.empty_cache()
     return res

@@ -354,12 +354,12 @@ def test_int8_kernels_refuse_mismatched_scales(cuda_device):
 
 # ------------------------------------------- split-sequence boundaries
 
-def _split_decode_case(dev, seed):
-    """Decode rows at the split boundaries (bench-8b widths, ps=128, W=16):
-    exactly DECODE_SPLIT tokens, one more (the write opens a new split),
-    W·ps, a stale length past W·ps, 0 (null table) and 1."""
+def _split_decode_case(dev, seed, h=32, kh=8, hd=128):
+    """Decode rows at the split boundaries (bench-8b widths unless given,
+    ps=128, W=16): exactly DECODE_SPLIT tokens, one more (the write opens a
+    new split), W·ps, a stale length past W·ps, 0 (null table) and 1."""
     r = np.random.default_rng(seed)
-    b, h, kh, hd, ps, w = 6, 32, 8, 128, 128, 16
+    b, ps, w = 6, 128, 16
     split = tpa.DECODE_SPLIT
     lens = [split, split + 1, w * ps, w * ps + 100, 0, 1]
     n_pages = b * w + 1
@@ -374,15 +374,15 @@ def _split_decode_case(dev, seed):
                 v_pages=v_pages, page_tables=i32(tables), kv_lens=i32(lens))
 
 
-def _split_span_case(dev, seed):
-    """Span rows at the split boundaries: decode rows whose column range
-    ends on a SPAN_SPLIT boundary and one past it, a 48-token continuation
-    at base 1000 (3 query tiles: split) whose walk crosses three splits, a
-    900-token continuation at base 300 (walked unsplit), a decode row at
-    W·ps - 1, a stale base past W·ps, an inactive row and a fresh one-token
-    row."""
+def _split_span_case(dev, seed, h=32, kh=8, hd=128):
+    """Span rows at the split boundaries (bench-8b widths unless given):
+    decode rows whose column range ends on a SPAN_SPLIT boundary and one
+    past it, a 48-token continuation at base 1000 (3 query tiles at n_rep
+    4: split) whose walk crosses three splits, a 900-token continuation at
+    base 300 (walked unsplit), a decode row at W·ps - 1, a stale base past
+    W·ps, an inactive row and a fresh one-token row."""
     r = np.random.default_rng(seed)
-    h, kh, hd, ps, w = 32, 8, 128, 128, 16
+    ps, w = 128, 16
     split = tpa.SPAN_SPLIT
     rows = [(split - 1, 1), (split, 1), (1000, 48), (300, 900),
             (w * ps - 1, 1), (w * ps + 50, 1), (0, 0), (0, 1)]
@@ -402,20 +402,24 @@ def _split_span_case(dev, seed):
                 q_lens=i32(q_lens))
 
 
-def _check_split_kernel(fn, ref, x, pool_keys=("k_pages", "v_pages")):
+def _check_split_kernel(fn, ref, x, pool_keys=("k_pages", "v_pages"),
+                        rows=slice(None), pages=slice(None)):
     """Kernel vs plain within TOL, pools bit-exact, and a second launch on
-    the same inputs (pools restored) bit-identical to the first."""
+    the same inputs (pools restored) bit-identical to the first; ``rows``
+    and ``pages`` leave out the verify kernel's null-table rows and the
+    null page they all write."""
     x0 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in x.items()}
     x2 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in x.items()}
     got = fn(**x)
     want = ref(**x2)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    torch.testing.assert_close(got[rows].float(), want[rows].float(), atol=TOL,
+                               rtol=0)
     for k in pool_keys:
-        assert torch.equal(x[k], x2[k]), k
+        assert torch.equal(x[k][pages], x2[k][pages]), k
     again = fn(**{k: (v.clone() if torch.is_tensor(v) else v) for k, v in x0.items()})
     torch.cuda.synchronize()
-    assert torch.equal(got, again)
+    assert torch.equal(got[rows], again[rows])
     return got
 
 
@@ -448,3 +452,105 @@ def test_span_kernels_at_split_boundaries(cuda_device, int8):
     for s, n in zip(x["q_starts"].tolist(), x["q_lens"].tolist()):
         in_span[s:s + n] = True
     assert not got[~in_span].any()
+
+
+def _split_multi_case(dev, seed, h=32, kh=8, hd=128):
+    """Verify rows (T = 5) at MULTI_SPLIT's boundaries (bench-8b widths
+    unless given, ps=128, W=16, max_pos 2048): tokens straddling a split,
+    a last token on a split's last column, tokens overhanging the window,
+    T tokens inside one split, a stale length past W·ps, the null-table row
+    of an empty slot (kv_lens = T, row 5), tokens opening a split and a
+    fresh row."""
+    r = np.random.default_rng(seed)
+    t, ps, w = 5, 128, 16
+    split = tpa.MULTI_SPLIT
+    lens = [split + 3, split, w * ps + 2, 700, w * ps + 100, t, 2 * split + t, t]
+    b = len(lens)
+    n_pages = b * w + 1
+    tables = r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1
+    tables[5] = 0
+    q, k_new, v_new, k_pages, v_pages = _bf16(
+        dev, *(r.standard_normal(s).astype(np.float32) for s in
+               ((b, t, h, hd), (b, t, kh, hd), (b, t, kh, hd),
+                (n_pages, kh, ps, hd), (n_pages, kh, ps, hd))))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+                v_pages=v_pages, page_tables=i32(tables), kv_lens=i32(lens),
+                max_pos=2048)
+
+
+# every row of _split_multi_case but the null-table row; pages past the null page
+MULTI_REAL = [0, 1, 2, 3, 4, 6, 7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_multi_kernels_at_split_boundaries(cuda_device, int8):
+    """The split verify kernel at its split boundaries, bench-8b widths:
+    within TOL of the plain version, pools exact outside the null page, a
+    repeat launch bit-identical."""
+    x = _split_multi_case(cuda_device, 25)
+    if int8:
+        x = _int8ify(x, 0, 0, seed=26)  # the straddling row's ties
+    _check_split_kernel(tpa.paged_decode_multi, tpa.paged_decode_multi_ref, x,
+                        rows=MULTI_REAL, pages=slice(1, None))
+
+
+# ------------------------------------------------- hd 32 (the tiny presets)
+
+HD32 = dict(h=8, kh=4, hd=32)  # the tiny preset's heads: 256 / 8, n_rep 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flash", "flash_packed", "decode",
+                                  "decode_int8", "walk", "spans", "spans_int8",
+                                  "multi", "multi_int8"])
+def test_kernels_at_hd32(cuda_device, kind):
+    """Each kernel's hd-32 build against its plain version at the split
+    boundaries (pools exact, a repeat launch bit-identical)."""
+    if kind.startswith("flash"):
+        r = np.random.default_rng(27)
+        b, s = 2, 300
+        q, k, v = _bf16(cuda_device, *(r.standard_normal(sh).astype(np.float32)
+                                       for sh in ((b, s, 8, 32), (b, s, 4, 32),
+                                                  (b, s, 4, 32))))
+        seg = None
+        lens = torch.tensor([300, 129], dtype=torch.int32, device=cuda_device)
+        if kind == "flash_packed":
+            seg = torch.tensor([[0] * 100 + [1] * 150 + [-1] * 50] * b,
+                               dtype=torch.int32, device=cuda_device)
+            lens = torch.tensor([250, 250], dtype=torch.int32, device=cuda_device)
+        n0 = tfa.flash_attention.launches
+        got = tfa.flash_attention(q, k, v, lens, seg)
+        want = tfa.flash_attention_ref(q, k, v, lens, seg)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.launches == n0 + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+        return
+    int8 = kind.endswith("_int8")
+    if kind.startswith("decode") or kind == "walk":
+        x = _split_decode_case(cuda_device, 28, **HD32)
+        if int8:
+            x = _int8ify(x, 1, 1, seed=29)
+        if kind == "walk":
+            kp0, vp0 = x["k_pages"].clone(), x["v_pages"].clone()
+            walk = {k: x[k] for k in ("q", "k_pages", "v_pages", "page_tables",
+                                      "kv_lens")}
+            got = _check_split_kernel(tpa.paged_decode, tpa.paged_decode_ref, walk)
+            assert torch.equal(x["k_pages"], kp0) and torch.equal(x["v_pages"], vp0)
+        else:
+            got = _check_split_kernel(tpa.paged_decode_fused,
+                                      tpa.paged_decode_fused_ref, x)
+        assert not got[4].any()
+    elif kind.startswith("spans"):
+        x = _split_span_case(cuda_device, 30, **HD32)
+        if int8:
+            s0, n = int(x["q_starts"][2]), int(x["q_lens"][2])
+            x = _int8ify(x, slice(s0, s0 + n), 2, seed=31)
+        _check_split_kernel(tpa.ragged_spans, tpa.ragged_spans_ref, x)
+    else:
+        x = _split_multi_case(cuda_device, 32, **HD32)
+        if int8:
+            x = _int8ify(x, 0, 0, seed=33)
+        _check_split_kernel(tpa.paged_decode_multi, tpa.paged_decode_multi_ref,
+                            x, rows=MULTI_REAL, pages=slice(1, None))

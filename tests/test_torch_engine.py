@@ -234,6 +234,26 @@ def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     assert want in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("flag,slice_", [
+    (["--save-chunks", "c.json"], "A11"), (["--resume-from", "c.json"], "A11"),
+    (["--stream-reduce"], "A11"), (["--max-concurrent-requests", "4"], "A11"),
+    (["--checkpoint", "ckpt"], "A12"), (["--backend", "jax"], "A3"),
+    (["--hosts", "h:1,h:2"], "A3"), (["--profile"], "A10"),
+    (["--trace-out", "t.json"], "A10"), (["--no-trace"], "A10")])
+def test_cli_refuses_reference_flags_by_name(tmp_path, flag, slice_, capsys):
+    """The reference CLI's flags of features the port lacks are refused by
+    name with the slice that brings them, not as unrecognized arguments."""
+    from lmrs_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["--input", str(tmp_path / "missing.json"), *flag])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f"{flag[0]} is not in the port yet" in err
+    assert f"({slice_}) slice" in err
+    assert "unrecognized" not in err
+
+
 def test_engine_raises_without_cuda_unless_cpu_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
