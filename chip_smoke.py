@@ -16,6 +16,18 @@ anything wrong.  Phases, one JSON object per line:
               walk-only, spans bf16/int8) also at their split boundaries
               with a bit-identical repeat launch, and at the main path's
               shapes beside other split sizes.
+              Flash prefill: the phase-3 packed row (4 segments and a
+              padded tail) and an unpacked row with lengths < S, q/k/v
+              as strided views of one qkv product, a repeat launch
+              bit-identical; its library time is the fair yardstick
+              (``scaled_dot_product_attention(is_causal=True,
+              enable_gqa=True)`` on the flash backend, one call per
+              segment), with the dense-mask call beside it;
+              the card tests' edge cases ("kernels-flash-cases": n_rep
+              1-8, hd 32/64/128, cut tiles, short and mid-tile
+              segments, rows of different lengths); and the main path's
+              shapes ("kernels-main-shape": one unpacked 1,600-token
+              row, a packed bin of three 600-token segments).
               The span kernel at two shapes: a mixed step (7 decode rows +
               a 249-token slice) and a 1,300-token continuation chunk.  The
               multi-token verify kernel at the speculative step's shape (8
@@ -57,7 +69,9 @@ anything wrong.  Phases, one JSON object per line:
               mixed steps, continuation chunks and the prefix cache; launch
               counters zeroed just before and read just after; the scheduler
               counters (mixed steps, prefix hits, preemptions) and a clean
-              audit (allocator + prefix cache).
+              audit (allocator + prefix cache); a decode-step profile and
+              a fresh-prefill dispatch profile (one 1,600-token row, all
+              32 layers: device time by kernel kind).
 6. spec     — the same transcript and config with linear speculation
               (``speculate_k=4, mixed_batch=False``) at full depth; counters
               zeroed just before and read just after: the verify kernel,
@@ -155,69 +169,146 @@ def time_ms(fn, reps: int = 10) -> float:
 
 # ------------------------------------------------------------ phase 3
 
-def check_flash(gen: torch.Generator) -> dict:
-    import torch.nn.functional as F
+PHASE3_SEGMENTS = [700, 512, 333, 260]  # one packed 2,048-token bin
 
+
+def flash_spans(x: dict, seg_lens: list[int] | None) -> list[tuple[int, int]]:
+    """(start, length) of each causal run in row 0: the segments of a
+    packed row, else the row's valid prefix."""
+    if seg_lens is None:
+        return [(0, int(x["lengths"][0]))]
+    starts = [sum(seg_lens[:i]) for i in range(len(seg_lens))]
+    return list(zip(starts, seg_lens))
+
+
+def flash_bound(x: dict, seg_lens: list[int] | None) -> tuple[float, str]:
+    """Bound of one flash launch on these inputs: q, k, v read and out
+    written once in bf16, lengths and segment ids (int32); operations
+    4·H·hd per (query, visible key) pair of each causal run."""
+    b, S, H, hd = x["q"].shape
+    K = x["k"].shape[2]
+    flops = 4.0 * H * hd * sum(n * (n + 1) / 2 for _, n in flash_spans(x, seg_lens))
+    nbytes = (2.0 * b * (2 * S * H * hd + 2 * S * K * hd)
+              + 4.0 * (b + (b * S if seg_lens is not None else 0)))
+    return bound(flops, nbytes)
+
+
+def flash_library(x: dict, seg_lens: list[int] | None):
+    """Two PyTorch yardsticks for one flash launch (timed, never used by
+    the port): (fair, dense).  fair: ``scaled_dot_product_attention`` with
+    ``is_causal=True`` on the flash backend, GQA by ``enable_gqa``, one
+    call per causal run (a packed row's segments, timed together).  dense:
+    one call with the [S, S] boolean mask of the whole row and the kv heads
+    repeated outside the timed call (no flash backend takes a mask; it
+    computes all S² pairs), kept beside the fair one for comparison with
+    older records."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = x["q"], x["k"], x["v"]
+    S, H = q.shape[1], q.shape[2]
+    runs = [tuple(t[:, a:a + n].transpose(1, 2) for t in (q, k, v))
+            for a, n in flash_spans(x, seg_lens)]
+
+    def fair():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return [F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                   enable_gqa=True)
+                    for qq, kk, vv in runs]
+
+    idx = torch.arange(S, device="cuda")
+    length = int(x["lengths"][0])
+    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] < length)
+    if seg_lens is not None:
+        seg = x["segment_ids"][0]
+        mask &= seg[:, None] == seg[None, :]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(H // k.shape[2], dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+
+    def dense():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[None, None])
+
+    return fair, dense
+
+
+def time_flash(x: dict, seg_lens: list[int] | None, want: torch.Tensor) -> dict:
+    """Kernel, plain and library times of one flash shape, its bound, and
+    the fair yardstick's max |err| against the plain version (it computes
+    the same rows)."""
     from lmrs_tpu_torch.ops import flash_attention as fa
 
-    S, H, K, hd = 2048, 32, 8, 128
-    dev = "cuda"
+    fair, dense = flash_library(x, seg_lens)
+    lib = torch.cat([o.transpose(1, 2) for o in fair()], dim=1)
+    n = lib.shape[1]
+    b_ms, b_by = flash_bound(x, seg_lens)
+    return {"ms": time_ms(lambda: fa.flash_attention(**x)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_ref(**x), reps=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(fair),
+            "library": "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True), flash backend, one call per run",
+            "library_max_abs_err":
+                (lib.float() - want[:, :n].float()).abs().max().item(),
+            "library_dense_mask_ms": time_ms(dense)}
 
-    def qkv(b):
-        return (torch.randn(b, S, H, hd, generator=gen, device=dev).bfloat16(),
-                torch.randn(b, S, K, hd, generator=gen, device=dev).bfloat16(),
-                torch.randn(b, S, K, hd, generator=gen, device=dev).bfloat16())
 
-    # packed: 4 segments + a padded tail (segment -1), as the main path's
-    # packed prefill dispatches them
-    seg_lens = [700, 512, 333, 260]
-    s_real = sum(seg_lens)
-    seg = torch.full((1, S), -1, dtype=torch.int32, device=dev)
-    off = 0
-    for i, n in enumerate(seg_lens):
-        seg[0, off:off + n] = i
-        off += n
-    q, k, v = qkv(1)
-    lens = torch.tensor([s_real], dtype=torch.int32, device=dev)
-    got = fa.flash_attention(q, k, v, lens, seg)
-    want = fa.flash_attention_ref(q, k, v, lens, seg)
+def flash_check(name: str, x: dict) -> tuple[float, torch.Tensor]:
+    """Kernel vs plain within TOL and a repeat launch bit-identical:
+    (max |err|, the plain output)."""
+    from lmrs_tpu_torch.ops import flash_attention as fa
+
+    got = fa.flash_attention(**x)
+    again = fa.flash_attention(**x)
+    want = fa.flash_attention_ref(**x)
     torch.cuda.synchronize()
-    err_packed = (got.float() - want.float()).abs().max().item()
-    # unpacked, lengths < S
-    q2, k2, v2 = qkv(1)
-    lens2 = torch.tensor([1537], dtype=torch.int32, device=dev)
-    got2 = fa.flash_attention(q2, k2, v2, lens2)
-    want2 = fa.flash_attention_ref(q2, k2, v2, lens2)
-    torch.cuda.synchronize()
-    err_unpacked = (got2.float() - want2.float()).abs().max().item()
-    err = max(err_packed, err_unpacked)
+    err = (got.float() - want.float()).abs().max().item()
     if not err <= TOL:
-        raise AssertionError(f"flash kernel vs plain: max |err| {err} > {TOL}")
+        raise AssertionError(f"flash kernel vs plain ({name}): max |err| {err} > {TOL}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash kernel ({name}): two launches on the same "
+                             "inputs differ")
+    return err, want
 
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, lens, seg))
-    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, lens, seg), reps=3)
-    # library yardstick: SDPA with the same block-diagonal causal mask
-    idx = torch.arange(S, device=dev)
-    mask = ((idx[None, :] <= idx[:, None]) & (seg[0][:, None] == seg[0][None, :])
-            & (idx[None, :] < s_real))[None, None]
-    # [B, H, S, hd] with the kv heads repeated (outside the timed call)
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2).contiguous()
-              for t in (k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask))
-    flops = 4.0 * H * hd * sum(n * (n + 1) / 2 for n in seg_lens)
-    # q, k, v read and out written in bf16, plus lengths and segment ids
-    nbytes = 2.0 * (2 * S * H * hd + 2 * S * K * hd) + 4.0 * (1 + S)
-    b_ms, b_by = bound(flops, nbytes)
+
+def check_flash(gen: torch.Generator) -> dict:
+    """Phase 3's flash row: one packed 2,048-token bin of 4 segments and a
+    padded tail (the kernels line's times), and an unpacked row with
+    lengths < S; q/k/v as strided views of one qkv product."""
+    from lmrs_tpu_torch.utils.kernel_ab import flash_inputs
+
+    S, H, K, hd = 2048, 32, 8, 128
+    x = flash_inputs(gen, PHASE3_SEGMENTS, S)
+    err_packed, want = flash_check("packed", x)
+    err_unpacked, _ = flash_check("unpacked", flash_inputs(gen, None, S,
+                                                           lengths=[1537]))
     return {"name": "flash_prefill", "route": "cuda",
             "source": "lmrs_tpu_torch/csrc/flash_prefill.cu",
             "replaces": "lmrs_tpu/ops/flash_attention.py:208",
-            "max_abs_err": err, "max_abs_err_packed": err_packed,
-            "max_abs_err_unpacked": err_unpacked, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms,
-            "shape": f"packed S={S} segs={seg_lens} H={H} K={K} hd={hd} bf16"}
+            "max_abs_err": max(err_packed, err_unpacked),
+            "max_abs_err_packed": err_packed,
+            "max_abs_err_unpacked": err_unpacked,
+            "repeat_bit_identical": True,
+            **time_flash(x, PHASE3_SEGMENTS, want),
+            "shape": f"packed S={S} segs={PHASE3_SEGMENTS} H={H} K={K} "
+                     f"hd={hd} bf16"}
+
+
+def check_flash_cases(gen: torch.Generator) -> list[dict]:
+    """The flash kernel at its edges (``kernel_ab.FLASH_CASES``, the card
+    tests' cases), each within TOL of the plain version and bit-identical
+    on a repeat launch."""
+    from lmrs_tpu_torch.utils.kernel_ab import FLASH_CASES, flash_inputs
+
+    out = []
+    for name, (b, s, h, kh, hd, lens, seg_lens) in FLASH_CASES.items():
+        x = flash_inputs(gen, seg_lens, s, h, kh, hd, b, lens)
+        err, _ = flash_check(name, x)
+        out.append({"name": "flash_prefill", "case": name, "max_abs_err": err,
+                    "repeat_bit_identical": True,
+                    "shape": f"B={b} S={s} H={h} K={kh} hd={hd} "
+                             f"lengths={x['lengths'].tolist()} segs={seg_lens}"})
+    return out
 
 
 def check_decode(gen: torch.Generator, int8: bool = False) -> dict:
@@ -658,30 +749,20 @@ def check_split_boundaries(gen: torch.Generator, widths: dict = BENCH8B) -> list
 def check_hd32(gen: torch.Generator) -> list[dict]:
     """Phase 3b: every kernel's hd-32 build at the tiny preset's heads,
     flash prefill against its plain version (one packed row of 4 segments
-    and a padded tail, and an unpacked row) and the paged kernels at their
-    split boundaries."""
-    from lmrs_tpu_torch.ops import flash_attention as fa
+    and a padded tail, and an unpacked row; q/k/v strided views, a repeat
+    launch bit-identical) and the paged kernels at their split
+    boundaries."""
+    from lmrs_tpu_torch.utils.kernel_ab import flash_inputs
 
     out = []
-    S = 1024
-    seg = torch.full((1, S), -1, dtype=torch.int32, device="cuda")
-    off = 0
-    for i, n in enumerate([300, 257, 200, 150]):
-        seg[0, off:off + n] = i
-        off += n
-    bf = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").bfloat16()  # noqa: E731
     for packed in (True, False):
-        q, k, v = bf(1, S, TINY["H"], 32), bf(1, S, TINY["K"], 32), bf(1, S, TINY["K"], 32)
-        lens = torch.tensor([off if packed else 777], dtype=torch.int32, device="cuda")
-        sg = seg if packed else None
-        got = fa.flash_attention(q, k, v, lens, sg)
-        want = fa.flash_attention_ref(q, k, v, lens, sg)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= TOL:
-            raise AssertionError(f"flash_prefill hd 32 vs plain: max |err| {err} > {TOL}")
-        out.append({"name": "flash_prefill", "max_abs_err": err,
-                    "case": "packed" if packed else "unpacked"})
+        x = flash_inputs(gen, [300, 257, 200, 150] if packed else None, 1024,
+                         TINY["H"], TINY["K"], 32,
+                         lengths=None if packed else [777])
+        case = "packed" if packed else "unpacked"
+        err, _ = flash_check(f"hd 32 {case}", x)
+        out.append({"name": "flash_prefill", "max_abs_err": err, "case": case,
+                    "repeat_bit_identical": True})
     out += check_split_boundaries(gen, TINY)
     return [{**r, "hd": 32, "H": TINY["H"], "K": TINY["K"]} for r in out]
 
@@ -696,6 +777,26 @@ def _timed_split(attr: str, value: int, fn) -> float:
         return time_ms(fn)
     finally:
         setattr(pa, attr, keep)
+
+
+def flash_main_shapes(gen: torch.Generator) -> list[dict]:
+    """Flash prefill at the main path's shapes: one unpacked 1,600-token
+    row (phase 5's map prompts are 1,358-1,871 tokens and never share a
+    2,048-token bin, so each is one fresh [1, n] dispatch) and one packed
+    reduce-sized bin (three 600-token segments); each checked against the
+    plain version, with its bound, plain and library times."""
+    from lmrs_tpu_torch.utils.kernel_ab import FLASH_SHAPES, flash_inputs
+
+    rows = []
+    for name in ("main_unpacked", "reduce_packed"):
+        seg_lens, s = FLASH_SHAPES[name]
+        x = flash_inputs(gen, seg_lens, s)
+        err, want = flash_check(name, x)
+        rows.append({"name": "flash_prefill", "case": name, "max_abs_err": err,
+                     **time_flash(x, seg_lens, want),
+                     "shape": f"S={s} segs={seg_lens} H=32 K=8 hd=128 bf16"})
+        del x, want
+    return rows
 
 
 def time_main_shapes(gen: torch.Generator) -> list[dict]:
@@ -1015,6 +1116,7 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
 
     from lmrs_tpu_torch.models import transformer
     from lmrs_tpu_torch.ops.quant import is_quantized
+    from lmrs_tpu_torch.utils.kernel_ab import kernel_kind
 
     sched = engine._scheduler
     cache, cfg = sched.cache, sched.model_cfg
@@ -1078,12 +1180,8 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                 continue
             if str(getattr(evt, "device_type", "")).endswith("CUDA"):
                 us = evt.time_range.elapsed_us()  # a kernel's own duration
-                name = evt.name.lower()
-                kind = ("paged_decode" if "paged_decode" in name else
-                        "gemm" if ("gemm" in name or "cutlass" in name
-                                   or "sm90_xmma" in name or "nvjet" in name)
-                        else "other")
-                kinds[kind] += us / 1e3
+                kind = kernel_kind(evt.name)
+                kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
                 n_kernels += 1
         busy = sum(kinds.values()) / steps
         out = {"rows": rows, "tokens": tokens, "context": context,
@@ -1104,6 +1202,24 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
     finally:
         for s in seqs:
             cache.allocator.free(s)
+
+
+def profile_prefill_dispatch(engine, n: int = 1600) -> dict:
+    """One fresh-prefill dispatch at phase 5's map-prompt shape (one [1, n]
+    row, all 32 layers: ``kernel_ab.profile_prefill``) over real pages of
+    the engine's pool, returned afterwards."""
+    from lmrs_tpu_torch.utils.kernel_ab import profile_prefill
+
+    sched = engine._scheduler
+    cache = sched.cache
+    pages = cache.alloc_pages(-(-n // cache.page_size))
+    try:
+        table = torch.tensor([pages + [0] * (cache.max_pages_per_slot - len(pages))],
+                             device="cuda")
+        return profile_prefill(sched.params, sched.model_cfg, cache.k, cache.v,
+                               table, n)
+    finally:
+        cache.allocator.free(pages)
 
 
 def kernel_counters() -> dict:
@@ -1194,10 +1310,13 @@ def run_main_path() -> dict:
     if em["prefix_cache"]["tokens_reused"] <= 0:
         raise AssertionError("no prefix-cache hit on the main path")
     step = profile_decode_step(engine)
+    prefill = profile_prefill_dispatch(engine)
     if engine.audit():
         raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
     summarizer.shutdown()
-    return {"phase": "main", "decode_step_profile": step, "model": "bench-8b (32 layers, random-init bf16)",
+    return {"phase": "main", "decode_step_profile": step,
+            "prefill_dispatch_profile": prefill,
+            "model": "bench-8b (32 layers, random-init bf16)",
             "segments": stats["num_input_segments"],
             "chunks": stats["num_chunks"], "requests": em["requests"],
             "reduce_levels": stats["reduce_levels"],
@@ -1368,7 +1487,9 @@ def main() -> int:
         emit({"phase": "kernels", **r})
     for r in check_split_boundaries(gen):
         emit({"phase": "kernels-split-boundaries", **r})
-    for r in time_main_shapes(gen):
+    for r in check_flash_cases(gen):
+        emit({"phase": "kernels-flash-cases", **r})
+    for r in flash_main_shapes(gen) + time_main_shapes(gen):
         emit({"phase": "kernels-main-shape", **r})
     for r in check_hd32(gen):
         emit({"phase": "hd32", **r})

@@ -13,6 +13,7 @@ import torch
 
 from lmrs_tpu_torch.ops import flash_attention as tfa
 from lmrs_tpu_torch.ops import paged_attention as tpa
+from lmrs_tpu_torch.utils.kernel_ab import FLASH_CASES
 
 TOL = 2e-2
 
@@ -228,6 +229,36 @@ def test_multi_and_walk_kernels_refuse_what_they_do_not_take(cuda_device):
         tpa.paged_decode(q1.transpose(0, 1).contiguous().transpose(0, 1),
                          x["k_pages"], x["v_pages"], x["page_tables"],
                          x["kv_lens"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_cases(cuda_device, case):
+    """The flash kernel at its edges (``kernel_ab.FLASH_CASES``), q/k/v as
+    the strided views of one qkv product that ``forward_paged`` passes:
+    within 2e-2 of the plain version, and a repeat launch bit-identical."""
+    b, s, h, kh, hd, lens, seg_lens = FLASH_CASES[case]
+    r = np.random.default_rng(40 + sorted(FLASH_CASES).index(case))
+    qkv, = _bf16(cuda_device, r.standard_normal(
+        (b, s, (h + 2 * kh) * hd)).astype(np.float32))
+    q = qkv[..., :h * hd].view(b, s, h, hd)
+    k = qkv[..., h * hd:(h + kh) * hd].view(b, s, kh, hd)
+    v = qkv[..., (h + kh) * hd:].view(b, s, kh, hd)
+    seg = None
+    if seg_lens is not None:
+        ids = np.full((s,), -1, np.int32)
+        ids[:sum(seg_lens)] = np.repeat(np.arange(len(seg_lens)), seg_lens)
+        seg = torch.from_numpy(np.stack([ids] * b)).to(cuda_device)
+        lens = [sum(seg_lens)] * b
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    n0 = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, lens, seg)
+    again = tfa.flash_attention(q, k, v, lens, seg)
+    want = tfa.flash_attention_ref(q, k, v, lens, seg)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == n0 + 2
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
