@@ -47,6 +47,15 @@ anything wrong.  Phases, one JSON object per line:
               flash prefill (packed and not), decode bf16/int8, walk-only,
               spans bf16/int8, verify bf16/int8; pools exact, repeat
               launches bit-identical.
+3c. hd256   — every kernel's hd-256 build (the Gemma presets' head dim)
+              at both head groupings, gemma-7b's (H=16, K=16) and
+              gemma-2b's (H=8, K=1), held against its plain version as
+              in phase 3b; then ("hd256-main-shape") each build at the
+              main path's shapes (flash one 1,600-token row beside the
+              fair SDPA call; decode
+              8 x 1,501 tokens; spans phase 5's mixed step; verify 8 x 5
+              tokens after 1,500) with its bound, plain time and times at
+              other split sizes.
 4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts,
               16 teacher-forced decode steps, one span dispatch (2 decode
               rows + a 100-token slice) and one 5-token verify step
@@ -58,6 +67,8 @@ anything wrong.  Phases, one JSON object per line:
               on the CPU, the same int8 values and scales on the card; the
               span dispatch re-prefills row 2 from position 0, a base-0 row
               that owns its slot's scales).
+4c. model-gemma — the same two checks at gemma-7b's widths (hd 256, 16
+              query over 16 kv heads), 2 layers.
 4b. default — the CLI's ``main`` with no ``--model`` (the default
               ``EngineConfig``: preset ``tiny``, hd 32, random-init) on the
               demo transcript; counters zeroed just before and read just
@@ -87,7 +98,17 @@ anything wrong.  Phases, one JSON object per line:
               weight products and the rest.
 8. int8-spec — phase 7 with ``speculate_k=4, mixed_batch=False``: the int8
               verify kernel launched, the int8 decode kernel not at all.
-9. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+9. gemma-7b — phase 5 at full gemma-7b (28 layers, hd 256, random-init
+              bf16): phase 5's gates and a preemption; a decode-step
+              profile with the attention kernel's ms a launch beside its
+              bound; peak memory.
+10. gemma-2b-int8-spec — full gemma-2b (18 layers, one kv head) with
+              int8 weights and KV and ``speculate_k=4, mixed_batch=False``,
+              prompts past 1,024 tokens prefilled in continuation chunks:
+              the int8 verify and span kernels and flash launched, the
+              int8 decode kernel not at all, no prefix-cache query.
+11. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+    as ``<name>@hd256``), then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure: any exception exits non-zero before the
 last line.
@@ -401,12 +422,13 @@ def span_bound(x: dict) -> tuple[float, str]:
     return bound(flops, nbytes)
 
 
-def _span_inputs(gen: torch.Generator, case: str) -> dict:
-    """One span dispatch at bench-8b widths (H=32, K=8, hd=128, ps=128,
-    W=16, 8 table rows), as the main path issues it."""
+def _span_inputs(gen: torch.Generator, case: str, H: int = 32, K: int = 8,
+                 hd: int = 128) -> dict:
+    """One span dispatch at bench-8b widths unless given (H=32, K=8,
+    hd=128; ps=128, W=16, 8 table rows), as the main path issues it."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
-    H, K, hd, ps, W = 32, 8, 128, 128, 16
+    ps, W = 128, 16
     dev = "cuda"
     if case == "mixed":
         # a mixed step: 7 decode rows + the 249-token slice a 256-token
@@ -597,17 +619,20 @@ def check_walk(gen: torch.Generator) -> dict:
 
 BENCH8B = dict(H=32, K=8, hd=128)  # bench-8b's attention widths
 TINY = dict(H=8, K=4, hd=32)       # the default tiny preset's
+GEMMA = {"gemma-7b": dict(H=16, K=16, hd=256),  # multi-head
+         "gemma-2b": dict(H=8, K=1, hd=256)}    # multi-query
 
 
 def _split_decode_inputs(gen: torch.Generator, int8: bool, H: int = 32,
                          K: int = 8, hd: int = 128) -> dict:
     """Decode rows at the split boundaries, bench-8b widths unless given
-    (ps=128, W=16): exactly DECODE_SPLIT tokens, one more (the write opens a
-    new split), W·ps, a stale length past W·ps, 0 (null table) and 1."""
+    (ps=128, W=16): exactly one split (``decode_split``) of tokens, one
+    more (the write opens a new split), W·ps, a stale length past W·ps, 0
+    (null table) and 1."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
     B, ps, W = 6, 128, 16
-    split = pa.DECODE_SPLIT
+    split = pa.decode_split(B, K)
     dev = "cuda"
     P = B * W + 1
     tables = (torch.randperm(P - 1, generator=gen, device=dev)[: B * W] + 1
@@ -767,6 +792,56 @@ def check_hd32(gen: torch.Generator) -> list[dict]:
     return [{**r, "hd": 32, "H": TINY["H"], "K": TINY["K"]} for r in out]
 
 
+def check_hd256(gen: torch.Generator) -> list[dict]:
+    """Phase 3c: every kernel's hd-256 build at both Gemma head groupings
+    (gemma-7b's 16 over 16, gemma-2b's 8 over 1), as phase 3b holds the
+    hd-32 builds: flash prefill packed and not (a repeat launch
+    bit-identical) and the paged kernels at their split boundaries (pools
+    exact, int8 ties included, a repeat launch bit-identical)."""
+    from lmrs_tpu_torch.utils.kernel_ab import flash_inputs
+
+    out = []
+    for model, w in GEMMA.items():
+        rows = []
+        for packed in (True, False):
+            x = flash_inputs(gen, [300, 257, 200, 150] if packed else None, 1024,
+                             w["H"], w["K"], 256,
+                             lengths=None if packed else [777])
+            case = "packed" if packed else "unpacked"
+            err, _ = flash_check(f"hd 256 {model} {case}", x)
+            rows.append({"name": "flash_prefill", "max_abs_err": err,
+                         "case": case, "repeat_bit_identical": True})
+            del x
+        rows += check_split_boundaries(gen, w)
+        out += [{**r, "hd": 256, "H": w["H"], "K": w["K"], "heads_of": model}
+                for r in rows]
+        torch.cuda.empty_cache()
+    return out
+
+
+def hd256_main_shapes(gen: torch.Generator) -> list[dict]:
+    """Phase 3c's times: every hd-256 build at the main path's shapes, at
+    both Gemma head groupings — flash one unpacked 1,600-token row beside
+    the fair SDPA call (flash backend: it takes hd 256), decode 8 x 1,501
+    tokens, spans phase 5's mixed step, verify 8 x 5 tokens after 1,500 —
+    each with its bound, its plain version's time and its time at other
+    split sizes."""
+    from lmrs_tpu_torch.utils.kernel_ab import flash_inputs
+
+    rows = []
+    for model, w in GEMMA.items():
+        x = flash_inputs(gen, None, 1600, w["H"], w["K"], 256)
+        err, want = flash_check(f"hd 256 {model} main", x)
+        rows.append({"name": "flash_prefill", "case": "main_unpacked",
+                     "hd": 256, "H": w["H"], "K": w["K"], "heads_of": model,
+                     "max_abs_err": err, **time_flash(x, None, want),
+                     "shape": f"S=1600 H={w['H']} K={w['K']} hd=256 bf16"})
+        del x, want
+        rows += [{**r, "heads_of": model} for r in time_main_shapes(gen, w)]
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _timed_split(attr: str, value: int, fn) -> float:
     """``time_ms(fn)`` with the wrapper's split set to ``value``."""
     from lmrs_tpu_torch.ops import paged_attention as pa
@@ -799,16 +874,18 @@ def flash_main_shapes(gen: torch.Generator) -> list[dict]:
     return rows
 
 
-def time_main_shapes(gen: torch.Generator) -> list[dict]:
+def time_main_shapes(gen: torch.Generator, widths: dict = BENCH8B) -> list[dict]:
     """The seven split builds at the main path's shapes: decode at 8 rows x
     1,501 tokens (``profile_decode_step``'s step: 1,500 cached + the current
     token), spans at phase 5's mixed step (7 decode rows at 1,500 tokens +
     a 249-token slice at base 384), verify at phase 6's step (8 rows x 5
     tokens after 1,500); each with its bound, its plain version's time, and
-    its time at other split sizes (phase 3's shapes too)."""
+    its time at other split sizes.  At bench-8b's widths (the default) also
+    phase 3's shapes at the other split sizes."""
     from lmrs_tpu_torch.ops import paged_attention as pa
 
-    B, H, K, hd, ps, W = 8, 32, 8, 128, 128, 16
+    B, ps, W = 8, 128, 16
+    H, K, hd = widths["H"], widths["K"], widths["hd"]
     dev = "cuda"
     rows = []
     bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
@@ -818,7 +895,7 @@ def time_main_shapes(gen: torch.Generator) -> list[dict]:
                page_tables=(torch.randperm(P - 1, generator=gen, device=dev)
                             + 1).view(B, W).to(torch.int32),
                kv_lens=torch.full((B,), 1501, dtype=torch.int32, device=dev))
-    span = _span_inputs(gen, "mixed")
+    span = _span_inputs(gen, "mixed", **widths)
     span["kv_lens"] = torch.tensor([1500] * 7 + [384], dtype=torch.int32,
                                    device=dev)
     sweep_d, sweep_s, sweep_v = (128, 256, 512), (256, 512, 1024), (128, 256, 512)
@@ -840,11 +917,16 @@ def time_main_shapes(gen: torch.Generator) -> list[dict]:
         b_ms, b_by = span_bound(x) if is_span else decode_bound(x, write)
         attr, values = (("SPAN_SPLIT", sweep_s) if is_span
                         else ("DECODE_SPLIT", sweep_d))
-        rows.append({"name": name, "ms": time_ms(call),
+        # the split each DECODE_SPLIT setting gives this launch
+        eff = (lambda v: v) if is_span else (
+            lambda v: v if B * K >= pa.DECODE_FILL_GROUPS else v // 2)
+        rows.append({"name": name, "hd": hd, "H": H, "K": K,
+                     "ms": time_ms(call),
                      "plain_ms": time_ms(lambda x=x, ref=ref: ref(**x), reps=3),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "split": getattr(pa, attr),
-                     "ms_by_split": {v: _timed_split(attr, v, call) for v in values},
+                     "split": eff(getattr(pa, attr)),
+                     "ms_by_split": {eff(v): _timed_split(attr, v, call)
+                                     for v in values},
                      "shape": ("mixed step: 7 decode rows at 1500 + 249 tokens "
                                "at 384" if is_span else "B=8 x 1501 tokens")
                               + f", H={H} K={K} hd={hd} ps={ps} W={W}"})
@@ -859,7 +941,8 @@ def time_main_shapes(gen: torch.Generator) -> list[dict]:
                     ("paged_decode_multi_int8", int8_case(ver, 0, 0, gen))):
         call = (lambda x=x: pa.paged_decode_multi(**x, max_pos=max_pos))
         b_ms, b_by = multi_bound(x, max_pos)
-        rows.append({"name": name, "ms": time_ms(call),
+        rows.append({"name": name, "hd": hd, "H": H, "K": K,
+                     "ms": time_ms(call),
                      "plain_ms": time_ms(lambda x=x: pa.paged_decode_multi_ref(
                          **x, max_pos=max_pos), reps=3),
                      "bound_ms": b_ms, "bound_by": b_by,
@@ -868,6 +951,8 @@ def time_main_shapes(gen: torch.Generator) -> list[dict]:
                                      for v in sweep_v},
                      "shape": f"B=8 x T={T} tokens after 1500, H={H} K={K} "
                               f"hd={hd} ps={ps} W={W}"})
+    if widths != BENCH8B:
+        return rows
     # phase 3's shapes at the other split sizes (its own times are in the
     # kernels rows)
     v3 = dict(ver, kv_lens=torch.tensor([6, 133, 130, 700, 1500, 2050, 1000, 305],
@@ -893,10 +978,11 @@ def time_main_shapes(gen: torch.Generator) -> list[dict]:
 
 # ------------------------------------------------------------ phase 4
 
-def check_model(int8: bool = False) -> dict:
-    """``int8``: the same weights quantized (``quantize_params`` on the
-    CPU; the card gets the same int8 values and scales), int8 KV pools with
-    per-slot scale buffers on both devices."""
+def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
+    """``preset``'s widths at 2 layers.  ``int8``: the same weights
+    quantized (``quantize_params`` on the CPU; the card gets the same int8
+    values and scales), int8 KV pools with per-slot scale buffers on both
+    devices."""
     import dataclasses
 
     import numpy as np
@@ -906,7 +992,7 @@ def check_model(int8: bool = False) -> dict:
     from lmrs_tpu_torch.ops.paged_attention import pack_spans
     from lmrs_tpu_torch.ops.quant import is_quantized, quantize_params
 
-    cfg = dataclasses.replace(model_preset("bench-8b"), n_layers=2)
+    cfg = dataclasses.replace(model_preset(preset), n_layers=2)
     ps, n_pool, steps = 128, 48, 16
     params_cpu = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
     if int8:
@@ -1033,8 +1119,9 @@ def check_model(int8: bool = False) -> dict:
                     for a, b in zip(scales["cuda"], scales["cpu"]))
     del params, pools, params_gpu, scales
     torch.cuda.empty_cache()
-    return {"phase": "model-int8" if int8 else "model",
-            "config": "bench-8b widths, n_layers=2"
+    phase = "model" if preset == "bench-8b" else "model-gemma"
+    return {"phase": phase + ("-int8" if int8 else ""),
+            "config": f"{preset} widths, n_layers=2"
                       + (", quantize=int8, kv_quantize=int8" if int8 else ""),
             **({"scale_buffers_max_rel_diff": sdiff} if int8 else {}),
             "prompts": prompt_lens, "decode_steps": steps,
@@ -1238,12 +1325,13 @@ def kernel_counters() -> dict:
     return out
 
 
-def summarize_once(**engine_kw) -> tuple:
-    """``TranscriptSummarizer`` over the demo transcript at full bench-8b,
-    every launch counter zeroed just before ``summarize`` and read just
-    after; the checks every path must pass (a summary, no failed request,
-    a clean audit, a hierarchical reduce).  Returns (summarizer, engine,
-    stats, wall seconds, launches)."""
+def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
+    """``TranscriptSummarizer`` over the demo transcript at the full
+    preset ``model`` (bench-8b unless given), every launch counter zeroed
+    just before ``summarize`` and read just after; the checks every path
+    must pass (a summary, no failed request, a clean audit, a hierarchical
+    reduce).  Returns (summarizer, engine, stats, wall seconds,
+    launches)."""
     from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
                                        PipelineConfig, ReduceConfig)
     from lmrs_tpu_torch.pipeline import TranscriptSummarizer
@@ -1256,7 +1344,7 @@ def summarize_once(**engine_kw) -> tuple:
         # out of lockstep, as uneven completions make them in serving (with
         # uniform budgets and no EOS all 8 would finish on one block and no
         # prefill would ever meet a decoding row)
-        engine=EngineConfig(model="bench-8b", max_tokens=64, seed=0,
+        engine=EngineConfig(model=model, max_tokens=64, seed=0,
                             temperature=0.3, num_pages=112, **engine_kw),
         # byte tokens: 1400-token chunks + header + template stay inside the
         # 2048 window at a 64-token budget
@@ -1376,16 +1464,77 @@ def run_spec_path() -> dict:
             "summary_chars": len(stats["summary"]), "launches": launches}
 
 
+# ------------------------------------------------------------ phase 9
+
+def run_gemma_path() -> dict:
+    """Phase 5's transcript and engine settings at full gemma-7b (28
+    layers, hd 256, 16 query over 16 kv heads, random-init bf16, byte
+    tokenizer), with phase 5's gates and a preemption besides; its decode-step
+    profile puts the attention kernel's time a launch beside its bound."""
+    summarizer, engine, stats, wall, launches = summarize_once("gemma-7b")
+    em = stats["engine_metrics"]
+    require_launches(launches, "gemma-7b path",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"))
+    if em["mixed_batch"]["dispatches"] <= 0:
+        raise AssertionError("no mixed step ran on the gemma-7b path")
+    if em["prefix_cache"]["tokens_reused"] <= 0:
+        raise AssertionError("no prefix-cache hit on the gemma-7b path")
+    if em["preemptions"] <= 0:
+        raise AssertionError("no preemption on the gemma-7b path")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step = profile_decode_step(engine)
+    cfg = engine._scheduler.model_cfg
+    B, ctx = step["rows"], step["context"]
+    # one launch's bound at the profile's shape (contexts 1,501-1,504 over
+    # its steps; the first step's): the live K/V read once, q/out, the
+    # new row written, tables and lengths
+    fake = {"q": torch.empty(B, cfg.n_heads, cfg.hd),
+            "k_pages": torch.empty(1, cfg.n_kv_heads, 128, cfg.hd,
+                                   dtype=torch.bfloat16),
+            "page_tables": torch.empty(B, 16),
+            "kv_lens": torch.full((B,), ctx + 1)}
+    b_ms, b_by = decode_bound(fake)
+    per_launch = step["kernel_ms_per_step"]["paged_decode"] / cfg.n_layers
+    step["attention_ms_per_launch"] = per_launch
+    step["attention_bound_ms_per_launch"] = b_ms
+    step["attention_bound_by"] = b_by
+    if engine.audit():
+        raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
+    summarizer.shutdown()
+    return {"phase": "gemma-7b",
+            "model": f"gemma-7b ({cfg.n_layers} layers, hd {cfg.hd}, "
+                     "random-init bf16)",
+            "decode_step_profile": step,
+            "segments": stats["num_input_segments"],
+            "chunks": stats["num_chunks"], "requests": em["requests"],
+            "reduce_levels": stats["reduce_levels"],
+            "prefill_tokens": em["prefill_tokens"],
+            "prefill_dispatches": em["prefill_dispatches"],
+            "packed_prefill_dispatches": em["packed_prefill_dispatches"],
+            "decode_tokens": em["decode_tokens"],
+            "decode_blocks": em["decode_blocks"],
+            "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+            "mixed_batch": em["mixed_batch"], "rpa": em["rpa"],
+            "prefix_cache": em["prefix_cache"],
+            "preemptions": em["preemptions"], "stalls": em["stalls"],
+            "audit": engine.audit(), "wall_seconds": wall,
+            "stage_times": stats["stage_times"], "peak_memory_gib": peak,
+            "failed_requests": stats["failed_requests"],
+            "summary_chars": len(stats["summary"]), "launches": launches}
+
+
 # ------------------------------------------------------------ phases 7-8
 
-def run_int8_path(spec: bool = False) -> dict:
+def run_int8_path(spec: bool = False, model: str = "bench-8b",
+                  **engine_kw) -> dict:
     """Phase 5's transcript and config with int8 weights and int8 KV pages
     (the prefix cache is then off); ``spec``: plus linear speculation
-    (phase 8)."""
-    kw = dict(quantize="int8", kv_quantize="int8")
+    (phase 8).  ``model``/``engine_kw``: phase 10's preset and engine
+    settings; it also requires the int8 span kernel."""
+    kw = dict(quantize="int8", kv_quantize="int8", **engine_kw)
     if spec:
         kw.update(speculate_k=4, mixed_batch=False)
-    summarizer, engine, stats, wall, launches = summarize_once(**kw)
+    summarizer, engine, stats, wall, launches = summarize_once(model, **kw)
     em = stats["engine_metrics"]
     sched = engine._scheduler
     if sched.cache.k.dtype != torch.int8:
@@ -1395,8 +1544,10 @@ def run_int8_path(spec: bool = False) -> dict:
     bf16_kernels = ("paged_decode_fused", "ragged_spans", "paged_decode_multi")
     if spec:
         path = "int8 spec path"
-        require_launches(launches, path,
-                         ("paged_decode_multi_int8", "flash_prefill"),
+        want = ("paged_decode_multi_int8", "flash_prefill")
+        if model != "bench-8b":
+            want += ("ragged_spans_int8",)
+        require_launches(launches, path, want,
                          never=("paged_decode_fused_int8",) + bf16_kernels)
         if em["mixed_batch"]["dispatches"] != 0:
             raise AssertionError("a mixed step ran on the int8 spec path")
@@ -1412,8 +1563,11 @@ def run_int8_path(spec: bool = False) -> dict:
         raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     summarizer.shutdown()
-    out = {"phase": "int8-spec" if spec else "int8",
-           "model": "bench-8b (32 layers, random-init, int8 weights + int8 KV)",
+    cfg = sched.model_cfg
+    out = {"phase": (("int8-spec" if spec else "int8") if model == "bench-8b"
+                     else f"{model}-int8" + ("-spec" if spec else "")),
+           "model": f"{model} ({cfg.n_layers} layers, random-init, int8 "
+                    "weights + int8 KV)", "engine": engine_kw,
            ("verify_step_profile" if spec else "decode_step_profile"): step,
            "requests": em["requests"], "reduce_levels": stats["reduce_levels"],
            "prefill_tokens": em["prefill_tokens"],
@@ -1433,6 +1587,59 @@ def run_int8_path(spec: bool = False) -> dict:
            "summary_chars": len(stats["summary"]), "launches": launches}
     if spec:
         out["spec_accepted_tokens"] = em["spec_accepted_tokens"]
+    return out
+
+
+def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
+               gemma_out: dict, gemma2b_out: dict, launches_3c: dict) -> list[dict]:
+    """The kernels line's ``<name>@hd256`` rows: each build's time, plain
+    and library times and bound at its main shape (bf16 builds at
+    gemma-7b's heads, int8 builds at gemma-2b's, as phases 9 and 10 run
+    them), its largest error over phase 3c, and its launches on the phase
+    that runs it (phase 3c's own count for a build no phase runs)."""
+    by_path = {"flash_prefill": (gemma_out, "gemma-7b path (phase 9)"),
+               "paged_decode_fused": (gemma_out, "gemma-7b path (phase 9)"),
+               "ragged_spans": (gemma_out, "gemma-7b path (phase 9)"),
+               "ragged_spans_int8": (gemma2b_out, "gemma-2b int8 speculative "
+                                     "path (phase 10)"),
+               "paged_decode_multi_int8": (gemma2b_out, "gemma-2b int8 "
+                                           "speculative path (phase 10)")}
+    meta = {r["name"]: r for r in rows}
+    out = []
+    for name in meta:
+        heads = "gemma-2b" if name.endswith("_int8") else "gemma-7b"
+        timed = next(r for r in main_shapes if r["name"] == name
+                     and r["heads_of"] == heads)
+        err = max([r["max_abs_err"] for r in checks + main_shapes
+                   if r["name"] == name and "max_abs_err" in r])
+        if name in by_path:
+            path_out, launched_by = by_path[name]
+            n = path_out["launches"][name]
+        else:
+            n, launched_by = launches_3c[name], "phase 3c only (no path runs it)"
+        out.append({"name": f"{name}@hd256", "route": "cuda",
+                    "source": meta[name]["source"],
+                    "replaces": meta[name]["replaces"], "launches": n,
+                    "launched_by": launched_by, "max_abs_err": err,
+                    "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+                    "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+                    "library_ms": timed.get("library_ms")})
+    return out
+
+
+def ptxas_entries(log: str) -> list[str]:
+    """One line a kernel from ``-Xptxas -v``: its mangled name (template
+    arguments show as ``ILi<hd>E...``), registers and spill bytes."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln and name:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            regs = ln.split("Used")[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}; {spill}")
+            name = None
     return out
 
 
@@ -1464,6 +1671,9 @@ def main() -> int:
           "ptxas": {n: [ln for ln in i["ptxas"].splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, i in info.items()}})
+    emit({"phase": "build-hd256",
+          "ptxas": {n: [e for e in ptxas_entries(i["ptxas"]) if "ILi256E" in e]
+                    for n, i in info.items()}})
     from lmrs_tpu_torch.ops.paged_attention import paged_decode
 
     def timed(fn, *args, **kw) -> dict:
@@ -1493,8 +1703,20 @@ def main() -> int:
         emit({"phase": "kernels-main-shape", **r})
     for r in check_hd32(gen):
         emit({"phase": "hd32", **r})
+    counted = kernel_counters()
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    hd256 = check_hd256(gen)
+    for r in hd256:
+        emit({"phase": "hd256", **r})
+    hd256_main = hd256_main_shapes(gen)
+    for r in hd256_main:
+        emit({"phase": "hd256-main-shape", **r})
+    launches_3c = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
     emit(timed(check_model))
     emit(timed(check_model, int8=True))
+    emit(timed(check_model, preset="gemma-7b"))
+    emit(timed(check_model, int8=True, preset="gemma-7b"))
     emit(timed(run_cli_default))
     main_out = timed(run_main_path)
     emit(main_out)
@@ -1504,6 +1726,14 @@ def main() -> int:
     emit(int8_out)
     int8_spec_out = timed(run_int8_path, spec=True)
     emit(int8_spec_out)
+    gemma_out = timed(run_gemma_path)
+    emit(gemma_out)
+    # continuation chunks (prompts past 1,024 tokens) are phase 10's span
+    # dispatches: without mixed steps or the prefix cache nothing else
+    # reaches the span kernel
+    gemma2b_out = timed(run_int8_path, spec=True, model="gemma-2b",
+                        prefill_chunk=1024)
+    emit(gemma2b_out)
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),
@@ -1518,9 +1748,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launched_by",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    emit({"kernels": [{k: ({**r, "launches": launches[r["name"]][0],
-                            "launched_by": launches[r["name"]][1]})[k]
-                       for k in keys} for r in rows + rows8]})
+    out_rows = [{**r, "launches": launches[r["name"]][0],
+                 "launched_by": launches[r["name"]][1]} for r in rows + rows8]
+    out_rows += hd256_rows(rows + rows8, hd256, hd256_main, gemma_out,
+                           gemma2b_out, launches_3c)
+    emit({"kernels": [{k: r[k] for k in keys} for r in out_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -180,6 +180,18 @@ _PRESETS: dict[str, dict] = {
         hidden_dim=14336, max_seq_len=8192, rope_theta=500000.0,
         tie_embeddings=False,
     ),
+    "gemma-2b": dict(
+        vocab_size=256128, dim=2048, n_layers=18, n_heads=8, n_kv_heads=1,
+        hidden_dim=16384, max_seq_len=8192, rope_theta=10000.0,
+        tie_embeddings=True, embed_scale=True, head_dim=256,
+        activation="gelu", norm_eps=1e-6,
+    ),
+    "gemma-7b": dict(
+        vocab_size=256128, dim=3072, n_layers=28, n_heads=16, n_kv_heads=16,
+        hidden_dim=24576, max_seq_len=8192, rope_theta=10000.0,
+        tie_embeddings=True, embed_scale=True, head_dim=256,  # != dim/heads
+        activation="gelu", norm_eps=1e-6,
+    ),
     "bench-1b": dict(
         vocab_size=512, dim=2048, n_layers=18, n_heads=16, n_kv_heads=8,
         hidden_dim=7168, max_seq_len=2048, rope_theta=500000.0,

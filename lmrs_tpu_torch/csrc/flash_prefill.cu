@@ -46,6 +46,19 @@
 // * hd 64 and 128 are 64-column swizzle blocks; hd 32 loads a 64-column box
 //   whose upper half TMA fills with zeros, so every build shares one body
 //   (the zero columns cost the tiny preset nothing it could measure).
+// * hd 256 (the Gemma presets): four 64-column blocks; Q·K^T runs 16
+//   k-steps and P·V is two m64n128 products over the two halves of V.
+//   Each consumer thread holds a 64 x 256 f32 accumulator (128 registers)
+//   beside the score tile and P.  Two consumer warpgroups and a producer
+//   warp get 168 registers a thread (ptxas spilled and serialized the
+//   wgmma), and ptxas allocates within that cap whatever setmaxnreg asks
+//   for later (a producer warpgroup giving registers to the consumers
+//   spilled as much), so this build's block is ONE consumer
+//   warpgroup of 64 query rows plus the producer warp (160 threads, up to
+//   255 registers) walking 32-column K/V tiles (S = m64n32): the Q tile
+//   (32 KB) and a two-stage ring (2 x 32 KB) take ~99 KB, so two blocks
+//   share an SM and their warpgroups take turns at the tensor cores as
+//   the ping-pong pair does at hd <= 128 (Tile<HD>).
 //
 // Variants built and timed on the card while this design was chosen, each
 // no faster at the main shapes, so left out: 128-column kv tiles (the
@@ -68,13 +81,22 @@
 
 namespace {
 
-constexpr int BQ = 128;               // query rows per block (2 x 64)
-constexpr int BK = 64;                // kv columns per tile
 constexpr int STAGES = 2;             // K/V tiles in the ring
-constexpr int NCONSUMER = 256;        // two warpgroups
-constexpr int NTHREADS = NCONSUMER + 32;  // + the producer warp
-constexpr int PRODUCER_WARP = NCONSUMER / 32;
 constexpr int ROWB = 128;             // bytes of one swizzled 64-column row
+
+// A block's tiles: hd <= 128, 128 query rows (two consumer warpgroups
+// that ping-pong) and 64-column K/V tiles; hd 256, 64 query rows (one
+// warpgroup) and 32-column tiles (see the note above).  Plus one producer
+// warp.
+template <int HD>
+struct Tile {
+  static constexpr int NWG = HD > 128 ? 1 : 2;     // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;              // query rows per block
+  static constexpr int BK = HD > 128 ? 32 : 64;    // kv columns per tile
+  static constexpr int NCONSUMER = 128 * NWG;
+  static constexpr int PRODUCER_WARP = NCONSUMER / 32;
+  static constexpr int NTHREADS = NCONSUMER + 32;
+};
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -82,9 +104,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 // atom is 8 rows x 128 bytes and must start aligned).
 template <int HD>
 struct Smem {
+  static constexpr int BQ = Tile<HD>::BQ, BK = Tile<HD>::BK;
   static constexpr int HDP = HD < 64 ? 64 : HD;  // columns staged
   static constexpr int NCB = HDP / 64;           // 64-column blocks
-  static constexpr int Q = 0;                    // [2 wg][NCB][64 rows]
+  static constexpr int Q = 0;                    // [NWG][NCB][64 rows]
   static constexpr int QBYTES = BQ * NCB * ROWB;
   static constexpr int K = Q + QBYTES;           // [STAGES][NCB][BK rows]
   static constexpr int KVBYTES = BK * NCB * ROWB;  // one K (or V) tile
@@ -222,6 +245,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db));
 }
 
+// d[16] += A[64x16] (shared, K-major) x B[16x32] (shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, 1, 1, 1, 0, 0;\n"
+      : LMRS_D8(0), LMRS_D8(8)
+      : "l"(da), "l"(db));
+}
+
 // d[64] += A[64x16] (registers) x B[16x128] (shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               const uint32_t (&a)[4],
@@ -283,7 +317,7 @@ __device__ __forceinline__ int run_start(const int* segb, int pos) {
 // ---------------------------------------------------------------- kernel
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(Tile<HD>::NTHREADS, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
@@ -295,6 +329,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      long long seg_sb, float scale_log2) {
   using L = Smem<HD>;
   constexpr int HDP = L::HDP, NCB = L::NCB;
+  constexpr int BQ = Tile<HD>::BQ, BK = Tile<HD>::BK, NWG = Tile<HD>::NWG;
+  constexpr int NCONSUMER = Tile<HD>::NCONSUMER, NTHREADS = Tile<HD>::NTHREADS;
+  constexpr int PRODUCER_WARP = Tile<HD>::PRODUCER_WARP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -328,7 +365,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // the q tile does not depend on the segment probe: start it now
     mbar_arrive_tx(q_bar, L::QBYTES);
-    for (int w = 0; w < 2; ++w)
+    for (int w = 0; w < NWG; ++w)
       for (int cb = 0; cb < NCB; ++cb)
         tma_load_4d(sbase + L::Q + (w * NCB + cb) * 64 * ROWB, &tm_q, q_bar,
                     cb * 64, h, q_start + 64 * w, b);
@@ -367,7 +404,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  // ------------------------------------------------ consumers: 2 x 64 rows
+  // ------------------------------------------ consumers: NWG x 64 rows
   const int wg = warp >> 2, wq = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = q_start + 64 * wg;  // this warpgroup's first row
@@ -387,18 +424,18 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
 
-  if (wg == 1) turn_arrive(1);  // warpgroup 0 goes first
+  if (NWG == 2 && wg == 1) turn_arrive(1);  // warpgroup 0 goes first
   mbar_wait(q_bar, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % STAGES;
     const int kv0 = blk_lo + it * BK;
     mbar_wait(full_bar + 8 * s, (it / STAGES) & 1);
     __syncwarp();
-    turn_sync(1 + wg);
+    if constexpr (NWG == 2) turn_sync(1 + wg);
     if (!(wg_live && kv0 <= r_last && kv0 + BK > wg_lo)) {
-      turn_arrive(2 - wg);
+      if constexpr (NWG == 2) turn_arrive(2 - wg);
     } else {
-      // S = Q K^T: 64 rows x 128 columns, f32
+      // S = Q K^T: 64 rows x BK columns, f32
       float sc[BK / 2];
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
@@ -407,15 +444,18 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int ks = 0; ks < HDP / 16; ++ks) {
         const uint32_t koff = (ks & 3) * 32;  // 16 columns in the block
-        wgmma_ss_n64(
-            sc,
-            desc_sw128(sbase + L::Q + (wg * NCB + (ks >> 2)) * 64 * ROWB + koff,
-                       16, 1024),
-            desc_sw128(sbase + L::K + (s * NCB + (ks >> 2)) * BK * ROWB + koff,
-                       16, 1024));
+        const uint64_t dq = desc_sw128(
+            sbase + L::Q + (wg * NCB + (ks >> 2)) * 64 * ROWB + koff, 16, 1024);
+        const uint64_t dk = desc_sw128(
+            sbase + L::K + (s * NCB + (ks >> 2)) * BK * ROWB + koff, 16, 1024);
+        if constexpr (BK == 64) {
+          wgmma_ss_n64(sc, dq, dk);
+        } else {
+          wgmma_ss_n32(sc, dq, dk);
+        }
       }
       wgmma_commit();
-      turn_arrive(2 - wg);
+      if constexpr (NWG == 2) turn_arrive(2 - wg);
       wgmma_wait_all();
       fence_regs(sc);
 
@@ -485,7 +525,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t dv = desc_sw128(
             sbase + L::V + s * NCB * BK * ROWB + kk * 16 * ROWB, BK * ROWB, 1024);
-        if constexpr (HDP == 128) {
+        if constexpr (HDP == 256) {  // the two 128-channel halves of V
+          wgmma_rs_n128(reinterpret_cast<float (&)[64]>(o[0]), pa[kk], dv);
+          wgmma_rs_n128(reinterpret_cast<float (&)[64]>(o[64]), pa[kk],
+                        desc_sw128(sbase + L::V + (s * NCB + 2) * BK * ROWB +
+                                       kk * 16 * ROWB,
+                                   BK * ROWB, 1024));
+        } else if constexpr (HDP == 128) {
           wgmma_rs_n128(o, pa[kk], dv);
         } else {
           wgmma_rs_n64(o, pa[kk], dv);
@@ -559,12 +605,26 @@ bool encode_view(EncodeTiled enc, CUtensorMap* map, const void* base, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The operands' strides, in elements: [B, S, heads, hd] views.
+struct Views {
+  const void *q, *k, *v;
+  void* out;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+};
+
+// Tensor maps (boxes of 64 q rows, Tile<HD>::BK k/v rows) and the launch
+// of the hd-HD build.
 template <int HD>
-cudaError_t launch(dim3 grid, cudaStream_t st, const CUtensorMap& tq,
-                   const CUtensorMap& tk, const CUtensorMap& tv, void* out,
-                   const void* lengths, const void* seg, int S, int H, int KH,
-                   long long o_sb, long long o_ss, long long o_sh,
-                   long long seg_sb, float scale_log2) {
+cudaError_t launch(EncodeTiled enc, const Views& a, const void* lengths,
+                   const void* seg, int B, int S, int H, int KH,
+                   long long seg_sb, float scale_log2, cudaStream_t st) {
+  constexpr int BK = Tile<HD>::BK, BQ = Tile<HD>::BQ;
+  CUtensorMap tq, tk, tv;
+  if (!encode_view(enc, &tq, a.q, B, S, H, HD, a.q_sb, a.q_ss, a.q_sh, 64) ||
+      !encode_view(enc, &tk, a.k, B, S, KH, HD, a.k_sb, a.k_ss, a.k_sh, BK) ||
+      !encode_view(enc, &tv, a.v, B, S, KH, HD, a.v_sb, a.v_ss, a.v_sh, BK))
+    return cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -573,10 +633,11 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const CUtensorMap& tq,
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  flash_prefill_kernel<HD><<<grid, NTHREADS, Smem<HD>::BYTES, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+  const dim3 grid(H, (S + BQ - 1) / BQ, B);
+  flash_prefill_kernel<HD><<<grid, Tile<HD>::NTHREADS, Smem<HD>::BYTES, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out),
       static_cast<const int*>(lengths), static_cast<const int*>(seg), S, H, KH,
-      o_sb, o_ss, o_sh, seg_sb, scale_log2);
+      a.o_sb, a.o_ss, a.o_sh, seg_sb, scale_log2);
   return cudaGetLastError();
 }
 
@@ -591,27 +652,23 @@ extern "C" int lmrs_flash_prefill_bf16(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     long long seg_sb, float sm_scale, void* stream) {
-  if (hd != 32 && hd != 64 && hd != 128) return cudaErrorInvalidValue;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
-  CUtensorMap tq, tk, tv;
-  if (!encode_view(enc, &tq, q, B, S, H, hd, q_sb, q_ss, q_sh, 64) ||
-      !encode_view(enc, &tk, k, B, S, KH, hd, k_sb, k_ss, k_sh, BK) ||
-      !encode_view(enc, &tv, v, B, S, KH, hd, v_sb, v_ss, v_sh, BK))
-    return cudaErrorInvalidValue;
-  const dim3 grid(H, (S + BQ - 1) / BQ, B);
+  const Views a{q, k, v, out, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale_log2 = sm_scale * LOG2E;
+  const float sl2 = sm_scale * LOG2E;
   cudaError_t e;
-  if (hd == 128) {
-    e = launch<128>(grid, st, tq, tk, tv, out, lengths, seg, S, H, KH, o_sb,
-                    o_ss, o_sh, seg_sb, scale_log2);
+  if (hd == 256) {
+    e = launch<256>(enc, a, lengths, seg, B, S, H, KH, seg_sb, sl2, st);
+  } else if (hd == 128) {
+    e = launch<128>(enc, a, lengths, seg, B, S, H, KH, seg_sb, sl2, st);
   } else if (hd == 64) {
-    e = launch<64>(grid, st, tq, tk, tv, out, lengths, seg, S, H, KH, o_sb,
-                   o_ss, o_sh, seg_sb, scale_log2);
-  } else {
-    e = launch<32>(grid, st, tq, tk, tv, out, lengths, seg, S, H, KH, o_sb,
-                   o_ss, o_sh, seg_sb, scale_log2);
+    e = launch<64>(enc, a, lengths, seg, B, S, H, KH, seg_sb, sl2, st);
+  } else if (hd == 32) {
+    e = launch<32>(enc, a, lengths, seg, B, S, H, KH, seg_sb, sl2, st);
+  } else {  // no build: never hand a head dim to another one's kernel
+    e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
 }

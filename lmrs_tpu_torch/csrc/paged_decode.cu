@@ -45,7 +45,9 @@
 //   on the device).  Block (b, kvh, s) walks tokens [s·split, (s+1)·split)
 //   of row b clamped to n_tok = min(len, W·ps); a block whose split starts
 //   at or past n_tok exits at once.  split (a multiple of 32, 256 in the
-//   wrapper) gives 8·8·8 = 512 blocks at B = 8, K = 8, W·ps = 2048.
+//   wrapper) gives 8·8·8 = 512 blocks at B = 8, K = 8, W·ps = 2048; the
+//   wrapper halves it for a launch of fewer than 16 (row, kv head) groups
+//   (gemma-2b's one kv head: 8·1·16 blocks).
 // * The write is done by the one block whose split holds position len - 1,
 //   before its walk and a __syncthreads; no other block reads that
 //   position, so blocks need no ordering.
@@ -66,6 +68,10 @@
 //   split_merge.cuh) merges the live splits in split order, so repeated
 //   launches are bit-identical.  A row with one live split writes `out`
 //   directly.  One launch per call: no second merge launch from the host.
+// * hd 256 (the Gemma presets): 8 output channels a lane (one 16-byte V
+//   read), q in f32 and the two-stage ring take ~74 KB of shared memory at
+//   8 query heads a kv head (gemma-2b), above the 48 KB default: the launch
+//   sets the opt-in limit, as for every build.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +96,12 @@ __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); 
 template <int N, typename PT>
 __device__ __forceinline__ void load_vals(const PT* p, float (&f)[N]) {
   constexpr int BYTES = N * sizeof(PT);
-  if constexpr (BYTES == 8) {
+  if constexpr (BYTES == 16) {  // hd 256, bf16: 8 channels a lane
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const PT* e = reinterpret_cast<const PT*>(&raw);
+#pragma unroll
+    for (int j = 0; j < N; ++j) f[j] = to_f(e[j]);
+  } else if constexpr (BYTES == 8) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const PT* e = reinterpret_cast<const PT*>(&raw);
 #pragma unroll
@@ -390,7 +401,9 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
       static_cast<float*>(part), static_cast<int*>(counters), KH, ps, W, split, \
       sl2
   int rc;
-  if (hd == 128) {
+  if (hd == 256) {
+    rc = launch_hd<256, WRITE, QUANT>(LMRS_DECODE_ARGS);
+  } else if (hd == 128) {
     rc = launch_hd<128, WRITE, QUANT>(LMRS_DECODE_ARGS);
   } else if (hd == 64) {
     rc = launch_hd<64, WRITE, QUANT>(LMRS_DECODE_ARGS);

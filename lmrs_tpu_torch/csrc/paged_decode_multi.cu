@@ -52,7 +52,9 @@
 //   two-stage cp.async ring of 64-column K/V tiles, both row-major, V fed to
 //   P·V through ldmatrix.trans; Q·K^T and P·V on mma.sync.m16n8k16 bf16 ->
 //   f32, P kept in registers.  T x n_rep <= 64 (T <= 16 at n_rep = 4); the
-//   wrapper refuses more.
+//   wrapper refuses more.  hd 256 (gemma-2b's verify step: 5 x 8 = 40 rows
+//   over one kv head) keeps q in shared memory and walks 32-column tiles
+//   (tile_attn.cuh).
 // * The merge: a row with one live split writes `out` directly; otherwise
 //   each split stores the f32 (m, l, acc) of its T x n_rep real query rows
 //   (padding rows store nothing) and the last block of the (row, kv head)
@@ -89,9 +91,11 @@ namespace {
 // r % NREP; rows r >= T * NREP are padding.  Three blocks an SM (at most
 // 170 registers a thread): the hd-128 bf16 build would take 193 and fit
 // two, which puts the speculative step's 384 blocks (8 rows x 8 kv heads x
-// 6 splits) in two waves.
+// 6 splits) in two waves.  hd 256: two (its ~100 KB of shared memory fits
+// two an SM anyway; 255 registers hold the 128 output accumulators with q
+// in shared memory, csrc/tile_attn.cuh).
 template <int HD, int NREP, bool QUANT>
-__global__ void __launch_bounds__(NTHREADS, 3)
+__global__ void __launch_bounds__(NTHREADS, HD > 128 ? 2 : 3)
 paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k_new,
                           const __nv_bfloat16* __restrict__ v_new,
@@ -151,7 +155,7 @@ paged_decode_multi_kernel(const __nv_bfloat16* __restrict__ q,
     rows.lim[half] = min(base + j, cap - 1);  // attend col <= lim
     qoff[half] = (((long long)b * T + j) * H + kvh * NREP + r % NREP) * HD;
   }
-  tile_load_q<HD, QUANT>(rows, q, qoff, krow_s);
+  tile_load_q<HD, QUANT>(rows, q, qoff, krow_s, smem);
   tile_walk<HD, QUANT>(rows, k_pages, v_pages, tab, page_stride, kvh, ps,
                        c_lo, c_hi, warp * 16 < nrows, scale_log2, smem);
 
@@ -228,7 +232,9 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),             \
       static_cast<int*>(counters), B, T, KH, ps, W, cap, split, sl2, st
   int rc;
-  if (hd == 128) {
+  if (hd == 256) {
+    rc = launch_hd<256, QUANT>(LMRS_MULTI_ARGS);
+  } else if (hd == 128) {
     rc = launch_hd<128, QUANT>(LMRS_MULTI_ARGS);
   } else if (hd == 64) {
     rc = launch_hd<64, QUANT>(LMRS_MULTI_ARGS);

@@ -85,6 +85,9 @@
 // * A decode row's tile holds n_rep real rows of 64 (its one token): the
 //   mma does 64 rows of work for n_rep, which costs operations the mixed
 //   step has to spare, not bytes.
+// * hd 256 (the Gemma presets): the same walk with q in shared memory and
+//   32-column tiles (tile_attn.cuh), ~100 KB of shared memory, two blocks
+//   an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -207,7 +210,7 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
   // rows of warp 0) only stages and syncs
   const int jw = j0 + warp * 16 / NREP;  // this warp's first span token
   const bool warp_live = jw < ql && qs + jw < Tp;
-  tile_load_q<HD, QUANT>(rows, q, qoff, krow_s);
+  tile_load_q<HD, QUANT>(rows, q, qoff, krow_s, smem);
   tile_walk<HD, QUANT>(rows, k_pages, v_pages, tables + (long long)b * W,
                        (long long)KH * ps * HD, kvh, ps, c_lo, c_hi,
                        warp_live, scale_log2, smem);
@@ -295,7 +298,9 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
       static_cast<int*>(counters), Tp, B, KH, ps, W, cap, split, split_tiles, \
       sl2, st
   int rc;
-  if (hd == 128) {
+  if (hd == 256) {
+    rc = launch_hd<256, QUANT>(LMRS_SPAN_ARGS);
+  } else if (hd == 128) {
     rc = launch_hd<128, QUANT>(LMRS_SPAN_ARGS);
   } else if (hd == 64) {
     rc = launch_hd<64, QUANT>(LMRS_SPAN_ARGS);

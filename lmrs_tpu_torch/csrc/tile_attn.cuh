@@ -26,6 +26,14 @@
 //   merges the splits in index order.  A row that attends nothing in a split
 //   stores m = -1e30, l = 0, acc = 0 and drops out of the merge.
 //
+// hd 256 (the Gemma presets): q as A fragments (hd/16 x 4 registers) and
+// the output (hd/8 x 4) would take ~196 registers a thread before the score
+// tile, so that build keeps the warp's q rows in shared memory and loads
+// each k-step's A fragment with ldmatrix (64 registers fewer), and walks
+// 32-column tiles (tile_bk: the staged bytes a tile stay those of hd 128,
+// the score fragment halves, and two blocks fit an SM).  hd <= 128 keep q
+// in registers and 64-column tiles.
+//
 // Shared memory: tile_smem_bytes<HD, QUANT>() of dynamic shared memory, at
 // least 128-byte aligned.
 
@@ -41,7 +49,8 @@
 namespace {
 
 constexpr int QROWS = 64;     // query rows per block (16 per warp)
-constexpr int BK = 64;        // kv columns per tile
+constexpr int BK = 64;        // kv columns per tile (hd <= 128; splits are
+                              // multiples of it)
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int STAGES = 2;     // tiles in the shared-memory ring (1 in flight)
@@ -62,8 +71,25 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// four 8x8 bf16 matrices from shared memory, transposed (lanes 8i..8i+7
-// give matrix i's row addresses)
+// kv columns per staged tile, and whether q lives in shared memory
+template <int HD>
+__host__ __device__ constexpr int tile_bk() { return HD > 128 ? 32 : BK; }
+template <int HD>
+__host__ __device__ constexpr bool q_in_smem() { return HD > 128; }
+constexpr int QPAD = 8;  // bf16 q row padding in shared memory (16 bytes)
+
+// four 8x8 bf16 matrices from shared memory (lanes 8i..8i+7 give matrix
+// i's row addresses)
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// the same, transposed
 __device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t (&r)[4]) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
@@ -78,12 +104,13 @@ __device__ __forceinline__ uint32_t kpair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// an int8 tile [BK][HD + 16] widened into a bf16 tile [BK][HD + 8] (exact)
+// an int8 tile [tile_bk][HD + 16] widened into a bf16 tile
+// [tile_bk][HD + 8] (exact)
 template <int HD>
 __device__ __forceinline__ void widen_tile(const int8_t* src,
                                            __nv_bfloat16* dst) {
   constexpr int CH = HD / 16;  // 16-byte int8 chunks per row
-  for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {
+  for (int c = threadIdx.x; c < tile_bk<HD>() * CH; c += NTHREADS) {
     const int r = c / CH, col = (c % CH) * 16;
     const uint4 raw = *reinterpret_cast<const uint4*>(src + r * (HD + 16) + col);
     float f[16];
@@ -99,31 +126,43 @@ __device__ __forceinline__ void widen_tile(const int8_t* src,
   }
 }
 
-// the staged ring, plus the widened bf16 K and V tiles for int8 pools
+// the staged ring, the widened bf16 K and V tiles for int8 pools, then
+// (hd 256) the bf16 q tile [QROWS][HD + QPAD]
 template <int HD, bool QUANT>
-constexpr int tile_smem_bytes() {
-  return STAGES * 2 * BK * (HD + 16 / (int)sizeof(pool_t<QUANT>)) *
+__host__ __device__ constexpr int tile_ring_bytes() {
+  return STAGES * 2 * tile_bk<HD>() * (HD + 16 / (int)sizeof(pool_t<QUANT>)) *
              (int)sizeof(pool_t<QUANT>) +
-         (QUANT ? 2 * BK * (HD + 8) * 2 : 0);
+         (QUANT ? 2 * tile_bk<HD>() * (HD + 8) * 2 : 0);
+}
+template <int HD, bool QUANT>
+__host__ __device__ constexpr int tile_smem_bytes() {
+  return tile_ring_bytes<HD, QUANT>() +
+         (q_in_smem<HD>() ? QROWS * (HD + QPAD) * 2 : 0);
 }
 
 // One thread's two query rows (g and g + 8 of its warp's 16).
 template <int HD>
 struct TileRows {
-  uint32_t qf[HD / 16][4];  // q as mma A fragments, one per 16 channels
+  // q as mma A fragments, one per 16 channels (hd 256: in shared memory)
+  uint32_t qf[q_in_smem<HD>() ? 1 : HD / 16][4];
   float o[HD / 8][4];       // unnormalized P·V, one per 8 output channels
   float m[2], l[2];         // running max (log2 domain) and sum
   int lim[2];               // the row attends columns <= lim
   bool valid[2];            // a real query row (not padding)
 };
 
-// q rows at q + qoff[half] (HD channels); int8 pools fold K's scales krow_s
+// q rows at q + qoff[half] (HD channels); int8 pools fold K's scales
+// krow_s.  hd 256: into the block's q tile in shared memory (row
+// warp * 16 + g + 8 * half), which tile_walk reads after its first barrier.
 template <int HD, bool QUANT>
 __device__ __forceinline__ void tile_load_q(TileRows<HD>& t,
                                             const __nv_bfloat16* q,
                                             const long long (&qoff)[2],
-                                            const float* krow_s) {
-  const int tig = threadIdx.x & 3;
+                                            const float* krow_s,
+                                            unsigned char* smem) {
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+  uint32_t* qs = reinterpret_cast<uint32_t*>(smem + tile_ring_bytes<HD, QUANT>());
+  const int row0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
 #pragma unroll
@@ -134,8 +173,14 @@ __device__ __forceinline__ void tile_load_q(TileRows<HD>& t,
         lo = q_pair(q + qoff[half] + c0, QUANT ? krow_s + c0 : nullptr);
         hi = q_pair(q + qoff[half] + c0 + 8, QUANT ? krow_s + c0 + 8 : nullptr);
       }
-      t.qf[ks][half] = lo;
-      t.qf[ks][2 + half] = hi;
+      if constexpr (q_in_smem<HD>()) {
+        uint32_t* r = qs + (row0 + half * 8) * ((HD + QPAD) / 2);
+        r[c0 / 2] = lo;
+        r[c0 / 2 + 4] = hi;
+      } else {
+        t.qf[ks][half] = lo;
+        t.qf[ks][2 + half] = hi;
+      }
     }
   }
 }
@@ -151,6 +196,7 @@ __device__ __forceinline__ void tile_walk(TileRows<HD>& t,
                                           bool warp_live, float scale_log2,
                                           unsigned char* smem) {
   using PT = pool_t<QUANT>;
+  constexpr int BK = tile_bk<HD>();  // kv columns per tile (hides ::BK)
   constexpr int VEC = 16 / sizeof(PT);
   constexpr int STR = HD + VEC;      // staged row, padded by 16 bytes
   constexpr int ROWC = HD / VEC;     // 16-byte chunks per row
@@ -162,6 +208,11 @@ __device__ __forceinline__ void tile_walk(TileRows<HD>& t,
   __nv_bfloat16* Vw = Kw + BK * WSTR;
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
+  // hd 256: this lane's ldmatrix row of the warp's q tile (rows lane & 15,
+  // channels + 8 for lanes 16-31: the A fragment's four 8x8 matrices)
+  const __nv_bfloat16* qrow =
+      reinterpret_cast<const __nv_bfloat16*>(smem + tile_ring_bytes<HD, QUANT>()) +
+      ((tid >> 5) * 16 + (lane & 15)) * (HD + QPAD) + (lane >> 4) * 8;
 
   // stage columns [kv0, kv0 + BK) of this split; past c_hi: zero-filled
   auto issue = [&](int i) {
@@ -214,16 +265,24 @@ __device__ __forceinline__ void tile_walk(TileRows<HD>& t,
     }
     const int kv0 = c_lo + i * BK;
     if (warp_live) {
-      // S = Q K^T for this warp's 16 rows x 64 columns
+      // S = Q K^T for this warp's 16 rows x BK columns
       float s[BK / 8][4];
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < HD / 16; ++ks) {
+        uint32_t qa[4];
+        const uint32_t* af;
+        if constexpr (q_in_smem<HD>()) {
+          ldsm_x4(qrow + ks * 16, qa);
+          af = qa;
+        } else {
+          af = t.qf[ks];
+        }
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
           const __nv_bfloat16* kp = kt + (j * 8 + g) * WSTR + ks * 16 + tig * 2;
-          mma_bf16(s[j], t.qf[ks], kpair(kp), kpair(kp + 8));
+          mma_bf16(s[j], af, kpair(kp), kpair(kp + 8));
         }
       }
 

@@ -43,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict[str, ctypes.CDLL] = {}
 
 # the template builds of the attention kernels (csrc/*.cu dispatch)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head, H / K
 PAGE_MULTIPLE = 32          # decode tiles of 32 tokens lie inside one page
 MULTI_QROWS = 64            # the verify kernel's query tile: T x H/K rows

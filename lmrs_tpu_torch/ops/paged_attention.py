@@ -45,7 +45,8 @@ The multi-token and span contracts are in ``paged_decode_multi``' and
 ``ragged_spans``' docstrings.
 
 Split-sequence kernels: the decode kernels walk each row in splits of
-``DECODE_SPLIT`` tokens, the span kernel's attention pass each query
+``decode_split(B, K)`` tokens (``DECODE_SPLIT``, halved for a launch of
+few (row, kv head) groups), the span kernel's attention pass each query
 tile's columns in splits of ``SPAN_SPLIT`` (spans of at most
 ``SPAN_SPLIT_TILES`` query tiles) and the verify kernel each row's columns
 in splits of ``MULTI_SPLIT``, one block per split; the number of splits
@@ -77,6 +78,11 @@ SPAN_QT = 8
 # csrc/ragged_spans.cu, csrc/paged_decode_multi.cu)
 DECODE_SPLIT = 256
 SPAN_SPLIT = 512
+# a decode launch with fewer (row, kv head) groups than this walks splits of
+# DECODE_SPLIT // 2 tokens: at one kv head (gemma-2b's 8 rows x 1,501
+# tokens) 256-token splits give 48 live blocks for 132 SMs, and 128-token
+# ones took 28% less time on the card (PERF.md)
+DECODE_FILL_GROUPS = 16
 MULTI_SPLIT = 256
 # query rows of a span attention block (span tokens x the n_rep heads)
 SPAN_QROWS = 64
@@ -97,6 +103,12 @@ def _split_counters(dev: torch.device, n: int) -> torch.Tensor:
         buf = _counters[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                            device=dev)
     return buf
+
+
+def decode_split(rows: int, kh: int) -> int:
+    """Tokens per split of a decode launch over ``rows`` rows and ``kh`` kv
+    heads, from shapes alone (a multiple of the kernel's 32-token tile)."""
+    return DECODE_SPLIT if rows * kh >= DECODE_FILL_GROUPS else DECODE_SPLIT // 2
 
 
 def paged_decode_ref(
@@ -232,7 +244,8 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
     tables = page_tables.to(device=q.device, dtype=torch.int32).contiguous()
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    n_split = -(-(w * ps) // DECODE_SPLIT)  # from shapes: no host read
+    split = decode_split(b, kh)
+    n_split = -(-(w * ps) // split)  # from shapes: no host read
     part = torch.empty(b * kh * n_split * (h // kh) * (hd + 2),
                        dtype=torch.float32, device=q.device)
     counters = _split_counters(q.device, b * kh)
@@ -240,7 +253,7 @@ def _decode_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
     tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     args = (tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
             part.data_ptr(), counters.data_ptr(), b, h, kh, hd, ps, w,
-            DECODE_SPLIT, hd ** -0.5,
+            split, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if k_new is None:
         name = "lmrs_paged_decode_bf16"

@@ -387,11 +387,12 @@ def test_int8_kernels_refuse_mismatched_scales(cuda_device):
 
 def _split_decode_case(dev, seed, h=32, kh=8, hd=128):
     """Decode rows at the split boundaries (bench-8b widths unless given,
-    ps=128, W=16): exactly DECODE_SPLIT tokens, one more (the write opens a
-    new split), W·ps, a stale length past W·ps, 0 (null table) and 1."""
+    ps=128, W=16): exactly one split (``decode_split``) of tokens, one more
+    (the write opens a new split), W·ps, a stale length past W·ps, 0 (null
+    table) and 1."""
     r = np.random.default_rng(seed)
     b, ps, w = 6, 128, 16
-    split = tpa.DECODE_SPLIT
+    split = tpa.decode_split(b, kh)
     lens = [split, split + 1, w * ps, w * ps + 100, 0, 1]
     n_pages = b * w + 1
     tables = r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1
@@ -532,37 +533,42 @@ def test_multi_kernels_at_split_boundaries(cuda_device, int8):
 HD32 = dict(h=8, kh=4, hd=32)  # the tiny preset's heads: 256 / 8, n_rep 2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["flash", "flash_packed", "decode",
-                                  "decode_int8", "walk", "spans", "spans_int8",
-                                  "multi", "multi_int8"])
-def test_kernels_at_hd32(cuda_device, kind):
-    """Each kernel's hd-32 build against its plain version at the split
-    boundaries (pools exact, a repeat launch bit-identical)."""
+KINDS = ["flash", "flash_packed", "decode", "decode_int8", "walk", "spans",
+         "spans_int8", "multi", "multi_int8"]
+
+
+def _check_build(dev, kind, widths, seed):
+    """One kernel build at these head widths against its plain version:
+    flash on two rows (lengths < S; ``flash_packed``: two segments and a
+    padded tail) with a repeat launch bit-identical, the paged kernels at
+    the split boundaries (pools exact, a repeat launch bit-identical)."""
+    h, kh, hd = widths["h"], widths["kh"], widths["hd"]
     if kind.startswith("flash"):
-        r = np.random.default_rng(27)
+        r = np.random.default_rng(seed)
         b, s = 2, 300
-        q, k, v = _bf16(cuda_device, *(r.standard_normal(sh).astype(np.float32)
-                                       for sh in ((b, s, 8, 32), (b, s, 4, 32),
-                                                  (b, s, 4, 32))))
+        q, k, v = _bf16(dev, *(r.standard_normal(sh).astype(np.float32)
+                               for sh in ((b, s, h, hd), (b, s, kh, hd),
+                                          (b, s, kh, hd))))
         seg = None
-        lens = torch.tensor([300, 129], dtype=torch.int32, device=cuda_device)
+        lens = torch.tensor([300, 129], dtype=torch.int32, device=dev)
         if kind == "flash_packed":
             seg = torch.tensor([[0] * 100 + [1] * 150 + [-1] * 50] * b,
-                               dtype=torch.int32, device=cuda_device)
-            lens = torch.tensor([250, 250], dtype=torch.int32, device=cuda_device)
+                               dtype=torch.int32, device=dev)
+            lens = torch.tensor([250, 250], dtype=torch.int32, device=dev)
         n0 = tfa.flash_attention.launches
         got = tfa.flash_attention(q, k, v, lens, seg)
+        again = tfa.flash_attention(q, k, v, lens, seg)
         want = tfa.flash_attention_ref(q, k, v, lens, seg)
         torch.cuda.synchronize()
-        assert tfa.flash_attention.launches == n0 + 1
+        assert tfa.flash_attention.launches == n0 + 2
         torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=0)
+        assert torch.equal(got, again)
         return
     int8 = kind.endswith("_int8")
     if kind.startswith("decode") or kind == "walk":
-        x = _split_decode_case(cuda_device, 28, **HD32)
+        x = _split_decode_case(dev, seed + 1, **widths)
         if int8:
-            x = _int8ify(x, 1, 1, seed=29)
+            x = _int8ify(x, 1, 1, seed=seed + 2)
         if kind == "walk":
             kp0, vp0 = x["k_pages"].clone(), x["v_pages"].clone()
             walk = {k: x[k] for k in ("q", "k_pages", "v_pages", "page_tables",
@@ -574,14 +580,55 @@ def test_kernels_at_hd32(cuda_device, kind):
                                       tpa.paged_decode_fused_ref, x)
         assert not got[4].any()
     elif kind.startswith("spans"):
-        x = _split_span_case(cuda_device, 30, **HD32)
+        x = _split_span_case(dev, seed + 3, **widths)
         if int8:
             s0, n = int(x["q_starts"][2]), int(x["q_lens"][2])
-            x = _int8ify(x, slice(s0, s0 + n), 2, seed=31)
+            x = _int8ify(x, slice(s0, s0 + n), 2, seed=seed + 4)
         _check_split_kernel(tpa.ragged_spans, tpa.ragged_spans_ref, x)
     else:
-        x = _split_multi_case(cuda_device, 32, **HD32)
+        x = _split_multi_case(dev, seed + 5, **widths)
         if int8:
-            x = _int8ify(x, 0, 0, seed=33)
+            x = _int8ify(x, 0, 0, seed=seed + 6)
         _check_split_kernel(tpa.paged_decode_multi, tpa.paged_decode_multi_ref,
                             x, rows=MULTI_REAL, pages=slice(1, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernels_at_hd32(cuda_device, kind):
+    """Each kernel's hd-32 build against its plain version at the split
+    boundaries (pools exact, a repeat launch bit-identical)."""
+    _check_build(cuda_device, kind, HD32, 27)
+
+
+# ------------------------------------------------ hd 256 (the Gemma presets)
+
+HD256 = {"gemma-7b": dict(h=16, kh=16, hd=256),  # multi-head, n_rep 1
+         "gemma-2b": dict(h=8, kh=1, hd=256)}    # multi-query, n_rep 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", sorted(HD256))
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernels_at_hd256(cuda_device, kind, heads):
+    """Each kernel's hd-256 build at both Gemma head groupings against its
+    plain version: flash two rows (packed and not), the paged kernels at
+    their split boundaries; pools exact, a repeat launch bit-identical."""
+    _check_build(cuda_device, kind, HD256[heads], 40)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_unbuilt_head_dim(cuda_device, monkeypatch):
+    """With the wrapper's shape check bypassed, a head dim no build has
+    (96) is refused by the kernel's own dispatch, not run as another
+    build: the launch reports cudaErrorInvalidValue and the wrapper
+    raises."""
+    from lmrs_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(kernels, "check_shapes", lambda *a, **k: None)
+    q = torch.zeros(1, 64, 4, 96, dtype=torch.bfloat16, device=cuda_device)
+    kv = torch.zeros(1, 64, 2, 96, dtype=torch.bfloat16, device=cuda_device)
+    n0 = tfa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="error 1"):
+        tfa.flash_attention(q, kv, kv)
+    assert tfa.flash_attention.launches == n0

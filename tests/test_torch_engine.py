@@ -146,16 +146,17 @@ def test_prompt_past_prefill_chunk_fails_alone():
     assert engine.audit() == []
 
 
-def test_engine_default_path_matches_jax_loop():
-    """The default path under pressure: 2 slots, a 9-page pool and prompts
-    longer than the 32-token prefill chunk.  The first wave prefills in
-    continuation chunks, the shared 3-page preamble is cached, page growth
-    preempts the younger slot, whose continuation (and every later
-    request) hits the cache and prefills through mixed steps beside the
-    decoding slot.  Greedy tokens agree with the JAX teacher-forced loop;
-    every route shows in the metrics and the audit is clean."""
-    jcfg = JModelConfig(name="t", **CFG)
-    tcfg = TModelConfig(name="t", **CFG)
+def check_default_path(cfg: dict, name: str = "t") -> None:
+    """The default path under pressure for the model ``cfg``: 2 slots, a
+    9-page pool and prompts longer than the 32-token prefill chunk.  The
+    first wave prefills in continuation chunks, the shared 3-page preamble
+    is cached, page growth preempts the younger slot, whose continuation
+    (and every later request) hits the cache and prefills through mixed
+    steps beside the decoding slot.  Greedy tokens agree with the JAX
+    teacher-forced loop; every route shows in the metrics and the audit is
+    clean."""
+    jcfg = JModelConfig(name=name, **cfg)
+    tcfg = TModelConfig(name=name, **cfg)
     tree = jax.tree.map(np.asarray, j_init_params(jcfg, jax.random.PRNGKey(7)))
     tok = IdTokenizer()
     max_new = 24
@@ -186,6 +187,11 @@ def test_engine_default_path_matches_jax_loop():
             tree, jcfg, [tok.bos_id] + tok.encode(preamble + body), gen,
             max_new, tok.eos_id)
     assert checked >= 40  # the margin rule must leave most tokens checked
+
+
+def test_engine_default_path_matches_jax_loop():
+    """``check_default_path`` at the engine tests' Llama-style model."""
+    check_default_path(CFG)
 
 
 def test_cli_summarizes_on_cpu(tmp_path):

@@ -1,7 +1,8 @@
 """The flash-prefill kernel's schedule, emulated in plain torch on the CPU.
 
 ``csrc/flash_prefill.cu`` runs 128-row query tiles of one head, two
-64-row warpgroups each, over 64-column K/V tiles; the grid's q-tile index
+64-row warpgroups each, over 64-column K/V tiles (hd <= 128, emulated
+here; hd 256 runs one warpgroup over 32-column tiles); the grid's q-tile index
 is reversed so the heaviest causal tiles start first.  A block's kv tiles
 start at the first position of its first query's segment, found by a
 two-step warp probe (32 lanes 64 positions apart, then the exact 64), and
@@ -41,8 +42,12 @@ ATOL_REF, ATOL_JAX = 1e-5, 2e-5
 
 
 def test_tile_sizes_match_the_kernel():
-    for name, value in (("BQ", BQ), ("BK", BK)):
-        assert re.search(rf"constexpr int {name} = {value};", SRC), name
+    """The emulated tiles are the hd <= 128 builds' (``Tile<HD>``): two
+    64-row warpgroups a block over 64-column kv tiles; the hd-256 build
+    runs one warpgroup over 32-column tiles."""
+    assert re.search(r"NWG = HD > 128 \? 1 : 2;", SRC)
+    assert re.search(rf"BQ = {WG_ROWS} \* NWG;", SRC) and BQ == 2 * WG_ROWS
+    assert re.search(rf"BK = HD > 128 \? 32 : {BK};", SRC)
     assert "(gridDim.y - 1 - blockIdx.y) * BQ" in SRC  # reversed q tiles
 
 

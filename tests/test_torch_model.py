@@ -127,7 +127,8 @@ def test_config_presets_match_reference():
     from lmrs_tpu.config import model_preset as j_preset
     from lmrs_tpu_torch.config import model_preset as t_preset
 
-    for name in ("bench-8b", "bench-smoke", "quality-tiny", "tiny"):
+    for name in ("bench-8b", "bench-smoke", "gemma-2b", "gemma-7b",
+                 "quality-tiny", "tiny"):
         j = dataclasses.asdict(j_preset(name))
         t = dataclasses.asdict(t_preset(name))
         assert {k: j[k] for k in t} == t

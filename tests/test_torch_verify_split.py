@@ -214,7 +214,8 @@ def test_multi_split_count_comes_from_shapes():
 
 
 @pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),
-                                   (24, False), (96, False), (256, False)])
+                                   (256, True), (24, False), (96, False),
+                                   (512, False)])
 def test_shape_rule_head_dims(hd, ok):
     assert (kernels.shape_problems(hd, 8, 4, page_size=128) == []) == ok
 
@@ -230,7 +231,8 @@ def test_shape_rule_groups_pages_and_verify_rows():
 
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny-gemma", "bench-smoke",
-                                    "bench-1b", "bench-8b"])
+                                    "bench-1b", "bench-8b", "gemma-2b",
+                                    "gemma-7b"])
 def test_cuda_config_admits_presets(preset):
     check_cuda_config(EngineConfig(model=preset), model_preset(preset))
     check_cuda_config(EngineConfig(model=preset, speculate_k=4, mixed_batch=False),
@@ -245,6 +247,12 @@ def test_cuda_config_refuses_by_name():
         check_cuda_config(EngineConfig(), bf16_hd24)
     with pytest.raises(ValueError, match="page_size"):
         check_cuda_config(EngineConfig(page_size=48), model_preset("tiny"))
+    # a head dim no build has is refused by name, whatever else the model is
+    for hd in (96, 512):
+        odd = dataclasses.replace(model_preset("gemma-7b"), name=f"gemma-hd{hd}",
+                                  head_dim=hd)
+        with pytest.raises(ValueError, match=rf"gemma-hd{hd} on cuda.*hd={hd}"):
+            check_cuda_config(EngineConfig(), odd)
     # bench-8b has 4 query heads a kv head: 17 verify tokens are 68 rows
     with pytest.raises(ValueError, match="query rows"):
         check_cuda_config(EngineConfig(speculate_k=16, mixed_batch=False),
