@@ -107,7 +107,25 @@ anything wrong.  Phases, one JSON object per line:
               prompts past 1,024 tokens prefilled in continuation chunks:
               the int8 verify and span kernels and flash launched, the
               int8 decode kernel not at all, no prefix-cache query.
-11. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+11. parity  — the pipeline, executor and CLI parity flows at full bench-8b
+              with phase 5's settings, over one engine shared by five
+              sub-phases, each on a line of its own with its wall, request
+              and prefill-token counts, launches and the card's name and
+              power limit: 11a ``summarize(save_chunks=)`` with the
+              streaming reduce (no failed request, a tree, a clean audit, a
+              reduce request admitted while a map request was in flight,
+              flash, decode and span kernels launched, the dump complete);
+              11b a new summarizer resuming from that dump (every chunk
+              resumed, only reduce requests, prefill tokens only theirs);
+              11c ``summarize_many`` of demo segments [:200] and [200:400]
+              (two summaries, the map queue alternating, requests = map +
+              reduce); 11d 8 of phase 5's map prompts, greedy, clean and
+              then with a shed request, a cancel and a deadline set from
+              ``on_result`` (their finish reasons and kept text, every other
+              text identical, pages back, a clean audit); 11e the same 8
+              through a ``MapExecutor`` whose engine raises once inside the
+              scheduler loop (retried, nothing failed, 11d's clean texts).
+12. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``), then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure: any exception exits non-zero before the
@@ -1325,19 +1343,13 @@ def kernel_counters() -> dict:
     return out
 
 
-def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
-    """``TranscriptSummarizer`` over the demo transcript at the full
-    preset ``model`` (bench-8b unless given), every launch counter zeroed
-    just before ``summarize`` and read just after; the checks every path
-    must pass (a summary, no failed request, a clean audit, a hierarchical
-    reduce).  Returns (summarizer, engine, stats, wall seconds,
-    launches)."""
+def phase5_config(model: str = "bench-8b", streaming: bool = False,
+                  **engine_kw):
+    """Phase 5's ``PipelineConfig`` at the preset ``model``."""
     from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
                                        PipelineConfig, ReduceConfig)
-    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
-    from lmrs_tpu_torch.utils.demo import load_demo_transcript
 
-    cfg = PipelineConfig(
+    return PipelineConfig(
         # the defaults (mixed steps, prefix cache, 4096-token chunks) with
         # the pool budgeted at 112 pages: the first wave's prompts take 109,
         # so decode growth preempts the youngest slot and the slots fall
@@ -1350,7 +1362,21 @@ def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
         # 2048 window at a 64-token budget
         chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=1400),
         # a reduce budget small enough that the summaries form a tree
-        reduce=ReduceConfig(max_tokens_per_batch=600, reserve_tokens=100))
+        reduce=ReduceConfig(max_tokens_per_batch=600, reserve_tokens=100,
+                            streaming=streaming))
+
+
+def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
+    """``TranscriptSummarizer`` over the demo transcript at the full
+    preset ``model`` (bench-8b unless given), every launch counter zeroed
+    just before ``summarize`` and read just after; the checks every path
+    must pass (a summary, no failed request, a clean audit, a hierarchical
+    reduce).  Returns (summarizer, engine, stats, wall seconds,
+    launches)."""
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    cfg = phase5_config(model, **engine_kw)
     transcript = load_demo_transcript(max_segments=200)
     summarizer = TranscriptSummarizer(cfg, device="cuda")
     engine = summarizer.executor.engine  # builds + random-inits the model
@@ -1590,6 +1616,300 @@ def run_int8_path(spec: bool = False, model: str = "bench-8b",
     return out
 
 
+# ------------------------------------------------------------ phase 11
+
+PARITY_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "parity"
+
+
+class ObservedEngine:
+    """Test double around phase 11's ``TorchEngine``: forwards every call,
+    and records the requests of each ``generate_batch`` call and, from each
+    result as the scheduler delivers it (at the block boundary right after
+    the dispatch that finished it), when the call's own requests (the map
+    requests of a stream) finished and when requests submitted into the
+    stream (reduce nodes) were first admitted: delivery time less
+    ``device_seconds``, the scheduler's clock from first admission."""
+
+    schedules_internally = True
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.tokenizer = engine.tokenizer
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls: list[list] = []
+        self.map_done: list[float] = []
+        self.late_admit: list[float] = []
+
+    def generate_batch(self, requests, on_result=None):
+        self.calls.append(list(requests))
+        if on_result is None:
+            return self.engine.generate_batch(requests)
+        own = {r.request_id for r in requests}
+
+        def tap(res, submit):
+            now = time.time()
+            if res.request_id in own:
+                self.map_done.append(now)
+            else:
+                self.late_admit.append(now - res.device_seconds)
+            on_result(res, submit)
+        return self.engine.generate_batch(requests, on_result=tap)
+
+    def cancel(self, request_id: int) -> None:
+        self.engine.cancel(request_id)
+
+    def engine_metrics(self) -> dict:
+        return self.engine.engine_metrics()
+
+    def shutdown(self) -> None:
+        pass
+
+
+class RaiseOnce(ObservedEngine):
+    """Test double for phase 11e: the engine, with an ``on_result`` hook
+    that raises inside the scheduler loop when the first result lands, while
+    the other slots are live; the executor must retry the batch."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.raised = 0
+
+    def generate_batch(self, requests, on_result=None):
+        def hook(res, submit):
+            if not self.raised:
+                self.raised += 1
+                raise RuntimeError("phase 11e: scripted fault inside the loop")
+        return self.engine.generate_batch(requests, on_result=hook)
+
+
+def metrics_delta(before: dict, after: dict) -> dict:
+    """What one sub-phase added to the engine's cumulative metrics."""
+    def flat(m):
+        return {"requests": m["requests"], "prefill_tokens": m["prefill_tokens"],
+                "decode_tokens": m["decode_tokens"],
+                "preemptions": m["preemptions"], "cancelled": m["cancelled"],
+                "deadline": m["deadline"], "shed": m["shed"],
+                "mixed_dispatches": m["mixed_batch"]["dispatches"],
+                "span_dispatches": m["rpa"]["dispatches"],
+                "prefix_tokens_reused": m["prefix_cache"]["tokens_reused"],
+                "decode_block_seconds": m["decode_block_seconds"],
+                "mixed_step_seconds": m["mixed_step_seconds"]}
+    a, b = flat(before), flat(after)
+    return {k: round(b[k] - a[k], 4) for k in a}
+
+
+def require_pool_back(engine, where: str) -> None:
+    """Every page free but those the prefix cache holds; a clean audit."""
+    sched = engine._scheduler
+    want = sched.cache.num_pages - 1 - sched._prefix_cache.cached_pages
+    if sched.cache.allocator.free_count != want:
+        raise AssertionError(f"{where}: {sched.cache.allocator.free_count} "
+                             f"free pages, want {want}")
+    if engine.audit():
+        raise AssertionError(f"{where}: allocator audit {engine.audit()}")
+
+
+def run_parity_path(smi: str) -> dict:
+    """Phase 11: the pipeline, executor and CLI parity flows at full
+    bench-8b with phase 5's settings, over ONE engine shared by the
+    sub-phases (11a stream + save, 11b resume, 11c many, 11d cancel and
+    deadlines, 11e retry); each sub-phase zeroes the launch counters just
+    before it and reads them just after, and prints its own line."""
+    import dataclasses
+
+    from lmrs_tpu_torch.engine.executor import MapExecutor
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.prompts import resolve_map_prompt
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+    from lmrs_tpu_torch.utils.timing import StageTimer
+
+    cfg = phase5_config(streaming=True)
+    transcript = load_demo_transcript(max_segments=200)
+    t_build = time.time()
+    engine = TranscriptSummarizer(cfg, device="cuda").executor.engine
+    torch.cuda.synchronize()
+    build_s = time.time() - t_build
+    sched = engine._scheduler
+    obs = ObservedEngine(engine)
+
+    def drive(fn):
+        em0 = engine.engine_metrics()
+        counted = kernel_counters()
+        for f, attr in counted.values():
+            setattr(f, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {n: getattr(f, attr) for n, (f, attr) in counted.items()}
+        return out, {"wall_seconds": wall,
+                     **metrics_delta(em0, engine.engine_metrics()),
+                     "launches": launches, "card": smi}
+
+    # 11a: the streaming reduce, the chunk dump written inside the stream
+    PARITY_DIR.mkdir(parents=True, exist_ok=True)
+    dump = PARITY_DIR / "chunks.json"
+    dump.unlink(missing_ok=True)
+    stream = TranscriptSummarizer(cfg, engine=obs)
+    stats, line = drive(lambda: stream.summarize(transcript,
+                                                 save_chunks=str(dump)))
+    if stats["failed_requests"] != 0:
+        raise AssertionError(f"11a: failed_requests = {stats['failed_requests']}")
+    if not stats["hierarchical"]:
+        raise AssertionError("11a: the streaming reduce did not form a tree")
+    require_pool_back(engine, "11a")
+    overlap = sum(t < max(obs.map_done) for t in obs.late_admit)
+    if overlap < 1:
+        raise AssertionError("11a: no reduce request was admitted while a map "
+                             "request was in flight")
+    require_launches(line["launches"], "parity stream (11a)",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"))
+    saved = json.loads(dump.read_text(encoding="utf-8"))["chunks"]
+    if (len(saved) != stats["num_chunks"]
+            or not all(c["summary"] and not c["error"] for c in saved)):
+        raise AssertionError(f"11a: the dump holds {len(saved)} chunks of "
+                             f"{stats['num_chunks']}, or one without a summary")
+    map_prompts = {r.prompt for r in obs.calls[0]}
+    emit({"phase": "parity-11a-stream-save", **line,
+          "chunks": stats["num_chunks"], "reduce_levels": stats["reduce_levels"],
+          "stage_times": stats["stage_times"],
+          "reduce_requests_admitted_during_map": overlap,
+          "reduce_requests": len(obs.late_admit),
+          "engine_build_seconds": build_s, "summary_chars": len(stats["summary"])})
+
+    # 11b: a new summarizer over the same engine resumes from that dump
+    obs.reset()
+    resume = TranscriptSummarizer(cfg, engine=obs)
+    stats_b, line = drive(lambda: resume.summarize(transcript,
+                                                   resume_from=str(dump)))
+    seen = [r for call in obs.calls for r in call]
+    if stats_b["num_resumed_chunks"] != stats_b["num_chunks"]:
+        raise AssertionError(f"11b: resumed {stats_b['num_resumed_chunks']} of "
+                             f"{stats_b['num_chunks']} chunks")
+    if any(r.prompt in map_prompts for r in seen) or not seen:
+        raise AssertionError("11b: the resumed run sent a map request")
+    if resume.executor.total_requests != len(seen) or stats_b["failed_requests"]:
+        raise AssertionError("11b: the executor ran other than the reduce requests")
+    reduce_tokens = sum(len(sched._encode(r)[0]) for r in seen)
+    computed = line["prefill_tokens"] + line["prefix_tokens_reused"]
+    if (computed != reduce_tokens if line["preemptions"] == 0
+            else computed < reduce_tokens):
+        raise AssertionError(f"11b: {computed} prompt tokens prefilled or "
+                             f"reused, the reduce prompts hold {reduce_tokens}")
+    require_pool_back(engine, "11b")
+    emit({"phase": "parity-11b-resume", **line,
+          "num_resumed_chunks": stats_b["num_resumed_chunks"],
+          "chunks": stats_b["num_chunks"], "reduce_prompt_tokens": reduce_tokens})
+
+    # 11c: two transcripts through one pooled map queue
+    obs.reset()
+    many = TranscriptSummarizer(phase5_config(), engine=obs)
+    data = [transcript, {"segments":
+                         load_demo_transcript(400)["segments"][200:]}]
+    outs, line = drive(lambda: many.summarize_many(data))
+    n0, n1 = (o["num_chunks"] for o in outs)
+    first = [r.prompt for r in obs.calls[0]]
+    want = [(1, n0), (1, n1), (2, n0), (2, n1)]
+    if not all(o["summary"] for o in outs):
+        raise AssertionError("11c: an empty summary")
+    if not all(f"SECTION {i} of {n}]" in p for p, (i, n) in zip(first, want)):
+        raise AssertionError("11c: the first map requests do not alternate "
+                             "between the transcripts")
+    n_reduce = sum(len(call) for call in obs.calls[1:])
+    if (len(first) != n0 + n1
+            or many.executor.total_requests != n0 + n1 + n_reduce
+            or line["requests"] != n0 + n1 + n_reduce
+            or many.executor.failed_requests):
+        raise AssertionError(f"11c: {many.executor.total_requests} requests "
+                             f"for {n0} + {n1} map and {n_reduce} reduce")
+    require_pool_back(engine, "11c")
+    emit({"phase": "parity-11c-many", **line, "chunks": [n0, n1],
+          "map_requests": n0 + n1, "reduce_requests": n_reduce,
+          "reduce_levels": [o["reduce_levels"] for o in outs]})
+
+    # 11d: cancel and deadlines on 8 of phase 5's map prompts, greedy; the
+    # 8 shortest fit the pool together (no preemption), and each run starts
+    # with the prefix cache empty, so every prompt prefills whole on its own
+    # in every run and the rows left alone compute exactly what they do in
+    # the clean run
+    _n, _p, chunks = stream._prep(transcript, StageTimer())
+    base = [stream.executor.build_map_request(c, resolve_map_prompt(),
+                                              request_id=i)
+            for i, c in enumerate(chunks)]
+    pick = sorted(range(len(base)), key=lambda i: len(base[i].prompt))[:8]
+
+    def parity_requests(deadline=None):
+        sched._prefix_cache.clear()
+        return [dataclasses.replace(
+            base[i], request_id=k, temperature=0.0,
+            max_new_tokens=16 if k == 0 else 64,
+            deadline_s=None if deadline is None else time.time() + deadline)
+            for k, i in enumerate(pick)]
+
+    clean, line_clean = drive(lambda: engine.generate_batch(parity_requests()))
+    require_pool_back(engine, "11d clean")
+    reqs = parity_requests(deadline=3600.0)
+    reqs[7].deadline_s = time.time() - 1.0  # passed before admission: shed
+    hit: dict[str, int] = {}
+
+    def on_result(res, submit):
+        if hit or res.request_id != 0:  # request 0 ends after 16 tokens
+            return
+        live = sorted(r for r, n in sched.live_tokens().items()
+                      if n and r != res.request_id)
+        if len(live) < 2:
+            raise AssertionError(f"11d: {live} live at the first result")
+        hit["cancelled"], hit["deadline"] = live[0], live[1]
+        engine.cancel(live[0])
+        reqs[live[1]].deadline_s = time.time() - 1.0
+    out, line = drive(lambda: engine.generate_batch(reqs, on_result=on_result))
+    hit["shed"] = 7
+    for reason, rid in hit.items():
+        res = out[rid]
+        if res.finish_reason != reason or res.error is not None:
+            raise AssertionError(f"11d: request {rid} finished "
+                                 f"{res.finish_reason}, want {reason}")
+        if reason == "shed":
+            if res.completion_tokens or res.text:
+                raise AssertionError("11d: the shed request produced output")
+        elif not (res.text and 0 < res.completion_tokens < 64):
+            raise AssertionError(f"11d: {reason} request {rid} kept "
+                                 f"{res.completion_tokens} tokens")
+    for res, ref in zip(out, clean):
+        if res.request_id not in hit.values() and res.text != ref.text:
+            raise AssertionError(f"11d: request {res.request_id}'s text "
+                                 "differs from the clean run")
+    if (line["cancelled"], line["deadline"], line["shed"]) != (1, 1, 1):
+        raise AssertionError(f"11d: counters {line}")
+    require_pool_back(engine, "11d")
+    emit({"phase": "parity-11d-cancel-deadline", **line,
+          "clean_wall_seconds": line_clean["wall_seconds"],
+          "clean_prefill_tokens": line_clean["prefill_tokens"],
+          "clean_preemptions": line_clean["preemptions"],
+          "prompt_tokens": [len(base[i].prompt) for i in pick],
+          "finish": {reason: [rid, out[rid].completion_tokens]
+                     for reason, rid in hit.items()}})
+
+    # 11e: an exception inside the scheduler loop, retried by the executor
+    raising = RaiseOnce(engine)
+    executor = MapExecutor(raising, dataclasses.replace(cfg.engine,
+                                                        retry_delay=0.0))
+    retried, line = drive(lambda: executor.run_requests(parity_requests()))
+    if raising.raised != 1 or executor.failed_requests != 0:
+        raise AssertionError(f"11e: raised {raising.raised}, failed "
+                             f"{executor.failed_requests}")
+    if [r.text for r in retried] != [r.text for r in clean]:
+        raise AssertionError("11e: the retried texts differ from 11d's clean run")
+    require_pool_back(engine, "11e")
+    emit({"phase": "parity-11e-retry", **line,
+          "executor_requests": executor.total_requests})
+    return {"phase": "parity", "model": "bench-8b (32 layers, random-init bf16)",
+            "card": smi}
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, launches_3c: dict) -> list[dict]:
     """The kernels line's ``<name>@hd256`` rows: each build's time, plain
@@ -1734,6 +2054,7 @@ def main() -> int:
     gemma2b_out = timed(run_int8_path, spec=True, model="gemma-2b",
                         prefill_chunk=1024)
     emit(gemma2b_out)
+    emit(timed(run_parity_path, smi))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),

@@ -2,13 +2,17 @@
 
 Flag spellings follow the reference CLI (``lmrs``).  Runs on the card by
 default; ``--device cpu`` runs the plain PyTorch path.  ``--quantize int8``
-and ``--kv-quantize int8`` select int8 weights and int8 KV pages.  Flags of
-features the port does not carry yet (host/disk KV, tree speculation,
-meshes, chunk dumps and resume, the streaming reduce, the request cap,
-checkpoints, other backends and hosts, profiling and tracing) are refused
-by name with the slice that brings them.  ``--speculate-k`` is among
-them: under the default mixed steps the reference CLI runs it as tree
-speculation.  Linear speculation is reached through the engine config,
+and ``--kv-quantize int8`` select int8 weights and int8 KV pages.
+``--save-chunks`` dumps the chunk summaries after the map stage and
+``--resume-from`` maps only the chunks such a dump lacks; ``--stream-reduce``
+feeds the reduce tree into the map stage's engine stream;
+``--max-concurrent-requests`` caps the executor's waves for engines that do
+not schedule internally (the port's engine does, so it gets the whole
+queue).  Flags of features the port does not carry yet (host/disk KV, tree
+speculation, meshes, checkpoints, other backends and hosts, profiling and
+tracing) are refused by name with the slice that brings them.
+``--speculate-k`` is among them: under the default mixed steps the
+reference CLI runs it as tree speculation.  Linear speculation is reached through the engine config,
 ``EngineConfig(speculate_k=K, mixed_batch=False)``.
 """
 
@@ -29,17 +33,12 @@ from lmrs_tpu_torch.utils.timing import format_duration
 logger = logging.getLogger("lmrs_torch.cli")
 
 # flag -> the slice of the port that brings it
-_PARITY = "pipeline, executor and CLI parity (A11)"
 _SERVING = "serving surface (A3)"
 _OBS = "observability (A10)"
 _LATER = {
     "host_kv": "KV movement (host/disk KV tiers)",
     "speculate_k": "tree speculation",
     "mesh": "multi-GPU",
-    "save_chunks": _PARITY,
-    "resume_from": _PARITY,
-    "stream_reduce": _PARITY,
-    "max_concurrent_requests": _PARITY,
     "checkpoint": "weights and tokenizers from local files (A12)",
     "backend": _SERVING,
     "hosts": _SERVING,
@@ -63,17 +62,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="generation budget per request")
     p.add_argument("--max-tokens-per-chunk", type=int, default=4000)
     p.add_argument("--overlap-tokens", type=int, default=200)
+    p.add_argument("--max-concurrent-requests", type=int, default=None)
     p.add_argument("--max-batch-slots", type=int, default=None)
     p.add_argument("--max-segment-duration", type=float, default=120.0)
     p.add_argument("--time-interval", type=float, default=None)
     p.add_argument("--no-merge", action="store_true")
     p.add_argument("--no-hierarchical", action="store_true")
+    p.add_argument("--stream-reduce", action="store_true",
+                   help="feed reduce batches into the map stage's engine "
+                        "stream as summaries complete (best for long-decode "
+                        "workloads; see ReduceConfig.streaming)")
     p.add_argument("--limit-segments", type=int, default=None)
     p.add_argument("--report", action="store_true",
                    help="write <output>.report.json stats")
     p.add_argument("--prompt-file")
     p.add_argument("--system-prompt-file")
     p.add_argument("--aggregator-prompt-file")
+    p.add_argument("--save-chunks", help="dump per-chunk summaries JSON after map stage")
+    p.add_argument("--resume-from", help="reuse summaries from a prior --save-chunks dump")
     p.add_argument("--summary-type", default="summary")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quiet", "-q", action="store_true")
@@ -89,14 +95,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--speculate-k", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    for flag in ("--save-chunks", "--resume-from", "--checkpoint", "--hosts",
-                 "--trace-out"):
+    for flag in ("--checkpoint", "--hosts", "--trace-out"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     p.add_argument("--backend", "--provider", dest="backend", default=None,
                    help=argparse.SUPPRESS)
-    p.add_argument("--max-concurrent-requests", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    for flag in ("--stream-reduce", "--profile", "--no-trace"):
+    for flag in ("--profile", "--no-trace"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -117,6 +120,9 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         engine = dataclasses.replace(engine, max_tokens=args.max_tokens)
     if args.max_batch_slots is not None:
         engine = dataclasses.replace(engine, max_batch_slots=args.max_batch_slots)
+    if args.max_concurrent_requests is not None:
+        engine = dataclasses.replace(
+            engine, max_concurrent_requests=args.max_concurrent_requests)
     return PipelineConfig(
         data=DataConfig(merge_same_speaker=not args.no_merge,
                         time_interval_seconds=args.time_interval,
@@ -126,7 +132,8 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
                           overlap_tokens=args.overlap_tokens,
                           tokenizer=args.tokenizer),
         engine=engine,
-        reduce=ReduceConfig(hierarchical=not args.no_hierarchical),
+        reduce=ReduceConfig(hierarchical=not args.no_hierarchical,
+                            streaming=args.stream_reduce),
     )
 
 
@@ -150,7 +157,8 @@ def main(argv: list[str] | None = None) -> int:
             transcript, prompt_file=args.prompt_file,
             system_prompt_file=args.system_prompt_file,
             aggregator_prompt_file=args.aggregator_prompt_file,
-            summary_type=args.summary_type)
+            summary_type=args.summary_type, save_chunks=args.save_chunks,
+            resume_from=args.resume_from)
     finally:
         summarizer.shutdown()
     summary = stats["summary"]

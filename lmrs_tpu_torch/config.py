@@ -5,9 +5,12 @@
 continuous scheduler with packed fresh prefill, decode blocks, mixed
 prefill/decode steps, chunked continuation prefill and the shared-prefix
 KV cache (the reference's defaults), linear speculation (``speculate_k``
-with mixed steps off) and int8 weights and KV pages (``quantize``,
-``kv_quantize``).  Host/disk KV, tree speculation and device meshes have
-no field here; the CLI refuses their flags by name.
+with mixed steps off), int8 weights and KV pages (``quantize``,
+``kv_quantize``), and the executor's request cap, retries and deadline
+budget (``max_concurrent_requests``, ``retry_attempts``, ``retry_delay``,
+``request_deadline_s``).  ``ReduceConfig.streaming`` feeds the reduce
+tree into the map stage's engine stream.  Host/disk KV, tree speculation
+and device meshes have no field here; the CLI refuses their flags by name.
 """
 
 from __future__ import annotations
@@ -106,6 +109,20 @@ class EngineConfig:
         default_factory=lambda: _envmod.env_float("TEMPERATURE", 0.3))
     max_tokens: int = field(
         default_factory=lambda: _envmod.env_int("MAX_TOKENS", 1000))
+    # the executor's wave cap, for engines that do not schedule internally
+    # (TorchEngine does, and gets the whole queue at once)
+    max_concurrent_requests: int = field(
+        default_factory=lambda: _envmod.env_int("MAX_CONCURRENT_REQUESTS", 5))
+    retry_attempts: int = field(
+        default_factory=lambda: _envmod.env_int("RETRY_ATTEMPTS", 3))
+    retry_delay: float = field(
+        default_factory=lambda: _envmod.env_float("RETRY_DELAY", 5.0))
+    # deadline budget (seconds) the executor stamps onto every request it
+    # runs that carries none (0 = no deadline): such a request is shed at
+    # admission when its budget cannot cover the TTFT estimate, expired in
+    # flight at the next block boundary, and its retries clip to the budget
+    request_deadline_s: float = field(
+        default_factory=lambda: _envmod.env_float("LMRS_REQUEST_DEADLINE", 0.0))
     seed: int = 0
 
     def __post_init__(self) -> None:
@@ -144,6 +161,10 @@ class EngineConfig:
         if self.temperature < 0:
             raise ValueError(f"temperature must be >= 0 "
                              f"(got {self.temperature})")
+        if self.request_deadline_s < 0:
+            raise ValueError(f"request_deadline_s must be >= 0 "
+                             f"(got {self.request_deadline_s}); 0 disables "
+                             "deadlines")
 
 
 @dataclass
@@ -154,6 +175,10 @@ class ReduceConfig:
     hierarchical: bool = True
     reserve_tokens: int = 1000
     max_summaries_per_batch: int = 10
+    # feed reduce batches into the map stage's engine stream as their
+    # member summaries complete (reduce/streaming.py) instead of a barrier
+    # between map and reduce
+    streaming: bool = False
     max_levels: int = 4
     temperature: float = 0.2
 

@@ -1,4 +1,5 @@
-"""Engine protocol of the port: requests, results and the engine factory
+"""Engine protocol of the port: requests, results, the deadline and
+degraded-result helpers, post-hoc streaming delivery and the engine factory
 (trimmed copy of the reference's ``engine/api.py``).  The factory knows the
 ``"torch"`` backend only."""
 
@@ -32,6 +33,14 @@ class GenerationRequest:
     # negative = never cache this request's prefix.  Approximate by design:
     # the cap is rounded up to a KV page at token level.
     cache_prefix: int | None = None
+    # Absolute deadline (``time.time()`` epoch seconds) after which the
+    # result is worthless to its caller; None = unbounded.  A request whose
+    # remaining budget cannot cover the engine's TTFT estimate is shed
+    # before prefill (``finish_reason="shed"``, no engine work); one that
+    # expires in flight finishes at the next block boundary with
+    # ``finish_reason="deadline"``, keeping the tokens generated so far;
+    # executor retries clip to the remaining budget.
+    deadline_s: float | None = None
 
 
 def preamble_text(system_prompt: str | None, prompt: str,
@@ -58,14 +67,35 @@ def preamble_key(system_prompt: str | None, prompt: str,
     return hashlib.sha256(text.encode("utf-8", "replace")).hexdigest()[:16]
 
 
+def remaining_budget(req: GenerationRequest,
+                     now: float | None = None) -> float | None:
+    """Seconds of deadline budget left (negative = expired); None when the
+    request carries no deadline.  Shared by admission shedding and the
+    executor's retry clip."""
+    if req.deadline_s is None:
+        return None
+    import time
+
+    return req.deadline_s - (time.time() if now is None else now)
+
+
 @dataclass
 class GenerationResult:
-    """Completion + accounting.  ``finish_reason``: stop | length | error."""
+    """Completion + accounting."""
 
     request_id: int
     text: str = ""
     prompt_tokens: int = 0
     completion_tokens: int = 0
+    # stop | length | error | cancelled | deadline | shed.  "cancelled":
+    # aborted by ``cancel()``, tokens generated so far kept; "deadline":
+    # expired in flight (partial text kept) or, as a queued preemption
+    # continuation, with its prior tokens; "shed": rejected at admission
+    # before any engine work.  Engine-side none of the three sets
+    # ``error`` (they are outcomes, not faults to retry); the one exception
+    # is the executor's retry clip, which marks a request that FAILED and
+    # then ran out of budget to retry with both finish_reason="deadline"
+    # and the error, so the failure stays visible.
     finish_reason: str = "stop"
     stop_sequence: str | None = None
     device_seconds: float = 0.0
@@ -74,6 +104,19 @@ class GenerationResult:
     @property
     def total_tokens(self) -> int:
         return self.prompt_tokens + self.completion_tokens
+
+
+def degraded_reason(res: GenerationResult) -> str | None:
+    """Why this result carries NO usable content, or None when it does:
+    the error itself, or a content-less terminal (``shed`` / ``deadline``
+    / ``cancelled`` with no text).  The pipeline branches on this, not on
+    ``res.error``: a shed map chunk must not pass as an empty summary.  A
+    deadline or cancel result that carries partial text is usable."""
+    if res.error is not None:
+        return res.error
+    if res.finish_reason in ("shed", "deadline", "cancelled") and not res.text:
+        return f"request {res.finish_reason} before any output"
+    return None
 
 
 def apply_stop_sequences(text: str, stops: tuple[str, ...]) -> tuple[str, str | None]:
@@ -102,6 +145,27 @@ class Engine(Protocol):
     def shutdown(self) -> None: ...
 
     def engine_metrics(self) -> dict: ...
+
+
+def drain_with_callback(run_batch, requests: list[GenerationRequest],
+                        on_result) -> list[GenerationResult]:
+    """Streaming semantics for engines without a mid-run hook: run a wave,
+    deliver each result through ``on_result(result, submit)``, collect what
+    the callback submits, repeat until nothing is left."""
+    all_results: list[GenerationResult] = []
+    pending = list(requests)
+    submitted: list[GenerationRequest] = []
+
+    def submit(new_requests: list[GenerationRequest]) -> None:
+        submitted.extend(new_requests)
+
+    while pending:
+        results = run_batch(pending)
+        all_results.extend(results)
+        for res in results:
+            on_result(res, submit)
+        pending, submitted = submitted, []
+    return all_results
 
 
 def make_engine(engine_cfg: "EngineConfig",

@@ -2,9 +2,9 @@
 reference's ``engine/scheduler.py``): its default path — packed fresh
 prefill, decode blocks, mixed steps, chunked continuation prefill, slot
 growth with preemption and the prefix cache, through the ragged span
-kernel — its linear speculative path, and int8 KV pages with per-slot
-scales on both; no tree speculation, host/disk KV, handoff, cancellation,
-deadlines or observability hooks.
+kernel — its linear speculative path, int8 KV pages with per-slot scales
+on both, and cancellation, deadlines and admission shedding; no tree
+speculation, host/disk KV, handoff or observability hooks.
 
 * Admission: a request takes a free slot when the pool holds its PROMPT
   pages minus those a prefix-cache match supplies (the cache evicts before
@@ -44,6 +44,14 @@ deadlines or observability hooks.
   later token; a preempted request re-prefills from position 0 and fixes
   new ones.  The prefix cache is off: a hit slot would read donor pages
   quantized with the donor's scales.
+* Cancel and deadlines, at block boundaries only (the top of each loop
+  iteration, after every prefill, decode block, mixed step or speculative
+  block and before ``admit``): ``cancel(rid)`` ids are swept from the queue
+  and the slots (``finish_reason="cancelled"``, tokens so far kept); with
+  any deadline in the run, passed deadlines expire (``"deadline"``) and
+  ``admit`` sheds head entries whose budget cannot cover the TTFT estimate
+  (``"shed"``, no engine work).  A swept slot tears down like a finish.
+  A run with neither pays one empty-set and one flag test an iteration.
 """
 
 from __future__ import annotations
@@ -58,7 +66,8 @@ import torch
 
 from lmrs_tpu_torch.config import EngineConfig, ModelConfig
 from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
-                                       apply_stop_sequences, preamble_text)
+                                       apply_stop_sequences, preamble_text,
+                                       remaining_budget)
 from lmrs_tpu_torch.engine.kv_cache import (OutOfPages, PagedKVCache,
                                             SequencePages, audit_allocator)
 from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
@@ -68,6 +77,10 @@ from lmrs_tpu_torch.ops.sampling import filtered_probs, sample_logits
 from lmrs_tpu_torch.ops.speculative import draft_lookup, verify_tokens
 
 logger = logging.getLogger("lmrs_torch.scheduler")
+
+# dense bf16 tensor-core peak of an H100 SXM (data sheet): the admission
+# estimate's roofline fallback, where the reference divides by its TPU's
+H100_BF16_FLOPS = 989e12
 
 
 def _pow2_bucket(n: int, lo: int) -> int:
@@ -162,6 +175,19 @@ class ContinuousScheduler:
                              else None)
         self._double_finish = 0
         self._finished_ids: set[int] = set()
+        # cancel(): ids land here from any thread (set.add is atomic under
+        # the GIL) and are swept at the next block boundary; cleared at the
+        # end of each run
+        self._cancelled: set[int] = set()
+        # deadline bookkeeping: _any_deadline gates the expiry sweep and
+        # admission shedding so deadline-free runs pay nothing; _ttft_min is
+        # the fastest TTFT this engine delivered (the optimistic estimate:
+        # shed only what is provably unmeetable), _t_enq the run's enqueue
+        # times, consumed at each request's first token
+        self._any_deadline = False
+        self._ttft_min = float("inf")
+        self._t_enq: dict[int, float] = {}
+        self._slots: list | None = None  # the live run's slots
         self.counters = {
             "requests": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
             "packed_dispatches": 0, "decode_tokens": 0, "decode_blocks": 0,
@@ -171,8 +197,22 @@ class ContinuousScheduler:
             "rpa_span_tokens": 0, "prefix_queries": 0, "prefix_hits": 0,
             "prefix_tokens_reused": 0, "preemptions": 0, "stalls": 0,
             "run_seconds": 0.0, "occupancy_sum": 0.0, "peak_pages": 0,
-            "spec_accepted_tokens": 0,
+            "spec_accepted_tokens": 0, "cancelled": 0, "deadline": 0,
+            "shed": 0,
         }
+
+    def live_tokens(self) -> dict[int, int]:
+        """Request id -> output tokens so far, for each request holding a
+        slot in the run in flight (empty between runs)."""
+        return {st.req.request_id: len(st.prior) + len(st.generated)
+                for st in self._slots or () if st is not None}
+
+    def cancel(self, request_id: int) -> None:
+        """Abort ``request_id`` of the current run at the next block
+        boundary: a live slot finishes with ``finish_reason="cancelled"``
+        (tokens so far kept) and frees its pages; a queued entry never
+        prefills.  Callable from any thread; unknown ids are a no-op."""
+        self._cancelled.add(request_id)
 
     # ------------------------------------------------------------- run loop
 
@@ -195,12 +235,18 @@ class ContinuousScheduler:
                 all_requests.append(req)
                 ids, max_new = self._encode(req)
                 queue.append((req, ids, max_new, len(ids), [], None))
+                self._t_enq[req.request_id] = time.time()
+                if req.deadline_s is not None:
+                    self._any_deadline = True
                 self.counters["requests"] += 1
 
         self._finished_ids = set()
+        self._t_enq = {}
+        self._any_deadline = False
         submit(requests)
         B = self.B
         slots: list[_SlotState | None] = [None] * B
+        self._slots = slots
         last_tok = np.zeros((B,), np.int64)
         kv_lens = np.zeros((B,), np.int32)
         active = np.zeros((B,), bool)
@@ -212,6 +258,15 @@ class ContinuousScheduler:
             for b in range(B):
                 if slots[b] is not None:
                     continue
+                # deadline admission control: shed head entries whose
+                # remaining budget cannot cover the TTFT estimate, before
+                # any prefill
+                while queue and self._any_deadline:
+                    rem = remaining_budget(queue[0][0])
+                    if rem is None or rem >= self._ttft_estimate(
+                            len(queue[0][1])):
+                        break
+                    self._expire_queue_entry(queue, 0, results, fresh)
                 if not queue:
                     break
                 req, ids, max_new, n_prompt, prior, t0 = queue[0]
@@ -265,6 +320,7 @@ class ContinuousScheduler:
                 if st is None:
                     continue  # preempted: its continuation resamples tok0
                 st.generated.append(int(tok0s[p][row]))
+                self._note_first_token(st.req.request_id)
                 last_tok[b] = st.generated[-1]
                 self._seed_history(b, st)
                 if finish_all or not active[b]:
@@ -275,6 +331,14 @@ class ContinuousScheduler:
 
         try:
             while True:
+                # block boundary: sweep cancels and expired deadlines; their
+                # results go out with this iteration's fresh batch
+                if self._cancelled:
+                    self._sweep_cancelled(queue, slots, results, fresh,
+                                          active, kv_lens, last_tok)
+                if self._any_deadline:
+                    self._sweep_deadlines(queue, slots, results, fresh,
+                                          active, kv_lens, last_tok)
                 if on_result is not None:
                     while fresh:
                         on_result(results[fresh.popleft()], submit)
@@ -346,6 +410,8 @@ class ContinuousScheduler:
             raise
         finally:
             self.counters["run_seconds"] += time.time() - t_run
+            self._cancelled.clear()
+            self._slots = None
         return [results[r.request_id] for r in all_requests]
 
     # ------------------------------------------------------------ internals
@@ -372,28 +438,139 @@ class ContinuousScheduler:
         text, stop_hit = apply_stop_sequences(self.tokenizer.decode(gen), stop)
         return gen, text, stop_hit, hit_eos
 
+    def _trimmed_output(self, st: _SlotState):
+        """(gen, text, stop_hit, hit_eos) of a slot's output so far."""
+        return self._trim_tokens(st.prior + st.generated, st.max_new,
+                                 st.req.stop)
+
     def _maybe_finish(self, b, slots, results, fresh, active, kv_lens,
                       last_tok) -> None:
-        st = slots[b]
-        gen, text, stop_hit, hit_eos = self._trim_tokens(
-            st.prior + st.generated, st.max_new, st.req.stop)
-        if not (hit_eos or stop_hit or len(gen) >= st.max_new):
+        gen, text, stop_hit, hit_eos = self._trimmed_output(slots[b])
+        if not (hit_eos or stop_hit or len(gen) >= slots[b].max_new):
             return
-        rid = st.req.request_id
+        self._finish_slot(b, slots, results, fresh, active, kv_lens, last_tok,
+                          gen, text, stop_hit,
+                          "stop" if (hit_eos or stop_hit) else "length")
+
+    def _record_result(self, results: dict, res: GenerationResult,
+                       fresh) -> None:
+        """The one write into a run's results: an id terminating twice is
+        counted for the audit."""
+        rid = res.request_id
         if rid in self._finished_ids:
             self._double_finish += 1
         self._finished_ids.add(rid)
-        results[rid] = GenerationResult(
-            request_id=rid, text=text, prompt_tokens=st.n_prompt,
-            completion_tokens=len(gen),
-            finish_reason="stop" if (hit_eos or stop_hit) else "length",
-            stop_sequence=stop_hit, device_seconds=time.time() - st.t_start)
+        results[rid] = res
         fresh.append(rid)
+
+    def _finish_slot(self, b, slots, results, fresh, active, kv_lens,
+                     last_tok, gen, text, stop_hit, finish_reason) -> None:
+        """Record slot b's result and tear the slot down: pages freed
+        (prefix-cache matches drop their own reference), row state reset.
+        Shared by a normal finish, a cancel and an in-flight expiry."""
+        st = slots[b]
+        self._record_result(results, GenerationResult(
+            request_id=st.req.request_id, text=text,
+            prompt_tokens=st.n_prompt, completion_tokens=len(gen),
+            finish_reason=finish_reason, stop_sequence=stop_hit,
+            device_seconds=time.time() - st.t_start), fresh)
         self.cache.close_sequence(st.seq)
         slots[b] = None
         active[b] = False
         kv_lens[b] = 0  # a freed row carries length 0: the kernels skip it
         last_tok[b] = 0
+
+    def _note_first_token(self, rid: int) -> None:
+        """A TTFT sample at a request's first host-visible token (a
+        preemption continuation's re-prefill takes none)."""
+        t = self._t_enq.pop(rid, None)
+        if t is not None:
+            self._ttft_min = min(self._ttft_min, time.time() - t)
+
+    # ------------------------------------------------- cancel and deadlines
+
+    def _sweep_cancelled(self, queue, slots, results, fresh, active, kv_lens,
+                         last_tok) -> None:
+        """Apply pending ``cancel`` ids: queued entries finish without
+        prefilling (a preempted continuation keeps its prior tokens), live
+        slots finish with their output so far.  The id set is snapshotted:
+        ids added meanwhile are handled at the next boundary."""
+        pending = set(self._cancelled)
+        hit: set[int] = set()
+        for i in range(len(queue) - 1, -1, -1):
+            req, _, max_new, n_prompt, prior, _ = queue[i]
+            if req.request_id not in pending:
+                continue
+            del queue[i]
+            gen, text, stop_hit, _ = self._trim_tokens(list(prior), max_new,
+                                                       req.stop)
+            self._record_result(results, GenerationResult(
+                request_id=req.request_id, text=text, prompt_tokens=n_prompt,
+                completion_tokens=len(gen), finish_reason="cancelled",
+                stop_sequence=stop_hit), fresh)
+            hit.add(req.request_id)
+            self.counters["cancelled"] += 1
+        for b in range(self.B):
+            st = slots[b]
+            if st is None or st.req.request_id not in pending:
+                continue
+            gen, text, stop_hit, _ = self._trimmed_output(st)
+            hit.add(st.req.request_id)
+            self._finish_slot(b, slots, results, fresh, active, kv_lens,
+                              last_tok, gen, text, stop_hit, "cancelled")
+            self.counters["cancelled"] += 1
+        self._cancelled -= hit
+
+    def _ttft_estimate(self, n_tokens: int) -> float:
+        """Optimistic TTFT estimate for admission shedding: the fastest TTFT
+        this engine has delivered, else the prefill's FLOPs at the card's
+        dense bf16 peak (``H100_BF16_FLOPS``)."""
+        if self._ttft_min != float("inf"):
+            return self._ttft_min
+        from lmrs_tpu_torch.utils.perf_model import prefill_flops
+
+        return prefill_flops(self.model_cfg, max(1, n_tokens),
+                             head_tokens=1) / H100_BF16_FLOPS
+
+    def _expire_queue_entry(self, queue, i: int, results, fresh) -> None:
+        """Terminate queue entry ``i``, which cannot (or can no longer) meet
+        its deadline.  A fresh request is shed (``"shed"``, no text, no
+        engine work); a preemption continuation already produced output and
+        finishes as ``"deadline"`` with its trimmed prior tokens."""
+        req, _ids, max_new, n_prompt, prior, t0 = queue[i]
+        del queue[i]
+        continuation = t0 is not None
+        gen, text, stop_hit, _ = self._trim_tokens(list(prior), max_new,
+                                                   req.stop)
+        reason = "deadline" if continuation else "shed"
+        self._record_result(results, GenerationResult(
+            request_id=req.request_id,
+            text=text if continuation else "",
+            prompt_tokens=n_prompt,
+            completion_tokens=len(gen) if continuation else 0,
+            finish_reason=reason,
+            stop_sequence=stop_hit if continuation else None), fresh)
+        self.counters[reason] += 1
+
+    def _sweep_deadlines(self, queue, slots, results, fresh, active, kv_lens,
+                         last_tok) -> None:
+        """Expire passed deadlines: every queue entry (not just the head: an
+        entry behind back-pressure must not wait to expire) and every live
+        slot, which finishes as ``"deadline"`` with its output so far."""
+        now = time.time()
+        for i in range(len(queue) - 1, -1, -1):
+            dl = queue[i][0].deadline_s
+            if dl is not None and dl <= now:
+                self._expire_queue_entry(queue, i, results, fresh)
+        for b in range(self.B):
+            st = slots[b]
+            if (st is None or st.req.deadline_s is None
+                    or st.req.deadline_s > now):
+                continue
+            gen, text, stop_hit, _ = self._trimmed_output(st)
+            self._finish_slot(b, slots, results, fresh, active, kv_lens,
+                              last_tok, gen, text, stop_hit, "deadline")
+            self.counters["deadline"] += 1
 
     def _enter_decode(self, b: int, st: _SlotState, kv_lens, active) -> None:
         """The slot's whole prompt is in the pool: it decodes from now on,
@@ -581,6 +758,7 @@ class ContinuousScheduler:
             # this very step sampled at the slice's last position
             self._enter_decode(pf, st_pf, kv_lens, active)
             st_pf.generated.append(int(nxt[pf]))
+            self._note_first_token(st_pf.req.request_id)
             last_tok[pf] = st_pf.generated[-1]
             self._maybe_finish(pf, slots, results, fresh, active, kv_lens,
                                last_tok)
@@ -965,6 +1143,9 @@ class ContinuousScheduler:
                 c["peak_pages"] / (self.cache.num_pages - 1), 4),
             "preemptions": c["preemptions"],
             "stalls": c["stalls"],
+            "cancelled": c["cancelled"],
+            "deadline": c["deadline"],
+            "shed": c["shed"],
             "mixed_batch": {
                 "enabled": self._mixed,
                 "token_budget": self.mixed_token_budget,

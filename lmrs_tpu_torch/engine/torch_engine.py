@@ -2,8 +2,8 @@
 ``engine/jax_engine.py``, continuous scheduler only).
 
 Exposes the surface ``MapExecutor`` and ``ResultAggregator`` use:
-``generate_batch``, ``schedules_internally``, ``engine_metrics``,
-``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
+``generate_batch``, ``cancel``, ``schedules_internally``,
+``engine_metrics``, ``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
 is asked for.  A CUDA engine checks, when it is built, that its kernels take
 the model and engine configuration (``check_cuda_config``), so no request
 reaches a kernel only to be refused there.  ``quantize="int8"`` quantizes
@@ -87,6 +87,12 @@ class TorchEngine:
         if not requests:
             return []
         return self._scheduler.run(requests, on_result=on_result)
+
+    def cancel(self, request_id: int) -> None:
+        """Abort ``request_id`` at the scheduler's next block boundary
+        (``finish_reason="cancelled"``, tokens so far kept); callable from
+        any thread."""
+        self._scheduler.cancel(request_id)
 
     def engine_metrics(self) -> dict:
         """The scheduler's cumulative metrics (``metrics_report``), with

@@ -3,6 +3,8 @@ port of the reference's ``reduce/aggregator.py``, without the node cache
 and the append-stable tree).  Single pass when the time-tagged summaries
 fit ``max_tokens_per_batch``, else a recursive batch tree bounded by
 ``max_levels``; every call goes through the same engine as the map stage.
+``reduce/streaming.py`` reuses its request formatting, batch-size math,
+tokenizer and config.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from lmrs_tpu_torch.config import ReduceConfig
 from lmrs_tpu_torch.data.chunker import Chunk
 from lmrs_tpu_torch.data.preprocessor import format_timestamp
 from lmrs_tpu_torch.data.tokenizer import Tokenizer, get_tokenizer
-from lmrs_tpu_torch.engine.api import GenerationRequest
+from lmrs_tpu_torch.engine.api import GenerationRequest, degraded_reason
 from lmrs_tpu_torch.engine.executor import MapExecutor
 from lmrs_tpu_torch.prompts import (DEFAULT_BATCH_REDUCE_PROMPT,
                                     DEFAULT_FINAL_REDUCE_PROMPT,
@@ -93,10 +95,13 @@ class ResultAggregator:
                     for i, (s, t, m) in enumerate(jobs)]
         out = []
         for res in self.executor.run_requests(requests):
-            if res.error is None:
+            # degraded_reason, not res.error: a shed or expired node carries
+            # no error and may carry no text
+            reason = degraded_reason(res)
+            if reason is None:
                 out.append(res.text)
             else:
-                out.append(f"[Error aggregating summaries: {res.error}]")
+                out.append(f"[Error aggregating summaries: {reason}]")
                 self._wave_errors += 1
         return out
 

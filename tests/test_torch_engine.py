@@ -241,8 +241,6 @@ def test_cli_refuses_later_slices(tmp_path, flag, capsys):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--save-chunks", "c.json"], "A11"), (["--resume-from", "c.json"], "A11"),
-    (["--stream-reduce"], "A11"), (["--max-concurrent-requests", "4"], "A11"),
     (["--checkpoint", "ckpt"], "A12"), (["--backend", "jax"], "A3"),
     (["--hosts", "h:1,h:2"], "A3"), (["--profile"], "A10"),
     (["--trace-out", "t.json"], "A10"), (["--no-trace"], "A10")])
@@ -258,6 +256,28 @@ def test_cli_refuses_reference_flags_by_name(tmp_path, flag, slice_, capsys):
     assert f"{flag[0]} is not in the port yet" in err
     assert f"({slice_}) slice" in err
     assert "unrecognized" not in err
+
+
+@pytest.mark.parametrize("flag,field,want", [
+    (["--save-chunks", "c.json"], None, None),
+    (["--resume-from", "c.json"], None, None),
+    (["--stream-reduce"], "reduce.streaming", True),
+    (["--max-concurrent-requests", "4"], "engine.max_concurrent_requests", 4)])
+def test_cli_accepts_pipeline_parity_flags(flag, field, want):
+    """The reference's A11 flags, refused by name until the pipeline,
+    executor and CLI parity slice, are accepted and reach their config
+    field (the dump paths go to ``summarize``, not to the config)."""
+    from lmrs_tpu_torch.cli import build_parser, config_from_args
+
+    args = build_parser().parse_args(["--input", "x.json", *flag])
+    cfg = config_from_args(args)
+    if field is None:
+        assert getattr(args, flag[0][2:].replace("-", "_")) == flag[1]
+    else:
+        part, name = field.split(".")
+        assert getattr(getattr(cfg, part), name) == want
+        default = config_from_args(build_parser().parse_args(["--input", "x.json"]))
+        assert getattr(getattr(default, part), name) != want
 
 
 def test_engine_raises_without_cuda_unless_cpu_asked():
