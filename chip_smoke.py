@@ -42,11 +42,20 @@ anything wrong.  Phases, one JSON object per line:
               at their split boundaries, and at the main path's shapes
               (the verify kernel at the speculative step: 8 rows x 5 tokens
               after 1,500) beside other split sizes.
+              The span kernel's ancestor-mask build (tree speculation;
+              "kernels-anc" lines), bf16 and int8, at hd 128 and 64 against
+              ``ragged_spans_ref(anc_masks=)``: tree spans at heal 0-4
+              whose bases lie on split and tile boundaries, a 32-token tree
+              with bit 31 set, mask-0 spans in the same dispatch; pools
+              exact, a repeat launch bit-identical.  At phase 12's step
+              ("kernels-anc-main-shape": 8 rows x (heal + 9) tokens after
+              1,500) with its bound, plain time and, as its yardstick, the
+              unmasked span kernel on the same inputs.
 3b. hd32    — every kernel's hd-32 build (the ``tiny`` presets' head dim;
               H=8, K=4) against its plain version at the split boundaries:
               flash prefill (packed and not), decode bf16/int8, walk-only,
-              spans bf16/int8, verify bf16/int8; pools exact, repeat
-              launches bit-identical.
+              spans bf16/int8, verify bf16/int8, the ancestor-mask build
+              bf16/int8; pools exact, repeat launches bit-identical.
 3c. hd256   — every kernel's hd-256 build (the Gemma presets' head dim)
               at both head groupings, gemma-7b's (H=16, K=16) and
               gemma-2b's (H=8, K=1), held against its plain version as
@@ -54,8 +63,8 @@ anything wrong.  Phases, one JSON object per line:
               main path's shapes (flash one 1,600-token row beside the
               fair SDPA call; decode
               8 x 1,501 tokens; spans phase 5's mixed step; verify 8 x 5
-              tokens after 1,500) with its bound, plain time and times at
-              other split sizes.
+              tokens after 1,500; the ancestor-mask build phase 12's step)
+              with its bound, plain time and times at other split sizes.
 4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts,
               16 teacher-forced decode steps, one span dispatch (2 decode
               rows + a 100-token slice) and one 5-token verify step
@@ -69,6 +78,12 @@ anything wrong.  Phases, one JSON object per line:
               that owns its slot's scales).
 4c. model-gemma — the same two checks at gemma-7b's widths (hd 256, 16
               query over 16 kv heads), 2 layers.
+4d. model-tree — one tree-speculation span dispatch through
+              ``forward_paged(span_anc=)`` at bench-8b widths, 2 layers, on
+              the card, bf16 and int8: two tree rows (one after a heal) and
+              a prefill slice, every node's logits held against per-branch
+              linear span dispatches of the same tokens on the same pools
+              (LOGIT_TOL, greedy agreement above the margin).
 4b. default — the CLI's ``main`` with no ``--model`` (the default
               ``EngineConfig``: preset ``tiny``, hd 32, random-init) on the
               demo transcript; counters zeroed just before and read just
@@ -125,8 +140,17 @@ anything wrong.  Phases, one JSON object per line:
               text identical, pages back, a clean audit); 11e the same 8
               through a ``MapExecutor`` whose engine raises once inside the
               scheduler loop (retried, nothing failed, 11d's clean texts).
-12. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
-    as ``<name>@hd256``), then ``{"ok": true, "device": ...}``.
+12. spec-tree — phase 5's transcript and config with ``speculate_k=4`` and
+              mixed steps on: the reference's tree speculation, every decode
+              step one span dispatch through the ancestor-mask build; flash
+              and the ancestor-mask kernel launched, the decode and verify
+              kernels not at all, tree dispatches and accepted drafts > 0, a
+              clean audit; a tree-step profile (8 rows x 9 nodes).
+12b. the same with full ``gemma-2b`` (18 layers, one kv head), int8
+              weights and KV: the int8 ancestor-mask build at hd 256.
+13. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+    as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
+    and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure: any exception exits non-zero before the
 last line.
@@ -415,29 +439,45 @@ def decode_bound(x: dict, write: bool = True) -> tuple[float, str]:
 
 
 def span_bound(x: dict) -> tuple[float, str]:
-    """Bound of one span dispatch on these inputs: the prefix K/V read once
-    (e bytes a value), q read, out written (every flat row), the new K/V
+    """Bound of one span dispatch on these inputs (``span_work``)."""
+    return bound(*span_work(x))
+
+
+def span_work(x: dict) -> tuple[float, float]:
+    """(operations, bytes) of one span dispatch on these inputs: the
+    prefix K/V read once (e bytes a value), q read, out written (every
+    flat row), the new K/V
     read (bf16) and written into the pool, the rows' f32 scales (int8);
-    int32 tables, lengths, starts and span lengths.  Operations: 4·H·hd
-    per (query token, attended column)."""
+    int32 tables, lengths, starts and span lengths (and the ancestor masks,
+    one word a flat token, when given).  Operations: 4·H·hd per (query
+    token, attended column): a token with a nonzero mask attends its row's
+    context and the span offsets its bits name, any other its causal
+    prefix."""
     tp, H, hd = x["q"].shape
     b, W = x["page_tables"].shape
     _, K, ps, _ = x["k_pages"].shape
     cap = W * ps
-    rows = [(int(base), int(n)) for base, n in
-            zip(x["kv_lens"].tolist(), x["q_lens"].tolist()) if n > 0]
-    span = sum(n for _, n in rows)
-    prefix = sum(min(base, cap) for base, _ in rows)
-    written = sum(max(0, min(base + n, cap) - base) for base, n in rows)
-    attended = sum(min(base + j + 1, cap) for base, n in rows
-                   for j in range(n))
+    anc = x["anc_masks"].tolist() if "anc_masks" in x else None
+    rows = [(int(base), int(n), int(s)) for base, n, s in
+            zip(x["kv_lens"].tolist(), x["q_lens"].tolist(),
+                x["q_starts"].tolist()) if n > 0]
+    span = sum(n for _, n, _ in rows)
+    prefix = sum(min(base, cap) for base, _, _ in rows)
+    written = sum(max(0, min(base + n, cap) - base) for base, n, _ in rows)
+    attended = 0
+    for base, n, s in rows:
+        for j in range(n):
+            m = anc[s + j] & 0xFFFFFFFF if anc else 0
+            attended += (min(base, cap) + sum(1 for o in range(32)
+                                              if m >> o & 1 and base + o < cap)
+                         if m else min(base + j + 1, cap))
     flops = 4.0 * H * hd * attended
     e, scale_bytes = pool_bytes(x)
     nbytes = (e * 2.0 * prefix * K * hd
               + 2.0 * (span * H * hd + tp * H * hd + 2 * span * K * hd)
               + e * 2.0 * written * K * hd + scale_bytes
-              + 4.0 * (b * W + 3 * b))
-    return bound(flops, nbytes)
+              + 4.0 * (b * W + 3 * b + (tp if anc else 0)))
+    return flops, nbytes
 
 
 def _span_inputs(gen: torch.Generator, case: str, H: int = 32, K: int = 8,
@@ -789,6 +829,130 @@ def check_split_boundaries(gen: torch.Generator, widths: dict = BENCH8B) -> list
     return out
 
 
+# tree speculation at speculate_k=4 and the default width: 13-token spans
+# at heal 4
+TREE_K, TREE_W = 4, 2
+ANC_SOURCE = "lmrs_tpu_torch/csrc/ragged_spans.cu"
+ANC_REPLACES = "lmrs_tpu/ops/paged_attention.py:1154"  # ragged_spans_xla
+
+
+def tree_masks(hl: int, width: int = TREE_W, k: int = TREE_K) -> list[int]:
+    """The ancestor masks (int32 words) of a tree span [heal (hl), cur,
+    width chains of k], from the scheduler's span template: 0 for the heal
+    tokens and cur (the causal rule), chain c's node j its heal + cur
+    prefix and its own chain through it."""
+    from types import SimpleNamespace
+
+    from lmrs_tpu_torch.engine.scheduler import ContinuousScheduler
+
+    ns = SimpleNamespace(_spec_tmpl={}, _spec_width=width, spec_k=k)
+    return ContinuousScheduler._tree_span_template(ns, hl)[1].tolist()
+
+
+def _anc_inputs(gen: torch.Generator, int8: bool, case: str, H: int = 32,
+                K: int = 8, hd: int = 128) -> dict:
+    """One tree-speculation span dispatch (bench-8b widths unless given,
+    ps=128, W=16).  "boundaries": tree spans at heal 0-4 whose bases lie on
+    a split boundary (512), a 32-column tile boundary (544: hd 256's
+    tiles), a 64-column one (576), nowhere (1000) and one column before a
+    split boundary (1535: the span crosses 1536), a 32-token tree whose
+    last token has bit 31 set (heal 3, 2 chains of 14), a tree at a stale
+    base past W·ps, mask-0 spans in the same dispatch (a 40-token slice, a
+    300-token slice walked unsplit, a decode row) and an inactive row.
+    "main": phase 12's step, 8 rows x (heal + 9) tokens after 1,500
+    context tokens, heals 0-4.  int8: row 3's new K/V are exact ties."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    ps, W = 128, 16
+    dev = "cuda"
+    if case == "main":
+        heals = [0, 1, 2, 3, 4, 0, 1, 2]
+        spans = [(1500 - h, tree_masks(h)) for h in heals]
+    else:
+        spans = [(512, tree_masks(0)), (544, tree_masks(1)),
+                 (576, tree_masks(2)), (1000, tree_masks(3)),
+                 (1535, tree_masks(4)), (300, tree_masks(3, 2, 14)),
+                 (W * ps + 50, tree_masks(0)), (700, [0] * 40),
+                 (100, [0] * 300), (129, [0]), (0, [])]
+    q_lens = [len(m) for _, m in spans]
+    q_starts, tp = pa.pack_spans(q_lens)
+    anc = [0] * tp
+    for s, (_, m) in zip(q_starts.tolist(), spans):
+        anc[s: s + len(m)] = m
+    b = len(spans)
+    P = b * W + 1
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()  # noqa: E731
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    x = dict(q=bf(tp, H, hd), k_new=bf(tp, K, hd), v_new=bf(tp, K, hd),
+             k_pages=bf(P, K, ps, hd), v_pages=bf(P, K, ps, hd),
+             page_tables=(torch.randperm(P - 1, generator=gen, device=dev)[: b * W]
+                          + 1).view(b, W).to(torch.int32),
+             kv_lens=i32([base for base, _ in spans]),
+             q_starts=i32(q_starts.tolist()), q_lens=i32(q_lens),
+             anc_masks=i32(anc))
+    if int8:
+        s0 = int(q_starts[3])
+        x = int8_case(x, slice(s0, s0 + q_lens[3]), 3, gen)
+    return x
+
+
+def check_anc(gen: torch.Generator, widths: dict = BENCH8B) -> list[dict]:
+    """The ancestor-mask builds (bf16 and int8) at ``_anc_inputs``'
+    boundary cases against ``ragged_spans_ref(anc_masks=)``: within TOL,
+    pools exact, a repeat launch bit-identical."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    out = []
+    for int8 in (False, True):
+        x = _anc_inputs(gen, int8, "boundaries", **widths)
+        name = "ragged_spans_anc" + ("_int8" if int8 else "")
+        out.append({**_boundary_check(name, pa.ragged_spans,
+                                      pa.ragged_spans_ref, x, "written"),
+                     "hd": widths["hd"], "H": widths["H"], "K": widths["K"],
+                     "bases": x["kv_lens"].tolist(),
+                     "q_lens": x["q_lens"].tolist()})
+        del x
+    return out
+
+
+def anc_main_shapes(gen: torch.Generator, widths: dict = BENCH8B) -> list[dict]:
+    """The ancestor-mask builds at phase 12's step (``_anc_inputs``
+    "main"): max |err| against the plain version, ms, bound, plain ms, and
+    as the yardstick the unmasked span kernel's ms on the same inputs (the
+    same walk over the same columns, causal)."""
+    from lmrs_tpu_torch.ops import paged_attention as pa
+
+    rows = []
+    for int8 in (False, True):
+        x = _anc_inputs(gen, int8, "main", **widths)
+        x2 = {k: v.clone() for k, v in x.items()}
+        got = pa.ragged_spans(**x)
+        want = pa.ragged_spans_ref(**x2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        name = "ragged_spans_anc" + ("_int8" if int8 else "")
+        if not err <= TOL:
+            raise AssertionError(f"{name} at the main shape: max |err| {err} > {TOL}")
+        unmasked = {k: v for k, v in x.items() if k != "anc_masks"}
+        b_ms, b_by = span_bound(x)
+        flops, nbytes = span_work(x)
+        rows.append({"name": name, "route": "cuda", "source": ANC_SOURCE,
+                     "replaces": ANC_REPLACES, "hd": widths["hd"],
+                     "H": widths["H"], "K": widths["K"], "max_abs_err": err,
+                     "ms": time_ms(lambda: pa.ragged_spans(**x)),
+                     "plain_ms": time_ms(lambda: pa.ragged_spans_ref(**x2), reps=3),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "bound_bytes_ms": nbytes / H100_HBM_BYTES * 1e3,
+                     "bound_operations_ms": flops / H100_BF16_FLOPS * 1e3,
+                     "unmasked_ms": time_ms(lambda: pa.ragged_spans(**unmasked)),
+                     "shape": "8 rows x (heal + 9) tokens after 1500, heals "
+                              f"{[n - 9 for n in x['q_lens'].tolist()]}, "
+                              f"H={widths['H']} K={widths['K']} hd={widths['hd']} "
+                              f"ps=128 W=16 {'int8 pools' if int8 else 'bf16'}"})
+        del x, x2, unmasked
+    return rows
+
+
 def check_hd32(gen: torch.Generator) -> list[dict]:
     """Phase 3b: every kernel's hd-32 build at the tiny preset's heads,
     flash prefill against its plain version (one packed row of 4 segments
@@ -806,7 +970,7 @@ def check_hd32(gen: torch.Generator) -> list[dict]:
         err, _ = flash_check(f"hd 32 {case}", x)
         out.append({"name": "flash_prefill", "max_abs_err": err, "case": case,
                     "repeat_bit_identical": True})
-    out += check_split_boundaries(gen, TINY)
+    out += check_split_boundaries(gen, TINY) + check_anc(gen, TINY)
     return [{**r, "hd": 32, "H": TINY["H"], "K": TINY["K"]} for r in out]
 
 
@@ -830,7 +994,7 @@ def check_hd256(gen: torch.Generator) -> list[dict]:
             rows.append({"name": "flash_prefill", "max_abs_err": err,
                          "case": case, "repeat_bit_identical": True})
             del x
-        rows += check_split_boundaries(gen, w)
+        rows += check_split_boundaries(gen, w) + check_anc(gen, w)
         out += [{**r, "hd": 256, "H": w["H"], "K": w["K"], "heads_of": model}
                 for r in rows]
         torch.cuda.empty_cache()
@@ -855,7 +1019,8 @@ def hd256_main_shapes(gen: torch.Generator) -> list[dict]:
                      "max_abs_err": err, **time_flash(x, None, want),
                      "shape": f"S=1600 H={w['H']} K={w['K']} hd=256 bf16"})
         del x, want
-        rows += [{**r, "heads_of": model} for r in time_main_shapes(gen, w)]
+        rows += [{**r, "heads_of": model}
+                 for r in time_main_shapes(gen, w) + anc_main_shapes(gen, w)]
         torch.cuda.empty_cache()
     return rows
 
@@ -1149,6 +1314,135 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
             "greedy_checked": checked, "greedy_agree": agree}
 
 
+def check_tree_dispatch(int8: bool = False, preset: str = "bench-8b") -> dict:
+    """Phase 4d: one tree-speculation span dispatch through
+    ``forward_paged(span_anc=)`` at ``preset``'s widths, 2 layers, on the
+    card (``int8``: int8 weights and KV pools with per-slot scales), held
+    against per-branch LINEAR span dispatches of the same tokens on the
+    same pools (restored before each): row 0 a tree [cur, 2 chains of 4]
+    after 517 context tokens, row 1 the same after a 2-token heal at 298,
+    row 2 a 100-token prefill slice (mask 0) after 129.  Tree node (c, j)
+    sees the context, the heal, cur and chain c through j; the linear span
+    [heal, cur, chain c] gives node j the same keys at other columns and
+    the same rope positions.  Every node's logits within LOGIT_TOL, greedy
+    agreement wherever the linear top-2 margin exceeds it."""
+    import dataclasses
+
+    import numpy as np
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.transformer import forward_paged, init_params
+    from lmrs_tpu_torch.ops.paged_attention import pack_spans
+    from lmrs_tpu_torch.ops.quant import quantize_params
+
+    cfg = dataclasses.replace(model_preset(preset), n_layers=2)
+    dev, ps, n_pool = "cuda", 128, 24
+    params = init_params(cfg, seed=1, device=dev)
+    if int8:
+        params = quantize_params(params)
+    g = torch.Generator().manual_seed(4)
+    ctx = [517, 300, 129]
+    tables, nxt = [], 1
+    for n in ctx:  # pages for the context and 100 tokens more, disjoint
+        need = -(-(n + 100) // ps)
+        tables.append(list(range(nxt, nxt + need)))
+        nxt += need
+    W = max(len(t) for t in tables)
+    table = torch.tensor([t + [0] * (W - len(t)) for t in tables], device=dev)
+    shape = (cfg.n_layers * n_pool, cfg.n_kv_heads, ps, cfg.hd)
+    pool_dt = torch.int8 if int8 else torch.bfloat16
+    kp = torch.zeros(shape, dtype=pool_dt, device=dev)
+    vp = torch.zeros_like(kp)
+    sshape = (cfg.n_layers, len(ctx), cfg.n_kv_heads, cfg.hd)
+    scales = ((torch.ones(sshape, device=dev), torch.ones(sshape, device=dev))
+              if int8 else None)
+    prompts = [torch.randint(3, 259, (n,), generator=g) for n in ctx]
+    # the contexts: one packed prefill (int8: it fixes the slots' scales)
+    forward_paged(
+        params, cfg, torch.cat(prompts)[None].to(dev),
+        torch.cat([torch.arange(n) for n in ctx])[None].to(dev), kp, vp, table,
+        torch.tensor([sum(ctx)], dtype=torch.int32, device=dev), cfg.max_seq_len,
+        token_pages=torch.cat([torch.tensor(t)[torch.arange(n) // ps]
+                               for t, n in zip(tables, ctx)])[None].to(dev),
+        segment_ids=torch.cat([torch.full((n,), i) for i, n in enumerate(ctx)])[None].to(dev),
+        packed_last_idx=torch.tensor(ctx, device=dev).cumsum(0) - 1,
+        kv_scales=scales, scale_rows=torch.arange(3, device=dev))
+    heal = prompts[1][298:300].tolist()
+    cur = torch.randint(3, 259, (2,), generator=g).tolist()
+    chains = torch.randint(3, 259, (2, TREE_W, TREE_K), generator=g).tolist()
+    slice_ = torch.randint(3, 259, (100,), generator=g).tolist()
+    bases = np.array([517, 298, 129], np.int32)
+
+    def dispatch(spans_, anc_=None):
+        """spans_: per row (tokens, rope offsets); returns every real
+        token's logits [n, V] (f32, on the host) in span order."""
+        q_lens = np.array([len(t) for t, _ in spans_], np.int32)
+        q_starts, total = pack_spans(q_lens)
+        toks = np.zeros(total, np.int64)
+        pos = np.zeros(total, np.int64)
+        row_flat = np.full(total, 3, np.int32)
+        anc = np.zeros(total, np.int32)
+        for r, (t, off) in enumerate(spans_):
+            s0 = q_starts[r]
+            toks[s0: s0 + len(t)] = t
+            pos[s0: s0 + len(t)] = bases[r] + np.asarray(off)
+            row_flat[s0: s0 + len(t)] = r
+            if anc_ is not None:
+                anc[s0: s0 + len(t)] = anc_[r]
+        gidx = np.concatenate([np.arange(s0, s0 + n) for s0, n in zip(q_starts, q_lens)])
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        return forward_paged(
+            params, cfg, t(toks)[None], t(pos)[None], kp, vp, table, t(bases),
+            cfg.max_seq_len, packed_last_idx=t(gidx), kv_scales=scales,
+            spans=(t(q_starts), t(q_lens), t(row_flat)),
+            span_anc=t(anc) if anc_ is not None else None)[0].float().cpu()
+
+    saved = (kp.clone(), vp.clone())
+    # rope offsets by depth: heal and cur in order, chain c's node j at
+    # hl + 1 + j
+    offs = lambda hl: list(range(hl + 1)) + [hl + 1 + j for _ in range(TREE_W)  # noqa: E731
+                                             for j in range(TREE_K)]
+    tree_spans = [(cur[:1] + sum(chains[0], []), offs(0)),
+                  (heal + cur[1:] + sum(chains[1], []), offs(2)),
+                  (slice_, list(range(100)))]
+    tree = dispatch(tree_spans, [tree_masks(0), tree_masks(2), [0] * 100])
+    diffs, agree, checked = [], 0, 0
+    n0, n1 = 1 + TREE_W * TREE_K, 3 + TREE_W * TREE_K
+    for c in range(TREE_W):
+        kp.copy_(saved[0])
+        vp.copy_(saved[1])
+        lin = dispatch([(cur[:1] + chains[0][c], list(range(1 + TREE_K))),
+                        (heal + cur[1:] + chains[1][c], list(range(3 + TREE_K))),
+                        (slice_, list(range(100)))])
+        # tree rows [row 0 | row 1 | row 2] vs linear rows likewise
+        t_idx = ([0] + [1 + c * TREE_K + j for j in range(TREE_K)]
+                 + [n0 + i for i in range(3)]
+                 + [n0 + 3 + c * TREE_K + j for j in range(TREE_K)]
+                 + [n0 + n1 + i for i in range(100)])
+        a, b = lin, tree[t_idx]
+        diffs.append((a - b).abs().max().item())
+        top2 = torch.topk(a, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+        same = a.argmax(-1) == b.argmax(-1)
+        checked += int(sure.sum())
+        agree += int((same & sure).sum())
+        if not bool(same[sure].all()):
+            raise AssertionError("tree dispatch: greedy disagreement with the "
+                                 f"linear branch {c} above the margin")
+    max_diff = max(diffs)
+    if not max_diff <= LOGIT_TOL:
+        raise AssertionError(f"tree dispatch logits: max |diff| {max_diff} > {LOGIT_TOL}")
+    del params, kp, vp, saved, scales
+    torch.cuda.empty_cache()
+    return {"phase": "model-tree" + ("-int8" if int8 else ""),
+            "config": f"{preset} widths, n_layers=2"
+                      + (", quantize=int8, kv_quantize=int8" if int8 else ""),
+            "rows": "tree heal 0 at 517, tree heal 2 at 298, 100-token slice at 129",
+            "width": TREE_W, "depth": TREE_K,
+            "max_logit_diff": max_diff, "logit_tol": LOGIT_TOL,
+            "greedy_checked": checked, "greedy_agree": agree}
+
+
 # ------------------------------------------------------------ phase 4b
 
 DEFAULT_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "cli-default"
@@ -1205,13 +1499,17 @@ WEIGHT_SPAN = "int8_weight_product"
 
 
 def profile_decode_step(engine, rows: int = 8, context: int = 1500,
-                        steps: int = 4, tokens: int = 1) -> dict:
+                        steps: int = 4, tokens: int = 1,
+                        tree: bool = False) -> dict:
     """Where one decode step's time goes at the main path's shape (8 rows,
     ~1500-token contexts: what the 112-page pool holds, full bench-8b):
     host wall per step (synchronized) and, from ``torch.profiler``, device
     kernel time by kind.  ``tokens`` > 1 profiles the speculative verify
     step instead (``multi_decode``, that many tokens per row; the model
-    forward only, without drafting and acceptance).  With int8 weights the
+    forward only, without drafting and acceptance).  ``tree`` profiles the
+    tree-speculation step instead: one span dispatch of [cur, W chains of
+    k] a row (heal 0) with ancestor masks, the LM head on every node, the
+    model forward only.  With int8 weights the
     products (``qmatmul``: the int8 -> bf16 conversion, the GEMM and the
     scale multiply) run under a profiler range of their own, and their
     device time is reported apart.  Uses real pages from the engine's pool
@@ -1226,7 +1524,9 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
     sched = engine._scheduler
     cache, cfg = sched.cache, sched.model_cfg
     int8_weights = is_quantized(sched.params["layers"][0]["wqkv"])
-    n_pages = -(-(context + steps + 1 + tokens) // cache.page_size)
+    n_pages = -(-(context + steps + 1 + tokens
+                  + (sched._spec_width * sched.spec_k if tree else 0))
+                // cache.page_size)
     seqs = [cache.alloc_pages(n_pages) for _ in range(rows)]
     qmatmul = transformer.qmatmul
 
@@ -1239,10 +1539,38 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                               for s in seqs], device="cuda")
         tok = torch.full((rows, tokens), 65, dtype=torch.long, device="cuda")
         offs = torch.arange(tokens, device="cuda")
+        if tree:
+            import numpy as np
+
+            from lmrs_tpu_torch.ops.paged_attention import pack_spans
+
+            masks = tree_masks(0, sched._spec_width, sched.spec_k)
+            n = len(masks)
+            q_starts, total = pack_spans([n] * rows)
+            t = lambda a: torch.from_numpy(np.asarray(a)).to("cuda")  # noqa: E731
+            row_flat = np.full(total, rows, np.int32)
+            anc = np.zeros(total, np.int32)
+            pos_off = np.zeros(total, np.int64)
+            node_off = [0] + [1 + j for _ in range(sched._spec_width)
+                              for j in range(sched.spec_k)]
+            for r, s0 in enumerate(q_starts):
+                row_flat[s0: s0 + n], anc[s0: s0 + n] = r, masks
+                pos_off[s0: s0 + n] = node_off
+            gidx = np.concatenate([np.arange(s0, s0 + n) for s0 in q_starts])
+            spans = (t(q_starts), t(np.full(rows, n, np.int32)), t(row_flat))
+            anc_d, pos_d, gidx_d = t(anc), t(pos_off), t(gidx)
+            flat = torch.full((1, total), 65, dtype=torch.long, device="cuda")
 
         def one_step(i):
             lens = torch.full((rows,), context + i, dtype=torch.long, device="cuda")
             forward_paged = transformer.forward_paged
+            if tree:
+                forward_paged(sched.params, cfg, flat, (context + i + pos_d)[None],
+                              cache.k, cache.v, table, lens.to(torch.int32),
+                              cfg.max_seq_len, packed_last_idx=gidx_d,
+                              spans=spans, kv_scales=sched.kv_scales,
+                              span_anc=anc_d)
+                return
             forward_paged(sched.params, cfg, tok, lens[:, None] + offs,
                           cache.k, cache.v, table, (lens + tokens).to(torch.int32),
                           cfg.max_seq_len, multi_decode=tokens > 1,
@@ -1289,7 +1617,9 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                 kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
                 n_kernels += 1
         busy = sum(kinds.values()) / steps
-        out = {"rows": rows, "tokens": tokens, "context": context,
+        out = {"rows": rows, "tokens": n if tree else tokens, "context": context,
+               **({"tree": f"[cur, {sched._spec_width} chains of "
+                           f"{sched.spec_k}] a row, heal 0"} if tree else {}),
                "wall_ms_per_step": wall_ms,
                "host_issue_ms_per_step": issue_ms / steps,
                "device_busy_ms_per_step": busy if n_kernels else "not measured",
@@ -1340,6 +1670,8 @@ def kernel_counters() -> dict:
     for fn in (paged_decode_fused, ragged_spans, paged_decode_multi):
         out[fn.__name__] = (fn, "launches")
         out[fn.__name__ + "_int8"] = (fn, "launches_int8")
+    out["ragged_spans_anc"] = (ragged_spans, "launches_anc")
+    out["ragged_spans_anc_int8"] = (ragged_spans, "launches_anc_int8")
     return out
 
 
@@ -1542,6 +1874,65 @@ def run_gemma_path() -> dict:
             "decode_tokens_per_sec": em["decode_tokens_per_sec"],
             "mixed_batch": em["mixed_batch"], "rpa": em["rpa"],
             "prefix_cache": em["prefix_cache"],
+            "preemptions": em["preemptions"], "stalls": em["stalls"],
+            "audit": engine.audit(), "wall_seconds": wall,
+            "stage_times": stats["stage_times"], "peak_memory_gib": peak,
+            "failed_requests": stats["failed_requests"],
+            "summary_chars": len(stats["summary"]), "launches": launches}
+
+
+# ------------------------------------------------------------ phase 12
+
+def run_tree_path(model: str = "bench-8b", **engine_kw) -> dict:
+    """Phase 12 (12b with ``model``/``engine_kw``): phase 5's transcript
+    and config with ``speculate_k=4`` and mixed steps on, the reference's
+    tree speculation: every decode step is a span dispatch through the
+    ancestor-mask build.  Fails unless flash prefill and the ancestor-mask
+    span kernel launched, the decode and verify kernels did not, tree
+    dispatches ran and drafts were accepted (and summarize_once's gates)."""
+    summarizer, engine, stats, wall, launches = summarize_once(
+        model, speculate_k=4, **engine_kw)
+    em = stats["engine_metrics"]
+    sched = engine._scheduler
+    int8 = sched.kv_scales is not None
+    sfx = "_int8" if int8 else ""
+    never = tuple(n + s for n in ("paged_decode_fused", "paged_decode_multi")
+                  for s in ("", "_int8"))
+    require_launches(launches, f"{model} tree path",
+                     ("flash_prefill", "ragged_spans_anc" + sfx), never=never)
+    tree = em["spec_tree"]
+    if tree["dispatches"] <= 0:
+        raise AssertionError("no tree dispatch ran on the tree path")
+    if em["spec_accepted_tokens"] <= 0:
+        raise AssertionError("no draft was accepted on the tree path")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step = profile_decode_step(engine, tree=True)
+    cfg = sched.model_cfg
+    step["attention_ms_per_launch"] = (
+        step["kernel_ms_per_step"].get("ragged_spans", 0.0) / cfg.n_layers)
+    if engine.audit():
+        raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
+    summarizer.shutdown()
+    return {"phase": "spec-tree" + ("" if model == "bench-8b" else f"-{model}")
+                     + ("-int8" if int8 else ""),
+            "model": f"{model} ({cfg.n_layers} layers, random-init"
+                     + (", int8 weights + int8 KV)" if int8 else " bf16)"),
+            "speculate_k": 4, "mixed_batch": True, "spec_tree": tree,
+            "tree_step_profile": step,
+            "requests": em["requests"], "reduce_levels": stats["reduce_levels"],
+            "prefill_tokens": em["prefill_tokens"],
+            "prefill_dispatches": em["prefill_dispatches"],
+            "decode_tokens": em["decode_tokens"],
+            "decode_blocks": em["decode_blocks"],
+            "decode_block_seconds": em["decode_block_seconds"],
+            "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+            "mixed_step_seconds": em["mixed_step_seconds"],
+            "spec_accepted_tokens": em["spec_accepted_tokens"],
+            **{key: em[key] for key in ("spec_tree_dispatches", "spec_tree_rows",
+                                        "spec_tree_nodes_sum",
+                                        "spec_accept_depth_sum")},
+            "mixed_batch": em["mixed_batch"], "rpa": em["rpa"],
+            **({"prefix_cache": em["prefix_cache"]} if "prefix_cache" in em else {}),
             "preemptions": em["preemptions"], "stalls": em["stalls"],
             "audit": engine.audit(), "wall_seconds": wall,
             "stage_times": stats["stage_times"], "peak_memory_gib": peak,
@@ -1911,19 +2302,22 @@ def run_parity_path(smi: str) -> dict:
 
 
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
-               gemma_out: dict, gemma2b_out: dict, launches_3c: dict) -> list[dict]:
+               gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
+               launches_3c: dict) -> list[dict]:
     """The kernels line's ``<name>@hd256`` rows: each build's time, plain
     and library times and bound at its main shape (bf16 builds at
-    gemma-7b's heads, int8 builds at gemma-2b's, as phases 9 and 10 run
-    them), its largest error over phase 3c, and its launches on the phase
-    that runs it (phase 3c's own count for a build no phase runs)."""
+    gemma-7b's heads, int8 builds at gemma-2b's, as phases 9, 10 and 12b
+    run them), its largest error over phase 3c, and its launches on the
+    phase that runs it (phase 3c's own count for a build no phase runs)."""
     by_path = {"flash_prefill": (gemma_out, "gemma-7b path (phase 9)"),
                "paged_decode_fused": (gemma_out, "gemma-7b path (phase 9)"),
                "ragged_spans": (gemma_out, "gemma-7b path (phase 9)"),
                "ragged_spans_int8": (gemma2b_out, "gemma-2b int8 speculative "
                                      "path (phase 10)"),
                "paged_decode_multi_int8": (gemma2b_out, "gemma-2b int8 "
-                                           "speculative path (phase 10)")}
+                                           "speculative path (phase 10)"),
+               "ragged_spans_anc_int8": (tree2b_out, "gemma-2b int8 tree "
+                                         "path (phase 12b)")}
     meta = {r["name"]: r for r in rows}
     out = []
     for name in meta:
@@ -1936,7 +2330,7 @@ def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
             path_out, launched_by = by_path[name]
             n = path_out["launches"][name]
         else:
-            n, launched_by = launches_3c[name], "phase 3c only (no path runs it)"
+            n, launched_by = launches_3c[name], "phase 3c only (no phase runs it)"
         out.append({"name": f"{name}@hd256", "route": "cuda",
                     "source": meta[name]["source"],
                     "replaces": meta[name]["replaces"], "launches": n,
@@ -1994,7 +2388,7 @@ def main() -> int:
     emit({"phase": "build-hd256",
           "ptxas": {n: [e for e in ptxas_entries(i["ptxas"]) if "ILi256E" in e]
                     for n, i in info.items()}})
-    from lmrs_tpu_torch.ops.paged_attention import paged_decode
+    from lmrs_tpu_torch.ops.paged_attention import paged_decode, ragged_spans
 
     def timed(fn, *args, **kw) -> dict:
         t = time.time()
@@ -2017,12 +2411,20 @@ def main() -> int:
         emit({"phase": "kernels", **r})
     for r in check_split_boundaries(gen):
         emit({"phase": "kernels-split-boundaries", **r})
+    anc_checks = check_anc(gen) + check_anc(gen, dict(H=16, K=8, hd=64))
+    for r in anc_checks:
+        emit({"phase": "kernels-anc", **r})
+    anc_main = anc_main_shapes(gen)
+    for r in anc_main:
+        emit({"phase": "kernels-anc-main-shape", **r})
     for r in check_flash_cases(gen):
         emit({"phase": "kernels-flash-cases", **r})
     for r in flash_main_shapes(gen) + time_main_shapes(gen):
         emit({"phase": "kernels-main-shape", **r})
-    for r in check_hd32(gen):
+    hd32 = check_hd32(gen)
+    for r in hd32:
         emit({"phase": "hd32", **r})
+    anc_launches = ragged_spans.launches_anc_int8  # phases 3 and 3b
     counted = kernel_counters()
     for fn, attr in counted.values():
         setattr(fn, attr, 0)
@@ -2037,6 +2439,8 @@ def main() -> int:
     emit(timed(check_model, int8=True))
     emit(timed(check_model, preset="gemma-7b"))
     emit(timed(check_model, int8=True, preset="gemma-7b"))
+    emit(timed(check_tree_dispatch))
+    emit(timed(check_tree_dispatch, int8=True))
     emit(timed(run_cli_default))
     main_out = timed(run_main_path)
     emit(main_out)
@@ -2055,6 +2459,11 @@ def main() -> int:
                         prefill_chunk=1024)
     emit(gemma2b_out)
     emit(timed(run_parity_path, smi))
+    tree_out = timed(run_tree_path)
+    emit(tree_out)
+    tree2b_out = timed(run_tree_path, "gemma-2b", quantize="int8",
+                       kv_quantize="int8")
+    emit(tree2b_out)
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),
@@ -2062,17 +2471,27 @@ def main() -> int:
           "paged_decode_fused_int8": (int8_out, "int8 path (phase 7)"),
           "ragged_spans_int8": (int8_out, "int8 path (phase 7)"),
           "paged_decode_multi_int8": (int8_spec_out,
-                                      "int8 speculative path (phase 8)")}
+                                      "int8 speculative path (phase 8)"),
+          "ragged_spans_anc": (tree_out, "tree speculative path (phase 12)")}
     launches = {n: (out["launches"][n], path) for n, (out, path) in by.items()}
     launches["paged_decode"] = (walk_launches, "phase 3 check and timing "
                                 "(no caller on any path)")
+    launches["ragged_spans_anc_int8"] = (
+        anc_launches, "phases 3 and 3b (phase 12b runs the hd-256 build)")
     keys = ("name", "route", "source", "replaces", "launches", "launched_by",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # the ancestor-mask builds: main-shape times, the largest error over
+    # phases 3 and 3b
+    rows_anc = [{**r, "max_abs_err": max(c["max_abs_err"] for c in
+                                         anc_checks + hd32 + anc_main
+                                         if c["name"] == r["name"])}
+                for r in anc_main]
     out_rows = [{**r, "launches": launches[r["name"]][0],
-                 "launched_by": launches[r["name"]][1]} for r in rows + rows8]
-    out_rows += hd256_rows(rows + rows8, hd256, hd256_main, gemma_out,
-                           gemma2b_out, launches_3c)
+                 "launched_by": launches[r["name"]][1]}
+                for r in rows + rows8 + rows_anc]
+    out_rows += hd256_rows(rows + rows8 + rows_anc, hd256, hd256_main,
+                           gemma_out, gemma2b_out, tree2b_out, launches_3c)
     emit({"kernels": [{k: r[k] for k in keys} for r in out_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,12 @@ and ``--kv-quantize int8`` select int8 weights and int8 KV pages.
 feeds the reduce tree into the map stage's engine stream;
 ``--max-concurrent-requests`` caps the executor's waves for engines that do
 not schedule internally (the port's engine does, so it gets the whole
-queue).  Flags of features the port does not carry yet (host/disk KV, tree
-speculation, meshes, checkpoints, other backends and hosts, profiling and
-tracing) are refused by name with the slice that brings them.
-``--speculate-k`` is among them: under the default mixed steps the
-reference CLI runs it as tree speculation.  Linear speculation is reached through the engine config,
-``EngineConfig(speculate_k=K, mixed_batch=False)``.
+queue).  ``--speculate-k K`` drafts K tokens a chain: under the default
+mixed steps that is tree speculation, as in the reference CLI (linear
+speculation is ``EngineConfig(speculate_k=K, mixed_batch=False)``).  Flags
+of features the port does not carry yet (host/disk KV, meshes,
+checkpoints, other backends and hosts, profiling and tracing) are refused
+by name with the slice that brings them.
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ _SERVING = "serving surface (A3)"
 _OBS = "observability (A10)"
 _LATER = {
     "host_kv": "KV movement (host/disk KV tiers)",
-    "speculate_k": "tree speculation",
     "mesh": "multi-GPU",
     "checkpoint": "weights and tokenizers from local files (A12)",
     "backend": _SERVING,
@@ -91,9 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-quantize", default=None,
                    help="int8: int8 KV pages with per-slot scales (turns the "
                         "prefix cache off)")
+    p.add_argument("--speculate-k", type=int, default=None,
+                   help="speculative decoding: K n-gram drafts a chain, "
+                        "verified per step (tree speculation under the "
+                        "default mixed steps; 0 disables)")
     # not in the port yet: accepted only to refuse them by name
     p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--speculate-k", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     for flag in ("--checkpoint", "--hosts", "--trace-out"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -123,6 +125,8 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
     if args.max_concurrent_requests is not None:
         engine = dataclasses.replace(
             engine, max_concurrent_requests=args.max_concurrent_requests)
+    if args.speculate_k is not None:
+        engine = dataclasses.replace(engine, speculate_k=args.speculate_k)
     return PipelineConfig(
         data=DataConfig(merge_same_speaker=not args.no_merge,
                         time_interval_seconds=args.time_interval,

@@ -4,13 +4,14 @@
 ``EngineConfig`` carries only the fields the port honours: the
 continuous scheduler with packed fresh prefill, decode blocks, mixed
 prefill/decode steps, chunked continuation prefill and the shared-prefix
-KV cache (the reference's defaults), linear speculation (``speculate_k``
-with mixed steps off), int8 weights and KV pages (``quantize``,
-``kv_quantize``), and the executor's request cap, retries and deadline
-budget (``max_concurrent_requests``, ``retry_attempts``, ``retry_delay``,
-``request_deadline_s``).  ``ReduceConfig.streaming`` feeds the reduce
-tree into the map stage's engine stream.  Host/disk KV, tree speculation
-and device meshes have no field here; the CLI refuses their flags by name.
+KV cache (the reference's defaults), speculation (``speculate_k``: tree
+speculation under mixed steps, linear with ``mixed_batch=False``), int8
+weights and KV pages (``quantize``, ``kv_quantize``), and the executor's
+request cap, retries and deadline budget (``max_concurrent_requests``,
+``retry_attempts``, ``retry_delay``, ``request_deadline_s``).
+``ReduceConfig.streaming`` feeds the reduce tree into the map stage's
+engine stream.  Host/disk KV and device meshes have no field here; the CLI
+refuses their flags by name.
 """
 
 from __future__ import annotations
@@ -99,8 +100,9 @@ class EngineConfig:
     mixed_token_budget: int = 256
     prefix_cache: bool = True
     prefix_cache_max_pages: int = 0
-    # linear speculative decoding: k n-gram drafts verified per step (0 =
-    # off); needs mixed_batch=False (see __post_init__)
+    # speculative decoding: k n-gram drafts per chain verified per step (0 =
+    # off); with mixed_batch tree speculation (engine/scheduler.py
+    # spec_tree_width), without it linear speculation
     speculate_k: int = 0
     speculate_ngram: int = 3
     quantize: str | None = None     # None | "int8" (weight-only)
@@ -153,11 +155,6 @@ class EngineConfig:
                              f"(got {self.prefix_cache_max_pages})")
         if self.speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0 (got {self.speculate_k})")
-        if self.speculate_k > 0 and self.mixed_batch:
-            raise ValueError(
-                "speculate_k > 0 with mixed_batch=True is tree speculation in "
-                "the reference package, which the port has not ported yet; "
-                "mixed_batch=False gives the linear speculative path")
         if self.temperature < 0:
             raise ValueError(f"temperature must be >= 0 "
                              f"(got {self.temperature})")

@@ -88,6 +88,26 @@
 // * hd 256 (the Gemma presets): the same walk with q in shared memory and
 //   32-column tiles (tile_attn.cuh), ~100 KB of shared memory, two blocks
 //   an SM.
+//
+// The ancestor-mask build (compiled with -DLMRS_SPAN_ANC into a library of
+// its own, `lmrs_ragged_spans_anc_bf16` / `_int8`) is the attention of the
+// reference's tree speculation, which it runs through XLA
+// (`ragged_spans_xla(anc_masks=)`, lmrs_tpu/ops/paged_attention.py:1154,
+// mask rule :1229-1234).  It takes anc_masks [Tp] int32 more: flat token t
+// with a nonzero mask attends its row's columns < kv_lens[row] (the context
+// before the dispatch) plus exactly the span offsets col - kv_lens[row] in
+// [0, 32) whose bit is set (bit 31 included: masks are uint32 words viewed
+// as int32); a token with mask 0 keeps the causal rule, so one dispatch
+// mixes tree spans with prefill slices of any length.  Bits above a token's
+// own offset name columns outside its query tile's walk (the tile walks up
+// to its last token's column) and are not read; the scheduler's trees set
+// only ancestors, which come first.  Writes are unchanged (span-offset
+// columns), and the two launches keep them ahead of every read, heal tokens
+// that rewrite columns other tokens read included.  Only the mask changes,
+// in tile_attn.cuh's walk under ANC; the grid, splits and merge are these.
+// A template flag keeps the unmasked builds' code as it was, and the define
+// keeps their library's build time (the masked instantiations compile in a
+// parallel nvcc).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +118,12 @@
 #include "tile_attn.cuh"
 
 namespace {
+
+#ifdef LMRS_SPAN_ANC
+constexpr bool kAnc = true;   // this library's attention pass: tree masks
+#else
+constexpr bool kAnc = false;
+#endif
 
 // Pass 1: one block per flat token t.  The owning row is found by a scan
 // over the B spans (B is the slot count, a handful); a token of no span
@@ -144,8 +170,9 @@ __global__ void span_write_kernel(const __nv_bfloat16* __restrict__ k_new,
 }
 
 // Pass 2: one block per (query tile, split, kv head).  Query row r of the
-// tile is span token j0 + r / NREP, query head kvh * NREP + r % NREP.
-template <int HD, int NREP, bool QUANT>
+// tile is span token j0 + r / NREP, query head kvh * NREP + r % NREP.  ANC:
+// each token's ancestor mask anc_masks[t] (see the header).
+template <int HD, int NREP, bool QUANT, bool ANC>
 __global__ void __launch_bounds__(NTHREADS)
 span_attn_kernel(const __nv_bfloat16* __restrict__ q,
                  const pool_t<QUANT>* __restrict__ k_pages,
@@ -157,6 +184,7 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
                  const int* __restrict__ kv_lens,
                  const int* __restrict__ q_starts,
                  const int* __restrict__ q_lens,
+                 const int* __restrict__ anc_masks,
                  float* __restrict__ part, int* __restrict__ counters,
                  int Tp, int B, int KH, int ps, int W, int cap, int split,
                  int split_tiles, float scale_log2) {
@@ -195,8 +223,10 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const float* krow_s = QUANT ? kscale + srow : nullptr;
   const float* vrow_s = QUANT ? vscale + srow : nullptr;
 
-  // this thread's two query rows: flat token, head, causal limit
+  // this thread's two query rows: flat token, head, causal limit (ANC:
+  // and ancestor mask)
   TileRows<HD> rows;
+  TileAnc anc{};
   long long qoff[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -205,15 +235,19 @@ span_attn_kernel(const __nv_bfloat16* __restrict__ q,
     rows.valid[half] = j < ql && qs + j < Tp;
     rows.lim[half] = min(base + j, cap - 1);  // attend col <= lim
     qoff[half] = ((long long)(qs + j) * H + kvh * NREP + r % NREP) * HD;
+    if constexpr (ANC)
+      anc.mask[half] =
+          rows.valid[half] ? static_cast<uint32_t>(anc_masks[qs + j]) : 0u;
   }
+  anc.base = base;
   // a warp whose 16 rows hold no span token (a decode row fills n_rep
   // rows of warp 0) only stages and syncs
   const int jw = j0 + warp * 16 / NREP;  // this warp's first span token
   const bool warp_live = jw < ql && qs + jw < Tp;
   tile_load_q<HD, QUANT>(rows, q, qoff, krow_s, smem);
-  tile_walk<HD, QUANT>(rows, k_pages, v_pages, tables + (long long)b * W,
-                       (long long)KH * ps * HD, kvh, ps, c_lo, c_hi,
-                       warp_live, scale_log2, smem);
+  tile_walk<HD, QUANT, ANC>(rows, k_pages, v_pages, tables + (long long)b * W,
+                            (long long)KH * ps * HD, kvh, ps, c_lo, c_hi,
+                            warp_live, scale_log2, smem, anc);
 
   if (live <= 1) {  // one live split (or none): out = acc / l directly
     tile_store_out<HD, QUANT>(rows, qoff, vrow_s, out);
@@ -242,7 +276,8 @@ int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
               const __nv_bfloat16* vn, pool_t<QUANT>* kp, pool_t<QUANT>* vp,
               const float* ks, const float* vs, const int* tab,
               const int* lens, const int* qs, const int* ql,
-              __nv_bfloat16* out, float* part, int* cnt, int Tp, int B,
+              const int* anc, __nv_bfloat16* out, float* part, int* cnt,
+              int Tp, int B,
               int KH, int ps, int W, int cap, int split, int split_tiles,
               float sl2, cudaStream_t st) {
   const int H = KH * nrep;
@@ -254,13 +289,13 @@ int launch_hd(int nrep, const __nv_bfloat16* q, const __nv_bfloat16* kn,
   constexpr int smem = tile_smem_bytes<HD, QUANT>();
 #define LMRS_SPAN_ATTN(NR)                                                     \
   {                                                                            \
-    auto kern = span_attn_kernel<HD, NR, QUANT>;                               \
+    auto kern = span_attn_kernel<HD, NR, QUANT, kAnc>;                         \
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, \
                                smem);                                          \
     if (err != cudaSuccess) return static_cast<int>(err);                      \
     kern<<<dim3((Tp + QROWS / NR - 1) / (QROWS / NR) + B, ns, KH), NTHREADS,   \
-           smem, st>>>(q, kp, vp, ks, vs, out, tab, lens, qs, ql, part, cnt,   \
-                       Tp, B, KH, ps, W, cap, split, split_tiles, sl2);        \
+           smem, st>>>(q, kp, vp, ks, vs, out, tab, lens, qs, ql, anc, part,   \
+                       cnt, Tp, B, KH, ps, W, cap, split, split_tiles, sl2);   \
   }
   switch (nrep) {
     case 1: LMRS_SPAN_ATTN(1); break;
@@ -277,9 +312,10 @@ template <bool QUANT>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
            void* v_pages, const void* kscale, const void* vscale,
            const void* tables, const void* kv_lens, const void* q_starts,
-           const void* q_lens, void* out, void* part, void* counters, int Tp,
-           int B, int H, int KH, int hd, int ps, int W, int max_pos,
-           int split, int split_tiles, float sm_scale, void* stream) {
+           const void* q_lens, const void* anc_masks, void* out, void* part,
+           void* counters, int Tp, int B, int H, int KH, int hd, int ps, int W,
+           int max_pos, int split, int split_tiles, float sm_scale,
+           void* stream) {
   if (Tp <= 0 || B <= 0) return 0;
   if (split <= 0 || split % BK || split_tiles < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -294,9 +330,9 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
       static_cast<const float*>(kscale), static_cast<const float*>(vscale),    \
       static_cast<const int*>(tables), static_cast<const int*>(kv_lens),       \
       static_cast<const int*>(q_starts), static_cast<const int*>(q_lens),      \
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),             \
-      static_cast<int*>(counters), Tp, B, KH, ps, W, cap, split, split_tiles, \
-      sl2, st
+      static_cast<const int*>(anc_masks), static_cast<__nv_bfloat16*>(out),    \
+      static_cast<float*>(part), static_cast<int*>(counters), Tp, B, KH, ps,   \
+      W, cap, split, split_tiles, sl2, st
   int rc;
   if (hd == 256) {
     rc = launch_hd<256, QUANT>(LMRS_SPAN_ARGS);
@@ -315,6 +351,7 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pages,
 
 }  // namespace
 
+#ifndef LMRS_SPAN_ANC
 // part / counters: the attention pass's split scratch (see Layout above).
 extern "C" int lmrs_ragged_spans_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
@@ -323,9 +360,9 @@ extern "C" int lmrs_ragged_spans_bf16(
     void* counters, int Tp, int B, int H, int KH, int hd, int ps, int W,
     int max_pos, int split, int split_tiles, float sm_scale, void* stream) {
   return launch<false>(q, k_new, v_new, k_pages, v_pages, nullptr, nullptr,
-                       tables, kv_lens, q_starts, q_lens, out, part, counters,
-                       Tp, B, H, KH, hd, ps, W, max_pos, split, split_tiles,
-                       sm_scale, stream);
+                       tables, kv_lens, q_starts, q_lens, nullptr, out, part,
+                       counters, Tp, B, H, KH, hd, ps, W, max_pos, split,
+                       split_tiles, sm_scale, stream);
 }
 
 // int8 pools; kscale/vscale are the table rows' f32 scales [B, K, hd].
@@ -337,7 +374,35 @@ extern "C" int lmrs_ragged_spans_int8(
     int W, int max_pos, int split, int split_tiles, float sm_scale,
     void* stream) {
   return launch<true>(q, k_new, v_new, k_pages, v_pages, kscale, vscale,
-                      tables, kv_lens, q_starts, q_lens, out, part, counters,
-                      Tp, B, H, KH, hd, ps, W, max_pos, split, split_tiles,
-                      sm_scale, stream);
+                      tables, kv_lens, q_starts, q_lens, nullptr, out, part,
+                      counters, Tp, B, H, KH, hd, ps, W, max_pos, split,
+                      split_tiles, sm_scale, stream);
 }
+#else
+// The ancestor-mask build: anc_masks [Tp] int32, one word per flat token.
+extern "C" int lmrs_ragged_spans_anc_bf16(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* tables, const void* kv_lens,
+    const void* q_starts, const void* q_lens, const void* anc_masks,
+    void* out, void* part, void* counters, int Tp, int B, int H, int KH,
+    int hd, int ps, int W, int max_pos, int split, int split_tiles,
+    float sm_scale, void* stream) {
+  return launch<false>(q, k_new, v_new, k_pages, v_pages, nullptr, nullptr,
+                       tables, kv_lens, q_starts, q_lens, anc_masks, out, part,
+                       counters, Tp, B, H, KH, hd, ps, W, max_pos, split,
+                       split_tiles, sm_scale, stream);
+}
+
+extern "C" int lmrs_ragged_spans_anc_int8(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* kscale, const void* vscale, const void* tables,
+    const void* kv_lens, const void* q_starts, const void* q_lens,
+    const void* anc_masks, void* out, void* part, void* counters, int Tp,
+    int B, int H, int KH, int hd, int ps, int W, int max_pos, int split,
+    int split_tiles, float sm_scale, void* stream) {
+  return launch<true>(q, k_new, v_new, k_pages, v_pages, kscale, vscale,
+                      tables, kv_lens, q_starts, q_lens, anc_masks, out, part,
+                      counters, Tp, B, H, KH, hd, ps, W, max_pos, split,
+                      split_tiles, sm_scale, stream);
+}
+#endif

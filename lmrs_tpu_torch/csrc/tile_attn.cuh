@@ -20,6 +20,13 @@
 //   pools stage the bytes and widen each tile once per block (the four
 //   warps read the same tile) into bf16 tiles that the same fragment code
 //   reads.  A warp whose 16 rows are all padding only stages and syncs.
+// * The ancestor-mask build (ANC, the span kernel's tree rows): a row whose
+//   mask word is nonzero attends its row's columns below base (the context
+//   before the dispatch) and exactly the span offsets col - base in [0, 32)
+//   whose bit is set; a row with mask 0 keeps the causal limit.  Only such a
+//   build reads the masks (ANC = false compiles the walk as it was), and a
+//   tile takes the unmasked fast path for a tree row only when it ends below
+//   base: sibling chains' columns lie inside [base, lim].
 // * tile_store_out: one live split, out = acc / l (int8: times V's scales).
 // * tile_store_partial, then split_arrive and tile_merge (split_merge.cuh):
 //   each split stores its rows' f32 (m, l, acc); the last block of the group
@@ -151,6 +158,30 @@ struct TileRows {
   bool valid[2];            // a real query row (not padding)
 };
 
+// The ancestor-mask rows of a tree span (ANC builds only): the row's base
+// (its kv_lens: the span's first column) and this thread's two rows' masks.
+struct TileAnc {
+  int base;
+  uint32_t mask[2];  // 0: the causal rule
+};
+
+// the last column a row attends in full (all columns up to it): its causal
+// limit, or for a tree row the column before its span
+template <bool ANC>
+__device__ __forceinline__ int full_lim(int lim, const TileAnc& a, int half) {
+  if constexpr (ANC) return a.mask[half] ? a.base - 1 : lim;
+  return lim;
+}
+
+// ANC: may a row attend column col?  Unsigned offsets, shifted only when
+// below 32 (a shift by 32 or more is undefined)
+__device__ __forceinline__ bool anc_ok(int col, int lim, int base,
+                                       uint32_t mask) {
+  if (mask == 0u) return col <= lim;
+  const uint32_t off = static_cast<uint32_t>(col - base);
+  return col < base || (off < 32u && ((mask >> off) & 1u));
+}
+
 // q rows at q + qoff[half] (HD channels); int8 pools fold K's scales
 // krow_s.  hd 256: into the block's q tile in shared memory (row
 // warp * 16 + g + 8 * half), which tile_walk reads after its first barrier.
@@ -187,14 +218,16 @@ __device__ __forceinline__ void tile_load_q(TileRows<HD>& t,
 
 // Walk columns [c_lo, c_hi) of the row whose page table is `tab`, kv head
 // kvh (pools [P, K, ps, HD], page_stride = K·ps·HD), into t.o / t.m / t.l.
-template <int HD, bool QUANT>
+// ANC: the rows' ancestor masks `anc` replace the causal limit where nonzero.
+template <int HD, bool QUANT, bool ANC = false>
 __device__ __forceinline__ void tile_walk(TileRows<HD>& t,
                                           const pool_t<QUANT>* k_pages,
                                           const pool_t<QUANT>* v_pages,
                                           const int* tab, long long page_stride,
                                           int kvh, int ps, int c_lo, int c_hi,
                                           bool warp_live, float scale_log2,
-                                          unsigned char* smem) {
+                                          unsigned char* smem,
+                                          const TileAnc anc = TileAnc{}) {
   using PT = pool_t<QUANT>;
   constexpr int BK = tile_bk<HD>();  // kv columns per tile (hides ::BK)
   constexpr int VEC = 16 / sizeof(PT);
@@ -290,8 +323,9 @@ __device__ __forceinline__ void tile_walk(TileRows<HD>& t,
       // a tile both of this thread's rows attend in full needs no mask
       float mx[2] = {NEG, NEG};
       const int last = kv0 + BK - 1;
-      if (last < c_hi && t.valid[0] && t.valid[1] && last <= t.lim[0] &&
-          last <= t.lim[1]) {
+      if (last < c_hi && t.valid[0] && t.valid[1] &&
+          last <= full_lim<ANC>(t.lim[0], anc, 0) &&
+          last <= full_lim<ANC>(t.lim[1], anc, 1)) {
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -307,7 +341,12 @@ __device__ __forceinline__ void tile_walk(TileRows<HD>& t,
           for (int e = 0; e < 4; ++e) {
             const int half = e >> 1;
             const int col = kv0 + j * 8 + tig * 2 + (e & 1);
-            const bool ok = t.valid[half] && col <= t.lim[half] && col < c_hi;
+            bool ok;
+            if constexpr (ANC)
+              ok = t.valid[half] && col < c_hi &&
+                   anc_ok(col, t.lim[half], anc.base, anc.mask[half]);
+            else
+              ok = t.valid[half] && col <= t.lim[half] && col < c_hi;
             const float val = ok ? s[j][e] * scale_log2 : NEG;
             s[j][e] = val;
             mx[half] = fmaxf(mx[half], val);

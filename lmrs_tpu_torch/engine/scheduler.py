@@ -2,9 +2,9 @@
 reference's ``engine/scheduler.py``): its default path — packed fresh
 prefill, decode blocks, mixed steps, chunked continuation prefill, slot
 growth with preemption and the prefix cache, through the ragged span
-kernel — its linear speculative path, int8 KV pages with per-slot scales
-on both, and cancellation, deadlines and admission shedding; no tree
-speculation, host/disk KV, handoff or observability hooks.
+kernel — its speculative paths (tree and linear), int8 KV pages with
+per-slot scales on all of them, and cancellation, deadlines and admission
+shedding; no host/disk KV, handoff or observability hooks.
 
 * Admission: a request takes a free slot when the pool holds its PROMPT
   pages minus those a prefix-cache match supplies (the cache evicts before
@@ -23,13 +23,34 @@ speculation, host/disk KV, handoff or observability hooks.
 * Decode blocks otherwise: ``decode_block`` steps for every decoding slot,
   tokens kept on the device, ONE host fetch per block; the prefills' first
   tokens ride that fetch.
-* Speculative blocks instead, with ``speculate_k = k > 0`` (and mixed steps
-  off): ``decode_block // (k + 1)`` steps, each drafting k tokens per row
+* Speculative blocks instead, with ``speculate_k = k > 0`` and mixed steps
+  off: ``decode_block // (k + 1)`` steps, each drafting k tokens per row
   by n-gram lookup over a device-side token history, verifying them in one
   [B, k+1] ``forward_paged(multi_decode=True)`` and accepting by the
   exact-distribution rule (``_spec_decode_block``); ONE host fetch per
   block.  First tokens are fetched at decode admission, to seed the row's
   history.
+* Tree speculation, with ``speculate_k = k > 0`` and mixed steps on (the
+  reference's default for k > 0): every decode step, mixed or not, is ONE
+  span dispatch (``_spec_span_iteration``) in which each decode row's span
+  is [heal, cur, W root-branching chains of k drafts] (``spec_tree_width``
+  gives W), drafted on the device from the history (``draft_tree_lookup``),
+  attended through ancestor masks (the span kernel's ancestor-mask build)
+  and accepted by ``verify_tree``; one fetch of (emit, count, chain,
+  depth).  Tree nodes take depth-based rope positions but write K/V at
+  their span-offset columns, so a non-first chain's accepted tokens sit at
+  the wrong columns: the row's next span re-sends them first (``heal``,
+  base = kv_len - heal) to rewrite them before any read.  A slot preempted
+  or finished with a heal pending needs nothing: those columns lie past its
+  prompt (the prefix cache takes prompt pages only), and a continuation
+  re-prefills prompt + generated tokens.  Chain depth adapts per row
+  (``_spec_ramp``, an acceptance EMA; ``LMRS_SPEC_ADAPTIVE=0`` pins it at
+  k), collapses to 0 under page pressure, and a step where no row drafts
+  or heals is a plain span step whose rows' history is re-seeded before the
+  next drafting step.  ``LMRS_SPEC_TREE=0`` (or a k whose tree cannot fit
+  32 offsets) keeps the reference's linear span flavour: mixed steps carry
+  [cur, k drafts] spans verified by ``verify_tokens``, pure decode runs
+  ``_spec_decode_block``.
 * Slot growth: decoding slots grow their pages before each dispatch; under
   pool pressure the youngest decode slot is preempted back to the queue
   and later re-prefills prompt + generated tokens
@@ -74,13 +95,33 @@ from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
 from lmrs_tpu_torch.models.transformer import forward_paged
 from lmrs_tpu_torch.ops.paged_attention import pack_spans
 from lmrs_tpu_torch.ops.sampling import filtered_probs, sample_logits
-from lmrs_tpu_torch.ops.speculative import draft_lookup, verify_tokens
+from lmrs_tpu_torch.ops.speculative import (draft_lookup, draft_tree_lookup,
+                                            verify_tokens, verify_tree)
+from lmrs_tpu_torch.utils.env import env_bool, env_int
 
 logger = logging.getLogger("lmrs_torch.scheduler")
 
 # dense bf16 tensor-core peak of an H100 SXM (data sheet): the admission
 # estimate's roofline fallback, where the reference divides by its TPU's
 H100_BF16_FLOPS = 989e12
+# ancestor bitmasks are 32-bit words over a span's offsets
+TREE_OFFSETS = 32
+
+
+def spec_tree_width(cfg: EngineConfig) -> int:
+    """Chains per decode row of tree speculation under ``cfg``, 0 for
+    linear speculation (or none).  As in the reference, ``speculate_k > 0``
+    with mixed steps is tree speculation of ``LMRS_SPEC_TREE_WIDTH`` chains
+    (default 2, 1-8), narrowed until a span of [heal (<= k), cur, width x
+    k] fits the 32 offsets of an ancestor mask; ``LMRS_SPEC_TREE=0``, or a
+    k too deep for even one chain, leaves linear speculation."""
+    k = cfg.speculate_k
+    if not (k and cfg.mixed_batch and env_bool("LMRS_SPEC_TREE", True)):
+        return 0
+    width = env_int("LMRS_SPEC_TREE_WIDTH", 2, lo=1, hi=8)
+    while width > 1 and 1 + k * (width + 1) > TREE_OFFSETS:
+        width -= 1
+    return width if 1 + k * (width + 1) <= TREE_OFFSETS else 0
 
 
 def _pow2_bucket(n: int, lo: int) -> int:
@@ -107,6 +148,14 @@ class _SlotState:
     # generated before the preemption (still output tokens)
     n_prompt: int = 0
     prior: list[int] = field(default_factory=list)
+    # tree speculation: the accepted tokens of a NON-FIRST chain, re-sent
+    # as the next span's leading tokens to rewrite their K/V at the true
+    # columns; the acceptance EMA, chain depth and depth-0 probe timer of
+    # the adaptive ramp (_spec_ramp)
+    spec_heal: list[int] = field(default_factory=list)
+    spec_ema: float = 0.5
+    spec_depth: int = 0
+    spec_probe: int = 0
 
 
 class ContinuousScheduler:
@@ -128,8 +177,17 @@ class ContinuousScheduler:
         self.decode_steps = (max(1, self.decode_block // (self.spec_k + 1))
                              if self.spec_k else self.decode_block)
         # [B, max_len] token history on the device (seeded per row at
-        # decode admission, appended inside each speculative block)
+        # decode admission, appended inside each speculative dispatch)
         self._spec_buf: torch.Tensor | None = None
+        # tree speculation (spec_tree_width): chains per row, adaptive
+        # depth, per-heal-length span templates, and the rows whose history
+        # missed an append (plain span steps) and must be re-seeded
+        self._spec_width = spec_tree_width(engine_cfg)
+        self._spec_tree = self._spec_width > 0
+        self._spec_adaptive = (self._spec_tree
+                               and env_bool("LMRS_SPEC_ADAPTIVE", True))
+        self._spec_tmpl: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self._spec_stale: set[int] = set()
         self.prefill_chunk = engine_cfg.prefill_chunk
         self._mixed = engine_cfg.mixed_batch
         self.mixed_token_budget = engine_cfg.mixed_token_budget
@@ -198,7 +256,9 @@ class ContinuousScheduler:
             "prefix_tokens_reused": 0, "preemptions": 0, "stalls": 0,
             "run_seconds": 0.0, "occupancy_sum": 0.0, "peak_pages": 0,
             "spec_accepted_tokens": 0, "cancelled": 0, "deadline": 0,
-            "shed": 0,
+            "shed": 0, "spec_tree_dispatches": 0, "spec_tree_nodes_sum": 0,
+            "spec_tree_rows": 0, "spec_accept_depth_sum": 0,
+            "spec_heal_spans": 0,
         }
 
     def live_tokens(self) -> dict[int, int]:
@@ -242,6 +302,7 @@ class ContinuousScheduler:
 
         self._finished_ids = set()
         self._t_enq = {}
+        self._spec_stale.clear()  # slot rows do not survive runs
         self._any_deadline = False
         submit(requests)
         B = self.B
@@ -303,7 +364,9 @@ class ContinuousScheduler:
                     req=req, prompt_ids=ids, max_new=max_new, seq=seq,
                     prefill_pos=cached_tokens,
                     t_start=t0 if t0 is not None else now, t_admit=now,
-                    n_prompt=n_prompt, prior=list(prior))
+                    n_prompt=n_prompt, prior=list(prior),
+                    # tree speculation starts at full depth
+                    spec_depth=self.spec_k if self._spec_tree else 0)
                 # a row mid-prefill carries length 0 into any dispatch
                 kv_lens[b] = 0
                 last_tok[b] = 0
@@ -363,6 +426,15 @@ class ContinuousScheduler:
                     finish_first_tokens(deferred, tok0s, finish_all=True)
                     deferred = []
                 if not active.any():
+                    continue
+                if self._spec_tree:
+                    # pure-decode steps of tree speculation are span steps
+                    # too: the verify kernel's block never sees a row with a
+                    # heal pending.  Nothing dispatched means every row
+                    # stalled: loop (preemption guarantees progress)
+                    self._spec_span_iteration(None, slots, queue, results,
+                                              fresh, kv_lens, last_tok,
+                                              active, temps, top_k, top_p)
                     continue
                 stalled = self._ensure_decode_capacity(slots, queue, kv_lens,
                                                        last_tok, active)
@@ -702,7 +774,8 @@ class ContinuousScheduler:
 
     def _mixed_iteration(self, slots, queue, results, fresh, kv_lens,
                          last_tok, active, temps, top_k, top_p) -> bool:
-        """One mixed step: every live decode row advances ONE token and one
+        """One mixed step: every live decode row advances ONE token (under
+        speculation a verify span, ``_spec_span_iteration``) and one
         prefilling slot's next slice rides the SAME span dispatch.  Returns
         False (nothing dispatched) when there is nothing to mix or the
         budget leaves no room for a slice."""
@@ -711,6 +784,10 @@ class ContinuousScheduler:
                          for b, st in enumerate(slots))
         if pf is None or not has_decode:
             return False
+        if self.spec_k:  # decode rows carry verify spans
+            return self._spec_span_iteration(pf, slots, queue, results, fresh,
+                                             kv_lens, last_tok, active, temps,
+                                             top_k, top_p)
         stalled = self._ensure_decode_capacity(slots, queue, kv_lens,
                                                last_tok, active,
                                                extra_tokens=1)
@@ -765,30 +842,39 @@ class ContinuousScheduler:
         self._rearm(stalled, slots, active)
         return True
 
+    def _span_layout(self, slots, q_lens, base):
+        """The flat layout of a span dispatch over the rows with ``q_lens >
+        0``: ``(q_starts, total, row_flat, table)``, the table cut to a
+        power-of-two window over the widest span.  Raises if a span would
+        write past its slot's pages (the write would land on the null
+        page); positions at or past ``max_len`` are not written."""
+        q_starts, total = pack_spans(q_lens)
+        row_flat = np.full((total,), self.B, np.int32)
+        max_pages = 1
+        for b in np.flatnonzero(q_lens):
+            s, n = int(q_starts[b]), int(q_lens[b])
+            end = min(int(base[b]) + n, self.max_len)
+            if end > slots[b].seq.capacity(self.cache.page_size):
+                raise RuntimeError(f"span of slot {b} ({base[b]}+{n} tokens) "
+                                   "exceeds its pages")
+            row_flat[s: s + n] = b
+            max_pages = max(max_pages, self.cache.pages_needed(end))
+        w = min(_pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
+        table = self.cache.page_table_array(
+            [slots[b].seq if q_lens[b] > 0 else None
+             for b in range(self.B)])[:, :w]
+        return q_starts, total, row_flat, table
+
     def _dispatch_spans(self, slots, q_lens, base, span_tokens, temps,
                         top_k, top_p) -> torch.Tensor:
         """One ragged span forward: row b's ``span_tokens[b]`` at positions
         ``base[b]..``, packed into a flat buffer; samples one token per row
         at its span's last token (device tensor [B], not fetched)."""
         dev = self.device
-        q_starts, total = pack_spans(q_lens)
+        q_starts, total, row_flat, table = self._span_layout(slots, q_lens, base)
         tokens = np.zeros((1, total), np.int64)
-        row_flat = np.full((total,), self.B, np.int32)
-        max_pages = 1
         for b, toks in span_tokens.items():
-            if base[b] + q_lens[b] > slots[b].seq.capacity(self.cache.page_size):
-                # a write past the slot's pages would land on the null page
-                raise RuntimeError(f"span of slot {b} ({base[b]}+{q_lens[b]} "
-                                   "tokens) exceeds its pages")
-            s = q_starts[b]
-            tokens[0, s: s + len(toks)] = toks
-            row_flat[s: s + len(toks)] = b
-            max_pages = max(max_pages,
-                            self.cache.pages_needed(base[b] + q_lens[b]))
-        w = min(_pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
-        table = self.cache.page_table_array(
-            [slots[b].seq if b in span_tokens else None
-             for b in range(self.B)])[:, :w]
+            tokens[0, q_starts[b]: q_starts[b] + len(toks)] = toks
         # out-of-span tokens clamp to position 0: masked from every real
         # query, and the kernel writes nothing for them
         rf = np.clip(row_flat, 0, self.B - 1)
@@ -1095,6 +1181,296 @@ class ContinuousScheduler:
             emitted.append(row)
         return emitted
 
+    def _tree_span_template(self, hl: int) -> tuple[np.ndarray, np.ndarray]:
+        """(rope offsets, ancestor masks) of a tree-speculation decode span
+        with ``hl`` leading heal tokens, laid out [heal_0..heal_{hl-1}, cur,
+        chain_0 (k), ..., chain_{W-1} (k)].  Heal tokens and cur keep mask
+        0 (the causal rule); chain c's node j sees the heal + cur prefix and
+        its own chain up to itself.  Rope offsets go by DEPTH (chain c's
+        node j at hl + 1 + j whatever c), while K/V land at span-offset
+        columns.  Bit 31 is reachable (hl = k at the capacity bound): the
+        masks are built as uint32 and viewed as int32."""
+        tmpl = self._spec_tmpl.get(hl)
+        if tmpl is None:
+            W, k = self._spec_width, self.spec_k
+            n = hl + 1 + W * k
+            pos = np.zeros((n,), np.int32)
+            anc = np.zeros((n,), np.uint32)
+            pos[: hl + 1] = np.arange(hl + 1)
+            prefix = (1 << (hl + 1)) - 1
+            for c in range(W):
+                bits = prefix
+                for j in range(k):
+                    o = hl + 1 + c * k + j
+                    pos[o] = hl + 1 + j
+                    bits |= 1 << o
+                    anc[o] = bits
+            self._spec_tmpl[hl] = tmpl = (pos, anc.view(np.int32))
+        return tmpl
+
+    def _spec_ramp(self, st: _SlotState, depth_used: int) -> int:
+        """Next-step chain depth for one row from its acceptance EMA
+        (``LMRS_SPEC_ADAPTIVE``): accept streaks deepen the chains toward
+        k, collapse ramps down to 0 (off), and a row at 0 re-probes at half
+        depth every 8 steps so a change in the text can re-arm it."""
+        k = self.spec_k
+        if depth_used == 0:
+            st.spec_probe += 1
+            if st.spec_probe >= 8:
+                st.spec_probe = 0
+                st.spec_ema = 0.5
+                return max(1, k // 2)
+            return 0
+        st.spec_probe = 0
+        if st.spec_ema >= 0.6:
+            return min(depth_used + 1, k)
+        if st.spec_ema < 0.2:
+            return 0
+        if st.spec_ema < 0.35:
+            return max(depth_used - 1, 1)
+        return depth_used
+
+    def _spec_span_iteration(self, pf, slots, queue, results, fresh, kv_lens,
+                             last_tok, active, temps, top_k, top_p) -> bool:
+        """One speculative span step (the reference's
+        ``_rpa_mixed_iteration`` under speculation): every live decode row
+        carries a verify span, and the prefilling slot ``pf``'s next slice,
+        if any, rides the same dispatch (``_dispatch_spec_spans``; ONE host
+        fetch).  Tree: [heal, cur, W chains of depth k] a row, depths set
+        by ``_spec_ramp`` and collapsed to 0 under page pressure (fewer free
+        pages than slots); when no row drafts or heals, the step is a plain
+        span step (one token a row) and the rows' history is marked stale.
+        Linear: [cur, k drafts].  Returns False (nothing dispatched) when no
+        row decodes or the budget leaves the slice no room."""
+        k, W = self.spec_k, self._spec_width
+        tree = self._spec_tree
+        adv = 1 + W * k if tree else 1 + k
+        stalled = self._ensure_decode_capacity(slots, queue, kv_lens,
+                                               last_tok, active,
+                                               extra_tokens=adv)
+        rows = [b for b, st in enumerate(slots)
+                if st is not None and active[b] and st.phase == "decode"]
+        hl = np.zeros((self.B,), np.int32)
+        depth = np.zeros((self.B,), np.int32)
+        pressure = False
+        use_spec = True
+        if tree:
+            pressure = (self._spec_adaptive
+                        and self.cache.allocator.free_count < self.B)
+            for b in rows:
+                hl[b] = len(slots[b].spec_heal)
+                depth[b] = 0 if pressure else min(slots[b].spec_depth, k)
+            use_spec = any(depth[b] > 0 or hl[b] > 0 for b in rows)
+        if not use_spec:
+            adv = 1
+        dec_tokens = sum(int(hl[b]) + adv for b in rows)
+        budget_left = self.mixed_token_budget - dec_tokens
+        if not rows or (pf is not None and budget_left < 16):
+            self._rearm(stalled, slots, active)
+            return False
+        if use_spec and self._spec_stale:
+            # rows that took plain span steps missed their history appends
+            for b in sorted(self._spec_stale):
+                if slots[b] is not None and slots[b].phase == "decode":
+                    self._seed_history(b, slots[b])
+            self._spec_stale.clear()
+        st_pf, pos, c, is_final = None, 0, 0, False
+        if pf is not None:
+            st_pf = slots[pf]
+            pos = st_pf.prefill_pos
+            c = min(len(st_pf.prompt_ids) - pos, budget_left,
+                    self.prefill_chunk)
+            is_final = pos + c >= len(st_pf.prompt_ids)
+        q_lens = np.zeros((self.B,), np.int32)
+        base = np.zeros((self.B,), np.int32)
+        for b in rows:
+            # a heal span starts hl tokens back: the re-sent tokens rewrite
+            # their K/V at the true columns before any read
+            q_lens[b] = hl[b] + adv
+            base[b] = slots[b].kv_len - hl[b]
+        pf_tokens = []
+        if pf is not None:
+            q_lens[pf], base[pf] = c, pos
+            pf_tokens = st_pf.prompt_ids[pos: pos + c]
+        t0 = time.time()
+        if use_spec:
+            emit, count, chain, adepth = self._dispatch_spec_spans(
+                slots, rows, pf, q_lens, base, hl, depth, pf_tokens,
+                last_tok, temps, top_k, top_p)
+        else:
+            span_tokens = {b: [int(last_tok[b])] for b in rows}
+            if pf is not None:
+                span_tokens[pf] = pf_tokens
+            nxt = _one_fetch([self._dispatch_spans(
+                slots, q_lens, base, span_tokens, temps, top_k,
+                top_p)])[0].numpy()
+        c_ = self.counters
+        if pf is not None:
+            c_["mixed_step_seconds"] += time.time() - t0
+            c_["mixed_dispatches"] += 1
+            c_["mixed_fill_sum"] += (dec_tokens + c) / self.mixed_token_budget
+            c_["prefill_tokens_piggybacked"] += c
+            c_["prefill_tokens"] += c
+            st_pf.prefill_pos = pos + c
+        else:
+            c_["decode_block_seconds"] += time.time() - t0
+            c_["decode_blocks"] += 1
+        c_["occupancy_sum"] += len(rows) / self.B
+        if tree and use_spec:
+            c_["spec_tree_dispatches"] += 1
+        for b in rows:
+            st = slots[b]
+            if use_spec:
+                cnt = int(count[b])
+                new = emit[b, :cnt].tolist()
+                c_["spec_accepted_tokens"] += max(0, cnt - 1)
+                if tree:
+                    c_["spec_heal_spans"] += int(hl[b] > 0)
+                    cs, ad, d_used = int(chain[b]), int(adepth[b]), int(depth[b])
+                    # a non-first chain's drafts sit at THAT chain's
+                    # span-offset columns: the next span re-sends them
+                    st.spec_heal = new[:ad] if cs > 0 and ad > 0 else []
+                    c_["spec_tree_nodes_sum"] += 1 + W * d_used
+                    c_["spec_tree_rows"] += 1
+                    c_["spec_accept_depth_sum"] += ad
+                    if not pressure:
+                        if d_used > 0:
+                            st.spec_ema = 0.8 * st.spec_ema + 0.2 * ad / d_used
+                        if self._spec_adaptive:
+                            st.spec_depth = self._spec_ramp(st, d_used)
+            else:
+                new = [int(nxt[b])]
+                self._spec_stale.add(b)
+                if self._spec_adaptive and not pressure:
+                    st.spec_depth = self._spec_ramp(st, 0)
+            st.generated.extend(new)
+            st.kv_len += len(new)
+            kv_lens[b] = st.kv_len
+            last_tok[b] = st.generated[-1]
+            c_["decode_tokens"] += len(new)
+            self._maybe_finish(b, slots, results, fresh, active, kv_lens,
+                               last_tok)
+        if is_final:
+            # the slice completed the prompt: enter decode with the token
+            # this step drew at its last position, and seed the history
+            self._enter_decode(pf, st_pf, kv_lens, active)
+            st_pf.generated.append(int(emit[pf, 0]) if use_spec
+                                   else int(nxt[pf]))
+            self._note_first_token(st_pf.req.request_id)
+            last_tok[pf] = st_pf.generated[-1]
+            self._seed_history(pf, st_pf)
+            self._maybe_finish(pf, slots, results, fresh, active, kv_lens,
+                               last_tok)
+        self._rearm(stalled, slots, active)
+        return True
+
+    def _dispatch_spec_spans(self, slots, rows, pf, q_lens, base, hl, depth,
+                             pf_tokens, last_tok, temps, top_k, top_p):
+        """The device half of a speculative span step.  Decode row b's span
+        is [heal (``hl[b]`` host tokens), cur, drafts]: tree — W chains of
+        k by ``draft_tree_lookup`` at depth ``depth[b]``, rope offsets and
+        ancestor masks from ``_tree_span_template``; linear — k drafts by
+        ``draft_lookup`` at consecutive positions.  ``pf``'s slice (host
+        tokens, the causal rule) rides the same dispatch; its first token
+        is emit[pf, 0], drawn from its last position (no drafts).  Drafting,
+        the forward, acceptance and the history append run on the device;
+        returns host arrays (emit [B, k+1], count [B], chain [B], depth
+        [B]) from ONE fetch (chain and depth None when linear)."""
+        dev = self.device
+        B, k, max_len = self.B, self.spec_k, self.max_len
+        tree = self._spec_tree
+        W = self._spec_width if tree else 1
+        n_nodes = 1 + W * k
+        q_starts, total, row_flat, table = self._span_layout(slots, q_lens, base)
+        tokens = np.zeros((total,), np.int64)
+        pos_off = np.zeros((total,), np.int64)
+        anc = np.zeros((total,), np.int32)
+        for b in rows + ([pf] if pf is not None else []):
+            s, n = int(q_starts[b]), int(q_lens[b])
+            if b == pf:
+                tokens[s: s + n] = pf_tokens
+                pos_off[s: s + n] = np.arange(n)
+            elif tree:
+                tokens[s: s + hl[b]] = slots[b].spec_heal
+                t_pos, t_anc = self._tree_span_template(int(hl[b]))
+                pos_off[s: s + n], anc[s: s + n] = t_pos, t_anc
+            else:
+                pos_off[s: s + n] = np.arange(n)
+        rf = np.clip(row_flat, 0, B - 1)
+        positions = np.clip(base[rf] + pos_off, 0, max_len - 1)
+        is_dec = np.zeros((B,), bool)
+        is_dec[rows] = True
+        # each decode row's nodes (cur, then the drafts); other rows their
+        # last token, repeated
+        lead = q_starts + hl
+        last = np.minimum(q_starts + np.maximum(q_lens, 1) - 1, total - 1)
+        gidx = np.where(is_dec[:, None],
+                        lead[:, None] + np.arange(n_nodes)[None],
+                        last[:, None]).reshape(-1)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        buf = self._spec_buf
+        dr = t(np.asarray(rows, np.int64))
+        kvl = t((base + hl).astype(np.int64))  # the rows' true kv_len
+        cur = t(last_tok.astype(np.int64))
+        # the current token enters the history at its kv position
+        buf[dr, torch.clamp(kvl[dr], max=max_len - 1)] = cur[dr].int()
+        eos, ngram = self.tokenizer.eos_id, max(2, self.cfg.speculate_ngram)
+        if tree:
+            chains, n_valid = draft_tree_lookup(buf, kvl + 1, k, W, pad_id=eos,
+                                                n=ngram, depth=t(depth))
+        else:
+            draft, n_lin = draft_lookup(buf, kvl + 1, k, pad_id=eos, n=ngram)
+            chains, n_valid = draft[:, None], n_lin[:, None]
+        n_valid = torch.where(t(is_dec)[:, None], n_valid,
+                              torch.zeros_like(n_valid))
+        flat = t(tokens)
+        nodes = torch.cat([cur[:, None], chains.reshape(B, W * k).long()], 1)
+        at = t(lead)[dr][:, None] + torch.arange(n_nodes, device=dev)[None]
+        flat[at.reshape(-1)] = nodes[dr].reshape(-1)
+        logits = forward_paged(
+            self.params, self.model_cfg, flat[None], t(positions)[None],
+            self.cache.k, self.cache.v, t(table), t(base), max_len,
+            packed_last_idx=t(gidx),
+            spans=(t(q_starts), t(q_lens), t(row_flat)),
+            kv_scales=self.kv_scales, span_anc=t(anc) if tree else None)
+        if self._vocab_limit is not None:  # as in _sample
+            logits[..., self._vocab_limit:] = float("-inf")
+        probs = filtered_probs(logits[0], np.repeat(temps, n_nodes),
+                               np.repeat(top_k, n_nodes),
+                               np.repeat(top_p, n_nodes)).reshape(B, n_nodes, -1)
+        if tree:
+            out = list(verify_tree(probs, chains, n_valid, self.generator))
+        else:
+            out = list(verify_tokens(probs, chains[:, 0], n_valid[:, 0],
+                                     self.generator))
+        # accepted tokens extend the decode rows' history (the last one at
+        # the next step's write index: idempotent)
+        offs = torch.arange(k + 1, device=dev)[None]
+        buf[dr[:, None], torch.clamp(kvl[dr][:, None] + 1 + offs,
+                                     max=max_len - 1)] = out[0][dr]
+        self.counters["rpa_dispatches"] += 1
+        self.counters["rpa_span_tokens"] += int(q_lens.sum())
+        fetched = [x.numpy() for x in _one_fetch(out)]
+        return tuple(fetched) if tree else (*fetched, None, None)
+
+    def _spec_tree_report(self) -> dict:
+        """The tree-speculation block of ``metrics_report``: whether it is
+        armed, its dispatches, mean drafted nodes and accepted depth per
+        dispatched row, accepted tokens per row, and heal spans."""
+        c = self.counters
+        rows = c["spec_tree_rows"]
+        per_row = lambda n: round(n / rows, 3) if rows else 0.0  # noqa: E731
+        return {
+            "enabled": self._spec_tree,
+            "width": self._spec_width,
+            "adaptive": self._spec_adaptive,
+            "dispatches": c["spec_tree_dispatches"],
+            "mean_nodes": per_row(c["spec_tree_nodes_sum"]),
+            "mean_accept_depth": per_row(c["spec_accept_depth_sum"]),
+            "accept_per_step": per_row(c["spec_accepted_tokens"]),
+            "heal_spans": c["spec_heal_spans"],
+        }
+
     # ------------------------------------------------------------ reporting
 
     def audit(self, live_seqs=None) -> list[str]:
@@ -1159,6 +1535,10 @@ class ContinuousScheduler:
         }
         if self.spec_k:
             out["spec_accepted_tokens"] = c["spec_accepted_tokens"]
+            for key in ("spec_tree_dispatches", "spec_tree_nodes_sum",
+                        "spec_tree_rows", "spec_accept_depth_sum"):
+                out[key] = c[key]
+            out["spec_tree"] = self._spec_tree_report()
         if self._prefix_cache is not None:
             q, hits = c["prefix_queries"], c["prefix_hits"]
             out["prefix_cache"] = {

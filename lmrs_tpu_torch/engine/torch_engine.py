@@ -22,7 +22,8 @@ import torch
 from lmrs_tpu_torch.config import EngineConfig, ModelConfig
 from lmrs_tpu_torch.data.tokenizer import ByteTokenizer, get_tokenizer
 from lmrs_tpu_torch.engine.api import GenerationRequest, GenerationResult
-from lmrs_tpu_torch.engine.scheduler import ContinuousScheduler
+from lmrs_tpu_torch.engine.scheduler import (ContinuousScheduler,
+                                             spec_tree_width)
 from lmrs_tpu_torch.models.transformer import init_params, model_dtype, param_count
 from lmrs_tpu_torch.ops.kernels import check_shapes
 from lmrs_tpu_torch.ops.quant import quantize_params
@@ -35,16 +36,19 @@ def check_cuda_config(engine_cfg: EngineConfig, model_cfg: ModelConfig) -> None:
     """Raise ``ValueError`` naming the model if the CUDA kernels would refuse
     it or the engine configuration: a model that is not bfloat16, or a head
     dim, head grouping, page size or verify width outside the kernels'
-    builds (``ops/kernels.shape_problems``)."""
+    builds (``ops/kernels.shape_problems``).  The verify width counts only
+    where the verify kernel is reached: linear speculation (tree
+    speculation verifies in the span kernel, which takes any span)."""
     if model_dtype(model_cfg) != torch.bfloat16:
         raise ValueError(
             f"model {model_cfg.name} is {model_cfg.dtype}; the CUDA kernels "
             "take bfloat16 — use a bfloat16 model on the card (or device='cpu')")
     k = engine_cfg.speculate_k
+    linear = k > 0 and not spec_tree_width(engine_cfg)
     check_shapes(f"model {model_cfg.name} on cuda", model_cfg.hd,
                  model_cfg.n_heads, model_cfg.n_kv_heads,
                  page_size=engine_cfg.page_size,
-                 verify_tokens=k + 1 if k > 0 else None)
+                 verify_tokens=k + 1 if linear else None)
 
 
 class TorchEngine:

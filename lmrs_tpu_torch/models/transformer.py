@@ -17,7 +17,8 @@ them to XLA); attention goes through the kernel modules:
   per-token causality in one kernel — speculative decoding's step;
 * spans (``spans=``): ``ops.paged_attention.ragged_spans`` writes every
   span token's K/V and attends prefix + span — mixed steps, continuation
-  chunks and prefix-cache hit tails.
+  chunks and prefix-cache hit tails; with ``span_anc`` (tree speculation)
+  its ancestor-mask build.
 
 Int8 (the reference's ``quantize``/``kv_quantize``): a projection may be a
 quantized ``{"q", "s"}`` leaf (``ops/quant.py``), multiplied by
@@ -138,6 +139,7 @@ def forward_paged(
     multi_decode: bool = False,  # speculative verify: T tokens per row
     kv_scales: tuple | None = None,  # int8 pools: (k [L, Bs, K, hd], v) f32
     scale_rows: torch.Tensor | None = None,  # [n] slot of each dispatch row
+    span_anc: torch.Tensor | None = None,  # [Tp] int32 ancestor bitmasks
 ) -> torch.Tensor:
     """Forward pass against the paged pool; returns f32 logits — [B, S, V],
     or [B, N, V] with ``packed_last_idx`` / [B, 1, V] with ``last_pos``
@@ -157,7 +159,12 @@ def forward_paged(
     context BEFORE this dispatch: span token j of row b sits at
     ``kv_lens[b] + j``.  ``row_flat`` is the caller's owner map of the
     flat tokens (the kernel derives ownership from the spans itself).
-    Gather the sampled rows with ``packed_last_idx``.
+    Gather the sampled rows with ``packed_last_idx``.  ``span_anc`` turns
+    the spans into token TREES (tree speculation): a flat token with a
+    nonzero word attends the context plus the span offsets its bits name
+    (``ragged_spans``' contract).  ``positions`` stay the caller's — tree
+    nodes take depth-based rope positions while their K/V land at their
+    span-offset columns.
 
     MULTI-TOKEN mode (``multi_decode``): each row's S tokens sit at
     consecutive positions ``kv_lens - S + j``, where ``kv_lens`` counts the
@@ -220,7 +227,8 @@ def forward_paged(
             attn = ragged_spans(
                 q[0].contiguous(), k[0].contiguous(), v[0].contiguous(),
                 k_pages, v_pages, tables + base, kv_lens, span_starts,
-                span_lens, max_pos=rope_max, kscale=ks, vscale=vs)[None]
+                span_lens, max_pos=rope_max, kscale=ks, vscale=vs,
+                anc_masks=span_anc)[None]
         elif multi_decode:
             attn = paged_decode_multi(
                 q.contiguous(), k.contiguous(), v.contiguous(), k_pages,

@@ -11,8 +11,12 @@ the shared headers and the flags, so a changed source rebuilds and an
 unchanged one loads at once.  Building happens at first use (never at
 import): the CPU tests import every module without a CUDA toolkit.
 
-``build_all`` starts one ``nvcc`` per source, all at once, and waits for
-them together.
+``build_all`` starts one ``nvcc`` per library, all at once, and waits for
+them together.  A library is a source compiled with its own defines
+(``BUILDS``): the span kernel's ancestor-mask build is ``ragged_spans.cu``
+under ``-DLMRS_SPAN_ANC``, a library of its own, so its instantiations
+compile beside the others instead of lengthening the span kernel's
+``nvcc``.
 
 ``shape_problems`` / ``check_shapes`` state the one shape rule every
 attention kernel here is built for (head dims, query heads per kv head,
@@ -34,7 +38,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lmrs_tpu_torch"
 SOURCES = ("flash_prefill", "paged_decode", "ragged_spans",
-           "paged_decode_multi")
+           "paged_decode_multi", "ragged_spans_anc")
+# library -> (source under csrc/, extra nvcc defines); every other library
+# is its own source without any
+BUILDS = {"ragged_spans_anc": ("ragged_spans", ("-DLMRS_SPAN_ANC",))}
 # never --use_fast_math: the int8 kernels' quantizing division must stay
 # IEEE to match torch.round(x / s) bit for bit (csrc/kv_int8.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,16 +97,24 @@ def _nvcc() -> str:
                        "toolkit on the machine with the card")
 
 
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """A library's source file and its extra ``nvcc`` defines."""
+    src, defines = BUILDS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", defines
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+    path, defines = _source(name)
+    src = path.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + defines)
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
-    """Compile every listed source that has no up-to-date library, one
-    ``nvcc`` process each, all started together.  Returns per-source
+    """Compile every listed library that is not up to date, one ``nvcc``
+    process each, all started together.  Returns per-library
     ``{"seconds", "cached", "ptxas"}`` (``ptxas`` = the register/shared
     memory report of ``-Xptxas -v``).  Raises on a failed compile."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -112,7 +127,8 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
             info[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        path, defines = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(path)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -128,7 +144,8 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library ``name`` (``csrc/<name>.cu`` unless ``BUILDS``
+    says otherwise), building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
         path = _lib_path(name)

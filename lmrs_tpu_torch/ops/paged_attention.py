@@ -15,6 +15,9 @@ PyTorch versions.
 * ``ragged_spans`` (``csrc/ragged_spans.cu``) replaces the Pallas
   ``ragged_spans_pallas`` (``:962``): one dispatch of (row, query-span)
   pairs — decode rows, a mixed step's prefill slice, continuation chunks.
+  With ``anc_masks`` it runs the same source's ancestor-mask build, the
+  attention of tree speculation, which the reference runs through XLA
+  (``ragged_spans_xla(anc_masks=)``, ``:1154``).
 
 Int8 pools: each writing wrapper also takes ``kscale``/``vscale`` [B, K,
 hd] f32, the dispatch rows' per-(kv head, channel) scales (the reference's
@@ -490,13 +493,17 @@ def ragged_spans_ref(
     max_pos: int | None = None,
     kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
     vscale: torch.Tensor | None = None,
+    anc_masks: torch.Tensor | None = None,  # [Tp] int32 ancestor bitmasks
 ) -> torch.Tensor:
     """Plain PyTorch version (the port of the reference's
-    ``ragged_spans_xla`` without ancestor masks): every row's in-span
-    writes first (int8 pools: each token quantized with its own row's
-    scales), then each row's span attends its page window (int8:
-    dequantized in f32 with the row's scales) with per-token causal limits.
-    Scores and softmax in f32."""
+    ``ragged_spans_xla``): every row's in-span writes first (int8 pools:
+    each token quantized with its own row's scales), then each row's span
+    attends its page window (int8: dequantized in f32 with the row's
+    scales) with per-token causal limits — or, for a token whose
+    ``anc_masks`` word is nonzero, the row's columns below ``kv_lens[b]``
+    plus exactly the span offsets in [0, 32) whose bit is set (the
+    reference's rule, ``ragged_spans_xla`` ``:1229-1234``; the word is read
+    as uint32, so bit 31 counts).  Scores and softmax in f32."""
     tp, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     b, w = page_tables.shape
@@ -530,7 +537,14 @@ def ragged_spans_ref(
         qr = q[s:s + n].reshape(n, kh, n_rep, hd).permute(1, 2, 0, 3)
         logits = torch.matmul(qr.float(), kw.float().transpose(1, 2)[:, None])
         pos = bases[r] + torch.arange(n, device=q.device)
-        mask = (col[None, :] <= pos[:, None]) & (col[None, :] < cap)
+        mask = col[None, :] <= pos[:, None]
+        if anc_masks is not None:
+            a = anc_masks[s:s + n].long() & 0xFFFFFFFF  # the uint32 word
+            off = col[None, :] - bases[r]
+            bit = (a[:, None] >> torch.clamp(off, 0, 31)) & 1
+            tree = (off < 0) | ((off < 32) & (bit == 1))
+            mask = torch.where(a[:, None] == 0, mask, tree)
+        mask = mask & (col[None, :] < cap)
         logits = torch.where(mask, logits * hd ** -0.5,
                              torch.full_like(logits, NEG_INF))
         probs = torch.softmax(logits, dim=-1) * mask.any(-1, keepdim=True)
@@ -540,9 +554,10 @@ def ragged_spans_ref(
 
 
 def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
-                q_starts, q_lens, max_pos, kscale=None, vscale=None):
-    quant = kscale is not None
-    op = "ragged_spans_int8" if quant else "ragged_spans"
+                q_starts, q_lens, max_pos, kscale=None, vscale=None,
+                anc_masks=None):
+    quant, anc = kscale is not None, anc_masks is not None
+    op = "ragged_spans" + ("_anc" if anc else "") + ("_int8" if quant else "")
     tp, h, hd = q.shape
     _, kh, ps, _ = k_pages.shape
     b, w = page_tables.shape
@@ -560,6 +575,12 @@ def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
            for x in (page_tables, kv_lens, q_starts, q_lens)]
     if any(x.shape != (b,) for x in idx[1:]):
         raise ValueError(f"{op}: kv_lens/q_starts/q_lens must be [{b}]")
+    if anc:
+        if anc_masks.shape != (tp,):
+            raise ValueError(f"{op}: anc_masks must be [{tp}] (got "
+                             f"{tuple(anc_masks.shape)})")
+        _check(op, q.device, torch.int32, anc_masks=anc_masks)
+        idx.append(anc_masks)
     out = torch.empty_like(q)
     # the attention pass's split scratch, from shapes alone: the split
     # rows' query tiles (B x SPAN_SPLIT_TILES) x splits of the columns
@@ -570,11 +591,12 @@ def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
     part = torch.empty(groups * n_split * SPAN_QROWS * (hd + 2),
                        dtype=torch.float32, device=q.device)
     counters = _split_counters(q.device, groups)
-    name = "lmrs_ragged_spans_int8" if quant else "lmrs_ragged_spans_bf16"
-    fn = getattr(kernels.load("ragged_spans"), name)
+    lib = "ragged_spans_anc" if anc else "ragged_spans"
+    name = f"lmrs_{lib}_{'int8' if quant else 'bf16'}"
+    fn = getattr(kernels.load(lib), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (12 + len(scales)) + [ctypes.c_int] * 10 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (12 + len(scales) + anc) + [
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             *(x.data_ptr() for x in idx), out.data_ptr(), part.data_ptr(),
@@ -582,10 +604,8 @@ def _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables, kv_lens,
             SPAN_SPLIT, SPAN_SPLIT_TILES, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(name, rc)
-    if quant:
-        ragged_spans.launches_int8 += 1
-    else:
-        ragged_spans.launches += 1
+    counter = "launches" + ("_anc" if anc else "") + ("_int8" if quant else "")
+    setattr(ragged_spans, counter, getattr(ragged_spans, counter) + 1)
     return out
 
 
@@ -602,10 +622,12 @@ def ragged_spans(
     max_pos: int | None = None,
     kscale: torch.Tensor | None = None,  # [B, K, hd] f32 (int8 pools)
     vscale: torch.Tensor | None = None,
+    anc_masks: torch.Tensor | None = None,  # [Tp] int32 ancestor bitmasks
 ) -> torch.Tensor:
     """One ragged dispatch of (row, query-span) pairs.  Returns [Tp, H, hd];
     ``ragged_spans.launches`` counts the bf16 kernel's launches,
-    ``.launches_int8`` the int8 one's.  Contract:
+    ``.launches_int8`` the int8 one's, ``.launches_anc`` and
+    ``.launches_anc_int8`` those of the ancestor-mask build.  Contract:
 
     * token j of row b is flat token ``q_starts[b] + j`` and sits at
       absolute position ``kv_lens[b] + j``;
@@ -614,7 +636,14 @@ def ragged_spans(
     * an in-span token attends columns ``col <= its position`` and
       ``col < min(W * ps, max_pos)`` of its row's table;
     * a flat token of no span gets a zero output row; a ``q_len == 0`` row
-      is skipped.
+      is skipped;
+    * ``anc_masks`` (tree speculation): a token whose word is nonzero
+      attends its row's columns ``< kv_lens[b]`` and exactly the span
+      offsets ``col - kv_lens[b]`` in [0, 32) whose bit is set (bit 31
+      included); a token with word 0 keeps the causal rule.  A tree's
+      words set only ancestors, at or below the token's own offset: the
+      kernel walks a query tile's columns up to the tile's last token, so
+      bits past that column are not read there.
 
     The reference's Pallas kernel differs in two places the consumer never
     reads: it writes tile-padding K/V at future positions and leaves
@@ -622,10 +651,14 @@ def ragged_spans(
     _check_quant("ragged_spans", k_pages, v_pages, kscale, vscale)
     if q.is_cuda:
         return _spans_cuda(q, k_new, v_new, k_pages, v_pages, page_tables,
-                           kv_lens, q_starts, q_lens, max_pos, kscale, vscale)
+                           kv_lens, q_starts, q_lens, max_pos, kscale, vscale,
+                           anc_masks)
     return ragged_spans_ref(q, k_new, v_new, k_pages, v_pages, page_tables,
-                            kv_lens, q_starts, q_lens, max_pos, kscale, vscale)
+                            kv_lens, q_starts, q_lens, max_pos, kscale, vscale,
+                            anc_masks)
 
 
 ragged_spans.launches = 0
 ragged_spans.launches_int8 = 0
+ragged_spans.launches_anc = 0
+ragged_spans.launches_anc_int8 = 0

@@ -10,6 +10,9 @@ import os
 
 logger = logging.getLogger("lmrs_torch.env")
 
+_TRUTHY = frozenset(("1", "true", "yes", "on"))
+_FALSY = frozenset(("0", "false", "no", "off"))
+
 _warned: set[str] = set()
 
 
@@ -31,15 +34,38 @@ def env_str(name: str, default: str = "") -> str:
     return default if raw is None else raw
 
 
-def env_int(name: str, default: int) -> int:
+def env_bool(name: str, default: bool) -> bool:
+    """Boolean knob: 1/true/yes/on vs 0/false/no/off (case-insensitive);
+    anything else warns and keeps the default."""
+    raw = _raw(name)
+    if raw is None:
+        return default
+    low = raw.lower()
+    if low in _TRUTHY:
+        return True
+    if low in _FALSY:
+        return False
+    _warn_once(name, f"not a boolean: {raw!r}; using {default}")
+    return default
+
+
+def env_int(name: str, default: int, *, lo: int | None = None,
+            hi: int | None = None) -> int:
     raw = _raw(name)
     if raw is None:
         return default
     try:
-        return int(raw, 10)
+        val = int(raw, 10)
     except ValueError:
         _warn_once(name, f"not an integer: {raw!r}; using {default}")
         return default
+    if lo is not None and val < lo:
+        _warn_once(name, f"value {val} below minimum {lo}; clamping")
+        return lo
+    if hi is not None and val > hi:
+        _warn_once(name, f"value {val} above maximum {hi}; clamping")
+        return hi
+    return val
 
 
 def env_float(name: str, default: float) -> float:

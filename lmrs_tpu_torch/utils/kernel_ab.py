@@ -206,12 +206,16 @@ def main() -> int:
 
 
 def kernel_kind(name: str) -> str:
-    """A device kernel's kind by its name: the port's attention kernels,
-    cuBLAS products, or the rest (elementwise, norms, copies)."""
+    """A device kernel's kind by its name: the port's attention kernels
+    (the span kernel's two passes are ``span_write_kernel`` and
+    ``span_attn_kernel``), cuBLAS products, or the rest (elementwise,
+    norms, copies)."""
     name = name.lower()
     for kind in ("flash_prefill", "paged_decode", "ragged_spans"):
         if kind in name:
             return kind
+    if "span_write_kernel" in name or "span_attn_kernel" in name:
+        return "ragged_spans"
     if any(w in name for w in ("gemm", "cutlass", "sm90_xmma", "nvjet")):
         return "gemm"
     return "other"

@@ -632,3 +632,88 @@ def test_flash_kernel_refuses_unbuilt_head_dim(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="error 1"):
         tfa.flash_attention(q, kv, kv)
     assert tfa.flash_attention.launches == n0
+
+
+# ------------------------------- the ancestor-mask build (tree speculation)
+
+
+def _tree_masks(hl, width=2, k=4):
+    """The ancestor masks of a tree span [heal (hl), cur, width chains of
+    k] (int32 words; the scheduler's template)."""
+    from types import SimpleNamespace
+
+    from lmrs_tpu_torch.engine.scheduler import ContinuousScheduler
+
+    ns = SimpleNamespace(_spec_tmpl={}, _spec_width=width, spec_k=k)
+    return ContinuousScheduler._tree_span_template(ns, hl)[1]
+
+
+def _anc_case(dev, seed, h=32, kh=8, hd=128):
+    """One tree-speculation dispatch (bench-8b widths unless given, ps=128,
+    W=16): tree spans at heal 0-4 whose bases lie on a split boundary
+    (512), a 32-column tile boundary (544), a 64-column one (576), nowhere
+    (1000) and one column before a split boundary (1535), a 32-token tree
+    whose last token has bit 31 set, a tree at a stale base past W·ps,
+    mask-0 spans (a 40-token slice, a 300-token slice walked unsplit, a
+    decode row) and an inactive row."""
+    r = np.random.default_rng(seed)
+    ps, w = 128, 16
+    rows = [(512, _tree_masks(0)), (544, _tree_masks(1)), (576, _tree_masks(2)),
+            (1000, _tree_masks(3)), (1535, _tree_masks(4)),
+            (300, _tree_masks(3, 2, 14)), (w * ps + 50, _tree_masks(0)),
+            (700, np.zeros(40, np.int32)), (100, np.zeros(300, np.int32)),
+            (129, np.zeros(1, np.int32)), (0, np.zeros(0, np.int32))]
+    q_lens = [len(m) for _, m in rows]
+    q_starts, tp = tpa.pack_spans(q_lens)
+    anc = np.zeros(tp, np.int32)
+    for s, (_, m) in zip(q_starts, rows):
+        anc[s: s + len(m)] = m
+    b = len(rows)
+    n_pages = b * w + 1
+    q, k_new, v_new, k_pages, v_pages = _bf16(
+        dev, *(r.standard_normal(s).astype(np.float32) for s in
+               ((tp, h, hd), (tp, kh, hd), (tp, kh, hd), (n_pages, kh, ps, hd),
+                (n_pages, kh, ps, hd))))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+                v_pages=v_pages,
+                page_tables=i32(r.permutation(n_pages - 1)[: b * w].reshape(b, w) + 1),
+                kv_lens=i32([base for base, _ in rows]), q_starts=i32(q_starts),
+                q_lens=i32(q_lens), anc_masks=i32(anc))
+
+
+ANC_WIDTHS = {"hd32": HD32, "hd64": dict(h=16, kh=8, hd=64),
+              "hd128": dict(h=32, kh=8, hd=128), **HD256}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("widths", sorted(ANC_WIDTHS))
+def test_anc_kernels_match_plain(cuda_device, widths, int8):
+    """The ancestor-mask build (bf16 and int8, every head dim and both
+    Gemma groupings) against ``ragged_spans_ref(anc_masks=)`` at the split
+    and tile boundaries: within TOL, pools exact, a repeat launch
+    bit-identical, and each launch counted as an ancestor-mask launch."""
+    x = _anc_case(cuda_device, 31, **ANC_WIDTHS[widths])
+    if int8:
+        s0, n = int(x["q_starts"][3]), int(x["q_lens"][3])
+        x = _int8ify(x, slice(s0, s0 + n), 3, seed=32)
+    counter = "launches_anc_int8" if int8 else "launches_anc"
+    n0, plain0 = getattr(tpa.ragged_spans, counter), tpa.ragged_spans.launches
+    got = _check_split_kernel(tpa.ragged_spans, tpa.ragged_spans_ref, x)
+    assert getattr(tpa.ragged_spans, counter) == n0 + 2
+    assert tpa.ragged_spans.launches == plain0
+    in_span = torch.zeros(got.shape[0], dtype=torch.bool)
+    for s, n in zip(x["q_starts"].tolist(), x["q_lens"].tolist()):
+        in_span[s: s + n] = True
+    assert not got[~in_span.to(got.device)].any()  # alignment padding
+
+
+@pytest.mark.cuda
+def test_anc_kernel_refuses_bad_masks(cuda_device):
+    """Masks of the wrong length, type or device are refused by name."""
+    x = _anc_case(cuda_device, 33, h=8, kh=4, hd=32)
+    for bad in (x["anc_masks"][:-1], x["anc_masks"].long(),
+                x["anc_masks"].cpu()):
+        with pytest.raises(ValueError, match="ragged_spans_anc"):
+            tpa.ragged_spans(**dict(x, anc_masks=bad))

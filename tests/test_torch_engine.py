@@ -226,11 +226,12 @@ def test_cli_no_prefix_cache_runs(tmp_path):
     assert "prefix_cache" not in report["engine_metrics"]
 
 
-@pytest.mark.parametrize("flag", [["--speculate-k", "2"], ["--host-kv"],
+@pytest.mark.parametrize("flag", [["--checkpoint", "ckpt"], ["--host-kv"],
                                   ["--kv-quantize", "int4"], ["--mesh", "1,2"]])
 def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     """Flags of later slices are refused by name; since int8 is ported,
-    ``--kv-quantize`` is refused only for a mode the reference lacks."""
+    ``--kv-quantize`` is refused only for a mode the reference lacks (and
+    since tree speculation is, ``--speculate-k`` is accepted)."""
     from lmrs_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as exc:

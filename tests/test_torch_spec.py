@@ -281,8 +281,21 @@ def test_spec_engine_matches_plain_and_jax_loop():
 
 
 def test_config_refuses_speculation_with_mixed_steps():
-    with pytest.raises(ValueError, match="tree speculation"):
-        EngineConfig(speculate_k=2)
-    with pytest.raises(ValueError, match="speculate_k"):
-        EngineConfig(speculate_k=-1, mixed_batch=False)
+    """What the config and the CLI refuse of speculation since tree
+    speculation is ported: a negative k only.  ``speculate_k`` with mixed
+    steps (the reference's tree speculation) is accepted by
+    ``EngineConfig`` and by ``lmrs-torch --speculate-k``, which shows in
+    the help; without mixed steps it stays linear speculation."""
+    from lmrs_tpu_torch.cli import build_parser, config_from_args
+    from lmrs_tpu_torch.engine.scheduler import spec_tree_width
+
+    for mixed in (True, False):
+        with pytest.raises(ValueError, match="speculate_k"):
+            EngineConfig(speculate_k=-1, mixed_batch=mixed)
+    assert spec_tree_width(EngineConfig(speculate_k=2)) == 2
     assert EngineConfig(speculate_k=2, mixed_batch=False).speculate_ngram == 3
+    assert spec_tree_width(EngineConfig(speculate_k=2, mixed_batch=False)) == 0
+    cfg = config_from_args(build_parser().parse_args(
+        ["--input", "x.json", "--speculate-k", "4"]))
+    assert cfg.engine.speculate_k == 4 and cfg.engine.mixed_batch
+    assert "--speculate-k" in build_parser().format_help()
