@@ -84,6 +84,13 @@ anything wrong.  Phases, one JSON object per line:
               a prefill slice, every node's logits held against per-branch
               linear span dispatches of the same tokens on the same pools
               (LOGIT_TOL, greedy agreement above the margin).
+4e. model-moe — phase 4's packed prefill, 16 decode steps and span
+              dispatch at Mixtral-8x7B's widths, ONE layer, bf16 and then
+              int8 weights (bf16 KV) on the same draw; every routing
+              decision recorded on both devices: >= 90% of the (token,
+              layer) top-k sets agree, and the logit and greedy gates hold
+              on the tokens whose top-k sets and kept assignments agreed
+              (bf16 hidden states can swap a near-tie token's experts).
 4b. default — the CLI's ``main`` with no ``--model`` (the default
               ``EngineConfig``: preset ``tiny``, hd 32, random-init) on the
               demo transcript; counters zeroed just before and read just
@@ -122,8 +129,10 @@ anything wrong.  Phases, one JSON object per line:
               prompts past 1,024 tokens prefilled in continuation chunks:
               the int8 verify and span kernels and flash launched, the
               int8 decode kernel not at all, no prefix-cache query.
-11. parity  — the pipeline, executor and CLI parity flows at full bench-8b
-              with phase 5's settings, over one engine shared by five
+11. parity  — the pipeline, executor and CLI parity flows at bench-8b widths
+              and 8 layers (``PARITY_LAYERS``; 32 before phases 13-14
+              took the script past ~650 s), with phase 5's settings, over
+              one engine shared by five
               sub-phases, each on a line of its own with its wall, request
               and prefill-token counts, launches and the card's name and
               power limit: 11a ``summarize(save_chunks=)`` with the
@@ -148,7 +157,24 @@ anything wrong.  Phases, one JSON object per line:
               clean audit; a tree-step profile (8 rows x 9 nodes).
 12b. the same with full ``gemma-2b`` (18 layers, one kv head), int8
               weights and KV: the int8 ancestor-mask build at hd 256.
-13. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+13. checkpoint — an HF-layout Mixtral checkpoint (Mixtral-8x7B widths, one
+              layer, random bf16, ~3.4 GB, the port's safetensors writer)
+              under ``build/``, converted by ``lmrs-torch-convert`` and
+              loaded by ``TorchEngine(checkpoint_path=)`` bf16 and int8:
+              leaves and a packed forward's logits bit-equal to an engine
+              built from the same params in memory, int8 leaves equal to
+              ``quantize_params`` of the bf16 ones, 8 greedy requests on
+              each with a clean audit; bytes written and read, seconds a
+              step; the files deleted.
+14. mixtral — phase 5's transcript and config at full ``mixtral-8x7b``
+              (32 layers, int8 weights drawn a layer at a time on the
+              card, bf16 KV, prefix cache on): no failed request, a clean
+              audit, a tree, flash, decode and span kernels launched (no
+              verify, ancestor-mask or int8-KV build), mixed steps and
+              prefix hits, peak memory < 64 GiB; a decode-step profile
+              split into attention, expert products, routing/dispatch,
+              the other int8 products and the rest.
+15. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -1161,25 +1187,65 @@ def time_main_shapes(gen: torch.Generator, widths: dict = BENCH8B) -> list[dict]
 
 # ------------------------------------------------------------ phase 4
 
-def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
-    """``preset``'s widths at 2 layers.  ``int8``: the same weights
-    quantized (``quantize_params`` on the CPU; the card gets the same int8
-    values and scales), int8 KV pools with per-slot scale buffers on both
-    devices."""
+def moe_routes(cfg, records: list) -> tuple[torch.Tensor, torch.Tensor]:
+    """One ``forward_paged`` call's routing, from the ``(n, experts)`` of
+    each ``moe.route`` call (one a layer): (top-k sets [L, N, k] sorted,
+    kept [L, N, k] in that order, from ``assign_slots`` at the call's
+    capacity)."""
+    from lmrs_tpu_torch.ops import moe
+
+    sets, kept = [], []
+    for n, experts in records:
+        keep = moe.assign_slots(experts, cfg.n_experts,
+                                moe.expert_capacity(n, cfg))[1]
+        keep = keep.view(experts.shape[1], n).t()  # [N, k], choice order
+        order = experts.argsort(dim=1)
+        sets.append(experts.gather(1, order))
+        kept.append(keep.gather(1, order))
+    return torch.stack(sets), torch.stack(kept)
+
+
+def check_model(int8: bool = False, preset: str = "bench-8b",
+                n_layers: int = 2, params_cpu: dict | None = None) -> dict:
+    """``preset``'s widths at ``n_layers`` layers.  ``int8``: the same
+    weights quantized (``quantize_params`` on the CPU; the card gets the
+    same int8 values and scales), int8 KV pools with per-slot scale
+    buffers on both devices — except for a mixture-of-experts preset,
+    whose path keeps bf16 KV.  ``params_cpu``: the f32 weights to use
+    (drawn here from seed 1 when None).
+
+    A mixture-of-experts preset (phase 4e) records every routing decision
+    on both devices (``moe.route``): bf16 hidden states on the card can
+    swap a near-tie token's 2nd and 3rd expert, which moves its logits far
+    past the tolerance.  A token's routing agrees when its top-k set and
+    its kept assignments (capacity) are equal in every layer; at least 90%
+    of the (token, layer) top-k sets must agree, and the logit and greedy
+    gates hold on the tokens whose routing agreed.  No verify step (not on
+    that path)."""
     import dataclasses
 
     import numpy as np
 
     from lmrs_tpu_torch.config import model_preset
     from lmrs_tpu_torch.models.transformer import forward_paged, init_params
+    from lmrs_tpu_torch.ops import moe
     from lmrs_tpu_torch.ops.paged_attention import pack_spans
     from lmrs_tpu_torch.ops.quant import is_quantized, quantize_params
 
-    cfg = dataclasses.replace(model_preset(preset), n_layers=2)
+    cfg = dataclasses.replace(model_preset(preset), n_layers=n_layers)
     ps, n_pool, steps = 128, 48, 16
-    params_cpu = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    if params_cpu is None:
+        params_cpu = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
     if int8:
         params_cpu = quantize_params(params_cpu)
+    kv8 = int8 and not cfg.n_experts
+    records = {"cpu": [], "cuda": []}
+    route = moe.route
+
+    def recording_route(router, cfg_, xt):
+        out = route(router, cfg_, xt)
+        records[xt.device.type].append((xt.shape[0], out[2].cpu()))
+        return out
 
     def to_card(t):
         if is_quantized(t):
@@ -1201,8 +1267,8 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
     W = max(len(t) for t in tables)
     table = torch.tensor([t + [0] * (W - len(t)) for t in tables])
     shape = (cfg.n_layers * n_pool, cfg.n_kv_heads, ps, cfg.hd)
-    pool_dt = {"cpu": torch.int8 if int8 else torch.float32,
-               "cuda": torch.int8 if int8 else torch.bfloat16}
+    pool_dt = {"cpu": torch.int8 if kv8 else torch.float32,
+               "cuda": torch.int8 if kv8 else torch.bfloat16}
     pools = {d: (torch.zeros(shape, dtype=pool_dt[d], device=d),
                  torch.zeros(shape, dtype=pool_dt[d], device=d))
              for d in ("cpu", "cuda")}
@@ -1210,7 +1276,7 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
     # int8: per-slot scale buffers (3 slots = the 3 prompts' rows)
     sshape = (cfg.n_layers, len(prompt_lens), cfg.n_kv_heads, cfg.hd)
     scales = {d: ((torch.ones(sshape, device=d), torch.ones(sshape, device=d))
-                  if int8 else None) for d in ("cpu", "cuda")}
+                  if kv8 else None) for d in ("cpu", "cuda")}
 
     tokens = torch.cat(prompts)[None]
     positions = torch.cat([torch.arange(n) for n in prompt_lens])[None]
@@ -1229,9 +1295,34 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
                                 for k, v in kw.items()}).float().cpu()
 
     diffs, agree, checked = [], 0, 0
+    routing = {"decisions": 0, "topk_agree": 0, "tokens": 0,
+               "tokens_agree": 0, "logit_rows": 0, "logit_rows_checked": 0}
 
-    def compare(a, b):
+    def agreed_rows(rows):
+        """Tokens ``rows`` of the last call on both devices whose routing
+        agreed in every layer (all True for a dense model)."""
+        if not cfg.n_experts:
+            return None
+        (sc, kc), (sg, kg) = (moe_routes(cfg, records[d]) for d in ("cpu", "cuda"))
+        records["cpu"].clear()
+        records["cuda"].clear()
+        same_set = (sc == sg).all(-1)                       # [L, N]
+        same = (same_set & (kc == kg).all(-1)).all(0)       # [N]
+        routing["decisions"] += same_set.numel()
+        routing["topk_agree"] += int(same_set.sum())
+        routing["tokens"] += same.numel()
+        routing["tokens_agree"] += int(same.sum())
+        return same[rows]
+
+    def compare(a, b, rows=None):
         nonlocal agree, checked
+        ok = agreed_rows(rows)
+        if ok is not None:
+            routing["logit_rows"] += ok.numel()
+            routing["logit_rows_checked"] += int(ok.sum())
+            a, b = a[ok], b[ok]
+        if a.numel() == 0:
+            return
         diffs.append((a - b).abs().max().item())
         top2 = torch.topk(a, 2, dim=-1).values
         sure = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
@@ -1241,11 +1332,13 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
         if not bool(same[sure].all()):
             raise AssertionError("greedy disagreement above the margin tolerance")
 
+    # a failure exits the script, so the recorder is put back only at the end
+    moe.route = recording_route
     packed_kw = dict(token_pages=tok_pages, segment_ids=seg,
                      packed_last_idx=last_idx, scale_rows=torch.arange(3))
     lo_cpu = run("cpu", tokens, positions, total, **packed_kw)[0]
     lo_gpu = run("cuda", tokens, positions, total, **packed_kw)[0]
-    compare(lo_cpu, lo_gpu)
+    compare(lo_cpu, lo_gpu, last_idx)
     lens = torch.tensor(prompt_lens)
     cur = lo_cpu.argmax(-1)  # teacher forcing: the CPU's greedy tokens
     for _ in range(steps):
@@ -1253,7 +1346,7 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
         kv = (lens + 1).to(torch.int32)
         a = run("cpu", cur[:, None], pos, kv)[:, 0]
         b = run("cuda", cur[:, None], pos, kv)[:, 0]
-        compare(a, b)
+        compare(a, b, torch.arange(3))
         cur = a.argmax(-1)
         lens = lens + 1
     # one span dispatch: rows 0 and 1 decode a token, row 2 takes a
@@ -1269,7 +1362,7 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
     flat[q_starts[0]], flat[q_starts[1]] = cur[0], cur[1]
     flat[q_starts[2]: q_starts[2] + 100] = torch.randint(3, 259, (100,), generator=g)
     base = lens.numpy().astype(np.int32)
-    if int8:
+    if kv8:
         base[2] = 0
     rf = np.clip(row_flat, 0, 2)
     pos = torch.from_numpy(np.clip(base[rf] + np.arange(total) - q_starts[rf], 0,
@@ -1284,32 +1377,45 @@ def check_model(int8: bool = False, preset: str = "bench-8b") -> dict:
             packed_last_idx=gidx.to(dev), kv_scales=scales[dev],
             spans=tuple(torch.from_numpy(a).to(dev)
                         for a in (q_starts, q_lens, row_flat)))[0].float().cpu()
-    compare(span_logits["cpu"], span_logits["cuda"])
-    # one verify step (speculative decoding's shape): 5 tokens per row after
-    # each row's context so far; kv_lens count the 5 tokens
+    compare(span_logits["cpu"], span_logits["cuda"], gidx)
     ctx = torch.from_numpy(base + q_lens).long()
     t = 5
-    multi_tokens = torch.randint(3, 259, (3, t), generator=g)
-    multi_logits = {dev: run(dev, multi_tokens, ctx[:, None] + torch.arange(t),
-                             (ctx + t).to(torch.int32), multi_decode=True)
-                    for dev in ("cpu", "cuda")}
-    compare(multi_logits["cpu"], multi_logits["cuda"])
+    if not cfg.n_experts:
+        # one verify step (speculative decoding's shape): 5 tokens per row
+        # after each row's context so far; kv_lens count the 5 tokens
+        multi_tokens = torch.randint(3, 259, (3, t), generator=g)
+        multi_logits = {dev: run(dev, multi_tokens, ctx[:, None] + torch.arange(t),
+                                 (ctx + t).to(torch.int32), multi_decode=True)
+                        for dev in ("cpu", "cuda")}
+        compare(multi_logits["cpu"], multi_logits["cuda"])
+    moe.route = route
     max_diff = max(diffs)
     if not max_diff <= LOGIT_TOL:
         raise AssertionError(f"model logits: max |diff| {max_diff} > {LOGIT_TOL}")
-    if int8:
+    if cfg.n_experts:
+        routing["topk_agree_share"] = routing["topk_agree"] / routing["decisions"]
+        if routing["topk_agree_share"] < 0.9:
+            raise AssertionError(f"routing: only {routing['topk_agree_share']:.3f} "
+                                 "of (token, layer) top-k sets agree")
+        if routing["logit_rows_checked"] == 0:
+            raise AssertionError("routing: no compared token agreed")
+    if kv8:
         sdiff = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
                     for a, b in zip(scales["cuda"], scales["cpu"]))
     del params, pools, params_gpu, scales
     torch.cuda.empty_cache()
-    phase = "model" if preset == "bench-8b" else "model-gemma"
+    phase = {"bench-8b": "model", "mixtral-8x7b": "model-moe"}.get(
+        preset, "model-gemma")
     return {"phase": phase + ("-int8" if int8 else ""),
-            "config": f"{preset} widths, n_layers=2"
-                      + (", quantize=int8, kv_quantize=int8" if int8 else ""),
-            **({"scale_buffers_max_rel_diff": sdiff} if int8 else {}),
+            "config": f"{preset} widths, n_layers={n_layers}"
+                      + (", quantize=int8" if int8 else "")
+                      + (", kv_quantize=int8" if kv8 else ""),
+            **({"scale_buffers_max_rel_diff": sdiff} if kv8 else {}),
+            **({"routing": routing} if cfg.n_experts else {}),
             "prompts": prompt_lens, "decode_steps": steps,
             "span_dispatch": {"q_lens": q_lens.tolist(), "bases": base.tolist()},
-            "verify_step": {"tokens": t, "contexts": ctx.tolist()},
+            **({} if cfg.n_experts else
+               {"verify_step": {"tokens": t, "contexts": ctx.tolist()}}),
             "max_logit_diff": max_diff, "logit_tol": LOGIT_TOL,
             "greedy_checked": checked, "greedy_agree": agree}
 
@@ -1443,6 +1549,24 @@ def check_tree_dispatch(int8: bool = False, preset: str = "bench-8b") -> dict:
             "greedy_checked": checked, "greedy_agree": agree}
 
 
+def check_moe_model() -> dict:
+    """Phase 4e: ``check_model`` at Mixtral-8x7B's widths, one layer (at
+    two the CPU's f32 copy is ~12 GB), bf16 and then int8 weights (bf16
+    KV) on the same f32 draw; one line with both."""
+    import dataclasses
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(model_preset("mixtral-8x7b"), n_layers=1)
+    params = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    out = {"phase": "model-moe"}
+    for label, int8 in (("bf16", False), ("int8", True)):
+        out[label] = check_model(int8=int8, preset="mixtral-8x7b", n_layers=1,
+                                 params_cpu=params)
+    return out
+
+
 # ------------------------------------------------------------ phase 4b
 
 DEFAULT_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "cli-default"
@@ -1496,6 +1620,8 @@ def run_cli_default() -> dict:
 # ------------------------------------------------------------ phase 5
 
 WEIGHT_SPAN = "int8_weight_product"
+EXPERT_SPAN = "moe_expert_product"
+MOE_SPAN = "moe_layer"
 
 
 def profile_decode_step(engine, rows: int = 8, context: int = 1500,
@@ -1512,18 +1638,31 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
     model forward only.  With int8 weights the
     products (``qmatmul``: the int8 -> bf16 conversion, the GEMM and the
     scale multiply) run under a profiler range of their own, and their
-    device time is reported apart.  Uses real pages from the engine's pool
-    (the prefix cache gives up what it retains) and returns them
-    afterwards."""
+    device time is reported apart.  A mixture-of-experts model's layers
+    (``moe_mlp``) and their expert products run under two more ranges, so
+    the step splits into attention, expert products, routing and dispatch
+    (the rest of ``moe_mlp``), the other weight products and the rest.
+    Uses real pages from the engine's pool (the prefix cache gives up what
+    it retains) and returns them afterwards."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from lmrs_tpu_torch.models import transformer
+    from lmrs_tpu_torch.ops import moe
     from lmrs_tpu_torch.ops.quant import is_quantized
     from lmrs_tpu_torch.utils.kernel_ab import kernel_kind
 
     sched = engine._scheduler
     cache, cfg = sched.cache, sched.model_cfg
     int8_weights = is_quantized(sched.params["layers"][0]["wqkv"])
+    moe_qmatmul, moe_mlp = moe.qmatmul, transformer.moe_mlp
+
+    def traced_expert_qmatmul(x, w):
+        with record_function(EXPERT_SPAN):
+            return moe_qmatmul(x, w)
+
+    def traced_moe_mlp(mp, cfg_, x):
+        with record_function(MOE_SPAN):
+            return moe_mlp(mp, cfg_, x)
     n_pages = -(-(context + steps + 1 + tokens
                   + (sched._spec_width * sched.spec_k if tree else 0))
                 // cache.page_size)
@@ -1592,8 +1731,10 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
             one_step(i)
             issue_ms += (time.perf_counter() - t1) * 1e3
         torch.cuda.synchronize()
-        if int8_weights:
+        if int8_weights or cfg.n_experts:
             transformer.qmatmul = traced_qmatmul
+        if cfg.n_experts:
+            moe.qmatmul, transformer.moe_mlp = traced_expert_qmatmul, traced_moe_mlp
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1602,14 +1743,15 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                 torch.cuda.synchronize()
         finally:
             transformer.qmatmul = qmatmul
+            moe.qmatmul, transformer.moe_mlp = moe_qmatmul, moe_mlp
         kinds = {"paged_decode": 0.0, "gemm": 0.0, "other": 0.0}
         n_kernels = 0
-        weights_us = 0.0
+        span_us = {WEIGHT_SPAN: 0.0, EXPERT_SPAN: 0.0, MOE_SPAN: 0.0}
         for evt in prof.events():
-            if evt.name == WEIGHT_SPAN:
+            if evt.name in span_us:
                 if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
                     # the range's kernels (GEMMs, casts, scale multiplies)
-                    weights_us += evt.device_time_total
+                    span_us[evt.name] += evt.device_time_total
                 continue
             if str(getattr(evt, "device_type", "")).endswith("CUDA"):
                 us = evt.time_range.elapsed_us()  # a kernel's own duration
@@ -1626,13 +1768,20 @@ def profile_decode_step(engine, rows: int = 8, context: int = 1500,
                "device_idle_share": (1 - busy / wall_ms) if n_kernels else "not measured",
                "kernel_ms_per_step": {k: v / steps for k, v in kinds.items()},
                "kernels_per_step": n_kernels / steps}
-        if int8_weights:
-            w_ms = weights_us / 1e3 / steps
+        w_ms, e_ms, m_ms = (span_us[s] / 1e3 / steps
+                            for s in (WEIGHT_SPAN, EXPERT_SPAN, MOE_SPAN))
+        attn_ms = kinds["paged_decode"] / steps
+        if int8_weights and not cfg.n_experts:
             out["int8_split_ms_per_step"] = (
-                {"decode_kernel": kinds["paged_decode"] / steps,
-                 "int8_weight_products": w_ms,
-                 "rest": busy - kinds["paged_decode"] / steps - w_ms}
-                if weights_us > 0 else "not measured")
+                {"decode_kernel": attn_ms, "int8_weight_products": w_ms,
+                 "rest": busy - attn_ms - w_ms}
+                if w_ms > 0 else "not measured")
+        if cfg.n_experts:  # the other products: q/k/v, o and the LM head
+            out["moe_split_ms_per_step"] = (
+                {"attention": attn_ms, "expert_products": e_ms,
+                 "routing_dispatch": m_ms - e_ms, "other_weight_products": w_ms,
+                 "rest": busy - attn_ms - m_ms - w_ms}
+                if m_ms > 0 else "not measured")
         return out
     finally:
         for s in seqs:
@@ -1711,8 +1860,10 @@ def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
     cfg = phase5_config(model, **engine_kw)
     transcript = load_demo_transcript(max_segments=200)
     summarizer = TranscriptSummarizer(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     engine = summarizer.executor.engine  # builds + random-inits the model
     torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     counted = kernel_counters()
     for fn, attr in counted.values():
@@ -1731,6 +1882,7 @@ def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
         raise AssertionError(f"allocator audit: {violations}")
     if not stats["hierarchical"]:
         raise AssertionError("the reduce did not form a tree")
+    stats["build_peak_memory_gib"] = build_peak
     return summarizer, engine, stats, wall, launches
 
 
@@ -2007,9 +2159,258 @@ def run_int8_path(spec: bool = False, model: str = "bench-8b",
     return out
 
 
+# ------------------------------------------------------------ phase 13
+
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "checkpoint"
+
+
+def hf_mixtral_tensors(cfg, gen: torch.Generator, device: str) -> dict:
+    """An HF-layout Mixtral checkpoint of ``cfg`` ([out, in] matrices,
+    Mixtral's names), random bf16 at 1/sqrt(fan_in), norms 1."""
+    D, F_, hd, E = cfg.dim, cfg.hidden_dim, cfg.hd, cfg.n_experts
+
+    def rnd(rows, cols):
+        w = torch.randn(rows, cols, generator=gen, device=device)
+        return (w / cols ** 0.5).bfloat16()
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=device)
+
+    t = {"model.embed_tokens.weight": rnd(cfg.vocab_size, D),
+         "lm_head.weight": rnd(cfg.vocab_size, D), "model.norm.weight": ones(D)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}"
+        t[f"{p}.input_layernorm.weight"] = ones(D)
+        t[f"{p}.post_attention_layernorm.weight"] = ones(D)
+        t[f"{p}.self_attn.q_proj.weight"] = rnd(cfg.n_heads * hd, D)
+        t[f"{p}.self_attn.k_proj.weight"] = rnd(cfg.n_kv_heads * hd, D)
+        t[f"{p}.self_attn.v_proj.weight"] = rnd(cfg.n_kv_heads * hd, D)
+        t[f"{p}.self_attn.o_proj.weight"] = rnd(D, cfg.n_heads * hd)
+        t[f"{p}.block_sparse_moe.gate.weight"] = rnd(E, D)
+        for j in range(E):
+            ex = f"{p}.block_sparse_moe.experts.{j}"
+            t[f"{ex}.w1.weight"] = rnd(F_, D)
+            t[f"{ex}.w3.weight"] = rnd(F_, D)
+            t[f"{ex}.w2.weight"] = rnd(D, F_)
+    return t
+
+
+def run_checkpoint_path(preset: str = "mixtral-8x7b", n_layers: int = 1) -> dict:
+    """Phase 13: an HF-layout checkpoint of ``preset``'s widths at
+    ``n_layers`` layers (random bf16, written by the port's safetensors
+    writer in two shards), converted by ``lmrs-torch-convert``
+    (``convert_cli.main``) and loaded by ``TorchEngine(checkpoint_path=)``
+    on the card, bf16 and int8.  Fails unless the checkpoint engine's
+    leaves and a packed forward's logits equal, bit for bit, those of an
+    engine built from the same params converted in memory, the int8
+    engine's leaves equal ``quantize_params`` of the bf16 ones, and 8
+    greedy requests on each engine finish with a clean audit.  The files
+    live under ``build/`` and are deleted at the end."""
+    import contextlib
+    import io
+    import shutil
+
+    from lmrs_tpu_torch import config as tconfig
+    from lmrs_tpu_torch.config import EngineConfig
+    from lmrs_tpu_torch.engine.api import GenerationRequest
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.models import convert_cli
+    from lmrs_tpu_torch.models.loader import convert_hf_llama
+    from lmrs_tpu_torch.models.transformer import forward_paged
+    from lmrs_tpu_torch.ops.quant import is_quantized, quantize_params
+    from lmrs_tpu_torch.utils.safetensors import save_file
+
+    name = f"{preset}-{n_layers}l"
+    tconfig._PRESETS[name] = dict(tconfig._PRESETS[preset], n_layers=n_layers)
+    cfg = tconfig.model_preset(name)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    hf, ck = CKPT_DIR / "hf", CKPT_DIR / "native"
+    hf.mkdir(parents=True)
+    secs = {}
+    try:
+        t0 = time.time()
+        tensors = hf_mixtral_tensors(cfg, torch.Generator(device="cuda").manual_seed(13),
+                                     "cuda")
+        layer_names = [k for k in tensors if k.startswith("model.layers.")]
+        written = save_file({k: tensors[k] for k in layer_names},
+                            hf / "model-00001-of-00002.safetensors")
+        written += save_file({k: v for k, v in tensors.items()
+                              if k not in layer_names},
+                             hf / "model-00002-of-00002.safetensors")
+        del tensors
+        secs["write_hf"] = time.time() - t0
+        t0 = time.time()
+        told = io.StringIO()  # the command's "run with" line, kept off stdout
+        with contextlib.redirect_stdout(told):
+            rc = convert_cli.main(["--src", str(hf), "--model", name,
+                                   "--output", str(ck), "-q"])
+        if rc != 0:
+            raise AssertionError("lmrs-torch-convert failed on the HF checkpoint")
+        secs["convert"] = time.time() - t0
+        native = sum(f.stat().st_size for f in ck.iterdir())
+        kw = dict(model=name, max_tokens=16, temperature=0.0, num_pages=64)
+        t0 = time.time()
+        eng = TorchEngine(EngineConfig(checkpoint_path=str(ck), **kw), cfg,
+                          device="cuda")
+        torch.cuda.synchronize()
+        secs["load_bf16"] = time.time() - t0
+        t0 = time.time()
+        eng8 = TorchEngine(EngineConfig(checkpoint_path=str(ck), quantize="int8",
+                                        **kw), cfg, device="cuda")
+        torch.cuda.synchronize()
+        secs["load_int8"] = time.time() - t0
+        t0 = time.time()
+        mem = convert_hf_llama(str(hf), cfg)
+        mem = {k: (v.to("cuda") if k != "layers" else
+                   [{n: t.to("cuda") for n, t in lp.items()} for lp in v])
+               for k, v in mem.items()}
+        eng_mem = TorchEngine(EngineConfig(**kw), cfg, device="cuda", params=mem)
+        secs["convert_in_memory"] = time.time() - t0
+
+        def leaves(p):
+            for k, v in p.items():
+                if k == "layers":
+                    for i, lp in enumerate(v):
+                        for n, t in lp.items():
+                            yield f"layers.{i}.{n}", t
+                else:
+                    yield k, v
+
+        def equal(a, b):
+            if is_quantized(a):
+                return torch.equal(a["q"], b["q"]) and torch.equal(a["s"], b["s"])
+            return a.dtype == b.dtype and torch.equal(a, b)
+
+        for (n, a), (_, b) in zip(leaves(eng.params), leaves(eng_mem.params)):
+            if not equal(a, b):
+                raise AssertionError(f"checkpoint leaf {n} differs from the "
+                                     "in-memory conversion")
+        for (n, a), (_, b) in zip(leaves(eng8.params),
+                                  leaves(quantize_params(eng.params))):
+            if not equal(a, b):
+                raise AssertionError(f"int8 checkpoint leaf {n} differs from "
+                                     "quantize_params of the bf16 leaves")
+        # one packed prefill of three prompts through each engine's params
+        g = torch.Generator(device="cuda").manual_seed(14)
+        lens_ = [300, 200, 100]
+        n_tok = sum(lens_)
+        tokens = torch.randint(3, 259, (1, n_tok), generator=g, device="cuda")
+        pos = torch.cat([torch.arange(n, device="cuda") for n in lens_])[None]
+        seg = torch.cat([torch.full((n,), i, device="cuda")
+                         for i, n in enumerate(lens_)])[None]
+        pages = torch.cat([torch.arange(n, device="cuda") // 128 + 1 + 3 * i
+                           for i, n in enumerate(lens_)])[None]
+        last = torch.tensor(lens_, device="cuda").cumsum(0) - 1
+        logits = []
+        for params in (eng.params, eng_mem.params):
+            shape = (cfg.n_layers * 16, cfg.n_kv_heads, 128, cfg.hd)
+            kp = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+            vp = torch.zeros_like(kp)
+            logits.append(forward_paged(
+                params, cfg, tokens, pos, kp, vp,
+                torch.zeros(1, 16, dtype=torch.int32, device="cuda"),
+                torch.tensor([n_tok], dtype=torch.int32, device="cuda"),
+                cfg.max_seq_len, token_pages=pages, segment_ids=seg,
+                packed_last_idx=last))
+        if not torch.equal(logits[0], logits[1]):
+            raise AssertionError("checkpoint engine's logits differ from the "
+                                 "in-memory engine's")
+        del eng_mem, mem
+        texts = {}
+        for label, engine in (("bf16", eng), ("int8", eng8)):
+            t0 = time.time()
+            res = engine.generate_batch([
+                GenerationRequest(prompt=f"Meeting notes, part {i}: the team "
+                                  "reviewed the budget and the schedule.",
+                                  request_id=i, temperature=0.0,
+                                  max_new_tokens=16) for i in range(8)])
+            secs[f"generate_{label}"] = time.time() - t0
+            bad = [r.request_id for r in res if r.error is not None]
+            if bad or len(res) != 8:
+                raise AssertionError(f"{label} checkpoint engine failed requests {bad}")
+            if engine.audit():
+                raise AssertionError(f"{label} checkpoint engine audit: "
+                                     f"{engine.audit()}")
+            texts[label] = sum(r.completion_tokens for r in res)
+        read = native + native  # each engine read every shard once
+        del eng, eng8
+        torch.cuda.empty_cache()
+        return {"phase": "checkpoint",
+                "model": f"{preset} widths, {n_layers} layer(s), random bf16",
+                "hf_bytes_written": written, "native_bytes_written": native,
+                "native_bytes_read": read, "hf_bytes_read": written * 2,
+                "seconds": secs, "completion_tokens": texts,
+                "convert_said": told.getvalue().strip(),
+                "logits_bit_equal": True, "int8_leaves_equal": True}
+    finally:
+        del tconfig._PRESETS[name]
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+# ------------------------------------------------------------ phase 14
+
+def run_mixtral_path() -> dict:
+    """Phase 14: phase 5's transcript and config at full ``mixtral-8x7b``
+    (32 layers, 8 experts, 2 a token), int8 weights drawn and quantized one
+    layer at a time on the card, bf16 KV, the prefix cache on.  Fails
+    unless nothing failed, the audit is clean, the reduce formed a tree,
+    flash, the write-fused decode and the span kernel launched (the
+    verify, ancestor-mask and int8-KV builds not), mixed steps and prefix
+    hits happened, and peak memory stayed under 64 GiB; then a decode-step
+    profile split into attention, expert products, routing and dispatch,
+    the other int8 products and the rest."""
+    summarizer, engine, stats, wall, launches = summarize_once(
+        "mixtral-8x7b", quantize="int8")
+    em = stats["engine_metrics"]
+    never = ("paged_decode_multi", "ragged_spans_anc", "paged_decode_fused_int8",
+             "ragged_spans_int8", "paged_decode_multi_int8",
+             "ragged_spans_anc_int8")
+    require_launches(launches, "mixtral path",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"),
+                     never=never)
+    if em["mixed_batch"]["dispatches"] <= 0:
+        raise AssertionError("no mixed step ran on the mixtral path")
+    if em["prefix_cache"]["tokens_reused"] <= 0:
+        raise AssertionError("no prefix-cache hit on the mixtral path")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not peak < 64:
+        raise AssertionError(f"mixtral path peak memory {peak:.2f} GiB >= 64")
+    step = profile_decode_step(engine)
+    if engine.audit():
+        raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
+    summarizer.shutdown()
+    cfg = engine._scheduler.model_cfg
+    return {"phase": "mixtral",
+            "model": f"mixtral-8x7b ({cfg.n_layers} layers, {cfg.n_experts} "
+                     "experts, random-init int8 weights, bf16 KV)",
+            "decode_step_profile": step,
+            "segments": stats["num_input_segments"],
+            "chunks": stats["num_chunks"], "requests": em["requests"],
+            "reduce_levels": stats["reduce_levels"],
+            "prefill_tokens": em["prefill_tokens"],
+            "prefill_dispatches": em["prefill_dispatches"],
+            "packed_prefill_dispatches": em["packed_prefill_dispatches"],
+            "decode_tokens": em["decode_tokens"],
+            "decode_blocks": em["decode_blocks"],
+            "decode_block_seconds": em["decode_block_seconds"],
+            "decode_tokens_per_sec": em["decode_tokens_per_sec"],
+            "mixed_step_seconds": em["mixed_step_seconds"],
+            "mixed_batch": em["mixed_batch"], "rpa": em["rpa"],
+            "prefix_cache": em["prefix_cache"],
+            "preemptions": em["preemptions"], "stalls": em["stalls"],
+            "audit": engine.audit(), "wall_seconds": wall,
+            "stage_times": stats["stage_times"], "peak_memory_gib": peak,
+            "build_peak_memory_gib": stats["build_peak_memory_gib"],
+            "failed_requests": stats["failed_requests"],
+            "summary_chars": len(stats["summary"]), "launches": launches}
+
+
 # ------------------------------------------------------------ phase 11
 
 PARITY_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "parity"
+# phase 11 runs bench-8b's widths at this depth (32 until phases 13-14 took
+# the script past ~650 s); its flows and gates do not depend on depth
+PARITY_LAYERS = 8
 
 
 class ObservedEngine:
@@ -2103,8 +2504,9 @@ def require_pool_back(engine, where: str) -> None:
 
 
 def run_parity_path(smi: str) -> dict:
-    """Phase 11: the pipeline, executor and CLI parity flows at full
-    bench-8b with phase 5's settings, over ONE engine shared by the
+    """Phase 11: the pipeline, executor and CLI parity flows at bench-8b's
+    widths (``PARITY_LAYERS`` deep) with phase 5's settings, over ONE
+    engine shared by the
     sub-phases (11a stream + save, 11b resume, 11c many, 11d cancel and
     deadlines, 11e retry); each sub-phase zeroes the launch counters just
     before it and reads them just after, and prints its own line."""
@@ -2116,7 +2518,12 @@ def run_parity_path(smi: str) -> dict:
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
     from lmrs_tpu_torch.utils.timing import StageTimer
 
-    cfg = phase5_config(streaming=True)
+    from lmrs_tpu_torch.config import model_preset
+
+    cfg = dataclasses.replace(
+        phase5_config(streaming=True),
+        model=dataclasses.replace(model_preset("bench-8b"),
+                                  n_layers=PARITY_LAYERS))
     transcript = load_demo_transcript(max_segments=200)
     t_build = time.time()
     engine = TranscriptSummarizer(cfg, device="cuda").executor.engine
@@ -2297,7 +2704,8 @@ def run_parity_path(smi: str) -> dict:
     require_pool_back(engine, "11e")
     emit({"phase": "parity-11e-retry", **line,
           "executor_requests": executor.total_requests})
-    return {"phase": "parity", "model": "bench-8b (32 layers, random-init bf16)",
+    return {"phase": "parity",
+            "model": f"bench-8b widths ({PARITY_LAYERS} layers, random-init bf16)",
             "card": smi}
 
 
@@ -2441,6 +2849,7 @@ def main() -> int:
     emit(timed(check_model, int8=True, preset="gemma-7b"))
     emit(timed(check_tree_dispatch))
     emit(timed(check_tree_dispatch, int8=True))
+    emit(timed(check_moe_model))
     emit(timed(run_cli_default))
     main_out = timed(run_main_path)
     emit(main_out)
@@ -2464,6 +2873,8 @@ def main() -> int:
     tree2b_out = timed(run_tree_path, "gemma-2b", quantize="int8",
                        kv_quantize="int8")
     emit(tree2b_out)
+    emit(timed(run_checkpoint_path))
+    emit(timed(run_mixtral_path))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),

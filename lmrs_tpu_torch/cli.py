@@ -10,10 +10,14 @@ feeds the reduce tree into the map stage's engine stream;
 not schedule internally (the port's engine does, so it gets the whole
 queue).  ``--speculate-k K`` drafts K tokens a chain: under the default
 mixed steps that is tree speculation, as in the reference CLI (linear
-speculation is ``EngineConfig(speculate_k=K, mixed_batch=False)``).  Flags
-of features the port does not carry yet (host/disk KV, meshes,
-checkpoints, other backends and hosts, profiling and tracing) are refused
-by name with the slice that brings them.
+speculation is ``EngineConfig(speculate_k=K, mixed_batch=False)``).
+``--checkpoint`` loads a native checkpoint (``lmrs-torch-convert`` makes
+one from an HF directory) and ``--tokenizer`` takes a local HF tokenizer
+directory or a ``*.model`` file besides ``approx`` and ``byte``; any
+tokenizer but ``approx`` is the engine's tokenizer too (one token
+authority).  Flags of features the port does not carry yet (host/disk KV,
+meshes, other backends and hosts, profiling and tracing) are refused by
+name with the slice that brings them.
 """
 
 from __future__ import annotations
@@ -38,7 +42,6 @@ _OBS = "observability (A10)"
 _LATER = {
     "host_kv": "KV movement (host/disk KV tiers)",
     "mesh": "multi-GPU",
-    "checkpoint": "weights and tokenizers from local files (A12)",
     "backend": _SERVING,
     "hosts": _SERVING,
     "profile": _OBS,
@@ -56,7 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default=None, help="model preset (e.g. bench-8b)")
     p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     p.add_argument("--tokenizer", default="approx",
-                   help='token-count authority: "approx" or "byte"')
+                   help='token-count authority: "approx", "byte", a local HF '
+                        'tokenizer directory or a SentencePiece *.model file '
+                        '(any but "approx" is the serving tokenizer too)')
+    p.add_argument("--checkpoint", default=None,
+                   help="native checkpoint directory (lmrs-torch-convert)")
     p.add_argument("--max-tokens", type=int, default=None,
                    help="generation budget per request")
     p.add_argument("--max-tokens-per-chunk", type=int, default=4000)
@@ -97,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
     # not in the port yet: accepted only to refuse them by name
     p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    for flag in ("--checkpoint", "--hosts", "--trace-out"):
+    for flag in ("--hosts", "--trace-out"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     p.add_argument("--backend", "--provider", dest="backend", default=None,
                    help=argparse.SUPPRESS)
@@ -127,6 +134,10 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
             engine, max_concurrent_requests=args.max_concurrent_requests)
     if args.speculate_k is not None:
         engine = dataclasses.replace(engine, speculate_k=args.speculate_k)
+    if args.checkpoint:
+        engine = dataclasses.replace(engine, checkpoint_path=args.checkpoint)
+    if args.tokenizer and args.tokenizer != "approx":
+        engine = dataclasses.replace(engine, tokenizer=args.tokenizer)
     return PipelineConfig(
         data=DataConfig(merge_same_speaker=not args.no_merge,
                         time_interval_seconds=args.time_interval,

@@ -10,8 +10,11 @@ weights and KV pages (``quantize``, ``kv_quantize``), and the executor's
 request cap, retries and deadline budget (``max_concurrent_requests``,
 ``retry_attempts``, ``retry_delay``, ``request_deadline_s``).
 ``ReduceConfig.streaming`` feeds the reduce tree into the map stage's
-engine stream.  Host/disk KV and device meshes have no field here; the CLI
-refuses their flags by name.
+engine stream.  ``EngineConfig.checkpoint_path`` names a native checkpoint
+(``models/loader.py``) and ``tokenizer`` the serving tokenizer; a
+``ModelConfig`` with ``n_experts`` has mixture-of-experts FFNs
+(``ops/moe.py``).  Host/disk KV and device meshes have no field here; the
+CLI refuses their flags by name.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ class ChunkConfig:
     max_tokens_per_chunk: int = 4000
     overlap_tokens: int = 200
     context_tokens: int = 150
-    tokenizer: str = "approx"  # "approx" | "byte"
+    # "approx" | "byte" | a *.model SentencePiece path | an HF tokenizer dir
+    tokenizer: str = "approx"
 
 
 @dataclass
@@ -63,6 +67,11 @@ class ModelConfig:
     embed_scale: bool = False  # multiply embeddings by sqrt(dim)
     head_dim: int | None = None  # explicit per-head dim
     activation: str = "silu"  # "silu" (Llama) | "gelu" (Gemma)
+    # mixture-of-experts (0 experts = dense FFN; ops/moe.py)
+    n_experts: int = 0
+    n_experts_per_token: int = 2
+    expert_capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01  # load-balance loss weight in training
 
     @property
     def hd(self) -> int:
@@ -97,7 +106,8 @@ class EngineConfig:
     prefill_chunk: int = 4096
     decode_block: int = 16  # decode steps per host sync
     mixed_batch: bool = True
-    mixed_token_budget: int = 256
+    mixed_token_budget: int = field(
+        default_factory=lambda: _envmod.env_int("LMRS_MIXED_TOKEN_BUDGET", 256))
     prefix_cache: bool = True
     prefix_cache_max_pages: int = 0
     # speculative decoding: k n-gram drafts per chain verified per step (0 =
@@ -105,6 +115,9 @@ class EngineConfig:
     # spec_tree_width), without it linear speculation
     speculate_k: int = 0
     speculate_ngram: int = 3
+    # a native checkpoint directory (models/loader.save_checkpoint; convert
+    # an HF one with lmrs-torch-convert); None = random-init weights
+    checkpoint_path: str | None = None
     quantize: str | None = None     # None | "int8" (weight-only)
     kv_quantize: str | None = None  # None | "int8" (KV pages)
     temperature: float = field(
@@ -125,6 +138,10 @@ class EngineConfig:
     # flight at the next block boundary, and its retries clip to the budget
     request_deadline_s: float = field(
         default_factory=lambda: _envmod.env_float("LMRS_REQUEST_DEADLINE", 0.0))
+    # the serving tokenizer ("" = the model's default: byte for vocabularies
+    # under 100,000, else approx); the forms ``data.tokenizer.get_tokenizer``
+    # takes: "byte", a *.model SentencePiece path, an HF tokenizer directory
+    tokenizer: str = ""
     seed: int = 0
 
     def __post_init__(self) -> None:
@@ -214,6 +231,9 @@ _PRESETS: dict[str, dict] = {
         tie_embeddings=True, embed_scale=True, head_dim=256,  # != dim/heads
         activation="gelu", norm_eps=1e-6,
     ),
+    "tiny-moe": dict(
+        hidden_dim=512, n_experts=4, n_experts_per_token=2,
+    ),
     "bench-1b": dict(
         vocab_size=512, dim=2048, n_layers=18, n_heads=16, n_kv_heads=8,
         hidden_dim=7168, max_seq_len=2048, rope_theta=500000.0,
@@ -232,6 +252,11 @@ _PRESETS: dict[str, dict] = {
     "bench-smoke": dict(
         vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
         hidden_dim=256, max_seq_len=2048,
+    ),
+    "mixtral-8x7b": dict(
+        vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        hidden_dim=14336, max_seq_len=8192, rope_theta=1e6,
+        tie_embeddings=False, n_experts=8, n_experts_per_token=2,
     ),
 }
 

@@ -6,10 +6,16 @@ Exposes the surface ``MapExecutor`` and ``ResultAggregator`` use:
 ``engine_metrics``, ``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
 is asked for.  A CUDA engine checks, when it is built, that its kernels take
 the model and engine configuration (``check_cuda_config``), so no request
-reaches a kernel only to be refused there.  ``quantize="int8"`` quantizes
-the projections where the params live (after random init, or the caller's
-full-precision params), as the reference does for a model whose
-full-precision tree fits.
+reaches a kernel only to be refused there.  The weights come from, in turn:
+the caller's ``params``; ``engine_cfg.checkpoint_path``, a native
+checkpoint read one layer at a time onto the device
+(``models/loader.load_checkpoint``); or a random init drawn one layer at a
+time on the device.  ``quantize="int8"`` quantizes the projections where
+the params live — each layer as it is loaded or drawn, so the
+full-precision tree never exists on the card (the caller's params are
+quantized whole).  The tokenizer is the caller's, else
+``engine_cfg.tokenizer``'s (``data.tokenizer.get_tokenizer``), else byte
+for a vocabulary under 100,000 and approx otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from lmrs_tpu_torch.data.tokenizer import ByteTokenizer, get_tokenizer
 from lmrs_tpu_torch.engine.api import GenerationRequest, GenerationResult
 from lmrs_tpu_torch.engine.scheduler import (ContinuousScheduler,
                                              spec_tree_width)
+from lmrs_tpu_torch.models.loader import load_checkpoint
 from lmrs_tpu_torch.models.transformer import init_params, model_dtype, param_count
 from lmrs_tpu_torch.ops.kernels import check_shapes
 from lmrs_tpu_torch.ops.quant import quantize_params
@@ -61,6 +68,8 @@ class TorchEngine:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_cuda_config(engine_cfg, model_cfg)
+        if tokenizer is None and engine_cfg.tokenizer:
+            tokenizer = get_tokenizer(engine_cfg.tokenizer)
         if tokenizer is None:
             tokenizer = (ByteTokenizer() if model_cfg.vocab_size < 100000
                          else get_tokenizer("approx"))
@@ -72,12 +81,19 @@ class TorchEngine:
                 f"({model_cfg.vocab_size})")
         self.tokenizer = tokenizer
         t0 = time.time()
-        if params is None:
+        if params is not None:
+            if engine_cfg.checkpoint_path:
+                raise ValueError("pass params or checkpoint_path, not both")
+            if engine_cfg.quantize == "int8":
+                params = quantize_params(params)
+        elif engine_cfg.checkpoint_path:
+            params = load_checkpoint(engine_cfg.checkpoint_path, model_cfg,
+                                     self.device, quantize=engine_cfg.quantize)
+        else:
             logger.warning("no checkpoint for %s: using random-init weights "
                            "(throughput-correct, content-free)", model_cfg.name)
-            params = init_params(model_cfg, engine_cfg.seed, self.device)
-        if engine_cfg.quantize == "int8":
-            params = quantize_params(params)
+            params = init_params(model_cfg, engine_cfg.seed, self.device,
+                                 quantize=engine_cfg.quantize)
         self.params = params
         logger.info("model %s: %.1fM params on %s in %.1fs", model_cfg.name,
                     param_count(params) / 1e6, self.device, time.time() - t0)

@@ -10,6 +10,11 @@ Quantized trees (the reference's ``quantize_params``: each projection a
 across too: the fused port matrices concatenate the int8 values and the
 scales in the same order, and the leaves keep their dtypes whatever
 ``dtype`` says.
+
+Mixture-of-experts trees carry ``layers.moe`` (router [L, D, E], w_gate /
+w_up [L, E, D, F], w_down [L, E, F, D]): the port's layer holds
+``router``, ``w_gate_up`` [E, D, 2F] (gate then up along the output axis)
+and ``w_down`` [E, F, D]; the router is never quantized.
 """
 
 from __future__ import annotations
@@ -41,37 +46,46 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
     quantized) into port params on ``device``.  ``dtype`` None keeps each
     leaf's dtype; quantized leaves always keep int8 values and f32
     scales."""
-    if "moe" in tree["layers"]:
-        raise ValueError("mixture-of-experts weights are not ported yet")
     device = torch.device("cpu" if device is None else device)
     lt = tree["layers"]
     D = cfg.dim
 
-    def proj(leaves, li, rows):
+    def proj(leaves, li, rows, experts=None):
         """Layer li's matrices as one [rows, out] port matrix (fused
-        along the output axis) — or one quantized leaf."""
+        along the output axis; [E, rows, out] for an expert stack) — or
+        one quantized leaf."""
+        lead = (rows,) if experts is None else (experts, rows)
+        ax = len(lead)
         if is_quantized(leaves[0]):
-            q = np.concatenate([np.asarray(a["q"])[li].reshape(rows, -1)
-                                for a in leaves], axis=1)
-            sc = np.concatenate([np.asarray(a["s"])[li].reshape(1, -1)
-                                 for a in leaves], axis=1)
+            q = np.concatenate([np.asarray(a["q"])[li].reshape(*lead, -1)
+                                for a in leaves], axis=ax)
+            sc = np.concatenate([np.asarray(a["s"])[li].reshape(*lead[:-1], 1, -1)
+                                 for a in leaves], axis=ax)
             return {"q": _tensor(q, device, None), "s": _tensor(sc, device, None)}
-        w = np.concatenate([np.asarray(a)[li].reshape(rows, -1)
-                            for a in leaves], axis=1)
+        w = np.concatenate([np.asarray(a)[li].reshape(*lead, -1)
+                            for a in leaves], axis=ax)
         return _tensor(w, device, dtype)
 
-    attn, mlp = lt["attn"], lt["mlp"]
+    attn = lt["attn"]
     hq = cfg.n_heads * cfg.hd
     layers = []
     for li in range(cfg.n_layers):
-        layers.append({
+        lp = {
             "ln_attn": _tensor(np.asarray(lt["ln_attn"]["scale"])[li], device, dtype),
             "ln_mlp": _tensor(np.asarray(lt["ln_mlp"]["scale"])[li], device, dtype),
             "wqkv": proj([attn["wq"], attn["wk"], attn["wv"]], li, D),
             "wo": proj([attn["wo"]], li, hq),
-            "w_gate_up": proj([mlp["w_gate"], mlp["w_up"]], li, D),
-            "w_down": proj([mlp["w_down"]], li, cfg.hidden_dim),
-        })
+        }
+        if "moe" in lt:
+            moe, E = lt["moe"], cfg.n_experts
+            lp["router"] = _tensor(np.asarray(moe["router"])[li], device, dtype)
+            lp["w_gate_up"] = proj([moe["w_gate"], moe["w_up"]], li, D, E)
+            lp["w_down"] = proj([moe["w_down"]], li, cfg.hidden_dim, E)
+        else:
+            mlp = lt["mlp"]
+            lp["w_gate_up"] = proj([mlp["w_gate"], mlp["w_up"]], li, D)
+            lp["w_down"] = proj([mlp["w_down"]], li, cfg.hidden_dim)
+        layers.append(lp)
     params: Params = {
         "embed": _tensor(tree["embed"]["weight"], device, dtype),
         "layers": layers,
@@ -95,17 +109,20 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    def split(w, widths, shapes, n_contract=1):
+    def split(w, widths, shapes, n_contract=1, n_lead=0):
         """Cut a port matrix along its output axis into the reference's
-        leaves of ``shapes`` (the first ``n_contract`` axes contract)."""
+        leaves of ``shapes`` (after ``n_lead`` expert axes, the next
+        ``n_contract`` axes contract)."""
         cuts = np.cumsum(widths)[:-1]
+        ax = n_lead + 1
         if not is_quantized(w):
             return [p.reshape(sh) for p, sh in
-                    zip(np.split(arr(w), cuts, axis=1), shapes)]
-        qs = np.split(arr(w["q"]), cuts, axis=1)
-        ss = np.split(arr(w["s"]), cuts, axis=1)
+                    zip(np.split(arr(w), cuts, axis=ax), shapes)]
+        qs = np.split(arr(w["q"]), cuts, axis=ax)
+        ss = np.split(arr(w["s"]), cuts, axis=ax)
         return [{"q": q.reshape(sh),
-                 "s": sc.reshape((1,) * n_contract + tuple(sh[n_contract:]))}
+                 "s": sc.reshape(tuple(sh[:n_lead]) + (1,) * n_contract
+                                 + tuple(sh[n_lead + n_contract:]))}
                 for q, sc, sh in zip(qs, ss, shapes)]
 
     def stack(leaves):
@@ -114,8 +131,11 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
         return np.stack(leaves)
 
     D, hd, H, K, F_ = cfg.dim, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.hidden_dim
+    moe = bool(cfg.n_experts)
+    lead = (cfg.n_experts,) if moe else ()
     per = {name: [] for name in ("ln_attn", "ln_mlp", "wq", "wk", "wv", "wo",
-                                 "w_gate", "w_up", "w_down")}
+                                 "w_gate", "w_up", "w_down")
+           + (("router",) if moe else ())}
     for lp in params["layers"]:
         wq, wk, wv = split(lp["wqkv"], [H * hd, K * hd, K * hd],
                            [(D, H, hd), (D, K, hd), (D, K, hd)])
@@ -123,10 +143,14 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
         per["wk"].append(wk)
         per["wv"].append(wv)
         per["wo"].append(split(lp["wo"], [D], [(H, hd, D)], n_contract=2)[0])
-        gate, up = split(lp["w_gate_up"], [F_, F_], [(D, F_), (D, F_)])
+        gate, up = split(lp["w_gate_up"], [F_, F_],
+                         [lead + (D, F_), lead + (D, F_)], n_lead=len(lead))
         per["w_gate"].append(gate)
         per["w_up"].append(up)
-        per["w_down"].append(split(lp["w_down"], [D], [(F_, D)])[0])
+        per["w_down"].append(split(lp["w_down"], [D], [lead + (F_, D)],
+                                   n_lead=len(lead))[0])
+        if moe:
+            per["router"].append(arr(lp["router"]))
         per["ln_attn"].append(arr(lp["ln_attn"]))
         per["ln_mlp"].append(arr(lp["ln_mlp"]))
     st = {k: stack(v) for k, v in per.items()}
@@ -137,8 +161,10 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
             "ln_mlp": {"scale": st["ln_mlp"]},
             "attn": {"wq": st["wq"], "wk": st["wk"], "wv": st["wv"],
                      "wo": st["wo"]},
-            "mlp": {"w_gate": st["w_gate"], "w_up": st["w_up"],
-                    "w_down": st["w_down"]},
+            ("moe" if moe else "mlp"): {
+                "w_gate": st["w_gate"], "w_up": st["w_up"],
+                "w_down": st["w_down"],
+                **({"router": st["router"]} if moe else {})},
         },
         "final_norm": {"scale": arr(params["final_norm"])},
     }

@@ -5,8 +5,11 @@ port serves: fresh prefill, packed fresh prefill, single-token decode,
 multi-token verify and ragged spans (``forward_paged``).  Params are a plain dict of tensors (see
 ``init_params``); each layer's q/k/v projections are stored fused as one
 [D, (H + 2K)·hd] matrix and gate/up as one [D, 2F] matrix, so a layer is
-four matmuls.  The dense products stay ``torch.matmul`` (the reference left
-them to XLA); attention goes through the kernel modules:
+four matmuls.  A mixture-of-experts model (``cfg.n_experts``; Mixtral)
+has a router [D, E] and expert stacks [E, D, 2F] / [E, F, D] in place of
+the dense FFN, run by ``ops.moe.moe_mlp``.  The dense products stay
+``torch.matmul`` (the reference left them to XLA); attention goes through
+the kernel modules:
 
 * prefill (S > 1): K/V scattered into the pool, then
   ``ops.flash_attention.flash_attention`` over the current tokens;
@@ -39,12 +42,14 @@ import torch.nn.functional as F
 
 from lmrs_tpu_torch.config import ModelConfig
 from lmrs_tpu_torch.ops.flash_attention import flash_attention
+from lmrs_tpu_torch.ops.moe import moe_mlp
 from lmrs_tpu_torch.ops.norms import rms_norm
 from lmrs_tpu_torch.ops.paged_attention import (paged_decode_fused,
                                                 paged_decode_multi,
                                                 ragged_spans)
 from lmrs_tpu_torch.ops.quant import (is_quantized, kv_quant_tokens,
-                                      kv_scale_from, qmatmul, segment_scales)
+                                      kv_scale_from, qmatmul, quantize_layer,
+                                      quantize_weight, segment_scales)
 from lmrs_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -57,43 +62,81 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """One layer's leaves and their shapes, in draw order.  A dense layer's
+    FFN is ``w_gate_up [D, 2F]``, ``w_down [F, D]``; a mixture-of-experts
+    layer's is ``router [D, E]``, ``w_gate_up [E, D, 2F]``, ``w_down
+    [E, F, D]``."""
+    hd, D, F_ = cfg.hd, cfg.dim, cfg.hidden_dim
+    shapes = {"ln_attn": (D,), "ln_mlp": (D,),
+              "wqkv": (D, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+              "wo": (cfg.n_heads * hd, D)}
+    if cfg.n_experts:
+        E = cfg.n_experts
+        shapes.update(router=(D, E), w_gate_up=(E, D, 2 * F_),
+                      w_down=(E, F_, D))
+    else:
+        shapes.update(w_gate_up=(D, 2 * F_), w_down=(F_, D))
+    return shapes
+
+
+def top_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The leaves outside the layers and their shapes."""
+    shapes = {"embed": (cfg.vocab_size, cfg.dim), "final_norm": (cfg.dim,)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (cfg.dim, cfg.vocab_size)
+    return shapes
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
-                dtype: torch.dtype | None = None) -> Params:
+                dtype: torch.dtype | None = None,
+                quantize: str | None = None) -> Params:
     """Random-init params on ``device``: truncated normal in [-2, 2] over
     sqrt(fan_in), drawn in f32 from one ``torch.Generator`` and cast; norm
     scales zero (the (1 + scale) convention makes that the identity).
-    Built layer by layer so only one layer's f32 draw is alive at a time."""
+    Built layer by layer so only one layer's f32 draw is alive at a time;
+    an expert stack is drawn one expert at a time.  ``quantize="int8"``
+    quantizes each layer's projections (and the untied head) right after
+    their cast draw, so the full-precision tree never exists and the int8
+    values are those of ``quantize_params(init_params(...))``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}; supported: int8")
     dt = dtype or model_dtype(cfg)
     device = torch.device("cpu" if device is None else device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    hd, D, F_ = cfg.hd, cfg.dim, cfg.hidden_dim
 
     def tn(shape, fan_in):
+        if len(shape) == 3:  # an expert stack, one expert at a time
+            w = torch.empty(shape, dtype=dt, device=device)
+            for i in range(shape[0]):
+                w[i] = tn(shape[1:], fan_in)
+            return w
         w = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return (w / math.sqrt(fan_in)).to(dt)
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
-            "ln_attn": torch.zeros(D, dtype=dt, device=device),
-            "ln_mlp": torch.zeros(D, dtype=dt, device=device),
-            "wqkv": tn((D, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd), D),
-            "wo": tn((cfg.n_heads * hd, D), cfg.n_heads * hd),
-            "w_gate_up": tn((D, 2 * F_), D),
-            "w_down": tn((F_, D), F_),
-        })
+        lp = {}
+        for name, shape in layer_shapes(cfg).items():
+            if name.startswith("ln_"):
+                lp[name] = torch.zeros(shape, dtype=dt, device=device)
+            else:
+                lp[name] = tn(shape, shape[-2])
+        layers.append(quantize_layer(lp) if quantize else lp)
     params: Params = {
-        "embed": tn((cfg.vocab_size, D), D),
+        "embed": tn((cfg.vocab_size, cfg.dim), cfg.dim),
         "layers": layers,
-        "final_norm": torch.zeros(D, dtype=dt, device=device),
+        "final_norm": torch.zeros(cfg.dim, dtype=dt, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = tn((D, cfg.vocab_size), D)
+        head = tn((cfg.dim, cfg.vocab_size), cfg.dim)
+        params["lm_head"] = quantize_weight(head) if quantize else head
     return params
 
 
 def param_count(params: Params) -> int:
+    """Every parameter, each expert of each layer included."""
     def numel(t):
         return t["q"].numel() if is_quantized(t) else t.numel()
 
@@ -252,8 +295,11 @@ def forward_paged(
             attn = flash_attention(q, k, v, kv_lens, segment_ids)
         x = x + qmatmul(attn.reshape(b, s, H * hd), lp["wo"])
         h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        gate, up = qmatmul(h, lp["w_gate_up"]).chunk(2, dim=-1)
-        x = x + qmatmul(gate_act(cfg, gate).to(dt) * up, lp["w_down"])
+        if cfg.n_experts:
+            x = x + moe_mlp(lp, cfg, h)[0]
+        else:
+            gate, up = qmatmul(h, lp["w_gate_up"]).chunk(2, dim=-1)
+            x = x + qmatmul(gate_act(cfg, gate).to(dt) * up, lp["w_down"])
 
     if packed_last_idx is not None:
         x = x[:, packed_last_idx.long()]

@@ -9,9 +9,12 @@ layout (``models/transformer.py``: ``wqkv [D, (H+2K)·hd]``, ``w_gate_up
 [D, 2F]``, ``wo [H·hd, D]``, ``w_down [F, D]``, ``lm_head [D, V]``) every
 projection contracts axis 0, so ``s`` has shape ``[1, out]`` and the fused
 matrices' scales are the concatenation of the reference's per-weight
-scales in the same order.  ``qmatmul`` contracts the raw int8 values
-(exact in bf16) and multiplies the OUTPUT by ``s``.  The embedding is not
-quantized.
+scales in the same order.  A mixture-of-experts layer's expert matrices
+(``w_gate_up [E, D, 2F]``, ``w_down [E, F, D]``) contract axis 1: one
+scale per (expert, output channel), ``s [E, 1, out]``.  ``qmatmul``
+contracts the raw int8 values (exact in bf16) and multiplies the OUTPUT by
+``s``.  The embedding and the router are not quantized (routing decisions
+are precision-sensitive).
 
 KV: one scale per (slot, kv head, channel), fixed from a prompt's first
 tokens and reused (clamped) by every later token of the slot;
@@ -34,23 +37,38 @@ def is_quantized(leaf: Any) -> bool:
     return isinstance(leaf, dict) and set(leaf) == {"q", "s"}
 
 
-def quantize_weight(w: torch.Tensor, dims: tuple[int, ...] = (0,)) -> dict:
-    """Symmetric int8 over the contracting ``dims`` (scales shared only
-    along them, kept as size-1 axes)."""
+def quantize_weight(w: torch.Tensor) -> dict:
+    """Symmetric int8 over the contracting axis (the second to last: axis
+    0 of a matrix [in, out], axis 1 of an expert stack [E, in, out]); the
+    scales keep it as a size-1 axis.  An expert stack is quantized one
+    expert at a time, so one expert's f32 copy is alive at a time."""
+    if w.dim() == 3:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty((w.shape[0], 1, w.shape[2]), dtype=torch.float32,
+                        device=w.device)
+        for i in range(w.shape[0]):
+            qi = quantize_weight(w[i])
+            q[i], s[i] = qi["q"], qi["s"]
+        return {"q": q, "s": s}
     wf = w.float()
-    s = torch.clamp(wf.abs().amax(dim=dims, keepdim=True) / 127.0, min=1e-8)
+    s = torch.clamp(wf.abs().amax(dim=0, keepdim=True) / 127.0, min=1e-8)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 
 
+def quantize_layer(lp: dict) -> dict:
+    """One layer's dict with its projections quantized (a new dict)."""
+    return {n: quantize_weight(t) if n in QUANT_NAMES and not is_quantized(t)
+            else t for n, t in lp.items()}
+
+
 def quantize_params(params: dict) -> dict:
     """Quantize every projection of a port param dict (``lm_head`` too
-    when untied; the embedding and norms stay as they are).  Layer by
-    layer, so one f32 copy of one matrix is alive at a time; returns a new
-    dict and leaves the input's tensors untouched."""
+    when untied; the embedding, norms and routers stay as they are).
+    Layer by layer, so one f32 copy of one matrix is alive at a time;
+    returns a new dict and leaves the input's tensors untouched."""
     out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = [{n: quantize_weight(t) if n in QUANT_NAMES else t
-                      for n, t in lp.items()} for lp in params["layers"]]
+    out["layers"] = [quantize_layer(lp) for lp in params["layers"]]
     if "lm_head" in params:
         out["lm_head"] = quantize_weight(params["lm_head"])
     return out
@@ -58,7 +76,8 @@ def quantize_params(params: dict) -> dict:
 
 def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     """``x @ w`` where ``w`` may be a quantized leaf: ``(x @ q) * s`` in
-    f32, cast back to ``x``'s dtype (the reference's ``qeinsum``)."""
+    f32, cast back to ``x``'s dtype (the reference's ``qeinsum``).  An
+    expert stack multiplies batched: x [E, C, in] by w [E, in, out]."""
     if is_quantized(w):
         return (torch.matmul(x, w["q"].to(x.dtype)) * w["s"]).to(x.dtype)
     return torch.matmul(x, w)

@@ -51,7 +51,8 @@ class TranscriptSummarizer:
             engine = self._engine
             if engine is None:
                 # an explicit chunk tokenizer is the serving tokenizer too
-                # (one token authority); "approx" leaves the model default
+                # (one token authority, loaded once); "approx" leaves the
+                # engine's own: engine.tokenizer, else the model default
                 tok = (get_tokenizer(cfg.chunk.tokenizer)
                        if cfg.chunk.tokenizer != "approx" else None)
                 engine = make_engine(cfg.engine,

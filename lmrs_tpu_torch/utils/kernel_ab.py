@@ -15,7 +15,10 @@ bf16, one 1,600-token row through ``forward_paged``).  ``--e2e`` times the
 end-to-end paths, through the checkout's own ``chip_smoke.py`` (on the
 same path): phases 5-8 (bf16, bf16 with linear speculation, int8, int8
 with speculation: wall seconds, decode tokens/s) and each one's
-decode-step or verify-step profile.  Needs a card; exits 1 without one.
+decode-step or verify-step profile.  ``--init-sums`` prints, instead, a
+checksum of every leaf of bench-8b's and gemma-2b's int8 random-init
+params (seed 0, on the card), so two checkouts' int8 weights can be held
+equal bit for bit.  Needs a card; exits 1 without one.
 
 Shapes (bench-8b widths: H=32, K=8, hd=128, ps=128, W=16): decode at
 ``chip_smoke.py`` phase 3's 8 rows (kv_lens 0/1/128/129/700/1500/2048/1000)
@@ -172,6 +175,46 @@ def cases(gen: torch.Generator) -> dict:
     return out
 
 
+def init_checksums() -> dict:
+    """Per-leaf checksums (the sum of the raw bits as integers, and the sum
+    weighted by position) of bench-8b's and gemma-2b's int8 random-init
+    params, seed 0, on the card: ``init_params(quantize="int8")`` where the
+    checkout has it (each layer quantized after its draw), else
+    ``quantize_params(init_params(...))`` (the drawn tree quantized)."""
+    import inspect
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.transformer import init_params
+    from lmrs_tpu_torch.ops.quant import quantize_params
+
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int8: torch.int8}
+
+    def checksum(t: torch.Tensor) -> list[int]:
+        x = t.contiguous().view(-1).view(bits[t.dtype]).to(torch.int64)
+        w = torch.arange(x.numel(), device=x.device) % 1000003 + 1
+        return [int(x.sum()), int((x * w).sum())]
+
+    out = {}
+    for name in ("bench-8b", "gemma-2b"):
+        cfg = model_preset(name)
+        if "quantize" in inspect.signature(init_params).parameters:
+            p = init_params(cfg, 0, "cuda", quantize="int8")
+        else:
+            p = quantize_params(init_params(cfg, 0, "cuda"))
+        sums = {}
+        for k, v in p.items():
+            for i, lp in enumerate(v if k == "layers" else [{k: v}]):
+                for n, t in lp.items():
+                    key = f"layers.{i}.{n}" if k == "layers" else n
+                    for part, leaf in (t.items() if isinstance(t, dict) else [("", t)]):
+                        sums[key + (f".{part}" if part else "")] = checksum(leaf)
+        out[name] = sums
+        del p
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="")
@@ -180,6 +223,8 @@ def main() -> int:
                       help="time phases 5-8 instead of the kernels")
     mode.add_argument("--prefill", action="store_true",
                       help="profile one fresh-prefill dispatch instead")
+    mode.add_argument("--init-sums", action="store_true",
+                      help="checksum the int8 random-init leaves instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
@@ -187,12 +232,16 @@ def main() -> int:
     import lmrs_tpu_torch
     from lmrs_tpu_torch.ops import kernels
 
-    kernels.build_all()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     out = {"tag": args.tag, "package": lmrs_tpu_torch.__file__,
            "nvidia_smi": smi}
+    if args.init_sums:
+        out["init_sums"] = init_checksums()
+        print(json.dumps(out), flush=True)
+        return 0
+    kernels.build_all()
     if args.e2e:
         out["e2e"] = end_to_end()
     elif args.prefill:

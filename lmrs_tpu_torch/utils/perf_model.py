@@ -9,12 +9,14 @@ from lmrs_tpu_torch.config import ModelConfig
 
 def _matmul_params(cfg: ModelConfig) -> int:
     """Parameters in per-token matmuls (embedding lookup excluded; the LM
-    head included, tied or not)."""
+    head included, tied or not; of a mixture-of-experts FFN only the
+    experts a token activates)."""
     d, hd = cfg.dim, cfg.hd
     per_layer = (d * cfg.n_heads * hd          # wq
                  + 2 * d * cfg.n_kv_heads * hd  # wk, wv
-                 + cfg.n_heads * hd * d         # wo
-                 + 3 * d * cfg.hidden_dim)      # gate, up, down
+                 + cfg.n_heads * hd * d)        # wo
+    ffn = 3 * d * cfg.hidden_dim               # gate, up, down
+    per_layer += ffn * cfg.n_experts_per_token if cfg.n_experts else ffn
     return cfg.n_layers * per_layer + d * cfg.vocab_size
 
 

@@ -717,3 +717,76 @@ def test_anc_kernel_refuses_bad_masks(cuda_device):
                 x["anc_masks"].cpu()):
         with pytest.raises(ValueError, match="ragged_spans_anc"):
             tpa.ragged_spans(**dict(x, anc_masks=bad))
+
+
+# ------------------------------------------------- mixture of experts, loader
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1.25, 0.05])
+def test_moe_mlp_on_card_matches_cpu(cuda_device, capacity):
+    """``moe_mlp`` on the card against the CPU at the same f32 inputs
+    (tiny-moe widths; a skewed router so capacity drops assignments): the
+    same routing, outputs atol 1e-4 (f32 products in another order)."""
+    import dataclasses
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.transformer import init_params
+    from lmrs_tpu_torch.ops import moe
+
+    cfg = dataclasses.replace(model_preset("tiny-moe"), n_layers=1,
+                              dtype="float32", expert_capacity_factor=capacity)
+    lp = init_params(cfg, seed=3)["layers"][0]
+    lp["router"][:, 0] = lp["router"][:, 0].abs() * 4.0
+    x = torch.from_numpy(np.abs(np.random.default_rng(4).standard_normal(
+        (2, 37, cfg.dim))).astype(np.float32))
+    want, want_aux = moe.moe_mlp(lp, cfg, x)
+    got, aux = moe.moe_mlp({k: v.to(cuda_device) for k, v in lp.items()}, cfg,
+                           x.to(cuda_device))
+    e_cpu = moe.route(lp["router"], cfg, x.reshape(-1, cfg.dim))[2]
+    e_gpu = moe.route(lp["router"].to(cuda_device), cfg,
+                      x.to(cuda_device).reshape(-1, cfg.dim))[2]
+    assert torch.equal(e_cpu, e_gpu.cpu())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_load_checkpoint_onto_card(cuda_device, tmp_path, quantize):
+    """A native checkpoint written on the CPU loads onto the card leaf for
+    leaf (int8: each layer quantized as it lands, equal to
+    ``quantize_params`` of the plain load on the card; the card's scale
+    division by 127 is a reciprocal multiply, so its scales may differ
+    from the CPU's in the last bit)."""
+    import dataclasses
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.loader import load_checkpoint, save_checkpoint
+    from lmrs_tpu_torch.models.transformer import init_params
+    from lmrs_tpu_torch.ops.quant import is_quantized, quantize_params
+
+    cfg = dataclasses.replace(model_preset("tiny-moe"), n_layers=2,
+                              tie_embeddings=False)
+    params = init_params(cfg, seed=5)
+    save_checkpoint(str(tmp_path), params)
+    got = load_checkpoint(str(tmp_path), cfg, cuda_device, quantize=quantize)
+    want = params
+    if quantize:
+        want = quantize_params(load_checkpoint(str(tmp_path), cfg, cuda_device))
+
+    def leaves(p):
+        out = {}
+        for k, v in p.items():
+            for i, lp in enumerate(v if k == "layers" else [{k: v}]):
+                for n, t in lp.items():
+                    key = f"layers.{i}.{n}" if k == "layers" else n
+                    for part, leaf in (t.items() if is_quantized(t) else [("", t)]):
+                        out[key + part] = leaf
+        return out
+
+    got, want = leaves(got), leaves(want)
+    assert set(got) == set(want)
+    for n, y in want.items():
+        x = got[n]
+        assert x.device.type == "cuda" and x.dtype == y.dtype, n
+        assert torch.equal(x.cpu(), y.cpu()), n

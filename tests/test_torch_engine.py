@@ -226,12 +226,13 @@ def test_cli_no_prefix_cache_runs(tmp_path):
     assert "prefix_cache" not in report["engine_metrics"]
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "ckpt"], ["--host-kv"],
+@pytest.mark.parametrize("flag", [["--hosts", "h:1"], ["--host-kv"],
                                   ["--kv-quantize", "int4"], ["--mesh", "1,2"]])
 def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     """Flags of later slices are refused by name; since int8 is ported,
     ``--kv-quantize`` is refused only for a mode the reference lacks (and
-    since tree speculation is, ``--speculate-k`` is accepted)."""
+    since tree speculation is, ``--speculate-k`` is accepted, and since
+    checkpoints are, ``--checkpoint``)."""
     from lmrs_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as exc:
@@ -242,7 +243,7 @@ def test_cli_refuses_later_slices(tmp_path, flag, capsys):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--checkpoint", "ckpt"], "A12"), (["--backend", "jax"], "A3"),
+    (["--backend", "jax"], "A3"),
     (["--hosts", "h:1,h:2"], "A3"), (["--profile"], "A10"),
     (["--trace-out", "t.json"], "A10"), (["--no-trace"], "A10")])
 def test_cli_refuses_reference_flags_by_name(tmp_path, flag, slice_, capsys):
