@@ -174,7 +174,33 @@ anything wrong.  Phases, one JSON object per line:
               prefix hits, peak memory < 64 GiB; a decode-step profile
               split into attention, expert products, routing/dispatch,
               the other int8 products and the rest.
-15. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+15. serve   — the serving surface at full bench-8b (random-init bf16,
+              byte tokenizer, phase 5's engine settings with a 512-token
+              cap), each sub-phase on a line of its own with the card's
+              name and power limit.  15a: ``EngineHTTPServer`` in this
+              process on 127.0.0.1, launch counters zeroed just before
+              and read after: an OpenAI chat completion and an Anthropic
+              message, each non-streamed and streamed at temperature 0
+              (SSE deltas join to the non-streamed text; finish reason,
+              stop reason and usage right; latency and time to the first
+              delta), a stop string cut in the stream, 8 of phase 5's map
+              prompts in one batch window (ONE wave; texts equal one
+              direct ``generate_batch`` of the same 8), an
+              ``X-LMRS-Deadline: 0.001`` request shed, a streamed client
+              reset after its first delta (cancelled, pages back), a warm
+              repeat (a prefix hit, its tail through the span kernel);
+              ``/healthz`` (with a radix summary), ``/v1/models`` and both
+              ``/metrics`` forms; a clean audit; flash, decode and span
+              kernels launched.  15b: ``lmrs-torch --backend http --hosts
+              <15a's server>,<a dead port>`` as a child with no card:
+              no failed request, a tree, a summary, every request served
+              by the live host and the dead one unhealthy; its wall beside
+              phase 5's.  15c: once 15a's engine is freed,
+              ``python -m lmrs_tpu_torch.serving.cli --model bench-8b
+              --tokenizer byte`` as a child on the card: ``/healthz``
+              within 300 s, one chat completion, SIGINT exits 0; start-up
+              seconds.
+16. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -2709,6 +2735,516 @@ def run_parity_path(smi: str) -> dict:
             "card": smi}
 
 
+# ------------------------------------------------------------ phase 15
+
+SERVE_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "serve"
+SERVE_TIMEOUT = 300.0  # seconds one HTTP call may wait on the card
+SERVE_CAP = 512  # the served engine's token cap (phase 5's requests ask 64)
+CHAT, MESSAGES = "/v1/chat/completions", "/v1/messages"
+SERVE_SYSTEM = "You summarize meeting transcripts."
+
+
+class WaveRecorder:
+    """The engine behind phase 15's server: forwards every call, and keeps
+    a copy of the requests of each ``generate_batch`` (one batcher
+    wave)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.waves: list[list] = []
+
+    def generate_batch(self, requests, on_result=None, on_tokens=None):
+        import dataclasses
+
+        self.waves.append([dataclasses.replace(r) for r in requests])
+        return self.engine.generate_batch(requests, on_result=on_result,
+                                          on_tokens=on_tokens)
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port: int, method: str, path: str, body=None, headers=None,
+              timeout: float = SERVE_TIMEOUT) -> tuple[int, str]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def sse_piece(evt: dict) -> str:
+    """The text delta an SSE event of either wire carries ('' if none)."""
+    if evt.get("choices"):
+        return evt["choices"][0]["delta"].get("content") or ""
+    if evt.get("type") == "content_block_delta":
+        return evt["delta"]["text"]
+    return ""
+
+
+def sse_stream(port: int, path: str, body: dict) -> dict:
+    """One streamed completion: its deltas and events, the ms to the first
+    text delta and to the end."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_TIMEOUT)
+    t0 = time.time()
+    first = None
+    deltas, events = [], []
+    try:
+        conn.request("POST", path, body=json.dumps(
+            {**body, "stream": True, "stream_options": {"include_usage": True}}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"15a: {path} stream answered {resp.status}")
+        for raw in resp:
+            line = raw.decode("utf-8").strip()
+            if not line.startswith("data: "):
+                continue
+            if line[6:] == "[DONE]":
+                events.append("[DONE]")
+                break
+            evt = json.loads(line[6:])
+            events.append(evt)
+            if "error" in evt:
+                raise AssertionError(f"15a: {path} stream error {evt}")
+            piece = sse_piece(evt)
+            if piece:
+                first = first or time.time()
+                deltas.append(piece)
+            if evt.get("type") == "message_stop":
+                break
+    finally:
+        conn.close()
+    return {"deltas": deltas, "events": events,
+            "first_delta_ms": (first - t0) * 1e3 if first else None,
+            "total_ms": (time.time() - t0) * 1e3}
+
+
+def serve_pair(port: int, sched, path: str, body: dict) -> dict:
+    """15a's check of one wire: the request non-streamed, then streamed,
+    each from an empty prefix cache (the same dispatch shapes, so the same
+    greedy tokens): the deltas join to the non-streamed text, and the
+    finish reason and usage agree and are right."""
+    sched._prefix_cache.clear()
+    t0 = time.time()
+    status, raw = http_call(port, "POST", path, body)
+    latency = (time.time() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"15a: {path} answered {status}: {raw[:300]}")
+    doc = json.loads(raw)
+    sched._prefix_cache.clear()
+    s = sse_stream(port, path, body)
+    want_prompt = 1 + len(sched.tokenizer.encode(
+        SERVE_SYSTEM + "\n\n" + body["messages"][-1]["content"]))
+    if path == CHAT:
+        text, usage = doc["choices"][0]["message"]["content"], doc["usage"]
+        reason, n_out = doc["choices"][0]["finish_reason"], usage["completion_tokens"]
+        n_in = usage["prompt_tokens"]
+        last = s["events"][-2]
+        stream_ok = (last["choices"][0]["finish_reason"] == reason
+                     and last["usage"] == usage)
+        reason_ok = reason == ("length" if n_out == body["max_tokens"] else "stop")
+    else:
+        text, usage = doc["content"][0]["text"], doc["usage"]
+        reason, n_out = doc["stop_reason"], usage["output_tokens"]
+        n_in = usage["input_tokens"]
+        last = next(e for e in s["events"] if e.get("type") == "message_delta")
+        stream_ok = (last["delta"]["stop_reason"] == reason
+                     and last["usage"] == usage)
+        reason_ok = reason == ("max_tokens" if n_out == body["max_tokens"]
+                               else "end_turn")
+    if "".join(s["deltas"]) != text:
+        raise AssertionError(f"15a: {path}: the SSE deltas do not join to the "
+                             "non-streamed text")
+    if not (stream_ok and reason_ok and n_in == want_prompt
+            and 0 < n_out <= body["max_tokens"]):
+        raise AssertionError(f"15a: {path}: finish {reason}, usage {usage} "
+                             f"(prompt {want_prompt}), stream end {last}")
+    return {"latency_ms": latency, "first_delta_ms": s["first_delta_ms"],
+            "stream_ms": s["total_ms"], "deltas": len(s["deltas"]),
+            "finish": reason, "prompt_tokens": n_in,
+            "completion_tokens": n_out, "text": text}
+
+
+def serve_checks(srv, rec, engine, smi: str, build_s: float) -> dict:
+    """15a: the wires, streaming, the stop holdback, one 8-request wave,
+    a shed deadline and a client that goes away, over the in-process
+    server; every launch counter zeroed just before and read after."""
+    import dataclasses
+    import socket
+    import threading
+
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.prompts import resolve_map_prompt
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+    from lmrs_tpu_torch.utils.timing import StageTimer
+
+    sched, port = engine._scheduler, srv.port
+    summ = TranscriptSummarizer(phase5_config(), engine=engine)
+    _n, _p, chunks = summ._prep(load_demo_transcript(max_segments=200),
+                                StageTimer())
+    base = [summ.executor.build_map_request(c, resolve_map_prompt(),
+                                            request_id=i)
+            for i, c in enumerate(chunks)]
+    pick = sorted(range(len(base)), key=lambda i: len(base[i].prompt))[:8]
+    prompt = base[pick[0]].prompt
+    chat = {"messages": [{"role": "system", "content": SERVE_SYSTEM},
+                         {"role": "user", "content": prompt}],
+            "max_tokens": 64, "temperature": 0}
+    msgs = {"system": SERVE_SYSTEM, "max_tokens": 64, "temperature": 0,
+            "messages": [{"role": "user", "content": prompt}]}
+    counted = kernel_counters()
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    em0 = engine.engine_metrics()
+    torch.cuda.synchronize()
+    t_phase = time.time()
+    out = {"chat": serve_pair(port, sched, CHAT, chat),
+           "messages": serve_pair(port, sched, MESSAGES, msgs)}
+
+    out["chat"].pop("text")
+    out["messages"].pop("text")
+
+    # 8 of phase 5's map prompts inside one batch window: ONE wave
+    bodies = [{"messages": ([{"role": "system", "content": b.system_prompt}]
+                            if b.system_prompt else [])
+               + [{"role": "user", "content": b.prompt}],
+               "max_tokens": 64, "temperature": 0,
+               "cache_prefix": b.cache_prefix}
+              for b in (base[i] for i in pick)]
+    sched._prefix_cache.clear()
+    waves0, batches0 = len(rec.waves), srv.batcher.batches_run
+    # the window closes at the 8th arrival (max_batch), or after 5 s
+    srv.batcher.window_s, srv.batcher.max_batch = 5.0, 8
+    answers: list = [None] * 8
+
+    def post(k: int) -> None:
+        answers[k] = http_call(port, "POST", CHAT, bodies[k])
+
+    threads = [threading.Thread(target=post, args=(k,)) for k in range(8)]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT)
+    wave_wall = time.time() - t0
+    srv.batcher.window_s, srv.batcher.max_batch = 0.02, 256
+    if any(a is None or a[0] != 200 for a in answers):
+        raise AssertionError(f"15a: the wave's answers {answers}")
+    if (len(rec.waves) != waves0 + 1 or len(rec.waves[-1]) != 8
+            or srv.batcher.batches_run != batches0 + 1):
+        raise AssertionError(f"15a: {srv.batcher.batches_run - batches0} "
+                             "waves for 8 requests inside one window")
+    texts = {b["messages"][-1]["content"]:
+             json.loads(a[1])["choices"][0]["message"]["content"]
+             for b, a in zip(bodies, answers)}
+
+    # a stop string: of the wave's map prompts, the one whose text has the
+    # latest first match of a short window (a random model often repeats
+    # one byte), run alone from an empty cache; its latest-matching window
+    # is the stop (no U+FFFD in it: a character still arriving must not
+    # match early)
+    def windows(text: str) -> list[str]:
+        return [text[i:i + n] for n in (1, 2, 3, 4)
+                for i in range(len(text) - n + 1)
+                if "�" not in text[i:i + n]]
+
+    def latest(text: str) -> int:
+        return max(map(text.index, windows(text)), default=-1)
+
+    body = max(bodies, key=lambda b: latest(texts[b["messages"][-1]["content"]]))
+    sched._prefix_cache.clear()
+    status, raw = http_call(port, "POST", CHAT, body)
+    plain = json.loads(raw)["choices"][0]["message"]["content"]
+    if status != 200 or not windows(plain):
+        raise AssertionError(f"15a: no stop string in {plain!r}")
+    stop = max(windows(plain), key=plain.index)
+    sched._prefix_cache.clear()
+    s = sse_stream(port, CHAT, {**body, "stop": [stop]})
+    cut = plain[:plain.index(stop)]
+    end = s["events"][-2]["choices"][0]
+    if "".join(s["deltas"]) != cut or end["finish_reason"] != "stop":
+        raise AssertionError(f"15a: stop {stop!r}: streamed "
+                             f"{''.join(s['deltas'])!r}, want {cut!r}")
+    out["stop"] = {"stop": stop, "cut_at": len(cut), "text_chars": len(plain),
+                   "deltas": len(s["deltas"])}
+
+    # an expired deadline is shed before any work
+    status, raw = http_call(port, "POST", CHAT, chat,
+                            headers={"X-LMRS-Deadline": "0.001"})
+    shed = json.loads(raw)["choices"][0]["finish_reason"]
+    if status != 200 or shed != "shed":
+        raise AssertionError(f"15a: the 1 ms deadline finished {shed}")
+
+    # a streamed client that goes away after its first delta (a reset,
+    # so the server's next write fails): counted cancelled, pages back
+    c0 = engine.engine_metrics()["cancelled"]
+    served0 = srv.batcher.requests_served
+    payload = json.dumps({**chat, "max_tokens": SERVE_CAP,
+                          "stream": True}).encode()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=SERVE_TIMEOUT)
+    sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\n"
+                 b"Content-Type: application/json\r\n"
+                 + f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
+    buf, got_delta, head = b"", False, True
+    while not got_delta:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise AssertionError("15a: the stream ended before a delta")
+        buf += chunk
+        if head and b"\r\n\r\n" in buf:  # the response head, then frames
+            buf, head = buf.split(b"\r\n\r\n", 1)[1], False
+        frames = buf.split(b"\n\n")
+        buf = frames.pop()
+        got_delta = any(f.startswith(b"data: {") and sse_piece(json.loads(f[6:]))
+                        for f in frames)
+    import struct
+
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+    sock.close()
+    t0 = time.time()
+    while (engine.engine_metrics()["cancelled"] == c0
+           or srv.batcher.requests_served == served0):
+        if time.time() - t0 > SERVE_TIMEOUT:
+            raise AssertionError("15a: the abandoned stream was not cancelled")
+        time.sleep(0.05)
+    require_pool_back(engine, "15a cancel")
+
+    # a warm repeat: the prompt's cached pages make its tail a span dispatch
+    sched._prefix_cache.clear()
+    for _ in range(2):
+        status, raw = http_call(port, "POST", MESSAGES, msgs)
+        if status != 200:
+            raise AssertionError(f"15a: warm repeat answered {status}")
+    torch.cuda.synchronize()
+    phase_s = time.time() - t_phase
+    launches = {n: getattr(f, attr) for n, (f, attr) in counted.items()}
+    em1 = engine.engine_metrics()
+    require_launches(launches, "serving path (phase 15a)",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"))
+    if engine.audit():
+        raise AssertionError(f"15a: allocator audit {engine.audit()}")
+
+    # the wave's texts equal one direct generate_batch of the same 8
+    sched._prefix_cache.clear()
+    direct = engine.generate_batch([dataclasses.replace(r)
+                                    for r in rec.waves[waves0]])
+    for r, res in zip(rec.waves[waves0], direct):
+        if texts[r.prompt] != res.text:
+            raise AssertionError(f"15a: wave request {r.request_id}'s text "
+                                 "differs from the direct generate_batch")
+
+    status, raw = http_call(port, "GET", "/healthz")
+    health = json.loads(raw)
+    if status != 200 or not health.get("prefix_summary"):
+        raise AssertionError(f"15a: /healthz {status} {raw[:300]}")
+    models = json.loads(http_call(port, "GET", "/v1/models")[1])
+    metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+    status, prom = http_call(port, "GET", "/metrics",
+                             headers={"Accept": "text/plain"})
+    if (models["data"][0]["id"] != "bench-8b"
+            or metrics["http_requests"] != srv.batcher.requests_served
+            or "requests" not in metrics["engine"]
+            or "lmrs_http_requests_total" not in prom):
+        raise AssertionError("15a: /v1/models or /metrics did not parse")
+    return {"phase": "serve-15a", "card": smi,
+            "model": "bench-8b (32 layers, random-init bf16, byte tokenizer)",
+            "engine_build_seconds": build_s, "phase_seconds": phase_s,
+            **out, "wave": {"requests": 8, "wall_seconds": wave_wall,
+                            "prompt_chars": [len(b.prompt) for b in
+                                             (base[i] for i in pick)]},
+            "deadline_0.001": shed,
+            "cancel": {"cancelled": em1["cancelled"] - em0["cancelled"]},
+            "http_batches": srv.batcher.batches_run,
+            "http_requests": srv.batcher.requests_served,
+            "prefix_summary_rows": len(health["prefix_summary"]),
+            "requests": em1["requests"] - em0["requests"],
+            "prefill_tokens": em1["prefill_tokens"] - em0["prefill_tokens"],
+            "mixed_dispatches": (em1["mixed_batch"]["dispatches"]
+                                 - em0["mixed_batch"]["dispatches"]),
+            "launches": launches}
+
+
+def serve_router_pipeline(srv, engine, smi: str, main_out: dict) -> dict:
+    """15b: ``lmrs-torch --backend http`` as a child process with no card,
+    over 15a's server and a port nobody listens on: phase 5's transcript,
+    byte tokens and 64 tokens a request.  The CLI, like the reference's,
+    has no reduce-budget flag (phase 5 sets 600 tokens), so chunks are cut
+    at 600 tokens (phase 5: 1,400): the summaries outgrow the default
+    6,000-token reduce batch and form a tree."""
+    import os
+
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    here = Path(__file__).resolve().parent
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    src, dst = SERVE_DIR / "demo.json", SERVE_DIR / "summary.txt"
+    src.write_text(json.dumps(load_demo_transcript(max_segments=200)),
+                   encoding="utf-8")
+    dead = f"127.0.0.1:{free_port()}"
+    counted = kernel_counters()
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    em0 = engine.engine_metrics()
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lmrs_tpu_torch.cli", "-i", str(src), "-o",
+         str(dst), "--backend", "http", "--hosts",
+         f"127.0.0.1:{srv.port},{dead}", "--tokenizer", "byte",
+         "--max-tokens-per-chunk", "600", "--max-tokens", "64", "--report",
+         "-q"],
+        cwd=here, capture_output=True, text=True, timeout=900,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(here)})
+    wall = time.time() - t0
+    torch.cuda.synchronize()
+    launches = {n: getattr(f, attr) for n, (f, attr) in counted.items()}
+    em1 = engine.engine_metrics()
+    if proc.returncode != 0:
+        raise AssertionError(f"15b: lmrs-torch --backend http exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    report = json.loads(Path(str(dst) + ".report.json").read_text(encoding="utf-8"))
+    hosts = report["engine_metrics"]["per_host"]
+    served = em1["requests"] - em0["requests"]
+    if (report["failed_requests"] or not report["hierarchical"]
+            or not dst.read_text(encoding="utf-8")):
+        raise AssertionError(f"15b: failed {report['failed_requests']}, tree "
+                             f"{report['hierarchical']}")
+    if (hosts[0]["served"] != report["total_requests"]
+            or served != report["total_requests"]
+            or hosts[1]["served"] or hosts[1]["healthy"]):
+        raise AssertionError(f"15b: placement {hosts}, engine served {served}")
+    if engine.audit():
+        raise AssertionError(f"15b: allocator audit {engine.audit()}")
+    return {"phase": "serve-15b-router", "card": smi, "wall_seconds": wall,
+            "phase5_wall_seconds": main_out["wall_seconds"],
+            "requests": report["total_requests"],
+            "phase5_requests": main_out["requests"],
+            "prefill_tokens": em1["prefill_tokens"] - em0["prefill_tokens"],
+            "phase5_prefill_tokens": main_out["prefill_tokens"],
+            "chunks": report["num_chunks"],
+            "reduce_levels": report["reduce_levels"],
+            "dead_host": {k: hosts[1][k] for k in ("host", "healthy",
+                                                  "served", "failed")},
+            "live_host_served": hosts[0]["served"],
+            "mixed_dispatches": (em1["mixed_batch"]["dispatches"]
+                                 - em0["mixed_batch"]["dispatches"]),
+            "prefix_tokens_reused": (em1["prefix_cache"]["tokens_reused"]
+                                     - em0["prefix_cache"]["tokens_reused"]),
+            "launches": launches}
+
+
+def serve_cli_child(smi: str) -> dict:
+    """15c: ``python -m lmrs_tpu_torch.serving.cli --model bench-8b
+    --tokenizer byte`` as a child on the card: ``/healthz`` within a
+    bounded wait, one chat completion answered, SIGINT exits 0."""
+    import os
+    import signal
+
+    here = Path(__file__).resolve().parent
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = SERVE_DIR / "serve-cli.log"
+    port = free_port()
+    t0 = time.time()
+    with open(log_path, "w", encoding="utf-8") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lmrs_tpu_torch.serving.cli", "--model",
+             "bench-8b", "--tokenizer", "byte", "--port", str(port)],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(here)})
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"15c: the server exited {proc.returncode} before "
+                    f"/healthz: {log_path.read_text()[-2000:]}")
+            if time.time() - t0 > SERVE_TIMEOUT:
+                raise AssertionError(f"15c: no /healthz in {SERVE_TIMEOUT} s")
+            try:
+                if http_call(port, "GET", "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.25)
+        startup = time.time() - t0
+        t1 = time.time()
+        status, raw = http_call(port, "POST", CHAT, {
+            "messages": [{"role": "user", "content": "Summarize: the budget "
+                          "review opened the meeting."}],
+            "max_tokens": 16, "temperature": 0})
+        first_ms = (time.time() - t1) * 1e3
+        doc = json.loads(raw)
+        if status != 200 or not doc.get("choices"):
+            raise AssertionError(f"15c: chat answered {status}: {raw[:300]}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"15c: SIGINT exit {rc}: "
+                                 f"{log_path.read_text()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    return {"phase": "serve-15c-cli", "card": smi,
+            "argv": "--model bench-8b --tokenizer byte --port P",
+            "startup_seconds": startup, "first_request_ms": first_ms,
+            "finish": doc["choices"][0]["finish_reason"],
+            "completion_tokens": doc["usage"]["completion_tokens"],
+            "sigint_exit": rc,
+            "peak_memory": "not reported by the server"}
+
+
+def run_serve_path(smi: str, main_out: dict) -> dict:
+    """Phase 15: 15a and 15b over one in-process server on a full bench-8b
+    ``TorchEngine`` (phase 5's engine settings, a token cap of
+    ``SERVE_CAP``), then 15c once that engine is freed.  Each sub-phase
+    prints its own line."""
+    import dataclasses
+    import gc
+
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+
+    cfg = phase5_config()
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, max_tokens=SERVE_CAP))
+    t0 = time.time()
+    engine = TranscriptSummarizer(cfg, device="cuda").executor.engine
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    rec = WaveRecorder(engine)
+    srv = EngineHTTPServer(rec, port=0, model_name="bench-8b",
+                           batch_window_s=0.02)
+    srv.start_background()
+    try:
+        emit(serve_checks(srv, rec, engine, smi, build_s))
+        emit(serve_router_pipeline(srv, engine, smi, main_out))
+    finally:
+        srv.shutdown()
+    del srv, rec, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = serve_cli_child(smi)
+    emit(out)
+    return {"phase": "serve", "card": smi,
+            "startup_seconds": out["startup_seconds"]}
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
                launches_3c: dict) -> list[dict]:
@@ -2875,6 +3411,7 @@ def main() -> int:
     emit(tree2b_out)
     emit(timed(run_checkpoint_path))
     emit(timed(run_mixtral_path))
+    emit(timed(run_serve_path, smi, main_out))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),

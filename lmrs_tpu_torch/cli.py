@@ -15,9 +15,11 @@ speculation is ``EngineConfig(speculate_k=K, mixed_batch=False)``).
 one from an HF directory) and ``--tokenizer`` takes a local HF tokenizer
 directory or a ``*.model`` file besides ``approx`` and ``byte``; any
 tokenizer but ``approx`` is the engine's tokenizer too (one token
-authority).  Flags of features the port does not carry yet (host/disk KV,
-meshes, other backends and hosts, profiling and tracing) are refused by
-name with the slice that brings them.
+authority).  ``--backend mock`` runs the deterministic no-device engine
+and ``--backend http --hosts h:p,...`` fans the pipeline's requests over
+running ``lmrs-serve-torch`` servers (``serving/router.py``).  Flags of
+features the port does not carry yet (host/disk KV, meshes, profiling and
+tracing) are refused by name with the slice that brings them.
 """
 
 from __future__ import annotations
@@ -31,19 +33,17 @@ from pathlib import Path
 
 from lmrs_tpu_torch.config import (ChunkConfig, DataConfig, EngineConfig,
                                    PipelineConfig, ReduceConfig)
+from lmrs_tpu_torch.engine.api import HTTP_NEEDS_HOSTS
 from lmrs_tpu_torch.pipeline import TranscriptSummarizer
 from lmrs_tpu_torch.utils.timing import format_duration
 
 logger = logging.getLogger("lmrs_torch.cli")
 
 # flag -> the slice of the port that brings it
-_SERVING = "serving surface (A3)"
 _OBS = "observability (A10)"
 _LATER = {
-    "host_kv": "KV movement (host/disk KV tiers)",
-    "mesh": "multi-GPU",
-    "backend": _SERVING,
-    "hosts": _SERVING,
+    "host_kv": "KV movement (A4)",
+    "mesh": "multi-GPU (A8)",
     "profile": _OBS,
     "trace_out": _OBS,
     "no_trace": _OBS,
@@ -101,13 +101,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="speculative decoding: K n-gram drafts a chain, "
                         "verified per step (tree speculation under the "
                         "default mixed steps; 0 disables)")
+    p.add_argument("--backend", "--provider", dest="backend", default=None,
+                   help="engine backend: torch (default, the card's engine) "
+                        "| mock | http")
+    p.add_argument("--hosts", default=None,
+                   help="backend=http: comma-separated lmrs-serve-torch "
+                        "addresses (host:port,...)")
     # not in the port yet: accepted only to refuse them by name
     p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    for flag in ("--hosts", "--trace-out"):
-        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--backend", "--provider", dest="backend", default=None,
-                   help=argparse.SUPPRESS)
+    p.add_argument("--trace-out", default=None, help=argparse.SUPPRESS)
     for flag in ("--profile", "--no-trace"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return p
@@ -123,6 +126,14 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
                           prefix_cache=not args.no_prefix_cache,
                           quantize=args.quantize,
                           kv_quantize=args.kv_quantize)
+    if args.backend:
+        engine = dataclasses.replace(engine, backend=args.backend)
+    if args.hosts:
+        engine = dataclasses.replace(
+            engine,
+            hosts=tuple(h.strip() for h in args.hosts.split(",") if h.strip()))
+    if engine.backend == "http" and not engine.hosts:
+        raise ValueError(HTTP_NEEDS_HOSTS)
     if args.model:
         engine = dataclasses.replace(engine, model=args.model)
     if args.max_tokens is not None:
@@ -188,6 +199,10 @@ def main(argv: list[str] | None = None) -> int:
               f"failed: {stats['failed_requests']}  "
               f"wall: {format_duration(stats['processing_time'])}  "
               f"decode {em.get('decode_tokens_per_sec')} tok/s")
+        if "hosts" in em:  # router-shaped metrics (backend=http)
+            print(f"engine: {em['healthy_hosts']}/{em['hosts']} hosts healthy  "
+                  + "  ".join(f"{row['host']}: {row['served']} served"
+                              for row in em.get("per_host", [])))
     if args.output:
         try:
             Path(args.output).write_text(summary, encoding="utf-8")

@@ -10,7 +10,10 @@ weights and KV pages (``quantize``, ``kv_quantize``), and the executor's
 request cap, retries and deadline budget (``max_concurrent_requests``,
 ``retry_attempts``, ``retry_delay``, ``request_deadline_s``).
 ``ReduceConfig.streaming`` feeds the reduce tree into the map stage's
-engine stream.  ``EngineConfig.checkpoint_path`` names a native checkpoint
+engine stream.  ``backend`` picks the engine: ``"torch"`` (the default, the
+card's engine), ``"mock"`` (the deterministic no-device engine,
+``engine/mock.py``) or ``"http"`` (``serving/router.py`` over the running
+``lmrs-serve-torch`` servers named by ``hosts``).  ``EngineConfig.checkpoint_path`` names a native checkpoint
 (``models/loader.py``) and ``tokenizer`` the serving tokenizer; a
 ``ModelConfig`` with ``n_experts`` has mixture-of-experts FFNs
 (``ops/moe.py``).  Host/disk KV and device meshes have no field here; the
@@ -97,6 +100,8 @@ class EngineConfig:
     cache off (the scheduler says so), as in the reference.
     """
 
+    # "torch" | "mock" | "http" (the reference's default, "mock", is not
+    # the port's: the port exists to run the card's engine)
     backend: str = "torch"
     model: str = field(default_factory=lambda: _envmod.env_str("LMRS_MODEL", "tiny"))
     scheduler: str = "continuous"
@@ -143,11 +148,29 @@ class EngineConfig:
     # takes: "byte", a *.model SentencePiece path, an HF tokenizer directory
     tokenizer: str = ""
     seed: int = 0
+    # backend="http": the lmrs-serve-torch servers the router fans over
+    # (comma-separated in the environment)
+    hosts: tuple[str, ...] = field(
+        default_factory=lambda: _envmod.env_list("LMRS_HOSTS"))
+    # disaggregated pools: refused until KV handoff is ported
+    prefill_hosts: tuple[str, ...] = field(
+        default_factory=lambda: _envmod.env_list("LMRS_PREFILL_HOSTS"))
+    decode_hosts: tuple[str, ...] = field(
+        default_factory=lambda: _envmod.env_list("LMRS_DECODE_HOSTS"))
+    request_timeout: float = field(
+        default_factory=lambda: _envmod.env_float("REQUEST_TIMEOUT", 60.0))
 
     def __post_init__(self) -> None:
-        if self.backend != "torch":
+        if self.backend == "jax":
+            raise ValueError("backend 'jax' is the JAX package's engine; the "
+                             "port's engine is backend 'torch'")
+        if self.backend not in ("torch", "mock", "http"):
             raise ValueError(f"unknown engine backend {self.backend!r}; "
-                             "the port has the 'torch' backend only")
+                             "the port has 'torch', 'mock' and 'http'")
+        if self.prefill_hosts or self.decode_hosts:
+            raise ValueError(
+                "prefill_hosts/decode_hosts (disaggregated serving) are not "
+                "in the port yet; they arrive with the KV movement (A4) slice")
         if self.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; "
                              "supported: int8")

@@ -1,7 +1,8 @@
 """Engine protocol of the port: requests, results, the deadline and
 degraded-result helpers, post-hoc streaming delivery and the engine factory
-(trimmed copy of the reference's ``engine/api.py``).  The factory knows the
-``"torch"`` backend only."""
+(trimmed copy of the reference's ``engine/api.py``).  The factory builds
+the ``"torch"`` engine, the ``"mock"`` engine (``engine/mock.py``) and the
+``"http"`` router over running servers (``serving/router.py``)."""
 
 from __future__ import annotations
 
@@ -41,6 +42,11 @@ class GenerationRequest:
     # ``finish_reason="deadline"``, keeping the tokens generated so far;
     # executor retries clip to the remaining budget.
     deadline_s: float | None = None
+    # Distributed trace id: minted at ingress (the HTTP server reads the
+    # ``X-LMRS-Trace`` header or mints one; the router mints for callers
+    # that carry none) and resent on every forward and retry, so one
+    # request is one trace across hosts.  None for engine-direct callers.
+    trace_id: str | None = None
 
 
 def preamble_text(system_prompt: str | None, prompt: str,
@@ -140,7 +146,13 @@ class Engine(Protocol):
     """Batch generation backend (see ``TorchEngine``)."""
 
     def generate_batch(self, requests: list[GenerationRequest],
-                       on_result=None) -> list[GenerationResult]: ...
+                       on_result=None, on_tokens=None) -> list[GenerationResult]:
+        """Generate every request (and any ``on_result(result, submit)``
+        submits).  ``on_tokens(request_id, text_delta)``, when given, fires
+        as text becomes available: at each host fetch on the continuous
+        scheduler, one whole-text delta elsewhere; the deltas of a request
+        join to its result's ``text``."""
+        ...
 
     def shutdown(self) -> None: ...
 
@@ -168,10 +180,36 @@ def drain_with_callback(run_batch, requests: list[GenerationRequest],
     return all_results
 
 
+HTTP_NEEDS_HOSTS = (
+    "backend='http' needs hosts (--hosts host:port,... or LMRS_HOSTS; role "
+    "pools via LMRS_PREFILL_HOSTS/LMRS_DECODE_HOSTS): the addresses of "
+    "running lmrs-serve processes")
+
+
 def make_engine(engine_cfg: "EngineConfig",
                 model_cfg: "ModelConfig | None" = None,
                 device=None, tokenizer=None) -> Engine:
-    """Engine factory keyed on ``EngineConfig.backend`` (``"torch"``)."""
+    """Engine factory keyed on ``EngineConfig.backend``: ``"torch"`` on
+    ``device`` (``cuda`` unless ``"cpu"`` is asked for), ``"mock"`` and
+    ``"http"`` (neither touches a device)."""
+    if engine_cfg.backend == "mock":
+        from lmrs_tpu_torch.engine.mock import MockEngine
+
+        return MockEngine(seed=engine_cfg.seed,
+                          mixed_batch=engine_cfg.mixed_batch,
+                          mixed_token_budget=engine_cfg.mixed_token_budget,
+                          prefix_cache=engine_cfg.prefix_cache,
+                          speculate_k=engine_cfg.speculate_k)
+    if engine_cfg.backend == "http":
+        from lmrs_tpu_torch.serving.router import RouterEngine
+
+        if not engine_cfg.hosts:
+            raise ValueError(HTTP_NEEDS_HOSTS)
+        # the router's timeout is a per-recv socket timeout, and a
+        # non-streamed generation sends nothing until it completes: floor
+        # it at the router's own worst-case-generation default
+        return RouterEngine(list(engine_cfg.hosts),
+                            timeout_s=max(engine_cfg.request_timeout, 600.0))
     if engine_cfg.backend != "torch":
         raise ValueError(f"unknown engine backend {engine_cfg.backend!r}")
     from lmrs_tpu_torch.config import model_preset

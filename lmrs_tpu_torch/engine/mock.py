@@ -1,0 +1,315 @@
+"""Deterministic no-device engine (the port of the reference's
+``engine/mock.py``): the CPU arm of the pipeline, the HTTP server and the
+router, with ``lmrs-torch --backend mock`` and ``lmrs-serve-torch
+--backend mock``.
+
+Each result is a deterministic extractive sketch of the prompt (first,
+middle and last content sentences plus the timestamps), so reduce logic has
+real text to work on.  The mock keeps the reference's knob surface and
+accounting, emulated from token counts: the mixed-batch and ragged-span
+counters, tree speculation's counters, and an emulated prefix cache with its
+published radix summary, with the host tier off (as under the reference's
+``host_kv=False``).  Handoff and KV page-set export/import (A4), and the
+anatomy, cost ledger, SLO and QoS admission (A10) wait for their slices.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import re
+import threading
+import time
+
+from lmrs_tpu_torch.data.tokenizer import ApproxTokenizer
+from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
+                                       apply_stop_sequences,
+                                       drain_with_callback, preamble_key,
+                                       preamble_text)
+from lmrs_tpu_torch.utils.env import env_bool, env_int
+from lmrs_tpu_torch.utils.perf_model import pow2_bucket
+
+_TS_RE = re.compile(r"\[(?:\d+:)?\d{2}:\d{2}\]")
+
+
+class MockEngine:
+    """Offline deterministic engine.  ``fail_pattern``: a substring whose
+    presence in a prompt fails that request (the fault injection hook);
+    ``latency_s``: seconds each request "takes"."""
+
+    # the emulated cache geometry: this many preamble tokens stay resident
+    # (LRU), in pages of this many tokens
+    EMU_RESIDENT_TOKENS = 2048
+    EMU_PAGE_TOKENS = 128
+
+    def __init__(self, seed: int = 0, latency_s: float = 0.0,
+                 fail_pattern: str | None = None,
+                 mixed_batch: bool | None = None,
+                 mixed_token_budget: int = 256,
+                 prefix_cache: bool = True,
+                 speculate_k: int = 0):
+        self.seed = seed
+        self.latency_s = latency_s
+        self.fail_pattern = fail_pattern
+        # mixed-batch emulation: requests admitted behind the first of a
+        # batch are accounted as budget-clipped prefill slices riding the
+        # earlier rows' decode steps.  LMRS_MIXED=0 or a False config
+        # disarms, as in the scheduler; the text never changes
+        self.mixed_batch = (env_bool("LMRS_MIXED", True)
+                            and (mixed_batch is None or bool(mixed_batch)))
+        self.mixed_token_budget = max(32, int(mixed_token_budget))
+        # the emulated prefix cache (LMRS_PREFIX_CACHE=0 or False disarms)
+        self.prefix_cache = (env_bool("LMRS_PREFIX_CACHE", True)
+                             and bool(prefix_cache))
+        self._prefix_lock = threading.Lock()
+        # key -> {"tokens", "tick"}  guarded-by: _prefix_lock
+        self._prefix: dict[str, dict] = {}
+        self._prefix_tick = 0           # guarded-by: _prefix_lock
+        self._prefix_queries = 0        # guarded-by: _prefix_lock
+        self._prefix_hits = 0           # guarded-by: _prefix_lock
+        self._prefix_tokens_reused = 0  # guarded-by: _prefix_lock
+        self._mixed_lock = threading.Lock()
+        self._mixed_dispatches = 0   # guarded-by: _mixed_lock
+        self._mixed_piggybacked = 0  # guarded-by: _mixed_lock
+        self._mixed_fill_sum = 0.0   # guarded-by: _mixed_lock
+        # the ragged-span knob (LMRS_RPA) and its accounting
+        self.rpa = env_bool("LMRS_RPA", True) and self.mixed_batch
+        self._rpa_span_tokens = 0      # guarded-by: _mixed_lock
+        self._rpa_dispatches = 0       # guarded-by: _mixed_lock
+        self._rpa_shapes: set = set()  # guarded-by: _mixed_lock
+        # tree speculation's gates and report keys, emulated: a request
+        # accepts half its chain depth a step
+        self.spec_k = max(0, int(speculate_k))
+        self.spec_width = env_int("LMRS_SPEC_TREE_WIDTH", 2, lo=1, hi=8)
+        while (self.spec_width > 1
+               and 1 + self.spec_k * (self.spec_width + 1) > 32):
+            self.spec_width -= 1
+        self.spec_tree = (self.spec_k > 0 and self.rpa
+                          and 1 + self.spec_k * (self.spec_width + 1) <= 32
+                          and env_bool("LMRS_SPEC_TREE", True))
+        self.spec_adaptive = (self.spec_tree
+                              and env_bool("LMRS_SPEC_ADAPTIVE", True))
+        self._spec_dispatches = 0  # guarded-by: _mixed_lock
+        self._spec_rows = 0        # guarded-by: _mixed_lock
+        self._spec_nodes_sum = 0   # guarded-by: _mixed_lock
+        self._spec_depth_sum = 0   # guarded-by: _mixed_lock
+        self._spec_accepted = 0    # guarded-by: _mixed_lock
+        self._tok = ApproxTokenizer()
+        # ids cancel() was called for: generation is instantaneous, so the
+        # hook records them (tests read it) and a request of the current
+        # batch not yet generated comes back "cancelled"
+        self.cancelled: set[int] = set()
+
+    def generate_batch(self, requests: list[GenerationRequest],
+                       on_result=None, on_tokens=None) -> list[GenerationResult]:
+        # no start-of-batch clear of the cancel set (a cancel may race the
+        # batch boundary), a full clear at the end, as the scheduler does
+        def one(req: GenerationRequest) -> GenerationResult:
+            res = self._one(req)
+            if self.spec_tree and res.completion_tokens:
+                self._note_spec(res.completion_tokens)
+            if on_tokens is not None and res.text:
+                # no incremental decode here: one delta per result
+                on_tokens(res.request_id, res.text)
+            return res
+
+        self._note_mixed_batch(requests)
+        try:
+            if on_result is not None:
+                return drain_with_callback(
+                    lambda reqs: [one(r) for r in reqs], requests, on_result)
+            return [one(r) for r in requests]
+        finally:
+            self.cancelled.clear()
+
+    def _note_mixed_batch(self, requests: list[GenerationRequest]) -> None:
+        """Requests admitted behind the first of a batch count as chunked
+        prefills riding the earlier rows' decode steps, slice-clipped to the
+        step budget: the scheduler's dispatch, piggyback and fill
+        counters."""
+        if not self.mixed_batch or len(requests) < 2:
+            return
+        n_decode = len(requests) - 1  # rows decoding while the rest admit
+        slice_cap = max(16, self.mixed_token_budget - n_decode)
+        with self._mixed_lock:
+            for req in requests[1:]:
+                remaining = self._tok.count(req.prompt)
+                while remaining > 0:
+                    c = min(remaining, slice_cap)
+                    self._mixed_dispatches += 1
+                    self._mixed_piggybacked += c
+                    self._mixed_fill_sum += min(
+                        (n_decode + c) / self.mixed_token_budget, 1.0)
+                    if self.rpa:
+                        total = n_decode + c
+                        self._rpa_dispatches += 1
+                        self._rpa_span_tokens += total
+                        self._rpa_shapes.add(pow2_bucket(total, 16))
+                    remaining -= c
+
+    def _note_spec(self, completion_tokens: int) -> None:
+        """Tree-speculation accounting for one generated request: each step
+        accepts ``max(1, k // 2)`` drafts and emits one more token."""
+        k, width = self.spec_k, self.spec_width
+        acc = max(1, k // 2)
+        steps = -(-completion_tokens // (1 + acc))
+        with self._mixed_lock:
+            self._spec_dispatches += steps
+            self._spec_rows += steps
+            self._spec_nodes_sum += steps * (1 + width * k)
+            self._spec_depth_sum += steps * acc
+            self._spec_accepted += steps * acc
+
+    def _note_prefix(self, req: GenerationRequest) -> None:
+        """Emulated prefix cache for one generated request: the first sight
+        of a preamble inserts it, a later one is a hit (tokens reused +=
+        its tokens); past ``EMU_RESIDENT_TOKENS`` the LRU entry drops."""
+        if not self.prefix_cache:
+            return
+        key = preamble_key(req.system_prompt, req.prompt, req.cache_prefix)
+        if key is None:
+            return
+        tokens = self._tok.count(preamble_text(
+            req.system_prompt, req.prompt, req.cache_prefix))
+        with self._prefix_lock:
+            self._prefix_tick += 1
+            self._prefix_queries += 1
+            ent = self._prefix.get(key)
+            if ent is not None:
+                self._prefix_hits += 1
+                self._prefix_tokens_reused += ent["tokens"]
+            else:
+                ent = {"tokens": tokens, "tick": 0}
+                self._prefix[key] = ent
+            ent["tick"] = self._prefix_tick
+            while (sum(e["tokens"] for e in self._prefix.values())
+                   > self.EMU_RESIDENT_TOKENS):
+                del self._prefix[min(self._prefix,
+                                     key=lambda k: self._prefix[k]["tick"])]
+
+    def prefix_summary(self, top_k: int = 16) -> list[dict]:
+        """The emulated radix summary (the router's placement feed), in the
+        scheduler's row shape."""
+        if not self.prefix_cache:
+            return []
+        with self._prefix_lock:
+            rows = sorted(self._prefix.items(),
+                          key=lambda kv: -kv[1]["tick"])[:top_k]
+            return [{"hash": key, "depth_tokens": ent["tokens"],
+                     "tick": ent["tick"], "resident_tokens": ent["tokens"],
+                     "resident_pages": -(-ent["tokens"] // self.EMU_PAGE_TOKENS),
+                     "spilled_tokens": 0, "spilled_pages": 0}
+                    for key, ent in rows]
+
+    def shutdown(self) -> None:
+        pass
+
+    def cancel(self, request_id: int) -> None:
+        """Recorded; a request of the current batch not yet generated when
+        its id lands here comes back ``finish_reason="cancelled"``."""
+        self.cancelled.add(request_id)
+
+    def engine_metrics(self) -> dict:
+        """The blocks the reference's mock reports, each only once work
+        flowed through it ({} before any)."""
+        out: dict = {}
+        with self._mixed_lock:
+            d, p, f = (self._mixed_dispatches, self._mixed_piggybacked,
+                       self._mixed_fill_sum)
+            rd, rt, rs = (self._rpa_dispatches, self._rpa_span_tokens,
+                          len(self._rpa_shapes))
+            sd, sr, sn, sdep, sacc = (
+                self._spec_dispatches, self._spec_rows, self._spec_nodes_sum,
+                self._spec_depth_sum, self._spec_accepted)
+        if d:
+            out["mixed_batch"] = {
+                "enabled": self.mixed_batch,
+                "token_budget": self.mixed_token_budget,
+                "dispatches": d,
+                "fill_ratio": round(f / d, 3),
+                "prefill_tokens_piggybacked": p,
+            }
+        if rd:
+            out["rpa"] = {"enabled": self.rpa, "dispatches": rd,
+                          "span_tokens": rt, "compile_shapes": rs}
+        if sd:
+            out["spec_accepted_tokens"] = sacc
+            out["spec_tree"] = {
+                "enabled": self.spec_tree,
+                "width": self.spec_width,
+                "adaptive": self.spec_adaptive,
+                "dispatches": sd,
+                "mean_nodes": round(sn / sr, 3) if sr else 0.0,
+                "mean_accept_depth": round(sdep / sr, 3) if sr else 0.0,
+                "accept_per_step": round(sacc / sr, 3) if sr else 0.0,
+            }
+        with self._prefix_lock:
+            if self._prefix_queries:
+                out["prefix_cache"] = {
+                    "hit_rate": round(
+                        self._prefix_hits / self._prefix_queries, 3),
+                    "hits": self._prefix_hits,
+                    "queries": self._prefix_queries,
+                    "tokens_reused": self._prefix_tokens_reused,
+                    "prefill_tokens_saved": self._prefix_tokens_reused,
+                    "spilled_hits": 0,
+                    "tokens_prefetched": 0,
+                }
+        return out
+
+    def _one(self, req: GenerationRequest) -> GenerationResult:
+        def expired() -> bool:
+            return (req.deadline_s is not None
+                    and time.time() >= req.deadline_s)
+
+        # expired before any work: shed; during the emulated latency:
+        # deadline (work was spent)
+        if expired():
+            return GenerationResult(request_id=req.request_id,
+                                    finish_reason="shed")
+        if self.latency_s:
+            time.sleep(self.latency_s)
+            if expired():
+                return GenerationResult(request_id=req.request_id,
+                                        finish_reason="deadline")
+        if req.request_id in self.cancelled:
+            return GenerationResult(request_id=req.request_id,
+                                    finish_reason="cancelled")
+        if self.fail_pattern and self.fail_pattern in req.prompt:
+            return GenerationResult(request_id=req.request_id,
+                                    finish_reason="error",
+                                    error="mock: injected failure")
+        self._note_prefix(req)
+        text, stop_hit = apply_stop_sequences(
+            self._extractive_sketch(req.prompt), req.stop)
+        return GenerationResult(
+            request_id=req.request_id,
+            text=text,
+            prompt_tokens=self._tok.count(req.prompt),
+            completion_tokens=self._tok.count(text),
+            finish_reason="stop",
+            stop_sequence=stop_hit,
+        )
+
+    def _extractive_sketch(self, prompt: str) -> str:
+        """First/middle/last content sentences + every timestamp, capped;
+        deterministic in (prompt, seed)."""
+        body = prompt
+        for marker in ("Transcript section:", "Partial summaries:",
+                       "Intermediate summaries:"):
+            if marker in body:
+                body = body.split(marker, 1)[-1]
+        sentences = [s.strip() for s in re.split(r"(?<=[.!?])\s+", body)
+                     if len(s.strip()) > 30]
+        stamps = _TS_RE.findall(body)
+        digest = hashlib.sha256(f"{self.seed}:{prompt}".encode()).hexdigest()[:8]
+        picked = []
+        if sentences:
+            idx = sorted({0, len(sentences) // 2, len(sentences) - 1})
+            picked = [sentences[i] for i in idx]
+        lines = [f"[mock-{digest}] Summary:"]
+        lines += [f"- {s[:240]}" for s in picked]
+        if stamps:
+            # capped, so reduce inputs stay bounded
+            uniq = list(dict.fromkeys(stamps))[:12]
+            lines.append("Timestamps: " + " ".join(uniq))
+        return "\n".join(lines)

@@ -123,6 +123,34 @@ class PrefixCache:
             self.allocator.incref(pages)
         return pages, matched
 
+    def peek(self, ids: list[int]) -> dict:
+        """Read-only coverage probe (no reference, no LRU touch): how many
+        leading tokens and pages of ``ids`` are cached right now, at full
+        page granularity with no ``len - 1`` cap (a capacity view, not an
+        admission plan).  Feeds the scheduler's ``prefix_summary``; the
+        ``spilled_*`` keys of the reference's probe stay 0, as the port
+        keeps no spill tier."""
+        ps = self.page_size
+        limit = (len(ids) // ps) * ps
+        out = {"resident_tokens": 0, "resident_pages": 0,
+               "spilled_tokens": 0, "spilled_pages": 0}
+        node = self.root
+        matched = 0
+        while matched < limit:
+            child = node.children.get(tuple(ids[matched: matched + ps]))
+            if child is None:
+                break
+            take = self._take(child, ids, matched, limit)
+            if take == 0:
+                break
+            out["resident_tokens"] += take
+            out["resident_pages"] += take // ps
+            if take < len(child.tokens):
+                break
+            matched += take
+            node = child
+        return out
+
     def _split(self, node: _Node, k: int) -> _Node:
         """Split ``node``'s edge after ``k`` tokens (a page multiple): the
         prefix becomes a new parent node; ``node`` keeps the suffix.

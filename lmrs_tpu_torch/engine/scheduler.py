@@ -3,8 +3,10 @@ reference's ``engine/scheduler.py``): its default path — packed fresh
 prefill, decode blocks, mixed steps, chunked continuation prefill, slot
 growth with preemption and the prefix cache, through the ragged span
 kernel — its speculative paths (tree and linear), int8 KV pages with
-per-slot scales on all of them, and cancellation, deadlines and admission
-shedding; no host/disk KV, handoff or observability hooks.
+per-slot scales on all of them, cancellation, deadlines and admission
+shedding, token streaming (``run(on_tokens=)``) and the published radix
+summary (``prefix_summary``); no host/disk KV, handoff or observability
+hooks.
 
 * Admission: a request takes a free slot when the pool holds its PROMPT
   pages minus those a prefix-cache match supplies (the cache evicts before
@@ -73,6 +75,14 @@ shedding; no host/disk KV, handoff or observability hooks.
   ``admit`` sheds head entries whose budget cannot cover the TTFT estimate
   (``"shed"``, no engine work).  A swept slot tears down like a finish.
   A run with neither pays one empty-set and one flag test an iteration.
+* Streaming: ``run(on_tokens=)`` emits ``on_tokens(rid, delta)`` from
+  ``_maybe_finish``, which every dispatch path reaches at each host fetch
+  (decode blocks, first tokens, mixed steps, span and tree steps).  A delta
+  is cut from the trimmed text, so a request's deltas join to exactly its
+  result text; trailing U+FFFD (a multi-byte character still arriving) and
+  ``max(len(stop)) - 1`` characters while stop strings are set are held
+  back until the request finishes, and a delta goes out only while the
+  text extends what was sent.
 """
 
 from __future__ import annotations
@@ -87,8 +97,8 @@ import torch
 
 from lmrs_tpu_torch.config import EngineConfig, ModelConfig
 from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
-                                       apply_stop_sequences, preamble_text,
-                                       remaining_budget)
+                                       apply_stop_sequences, preamble_key,
+                                       preamble_text, remaining_budget)
 from lmrs_tpu_torch.engine.kv_cache import (OutOfPages, PagedKVCache,
                                             SequencePages, audit_allocator)
 from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
@@ -98,6 +108,7 @@ from lmrs_tpu_torch.ops.sampling import filtered_probs, sample_logits
 from lmrs_tpu_torch.ops.speculative import (draft_lookup, draft_tree_lookup,
                                             verify_tokens, verify_tree)
 from lmrs_tpu_torch.utils.env import env_bool, env_int
+from lmrs_tpu_torch.utils.perf_model import pow2_bucket
 
 logger = logging.getLogger("lmrs_torch.scheduler")
 
@@ -122,13 +133,6 @@ def spec_tree_width(cfg: EngineConfig) -> int:
     while width > 1 and 1 + k * (width + 1) > TREE_OFFSETS:
         width -= 1
     return width if 1 + k * (width + 1) <= TREE_OFFSETS else 0
-
-
-def _pow2_bucket(n: int, lo: int) -> int:
-    b = lo
-    while b < n:
-        b *= 2
-    return b
 
 
 @dataclass
@@ -246,6 +250,16 @@ class ContinuousScheduler:
         self._ttft_min = float("inf")
         self._t_enq: dict[int, float] = {}
         self._slots: list | None = None  # the live run's slots
+        # streaming (run()-scoped): the callback, and rid -> text emitted
+        self._on_tokens = None
+        self._streamed: dict[int, str] = {}
+        # published radix summary: preamble_key -> {"ids", "tick"} of the
+        # preambles donated to the prefix cache (an LRU of 32), written by
+        # the scheduler thread and read by HTTP handler threads through
+        # the memoized prefix_summary() snapshot
+        self._preambles: dict[str, dict] = {}
+        self._preamble_tick = 0
+        self._summary_memo: tuple[float, list] | None = None
         self.counters = {
             "requests": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
             "packed_dispatches": 0, "decode_tokens": 0, "decode_blocks": 0,
@@ -277,12 +291,16 @@ class ContinuousScheduler:
     # ------------------------------------------------------------- run loop
 
     def run(self, requests: list[GenerationRequest],
-            on_result=None) -> list[GenerationResult]:
+            on_result=None, on_tokens=None) -> list[GenerationResult]:
         """Run the stream to completion; results come back in submission
         order.  ``on_result(result, submit)`` fires inside the loop as each
         request completes, and ``submit(more)`` feeds new requests into the
-        same run.  request_ids must be unique within a run."""
+        same run.  ``on_tokens(request_id, delta)`` fires at each host
+        fetch with a request's new text (see the module docstring).
+        request_ids must be unique within a run."""
         t_run = time.time()
+        self._on_tokens = on_tokens
+        self._streamed = {}
         # queue entries: (req, prefill_ids, max_new, n_prompt, prior,
         # t_start) — the last three carry a preempted request's state
         queue: deque[tuple] = deque()
@@ -484,6 +502,8 @@ class ContinuousScheduler:
             self.counters["run_seconds"] += time.time() - t_run
             self._cancelled.clear()
             self._slots = None
+            self._on_tokens = None
+            self._streamed = {}
         return [results[r.request_id] for r in all_requests]
 
     # ------------------------------------------------------------ internals
@@ -518,11 +538,34 @@ class ContinuousScheduler:
     def _maybe_finish(self, b, slots, results, fresh, active, kv_lens,
                       last_tok) -> None:
         gen, text, stop_hit, hit_eos = self._trimmed_output(slots[b])
-        if not (hit_eos or stop_hit or len(gen) >= slots[b].max_new):
+        finished = hit_eos or stop_hit or len(gen) >= slots[b].max_new
+        if self._on_tokens is not None:
+            self._stream(slots[b].req, text, finished)
+        if not finished:
             return
         self._finish_slot(b, slots, results, fresh, active, kv_lens, last_tok,
                           gen, text, stop_hit,
                           "stop" if (hit_eos or stop_hit) else "length")
+
+    def _stream(self, req: GenerationRequest, text: str,
+                finished: bool) -> None:
+        """Emit the new part of a request's trimmed text.  Until it
+        finishes, trailing U+FFFD (a character whose bytes are still
+        arriving) and, with stop strings, the last ``max(len(stop)) - 1``
+        characters (a later match may start there) are held back; a delta
+        goes out only while the text extends what was already sent."""
+        rid = req.request_id
+        sent = self._streamed.get(rid, "")
+        frontier = len(text)
+        if not finished:
+            while frontier > len(sent) and text[frontier - 1] == "\ufffd":
+                frontier -= 1
+            if req.stop:
+                hold = max((len(s) for s in req.stop if s), default=1) - 1
+                frontier = min(frontier, len(text) - hold)
+        if frontier > len(sent) and text.startswith(sent):
+            self._on_tokens(rid, text[len(sent):frontier])
+            self._streamed[rid] = text[:frontier]
 
     def _record_result(self, results: dict, res: GenerationResult,
                        fresh) -> None:
@@ -747,6 +790,7 @@ class ContinuousScheduler:
         a hint of 0 still donates a shared system prompt."""
         if self._prefix_cache is None:
             return
+        self._note_preamble(st.req)
         cap = None
         hint = st.req.cache_prefix
         if hint is not None:
@@ -757,6 +801,55 @@ class ContinuousScheduler:
                 return  # hint 0 and no system prompt: nothing shared
             cap = 1 + len(self.tokenizer.encode(text))
         self._prefix_cache.insert(st.prompt_ids, st.seq.pages, max_tokens=cap)
+
+    def _note_preamble(self, req: GenerationRequest) -> None:
+        """Record a donated preamble for the published radix summary: key =
+        ``preamble_key`` over the region ``_cache_insert`` donates, with its
+        token ids so ``prefix_summary`` can probe live coverage.  An LRU of
+        32 preambles (a fleet shares a handful of map, reduce and system
+        preambles)."""
+        key = preamble_key(req.system_prompt, req.prompt, req.cache_prefix)
+        if key is None:
+            return
+        self._preamble_tick += 1
+        ent = self._preambles.get(key)
+        if ent is None:
+            text = preamble_text(req.system_prompt, req.prompt,
+                                 req.cache_prefix)
+            ids = tuple([self.tokenizer.bos_id] + self.tokenizer.encode(text))
+            # ticked BEFORE the trim, so the new entry is never the victim
+            ent = {"ids": ids, "tick": self._preamble_tick}
+            self._preambles[key] = ent
+            while len(self._preambles) > 32:
+                oldest = min(self._preambles,
+                             key=lambda k: self._preambles[k]["tick"])
+                del self._preambles[oldest]
+        ent["tick"] = self._preamble_tick
+
+    def prefix_summary(self, top_k: int = 16) -> list[dict]:
+        """The top-K recently donated preambles with their depth and live
+        coverage (``PrefixCache.peek``; the port has no spill tier, so
+        ``spilled_*`` is 0): the feed the router places requests on.
+        Callable from other threads while a run goes on: memoized for 1 s,
+        and a walk that races a mutation returns the previous summary."""
+        if self._prefix_cache is None:
+            return []
+        now = time.time()
+        memo = self._summary_memo
+        if memo is not None and now - memo[0] < 1.0:
+            return memo[1]
+        out: list[dict] = []
+        try:
+            entries = sorted(self._preambles.items(),
+                             key=lambda kv: -kv[1]["tick"])[:top_k]
+            for key, ent in entries:
+                out.append({"hash": key, "depth_tokens": len(ent["ids"]),
+                            "tick": ent["tick"],
+                            **self._prefix_cache.peek(list(ent["ids"]))})
+        except RuntimeError:  # resized mid-walk: keep the last summary
+            return memo[1] if memo is not None else []
+        self._summary_memo = (now, out)
+        return out
 
     # ------------------------------------------------------ span dispatches
 
@@ -859,7 +952,7 @@ class ContinuousScheduler:
                                    "exceeds its pages")
             row_flat[s: s + n] = b
             max_pages = max(max_pages, self.cache.pages_needed(end))
-        w = min(_pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
+        w = min(pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
         table = self.cache.page_table_array(
             [slots[b].seq if q_lens[b] > 0 else None
              for b in range(self.B)])[:, :w]
@@ -1046,7 +1139,7 @@ class ContinuousScheduler:
         dispatch); other rows carry the null page."""
         max_pages = max([1] + [len(st.seq.pages) for st in slots
                                if st is not None and st.phase == "decode"])
-        w = min(_pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
+        w = min(pow2_bucket(max_pages, 4), self.cache.max_pages_per_slot)
         return torch.from_numpy(self.cache.page_table_array(
             [st.seq if (st is not None and st.phase == "decode") else None
              for st in slots])[:, :w]).to(self.device)

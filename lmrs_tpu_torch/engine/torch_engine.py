@@ -1,9 +1,10 @@
 """PyTorch/CUDA generation engine (the port of the reference's
 ``engine/jax_engine.py``, continuous scheduler only).
 
-Exposes the surface ``MapExecutor`` and ``ResultAggregator`` use:
-``generate_batch``, ``cancel``, ``schedules_internally``,
-``engine_metrics``, ``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
+Exposes the surface ``MapExecutor``, ``ResultAggregator`` and the HTTP
+server use: ``generate_batch`` (with ``on_tokens`` streaming), ``cancel``,
+``schedules_internally``, ``engine_metrics``, ``prefix_summary``,
+``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
 is asked for.  A CUDA engine checks, when it is built, that its kernels take
 the model and engine configuration (``check_cuda_config``), so no request
 reaches a kernel only to be refused there.  The weights come from, in turn:
@@ -103,10 +104,13 @@ class TorchEngine:
         self.schedules_internally = True
 
     def generate_batch(self, requests: list[GenerationRequest],
-                       on_result=None) -> list[GenerationResult]:
+                       on_result=None, on_tokens=None) -> list[GenerationResult]:
+        """Run the requests through the scheduler; ``on_tokens(rid,
+        delta)`` streams each request's text at every host fetch."""
         if not requests:
             return []
-        return self._scheduler.run(requests, on_result=on_result)
+        return self._scheduler.run(requests, on_result=on_result,
+                                   on_tokens=on_tokens)
 
     def cancel(self, request_id: int) -> None:
         """Abort ``request_id`` at the scheduler's next block boundary
@@ -118,6 +122,12 @@ class TorchEngine:
         """The scheduler's cumulative metrics (``metrics_report``), with
         ``spec_accepted_tokens`` when speculation is on."""
         return self._scheduler.metrics_report()
+
+    def prefix_summary(self, top_k: int = 16) -> list[dict]:
+        """The published radix summary (``ContinuousScheduler.
+        prefix_summary``): served by ``/healthz``, routed on by the router;
+        callable from any thread."""
+        return self._scheduler.prefix_summary(top_k)
 
     def audit(self) -> list[str]:
         return self._scheduler.audit()

@@ -1,0 +1,117 @@
+"""``lmrs-serve-torch``: the OpenAI/Anthropic-wire server over the port's
+engine, on the card by default.
+
+    lmrs-serve-torch --model bench-8b --tokenizer byte --port 8000
+    lmrs-serve-torch --backend mock --port 8000
+
+Flag spellings follow the reference's ``lmrs-serve``.  ``--backend`` takes
+``torch`` (the default) or ``mock``; ``--device`` takes ``cuda`` (the
+default) or ``cpu``.  A server whose engine fails to build exits non-zero;
+it never moves to the CPU because no card was found.  Flags of features
+the port does not carry yet are refused by name with the slice that brings
+them: ``--mesh`` (A8), ``--role prefill|decode`` and ``--handoff-ttl``
+(A4), ``--jobs-dir`` and ``--live-dir`` (A13), ``--supervise`` and
+``--trace`` (A10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+logger = logging.getLogger("lmrs_torch.serving")
+
+# flag -> the slice of the port that brings it
+_LATER = {
+    "mesh": "multi-GPU (A8)",
+    "role": "KV movement (A4)",
+    "handoff_ttl": "KV movement (A4)",
+    "jobs_dir": "durable jobs and live sessions (A13)",
+    "live_dir": "durable jobs and live sessions (A13)",
+    "supervise": "observability (A10)",
+    "trace": "observability (A10)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="lmrs-serve-torch",
+        description="OpenAI/Anthropic-wire HTTP server over the PyTorch/CUDA "
+                    "port's engine", allow_abbrev=False)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--backend", default="torch", choices=["torch", "mock"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--model", default="tiny", help="model preset name")
+    p.add_argument("--checkpoint", default=None,
+                   help="native checkpoint directory (lmrs-torch-convert)")
+    p.add_argument("--tokenizer", default=None,
+                   help="serving tokenizer: 'byte', a *.model SentencePiece "
+                        "file or a local HF tokenizer directory (default: "
+                        "model-derived)")
+    p.add_argument("--quantize", default=None, choices=["int8"])
+    p.add_argument("--kv-quantize", default=None, choices=["int8"])
+    p.add_argument("--batch-slots", type=int, default=8,
+                   help="continuous-batching decode slots")
+    p.add_argument("--max-tokens-cap", type=int, default=4096,
+                   help="upper bound on any request's max_tokens")
+    p.add_argument("--batch-window-ms", type=float, default=20.0,
+                   help="micro-batching window for pooling concurrent requests")
+    p.add_argument("--quiet", "-q", action="store_true")
+    # not in the port yet: accepted only to refuse them by name
+    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--role", default="both", help=argparse.SUPPRESS)
+    for flag in ("--handoff-ttl", "--jobs-dir", "--live-dir"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--supervise", "--trace"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for name, later in _LATER.items():
+        val = getattr(args, name)
+        if val not in (None, False, "both"):
+            parser.error(f"--{name.replace('_', '-')} is not in the port "
+                         f"yet; it arrives with the {later} slice")
+    logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from lmrs_tpu_torch.config import EngineConfig
+    from lmrs_tpu_torch.engine.api import make_engine
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+
+    try:
+        engine_cfg = EngineConfig(
+            backend=args.backend, model=args.model,
+            max_batch_slots=args.batch_slots,
+            checkpoint_path=args.checkpoint, tokenizer=args.tokenizer or "",
+            quantize=args.quantize, kv_quantize=args.kv_quantize,
+            max_tokens=args.max_tokens_cap)
+        engine = make_engine(engine_cfg, device=args.device)
+    except (ValueError, RuntimeError, OSError, ImportError) as e:
+        logger.error("engine init failed: %s", e)
+        return 1
+    try:
+        server = EngineHTTPServer(
+            engine, host=args.host, port=args.port, model_name=args.model,
+            max_tokens_cap=args.max_tokens_cap,
+            batch_window_s=args.batch_window_ms / 1000.0)
+    except OSError as e:
+        logger.error("cannot bind %s:%d: %s", args.host, args.port, e)
+        engine.shutdown()
+        return 1
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        logger.info("shutting down")
+    finally:
+        server.shutdown()
+        engine.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,771 @@
+"""An Engine over running ``lmrs-serve-torch`` servers (the port of the
+reference's ``serving/router.py``, colocated pools only): ``lmrs-torch
+--backend http --hosts h:p,...`` fans the pipeline's requests over them.
+
+* **Engine protocol**: the executor, the pipeline and the server itself
+  compose with ``RouterEngine`` unchanged (a server can front a router).
+* **One thread per in-flight request**, ``http.client`` only: each server
+  micro-batches and admission-controls itself, so the router only
+  dispatches.
+* **Cancel = hang up**: ``cancel(rid)`` shuts the request's socket down; the
+  server's disconnect detection cancels it and frees its slot and pages.
+* **Degrade and continue**: a failed request retries once on the next
+  host, then comes back as an error result.  Only a connection-phase
+  failure condemns a host; ``LMRS_BREAKER_FAILURES`` consecutive failures
+  of any kind open its circuit breaker, and after
+  ``LMRS_BREAKER_COOLDOWN_S`` one canary generation may close it.  Each
+  wave launches paced ``/healthz`` probes at unhealthy hosts, so a
+  restarted server comes back.
+* **Prefix-aware placement** (``LMRS_PREFIX_ROUTE``, default on): a request
+  with a shared preamble goes first to the host whose ``/healthz`` radix
+  summary predicts the deepest hit, else to a rendezvous-hash host, with
+  each wave's same-preamble group given only its fair share of one host.
+
+SLO-aware placement reads a ``slo`` block from ``/healthz``; the port's
+servers publish none, so the reference's router treats them as healthy,
+and this router has no SLO placement.  Not in the port yet, refused by
+name: prefill/decode role pools and KV migration (A4), job and session
+forwarding (A13), tail hedging (``LMRS_HEDGE_MS`` > 0), SLO and tenant
+placement, fleet usage, anatomy and trace, and adding, draining or
+removing hosts at run time (A10).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import http.client
+import json
+import logging
+import random
+import socket
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from urllib.parse import urlsplit
+
+from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
+                                       drain_with_callback, preamble_key,
+                                       remaining_budget)
+from lmrs_tpu_torch.obs import (MetricsRegistry, add_label_to_exposition,
+                                merge_expositions, new_trace_id)
+from lmrs_tpu_torch.utils.env import env_bool, env_float, env_int
+
+logger = logging.getLogger("lmrs_torch.router")
+
+_A10 = "observability (A10)"
+
+
+def _request_body(req: GenerationRequest) -> dict:
+    body: dict = {
+        "messages": ([{"role": "system", "content": req.system_prompt}]
+                     if req.system_prompt else [])
+        + [{"role": "user", "content": req.prompt}],
+        "max_tokens": req.max_new_tokens,
+        "temperature": req.temperature,
+        "top_p": req.top_p,
+    }
+    if req.stop:
+        body["stop"] = list(req.stop)
+    if req.top_k:
+        body["top_k"] = req.top_k
+    if req.seed is not None:
+        body["seed"] = req.seed
+    if req.deadline_s is not None:
+        # the REMAINING budget, re-derived at send time: wall-clock never
+        # crosses a host boundary, and a retry forwards less budget
+        body["deadline_s"] = max(0.0, remaining_budget(req))
+    if req.cache_prefix is not None:
+        # the hint caps what the server's prefix cache takes and keys the
+        # summary this router places on
+        body["cache_prefix"] = int(req.cache_prefix)
+    return body
+
+
+class _HostConnectError(ConnectionError):
+    """Connection-phase failure: the HOST is down (marks it unhealthy), as
+    opposed to a failure on an established connection."""
+
+
+class _Host:
+    """One backend server.  Health is the connect-phase belief
+    (``_down``) AND a circuit breaker (closed | open | half_open): see the
+    module docstring.  ``healthy = True`` force-closes both."""
+
+    def __init__(self, url: str, clock=time.monotonic):
+        u = urlsplit(url if "//" in url else f"http://{url}")
+        self.netloc = u.netloc or u.path  # tolerate bare host:port
+        self.clock = clock
+        self._down = False
+        self.breaker_state = "closed"
+        self.breaker_opened_t = 0.0
+        self._count_lock = threading.Lock()
+        self.served = 0           # guarded-by: _count_lock
+        self.failed = 0           # guarded-by: _count_lock
+        self.consec_failures = 0  # guarded-by: _count_lock
+        self.breaker_opens = 0    # guarded-by: _count_lock
+        # earliest clock time of the next recovery probe
+        self.next_probe_t = 0.0
+
+    @property
+    def healthy(self) -> bool:
+        """Not condemned and the breaker closed (a half-open host gets only
+        its canary)."""
+        return not self._down and self.breaker_state == "closed"
+
+    @healthy.setter
+    def healthy(self, value: bool) -> None:
+        if value:
+            self._down = False
+            self.breaker_state = "closed"
+            with self._count_lock:
+                self.consec_failures = 0
+        else:
+            self._down = True
+
+    def note_served(self) -> None:
+        with self._count_lock:
+            self.served += 1
+            self.consec_failures = 0
+
+    def note_failed(self) -> None:
+        threshold = env_int("LMRS_BREAKER_FAILURES", 3, lo=0)
+        opened = False
+        with self._count_lock:
+            self.failed += 1
+            self.consec_failures += 1
+            if (threshold and self.consec_failures >= threshold
+                    and self.breaker_state == "closed"):
+                opened = True
+                self.breaker_opens += 1
+        if opened:
+            self.breaker_state = "open"
+            self.breaker_opened_t = self.clock()
+            logger.warning("host %s: breaker OPEN after %d consecutive "
+                           "failures", self.netloc, threshold)
+
+    def breaker_due(self) -> bool:
+        """An open breaker whose cooldown has elapsed (canary due)."""
+        if self.breaker_state != "open":
+            return False
+        cooldown = env_float("LMRS_BREAKER_COOLDOWN_S", 5.0, lo=0.1)
+        return self.clock() - self.breaker_opened_t >= cooldown
+
+    def canary(self, timeout: float = 10.0) -> bool:
+        """Half-open probe: ONE greedy token through the real request path
+        (a wedged server still answers /healthz).  Success closes the
+        breaker, failure re-opens it for another cooldown."""
+        self.breaker_state = "half_open"
+        conn = None
+        try:
+            conn = http.client.HTTPConnection(self.netloc, timeout=timeout)
+            conn.request("POST", "/v1/chat/completions",
+                         body=json.dumps({
+                             "messages": [{"role": "user",
+                                           "content": "breaker canary"}],
+                             "max_tokens": 1, "temperature": 0.0}),
+                         headers={"Content-Type": "application/json"})
+            ok = conn.getresponse().status == 200
+        except Exception:  # noqa: BLE001 - still down
+            ok = False
+        finally:
+            if conn is not None:
+                conn.close()
+        if ok:
+            logger.info("host %s: canary succeeded, breaker CLOSED",
+                        self.netloc)
+            self.healthy = True
+        else:
+            self.breaker_state = "open"
+            self.breaker_opened_t = self.clock()
+        return ok
+
+    def connect(self, timeout: float) -> http.client.HTTPConnection:
+        return http.client.HTTPConnection(self.netloc, timeout=timeout)
+
+    def probe(self) -> bool:
+        """GET /healthz; clears the connect-phase condemnation when the
+        host answers (an open breaker closes only through its canary)."""
+        conn = None
+        try:
+            conn = http.client.HTTPConnection(self.netloc, timeout=2.0)
+            conn.request("GET", "/healthz")
+            ok = conn.getresponse().status == 200
+        except Exception:  # noqa: BLE001 - still down
+            ok = False
+        finally:
+            if conn is not None:
+                conn.close()
+        if ok:
+            self._down = False
+        return ok
+
+
+class RouterEngine:
+    """Engine-protocol fan-out over N ``lmrs-serve-torch`` servers."""
+
+    schedules_internally = True  # each server admission-controls itself
+
+    def __init__(self, hosts: list[str], timeout_s: float = 600.0,
+                 probe_floor_s: float = 5.0, probe_jitter_s: float = 2.5,
+                 clock=time.monotonic, prefix_route: bool | None = None,
+                 summary_ttl_s: float | None = None):
+        if env_float("LMRS_HEDGE_MS", 0.0, lo=0.0) > 0:
+            raise ValueError(
+                "LMRS_HEDGE_MS (tail hedging) is not in the port yet; it "
+                f"arrives with the {_A10} slice")
+        self.hosts = [_Host(h, clock=clock) for h in hosts]
+        if not self.hosts:
+            raise ValueError("RouterEngine needs at least one backend host")
+        self._stats_lock = threading.Lock()
+        # per-recv socket timeout: must exceed the worst-case SILENT wait
+        # (a non-streamed generation sends nothing until it completes)
+        self.timeout_s = timeout_s
+        # recovery probes space >= probe_floor_s apart per host plus a
+        # jitter in [0, probe_jitter_s); ``clock`` is injectable for tests
+        self.probe_floor_s = probe_floor_s
+        self.probe_jitter_s = probe_jitter_s
+        self._clock = clock
+        self._probe_rng = random.Random(0x90BE)
+        self._probe_lock = threading.Lock()
+        self._pool = ThreadPoolExecutor(
+            max_workers=max(8, 4 * len(self.hosts)),
+            thread_name_prefix="lmrs-router")
+        # rid -> the live HTTPConnection (before connect) or its RAW socket
+        # (after: getresponse() detaches the socket for Connection: close
+        # responses such as SSE, so it is pinned here for cancel())
+        self._inflight: dict[int, object] = {}  # guarded-by: _inflight_lock
+        self._inflight_lock = threading.Lock()
+        # the live waves' cancel sets: a cancel lands in every wave live at
+        # cancel time, and a wave created later never sees it
+        self._wave_cancel_sets: list[set[int]] = []  # guarded-by: _stats_lock
+        # the round-robin base advances ACROSS waves (single-request waves
+        # would otherwise all land on hosts[0])
+        self._rr_base = 0  # guarded-by: _stats_lock
+        self.prefix_route = (env_bool("LMRS_PREFIX_ROUTE", True)
+                             if prefix_route is None else bool(prefix_route))
+        self.summary_ttl_s = (env_float("LMRS_PREFIX_SUMMARY_TTL", 10.0,
+                                        lo=0.5, hi=300.0)
+                              if summary_ttl_s is None
+                              else float(summary_ttl_s))
+        # netloc -> {"at": clock, "map": {hash -> summary row}}
+        self._summaries: dict[str, dict] = {}  # guarded-by: _summary_lock
+        self._summary_inflight: set[str] = set()  # guarded-by: _summary_lock
+        self._summary_lock = threading.Lock()
+        self._prefix_routed = 0     # guarded-by: _stats_lock
+        self._prefix_predicted = 0  # guarded-by: _stats_lock
+        self._prefix_fallback = 0   # guarded-by: _stats_lock
+
+    # ------------------------------------------------------------------ API
+
+    def generate_batch(self, requests: list[GenerationRequest],
+                       on_result=None, on_tokens=None) -> list[GenerationResult]:
+        if on_result is not None:
+            return drain_with_callback(
+                lambda reqs: self._wave(reqs, on_tokens), requests, on_result)
+        return self._wave(requests, on_tokens)
+
+    def cancel(self, request_id: int) -> None:
+        """Abort a request by hanging up its connection; unknown ids
+        (cancels between waves included) are a no-op.  A non-streamed
+        cancel loses its partial text; a streamed one keeps the deltas
+        already received."""
+        with self._stats_lock:
+            for wave in self._wave_cancel_sets:
+                wave.add(request_id)
+        with self._inflight_lock:
+            target = self._inflight.get(request_id)
+        self._hangup(target)
+
+    @staticmethod
+    def _hangup(target) -> None:
+        """shutdown(), not close(): while a thread reads the response,
+        close() is deferred and no FIN reaches the server."""
+        if target is None:
+            return
+        try:
+            if isinstance(target, socket.socket):
+                target.shutdown(socket.SHUT_RDWR)
+            else:
+                target.close()
+        except OSError:
+            pass
+
+    def shutdown(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+    def engine_metrics(self) -> dict:
+        per = []
+        for h in self.hosts:
+            row = {"host": h.netloc, "role": "both", "healthy": h.healthy,
+                   "breaker": h.breaker_state,
+                   "served": h.served, "failed": h.failed}
+            conn = None
+            try:
+                conn = h.connect(timeout=2.0)
+                conn.request("GET", "/metrics")
+                row["metrics"] = json.loads(conn.getresponse().read())
+            except Exception as e:  # noqa: BLE001 - best effort, not silent
+                logger.debug("metrics fetch failed for %s: %s: %s",
+                             h.netloc, type(e).__name__, e)
+                row["metrics_unreachable"] = True
+            finally:
+                if conn is not None:
+                    conn.close()
+            per.append(row)
+        with self._summary_lock:
+            now = self._clock()
+            ages = {netloc: round(now - s["at"], 1)
+                    for netloc, s in self._summaries.items()}
+        return {"hosts": len(self.hosts),
+                "healthy_hosts": sum(h.healthy for h in self.hosts),
+                "pools": {"both": {"size": len(self.hosts),
+                                   "healthy": sum(h.healthy
+                                                  for h in self.hosts)}},
+                "prefix_route": {"enabled": self.prefix_route,
+                                 "routed": self._prefix_routed,
+                                 "predicted": self._prefix_predicted,
+                                 "fallback": self._prefix_fallback,
+                                 "summary_age_s": ages},
+                "per_host": per}
+
+    def prometheus_metrics(self) -> str:
+        """The fleet page: each healthy server's Prometheus page relabeled
+        ``host=<netloc>`` (scraped concurrently under one 3 s deadline),
+        the router's per-host series and pool gauges, and its placement
+        counters, merged with one header a family."""
+
+        def scrape(h: _Host) -> str | None:
+            conn = None
+            try:
+                conn = h.connect(timeout=2.0)
+                conn.request("GET", "/metrics",
+                             headers={"Accept": "text/plain"})
+                resp = conn.getresponse()
+                body = resp.read().decode("utf-8", "replace")
+                if (resp.status == 200
+                        and "text/plain" in resp.getheader("Content-Type", "")):
+                    return body
+            except Exception as e:  # noqa: BLE001 - scrape is best effort
+                logger.debug("prometheus scrape failed for %s: %s: %s",
+                             h.netloc, type(e).__name__, e)
+            finally:
+                if conn is not None:
+                    conn.close()
+            return None
+
+        futures = {h: self._pool.submit(scrape, h)
+                   for h in self.hosts if h.healthy}
+        deadline = time.time() + 3.0
+        bodies: dict[str, str | None] = {}
+        for h, fut in futures.items():
+            try:
+                bodies[h.netloc] = fut.result(
+                    timeout=max(0.0, deadline - time.time()))
+            except Exception:  # noqa: BLE001 - timeout / pool saturation
+                bodies[h.netloc] = None
+        pages: list[str] = []
+        for h in self.hosts:
+            body = bodies.get(h.netloc)
+            if body is not None:
+                pages.append(add_label_to_exposition(body, "host", h.netloc))
+            reg = MetricsRegistry()
+            reg.gauge("lmrs_router_host_up",
+                      "1 when the router considers the host healthy "
+                      "(request-path belief)").set(float(h.healthy))
+            reg.gauge("lmrs_router_host_scrape_ok",
+                      "1 when this scrape fetched the host's metrics "
+                      "page").set(float(body is not None))
+            reg.counter("lmrs_router_host_served_total",
+                        "requests completed on this host").inc(h.served)
+            reg.counter("lmrs_router_host_failed_total",
+                        "requests failed on this host").inc(h.failed)
+            reg.gauge("lmrs_router_breaker_state",
+                      "circuit-breaker state for this host "
+                      "(0=closed, 1=open, 2=half_open)").set(
+                {"closed": 0.0, "open": 1.0,
+                 "half_open": 2.0}.get(h.breaker_state, 0.0))
+            reg.counter("lmrs_router_breaker_opens_total",
+                        "times this host's breaker opened "
+                        "(consecutive-failure threshold crossed)"
+                        ).inc(h.breaker_opens)
+            pages.append(add_label_to_exposition(
+                reg.render_prometheus(), "host", h.netloc))
+        reg = MetricsRegistry()
+        reg.gauge("lmrs_router_pool_size",
+                  "backend hosts in this role pool").set(len(self.hosts))
+        reg.gauge("lmrs_router_pool_healthy",
+                  "healthy hosts in this role pool").set(
+            sum(h.healthy for h in self.hosts))
+        pages.append(add_label_to_exposition(reg.render_prometheus(),
+                                             "pool", "both"))
+        reg = MetricsRegistry()
+        reg.counter("lmrs_router_prefix_routed_total",
+                    "requests placed sticky-by-prefix (summary-predicted "
+                    "or rendezvous)").inc(self._prefix_routed)
+        reg.counter("lmrs_router_prefix_hit_predicted_total",
+                    "prefix placements backed by a fresh radix summary "
+                    "predicting a hit").inc(self._prefix_predicted)
+        reg.counter("lmrs_router_prefix_fallback_total",
+                    "prefix-eligible requests that degraded to plain "
+                    "load/health ordering").inc(self._prefix_fallback)
+        pages.append(reg.render_prometheus())
+        return merge_expositions(pages)
+
+    def _refuse(self, what: str):
+        raise NotImplementedError(f"{what} is not in the port yet; it "
+                                  f"arrives with the {_A10} slice")
+
+    def add_host(self, url: str, role: str = "both"):
+        self._refuse("add_host")
+
+    def drain_host(self, netloc: str):
+        self._refuse("drain_host")
+
+    def remove_host(self, netloc: str, force: bool = False):
+        self._refuse("remove_host")
+
+    # ------------------------------------------------------------- dispatch
+
+    def _wave(self, requests: list[GenerationRequest],
+              on_tokens) -> list[GenerationResult]:
+        cancelled: set[int] = set()
+        with self._stats_lock:
+            self._wave_cancel_sets.append(cancelled)
+            base = self._rr_base
+            self._rr_base += len(requests)
+        # paced recovery probes and summary refreshes ride the wave on the
+        # pool; placement is planned per wave
+        self._launch_probes()
+        self._refresh_summaries()
+        prefers = self._plan_prefix_placement(requests)
+        try:
+            futures = [self._pool.submit(self._one, base + i, req, on_tokens,
+                                         cancelled, prefers[i])
+                       for i, req in enumerate(requests)]
+            return [f.result() for f in futures]
+        finally:
+            with self._stats_lock:
+                self._wave_cancel_sets.remove(cancelled)
+
+    def _launch_probes(self) -> list[_Host]:
+        """Submit a recovery attempt for each unavailable host whose pacing
+        window has elapsed (an open breaker only once its cooldown is
+        over); returns the hosts probed.  The next-probe stamp is claimed
+        under a lock, so racing waves never double-probe a host."""
+        now = self._clock()
+        probed: list[_Host] = []
+        with self._probe_lock:
+            for host in self.hosts:
+                if host.healthy or now < host.next_probe_t:
+                    continue
+                if (not host._down and host.breaker_state == "open"
+                        and not host.breaker_due()):
+                    continue  # cooldown running: no canary yet
+                if host.breaker_state == "half_open":
+                    continue  # a canary is already in flight
+                host.next_probe_t = (now + self.probe_floor_s
+                                     + self._probe_rng.random()
+                                     * self.probe_jitter_s)
+                probed.append(host)
+        for host in probed:
+            self._pool.submit(self._recover_host, host)
+        return probed
+
+    def _recover_host(self, host: _Host) -> None:
+        """/healthz first when the host is condemned, then the canary when
+        its breaker's cooldown has elapsed."""
+        if host._down and not host.probe():
+            return
+        if host.breaker_state == "open" and host.breaker_due():
+            host.canary()
+
+    def _targets(self, start: int, prefer: _Host | None = None) -> list[_Host]:
+        """Hosts in round-robin order from ``start``, healthy first (every
+        host when none is healthy: a transient fault must not brick the
+        fleet); ``prefer`` goes to the front."""
+        n = len(self.hosts)
+        order = [self.hosts[(start + k) % n] for k in range(n)]
+        out = [h for h in order if h.healthy] or order
+        if prefer is not None and prefer in out:
+            out = [prefer] + [h for h in out if h is not prefer]
+        return out
+
+    # ------------------------------------------------- prefix-aware routing
+
+    def _refresh_summaries(self) -> None:
+        """Queue a ``/healthz`` summary fetch for every healthy host whose
+        summary is older than half the TTL; never blocks a wave."""
+        if not self.prefix_route:
+            return
+        now = self._clock()
+        due: list[_Host] = []
+        with self._summary_lock:
+            for h in self.hosts:
+                if not h.healthy or h.netloc in self._summary_inflight:
+                    continue
+                s = self._summaries.get(h.netloc)
+                if s is None or now - s["at"] >= self.summary_ttl_s / 2:
+                    self._summary_inflight.add(h.netloc)
+                    due.append(h)
+        for host in due:
+            self._pool.submit(self._fetch_summary, host)
+
+    def _fetch_summary(self, host: _Host) -> None:
+        """One summary fetch (pool thread).  A failed fetch keeps the last
+        map and stamps the time, so a dark host is re-fetched at the
+        normal cadence, not hammered."""
+        doc = None
+        conn = None
+        try:
+            conn = http.client.HTTPConnection(host.netloc, timeout=2.0)
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            if resp.status == 200:
+                doc = json.loads(resp.read())
+        except Exception as e:  # noqa: BLE001 - control-plane best effort
+            logger.debug("summary fetch failed for %s: %s: %s",
+                         host.netloc, type(e).__name__, e)
+        finally:
+            if conn is not None:
+                conn.close()
+        smap: dict[str, dict] | None = None
+        if isinstance(doc, dict):
+            smap = {str(ent["hash"]): ent
+                    for ent in doc.get("prefix_summary") or ()
+                    if isinstance(ent, dict) and ent.get("hash")}
+        with self._summary_lock:
+            if smap is None:
+                prev = self._summaries.get(host.netloc)
+                smap = prev["map"] if prev else {}
+            self._summaries[host.netloc] = {"at": self._clock(), "map": smap}
+            self._summary_inflight.discard(host.netloc)
+
+    def _prefix_target(self, req: GenerationRequest
+                       ) -> tuple[_Host | None, bool, bool]:
+        """``(host, predicted, eligible)`` for one request: among healthy
+        hosts, the one whose fresh summary predicts the deepest hit
+        (resident tokens weigh twice spilled ones), else a rendezvous hash
+        of (preamble, host); not eligible without a shared preamble."""
+        if not self.prefix_route:
+            return None, False, False
+        key = preamble_key(req.system_prompt, req.prompt, req.cache_prefix)
+        if key is None:
+            return None, False, False
+        healthy = [h for h in self.hosts if h.healthy]
+        if not healthy:
+            return None, False, True
+        now = self._clock()
+        with self._summary_lock:
+            views = {h.netloc: self._summaries.get(h.netloc) for h in healthy}
+        best, best_score = None, 0
+        for h in healthy:
+            s = views[h.netloc]
+            if s is None or now - s["at"] > self.summary_ttl_s:
+                continue  # stale: this host predicts nothing
+            ent = s["map"].get(key)
+            if not ent:
+                continue
+            try:
+                score = (2 * int(ent.get("resident_tokens") or 0)
+                         + int(ent.get("spilled_tokens") or 0))
+            except (TypeError, ValueError):
+                continue
+            if score > best_score:
+                best, best_score = h, score
+        if best is not None:
+            return best, True, True
+        best = max(healthy, key=lambda h: hashlib.sha256(
+            f"{key}|{h.netloc}".encode()).digest())
+        return best, False, True
+
+    def _plan_prefix_placement(self, requests: list[GenerationRequest]
+                               ) -> list[_Host | None]:
+        """Group the wave by preamble key and give each group's sticky
+        host its fair share, ``ceil(group / healthy hosts)`` members; the
+        rest spread through the rotation (counted as fallback)."""
+        out: list[_Host | None] = [None] * len(requests)
+        if not self.prefix_route:
+            return out
+        healthy_n = max(1, sum(h.healthy for h in self.hosts))
+        groups: dict[str, list[int]] = {}
+        for idx, req in enumerate(requests):
+            key = preamble_key(req.system_prompt, req.prompt,
+                               req.cache_prefix)
+            if key is not None:
+                groups.setdefault(key, []).append(idx)
+        for members in groups.values():
+            prefer, predicted, eligible = self._prefix_target(
+                requests[members[0]])
+            share = -(-len(members) // healthy_n)
+            for k, idx in enumerate(members):
+                sticky = prefer if k < share else None
+                out[idx] = sticky
+                if not eligible:
+                    continue
+                with self._stats_lock:
+                    if sticky is not None:
+                        self._prefix_routed += 1
+                        self._prefix_predicted += predicted
+                    else:
+                        self._prefix_fallback += 1
+        return out
+
+    def _one(self, i: int, req: GenerationRequest, on_tokens,
+             cancelled: set[int], prefer: _Host | None = None
+             ) -> GenerationResult:
+        # trace ingress for engine-protocol callers: every forward and
+        # retry resends the id, so one request is one trace fleet-wide
+        if req.trace_id is None:
+            req.trace_id = new_trace_id()
+        rid = req.request_id
+        last_err = "no healthy backend"
+        for attempt, host in enumerate(self._targets(i, prefer)[:2]):
+            if rid in cancelled:
+                return GenerationResult(request_id=rid,
+                                        finish_reason="cancelled")
+            rem = remaining_budget(req)
+            if rem is not None and rem <= 0:
+                # no budget left for a second host
+                return GenerationResult(request_id=rid,
+                                        finish_reason="deadline")
+            streamed = [0]  # deltas already forwarded for this request
+            try:
+                res = self._post(host, req, on_tokens, streamed, cancelled)
+                host.note_served()
+                host.healthy = True
+                return res
+            except Exception as e:  # noqa: BLE001 - degrade per request
+                if rid in cancelled:  # the hangup WE caused
+                    return GenerationResult(request_id=rid,
+                                            finish_reason="cancelled")
+                host.note_failed()
+                if isinstance(e, _HostConnectError):
+                    host.healthy = False
+                last_err = f"{host.netloc}: {type(e).__name__}: {e}"
+                logger.warning("request %d failed on %s (attempt %d): %s",
+                               rid, host.netloc, attempt + 1, last_err)
+                if streamed[0]:
+                    # a retry would replay deltas already forwarded
+                    break
+        return GenerationResult(request_id=rid, finish_reason="error",
+                                error=last_err)
+
+    def _post(self, host: _Host, req: GenerationRequest, on_tokens,
+              streamed: list[int], cancelled: set[int]) -> GenerationResult:
+        body = _request_body(req)
+        if on_tokens is not None:
+            body["stream"] = True
+            body["stream_options"] = {"include_usage": True}
+        timeout = self.timeout_s
+        rem = remaining_budget(req)
+        if rem is not None:
+            # wait no longer than the budget plus slack for the server's
+            # own deadline result
+            timeout = max(1.0, min(timeout, rem + 5.0))
+        conn = host.connect(timeout)
+        rid = req.request_id
+        with self._inflight_lock:
+            self._inflight[rid] = conn
+        try:
+            try:
+                conn.connect()  # explicit: a connect failure = host down
+            except OSError as e:
+                raise _HostConnectError(str(e)) from e
+            with self._inflight_lock:
+                self._inflight[rid] = conn.sock
+            headers = {"Content-Type": "application/json"}
+            if req.trace_id:
+                headers["X-LMRS-Trace"] = req.trace_id
+            conn.request("POST", "/v1/chat/completions",
+                         body=json.dumps(body), headers=headers)
+            # a cancel that closed the socketless conn before connect()
+            # left no hangup behind: re-check now that the socket exists
+            if rid in cancelled:
+                raise ConnectionAbortedError("cancelled during connect")
+            resp = conn.getresponse()
+            if resp.status != 200:
+                return GenerationResult(request_id=rid, finish_reason="error",
+                                        error=self._error_message(resp))
+            if on_tokens is not None:
+                return self._read_sse(resp, req, on_tokens, streamed,
+                                      cancelled)
+            data = json.loads(resp.read())
+            choice = data["choices"][0]
+            usage = data.get("usage") or {}
+            return GenerationResult(
+                request_id=rid,
+                text=choice["message"]["content"],
+                prompt_tokens=int(usage.get("prompt_tokens", 0)),
+                completion_tokens=int(usage.get("completion_tokens", 0)),
+                finish_reason=choice.get("finish_reason") or "stop")
+        finally:
+            with self._inflight_lock:
+                self._inflight.pop(rid, None)
+            try:
+                conn.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    @staticmethod
+    def _error_message(resp) -> str:
+        try:
+            data = json.loads(resp.read())
+            return (data.get("error") or {}).get("message",
+                                                 f"HTTP {resp.status}")
+        except Exception:  # noqa: BLE001 - malformed error body
+            return f"HTTP {resp.status}"
+
+    def _read_sse(self, resp, req: GenerationRequest, on_tokens,
+                  streamed: list[int], cancelled: set[int]) -> GenerationResult:
+        """Consume a chat.completion.chunk stream, forwarding content
+        deltas; the terminal chunk carries finish_reason and usage.  A
+        cancel's hangup keeps the deltas received; any other stream that
+        ends before [DONE] is a failure (the SSE body has no length, so a
+        dead server reads as a clean EOF)."""
+        rid = req.request_id
+        text_parts: list[str] = []
+        finish = "stop"
+        usage: dict = {}
+        done_seen = False
+        try:
+            for raw in resp:
+                line = raw.decode("utf-8", "replace").strip()
+                if not line.startswith("data:"):
+                    continue
+                data = line[5:].strip()
+                if data == "[DONE]":
+                    done_seen = True
+                    break
+                evt = json.loads(data)
+                if "error" in evt:
+                    return GenerationResult(
+                        request_id=rid, finish_reason="error",
+                        error=evt["error"].get("message", "?"))
+                choice = evt["choices"][0]
+                piece = (choice.get("delta") or {}).get("content")
+                if piece:
+                    text_parts.append(piece)
+                    streamed[0] += 1
+                    on_tokens(rid, piece)
+                if choice.get("finish_reason"):
+                    finish = choice["finish_reason"]
+                if evt.get("usage"):
+                    usage = evt["usage"]
+        except OSError:
+            if rid not in cancelled:
+                raise
+            finish = "cancelled"
+            done_seen = True
+        if not done_seen:
+            if rid in cancelled:
+                finish = "cancelled"
+            else:
+                raise ConnectionResetError(
+                    "SSE stream ended before [DONE] "
+                    f"({len(text_parts)} deltas received)")
+        return GenerationResult(
+            request_id=rid, text="".join(text_parts),
+            prompt_tokens=int(usage.get("prompt_tokens", 0)),
+            completion_tokens=int(usage.get("completion_tokens",
+                                            len(text_parts))),
+            finish_reason=finish)

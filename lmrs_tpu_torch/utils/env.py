@@ -29,6 +29,16 @@ def _raw(name: str) -> str | None:
     return raw.strip() or None
 
 
+def _clamp(name: str, val, lo, hi):
+    if lo is not None and val < lo:
+        _warn_once(name, f"value {val} below minimum {lo}; clamping")
+        return lo
+    if hi is not None and val > hi:
+        _warn_once(name, f"value {val} above maximum {hi}; clamping")
+        return hi
+    return val
+
+
 def env_str(name: str, default: str = "") -> str:
     raw = _raw(name)
     return default if raw is None else raw
@@ -59,16 +69,11 @@ def env_int(name: str, default: int, *, lo: int | None = None,
     except ValueError:
         _warn_once(name, f"not an integer: {raw!r}; using {default}")
         return default
-    if lo is not None and val < lo:
-        _warn_once(name, f"value {val} below minimum {lo}; clamping")
-        return lo
-    if hi is not None and val > hi:
-        _warn_once(name, f"value {val} above maximum {hi}; clamping")
-        return hi
-    return val
+    return _clamp(name, val, lo, hi)
 
 
-def env_float(name: str, default: float) -> float:
+def env_float(name: str, default: float, *, lo: float | None = None,
+              hi: float | None = None) -> float:
     raw = _raw(name)
     if raw is None:
         return default
@@ -80,4 +85,13 @@ def env_float(name: str, default: float) -> float:
     if not math.isfinite(val):
         _warn_once(name, f"non-finite value {raw!r}; using {default}")
         return default
-    return val
+    return _clamp(name, val, lo, hi)
+
+
+def env_list(name: str) -> tuple[str, ...]:
+    """Comma-separated list knob (``LMRS_HOSTS=a:1,b:2``); empty items
+    dropped."""
+    raw = _raw(name)
+    if raw is None:
+        return ()
+    return tuple(item.strip() for item in raw.split(",") if item.strip())

@@ -1,10 +1,20 @@
-"""Analytic FLOP count of a prefill (trimmed copy of the reference's
-``utils/perf_model.py``): the scheduler's admission-shedding estimate
-falls back to it before any TTFT has been observed."""
+"""Analytic FLOP count of a prefill and the span family's pow2 bucketing
+(trimmed copy of the reference's ``utils/perf_model.py``): the scheduler's
+admission-shedding estimate falls back to the count before any TTFT has
+been observed; the bucket sizes page windows and the mock's emulated span
+shapes."""
 
 from __future__ import annotations
 
 from lmrs_tpu_torch.config import ModelConfig
+
+
+def pow2_bucket(n: int, lo: int) -> int:
+    """Smallest power of two >= max(n, lo)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
 
 
 def _matmul_params(cfg: ModelConfig) -> int:

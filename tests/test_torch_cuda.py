@@ -790,3 +790,72 @@ def test_load_checkpoint_onto_card(cuda_device, tmp_path, quantize):
         x = got[n]
         assert x.device.type == "cuda" and x.dtype == y.dtype, n
         assert torch.equal(x.cpu(), y.cpu()), n
+
+
+# ----------------------------------------------------------------- serving
+
+@pytest.mark.cuda
+def test_server_streams_the_card_engine(cuda_device):
+    """The HTTP server over a CUDA ``TorchEngine`` (the ``tiny`` preset,
+    bf16, hd 32, 2 layers, random-init): a streamed chat completion's
+    deltas join to the non-streamed greedy text of the same request (the
+    prefix cache is off, so both runs prefill the same shapes), and a wave
+    of three requests over two slots (the third prefills beside decoding
+    rows) launches flash prefill, the write-fused decode kernel and the
+    span kernel."""
+    import dataclasses
+    import http.client
+    import json
+    import threading
+
+    from lmrs_tpu_torch.config import EngineConfig, model_preset
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+
+    cfg = dataclasses.replace(model_preset("tiny"), n_layers=2)
+    eng = TorchEngine(EngineConfig(max_batch_slots=2, max_tokens=48,
+                                   prefix_cache=False), cfg, device=cuda_device)
+    kernels = [(tfa.flash_attention, "launches"),
+               (tpa.paged_decode_fused, "launches"),
+               (tpa.ragged_spans, "launches")]
+    for fn, attr in kernels:
+        setattr(fn, attr, 0)
+    srv = EngineHTTPServer(eng, port=0, batch_window_s=0.5)
+    srv.start_background()
+
+    def post(body, out=None):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        text = conn.getresponse().read().decode()
+        conn.close()
+        if out is not None:
+            out.append(text)
+        return text
+
+    try:
+        outs = []
+        # the short request frees its slot while the second decodes, so
+        # the third prefills in mixed steps through the span kernel
+        threads = [threading.Thread(target=post, args=({
+            "messages": [{"role": "user", "content": "word " * n}],
+            "max_tokens": m, "temperature": 0}, outs))
+            for n, m in ((40, 4), (90, 48), (300, 48))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert len(outs) == 3 and srv.batcher.batches_run == 1
+        body = {"messages": [{"role": "system", "content": "Summarize."},
+                             {"role": "user", "content": "the budget " * 30}],
+                "max_tokens": 48, "temperature": 0}
+        plain = json.loads(post(body))["choices"][0]["message"]["content"]
+        frames = post({**body, "stream": True}).split("\n\n")
+        deltas = [json.loads(f[6:])["choices"][0]["delta"].get("content", "")
+                  for f in frames if f.startswith("data: {")]
+    finally:
+        srv.shutdown()
+    assert "".join(deltas) == plain
+    assert eng.audit() == []
+    assert all(getattr(fn, attr) > 0 for fn, attr in kernels), [
+        getattr(fn, attr) for fn, attr in kernels]

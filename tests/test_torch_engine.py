@@ -226,13 +226,14 @@ def test_cli_no_prefix_cache_runs(tmp_path):
     assert "prefix_cache" not in report["engine_metrics"]
 
 
-@pytest.mark.parametrize("flag", [["--hosts", "h:1"], ["--host-kv"],
+@pytest.mark.parametrize("flag", [["--profile"], ["--host-kv"],
                                   ["--kv-quantize", "int4"], ["--mesh", "1,2"]])
 def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     """Flags of later slices are refused by name; since int8 is ported,
     ``--kv-quantize`` is refused only for a mode the reference lacks (and
-    since tree speculation is, ``--speculate-k`` is accepted, and since
-    checkpoints are, ``--checkpoint``)."""
+    since tree speculation is, ``--speculate-k`` is accepted, since
+    checkpoints are, ``--checkpoint``, and since the serving surface is,
+    ``--backend`` and ``--hosts``)."""
     from lmrs_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as exc:
@@ -243,8 +244,8 @@ def test_cli_refuses_later_slices(tmp_path, flag, capsys):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--backend", "jax"], "A3"),
-    (["--hosts", "h:1,h:2"], "A3"), (["--profile"], "A10"),
+    (["--mesh", "1,2"], "A8"),
+    (["--host-kv"], "A4"), (["--profile"], "A10"),
     (["--trace-out", "t.json"], "A10"), (["--no-trace"], "A10")])
 def test_cli_refuses_reference_flags_by_name(tmp_path, flag, slice_, capsys):
     """The reference CLI's flags of features the port lacks are refused by
