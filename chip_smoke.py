@@ -200,7 +200,37 @@ anything wrong.  Phases, one JSON object per line:
               --tokenizer byte`` as a child on the card: ``/healthz``
               within 300 s, one chat completion, SIGINT exits 0; start-up
               seconds.
-16. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+16. kv      — KV movement at full bench-8b (random-init bf16, byte
+              tokenizer, phase 5's engine settings), each sub-phase on a
+              line of its own with the card's name and power limit.  16a
+              (host tier, on by default): 8 of phase 5's map prompts cold,
+              again with the prefix pages resident (their bytes digested),
+              then ``evict(10_000)`` and again: spill pages equal prefetch
+              pages (> 0), spilled hits > 0, fewer prefill tokens than the
+              cold wave, every restored page bit-equal to its captured
+              bytes, texts equal the resident rerun's (the same shapes), a
+              clean audit; capture and restore seconds and GB/s per 16 MiB
+              page and per 64-page wave, the pinned bytes held.  16b: the
+              host pool replaced by a 4-page one over a disk pool under
+              ``build/``: a disk round trip (same bytes, same texts), then
+              a corrupted spill file whose segment re-prefills (texts equal
+              a rerun with that segment dropped by hand), files deleted;
+              bytes and seconds written and read.  16c: two engines in
+              this process behind a prefill-role and a decode-role server
+              and a ``RouterEngine`` with role pools: 4 prompts one at a
+              time, texts equal the colocated run, flash only on the
+              prefill engine and decode only on the decode engine, no
+              pins left; payload bytes, encode, transfer and import
+              seconds, first-token times; the decode server shut down, a
+              wave falls back colocated and the orphan sweep reclaims the
+              pins after 2 s; an int8-KV pair at the engine level (scales
+              in the payload, text equal colocated).  16d: the same pair
+              behind ``role="both"`` servers: ``/v1/kv`` export, import
+              and ack make the sibling's run a prefix hit through the span
+              kernel with the warm host's text, and a same-preamble group
+              of 8 through a colocated router ends with
+              ``lmrs_kv_migrate_prefetches_total`` above 0.
+17. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -3245,6 +3275,689 @@ def run_serve_path(smi: str, main_out: dict) -> dict:
             "startup_seconds": out["startup_seconds"]}
 
 
+# ------------------------------------------------------------ phase 16
+
+KV_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "kv_disk"
+KV_TTL = 2.0  # 16c's handoff TTL (seconds): the orphan sweep's deadline
+KV_WAVE = 8   # 16a/16b's wave of phase 5's map prompts
+
+
+class LaunchTally:
+    """An engine behind 16c/16d's servers: forwards every call and adds the
+    kernel launches of each ``generate_batch`` to its own tally (the two
+    engines of a pair never run at once here, so the global counters
+    attribute exactly)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.counted = kernel_counters()
+        self.tally = {name: 0 for name in self.counted}
+
+    def reset(self) -> None:
+        self.tally = {name: 0 for name in self.counted}
+
+    def generate_batch(self, requests, on_result=None, on_tokens=None):
+        before = {n: getattr(fn, a) for n, (fn, a) in self.counted.items()}
+        try:
+            return self.engine.generate_batch(requests, on_result=on_result,
+                                              on_tokens=on_tokens)
+        finally:
+            torch.cuda.synchronize()
+            for n, (fn, a) in self.counted.items():
+                self.tally[n] += getattr(fn, a) - before[n]
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def kv_engine(**engine_kw):
+    """A bench-8b ``TorchEngine`` with phase 5's settings (``engine_kw``
+    on top) and the map requests of phase 5's transcript, greedy, shortest
+    first."""
+    import dataclasses
+
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.prompts import resolve_map_prompt
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+    from lmrs_tpu_torch.utils.timing import StageTimer
+
+    cfg = phase5_config(**engine_kw)
+    summ = TranscriptSummarizer(cfg, device="cuda")
+    engine = summ.executor.engine
+    _n, _p, chunks = summ._prep(load_demo_transcript(max_segments=200),
+                                StageTimer())
+    base = [summ.executor.build_map_request(c, resolve_map_prompt(),
+                                            request_id=i)
+            for i, c in enumerate(chunks)]
+    base.sort(key=lambda r: len(r.prompt))
+    reqs = [dataclasses.replace(r, temperature=0.0) for r in base]
+    torch.cuda.synchronize()
+    return engine, reqs
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def kv_wave(engine, reqs, rid0: int) -> dict:
+    """One greedy wave through ``generate_batch`` (fresh request ids, launch
+    counters zeroed just before and read just after): texts, walls, the
+    engine's counter deltas and a clean audit."""
+    import dataclasses
+
+    sched = engine._scheduler
+    counted = kernel_counters()
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    c0 = dict(sched.counters)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = engine.generate_batch([dataclasses.replace(r, request_id=rid0 + k)
+                                 for k, r in enumerate(reqs)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    bad = [r.error for r in res if r.error]
+    if bad or engine.audit():
+        raise AssertionError(f"16: wave errors {bad[:2]}, audit {engine.audit()}")
+    return {"texts": [r.text for r in res], "wall_seconds": wall,
+            "delta": {k: v - c0[k] for k, v in sched.counters.items()},
+            "launches": {n: getattr(fn, a) for n, (fn, a) in counted.items()}}
+
+
+def _node_path(node) -> tuple:
+    toks = []
+    while node is not None and node.parent is not None:
+        toks[:0] = node.tokens
+        node = node.parent
+    return tuple(toks)
+
+
+def _page_digest(k, v, i: int) -> str:
+    import hashlib
+
+    return hashlib.sha256(k[:, i].tobytes() + v[:, i].tobytes()).hexdigest()
+
+
+def tree_digests(pc, cache) -> dict:
+    """Token path up to each cached page's end -> sha256 of its K and V
+    bytes, resident pages read from the pool, host-tier pages from their
+    payload."""
+    ps, out = pc.page_size, {}
+    stack = [(pc.root, ())]
+    while stack:
+        node, path = stack.pop()
+        for child in node.children.values():
+            p = path + child.tokens
+            if child.pages:
+                pay = cache.export_pages(child.pages)
+            elif child.spill is not None and not child.spill.get("disk"):
+                pay = child.spill
+            else:
+                pay = None
+            if pay is not None:
+                for i in range(len(child.tokens) // ps):
+                    out[p[: len(path) + (i + 1) * ps]] = _page_digest(
+                        pay["k"], pay["v"], i)
+            stack.append((child, p))
+    return out
+
+
+def record_restores(pc, cache, out: list):
+    """Wrap ``prefetch_into``: digest each restored page right after its
+    restore (one export: ordered after the scatter on the same stream).
+    Returns the unwrap."""
+    orig = pc.prefetch_into
+
+    def rec(node, dest, kv_cache, sync=False):
+        path = _node_path(node)
+        n = orig(node, dest, kv_cache, sync=sync)
+        pay = cache.export_pages(dest)
+        base = len(path) - len(node.tokens)
+        for i in range(len(dest)):
+            out.append((path[: base + (i + 1) * pc.page_size],
+                        _page_digest(pay["k"], pay["v"], i)))
+        return n
+
+    pc.prefetch_into = rec
+    return lambda: setattr(pc, "prefetch_into", orig)
+
+
+def check_restores(restored: list, digests: dict, where: str) -> int:
+    bad = [k for k, d in restored if digests.get(k) != d]
+    if not restored or bad:
+        raise AssertionError(f"{where}: {len(bad)} of {len(restored)} restored "
+                             "pages differ from the bytes captured for them")
+    return len(restored)
+
+
+def tier_rates(cache, n: int, reps: int) -> dict:
+    """Capture (``export_pages``: gather + pinned D2H + sync) and restore
+    (``import_pages(sync=True)``: pinned H2D + scatter) of ``n`` pages,
+    median seconds over ``reps`` and GB/s."""
+    import statistics
+
+    pages = cache.alloc_pages(n)
+    try:
+        cap, res = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pay = cache.export_pages(pages)
+            cap.append(time.time() - t0)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cache.import_pages(pages, pay, sync=True)
+            res.append(time.time() - t0)
+    finally:
+        cache.allocator.free(pages)
+    nbytes = n * cache.page_payload_bytes()
+    c, r = statistics.median(cap), statistics.median(res)
+    return {"pages": n, "bytes": nbytes, "capture_seconds": c,
+            "capture_gb_per_s": nbytes / c / 1e9, "restore_seconds": r,
+            "restore_gb_per_s": nbytes / r / 1e9}
+
+
+def run_host_tier_path(smi: str) -> tuple[dict, dict]:
+    """16a and 16b on one bench-8b engine with the default settings (the
+    host tier on).  16a: a cold wave of 8 map prompts, a rerun with the
+    prefix pages resident (their bytes digested), ``evict(10_000)``
+    (every cached page spills to host RAM) and a rerun that restores them;
+    the restored rerun's texts equal the resident rerun's (the same pages'
+    bytes, the same continuation dispatch shapes).  16b: the engine's host
+    pool replaced by a 4-page one over a disk pool under ``build/``; an
+    eviction demotes pages to spill files, a rerun restores them disk →
+    host → device; then one spill file is corrupted and the rerun holding
+    it re-prefills that segment, its texts equal a rerun in which the
+    segment was dropped by hand (the same shapes)."""
+    import gc
+    import shutil
+
+    from lmrs_tpu_torch.engine.host_kv import DiskKVPool, HostKVPool
+
+    t_build = time.time()
+    engine, reqs = kv_engine()
+    build_s = time.time() - t_build
+    sched, cache = engine._scheduler, engine._scheduler.cache
+    pc = sched._prefix_cache
+    wave = reqs[:KV_WAVE]
+    if pc.pool is None:
+        raise AssertionError("16a: the host tier is not armed by default")
+    cold = kv_wave(engine, wave, 0)
+    resident = kv_wave(engine, wave, 100)
+    digests = tree_digests(pc, cache)
+    m0 = dict(sched.counters)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    spilled = pc.evict(10_000)
+    evict_s = time.time() - t0
+    pinned = pc.pool.used_bytes
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    restored: list = []
+    unwrap = record_restores(pc, cache, restored)
+    try:
+        rerun = kv_wave(engine, wave, 200)
+    finally:
+        unwrap()
+    d = {k: v - m0[k] for k, v in sched.counters.items()}
+    n_checked = check_restores(restored, digests, "16a")
+    if not (d["prefix_spill_pages"] == d["prefix_prefetch_pages"] > 0):
+        raise AssertionError(f"16a: spill pages {d['prefix_spill_pages']} != "
+                             f"prefetch pages {d['prefix_prefetch_pages']}")
+    if d["prefix_spilled_hits"] <= 0:
+        raise AssertionError("16a: no spilled hit")
+    if rerun["delta"]["prefill_tokens"] >= cold["delta"]["prefill_tokens"]:
+        raise AssertionError("16a: the rerun prefilled no fewer tokens than "
+                             "the cold wave")
+    if rerun["texts"] != resident["texts"]:
+        raise AssertionError("16a: restored-prefix texts differ from the "
+                             "resident-prefix texts")
+    require_launches(cold["launches"], "16a cold wave",
+                     ("flash_prefill", "paged_decode_fused"))
+    # every rerun prompt is a prefix hit: its tail is a span dispatch
+    require_launches(rerun["launches"], "16a rerun",
+                     ("paged_decode_fused", "ragged_spans"))
+    page = cache.page_payload_bytes()
+    out_a = {"phase": "kv-16a", "card": smi, "build_seconds": build_s,
+             "page_bytes": page, "prompts": len(wave),
+             "cold": {"wall_seconds": cold["wall_seconds"],
+                      "launches": nonzero(cold["launches"]),
+                      "prefill_tokens": cold["delta"]["prefill_tokens"]},
+             "resident_rerun": {
+                 "wall_seconds": resident["wall_seconds"],
+                 "launches": nonzero(resident["launches"]),
+                 "prefill_tokens": resident["delta"]["prefill_tokens"],
+                 "spilled_hits": resident["delta"]["prefix_spilled_hits"]},
+             "spilled_rerun": {
+                 "wall_seconds": rerun["wall_seconds"],
+                 "launches": nonzero(rerun["launches"]),
+                 "prefill_tokens": rerun["delta"]["prefill_tokens"]},
+             "evict_pages": spilled, "evict_capture_seconds": evict_s,
+             "evict_capture_gb_per_s": spilled * page / evict_s / 1e9,
+             "spill_pages": d["prefix_spill_pages"],
+             "prefetch_pages": d["prefix_prefetch_pages"],
+             "spilled_hits": d["prefix_spilled_hits"],
+             "tokens_prefetched": d["prefix_tokens_prefetched"],
+             "restore_seconds": d["prefetch_seconds"],
+             "restored_pages_bit_equal": n_checked,
+             "texts_equal_resident": True,
+             "pinned_host_bytes": pinned,
+             "host_allocator": ({k: v for k, v in host_stats().items()
+                                 if "bytes" in k}
+                                if host_stats else "not measured"),
+             "rate_per_page": tier_rates(cache, 1, 5),
+             "rate_per_wave": tier_rates(cache, 64, 3),
+             "audit": engine.audit()}
+    emit(out_a)
+
+    # 16b: a 4-page host pool over a disk pool
+    if pc.spilled_pages() or pc.disk is not None:
+        raise AssertionError("16b: spilled pages left before the pool swap")
+    KV_DIR.mkdir(parents=True, exist_ok=True)
+    disk = DiskKVPool(64 * page, str(KV_DIR))
+    io = {"write_s": 0.0, "read_s": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t = time.time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                io[key] += time.time() - t
+        return call
+
+    disk.write, disk.read = timed(disk.write, "write_s"), timed(disk.read, "read_s")
+    pc.pool = HostKVPool(4 * page, disk=disk)
+    m0 = dict(sched.counters)
+    pc.evict(10_000)
+    if disk.demoted_pages_total <= 0:
+        raise AssertionError("16b: nothing demoted to disk")
+    restored = []
+    unwrap = record_restores(pc, cache, restored)
+    try:
+        disk_rerun = kv_wave(engine, wave, 300)
+    finally:
+        unwrap()
+    n_disk = check_restores(restored, digests, "16b")
+    if disk.promoted_pages_total <= 0:
+        raise AssertionError("16b: no disk page promoted")
+    if disk_rerun["texts"] != resident["texts"]:
+        raise AssertionError("16b: disk-restored texts differ from 16a's")
+    # a corrupt spill file: its segment re-prefills
+    pc.evict(10_000)
+    leaf = next((n for n, _b in disk.entries.values() if not n.children), None)
+    if leaf is None:
+        raise AssertionError("16b: no disk-tier leaf to corrupt")
+    victim = _node_path(leaf)
+    raw = bytearray(Path(leaf.spill["path"]).read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    Path(leaf.spill["path"]).write_bytes(bytes(raw))
+    fails0 = disk.read_failures_total
+    corrupt = kv_wave(engine, wave, 400)
+    if disk.read_failures_total != fails0 + 1:
+        raise AssertionError("16b: the corrupt file was not read and refused")
+    # the same state with that segment dropped by hand
+    pc.evict(10_000)
+    node, want = pc.root, victim
+    while want:
+        node = node.children[tuple(want[: pc.page_size])]
+        want = want[len(node.tokens):]
+    pc._drop_subtree(node)
+    dropped = kv_wave(engine, wave, 500)
+    if corrupt["texts"] != dropped["texts"]:
+        raise AssertionError("16b: corrupt-file texts differ from the "
+                             "dropped-segment texts")
+    written, read = disk.bytes_written_total, disk.bytes_read_total
+    d = {k: v - m0[k] for k, v in sched.counters.items()}
+    pc.clear()
+    left = list(Path(disk.dir).iterdir())
+    shutil.rmtree(KV_DIR, ignore_errors=True)
+    if left or engine.audit():
+        raise AssertionError(f"16b: files left {left}, audit {engine.audit()}")
+    out_b = {"phase": "kv-16b", "card": smi, "host_budget_pages": 4,
+             "demoted_pages": disk.demoted_pages_total,
+             "promoted_pages": disk.promoted_pages_total,
+             "restored_pages_bit_equal": n_disk,
+             "texts_equal_16a": True, "read_failures": disk.read_failures_total,
+             "corrupt_texts_equal_dropped": True,
+             "bytes_written": written, "write_seconds": io["write_s"],
+             "bytes_read": read, "read_seconds": io["read_s"],
+             "disk_rerun": {"wall_seconds": disk_rerun["wall_seconds"],
+                            "launches": nonzero(disk_rerun["launches"])},
+             "corrupt_rerun_launches": nonzero(corrupt["launches"]),
+             "spill_pages": d["prefix_spill_pages"],
+             "prefetch_pages": d["prefix_prefetch_pages"],
+             "audit": engine.audit()}
+    emit(out_b)
+    del engine, sched, cache, pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_a, out_b
+
+
+def _one_handoff(router, tallies, req, rid: int) -> dict:
+    """One request through the disaggregated router, streamed: its text,
+    the prefill leg's wall, the decode leg's first delta and wall."""
+    import dataclasses
+
+    for t in tallies:
+        t.reset()
+    legs = {}
+    post_prefill = router._post_prefill
+
+    def timed_prefill(*a, **kw):
+        t = time.time()
+        try:
+            return post_prefill(*a, **kw)
+        finally:
+            legs["prefill_s"] = time.time() - t
+            legs["decode_t0"] = time.time()
+
+    router._post_prefill = timed_prefill
+    first = {}
+    t0 = time.time()
+    try:
+        res = router.generate_batch(
+            [dataclasses.replace(req, request_id=rid)],
+            on_tokens=lambda r, d: first.setdefault("t", time.time()))[0]
+    finally:
+        router._post_prefill = post_prefill
+    if res.error or res.finish_reason not in ("stop", "length"):
+        raise AssertionError(f"16c: handoff request failed: {res}")
+    return {"text": res.text, "wall_s": time.time() - t0,
+            "prefill_leg_s": legs["prefill_s"],
+            "decode_first_token_s": first["t"] - legs["decode_t0"],
+            "first_token_s": first["t"] - t0,
+            "launches": [nonzero(t.tally) for t in tallies]}
+
+
+def run_handoff_path(smi: str) -> tuple[dict, dict]:
+    """16c and 16d over two bench-8b engines in this process, then 16c's
+    int8 part on a fresh pair.  16c: a prefill-role and a decode-role
+    ``EngineHTTPServer`` behind a ``RouterEngine`` with role pools; 4 map
+    prompts one at a time, each text equal to the prompt run colocated on
+    the decode engine from an empty cache (the same shapes), flash only on
+    the prefill engine and decode only on the decode engine, no pins left;
+    then the decode server is shut down and a 2-request wave falls back to
+    a colocated re-prefill with no failed request while the prefill side's
+    orphan sweep reclaims the pins after ``KV_TTL``.  16d: the same engines
+    behind ``role="both"`` servers: a warm host's page set exported and
+    imported by its sibling over ``/v1/kv`` makes the sibling's run of the
+    same prompt a prefix hit (its tail through the span kernel) with the
+    warm host's own prefix-hit text; then a same-preamble group of 8
+    through a colocated router prefetches into the sibling."""
+    import dataclasses
+    import gc
+
+    from lmrs_tpu_torch.engine.api import preamble_key
+    from lmrs_tpu_torch.serving import server as server_mod
+    from lmrs_tpu_torch.serving.handoff import decode_payload, encode_payload
+    from lmrs_tpu_torch.serving.router import RouterEngine
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+
+    t_build = time.time()
+    pe, reqs = kv_engine(handoff_ttl_s=KV_TTL)
+    de, _ = kv_engine(handoff_ttl_s=KV_TTL)
+    build_s = time.time() - t_build
+    if not torch.equal(pe.params["embed"], de.params["embed"]):
+        raise AssertionError("16c: the two engines drew different weights")
+    ptal, dtal = LaunchTally(pe), LaunchTally(de)
+    codec = {"encode_s": 0.0, "bytes": [], "decode_s": 0.0}
+
+    def enc(payload):
+        t = time.time()
+        data = encode_payload(payload)
+        codec["encode_s"] += time.time() - t
+        codec["bytes"].append(len(data))
+        return data
+
+    def dec(data):
+        t = time.time()
+        try:
+            return decode_payload(data)
+        finally:
+            codec["decode_s"] += time.time() - t
+
+    server_mod.encode_payload, server_mod.decode_payload = enc, dec
+    psrv = EngineHTTPServer(ptal, port=0, role="prefill", handoff_ttl_s=KV_TTL)
+    dsrv = EngineHTTPServer(dtal, port=0, role="decode", handoff_ttl_s=KV_TTL)
+    xfer = []
+    fetch = dsrv._fetch_blob
+
+    def timed_fetch(*a, **kw):
+        t = time.time()
+        try:
+            return fetch(*a, **kw)
+        finally:
+            xfer.append(time.time() - t)
+
+    dsrv._fetch_blob = timed_fetch
+    for srv in (psrv, dsrv):
+        srv.start_background()
+    router = RouterEngine([], timeout_s=SERVE_TIMEOUT,
+                          prefill_hosts=[f"127.0.0.1:{psrv.port}"],
+                          decode_hosts=[f"127.0.0.1:{dsrv.port}"])
+    try:
+        rows = []
+        for k, req in enumerate(reqs[:4]):
+            for e in (pe, de):
+                e._scheduler._prefix_cache.clear()
+            row = _one_handoff(router, (ptal, dtal), req, 1000 + k)
+            de._scheduler._prefix_cache.clear()
+            colo = de.generate_batch([dataclasses.replace(
+                req, request_id=2000 + k)])[0].text
+            if row["text"] != colo:
+                raise AssertionError(f"16c: request {k}: handoff text differs "
+                                     "from the colocated text")
+            pl, dl = row.pop("launches")
+            if not (pl.get("flash_prefill", 0) > 0
+                    and "paged_decode_fused" not in pl
+                    and dl.get("paged_decode_fused", 0) > 0
+                    and "flash_prefill" not in dl):
+                raise AssertionError(f"16c: request {k}: prefill-engine "
+                                     f"launches {pl}, decode-engine {dl}")
+            row["prefill_engine_launches"], row["decode_engine_launches"] = pl, dl
+            row.pop("text")
+            rows.append(row)
+        pm, dm = pe._scheduler.metrics, de._scheduler.metrics
+        if not (pm["handoff_exports"] == dm["handoff_imports"] == 4):
+            raise AssertionError(f"16c: exports {pm['handoff_exports']}, "
+                                 f"imports {dm['handoff_imports']}")
+        if pe.pinned_handoffs() or pe.audit() or de.audit():
+            raise AssertionError(f"16c: pins {pe.pinned_handoffs()}, audits "
+                                 f"{pe.audit()} {de.audit()}")
+        import_s = de._scheduler.counters["handoff_import_seconds"] / 4
+        # the decode server goes away: a wave falls back colocated
+        dsrv.shutdown()
+        for e in (pe, de):
+            e._scheduler._prefix_cache.clear()
+        orphaned0 = pe._scheduler.counters["handoff_orphaned_pages"]
+        t0 = time.time()
+        wave = router.generate_batch([dataclasses.replace(r, request_id=3000 + k)
+                                      for k, r in enumerate(reqs[4:6])])
+        fallback_s = time.time() - t0
+        if any(r.error for r in wave) or router._handoff_fallbacks < 1:
+            raise AssertionError(f"16c: fallback wave {wave}, fallbacks "
+                                 f"{router._handoff_fallbacks}")
+        # the tickets minted for the wave are never acked: the sweep
+        # reclaims their pins once KV_TTL passes (during or after the wave)
+        t0 = time.time()
+        while pe.pinned_handoffs() and time.time() - t0 < KV_TTL + 10:
+            time.sleep(0.2)
+        swept_s = time.time() - t0
+        orphaned = pe._scheduler.counters["handoff_orphaned_pages"] - orphaned0
+        if orphaned <= 0 or pe.pinned_handoffs() or pe.audit():
+            raise AssertionError(f"16c: orphaned pages {orphaned}, pins "
+                                 f"{pe.pinned_handoffs()}, audit {pe.audit()}")
+        out_c = {"phase": "kv-16c", "card": smi, "build_seconds": build_s,
+                 "requests": rows, "payload_bytes": codec["bytes"][:4],
+                 "encode_seconds": codec["encode_s"] / max(1, len(codec["bytes"])),
+                 "transfer_seconds": xfer[:4],
+                 "decode_payload_seconds": codec["decode_s"] / max(1, len(xfer)),
+                 "import_seconds": import_s,
+                 "texts_equal_colocated": 4,
+                 "handoff_exports": pm["handoff_exports"],
+                 "handoff_imports": dm["handoff_imports"],
+                 "fallback_wave_seconds": fallback_s,
+                 "fallbacks": router._handoff_fallbacks,
+                 "orphaned_pages": orphaned,
+                 "sweep_wait_after_wave_seconds": swept_s}
+    finally:
+        router.shutdown()
+        psrv.shutdown()
+        dsrv.shutdown()
+        server_mod.encode_payload, server_mod.decode_payload = (
+            encode_payload, decode_payload)
+
+    # 16d: the /v1/kv wire between role="both" servers
+    asrv = EngineHTTPServer(ptal, port=0)
+    bsrv = EngineHTTPServer(dtal, port=0)
+    for srv in (asrv, bsrv):
+        srv.start_background()
+    router = None
+    try:
+        for e in (pe, de):
+            e._scheduler._prefix_cache.clear()
+        req = reqs[0]
+        body = {"messages": ([{"role": "system", "content": req.system_prompt}]
+                             if req.system_prompt else [])
+                + [{"role": "user", "content": req.prompt}],
+                "max_tokens": 64, "temperature": 0,
+                "cache_prefix": req.cache_prefix}
+        status, raw = http_call(asrv.port, "POST", CHAT, body)  # warm
+        if status != 200:
+            raise AssertionError(f"16d: warm host answered {status}")
+        key = preamble_key(req.system_prompt, req.prompt, req.cache_prefix)
+        t0 = time.time()
+        status, raw = http_call(asrv.port, "POST", "/v1/kv/export",
+                                {"preamble": key})
+        export_s = time.time() - t0
+        if status != 200:
+            raise AssertionError(f"16d: export answered {status}: {raw[:200]}")
+        ticket = json.loads(raw)
+        # the warm host's own prefix-hit text over exactly the exported
+        # pages (its cached page past them dropped): the sibling's shapes
+        apc = pe._scheduler._prefix_cache
+        ids, _n = pe._scheduler._encode(dataclasses.replace(req))
+        node, pos = apc.root, 0
+        while pos < ticket["tokens"]:
+            node = node.children[tuple(ids[pos: pos + apc.page_size])]
+            pos += len(node.tokens)
+        for child in list(node.children.values()):
+            apc._drop_subtree(child)
+        status, raw = http_call(asrv.port, "POST", CHAT, body)
+        if status != 200:
+            raise AssertionError(f"16d: warm host answered {status}")
+        warm_text = json.loads(raw)["choices"][0]["message"]["content"]
+        t0 = time.time()
+        status, raw = http_call(bsrv.port, "POST", "/v1/kv/import",
+                                {"ticket": ticket["ticket"],
+                                 "source": f"127.0.0.1:{asrv.port}"})
+        import_s = time.time() - t0
+        if status != 200:
+            raise AssertionError(f"16d: import answered {status}: {raw[:200]}")
+        gone = http_call(asrv.port, "GET", f"/v1/kv/{ticket['ticket']}")[0]
+        dtal.reset()
+        c0 = dict(de._scheduler.counters)
+        status, raw = http_call(bsrv.port, "POST", CHAT, body)
+        text = json.loads(raw)["choices"][0]["message"]["content"]
+        sibling_launches = nonzero(dtal.tally)
+        hits = de._scheduler.counters["prefix_hits"] - c0["prefix_hits"]
+        reused = (de._scheduler.counters["prefix_tokens_reused"]
+                  - c0["prefix_tokens_reused"])
+        if status != 200 or gone != 410 or hits != 1 or reused <= 0:
+            raise AssertionError(f"16d: sibling run {status}, ticket after ack "
+                                 f"{gone}, hits {hits}, reused {reused}")
+        if sibling_launches.get("ragged_spans", 0) <= 0 or text != warm_text:
+            raise AssertionError(f"16d: sibling launches {dtal.tally}, text "
+                                 f"equal {text == warm_text}")
+        # a same-preamble group of 8 through a colocated router
+        router = RouterEngine([f"127.0.0.1:{asrv.port}",
+                               f"127.0.0.1:{bsrv.port}"],
+                              timeout_s=SERVE_TIMEOUT)
+        router._refresh_summaries()
+        t0 = time.time()
+        while len(router._summaries) < 2 and time.time() - t0 < 10:
+            time.sleep(0.05)
+        # the servers hold the wave's requests 2 s, so the prefetch legs
+        # land before either engine starts the wave
+        for srv in (asrv, bsrv):
+            srv.batcher.window_s = 2.0
+        group = [dataclasses.replace(r, request_id=4000 + k)
+                 for k, r in enumerate(reqs[:8])]
+        t0 = time.time()
+        res = router.generate_batch(group)
+        group_s = time.time() - t0
+        while router._kv_prefetches + router._kv_failures < 1 \
+                and time.time() - t0 < 30:
+            time.sleep(0.1)
+        prom = router.prometheus_metrics()
+        line = next(ln for ln in prom.splitlines()
+                    if ln.startswith("lmrs_kv_migrate_prefetches_total"))
+        if any(r.error for r in res) or float(line.split()[-1]) <= 0:
+            raise AssertionError(f"16d: group errors "
+                                 f"{[r.error for r in res if r.error]}, {line}, "
+                                 f"failures {router._kv_failures}")
+        if pe.audit() or de.audit():
+            raise AssertionError(f"16d: audits {pe.audit()} {de.audit()}")
+        out_d = {"phase": "kv-16d", "card": smi,
+                 "export_tokens": ticket["tokens"], "export_bytes": ticket["bytes"],
+                 "export_seconds": export_s, "import_seconds": import_s,
+                 "sibling_prefix_hits": hits, "sibling_tokens_reused": reused,
+                 "sibling_text_equal_warm_host": True,
+                 "sibling_launches": sibling_launches,
+                 "ticket_after_ack": gone, "group": len(group),
+                 "group_seconds": group_s,
+                 "prefetches": router._kv_prefetches,
+                 "prefetch_failures": router._kv_failures,
+                 "prometheus": line}
+    finally:
+        if router is not None:
+            router.shutdown()
+        asrv.shutdown()
+        bsrv.shutdown()
+    del pe, de, ptal, dtal, asrv, bsrv, psrv, dsrv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16c, int8 KV: a fresh pair, engine level, the payload through the codec
+    pe, reqs = kv_engine(kv_quantize="int8")
+    de, _ = kv_engine(kv_quantize="int8")
+    req = reqs[0]
+    r = pe.generate_batch([dataclasses.replace(req, request_id=5000,
+                                               handoff_export=True)])[0]
+    if r.finish_reason != "handoff":
+        raise AssertionError(f"16c int8: prefill side finished {r}")
+    payload = decode_payload(encode_payload(pe.export_handoff(5000)))
+    if not ("kscale" in payload and payload["dtype"] == "int8"):
+        raise AssertionError("16c int8: the payload carries no scales")
+    pe.release_handoff(5000)
+    got = de.generate_batch([dataclasses.replace(
+        req, request_id=5001, handoff_state=payload)])[0]
+    colo = de.generate_batch([dataclasses.replace(req, request_id=5002)])[0]
+    if got.text != colo.text or pe.audit() or de.audit():
+        raise AssertionError(f"16c int8: texts equal {got.text == colo.text}, "
+                             f"audits {pe.audit()} {de.audit()}")
+    out_c["int8"] = {"payload_bytes": len(encode_payload(payload)),
+                     "scales_shape": list(payload["kscale"].shape),
+                     "text_equal_colocated": True}
+    emit(out_c)
+    emit(out_d)
+    del pe, de
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_c, out_d
+
+
+def run_kv_path(smi: str) -> dict:
+    """Phase 16: the spill tiers (16a, 16b), the disaggregated handoff
+    (16c) and the ``/v1/kv`` wire (16d) at full bench-8b."""
+    a, b = run_host_tier_path(smi)
+    c, d = run_handoff_path(smi)
+    return {"phase": "kv", "card": smi,
+            "launches_16a_rerun": a["spilled_rerun"]["launches"],
+            "handoffs": c["handoff_exports"], "prefetches": d["prefetches"]}
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
                launches_3c: dict) -> list[dict]:
@@ -3412,6 +4125,7 @@ def main() -> int:
     emit(timed(run_checkpoint_path))
     emit(timed(run_mixtral_path))
     emit(timed(run_serve_path, smi, main_out))
+    emit(timed(run_kv_path, smi))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),

@@ -17,9 +17,13 @@ directory or a ``*.model`` file besides ``approx`` and ``byte``; any
 tokenizer but ``approx`` is the engine's tokenizer too (one token
 authority).  ``--backend mock`` runs the deterministic no-device engine
 and ``--backend http --hosts h:p,...`` fans the pipeline's requests over
-running ``lmrs-serve-torch`` servers (``serving/router.py``).  Flags of
-features the port does not carry yet (host/disk KV, meshes, profiling and
-tracing) are refused by name with the slice that brings them.
+running ``lmrs-serve-torch`` servers (``serving/router.py``;
+``LMRS_PREFILL_HOSTS``/``LMRS_DECODE_HOSTS`` add disaggregated role pools).
+The host and disk KV tiers are set, as in the reference, through
+``EngineConfig`` and the environment (``LMRS_HOST_KV``, ``LMRS_KV_DISK``
+and their budgets), not by flag.  Flags of features the port does not
+carry yet (meshes, profiling and tracing) are refused by name with the
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -42,7 +46,6 @@ logger = logging.getLogger("lmrs_torch.cli")
 # flag -> the slice of the port that brings it
 _OBS = "observability (A10)"
 _LATER = {
-    "host_kv": "KV movement (A4)",
     "mesh": "multi-GPU (A8)",
     "profile": _OBS,
     "trace_out": _OBS,
@@ -108,7 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="backend=http: comma-separated lmrs-serve-torch "
                         "addresses (host:port,...)")
     # not in the port yet: accepted only to refuse them by name
-    p.add_argument("--host-kv", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     p.add_argument("--trace-out", default=None, help=argparse.SUPPRESS)
     for flag in ("--profile", "--no-trace"):
@@ -132,7 +134,8 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         engine = dataclasses.replace(
             engine,
             hosts=tuple(h.strip() for h in args.hosts.split(",") if h.strip()))
-    if engine.backend == "http" and not engine.hosts:
+    if engine.backend == "http" and not (engine.hosts or engine.prefill_hosts
+                                         or engine.decode_hosts):
         raise ValueError(HTTP_NEEDS_HOSTS)
     if args.model:
         engine = dataclasses.replace(engine, model=args.model)

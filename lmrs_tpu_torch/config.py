@@ -97,7 +97,10 @@ class EngineConfig:
     ``quantize="int8"``: int8 weight-only projections (``ops/quant.py``).
     ``kv_quantize="int8"``: int8 KV pages with per-(slot, kv head,
     channel) scales; it needs ``page_size % 32 == 0`` and turns the prefix
-    cache off (the scheduler says so), as in the reference.
+    cache off (the scheduler says so), as in the reference.  ``host_kv``
+    (on by default, as in the reference) keeps evicted prefix pages in a
+    host-RAM tier of ``host_kv_gb`` and restores them on a later match;
+    ``kv_disk`` adds a disk tier under it (``engine/host_kv.py``).
     """
 
     # "torch" | "mock" | "http" (the reference's default, "mock", is not
@@ -115,6 +118,29 @@ class EngineConfig:
         default_factory=lambda: _envmod.env_int("LMRS_MIXED_TOKEN_BUDGET", 256))
     prefix_cache: bool = True
     prefix_cache_max_pages: int = 0
+    # host-RAM spill tier behind the prefix cache (engine/host_kv.py): an
+    # evicted page's content is captured into host memory and restored on
+    # a later match instead of re-prefilled; LMRS_HOST_KV=0 makes eviction
+    # mean gone.  Off with int8 KV, which turns the prefix cache off
+    host_kv: bool = field(
+        default_factory=lambda: _envmod.env_bool("LMRS_HOST_KV", True))
+    # host pool budget in GiB (LRU over spilled subtrees past it)
+    host_kv_gb: float = field(
+        default_factory=lambda: _envmod.env_float("LMRS_HOST_KV_GB", 1.0))
+    # disk tier under the host pool (opt-in): host pressure demotes the
+    # LRU entry to a spill file instead of dropping it
+    kv_disk: bool = field(
+        default_factory=lambda: _envmod.env_bool("LMRS_KV_DISK", False))
+    kv_disk_gb: float = field(
+        default_factory=lambda: _envmod.env_float("LMRS_KV_DISK_GB", 4.0))
+    # spill-file root ("" = the system temp directory); each pool writes
+    # into a fresh subdirectory of it
+    kv_disk_dir: str = field(
+        default_factory=lambda: _envmod.env_str("LMRS_KV_DISK_DIR", ""))
+    # seconds a prefill→decode handoff keeps its pages pinned before the
+    # orphan sweep reclaims them (a request deadline clips it)
+    handoff_ttl_s: float = field(
+        default_factory=lambda: _envmod.env_float("LMRS_HANDOFF_TTL", 60.0))
     # speculative decoding: k n-gram drafts per chain verified per step (0 =
     # off); with mixed_batch tree speculation (engine/scheduler.py
     # spec_tree_width), without it linear speculation
@@ -152,7 +178,8 @@ class EngineConfig:
     # (comma-separated in the environment)
     hosts: tuple[str, ...] = field(
         default_factory=lambda: _envmod.env_list("LMRS_HOSTS"))
-    # disaggregated pools: refused until KV handoff is ported
+    # backend="http" disaggregated pools: prefill-role servers mint KV
+    # handoff tickets, decode-role servers import them (serving/router.py)
     prefill_hosts: tuple[str, ...] = field(
         default_factory=lambda: _envmod.env_list("LMRS_PREFILL_HOSTS"))
     decode_hosts: tuple[str, ...] = field(
@@ -167,10 +194,6 @@ class EngineConfig:
         if self.backend not in ("torch", "mock", "http"):
             raise ValueError(f"unknown engine backend {self.backend!r}; "
                              "the port has 'torch', 'mock' and 'http'")
-        if self.prefill_hosts or self.decode_hosts:
-            raise ValueError(
-                "prefill_hosts/decode_hosts (disaggregated serving) are not "
-                "in the port yet; they arrive with the KV movement (A4) slice")
         if self.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; "
                              "supported: int8")
@@ -202,6 +225,19 @@ class EngineConfig:
             raise ValueError(f"request_deadline_s must be >= 0 "
                              f"(got {self.request_deadline_s}); 0 disables "
                              "deadlines")
+        if self.host_kv_gb < 0:
+            raise ValueError(f"host_kv_gb must be >= 0 "
+                             f"(got {self.host_kv_gb}); use host_kv=False / "
+                             "LMRS_HOST_KV=0 to disable the spill tier")
+        if self.kv_disk_gb < 0:
+            raise ValueError(f"kv_disk_gb must be >= 0 "
+                             f"(got {self.kv_disk_gb}); use kv_disk=False / "
+                             "LMRS_KV_DISK=0 to disable the disk tier")
+        if self.handoff_ttl_s <= 0:
+            raise ValueError(f"handoff_ttl_s must be > 0 "
+                             f"(got {self.handoff_ttl_s}): un-acked "
+                             "handoff pins need a finite orphan-sweep "
+                             "deadline or a dead decode pod leaks pages")
 
 
 @dataclass

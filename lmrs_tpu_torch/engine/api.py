@@ -47,6 +47,16 @@ class GenerationRequest:
     # that carry none) and resent on every forward and retry, so one
     # request is one trace across hosts.  None for engine-direct callers.
     trace_id: str | None = None
+    # Disaggregated prefill→decode handoff.  ``handoff_export=True``: run
+    # prefill and the first token only, then PIN the sequence's KV pages
+    # for export instead of freeing them; the result comes back
+    # ``finish_reason="handoff"`` and the pages stay held until
+    # ``release_handoff`` (the decode side's ack) or the orphan sweep.
+    # ``handoff_state``: an imported payload dict (in-process only): the
+    # engine resumes decoding from the transferred pages and first token
+    # instead of prefilling.
+    handoff_export: bool = False
+    handoff_state: dict | None = None
 
 
 def preamble_text(system_prompt: str | None, prompt: str,
@@ -93,7 +103,10 @@ class GenerationResult:
     text: str = ""
     prompt_tokens: int = 0
     completion_tokens: int = 0
-    # stop | length | error | cancelled | deadline | shed.  "cancelled":
+    # stop | length | error | cancelled | deadline | shed | handoff.
+    # "handoff" is not client-terminal: the request stopped after its
+    # first token with its pages pinned for export (``handoff_export``);
+    # the serving layer turns it into a ticket.  "cancelled":
     # aborted by ``cancel()``, tokens generated so far kept; "deadline":
     # expired in flight (partial text kept) or, as a queued preemption
     # continuation, with its prior tokens; "shed": rejected at admission
@@ -196,20 +209,26 @@ def make_engine(engine_cfg: "EngineConfig",
         from lmrs_tpu_torch.engine.mock import MockEngine
 
         return MockEngine(seed=engine_cfg.seed,
+                          handoff_ttl_s=engine_cfg.handoff_ttl_s,
                           mixed_batch=engine_cfg.mixed_batch,
                           mixed_token_budget=engine_cfg.mixed_token_budget,
                           prefix_cache=engine_cfg.prefix_cache,
+                          host_kv=engine_cfg.host_kv,
+                          host_kv_gb=engine_cfg.host_kv_gb,
                           speculate_k=engine_cfg.speculate_k)
     if engine_cfg.backend == "http":
         from lmrs_tpu_torch.serving.router import RouterEngine
 
-        if not engine_cfg.hosts:
+        if not (engine_cfg.hosts or engine_cfg.prefill_hosts
+                or engine_cfg.decode_hosts):
             raise ValueError(HTTP_NEEDS_HOSTS)
         # the router's timeout is a per-recv socket timeout, and a
         # non-streamed generation sends nothing until it completes: floor
         # it at the router's own worst-case-generation default
         return RouterEngine(list(engine_cfg.hosts),
-                            timeout_s=max(engine_cfg.request_timeout, 600.0))
+                            timeout_s=max(engine_cfg.request_timeout, 600.0),
+                            prefill_hosts=list(engine_cfg.prefill_hosts),
+                            decode_hosts=list(engine_cfg.decode_hosts))
     if engine_cfg.backend != "torch":
         raise ValueError(f"unknown engine backend {engine_cfg.backend!r}")
     from lmrs_tpu_torch.config import model_preset

@@ -1,24 +1,36 @@
 """Paged KV cache: a page pool on the device + a host-side page allocator
 (the port of the reference's ``engine/kv_cache.py``: pool, ref-counted
-allocator, page growth and the prefix cache's reclaim hook — export/import
-of page sets is a later slice).
+allocator, page growth, the prefix cache's reclaim hook, and the page-set
+moves of the spill tiers and the disaggregated handoff).
 
 Pool layout [n_layers * num_pages, K, page_size, hd], PAGE-major with the
 layer axis flattened into the page axis: layer ``li``'s copy of logical page
 ``p`` is physical page ``li * num_pages + p``.  Page 0 is the null page:
 never handed out, so an inactive row's all-zero page table points at memory
 no sequence owns.
+
+Page-set moves (``export_pages``/``export_sequence`` out, ``import_pages``/
+``import_sequence`` in) carry numpy payloads ``k``/``v`` of shape [L, n, K,
+ps, hd] and the wire dtype name (``"bfloat16"``, ``"int8"``, ``"float32"``;
+bf16 as raw words, ``engine/host_kv.BF16``).  On the card an export is one
+``index_select`` over the flattened pool per tensor into a pinned host
+buffer, then a sync (the host needs the bytes); an import is one
+``non_blocking`` H2D copy from pinned memory on the current stream, then
+``index_copy_`` into the pool, with the host arrays kept alive until an
+event recorded after the copy has passed.
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from lmrs_tpu_torch.config import ModelConfig
+from lmrs_tpu_torch.engine.host_kv import as_dtype, dtype_name
 
 logger = logging.getLogger("lmrs_torch.kv_cache")
 
@@ -95,6 +107,7 @@ class SequencePages:
     """Page table of one active sequence."""
 
     pages: list[int]
+    length: int = 0  # tokens written (an imported sequence's kv_len)
 
     def capacity(self, page_size: int) -> int:
         return len(self.pages) * page_size
@@ -118,6 +131,9 @@ class PagedKVCache:
         # reclaimable pages (LRU cache eviction), so cached pages never
         # starve admission or growth
         self.reclaim_cb = None
+        # imports in flight: (event, host arrays) kept alive until the
+        # event recorded after their H2D copy has passed
+        self._h2d_inflight: list[tuple] = []
         logger.info("paged KV cache: %d pages x %d tokens (%.1f MiB)",
                     num_pages, page_size,
                     2 * self.k.numel() * self.k.element_size() / 2**20)
@@ -143,6 +159,7 @@ class PagedKVCache:
     def close_sequence(self, seq: SequencePages) -> None:
         self.allocator.free(seq.pages)
         seq.pages = []
+        seq.length = 0
 
     def page_table_array(self, seqs: list[SequencePages | None]) -> np.ndarray:
         """[B, max_pages_per_slot] int32 table; unused entries point at the
@@ -152,6 +169,198 @@ class PagedKVCache:
             if s is not None:
                 out[i, : len(s.pages)] = s.pages
         return out
+
+
+    # -------------------------------------------- page-set export / import
+
+    @property
+    def n_layers(self) -> int:
+        return self.k.shape[0] // self.num_pages
+
+    @property
+    def wire_dtype(self) -> str:
+        """The pool's dtype as the payloads name it (the reference's
+        names: ``"bfloat16"``, ``"int8"``, ``"float32"``)."""
+        return str(self.k.dtype).removeprefix("torch.")
+
+    def _phys_ids(self, pages: list[int]) -> np.ndarray:
+        """Physical page ids of a logical page set, all layers: layer li's
+        copy of logical page p is physical page ``li * P + p``."""
+        pg = np.asarray(pages, np.int64)
+        return (np.arange(self.n_layers)[:, None] * self.num_pages
+                + pg[None, :]).reshape(-1)
+
+    def _gather(self, pages: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """Host copies of a page set's K and V, [L, n, K, ps, hd] each: one
+        ``index_select`` per pool; on the card into pinned buffers with
+        ``non_blocking`` copies, then one sync of the current stream."""
+        phys = torch.from_numpy(self._phys_ids(pages)).to(self.k.device)
+        shape = (self.n_layers, len(pages)) + tuple(self.k.shape[1:])
+        out = []
+        for pool in (self.k, self.v):
+            rows = pool.index_select(0, phys)
+            if pool.is_cuda:
+                host = torch.empty(shape, dtype=pool.dtype, pin_memory=True)
+                host.view(rows.shape).copy_(rows, non_blocking=True)
+                out.append(host)
+            else:
+                out.append(rows.reshape(shape))
+        if self.k.is_cuda:
+            torch.cuda.current_stream(self.k.device).synchronize()
+        return tuple(_to_numpy(t, self.wire_dtype) for t in out)
+
+    def _scatter(self, pages: list[int], k: np.ndarray, v: np.ndarray,
+                 sync: bool) -> None:
+        """Write [L, n, K, ps, hd] host arrays into a page set: on the card
+        one ``non_blocking`` H2D copy per pool from pinned memory on the
+        current stream (the stream every dispatch runs on, so the pages
+        land before any later read), then ``index_copy_``."""
+        phys = torch.from_numpy(self._phys_ids(pages)).to(self.k.device)
+        flat = (len(phys),) + tuple(self.k.shape[1:])
+        keep = []
+        for pool, a in ((self.k, k), (self.v, v)):
+            src = _from_numpy(a, pool.dtype).reshape(flat)
+            if pool.is_cuda:
+                if not src.is_pinned():
+                    src = src.pin_memory()
+                keep.append(src)
+                src = src.to(pool.device, non_blocking=True)
+            pool.index_copy_(0, phys, src)
+        if self.k.is_cuda:
+            # the host arrays stay referenced until the copies have landed
+            done = self._h2d_inflight
+            while done and done[0][0].query():
+                done.pop(0)
+            ev = torch.cuda.Event()
+            ev.record()
+            done.append((ev, k, v, keep))
+            if sync:
+                ev.synchronize()
+                done.clear()
+
+    def export_sequence(self, seq: SequencePages, length: int) -> dict:
+        """A sequence's page set as a host payload — the transferable unit
+        of the disaggregated prefill→decode handoff (``serving/handoff.py``
+        carries it over the wire).  Only the pages covering ``length``
+        tokens travel; the last may be partial (``kv_len`` masks its
+        tail).  bf16 and int8 pools alike (int8's per-slot scales are the
+        scheduler's and ride the payload separately).  The sequence is
+        untouched: the caller keeps its pages pinned until the ack."""
+        n = self.pages_needed(max(1, length))
+        if n > len(seq.pages):
+            raise ValueError(
+                f"export of {length} tokens needs {n} pages; sequence "
+                f"holds {len(seq.pages)}")
+        k, v = self._gather(seq.pages[:n])
+        kh, _ps, hd = self.k.shape[1:]
+        return {
+            "version": 1,
+            "kv_len": int(length),
+            "n_pages": n,
+            "page_size": self.page_size,
+            "n_layers": self.n_layers,
+            "n_kv_heads": int(kh),
+            "head_dim": int(hd),
+            "dtype": self.wire_dtype,
+            "k": k,
+            "v": v,
+        }
+
+    def export_pages(self, pages: list[int]) -> dict:
+        """Host capture of a page set's contents, all layers — the spill
+        tier's device→host path (``engine/prefix_cache.py``); the radix
+        node carries the token labels, so the payload is page content and
+        dtype only."""
+        k, v = self._gather(pages)
+        return {"k": k, "v": v, "dtype": self.wire_dtype}
+
+    def _check_pages(self, payload: dict, n: int, what: str):
+        """The payload's k/v arrays, shape-checked against ``n`` pages of
+        this pool's geometry (``ValueError`` otherwise)."""
+        kh, ps, hd = (int(x) for x in self.k.shape[1:])
+        shape = (self.n_layers, n, kh, ps, hd)
+        k, v = np.asarray(payload["k"]), np.asarray(payload["v"])
+        if k.shape != shape or v.shape != shape:
+            raise ValueError(f"{what} shape {k.shape} != expected {shape}")
+        if k.dtype.itemsize != self.k.element_size() \
+                or v.dtype.itemsize != self.k.element_size():
+            raise ValueError(f"{what} element size {k.dtype.itemsize} != "
+                             f"pool's {self.k.element_size()}")
+        return k, v
+
+    def import_pages(self, pages: list[int], payload: dict,
+                     sync: bool = False) -> None:
+        """Scatter a spilled payload back into freshly allocated pages —
+        the prefetch half of the host tier.  Asynchronous by default (the
+        copy is ordered before the next dispatch on the same stream);
+        ``sync=True`` blocks until it lands (``LMRS_HOST_KV_SYNC``).  A
+        dtype or geometry mismatch raises ``ValueError``; the caller
+        re-prefills."""
+        if payload.get("dtype") != self.wire_dtype:
+            raise ValueError(f"spill payload dtype {payload.get('dtype')!r} "
+                             f"!= pool {self.wire_dtype}")
+        k, v = self._check_pages(payload, len(pages), "spill payload")
+        self._scatter(pages, k, v, sync)
+
+    def page_payload_bytes(self) -> int:
+        """Host bytes one spilled page costs (k + v, all layers) — the
+        spill tier's budget arithmetic."""
+        kh, ps, hd = (int(x) for x in self.k.shape[1:])
+        return 2 * self.n_layers * kh * ps * hd * self.k.element_size()
+
+    def import_sequence(self, payload: dict) -> SequencePages:
+        """Scatter an exported page set into freshly allocated local pages
+        and return the live sequence (``length`` = the payload's kv_len).
+        An incompatible payload (pool geometry, dtype, page count) raises
+        ``ValueError``; pool pressure raises ``OutOfPages`` (back-pressure:
+        the importer retries).  A failure after allocation frees the
+        pages."""
+        kh, ps, hd = (int(x) for x in self.k.shape[1:])
+        want = {"page_size": self.page_size, "n_layers": self.n_layers,
+                "n_kv_heads": kh, "head_dim": hd, "dtype": self.wire_dtype}
+        for key, val in want.items():
+            got = payload.get(key)
+            if got != val:
+                raise ValueError(
+                    f"incompatible handoff payload: {key}={got!r}, this "
+                    f"pool has {val!r}")
+        n = int(payload["n_pages"])
+        length = int(payload["kv_len"])
+        if not 0 < n <= self.max_pages_per_slot:
+            raise ValueError(f"bad handoff page count {n}")
+        if self.pages_needed(max(1, length)) != n:
+            raise ValueError(
+                f"handoff kv_len {length} does not cover {n} pages")
+        k, v = self._check_pages(payload, n, "handoff page data")
+        pages = self.alloc_pages(n)
+        try:
+            self._scatter(pages, k, v, sync=False)
+        except BaseException:
+            self.allocator.free(pages)
+            raise
+        return SequencePages(pages=pages, length=length)
+
+
+def _to_numpy(t: torch.Tensor, wire: str) -> np.ndarray:
+    """A CPU tensor as a numpy array of the wire dtype (bf16 as raw words,
+    sharing the tensor's memory)."""
+    if t.dtype == torch.bfloat16:
+        return as_dtype(t.view(torch.int16).numpy(), wire)
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A host array as a CPU tensor of the pool's dtype, sharing memory
+    (raw bf16 words are viewed as bfloat16).  A read-only array (a decoded
+    wire payload) is only ever read."""
+    a = np.ascontiguousarray(a)
+    if dtype == torch.bfloat16:
+        a = a.view(np.int16)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        t = torch.from_numpy(a)
+    return t.view(dtype) if t.dtype != dtype else t
 
 
 def audit_allocator(allocator, num_pages: int,

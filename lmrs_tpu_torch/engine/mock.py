@@ -7,10 +7,13 @@ Each result is a deterministic extractive sketch of the prompt (first,
 middle and last content sentences plus the timestamps), so reduce logic has
 real text to work on.  The mock keeps the reference's knob surface and
 accounting, emulated from token counts: the mixed-batch and ragged-span
-counters, tree speculation's counters, and an emulated prefix cache with its
-published radix summary, with the host tier off (as under the reference's
-``host_kv=False``).  Handoff and KV page-set export/import (A4), and the
-anatomy, cost ledger, SLO and QoS admission (A10) wait for their slices.
+counters, tree speculation's counters, an emulated prefix cache with its
+host spill tier (on whenever the cache is, as in the reference) and its
+published radix summary, the disaggregated handoff (the "KV state" is the
+completion text, pinned and resumed through the same ticket lifecycle) and
+the ``/v1/kv`` page-set export and import (the page set is the emulated
+prefix entry).  The anatomy, cost ledger, SLO and QoS admission (A10) wait
+for their slice.
 """
 
 from __future__ import annotations
@@ -36,20 +39,30 @@ class MockEngine:
     presence in a prompt fails that request (the fault injection hook);
     ``latency_s``: seconds each request "takes"."""
 
+    # the handoff runs here: the pinned "KV state" is the completion text
+    supports_handoff = True
+
     # the emulated cache geometry: this many preamble tokens stay resident
-    # (LRU), in pages of this many tokens
+    # (LRU) before entries spill to the emulated host pool, each token
+    # claiming this many host bytes against ``host_kv_gb``, in pages of
+    # this many tokens
     EMU_RESIDENT_TOKENS = 2048
+    EMU_BYTES_PER_TOKEN = 1024
     EMU_PAGE_TOKENS = 128
 
     def __init__(self, seed: int = 0, latency_s: float = 0.0,
                  fail_pattern: str | None = None,
+                 handoff_ttl_s: float = 60.0,
                  mixed_batch: bool | None = None,
                  mixed_token_budget: int = 256,
                  prefix_cache: bool = True,
+                 host_kv: bool | None = None,
+                 host_kv_gb: float = 1.0,
                  speculate_k: int = 0):
         self.seed = seed
         self.latency_s = latency_s
         self.fail_pattern = fail_pattern
+        self.handoff_ttl_s = handoff_ttl_s
         # mixed-batch emulation: requests admitted behind the first of a
         # batch are accounted as budget-clipped prefill slices riding the
         # earlier rows' decode steps.  LMRS_MIXED=0 or a False config
@@ -60,13 +73,28 @@ class MockEngine:
         # the emulated prefix cache (LMRS_PREFIX_CACHE=0 or False disarms)
         self.prefix_cache = (env_bool("LMRS_PREFIX_CACHE", True)
                              and bool(prefix_cache))
+        # the host tier composes as in the scheduler: the env or the config
+        # disarms it, and it needs the prefix cache and a budget
+        self.host_kv = (self.prefix_cache
+                        and env_bool("LMRS_HOST_KV", True)
+                        and (host_kv is None or bool(host_kv))
+                        and host_kv_gb > 0)
+        self.host_kv_budget_bytes = int(max(0.0, host_kv_gb) * 2**30)
         self._prefix_lock = threading.Lock()
-        # key -> {"tokens", "tick"}  guarded-by: _prefix_lock
-        self._prefix: dict[str, dict] = {}
+        # key -> {"tokens", "tier" ("resident"|"spilled"), "tick"}
+        self._prefix: dict[str, dict] = {}  # guarded-by: _prefix_lock
         self._prefix_tick = 0           # guarded-by: _prefix_lock
         self._prefix_queries = 0        # guarded-by: _prefix_lock
         self._prefix_hits = 0           # guarded-by: _prefix_lock
         self._prefix_tokens_reused = 0  # guarded-by: _prefix_lock
+        self._spilled_hits = 0          # guarded-by: _prefix_lock
+        self._tokens_prefetched = 0     # guarded-by: _prefix_lock
+        self._spill_pages = 0           # guarded-by: _prefix_lock
+        self._prefetch_pages = 0        # guarded-by: _prefix_lock
+        self._host_dropped_pages = 0    # guarded-by: _prefix_lock
+        self._migrate_exports = 0       # guarded-by: _prefix_lock
+        self._migrate_imports = 0       # guarded-by: _prefix_lock
+        self._migrate_tokens = 0        # guarded-by: _prefix_lock
         self._mixed_lock = threading.Lock()
         self._mixed_dispatches = 0   # guarded-by: _mixed_lock
         self._mixed_piggybacked = 0  # guarded-by: _mixed_lock
@@ -98,6 +126,10 @@ class MockEngine:
         # hook records them (tests read it) and a request of the current
         # batch not yet generated comes back "cancelled"
         self.cancelled: set[int] = set()
+        # rid -> {"payload", "deadline_t"} of pinned handoffs; handler
+        # threads release while generate_batch pins
+        self._pinned: dict[int, dict] = {}  # guarded-by: _pinned_lock
+        self._pinned_lock = threading.Lock()
 
     def generate_batch(self, requests: list[GenerationRequest],
                        on_result=None, on_tokens=None) -> list[GenerationResult]:
@@ -160,9 +192,12 @@ class MockEngine:
             self._spec_accepted += steps * acc
 
     def _note_prefix(self, req: GenerationRequest) -> None:
-        """Emulated prefix cache for one generated request: the first sight
-        of a preamble inserts it, a later one is a hit (tokens reused +=
-        its tokens); past ``EMU_RESIDENT_TOKENS`` the LRU entry drops."""
+        """Emulated prefix cache and host tier for one generated request:
+        the first sight of a preamble inserts it resident, a later one is a
+        hit (tokens reused += its tokens), and a hit on a SPILLED entry also
+        counts a prefetch and promotes it.  Past ``EMU_RESIDENT_TOKENS``
+        the LRU resident entries spill (tier armed) or drop, and the host
+        pool drops LRU entries past ``host_kv_gb``."""
         if not self.prefix_cache:
             return
         key = preamble_key(req.system_prompt, req.prompt, req.cache_prefix)
@@ -170,6 +205,7 @@ class MockEngine:
             return
         tokens = self._tok.count(preamble_text(
             req.system_prompt, req.prompt, req.cache_prefix))
+        pages = -(-tokens // self.EMU_PAGE_TOKENS)
         with self._prefix_lock:
             self._prefix_tick += 1
             self._prefix_queries += 1
@@ -177,14 +213,43 @@ class MockEngine:
             if ent is not None:
                 self._prefix_hits += 1
                 self._prefix_tokens_reused += ent["tokens"]
+                if ent["tier"] == "spilled":
+                    self._spilled_hits += 1
+                    self._tokens_prefetched += ent["tokens"]
+                    self._prefetch_pages += pages
+                    ent["tier"] = "resident"
             else:
-                ent = {"tokens": tokens, "tick": 0}
+                ent = {"tokens": tokens, "tier": "resident", "tick": 0}
                 self._prefix[key] = ent
             ent["tick"] = self._prefix_tick
-            while (sum(e["tokens"] for e in self._prefix.values())
-                   > self.EMU_RESIDENT_TOKENS):
-                del self._prefix[min(self._prefix,
-                                     key=lambda k: self._prefix[k]["tick"])]
+            self._enforce_emulated_budgets()
+
+    def _enforce_emulated_budgets(self) -> None:  # holds-lock: _prefix_lock
+        """Spill (or drop) LRU resident entries past the resident budget,
+        then drop LRU spilled entries past the host budget."""
+        def lru(tier: str):
+            cands = [(e["tick"], k) for k, e in self._prefix.items()
+                     if e["tier"] == tier]
+            return min(cands)[1] if cands else None
+
+        def tier_sum(tier: str, per_token: int) -> int:
+            return sum(e["tokens"] * per_token for e in self._prefix.values()
+                       if e["tier"] == tier)
+
+        while tier_sum("resident", 1) > self.EMU_RESIDENT_TOKENS:
+            key = lru("resident")
+            ent = self._prefix[key]
+            if (self.host_kv and ent["tokens"] * self.EMU_BYTES_PER_TOKEN
+                    <= self.host_kv_budget_bytes):
+                ent["tier"] = "spilled"
+                self._spill_pages += -(-ent["tokens"] // self.EMU_PAGE_TOKENS)
+            else:
+                del self._prefix[key]
+        while (tier_sum("spilled", self.EMU_BYTES_PER_TOKEN)
+               > self.host_kv_budget_bytes):
+            ent = self._prefix.pop(lru("spilled"))
+            self._host_dropped_pages += -(-ent["tokens"]
+                                          // self.EMU_PAGE_TOKENS)
 
     def prefix_summary(self, top_k: int = 16) -> list[dict]:
         """The emulated radix summary (the router's placement feed), in the
@@ -194,11 +259,83 @@ class MockEngine:
         with self._prefix_lock:
             rows = sorted(self._prefix.items(),
                           key=lambda kv: -kv[1]["tick"])[:top_k]
-            return [{"hash": key, "depth_tokens": ent["tokens"],
-                     "tick": ent["tick"], "resident_tokens": ent["tokens"],
-                     "resident_pages": -(-ent["tokens"] // self.EMU_PAGE_TOKENS),
-                     "spilled_tokens": 0, "spilled_pages": 0}
-                    for key, ent in rows]
+            out = []
+            for key, ent in rows:
+                res = ent["tier"] == "resident"
+                pages = -(-ent["tokens"] // self.EMU_PAGE_TOKENS)
+                out.append({"hash": key, "depth_tokens": ent["tokens"],
+                            "tick": ent["tick"],
+                            "resident_tokens": ent["tokens"] if res else 0,
+                            "resident_pages": pages if res else 0,
+                            "spilled_tokens": 0 if res else ent["tokens"],
+                            "spilled_pages": 0 if res else pages})
+        return out
+
+    # ------------------------------------------------- page-set migration
+    # the mock's "page set" is the emulated prefix entry: a migrated
+    # preamble counts as a prefix hit on the importing host
+
+    def kv_export(self, preamble: str) -> dict | None:
+        """Wire payload for one warm preamble, or None (cache off, cold);
+        the exporting cache keeps its entry."""
+        if not self.prefix_cache:
+            return None
+        with self._prefix_lock:
+            ent = self._prefix.get(preamble)
+            if ent is None:
+                return None
+            self._migrate_exports += 1
+            return {"kind": "kv_pageset", "version": 1, "emu": True,
+                    "preamble": preamble, "tokens": ent["tokens"],
+                    "seed": self.seed}
+
+    def kv_import(self, payload: dict) -> int:
+        """Install a migrated page set as a warm resident entry.  A paged
+        engine's payload, or a mock of another seed (other completion
+        bytes), raises ``ValueError``."""
+        if not self.prefix_cache:
+            raise RuntimeError("prefix cache disabled")
+        if payload.get("kind") != "kv_pageset" or not payload.get("emu"):
+            raise ValueError("not an emulated kv_pageset payload")
+        if payload.get("seed", self.seed) != self.seed:
+            raise ValueError("mock seed mismatch: emulated KV bytes differ")
+        key = payload["preamble"]
+        tokens = int(payload["tokens"])
+        if not key or tokens <= 0:
+            raise ValueError("malformed kv_pageset payload")
+        with self._prefix_lock:
+            self._prefix_tick += 1
+            self._prefix[key] = {"tokens": tokens, "tier": "resident",
+                                 "tick": self._prefix_tick}
+            self._migrate_imports += 1
+            self._migrate_tokens += tokens
+            self._enforce_emulated_budgets()
+        return tokens
+
+    # ---------------------------------------- disaggregated handoff hooks
+
+    def export_handoff(self, request_id: int) -> dict:
+        """Wire payload of a pinned handoff (``KeyError`` when unknown or
+        released: the ticket's 410)."""
+        with self._pinned_lock:
+            return self._pinned[request_id]["payload"]
+
+    def release_handoff(self, request_id: int, orphaned: bool = False) -> int:
+        with self._pinned_lock:
+            return 1 if self._pinned.pop(request_id, None) else 0
+
+    def sweep_handoffs(self, now: float | None = None) -> int:
+        now = time.time() if now is None else now
+        with self._pinned_lock:
+            expired = [r for r, rec in self._pinned.items()
+                       if rec["deadline_t"] <= now]
+            for r in expired:
+                self._pinned.pop(r)
+        return len(expired)
+
+    def pinned_handoffs(self) -> dict[int, int]:
+        with self._pinned_lock:
+            return {r: 1 for r in self._pinned}
 
     def shutdown(self) -> None:
         pass
@@ -251,8 +388,23 @@ class MockEngine:
                     "queries": self._prefix_queries,
                     "tokens_reused": self._prefix_tokens_reused,
                     "prefill_tokens_saved": self._prefix_tokens_reused,
-                    "spilled_hits": 0,
-                    "tokens_prefetched": 0,
+                    "spilled_hits": self._spilled_hits,
+                    "tokens_prefetched": self._tokens_prefetched,
+                }
+                out["host_kv"] = {
+                    "enabled": self.host_kv,
+                    "budget_gb": round(self.host_kv_budget_bytes / 2**30, 3),
+                    "spilled_hits": self._spilled_hits,
+                    "tokens_prefetched": self._tokens_prefetched,
+                    "spill_pages": self._spill_pages,
+                    "prefetch_pages": self._prefetch_pages,
+                    "dropped_pages_total": self._host_dropped_pages,
+                }
+            if self._migrate_exports or self._migrate_imports:
+                out["kv_migrate"] = {
+                    "exports": self._migrate_exports,
+                    "imports": self._migrate_imports,
+                    "tokens_imported": self._migrate_tokens,
                 }
         return out
 
@@ -278,13 +430,49 @@ class MockEngine:
             return GenerationResult(request_id=req.request_id,
                                     finish_reason="error",
                                     error="mock: injected failure")
+        if req.handoff_state is not None:
+            # decode role: resume from the TRANSFERRED state — the payload's
+            # text comes back, never recomputed, so the result proves the
+            # handoff carried the prefill side's state
+            state = req.handoff_state
+            if not req.trace_id and isinstance(state.get("trace_id"), str):
+                req.trace_id = state["trace_id"]
+            text = state["text"]
+            return GenerationResult(
+                request_id=req.request_id, text=text,
+                prompt_tokens=int(state.get("prompt_tokens", 0)),
+                completion_tokens=self._tok.count(text),
+                finish_reason=str(state.get("finish_reason", "stop")),
+                stop_sequence=state.get("stop_sequence"))
+        # prefix accounting for every request that "prefills" here
         self._note_prefix(req)
         text, stop_hit = apply_stop_sequences(
             self._extractive_sketch(req.prompt), req.stop)
+        prompt_tokens = self._tok.count(req.prompt)
+        if req.handoff_export:
+            # prefill role: emit the first "token" (up to the first space)
+            # and pin the whole completion as the transferable state; a
+            # completion that IS its first token returns whole
+            cut = text.find(" ")
+            first = text if cut < 0 else text[:cut + 1]
+            if first != text:
+                payload = {"text": text, "prompt_tokens": prompt_tokens,
+                           "stop_sequence": stop_hit, "finish_reason": "stop"}
+                if req.trace_id:
+                    payload["trace_id"] = req.trace_id
+                with self._pinned_lock:
+                    self._pinned[req.request_id] = {
+                        "payload": payload,
+                        "deadline_t": time.time() + self.handoff_ttl_s}
+                return GenerationResult(
+                    request_id=req.request_id, text=first,
+                    prompt_tokens=prompt_tokens,
+                    completion_tokens=self._tok.count(first),
+                    finish_reason="handoff")
         return GenerationResult(
             request_id=req.request_id,
             text=text,
-            prompt_tokens=self._tok.count(req.prompt),
+            prompt_tokens=prompt_tokens,
             completion_tokens=self._tok.count(text),
             finish_reason="stop",
             stop_sequence=stop_hit,

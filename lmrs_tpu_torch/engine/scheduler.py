@@ -4,9 +4,10 @@ prefill, decode blocks, mixed steps, chunked continuation prefill, slot
 growth with preemption and the prefix cache, through the ragged span
 kernel — its speculative paths (tree and linear), int8 KV pages with
 per-slot scales on all of them, cancellation, deadlines and admission
-shedding, token streaming (``run(on_tokens=)``) and the published radix
-summary (``prefix_summary``); no host/disk KV, handoff or observability
-hooks.
+shedding, token streaming (``run(on_tokens=)``), the published radix
+summary (``prefix_summary``), the host-RAM and disk spill tiers behind the
+prefix cache, the disaggregated prefill→decode handoff and the ``/v1/kv``
+page-set export and import; no observability hooks.
 
 * Admission: a request takes a free slot when the pool holds its PROMPT
   pages minus those a prefix-cache match supplies (the cache evicts before
@@ -59,6 +60,28 @@ hooks.
   (``_ensure_decode_capacity``).
 * Every completed prefill (and every preempted decode slot) donates its
   preamble pages to the prefix cache (``_cache_insert``).
+* Spill tiers (``host_kv``, on by default; ``kv_disk``): an eviction
+  captures the victim's pages into host RAM (``PagedKVCache.export_pages``)
+  and the node stays spilled; at admission the spilled chain of
+  ``match_hier`` is restored into the slot's fresh pages
+  (``_prefetch_spilled``, asynchronous unless ``LMRS_HOST_KV_SYNC=1``) and
+  counts as matched; a segment that cannot be restored (an entry dropped
+  since the match, a ``DiskReadError``, a payload ``ValueError``) truncates
+  the match there and its pages become prefill tail.  Off with int8 KV.
+* Handoff, prefill side: a ``handoff_export`` request runs with a budget of
+  one token; when its first token is not terminal the slot finishes as
+  ``"handoff"`` with its prompt pages PINNED and the payload (pages,
+  tokens, first token, int8 scales) captured host-side
+  (``_pin_handoff``).  ``export_handoff`` reads the payload,
+  ``release_handoff`` (the decode side's ack) frees the pages — deferred
+  to the next block boundary while a run is live — and
+  ``sweep_handoffs`` reclaims pins past their TTL.  Decode side: a request
+  with ``handoff_state`` is admitted by import (``_admit_import``) and
+  enters decode directly with the resume token; a bad payload finishes it
+  as an error.
+* ``kv_export``/``kv_import`` (between runs only): one preamble's warm
+  page set, resident and spilled, out as a wire payload; in as pages the
+  prefix cache adopts.
 * Int8 KV (``kv_quantize="int8"``): int8 pools and [L, B, K, hd] f32 K/V
   scale buffers, one row per slot (``kv_scales``), passed to every
   dispatch.  A slot's scales are fixed by the dispatch that computes its
@@ -88,7 +111,9 @@ hooks.
 from __future__ import annotations
 
 import logging
+import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -99,6 +124,8 @@ from lmrs_tpu_torch.config import EngineConfig, ModelConfig
 from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
                                        apply_stop_sequences, preamble_key,
                                        preamble_text, remaining_budget)
+from lmrs_tpu_torch.engine.host_kv import (DiskKVPool, DiskReadError,
+                                          HostKVPool, as_dtype)
 from lmrs_tpu_torch.engine.kv_cache import (OutOfPages, PagedKVCache,
                                             SequencePages, audit_allocator)
 from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
@@ -133,6 +160,19 @@ def spec_tree_width(cfg: EngineConfig) -> int:
     while width > 1 and 1 + k * (width + 1) > TREE_OFFSETS:
         width -= 1
     return width if 1 + k * (width + 1) <= TREE_OFFSETS else 0
+
+
+class _Sink:
+    """``inc``/``observe`` into one key of the scheduler's counters (the
+    prefix cache's metric hooks)."""
+
+    def __init__(self, counters: dict, key: str):
+        self.counters, self.key = counters, key
+
+    def inc(self, n=1) -> None:
+        self.counters[self.key] += n
+
+    observe = inc
 
 
 @dataclass
@@ -218,15 +258,84 @@ class ContinuousScheduler:
                       model_cfg.hd)
             self.kv_scales = (torch.ones(sshape, device=device),
                               torch.ones(sshape, device=device))
+        self.counters = {
+            "requests": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
+            "packed_dispatches": 0, "decode_tokens": 0, "decode_blocks": 0,
+            "decode_block_seconds": 0.0, "mixed_dispatches": 0,
+            "mixed_step_seconds": 0.0, "mixed_fill_sum": 0.0,
+            "prefill_tokens_piggybacked": 0, "rpa_dispatches": 0,
+            "rpa_span_tokens": 0, "prefix_queries": 0, "prefix_hits": 0,
+            "prefix_tokens_reused": 0, "preemptions": 0, "stalls": 0,
+            "run_seconds": 0.0, "occupancy_sum": 0.0, "peak_pages": 0,
+            "spec_accepted_tokens": 0, "cancelled": 0, "deadline": 0,
+            "shed": 0, "spec_tree_dispatches": 0, "spec_tree_nodes_sum": 0,
+            "spec_tree_rows": 0, "spec_accept_depth_sum": 0,
+            "spec_heal_spans": 0,
+            # spill tiers: pages captured, restored and dropped, and the
+            # seconds of capture (device→host) and restore (host→device)
+            "prefix_spilled_hits": 0, "prefix_tokens_prefetched": 0,
+            "prefix_spill_pages": 0, "prefix_prefetch_pages": 0,
+            "spill_dropped_pages": 0, "spill_capture_seconds": 0.0,
+            "prefetch_seconds": 0.0, "disk_demoted_pages": 0,
+            "disk_promoted_pages": 0, "disk_dropped_pages": 0,
+            "disk_read_failures": 0,
+            # handoff and page-set migration
+            "handoff_exports": 0, "handoff_imports": 0,
+            "handoff_orphaned_pages": 0, "handoff_capture_seconds": 0.0,
+            "handoff_import_seconds": 0.0, "kv_migrate_exports": 0,
+            "kv_migrate_imports": 0, "kv_migrate_tokens": 0,
+        }
+        # LMRS_HOST_KV_SYNC=1 blocks on each restore (the A/B fallback for
+        # the default asynchronous copy)
+        self._host_kv_sync = env_bool("LMRS_HOST_KV_SYNC", False)
         self._prefix_cache: PrefixCache | None = None
         if engine_cfg.prefix_cache and kv_quant:
             logger.info("prefix cache disabled: incompatible with int8 KV "
                         "(per-slot scales cannot cover donor pages)")
         elif engine_cfg.prefix_cache:
+            pool = None
+            if engine_cfg.host_kv and engine_cfg.host_kv_gb > 0:
+                disk = None
+                if engine_cfg.kv_disk and engine_cfg.kv_disk_gb > 0:
+                    disk = DiskKVPool(int(engine_cfg.kv_disk_gb * 2**30),
+                                      engine_cfg.kv_disk_dir)
+                pool = HostKVPool(int(engine_cfg.host_kv_gb * 2**30),
+                                  disk=disk)
+            capture = None
+            if pool is not None:
+                # a weak reference: the pool already reaches the prefix
+                # cache through reclaim_cb, and a strong one back would
+                # keep a dropped engine's pool alive until a collection
+                export = weakref.WeakMethod(self.cache.export_pages)
+                capture = lambda pages: export()(pages)  # noqa: E731
+            sinks = {name: _Sink(self.counters, key) for name, key in (
+                ("spill_pages", "prefix_spill_pages"),
+                ("spill_dropped", "spill_dropped_pages"),
+                ("spill_capture_s", "spill_capture_seconds"),
+                ("disk_demoted", "disk_demoted_pages"),
+                ("disk_promoted", "disk_promoted_pages"),
+                ("disk_dropped", "disk_dropped_pages"),
+                ("disk_read_fail", "disk_read_failures"))}
             self._prefix_cache = PrefixCache(
                 self.cache.allocator, ps,
-                max_pages=engine_cfg.prefix_cache_max_pages)
+                max_pages=engine_cfg.prefix_cache_max_pages,
+                spill_pool=pool,
+                capture_cb=capture,
+                page_bytes=self.cache.page_payload_bytes(), metrics=sinks)
             self.cache.reclaim_cb = self._prefix_cache.evict
+        # Handoff pins: rid -> {seq, payload, deadline_t, t_pinned} of the
+        # prefill-role slots whose pages wait for the decode side's ack.
+        # The lock covers the dict, the deferred releases and the run flag:
+        # export/release run on HTTP handler threads while the scheduler
+        # pins.  Off-thread releases never touch the allocator mid-run: the
+        # record parks on _release_deferred and the scheduler thread frees
+        # it at the next block boundary; between runs the free happens
+        # inline under the lock (a starting run takes the lock to set
+        # _run_live before its first allocation).
+        self._pinned: dict[int, dict] = {}  # guarded-by: _pinned_lock
+        self._release_deferred: list[tuple[int, dict]] = []  # guarded-by: _pinned_lock
+        self._run_live = False  # guarded-by: _pinned_lock
+        self._pinned_lock = threading.Lock()
         self.generator = torch.Generator(device=device).manual_seed(
             engine_cfg.seed + 1)
         # a model vocabulary wider than the tokenizer's (a byte tokenizer on
@@ -260,20 +369,6 @@ class ContinuousScheduler:
         self._preambles: dict[str, dict] = {}
         self._preamble_tick = 0
         self._summary_memo: tuple[float, list] | None = None
-        self.counters = {
-            "requests": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
-            "packed_dispatches": 0, "decode_tokens": 0, "decode_blocks": 0,
-            "decode_block_seconds": 0.0, "mixed_dispatches": 0,
-            "mixed_step_seconds": 0.0, "mixed_fill_sum": 0.0,
-            "prefill_tokens_piggybacked": 0, "rpa_dispatches": 0,
-            "rpa_span_tokens": 0, "prefix_queries": 0, "prefix_hits": 0,
-            "prefix_tokens_reused": 0, "preemptions": 0, "stalls": 0,
-            "run_seconds": 0.0, "occupancy_sum": 0.0, "peak_pages": 0,
-            "spec_accepted_tokens": 0, "cancelled": 0, "deadline": 0,
-            "shed": 0, "spec_tree_dispatches": 0, "spec_tree_nodes_sum": 0,
-            "spec_tree_rows": 0, "spec_accept_depth_sum": 0,
-            "spec_heal_spans": 0,
-        }
 
     def live_tokens(self) -> dict[int, int]:
         """Request id -> output tokens so far, for each request holding a
@@ -299,6 +394,11 @@ class ContinuousScheduler:
         fetch with a request's new text (see the module docstring).
         request_ids must be unique within a run."""
         t_run = time.time()
+        # taken before the first allocator touch: an off-thread
+        # release_handoff freeing inline holds this lock, so it either
+        # completes before the flag flips or sees it set and defers
+        with self._pinned_lock:
+            self._run_live = True
         self._on_tokens = on_tokens
         self._streamed = {}
         # queue entries: (req, prefill_ids, max_new, n_prompt, prior,
@@ -349,12 +449,23 @@ class ContinuousScheduler:
                 if not queue:
                     break
                 req, ids, max_new, n_prompt, prior, t0 = queue[0]
+                if req.handoff_state is not None:
+                    # decode role: the pages arrive by import, the slot
+                    # enters decode directly; False = page back-pressure
+                    if not self._admit_import(b, queue, slots, results,
+                                              fresh, kv_lens, last_tok,
+                                              active, temps, top_k, top_p):
+                        break
+                    continue
                 # prefix-cache probe: the matched pages come with a
-                # reference of their own; the match leaves >= 1 token
+                # reference of their own; the match leaves >= 1 token.  The
+                # spilled chain extends it once restored into fresh pages
                 cached_pages: list[int] = []
                 cached_tokens = 0
+                spill_chain: list = []
                 if self._prefix_cache is not None:
-                    cached_pages, cached_tokens = self._prefix_cache.match(ids)
+                    cached_pages, cached_tokens, spill_chain = \
+                        self._prefix_cache.match_hier(ids)
                 # admission reserves PROMPT pages only; decode pages grow
                 # per dispatch (_ensure_decode_capacity)
                 need = min(self.cache.pages_needed(len(ids)),
@@ -368,8 +479,18 @@ class ContinuousScheduler:
                         self.cache.allocator.free(cached_pages)
                     break  # back-pressure: wait for pages to free up
                 queue.popleft()
-                seq = SequencePages(
-                    pages=cached_pages + self.cache.alloc_pages(need))
+                fresh_pages = self.cache.alloc_pages(need)
+                if spill_chain:
+                    try:
+                        cached_pages, fresh_pages, cached_tokens = \
+                            self._prefetch_spilled(spill_chain, cached_pages,
+                                                   fresh_pages, cached_tokens)
+                    except BaseException:
+                        # a device error: the pages held here belong to no
+                        # slot yet, so they go back before the run unwinds
+                        self.cache.allocator.free(cached_pages + fresh_pages)
+                        raise
+                seq = SequencePages(pages=cached_pages + fresh_pages)
                 if self._prefix_cache is not None:
                     self.counters["prefix_queries"] += 1
                     if cached_tokens:
@@ -417,6 +538,9 @@ class ContinuousScheduler:
                 if self._cancelled:
                     self._sweep_cancelled(queue, slots, results, fresh,
                                           active, kv_lens, last_tok)
+                # acked or orphaned handoffs released off-thread free here
+                if self._release_deferred:
+                    self._drain_released()
                 if self._any_deadline:
                     self._sweep_deadlines(queue, slots, results, fresh,
                                           active, kv_lens, last_tok)
@@ -436,9 +560,11 @@ class ContinuousScheduler:
                     for b, row in rows:
                         self._enter_decode(b, slots[b], kv_lens, active)
                         deferred.append((b, p, row))
-                if deferred and self.spec_k:
+                if deferred and (self.spec_k or any(
+                        slots[b].req.handoff_export for b, _, _ in deferred)):
                     # speculation seeds each new decode row's history with
-                    # its first token: fetch the first tokens now
+                    # its first token, and a handoff slot (budget 1) pins
+                    # on it: fetch the first tokens now
                     tok0s = [t.numpy() for t in
                              _one_fetch([t for t, _ in pending])]
                     finish_first_tokens(deferred, tok0s, finish_all=True)
@@ -495,10 +621,27 @@ class ContinuousScheduler:
                 if slots[b] is not None:
                     self.cache.close_sequence(slots[b].seq)
                     slots[b] = None
+            # pinned handoffs drop too (the next ticket fetch answers 410
+            # and the router re-prefills), freed before the cache clear so
+            # no node is left shared with a dead pin
+            with self._pinned_lock:
+                dropped = ([r["seq"] for r in self._pinned.values()]
+                           + [r["seq"] for _, r in self._release_deferred])
+                self._pinned.clear()
+                self._release_deferred.clear()
+            for seq in dropped:
+                self.cache.close_sequence(seq)
+            if dropped:
+                logger.warning("pool recovery dropped %d pinned handoffs",
+                               len(dropped))
             if self._prefix_cache is not None:
                 self._prefix_cache.clear()
             raise
         finally:
+            with self._pinned_lock:
+                self._run_live = False
+            # releases parked during the run free here, on this thread
+            self._drain_released()
             self.counters["run_seconds"] += time.time() - t_run
             self._cancelled.clear()
             self._slots = None
@@ -518,7 +661,16 @@ class ContinuousScheduler:
         if len(ids) > limit:
             head, tail = limit // 2, limit - limit // 2
             ids = ids[:head] + ids[-tail:]
+        if req.handoff_export:
+            # prefill role: stop after the first token (the ticket carries
+            # the rest of the budget).  Clamped after the truncation, so
+            # the prompt cut equals what the decode side encodes
+            max_new = 1
         return ids, max_new
+
+    def _orig_budget(self, req: GenerationRequest) -> int:
+        """The request's real token budget (before the handoff clamp)."""
+        return min(req.max_new_tokens, self.cfg.max_tokens, self.max_len - 1)
 
     def _trim_tokens(self, gen: list[int], max_new: int, stop):
         """(gen, text, stop_hit, hit_eos): budget-, EOS- and stop-trimmed."""
@@ -542,6 +694,15 @@ class ContinuousScheduler:
         if self._on_tokens is not None:
             self._stream(slots[b].req, text, finished)
         if not finished:
+            return
+        st = slots[b]
+        if (st.req.handoff_export and not hit_eos and stop_hit is None
+                and not st.prior and len(gen) < self._orig_budget(st.req)):
+            # prefill role: not complete (its budget was clamped to 1) —
+            # pin the pages for export instead of freeing them.  A terminal
+            # first token finishes normally: nothing is left to hand off
+            self._pin_handoff(b, slots, results, fresh, active, kv_lens,
+                              last_tok, gen, text)
             return
         self._finish_slot(b, slots, results, fresh, active, kv_lens, last_tok,
                           gen, text, stop_hit,
@@ -1564,15 +1725,378 @@ class ContinuousScheduler:
             "heal_spans": c["spec_heal_spans"],
         }
 
+    # --------------------------------------------------------- spill tiers
+
+    def _prefetch_spilled(self, chain, cached_pages: list[int],
+                          fresh: list[int], cached_tokens: int):
+        """Restore the matched spilled segments (host or disk tier →
+        device) into their share of the freshly allocated pages, in
+        positional order; each promotes its node to resident on those pages
+        and extends the match.  The first segment that cannot be restored
+        (an entry dropped since the match, a ``DiskReadError``, a payload
+        ``ValueError``) truncates the match there: its pages and every
+        later segment's become prefill tail.  A device error raises.
+        Returns ``(cached_pages, fresh_tail, cached_tokens)``."""
+        ps = self.cfg.page_size
+        used = got = 0
+        t0 = time.time()
+        for node, n_tok in chain:
+            npg = n_tok // ps
+            try:
+                self._prefix_cache.prefetch_into(
+                    node, fresh[used: used + npg], self.cache,
+                    sync=self._host_kv_sync)
+            except (LookupError, DiskReadError, ValueError):
+                logger.warning("KV prefetch failed; re-prefilling the "
+                               "spilled segment", exc_info=True)
+                break
+            used += npg
+            got += n_tok
+        if used:
+            c = self.counters
+            c["prefetch_seconds"] += time.time() - t0
+            c["prefix_prefetch_pages"] += used
+            c["prefix_tokens_prefetched"] += got
+            c["prefix_spilled_hits"] += 1
+        return cached_pages + fresh[:used], fresh[used:], cached_tokens + got
+
+    def _host_kv_report(self) -> dict:
+        """The spill-tier block of ``metrics_report`` (the reference's
+        keys): armed or not, budget and occupancy, spill/prefetch work."""
+        pc = self._prefix_cache
+        armed = pc is not None and pc.pool is not None
+        c = self.counters
+        out = {
+            "enabled": armed,
+            "budget_gb": round(self.cfg.host_kv_gb, 3) if armed else 0.0,
+            "spilled_hits": c["prefix_spilled_hits"],
+            "tokens_prefetched": c["prefix_tokens_prefetched"],
+            "spill_pages": c["prefix_spill_pages"],
+            "prefetch_pages": c["prefix_prefetch_pages"],
+        }
+        if armed:
+            out["spilled_pages_resident"] = pc.spilled_pages()
+            out["pool_bytes"] = pc.pool.used_bytes
+            out["pool_entries"] = len(pc.pool)
+            out["dropped_pages_total"] = pc.pool.dropped_pages_total
+            if pc.disk is not None:
+                # disk keys only with the disk tier armed
+                out["disk_pages_resident"] = pc.disk_pages()
+                out.update(pc.disk.stats())
+        return out
+
+    # ------------------------------------------------ disaggregated handoff
+
+    def _pin_handoff(self, b, slots, results, fresh, active, kv_lens,
+                     last_tok, gen, text) -> None:
+        """Finish a prefill-role slot as ``"handoff"``: capture the payload
+        (pages covering the prompt, resume state, int8 scales) host-side
+        NOW, on the scheduler thread, so a handler thread's export never
+        touches the device; keep the prompt pages allocated (pinned) until
+        ``release_handoff`` or the orphan sweep.  A failed capture of a
+        device tensor raises (no degrade)."""
+        st = slots[b]
+        rid = st.req.request_id
+        now = time.time()
+        keep = self.cache.pages_needed(len(st.prompt_ids))
+        t0 = time.time()
+        payload = self.cache.export_sequence(st.seq, len(st.prompt_ids))
+        if self.kv_scales is not None:
+            # per-slot scales, fixed at prefill: the decode side writes them
+            # into its slot's scale rows at admission
+            payload["kscale"] = self.kv_scales[0][:, b].cpu().numpy()
+            payload["vscale"] = self.kv_scales[1][:, b].cpu().numpy()
+        self.counters["handoff_capture_seconds"] += time.time() - t0
+        # resume state: the tokens whose K/V is exported, plus the sampled
+        # first token the decode side feeds next
+        payload["tokens"] = [int(t) for t in st.prompt_ids]
+        payload["generated"] = [int(t) for t in gen]
+        payload["n_prompt"] = st.n_prompt
+        if st.req.trace_id:
+            payload["trace_id"] = st.req.trace_id
+        # pages grown past the prompt for decode are not part of the
+        # handoff: release them before pinning
+        if len(st.seq.pages) > keep:
+            self.cache.allocator.free(st.seq.pages[keep:])
+            st.seq.pages = st.seq.pages[:keep]
+        st.seq.length = len(st.prompt_ids)
+        ttl = self.cfg.handoff_ttl_s
+        rem = remaining_budget(st.req)
+        if rem is not None:
+            # pages pinned past the request's own deadline are worthless
+            ttl = max(0.5, min(ttl, rem))
+        with self._pinned_lock:
+            self._pinned[rid] = {"seq": st.seq, "payload": payload,
+                                 "deadline_t": now + ttl, "t_pinned": now}
+        self.counters["handoff_exports"] += 1
+        self._record_result(results, GenerationResult(
+            request_id=rid, text=text, prompt_tokens=st.n_prompt,
+            completion_tokens=len(gen), finish_reason="handoff",
+            device_seconds=now - st.t_start), fresh)
+        slots[b] = None
+        active[b] = False
+        kv_lens[b] = 0
+        last_tok[b] = 0
+
+    def export_handoff(self, request_id: int) -> dict:
+        """The wire payload of a pinned export, captured at pin time (no
+        device access; repeatable).  ``KeyError`` for unknown or released
+        ids (the ticket's 410)."""
+        with self._pinned_lock:
+            return self._pinned[request_id]["payload"]
+
+    def release_handoff(self, request_id: int, orphaned: bool = False) -> int:
+        """Release a pinned export's pages (the decode side acked, or with
+        ``orphaned`` the sweep reclaims an expired one).  Idempotent;
+        returns the pages released.  Callable from any thread: while a run
+        is live the free is deferred to the scheduler thread's next block
+        boundary, between runs it happens inline under the lock."""
+        with self._pinned_lock:
+            rec = self._pinned.pop(request_id, None)
+            if rec is None:
+                return 0
+            n = len(rec["seq"].pages)
+            if self._run_live:
+                self._release_deferred.append((request_id, rec))
+            else:
+                self.cache.close_sequence(rec["seq"])
+        if orphaned:
+            self.counters["handoff_orphaned_pages"] += n
+            logger.warning("handoff %d orphaned: %d pinned pages reclaimed",
+                           request_id, n)
+        return n
+
+    def _drain_released(self) -> None:
+        """Free the releases parked while the run was live (scheduler
+        thread only), under the lock: an inline free from a handler thread
+        may run concurrently once the run flag is down."""
+        with self._pinned_lock:
+            items, self._release_deferred = self._release_deferred, []
+            for _rid, rec in items:
+                self.cache.close_sequence(rec["seq"])
+
+    def sweep_handoffs(self, now: float | None = None) -> int:
+        """Reclaim pinned exports past their deadline (the orphan sweep's
+        engine half).  Returns pages released."""
+        now = time.time() if now is None else now
+        with self._pinned_lock:
+            expired = [rid for rid, r in self._pinned.items()
+                       if r["deadline_t"] <= now]
+        return sum(self.release_handoff(rid, orphaned=True)
+                   for rid in expired)
+
+    def pinned_handoffs(self) -> dict[int, int]:
+        """rid -> pinned page count."""
+        with self._pinned_lock:
+            return {rid: len(r["seq"].pages)
+                    for rid, r in self._pinned.items()}
+
+    def _admit_import(self, b, queue, slots, results, fresh, kv_lens,
+                      last_tok, active, temps, top_k, top_p) -> bool:
+        """Admit the queue head's IMPORTED sequence (decode role): scatter
+        the transferred pages into the pool and enter the slot in decode
+        with the resume token, no prefill.  False on page back-pressure
+        (the entry stays queued).  A bad payload (page claim, token
+        mismatch, geometry, missing scales) finishes the entry as an error
+        the router falls back from; a device error raises."""
+        req, ids, max_new, n_prompt, _prior, _t0 = queue[0]
+        state = req.handoff_state
+
+        def fail(why: str) -> bool:
+            queue.popleft()
+            logger.warning("handoff import failed for request %d: %s",
+                           req.request_id, why)
+            self._record_result(results, GenerationResult(
+                request_id=req.request_id, prompt_tokens=n_prompt,
+                finish_reason="error",
+                error=f"handoff import failed: {why}"), fresh)
+            return True
+
+        try:
+            need = int(state.get("n_pages", 0) or 0)
+        except (TypeError, ValueError):
+            need = -1
+        if not 0 < need <= min(self.cache.max_pages_per_slot,
+                               self.cache.num_pages - 1):
+            # an unsatisfiable claim must fail, never wait at the head
+            return fail(f"page claim {need} exceeds this pool's capacity")
+        if need > self.cache.allocator.free_count:
+            if self._prefix_cache is not None:
+                self._prefix_cache.evict(need - self.cache.allocator.free_count)
+            if need > self.cache.allocator.free_count:
+                return False
+        t_imp = time.time()
+        try:
+            gen = [int(t) for t in state.get("generated", ())]
+            toks = [int(t) for t in state.get("tokens", ())]
+            kv_len = int(state.get("kv_len", -1))
+            if toks != list(ids):
+                # tokenizer or config drift between the two sides
+                raise ValueError(
+                    f"token mismatch: payload covers {len(toks)} prompt "
+                    f"tokens, this engine encodes {len(ids)}")
+            if kv_len != len(ids):
+                raise ValueError(f"kv_len {kv_len} != {len(ids)} prompt "
+                                 "tokens")
+            if not gen:
+                raise ValueError("handoff state carries no resume token")
+            scales = None
+            if self.kv_scales is not None:
+                want = ((self.kv_scales[0].shape[0],)
+                        + tuple(self.kv_scales[0].shape[2:]))
+                ks = np.asarray(state["kscale"], dtype=np.float32)
+                vs = np.asarray(state["vscale"], dtype=np.float32)
+                if ks.shape != want or vs.shape != want:
+                    raise ValueError(f"scale shape {ks.shape}/{vs.shape} != "
+                                     f"pool's {want}")
+                scales = (ks, vs)
+            seq = self.cache.import_sequence(state)
+        except OutOfPages:
+            return False
+        except (ValueError, KeyError, TypeError) as e:
+            return fail(f"{type(e).__name__}: {e}")
+        queue.popleft()
+        # consumed: a preempted continuation re-admits through prefill
+        req.handoff_state = None
+        now = time.time()
+        st = _SlotState(req=req, prompt_ids=ids, max_new=max_new, seq=seq,
+                        phase="decode", prefill_pos=len(ids), kv_len=kv_len,
+                        t_start=now, t_admit=now, n_prompt=n_prompt,
+                        generated=gen,
+                        spec_depth=self.spec_k if self._spec_tree else 0)
+        slots[b] = st
+        kv_lens[b] = kv_len
+        last_tok[b] = gen[-1]
+        active[b] = True
+        temps[b] = req.temperature
+        top_k[b] = req.top_k
+        top_p[b] = min(max(req.top_p, 0.0), 1.0)
+        if scales is not None:
+            # the exporter's scales, into THIS slot's rows
+            for buf, sc in zip(self.kv_scales, scales):
+                buf[:, b] = torch.from_numpy(sc).to(self.device)
+        self._seed_history(b, st)
+        self.counters["handoff_imports"] += 1
+        self.counters["handoff_import_seconds"] += time.time() - t_imp
+        self._note_first_token(req.request_id)
+        self._note_peak_pages()
+        # stream the first token at once (it is never terminal: the pin
+        # guard kept terminal first tokens from becoming handoffs)
+        self._maybe_finish(b, slots, results, fresh, active, kv_lens,
+                           last_tok)
+        return True
+
+    # ------------------------------------------------- page-set migration
+
+    def kv_export(self, preamble: str) -> dict | None:
+        """The warm page set of one published preamble hash (resident
+        pages gathered from the pool, spilled segments read from their
+        tier) as a wire payload a sibling's ``kv_import`` installs; this
+        cache is left as it was.  Between runs only: None mid-run, for an
+        unknown or cold preamble, and with the prefix cache off.  Holds the
+        pin lock throughout, so no run starts under it."""
+        with self._pinned_lock:
+            if self._run_live or self._prefix_cache is None:
+                return None
+            ent = self._preambles.get(preamble)
+            if ent is None:
+                return None
+            ids = list(ent["ids"])
+            ps = self.cfg.page_size
+            pages, matched, chain = self._prefix_cache.match_hier(ids)
+            k_parts, v_parts = [], []
+            try:
+                if matched:
+                    pay = self.cache.export_pages(pages)
+                    k_parts.append(pay["k"])
+                    v_parts.append(pay["v"])
+            finally:
+                if matched:
+                    self.cache.allocator.free(pages)
+            tokens = matched
+            for node, n_tok in chain:
+                pay = self._prefix_cache.spill_payload(node)
+                if pay is None:
+                    break
+                k_parts.append(pay["k"])
+                v_parts.append(pay["v"])
+                tokens += n_tok
+            if tokens == 0:
+                return None
+            wire = self.cache.wire_dtype
+            k = as_dtype(np.concatenate(k_parts, axis=1), wire)
+            v = as_dtype(np.concatenate(v_parts, axis=1), wire)
+            kh, _ps, hd = (int(x) for x in self.cache.k.shape[1:])
+            self.counters["kv_migrate_exports"] += 1
+            return {"kind": "kv_pageset", "version": 1, "preamble": preamble,
+                    "tokens": tokens, "ids": [int(t) for t in ids[:tokens]],
+                    "n_pages": tokens // ps, "page_size": ps,
+                    "n_layers": self.cache.n_layers, "n_kv_heads": kh,
+                    "head_dim": hd, "dtype": wire, "k": k, "v": v}
+
+    def kv_import(self, payload: dict) -> int:
+        """Install a migrated page set into the prefix cache: allocate
+        pages, scatter (synchronously: control plane), insert under the
+        payload's ids and publish the preamble in the radix summary.
+        Returns the tokens now warm.  A geometry, dtype or framing
+        mismatch raises ``ValueError``; pool pressure ``OutOfPages`` after
+        a reclaim; a live run ``RuntimeError`` (retry between runs)."""
+        with self._pinned_lock:
+            if self._run_live:
+                raise RuntimeError("engine busy; kv import retries between "
+                                   "runs")
+            if self._prefix_cache is None:
+                raise ValueError("prefix cache off; nothing to import into")
+            kh, ps, hd = (int(x) for x in self.cache.k.shape[1:])
+            want = {"page_size": self.cache.page_size,
+                    "n_layers": self.cache.n_layers, "n_kv_heads": kh,
+                    "head_dim": hd, "dtype": self.cache.wire_dtype}
+            for key, val in want.items():
+                got = payload.get(key)
+                if got != val:
+                    raise ValueError(f"incompatible kv payload: {key}={got!r}"
+                                     f", this pool has {val!r}")
+            ids = [int(t) for t in payload.get("ids", ())]
+            n = int(payload.get("n_pages", 0) or 0)
+            tokens = int(payload.get("tokens", 0) or 0)
+            if n <= 0 or tokens != n * ps or len(ids) != tokens:
+                raise ValueError(
+                    f"inconsistent kv payload framing: {n} pages / {tokens} "
+                    f"tokens / {len(ids)} ids (page_size {ps})")
+            if n > self.cache.allocator.free_count:
+                self._prefix_cache.evict(n - self.cache.allocator.free_count)
+            pages = self.cache.alloc_pages(n)
+            try:
+                self.cache.import_pages(
+                    pages, {"k": payload["k"], "v": payload["v"],
+                            "dtype": payload["dtype"]}, sync=True)
+                self._prefix_cache.insert(ids, pages, max_tokens=tokens)
+            finally:
+                # the cache holds its own references on adopted pages
+                self.cache.allocator.free(pages)
+            key = payload.get("preamble")
+            if isinstance(key, str) and key:
+                self._preamble_tick += 1
+                self._preambles[key] = {"ids": tuple(ids),
+                                        "tick": self._preamble_tick}
+                self._summary_memo = None
+            self.counters["kv_migrate_imports"] += 1
+            self.counters["kv_migrate_tokens"] += tokens
+            return tokens
+
     # ------------------------------------------------------------ reporting
 
     def audit(self, live_seqs=None) -> list[str]:
         """Invariant audit (empty list = clean): the prefix cache's tree
-        structure, page conservation and refcount balance against the live
-        sequences (none between runs) plus the cache's retained pages, and
-        no request finished twice."""
+        structure and spill tiers, page conservation and refcount balance
+        against the live sequences (none between runs), the handoff-pinned
+        sequences and the cache's retained pages, and no request finished
+        twice."""
         holders: dict[int, int] = {}
-        for seq in live_seqs or ():
+        with self._pinned_lock:
+            pinned = ([r["seq"] for r in self._pinned.values()]
+                      + [r["seq"] for _, r in self._release_deferred])
+        for seq in list(live_seqs or ()) + pinned:
             for p in seq.pages:
                 holders[p] = holders.get(p, 0) + 1
         violations: list[str] = []
@@ -1639,9 +2163,41 @@ class ContinuousScheduler:
                 "hits": hits, "queries": q,
                 "tokens_reused": c["prefix_tokens_reused"],
                 "prefill_tokens_saved": c["prefix_tokens_reused"],
+                "spilled_hits": c["prefix_spilled_hits"],
+                "tokens_prefetched": c["prefix_tokens_prefetched"],
                 **self._prefix_cache.stats(),
             }
+        out["host_kv"] = self._host_kv_report()
+        if c["kv_migrate_exports"] or c["kv_migrate_imports"]:
+            # only once a page set moved (the mock's contract)
+            out["kv_migrate"] = {"exports": c["kv_migrate_exports"],
+                                 "imports": c["kv_migrate_imports"],
+                                 "tokens_imported": c["kv_migrate_tokens"]}
         return out
+
+    @property
+    def metrics(self) -> dict:
+        """Raw cumulative values under the reference scheduler's key names
+        (its ``metrics`` snapshot; the spill-tier and handoff keys)."""
+        c = self.counters
+        with self._pinned_lock:
+            pinned = sum(len(r["seq"].pages) for r in self._pinned.values())
+        return {
+            "prefill_tokens": c["prefill_tokens"],
+            "decode_tokens": c["decode_tokens"],
+            "preemptions": c["preemptions"],
+            "prefix_queries": c["prefix_queries"],
+            "prefix_hits": c["prefix_hits"],
+            "prefix_tokens_reused": c["prefix_tokens_reused"],
+            "prefix_spilled_hits": c["prefix_spilled_hits"],
+            "prefix_tokens_prefetched": c["prefix_tokens_prefetched"],
+            "prefix_spill_pages": c["prefix_spill_pages"],
+            "prefix_prefetch_pages": c["prefix_prefetch_pages"],
+            "handoff_exports": c["handoff_exports"],
+            "handoff_imports": c["handoff_imports"],
+            "handoff_orphaned_pages": c["handoff_orphaned_pages"],
+            "handoff_pinned_pages": pinned,
+        }
 
 
 def _one_fetch(tensors: list[torch.Tensor]) -> list[torch.Tensor]:

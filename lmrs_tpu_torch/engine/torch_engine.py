@@ -4,7 +4,9 @@
 Exposes the surface ``MapExecutor``, ``ResultAggregator`` and the HTTP
 server use: ``generate_batch`` (with ``on_tokens`` streaming), ``cancel``,
 ``schedules_internally``, ``engine_metrics``, ``prefix_summary``,
-``shutdown`` and ``tokenizer``.  Runs on ``cuda`` unless ``device="cpu"``
+``shutdown`` and ``tokenizer``, and the handoff and page-set hooks
+(``supports_handoff``, ``export_handoff``, ``release_handoff``,
+``sweep_handoffs``, ``kv_export``, ``kv_import``).  Runs on ``cuda`` unless ``device="cpu"``
 is asked for.  A CUDA engine checks, when it is built, that its kernels take
 the model and engine configuration (``check_cuda_config``), so no request
 reaches a kernel only to be refused there.  The weights come from, in turn:
@@ -131,6 +133,40 @@ class TorchEngine:
 
     def audit(self) -> list[str]:
         return self._scheduler.audit()
+
+    # ---------------------------------------- disaggregated handoff hooks
+    # (optional Engine surface, looked up by the server with getattr)
+
+    supports_handoff = True
+
+    def export_handoff(self, request_id: int) -> dict:
+        """The pinned payload of a ``"handoff"`` result (``KeyError`` once
+        released)."""
+        return self._scheduler.export_handoff(request_id)
+
+    def release_handoff(self, request_id: int, orphaned: bool = False) -> int:
+        """Free a pinned export's pages (the decode side's ack, or the
+        orphan sweep); idempotent, callable from any thread."""
+        return self._scheduler.release_handoff(request_id, orphaned=orphaned)
+
+    def sweep_handoffs(self, now: float | None = None) -> int:
+        """Reclaim pins past their TTL; returns pages released."""
+        return self._scheduler.sweep_handoffs(now)
+
+    def pinned_handoffs(self) -> dict[int, int]:
+        return self._scheduler.pinned_handoffs()
+
+    # ------------------------------------------------ page-set migration
+
+    def kv_export(self, preamble: str) -> dict | None:
+        """One published preamble's warm page set as a wire payload, or
+        None (cold, unknown, or a run in flight)."""
+        return self._scheduler.kv_export(preamble)
+
+    def kv_import(self, payload: dict) -> int:
+        """Install a migrated page set into the prefix cache; returns the
+        tokens now warm."""
+        return self._scheduler.kv_import(payload)
 
     def shutdown(self) -> None:
         """Nothing to stop: the engine runs on the caller's thread."""

@@ -4,14 +4,20 @@ engine, on the card by default.
     lmrs-serve-torch --model bench-8b --tokenizer byte --port 8000
     lmrs-serve-torch --backend mock --port 8000
 
+    lmrs-serve-torch --role prefill --port 8001   # a disaggregated pair
+    lmrs-serve-torch --role decode --port 8002
+
 Flag spellings follow the reference's ``lmrs-serve``.  ``--backend`` takes
 ``torch`` (the default) or ``mock``; ``--device`` takes ``cuda`` (the
-default) or ``cpu``.  A server whose engine fails to build exits non-zero;
-it never moves to the CPU because no card was found.  Flags of features
-the port does not carry yet are refused by name with the slice that brings
-them: ``--mesh`` (A8), ``--role prefill|decode`` and ``--handoff-ttl``
-(A4), ``--jobs-dir`` and ``--live-dir`` (A13), ``--supervise`` and
-``--trace`` (A10).
+default) or ``cpu``.  ``--role`` picks the disaggregated serving role
+(``prefill`` mints KV handoff tickets, ``decode`` imports them, ``both``
+serves colocated) and ``--handoff-ttl`` the seconds an un-acked ticket
+keeps its pages pinned (default ``LMRS_HANDOFF_TTL`` or 60).  A server
+whose engine fails to build exits non-zero; it never moves to the CPU
+because no card was found.  Flags of features the port does not carry yet
+are refused by name with the slice that brings them: ``--mesh`` (A8),
+``--jobs-dir`` and ``--live-dir`` (A13), ``--supervise`` and ``--trace``
+(A10).
 """
 
 from __future__ import annotations
@@ -25,8 +31,6 @@ logger = logging.getLogger("lmrs_torch.serving")
 # flag -> the slice of the port that brings it
 _LATER = {
     "mesh": "multi-GPU (A8)",
-    "role": "KV movement (A4)",
-    "handoff_ttl": "KV movement (A4)",
     "jobs_dir": "durable jobs and live sessions (A13)",
     "live_dir": "durable jobs and live sessions (A13)",
     "supervise": "observability (A10)",
@@ -58,11 +62,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="upper bound on any request's max_tokens")
     p.add_argument("--batch-window-ms", type=float, default=20.0,
                    help="micro-batching window for pooling concurrent requests")
+    p.add_argument("--role", default="both",
+                   choices=["prefill", "decode", "both"],
+                   help="disaggregated serving role: 'prefill' stops "
+                        "handoff-flagged requests after the first token and "
+                        "publishes a KV-page ticket, 'decode' imports "
+                        "tickets and continues, 'both' (default) serves "
+                        "colocated")
+    p.add_argument("--handoff-ttl", type=float, default=None,
+                   help="seconds an un-acked handoff ticket pins its KV "
+                        "pages before the orphan sweep reclaims them "
+                        "(default: LMRS_HANDOFF_TTL or 60)")
     p.add_argument("--quiet", "-q", action="store_true")
     # not in the port yet: accepted only to refuse them by name
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--role", default="both", help=argparse.SUPPRESS)
-    for flag in ("--handoff-ttl", "--jobs-dir", "--live-dir"):
+    for flag in ("--jobs-dir", "--live-dir"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--supervise", "--trace"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -74,7 +88,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     for name, later in _LATER.items():
         val = getattr(args, name)
-        if val not in (None, False, "both"):
+        if val not in (None, False):
             parser.error(f"--{name.replace('_', '-')} is not in the port "
                          f"yet; it arrives with the {later} slice")
     logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
@@ -89,7 +103,10 @@ def main(argv: list[str] | None = None) -> int:
             max_batch_slots=args.batch_slots,
             checkpoint_path=args.checkpoint, tokenizer=args.tokenizer or "",
             quantize=args.quantize, kv_quantize=args.kv_quantize,
-            max_tokens=args.max_tokens_cap)
+            max_tokens=args.max_tokens_cap,
+            # the flag wins over LMRS_HANDOFF_TTL; the config checks it
+            **({"handoff_ttl_s": args.handoff_ttl}
+               if args.handoff_ttl is not None else {}))
         engine = make_engine(engine_cfg, device=args.device)
     except (ValueError, RuntimeError, OSError, ImportError) as e:
         logger.error("engine init failed: %s", e)
@@ -98,7 +115,8 @@ def main(argv: list[str] | None = None) -> int:
         server = EngineHTTPServer(
             engine, host=args.host, port=args.port, model_name=args.model,
             max_tokens_cap=args.max_tokens_cap,
-            batch_window_s=args.batch_window_ms / 1000.0)
+            batch_window_s=args.batch_window_ms / 1000.0,
+            role=args.role, handoff_ttl_s=engine_cfg.handoff_ttl_s)
     except OSError as e:
         logger.error("cannot bind %s:%d: %s", args.host, args.port, e)
         engine.shutdown()

@@ -1,6 +1,6 @@
 """An Engine over running ``lmrs-serve-torch`` servers (the port of the
-reference's ``serving/router.py``, colocated pools only): ``lmrs-torch
---backend http --hosts h:p,...`` fans the pipeline's requests over them.
+reference's ``serving/router.py``): ``lmrs-torch --backend http --hosts
+h:p,...`` fans the pipeline's requests over them.
 
 * **Engine protocol**: the executor, the pipeline and the server itself
   compose with ``RouterEngine`` unchanged (a server can front a router).
@@ -20,14 +20,26 @@ reference's ``serving/router.py``, colocated pools only): ``lmrs-torch
   with a shared preamble goes first to the host whose ``/healthz`` radix
   summary predicts the deepest hit, else to a rendezvous-hash host, with
   each wave's same-preamble group given only its fair share of one host.
+* **Prefetch spread** (``LMRS_KV_MIGRATE``, default on): when a group
+  spreads past a host whose summary predicts a hit, the siblings about to
+  serve the rest pull the warm page set from it over ``/v1/kv`` (export
+  there, import here), deduplicated per (sibling, preamble) within a
+  summary TTL; a leg that fails leaves the sibling cold.
+* **Role pools** (``prefill_hosts``/``decode_hosts``, from
+  ``LMRS_PREFILL_HOSTS``/``LMRS_DECODE_HOSTS``): while both pools have a
+  healthy host, a request's prefill leg (``"handoff": true``) goes to the
+  prefill pool, which answers with a ticket, and its decode leg follows
+  the ticket on the decode pool (a failed decode leg retries a sibling).
+  A flow that cannot complete falls back to a colocated re-prefill on any
+  host (counted in the ``handoff`` block) — unless deltas already
+  streamed, when the failure surfaces instead.
 
 SLO-aware placement reads a ``slo`` block from ``/healthz``; the port's
 servers publish none, so the reference's router treats them as healthy,
 and this router has no SLO placement.  Not in the port yet, refused by
-name: prefill/decode role pools and KV migration (A4), job and session
-forwarding (A13), tail hedging (``LMRS_HEDGE_MS`` > 0), SLO and tenant
-placement, fleet usage, anatomy and trace, and adding, draining or
-removing hosts at run time (A10).
+name: job and session forwarding (A13), tail hedging (``LMRS_HEDGE_MS`` >
+0), SLO and tenant placement, fleet usage, anatomy and trace, and adding,
+draining (with its KV migration) or removing hosts at run time (A10).
 """
 
 from __future__ import annotations
@@ -87,13 +99,16 @@ class _HostConnectError(ConnectionError):
 
 
 class _Host:
-    """One backend server.  Health is the connect-phase belief
-    (``_down``) AND a circuit breaker (closed | open | half_open): see the
-    module docstring.  ``healthy = True`` force-closes both."""
+    """One backend server.  ``role`` is its pool ("prefill" | "decode" |
+    "both"): a routing policy, every host can serve a whole request.
+    Health is the connect-phase belief (``_down``) AND a circuit breaker
+    (closed | open | half_open): see the module docstring.
+    ``healthy = True`` force-closes both."""
 
-    def __init__(self, url: str, clock=time.monotonic):
+    def __init__(self, url: str, role: str = "both", clock=time.monotonic):
         u = urlsplit(url if "//" in url else f"http://{url}")
         self.netloc = u.netloc or u.path  # tolerate bare host:port
+        self.role = role
         self.clock = clock
         self._down = False
         self.breaker_state = "closed"
@@ -208,15 +223,38 @@ class RouterEngine:
     def __init__(self, hosts: list[str], timeout_s: float = 600.0,
                  probe_floor_s: float = 5.0, probe_jitter_s: float = 2.5,
                  clock=time.monotonic, prefix_route: bool | None = None,
-                 summary_ttl_s: float | None = None):
+                 summary_ttl_s: float | None = None,
+                 prefill_hosts: list[str] = (), decode_hosts: list[str] = ()):
         if env_float("LMRS_HEDGE_MS", 0.0, lo=0.0) > 0:
             raise ValueError(
                 "LMRS_HEDGE_MS (tail hedging) is not in the port yet; it "
                 f"arrives with the {_A10} slice")
-        self.hosts = [_Host(h, clock=clock) for h in hosts]
+        self.hosts = ([_Host(h, clock=clock) for h in hosts]
+                      + [_Host(h, "prefill", clock=clock)
+                         for h in prefill_hosts]
+                      + [_Host(h, "decode", clock=clock)
+                         for h in decode_hosts])
         if not self.hosts:
             raise ValueError("RouterEngine needs at least one backend host")
+        self.pools: dict[str, list[_Host]] = {
+            role: [h for h in self.hosts if h.role == role]
+            for role in ("both", "prefill", "decode")}
         self._stats_lock = threading.Lock()
+        # handoff flows followed, decode legs retried, flows degraded to a
+        # colocated re-prefill
+        self._handoffs = 0           # guarded-by: _stats_lock
+        self._handoff_retries = 0    # guarded-by: _stats_lock
+        self._handoff_fallbacks = 0  # guarded-by: _stats_lock
+        # the /v1/kv prefetch spread; disarmed, no /v1/kv call is made and
+        # the kv_migrate keys are omitted
+        self.kv_migrate = env_bool("LMRS_KV_MIGRATE", True)
+        self._kv_lock = threading.Lock()
+        # (sibling netloc, preamble) -> last attempt, bounded
+        self._kv_prefetched: dict[tuple[str, str], float] = {}  # guarded-by: _kv_lock
+        self._kv_prefetched_max = 256
+        self._kv_moves = 0       # guarded-by: _stats_lock
+        self._kv_prefetches = 0  # guarded-by: _stats_lock
+        self._kv_failures = 0    # guarded-by: _stats_lock
         # per-recv socket timeout: must exceed the worst-case SILENT wait
         # (a non-streamed generation sends nothing until it completes)
         self.timeout_s = timeout_s
@@ -254,6 +292,10 @@ class RouterEngine:
         self._prefix_routed = 0     # guarded-by: _stats_lock
         self._prefix_predicted = 0  # guarded-by: _stats_lock
         self._prefix_fallback = 0   # guarded-by: _stats_lock
+
+    def _count(self, attr: str) -> None:
+        with self._stats_lock:
+            setattr(self, attr, getattr(self, attr) + 1)
 
     # ------------------------------------------------------------------ API
 
@@ -296,7 +338,7 @@ class RouterEngine:
     def engine_metrics(self) -> dict:
         per = []
         for h in self.hosts:
-            row = {"host": h.netloc, "role": "both", "healthy": h.healthy,
+            row = {"host": h.netloc, "role": h.role, "healthy": h.healthy,
                    "breaker": h.breaker_state,
                    "served": h.served, "failed": h.failed}
             conn = None
@@ -316,17 +358,25 @@ class RouterEngine:
             now = self._clock()
             ages = {netloc: round(now - s["at"], 1)
                     for netloc, s in self._summaries.items()}
-        return {"hosts": len(self.hosts),
-                "healthy_hosts": sum(h.healthy for h in self.hosts),
-                "pools": {"both": {"size": len(self.hosts),
-                                   "healthy": sum(h.healthy
-                                                  for h in self.hosts)}},
-                "prefix_route": {"enabled": self.prefix_route,
-                                 "routed": self._prefix_routed,
-                                 "predicted": self._prefix_predicted,
-                                 "fallback": self._prefix_fallback,
-                                 "summary_age_s": ages},
-                "per_host": per}
+        doc = {"hosts": len(self.hosts),
+               "healthy_hosts": sum(h.healthy for h in self.hosts),
+               "pools": {role: {"size": len(pool),
+                                "healthy": sum(h.healthy for h in pool)}
+                         for role, pool in self.pools.items() if pool},
+               "handoff": {"handoffs": self._handoffs,
+                           "retries": self._handoff_retries,
+                           "fallbacks": self._handoff_fallbacks},
+               "prefix_route": {"enabled": self.prefix_route,
+                                "routed": self._prefix_routed,
+                                "predicted": self._prefix_predicted,
+                                "fallback": self._prefix_fallback,
+                                "summary_age_s": ages},
+               "per_host": per}
+        if self.kv_migrate:
+            doc["kv_migrate"] = {"enabled": True, "moves": self._kv_moves,
+                                 "prefetches": self._kv_prefetches,
+                                 "failures": self._kv_failures}
+        return doc
 
     def prometheus_metrics(self) -> str:
         """The fleet page: each healthy server's Prometheus page relabeled
@@ -390,15 +440,27 @@ class RouterEngine:
                         ).inc(h.breaker_opens)
             pages.append(add_label_to_exposition(
                 reg.render_prometheus(), "host", h.netloc))
+        for role, pool in self.pools.items():
+            if not pool:  # a colocated fleet reports one "both" pool
+                continue
+            reg = MetricsRegistry()
+            reg.gauge("lmrs_router_pool_size",
+                      "backend hosts in this role pool").set(len(pool))
+            reg.gauge("lmrs_router_pool_healthy",
+                      "healthy hosts in this role pool").set(
+                sum(h.healthy for h in pool))
+            pages.append(add_label_to_exposition(reg.render_prometheus(),
+                                                 "pool", role))
         reg = MetricsRegistry()
-        reg.gauge("lmrs_router_pool_size",
-                  "backend hosts in this role pool").set(len(self.hosts))
-        reg.gauge("lmrs_router_pool_healthy",
-                  "healthy hosts in this role pool").set(
-            sum(h.healthy for h in self.hosts))
-        pages.append(add_label_to_exposition(reg.render_prometheus(),
-                                             "pool", "both"))
-        reg = MetricsRegistry()
+        reg.counter("lmrs_handoff_total",
+                    "prefill→decode handoff tickets followed by the "
+                    "router").inc(self._handoffs)
+        reg.counter("lmrs_handoff_retries_total",
+                    "failed decode-leg attempts (retried or degraded)"
+                    ).inc(self._handoff_retries)
+        reg.counter("lmrs_handoff_fallbacks_total",
+                    "handoff flows degraded to colocated re-prefill"
+                    ).inc(self._handoff_fallbacks)
         reg.counter("lmrs_router_prefix_routed_total",
                     "requests placed sticky-by-prefix (summary-predicted "
                     "or rendezvous)").inc(self._prefix_routed)
@@ -408,6 +470,17 @@ class RouterEngine:
         reg.counter("lmrs_router_prefix_fallback_total",
                     "prefix-eligible requests that degraded to plain "
                     "load/health ordering").inc(self._prefix_fallback)
+        if self.kv_migrate:
+            reg.counter("lmrs_kv_migrate_moves_total",
+                        "KV page sets moved off draining hosts over the "
+                        "/v1/kv export/import wire").inc(self._kv_moves)
+            reg.counter("lmrs_kv_migrate_prefetches_total",
+                        "predicted prefixes prefetched into spread "
+                        "siblings ahead of wave traffic"
+                        ).inc(self._kv_prefetches)
+            reg.counter("lmrs_kv_migrate_failures_total",
+                        "KV migration legs (move or prefetch) that failed; "
+                        "the preamble re-prefills cold").inc(self._kv_failures)
         pages.append(reg.render_prometheus())
         return merge_expositions(pages)
 
@@ -437,7 +510,8 @@ class RouterEngine:
         # pool; placement is planned per wave
         self._launch_probes()
         self._refresh_summaries()
-        prefers = self._plan_prefix_placement(requests)
+        prefers = self._plan_prefix_placement(
+            requests, "prefill" if self._disagg_ready() else "full")
         try:
             futures = [self._pool.submit(self._one, base + i, req, on_tokens,
                                          cancelled, prefers[i])
@@ -479,12 +553,22 @@ class RouterEngine:
         if host.breaker_state == "open" and host.breaker_due():
             host.canary()
 
-    def _targets(self, start: int, prefer: _Host | None = None) -> list[_Host]:
-        """Hosts in round-robin order from ``start``, healthy first (every
-        host when none is healthy: a transient fault must not brick the
-        fleet); ``prefer`` goes to the front."""
-        n = len(self.hosts)
-        order = [self.hosts[(start + k) % n] for k in range(n)]
+    def _role_pool(self, role: str) -> list[_Host]:
+        """The hosts eligible for ``role``: "full" (a colocated request)
+        draws from every host; "prefill"/"decode" from that pool, else the
+        "both" pool."""
+        if role == "full":
+            return self.hosts
+        return self.pools.get(role) or self.pools["both"] or self.hosts
+
+    def _targets(self, start: int, role: str = "full",
+                 prefer: _Host | None = None) -> list[_Host]:
+        """Hosts of ``role`` in round-robin order from ``start``, healthy
+        first (every host of it when none is healthy: a transient fault
+        must not brick the fleet); ``prefer`` goes to the front."""
+        pool = self._role_pool(role)
+        n = len(pool)
+        order = [pool[(start + k) % n] for k in range(n)]
         out = [h for h in order if h.healthy] or order
         if prefer is not None and prefer in out:
             out = [prefer] + [h for h in out if h is not prefer]
@@ -540,7 +624,7 @@ class RouterEngine:
             self._summaries[host.netloc] = {"at": self._clock(), "map": smap}
             self._summary_inflight.discard(host.netloc)
 
-    def _prefix_target(self, req: GenerationRequest
+    def _prefix_target(self, req: GenerationRequest, role: str = "full"
                        ) -> tuple[_Host | None, bool, bool]:
         """``(host, predicted, eligible)`` for one request: among healthy
         hosts, the one whose fresh summary predicts the deepest hit
@@ -551,7 +635,7 @@ class RouterEngine:
         key = preamble_key(req.system_prompt, req.prompt, req.cache_prefix)
         if key is None:
             return None, False, False
-        healthy = [h for h in self.hosts if h.healthy]
+        healthy = [h for h in self._role_pool(role) if h.healthy]
         if not healthy:
             return None, False, True
         now = self._clock()
@@ -578,25 +662,30 @@ class RouterEngine:
             f"{key}|{h.netloc}".encode()).digest())
         return best, False, True
 
-    def _plan_prefix_placement(self, requests: list[GenerationRequest]
-                               ) -> list[_Host | None]:
+    def _plan_prefix_placement(self, requests: list[GenerationRequest],
+                               role: str = "full") -> list[_Host | None]:
         """Group the wave by preamble key and give each group's sticky
         host its fair share, ``ceil(group / healthy hosts)`` members; the
-        rest spread through the rotation (counted as fallback)."""
+        rest spread through the rotation (counted as fallback).  A group
+        that spreads past a host predicted warm prefetches the preamble
+        into the siblings (``_kv_prefetch_spread``)."""
         out: list[_Host | None] = [None] * len(requests)
         if not self.prefix_route:
             return out
-        healthy_n = max(1, sum(h.healthy for h in self.hosts))
+        healthy_n = max(1, sum(h.healthy for h in self._role_pool(role)))
         groups: dict[str, list[int]] = {}
         for idx, req in enumerate(requests):
             key = preamble_key(req.system_prompt, req.prompt,
                                req.cache_prefix)
             if key is not None:
                 groups.setdefault(key, []).append(idx)
-        for members in groups.values():
+        for key, members in groups.items():
             prefer, predicted, eligible = self._prefix_target(
-                requests[members[0]])
+                requests[members[0]], role)
             share = -(-len(members) // healthy_n)
+            if (self.kv_migrate and predicted and prefer is not None
+                    and share < len(members)):
+                self._kv_prefetch_spread(prefer, key, role)
             for k, idx in enumerate(members):
                 sticky = prefer if k < share else None
                 out[idx] = sticky
@@ -610,16 +699,93 @@ class RouterEngine:
                         self._prefix_fallback += 1
         return out
 
+    # ------------------------------------------------ the /v1/kv spread
+
+    def _kv_call(self, host: _Host, path: str, body: dict) -> tuple[int, dict]:
+        """One control-plane POST; a transport failure reads as 502."""
+        conn = None
+        try:
+            conn = http.client.HTTPConnection(host.netloc, timeout=30.0)
+            conn.request("POST", path, body=json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            raw = resp.read()
+            try:
+                doc = json.loads(raw) if raw else {}
+            except ValueError:
+                doc = {}
+            return resp.status, doc
+        except (OSError, http.client.HTTPException) as e:
+            return 502, {"error": {"message": f"{host.netloc}: "
+                                              f"{type(e).__name__}: {e}"}}
+        finally:
+            if conn is not None:
+                conn.close()
+
+    def _kv_prefetch_spread(self, warm: _Host, key: str, role: str) -> None:
+        """A wave's preamble group is about to spread past its warm host:
+        the siblings that serve the rest pull the page set from it now
+        instead of re-prefilling it.  Deduplicated per (sibling, preamble)
+        within a summary TTL; queued on the pool, so placement never waits
+        on a copy."""
+        now = self._clock()
+        targets: list[_Host] = []
+        with self._kv_lock:
+            for h in self._role_pool(role):
+                if h is warm or not h.healthy:
+                    continue
+                k = (h.netloc, key)
+                if now - self._kv_prefetched.get(k, -1e9) < self.summary_ttl_s:
+                    continue
+                self._kv_prefetched[k] = now
+                targets.append(h)
+            while len(self._kv_prefetched) > self._kv_prefetched_max:
+                self._kv_prefetched.pop(next(iter(self._kv_prefetched)))
+        for h in targets:
+            self._pool.submit(self._kv_prefetch_one, warm, h, key)
+
+    def _kv_prefetch_one(self, src: _Host, dst: _Host, key: str) -> None:
+        """One prefetch leg (pool thread): export on ``src`` (404: cold or
+        busy, nothing to do), then a pull-import on ``dst``, which fetches
+        the blob and acks the ticket.  A failed leg leaves ``dst`` cold."""
+        status, doc = self._kv_call(src, "/v1/kv/export", {"preamble": key})
+        if status != 200 or not doc.get("ticket"):
+            return
+        status, _ = self._kv_call(dst, "/v1/kv/import",
+                                  {"ticket": doc["ticket"],
+                                   "source": src.netloc})
+        self._count("_kv_prefetches" if status == 200 else "_kv_failures")
+
+    # ------------------------------------------------------ request paths
+
+    def _disagg_ready(self) -> bool:
+        """Both role pools have members and a healthy host each; anything
+        less serves colocated."""
+        if not (self.pools["prefill"] and self.pools["decode"]):
+            return False
+        return (any(h.healthy for h in self.pools["prefill"])
+                and any(h.healthy for h in self.pools["decode"]))
+
     def _one(self, i: int, req: GenerationRequest, on_tokens,
              cancelled: set[int], prefer: _Host | None = None
              ) -> GenerationResult:
-        # trace ingress for engine-protocol callers: every forward and
-        # retry resends the id, so one request is one trace fleet-wide
+        # trace ingress for engine-protocol callers: every forward, retry
+        # and handoff leg resends the id, so one request is one trace
         if req.trace_id is None:
             req.trace_id = new_trace_id()
+        if self._disagg_ready():
+            res = self._one_disagg(i, req, on_tokens, cancelled, prefer)
+            if res is not None:
+                return res
+            # the two-tier flow degraded (no ticket, decode pool dark,
+            # ticket gone): re-prefill colocated on any host
+            self._count("_handoff_fallbacks")
+            logger.warning("request %d: handoff degraded; re-prefilling "
+                           "colocated", req.request_id)
+            prefer = None
         rid = req.request_id
         last_err = "no healthy backend"
-        for attempt, host in enumerate(self._targets(i, prefer)[:2]):
+        for attempt, host in enumerate(self._targets(i, "full", prefer)[:2]):
             if rid in cancelled:
                 return GenerationResult(request_id=rid,
                                         finish_reason="cancelled")
@@ -650,9 +816,170 @@ class RouterEngine:
         return GenerationResult(request_id=rid, finish_reason="error",
                                 error=last_err)
 
-    def _post(self, host: _Host, req: GenerationRequest, on_tokens,
-              streamed: list[int], cancelled: set[int]) -> GenerationResult:
+    def _one_disagg(self, i: int, req: GenerationRequest, on_tokens,
+                    cancelled: set[int], prefer: _Host | None = None
+                    ) -> GenerationResult | None:
+        """The two-tier flow: the prefill pool mints a ticket, the decode
+        pool follows it.  None falls back to a colocated re-prefill (no
+        ticket, decode attempts exhausted, ticket gone) — except once
+        deltas have streamed, when the failure surfaces.  A dead decode
+        host never acks; the prefill side's orphan sweep reclaims its
+        pins."""
+        rid = req.request_id
+        ticket = None
+        for host in self._targets(i, "prefill", prefer)[:2]:
+            if rid in cancelled:
+                return GenerationResult(request_id=rid,
+                                        finish_reason="cancelled")
+            rem = remaining_budget(req)
+            if rem is not None and rem <= 0:
+                return GenerationResult(request_id=rid,
+                                        finish_reason="deadline")
+            try:
+                kind, out = self._post_prefill(host, req, cancelled)
+            except Exception as e:  # noqa: BLE001 - degrade per host
+                if rid in cancelled:
+                    return GenerationResult(request_id=rid,
+                                            finish_reason="cancelled")
+                host.note_failed()
+                if isinstance(e, _HostConnectError):
+                    host.healthy = False
+                logger.warning("prefill leg for %d failed on %s: %s: %s",
+                               rid, host.netloc, type(e).__name__, e)
+                continue
+            host.healthy = True
+            if kind == "result":
+                if out.finish_reason == "error":
+                    host.note_failed()
+                    continue
+                # a terminal first token: the prefill answer is the whole
+                # completion
+                host.note_served()
+                if on_tokens is not None and out.text:
+                    on_tokens(rid, out.text)
+                return out
+            ticket = out
+            host.note_served()
+            break
+        if ticket is None:
+            return None
+        self._count("_handoffs")
+        extra = {"handoff": {"ticket": ticket["ticket"],
+                             "source": ticket["source"]}}
+        streamed = [0]
+        for host in self._targets(i + 1, "decode")[:2]:
+            if rid in cancelled:
+                return GenerationResult(request_id=rid,
+                                        finish_reason="cancelled")
+            rem = remaining_budget(req)
+            if rem is not None and rem <= 0:
+                # the budget ran out between the legs: the first token is
+                # real output, kept as a deadline result
+                first = str(ticket.get("first_text") or "")
+                if first and on_tokens is not None and not streamed[0]:
+                    on_tokens(rid, first)
+                return GenerationResult(
+                    request_id=rid, text=first,
+                    prompt_tokens=int(ticket.get("prompt_tokens", 0) or 0),
+                    completion_tokens=int(ticket.get("completion_tokens",
+                                                     0) or 0),
+                    finish_reason="deadline")
+            try:
+                res = self._post(host, req, on_tokens, streamed, cancelled,
+                                 body_extra=extra)
+            except Exception as e:  # noqa: BLE001 - degrade per host
+                if rid in cancelled:
+                    return GenerationResult(request_id=rid,
+                                            finish_reason="cancelled")
+                host.note_failed()
+                if isinstance(e, _HostConnectError):
+                    host.healthy = False
+                self._count("_handoff_retries")
+                logger.warning("decode leg for %d failed on %s: %s: %s",
+                               rid, host.netloc, type(e).__name__, e)
+                if streamed[0]:
+                    return GenerationResult(
+                        request_id=rid, finish_reason="error",
+                        error=f"{host.netloc}: {type(e).__name__}: {e}")
+                continue
+            if res.finish_reason == "error":
+                # a marked handoff failure (410, duplicate, transfer,
+                # import): try a sibling while the ticket may live
+                host.note_failed()
+                self._count("_handoff_retries")
+                logger.warning("decode leg for %d rejected on %s: %s",
+                               rid, host.netloc, res.error)
+                if streamed[0]:
+                    return res
+                continue
+            host.note_served()
+            host.healthy = True
+            return res
+        return None if not streamed[0] else GenerationResult(
+            request_id=rid, finish_reason="error",
+            error="handoff decode attempts exhausted mid-stream")
+
+    def _post_prefill(self, host: _Host, req: GenerationRequest,
+                      cancelled: set[int]):
+        """POST the prefill leg (``"handoff": true``, never streamed):
+        ``("ticket", desc)`` with ``source`` set to the answering host, or
+        ``("result", GenerationResult)`` when the first token was terminal
+        (or the leg failed)."""
         body = _request_body(req)
+        body["handoff"] = True
+        rid = req.request_id
+        timeout = self.timeout_s
+        rem = remaining_budget(req)
+        if rem is not None:
+            timeout = max(1.0, min(timeout, rem + 5.0))
+        conn = host.connect(timeout)
+        with self._inflight_lock:
+            self._inflight[rid] = conn
+        try:
+            try:
+                conn.connect()
+            except OSError as e:
+                raise _HostConnectError(str(e)) from e
+            with self._inflight_lock:
+                self._inflight[rid] = conn.sock
+            headers = {"Content-Type": "application/json"}
+            if req.trace_id:
+                headers["X-LMRS-Trace"] = req.trace_id
+            conn.request("POST", "/v1/chat/completions",
+                         body=json.dumps(body), headers=headers)
+            if rid in cancelled:
+                raise ConnectionAbortedError("cancelled during connect")
+            resp = conn.getresponse()
+            if resp.status != 200:
+                return "result", GenerationResult(
+                    request_id=rid, finish_reason="error",
+                    error=self._error_message(resp))
+            data = json.loads(resp.read())
+            if "handoff" in data:
+                desc = dict(data["handoff"])
+                desc.setdefault("source", host.netloc)
+                return "ticket", desc
+            choice = data["choices"][0]
+            usage = data.get("usage") or {}
+            return "result", GenerationResult(
+                request_id=rid, text=choice["message"]["content"],
+                prompt_tokens=int(usage.get("prompt_tokens", 0)),
+                completion_tokens=int(usage.get("completion_tokens", 0)),
+                finish_reason=choice.get("finish_reason") or "stop")
+        finally:
+            with self._inflight_lock:
+                self._inflight.pop(rid, None)
+            try:
+                conn.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    def _post(self, host: _Host, req: GenerationRequest, on_tokens,
+              streamed: list[int], cancelled: set[int],
+              body_extra: dict | None = None) -> GenerationResult:
+        body = _request_body(req)
+        if body_extra:
+            body.update(body_extra)
         if on_tokens is not None:
             body["stream"] = True
             body["stream_options"] = {"include_usage": True}

@@ -1,13 +1,32 @@
 """OpenAI- and Anthropic-wire HTTP server over the port's engine (the port
-of the reference's ``serving/server.py``, colocated serving only).
+of the reference's ``serving/server.py``: colocated and disaggregated
+serving, and the ``/v1/kv`` page-set wire).
 
 Routes, as in the reference (``docs/SERVING.md`` is the contract):
 
 * ``POST /v1/chat/completions`` (OpenAI) and ``POST /v1/messages``
   (Anthropic), plain or ``"stream": true`` (SSE in each wire's dialect);
-* ``GET /healthz`` (with the engine's radix ``prefix_summary``),
-  ``GET /v1/models``, ``GET /metrics`` (JSON, or Prometheus text under
-  ``Accept: text/plain``).
+* ``GET /healthz`` (with the serving ``role`` and the engine's radix
+  ``prefix_summary``), ``GET /v1/models``, ``GET /metrics`` (JSON with the
+  ``handoff`` and ``kv_migrate`` ticket stats, or Prometheus text under
+  ``Accept: text/plain``);
+* disaggregated handoff: ``role`` is ``prefill``, ``decode`` or ``both``.
+  A body ``"handoff": true`` asks a non-decode server (engine permitting,
+  not streamed) for a prefill-role export: the request stops after its
+  first token with its pages pinned and the answer is a
+  ``handoff.ticket``; ``GET /v1/handoff/{ticket}`` serves the payload
+  (``serving/handoff.py`` codec) and ``POST /v1/handoff/{ticket}/ack``
+  consumes the ticket and releases the pages.  A body ``"handoff":
+  {"ticket", "source"}`` on a non-prefill server pulls the payload from
+  the source, acks it, and decodes from the imported pages;
+* the ``/v1/kv`` page-set wire: ``POST /v1/kv/export {"preamble"}`` pins
+  one warm preamble's page set under a ticket, ``GET /v1/kv/{ticket}``
+  serves it, ``POST /v1/kv/{ticket}/ack`` drops it, and ``POST
+  /v1/kv/import {"ticket", "source"}`` pulls, installs and acks.
+  ``LMRS_KV_MIGRATE=0`` answers 501 on all four.
+
+An orphan-sweeper thread releases the pins of tickets never acked once
+``handoff_ttl_s`` passes, and drops expired page-set blobs.
 
 Concurrent requests micro-batch: a dispatcher thread collects the queue for
 ``batch_window_s`` and hands the wave to ONE ``Engine.generate_batch``;
@@ -17,10 +36,9 @@ seconds, anchored at ingress; garbage is a 400).  A client that goes away
 cancels its request through the engine's ``cancel`` hook.
 
 Not in the port yet, refused by name: ``/v1/jobs*`` and ``/v1/sessions*``
-answer 501 (durable jobs and live sessions, A13); ``/v1/handoff/*``,
-``/v1/kv/*`` and a ``handoff`` body field (KV movement, A4), and
-``/v1/usage``, ``/v1/anatomy``, ``/v1/trace`` and ``/v1/debug/profile``
-(observability, A10) answer with an error naming the slice.  The
+answer 501 (durable jobs and live sessions, A13); ``/v1/usage``,
+``/v1/anatomy``, ``/v1/trace`` and ``/v1/debug/profile`` (observability,
+A10) answer 404 naming the slice.  The
 ``X-LMRS-Tenant`` and ``X-LMRS-QoS-Class`` headers are accepted and not
 acted on: their consumers, the cost ledger and QoS, are A10's.
 
@@ -29,6 +47,7 @@ Standard library only (``http.server``).
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import math
@@ -42,19 +61,24 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from lmrs_tpu_torch.engine.api import Engine, GenerationRequest, GenerationResult
 from lmrs_tpu_torch.obs import MetricsRegistry, merge_expositions, new_trace_id
+from lmrs_tpu_torch.serving.handoff import (ImportLog, TicketRegistry,
+                                            decode_payload, encode_payload)
+from lmrs_tpu_torch.utils.env import env_bool
 
 logger = logging.getLogger("lmrs_torch.serving")
 
 # X-LMRS-Trace values: a safe alphabet and length, else a fresh id is minted
 _TRACE_ID_RE = re.compile(r"^[A-Za-z0-9_.:-]{1,64}$")
 
-_A4 = "KV movement (A4)"
 _A10 = "observability (A10)"
 _A13 = "durable jobs and live sessions (A13)"
 # GET/POST route prefix -> the slice that brings it
-_LATER_ROUTES = (("/v1/handoff/", _A4), ("/v1/kv/", _A4),
-                 ("/v1/usage", _A10), ("/v1/anatomy", _A10),
+_LATER_ROUTES = (("/v1/usage", _A10), ("/v1/anatomy", _A10),
                  ("/v1/trace", _A10), ("/v1/debug/profile", _A10))
+
+
+def _handoff_error(message: str, kind: str = "handoff_error") -> dict:
+    return {"error": {"message": message, "type": kind}}
 
 
 def clean_trace_id(raw) -> str | None:
@@ -342,12 +366,47 @@ class EngineHTTPServer:
 
     def __init__(self, engine: Engine, host: str = "127.0.0.1",
                  port: int = 8000, model_name: str = "lmrs-tpu",
-                 max_tokens_cap: int = 4096, batch_window_s: float = 0.02):
+                 max_tokens_cap: int = 4096, batch_window_s: float = 0.02,
+                 role: str = "both", handoff_ttl_s: float = 60.0):
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"unknown serving role {role!r}; "
+                             "want prefill|decode|both")
         self.engine = engine
         self.model_name = model_name
         self.max_tokens_cap = max_tokens_cap
         self.batcher = _Batcher(engine, window_s=batch_window_s)
         self.started = time.time()
+        # the role is a policy, not a capability: a prefill-role server
+        # short-circuits only requests that ask for a handoff (plain ones
+        # run whole, which keeps the router's colocated fallback open),
+        # and a decode-role server mints no tickets
+        self.role = role
+        self.handoff_ttl_s = handoff_ttl_s
+        self.handoff = TicketRegistry()  # exporting side: live tickets
+        self._imported = ImportLog()     # importing side: dedup
+        # the /v1/kv page-set wire; LMRS_KV_MIGRATE=0 answers 501 and
+        # reports no migration state
+        self.kv_migrate = env_bool("LMRS_KV_MIGRATE", True)
+        self.kv_tickets = TicketRegistry()
+        self._kv_imported = ImportLog()
+        self._kv_lock = threading.Lock()
+        # ticket -> encoded blob, held until ack or expiry
+        self._kv_payloads: dict[str, bytes] = {}  # guarded-by: _kv_lock
+        self._handoff_reg = MetricsRegistry()
+        hc = self._handoff_reg.counter
+        self._c_tickets = hc("lmrs_handoff_tickets_total",
+                             "handoff tickets published (prefill side)")
+        self._c_acks = hc("lmrs_handoff_acks_total",
+                          "handoff acks accepted (prefill side)")
+        self._c_dup_rejects = hc("lmrs_handoff_duplicate_rejects_total",
+                                 "duplicate/stale imports rejected "
+                                 "idempotently (decode side)")
+        self._c_ack_failures = hc("lmrs_handoff_ack_failures_total",
+                                  "acks lost after retries (pages left to "
+                                  "the prefill orphan sweep)")
+        self._sweep_stop = threading.Event()
+        self._sweeper = threading.Thread(target=self._sweep_loop, daemon=True)
+        self._sweeper.start()
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -396,7 +455,8 @@ class EngineHTTPServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    payload = {"status": "ok", "wedged": False, "role": "both",
+                    payload = {"status": "ok", "wedged": False,
+                               "role": outer.role,
                                "uptime_s": round(time.time() - outer.started, 1)}
                     summary = outer.prefix_summary()
                     if summary is not None:
@@ -415,11 +475,18 @@ class EngineHTTPServer:
                         return
                     payload = {"engine": outer.engine.engine_metrics(),
                                "http_batches": outer.batcher.batches_run,
-                               "http_requests": outer.batcher.requests_served}
+                               "http_requests": outer.batcher.requests_served,
+                               "handoff": outer.handoff_stats()}
+                    if outer.kv_migrate:
+                        payload["kv_migrate"] = outer.kv_stats()
                     summary = outer.prefix_summary()
                     if summary is not None:
                         payload["prefix_summary"] = summary
                     self._send(200, payload)
+                elif self.path.startswith("/v1/handoff/"):
+                    self._get_handoff(self.path.split("/")[3])
+                elif self.path.startswith("/v1/kv/"):
+                    self._get_kv(self.path.split("/")[3])
                 elif not self._later_route():
                     self._no_route()
 
@@ -467,17 +534,229 @@ class EngineHTTPServer:
                                        "(want finite seconds as a number)"}})
                         return False
                     req.deadline_s = time.time() + budget
-                if body.get("handoff") not in (None, False):
-                    self._send(409, _not_ported("disaggregated handoff", _A4))
+                return self._apply_handoff(req, body)
+
+            def _apply_handoff(self, req: GenerationRequest,
+                               body: dict) -> bool:
+                """The body's ``handoff`` field: ``true`` asks for a
+                prefill-role export (ignored, i.e. a whole colocated
+                generation, on a decode-role server, an engine without
+                handoff, or a streamed request); a ticket descriptor asks
+                for a decode-role import (pulled from the source and acked
+                here).  False after an error answer."""
+                h = body.get("handoff")
+                if h in (None, False):
+                    return True
+                supported = getattr(outer.engine, "supports_handoff", False)
+                if h is True:
+                    if (outer.role != "decode" and supported
+                            and not body.get("stream")):
+                        req.handoff_export = True
+                    return True
+                if not isinstance(h, dict):
+                    self._send(400, _handoff_error(
+                        "handoff must be true or a ticket descriptor object"))
                     return False
+                if outer.role == "prefill" or not supported:
+                    self._send(409, _handoff_error(
+                        f"this host does not import handoffs "
+                        f"(role={outer.role})"))
+                    return False
+                payload, err = outer._fetch_handoff(h)
+                if err is not None:
+                    self._send(*err)
+                    return False
+                req.handoff_state = payload
                 return True
 
+            # ---------------------------------------- disaggregated handoff
+
+            def _get_handoff(self, ticket: str) -> None:
+                """Serve a pinned payload to the pulling decode side; an
+                unknown, expired or consumed ticket is 410 (at most once)."""
+                rec = outer.handoff.lookup(ticket)
+                export = getattr(outer.engine, "export_handoff", None)
+                try:
+                    if rec is None or export is None:
+                        raise KeyError(ticket)
+                    data = encode_payload(export(rec["rid"]))
+                except KeyError:  # unknown, or the pins were swept
+                    self._send(410, _handoff_error(
+                        f"handoff ticket {ticket} gone (expired, consumed, "
+                        "or unknown)"))
+                    return
+                self._send_bytes(data)
+
+            def _ack_handoff(self, ticket: str) -> None:
+                """Consume a ticket exactly once and release its pinned
+                pages; a duplicate or late ack is 410 and frees nothing."""
+                rid = outer.handoff.consume(ticket)
+                if rid is None:
+                    self._send(410, _handoff_error(
+                        f"handoff ticket {ticket} not ackable (expired, "
+                        "consumed, or unknown)"))
+                    return
+                release = getattr(outer.engine, "release_handoff", None)
+                pages = release(rid) if release is not None else 0
+                outer._c_acks.inc()
+                self._send(200, {"status": "acked", "pages_released": pages})
+
+            def _respond_ticket(self, res: GenerationResult,
+                                req: GenerationRequest) -> None:
+                """Publish a ticket for a prefill-role result (only a
+                request that asked for a handoff ever gets one)."""
+                ttl = outer.handoff_ttl_s
+                tid = outer.handoff.create(res.request_id, time.time() + ttl,
+                                           trace_id=req.trace_id)
+                outer._c_tickets.inc()
+                self._send(200, {"object": "handoff.ticket", "handoff": {
+                    "ticket": tid, "first_text": res.text,
+                    "prompt_tokens": res.prompt_tokens,
+                    "completion_tokens": res.completion_tokens,
+                    "expires_in_s": ttl, "trace": req.trace_id}})
+
+            def _send_bytes(self, data: bytes) -> None:
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            # ---------------------------------------- the /v1/kv wire
+
+            def _kv_disarmed(self) -> bool:
+                if outer.kv_migrate:
+                    return False
+                self._send(501, _handoff_error(
+                    "KV migration disabled (LMRS_KV_MIGRATE=0)",
+                    "kv_migrate_error"))
+                return True
+
+            def _post_kv_export(self, body: dict) -> None:
+                """Capture one warm preamble's page set and publish a
+                ticket for it; 404 when cold here (or the engine is
+                mid-run: the caller retries)."""
+                export = getattr(outer.engine, "kv_export", None)
+                preamble = body.get("preamble")
+                if export is None:
+                    self._send(501, _handoff_error(
+                        "this engine backend has no KV page-set export",
+                        "kv_migrate_error"))
+                    return
+                if not isinstance(preamble, str) or not preamble:
+                    self._send(400, _handoff_error(
+                        "body needs a preamble hash string",
+                        "kv_migrate_error"))
+                    return
+                payload = export(preamble)
+                if payload is None:
+                    self._send(404, _handoff_error(
+                        f"preamble {preamble} is not warm here (cold, "
+                        "unknown, or engine busy)", "kv_migrate_error"))
+                    return
+                data = encode_payload(payload)
+                ttl = outer.handoff_ttl_s
+                tid = outer.kv_tickets.create(preamble, time.time() + ttl)
+                with outer._kv_lock:
+                    outer._kv_payloads[tid] = data
+                self._send(200, {"object": "kv.ticket", "ticket": tid,
+                                 "preamble": preamble,
+                                 "tokens": int(payload.get("tokens", 0)),
+                                 "bytes": len(data), "expires_in_s": ttl})
+
+            def _get_kv(self, ticket: str) -> None:
+                if self._kv_disarmed():
+                    return
+                rec = outer.kv_tickets.lookup(ticket)
+                with outer._kv_lock:
+                    data = outer._kv_payloads.get(ticket)
+                if rec is None or data is None:
+                    self._send(410, _handoff_error(
+                        f"kv ticket {ticket} gone (expired, consumed, or "
+                        "unknown)", "kv_migrate_error"))
+                    return
+                self._send_bytes(data)
+
+            def _ack_kv(self, ticket: str) -> None:
+                if outer.kv_tickets.consume(ticket) is None:
+                    self._send(410, _handoff_error(
+                        f"kv ticket {ticket} not ackable (expired, "
+                        "consumed, or unknown)", "kv_migrate_error"))
+                    return
+                with outer._kv_lock:
+                    outer._kv_payloads.pop(ticket, None)
+                self._send(200, {"status": "acked"})
+
+            def _post_kv_import(self, body: dict) -> None:
+                """Pull a page-set blob from its source, install it into
+                the prefix cache and ack.  A duplicate ticket or a geometry
+                mismatch is 409, a busy engine 503."""
+                imp = getattr(outer.engine, "kv_import", None)
+                if imp is None:
+                    self._send(501, _handoff_error(
+                        "this engine backend has no KV page-set import",
+                        "kv_migrate_error"))
+                    return
+                tid, source = body.get("ticket"), body.get("source")
+                if not tid or not source:
+                    self._send(400, _handoff_error(
+                        "body needs ticket + source", "kv_migrate_error"))
+                    return
+                if outer._kv_imported.seen(tid):
+                    self._send(409, _handoff_error(
+                        f"duplicate kv import of ticket {tid} (already "
+                        "imported on this host)", "kv_migrate_error"))
+                    return
+                payload, err = outer._fetch_blob(f"/v1/kv/{tid}", source,
+                                                 "kv_migrate_error")
+                if err is not None:
+                    self._send(*err)
+                    return
+                try:
+                    tokens = imp(payload)
+                except RuntimeError as e:  # busy: retryable
+                    self._send(503, _handoff_error(
+                        f"kv import deferred: {e}", "kv_migrate_error"))
+                    return
+                except ValueError as e:  # geometry or framing: permanent
+                    self._send(409, _handoff_error(
+                        f"kv import rejected: {e}", "kv_migrate_error"))
+                    return
+                if not outer._kv_imported.add(tid):
+                    self._send(409, _handoff_error(
+                        f"duplicate kv import of ticket {tid}",
+                        "kv_migrate_error"))
+                    return
+                outer._send_ack(f"/v1/kv/{tid}/ack", source)
+                self._send(200, {"status": "imported",
+                                 "imported_tokens": tokens})
+
             def do_POST(self):
+                if self.path.startswith("/v1/handoff/") \
+                        and self.path.endswith("/ack"):
+                    self._ack_handoff(self.path.split("/")[3])
+                    return
+                if self.path.startswith("/v1/kv/") \
+                        and self.path.endswith("/ack"):
+                    if not self._kv_disarmed():
+                        self._ack_kv(self.path.split("/")[3])
+                    return
                 if self._later_route():
                     return
                 body = self._read_json()
                 if body is None:
                     self._send(400, {"error": {"message": "invalid JSON body"}})
+                    return
+                if self.path in ("/v1/kv/export", "/v1/kv/import"):
+                    if not self._kv_disarmed():
+                        try:
+                            if self.path == "/v1/kv/export":
+                                self._post_kv_export(body)
+                            else:
+                                self._post_kv_import(body)
+                        except Exception as e:
+                            logger.exception("kv page-set request failed")
+                            self._send(500, {"error": {"message": str(e)}})
                     return
                 if self.path == "/v1/chat/completions":
                     parse, stream, respond = (_chat_to_request,
@@ -502,7 +781,10 @@ class EngineHTTPServer:
                     # always attempt the write: a half-closed client still
                     # reads, and a dead socket just raises
                     try:
-                        respond(body, res)
+                        if res.finish_reason == "handoff":
+                            self._respond_ticket(res, req)
+                        else:
+                            respond(body, res)
                     except OSError:
                         logger.debug("client gone before response write")
                 except Exception as e:
@@ -686,6 +968,123 @@ class EngineHTTPServer:
             logger.debug("prefix summary failed", exc_info=True)
             return None
 
+    # ------------------------------------------------- handoff plumbing
+
+    def _fetch_blob(self, path: str, source: str, kind: str):
+        """GET a payload blob from ``source`` and decode it: ``(payload,
+        None)`` or ``(None, (status, error body))`` — a marked failure the
+        router falls back from, never an empty success."""
+        conn = None
+        try:
+            conn = http.client.HTTPConnection(source, timeout=30.0)
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                return None, (502, _handoff_error(
+                    f"payload fetch from {source} failed: HTTP "
+                    f"{resp.status}", kind))
+            return decode_payload(data), None
+        except (OSError, http.client.HTTPException, ValueError) as e:
+            return None, (502, _handoff_error(
+                f"transfer from {source} failed: {type(e).__name__}: {e}",
+                kind))
+        finally:
+            if conn is not None:
+                conn.close()
+
+    def _fetch_handoff(self, desc: dict):
+        """Pull a handoff payload from its source, dedup against tickets
+        imported here, and ack it.  ``(payload, None)`` or ``(None,
+        (status, error body))``."""
+        tid, source = desc.get("ticket"), desc.get("source")
+        if not tid or not source:
+            return None, (400, _handoff_error(
+                "handoff descriptor needs ticket + source"))
+        if self._imported.seen(tid):
+            self._c_dup_rejects.inc()
+            return None, (409, _handoff_error(
+                f"duplicate handoff import of ticket {tid} (already "
+                "imported on this host)"))
+        payload, err = self._fetch_blob(f"/v1/handoff/{tid}", source,
+                                        "handoff_error")
+        if err is not None:
+            return None, err
+        if not self._imported.add(tid):  # raced a concurrent duplicate
+            self._c_dup_rejects.inc()
+            return None, (409, _handoff_error(
+                f"duplicate handoff import of ticket {tid}"))
+        if not self._send_ack(f"/v1/handoff/{tid}/ack", source):
+            self._c_ack_failures.inc()
+        return payload, None
+
+    def _send_ack(self, path: str, source: str) -> bool:
+        """Ack an import so the source releases its pins; one retry.  A
+        lost ack is not the request's failure: the source's orphan sweep
+        reclaims the pins at the ticket deadline."""
+        for attempt in range(2):
+            conn = None
+            try:
+                conn = http.client.HTTPConnection(source, timeout=5.0)
+                conn.request("POST", path)
+                resp = conn.getresponse()
+                resp.read()
+                return resp.status == 200  # 410: retrying will not help
+            except (OSError, http.client.HTTPException) as e:
+                logger.warning("ack %s to %s failed (attempt %d): %s: %s",
+                               path, source, attempt + 1,
+                               type(e).__name__, e)
+            finally:
+                if conn is not None:
+                    conn.close()
+            time.sleep(0.05 * (attempt + 1))
+        logger.warning("ack %s to %s lost; the source's orphan sweep "
+                       "reclaims its pins", path, source)
+        return False
+
+    def sweep_handoffs(self, now: float | None = None) -> int:
+        """One orphan-sweep pass: expired un-acked handoff tickets release
+        their pins, expired page-set blobs drop, and the engine's own TTL
+        sweep backstops pins whose ticket was never minted.  Returns what
+        was released."""
+        released = 0
+        release = getattr(self.engine, "release_handoff", None)
+        for tid, rid, consumed in self.handoff.sweep(now):
+            if not consumed and release is not None:
+                released += release(rid, orphaned=True)
+                logger.warning("handoff ticket %s expired un-acked; pinned "
+                               "pages reclaimed", tid)
+        for tid, _preamble, consumed in self.kv_tickets.sweep(now):
+            with self._kv_lock:
+                dropped = self._kv_payloads.pop(tid, None)
+            if dropped is not None and not consumed:
+                released += 1
+        sweep = getattr(self.engine, "sweep_handoffs", None)
+        if sweep is not None:
+            released += sweep(now)
+        return released
+
+    def _sweep_loop(self) -> None:
+        interval = max(0.5, self.handoff_ttl_s / 4.0)
+        while not self._sweep_stop.wait(interval):
+            try:
+                self.sweep_handoffs()
+            except Exception:  # noqa: BLE001 - the sweeper must survive
+                logger.exception("handoff orphan sweep failed")
+
+    def kv_stats(self) -> dict:
+        """Page-set ticket state for the JSON ``/metrics``."""
+        with self._kv_lock:
+            pinned_bytes = sum(len(b) for b in self._kv_payloads.values())
+        return {**self.kv_tickets.stats(), "pinned_bytes": pinned_bytes}
+
+    def handoff_stats(self) -> dict:
+        return {"role": self.role, **self.handoff.stats(),
+                "tickets_published": int(self._c_tickets.value),
+                "acks": int(self._c_acks.value),
+                "duplicate_rejects": int(self._c_dup_rejects.value),
+                "ack_failures": int(self._c_ack_failures.value)}
+
     def prometheus_text(self) -> str:
         """``GET /metrics`` under ``Accept: text/plain``: the engine's page
         (a router's merged fleet page) and this server's HTTP counters,
@@ -704,6 +1103,7 @@ class EngineHTTPServer:
         reg.gauge("lmrs_uptime_seconds", "server uptime", "seconds").set(
             time.time() - self.started)
         parts.append(reg.render_prometheus())
+        parts.append(self._handoff_reg.render_prometheus())
         return merge_expositions(parts)
 
     def serve_forever(self) -> None:
@@ -717,6 +1117,7 @@ class EngineHTTPServer:
         return t
 
     def shutdown(self) -> None:
+        self._sweep_stop.set()
         self.httpd.shutdown()
         self.httpd.server_close()
         self.batcher.shutdown()

@@ -859,3 +859,110 @@ def test_server_streams_the_card_engine(cuda_device):
     assert eng.audit() == []
     assert all(getattr(fn, attr) > 0 for fn, attr in kernels), [
         getattr(fn, attr) for fn, attr in kernels]
+
+
+# ------------------------------------------------------- KV page-set moves
+
+def _kv_cache(dev, int8: bool):
+    """A 2-layer pool at hd 128, 2 kv heads, page 32, filled with random
+    values (bf16, or int8 for the int8 pool)."""
+    from lmrs_tpu_torch.config import ModelConfig
+    from lmrs_tpu_torch.engine.kv_cache import PagedKVCache
+
+    cfg = ModelConfig(n_layers=2, n_heads=8, n_kv_heads=2, dim=1024)
+    cache = PagedKVCache(cfg, 16, 32, 8, device=dev,
+                         dtype=torch.int8 if int8 else torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for pool in (cache.k, cache.v):
+        if int8:
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=g,
+                                     device=dev, dtype=torch.int8))
+        else:
+            pool.copy_(torch.randn(pool.shape, generator=g, device=dev))
+    return cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_pinned_page_set_round_trip(cuda_device, int8):
+    """Export through pinned buffers and import back, bit-exact, bf16 and
+    int8; the sequence form through the wire codec too."""
+    from lmrs_tpu_torch.engine.kv_cache import SequencePages
+    from lmrs_tpu_torch.serving.handoff import decode_payload, encode_payload
+
+    cache = _kv_cache(cuda_device, int8)
+    src = [3, 7, 11]
+    phys = torch.from_numpy(cache._phys_ids(src)).to(cuda_device)
+    want_k, want_v = cache.k[phys].clone(), cache.v[phys].clone()
+    pay = cache.export_pages(src)
+    assert pay["dtype"] == ("int8" if int8 else "bfloat16")
+    dst = [4, 5, 6]
+    cache.import_pages(dst, pay, sync=True)
+    dphys = torch.from_numpy(cache._phys_ids(dst)).to(cuda_device)
+    assert torch.equal(cache.k[dphys], want_k)
+    assert torch.equal(cache.v[dphys], want_v)
+    seq = SequencePages(pages=src)
+    wire = decode_payload(encode_payload(cache.export_sequence(seq, 70)))
+    cache.allocator.alloc(12)  # leave 3 free pages for the import
+    got = cache.import_sequence(wire)
+    gphys = torch.from_numpy(cache._phys_ids(got.pages)).to(cuda_device)
+    assert got.length == 70 and len(got.pages) == 3
+    assert torch.equal(cache.k[gphys], want_k)
+    assert torch.equal(cache.v[gphys], want_v)
+
+
+@pytest.mark.cuda
+def test_async_import_then_decode_reads_the_pages(cuda_device):
+    """``import_pages(sync=False)`` followed at once by a decode launch over
+    the imported pages: the same output and pool as when the pages were
+    written before the launch."""
+    cache = _kv_cache(cuda_device, False)
+    pay = cache.export_pages([1, 2])
+    ref = _kv_cache(cuda_device, False)
+    dst = [9, 10]
+    ref.import_pages(dst, pay, sync=True)
+    r = np.random.default_rng(5)
+    q, k_new, v_new = _bf16(cuda_device, *(r.standard_normal(s).astype(np.float32)
+                                          for s in ((1, 8, 128), (1, 2, 128),
+                                                    (1, 2, 128))))
+    table = torch.tensor([dst], dtype=torch.int32, device=cuda_device)
+    lens = torch.tensor([50], dtype=torch.int32, device=cuda_device)
+    # layer 1's copy of the logical pages: physical page P + p
+    table1 = table + cache.num_pages
+    want = tpa.paged_decode_fused(q, k_new, v_new, ref.k, ref.v, table1, lens)
+    cache.import_pages(dst, pay, sync=False)
+    got = tpa.paged_decode_fused(q, k_new, v_new, cache.k, cache.v, table1, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(cache.k, ref.k) and torch.equal(cache.v, ref.v)
+
+
+@pytest.mark.cuda
+def test_handoff_between_two_engines(cuda_device):
+    """A prefill engine pins a handoff, its payload crosses the codec, a
+    second engine imports it and decodes: the text equals the colocated
+    run on that engine (greedy, the same dispatch shapes); no pins
+    left, clean audits."""
+    import dataclasses
+
+    from lmrs_tpu_torch.config import EngineConfig, model_preset
+    from lmrs_tpu_torch.engine.api import GenerationRequest
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.serving.handoff import decode_payload, encode_payload
+
+    mcfg = dataclasses.replace(model_preset("tiny"), n_layers=2)
+    ecfg = EngineConfig(page_size=32, num_pages=64, max_tokens=24)
+    pe = TorchEngine(ecfg, mcfg, device="cuda")
+    de = TorchEngine(ecfg, mcfg, device="cuda")
+    req = GenerationRequest(prompt="The budget review opened the meeting. " * 6,
+                            max_new_tokens=24, temperature=0.0)
+    r = pe.generate_batch([dataclasses.replace(req, request_id=1,
+                                               handoff_export=True)])[0]
+    assert r.finish_reason == "handoff"
+    payload = decode_payload(encode_payload(pe.export_handoff(1)))
+    assert pe.release_handoff(1) > 0 and not pe.pinned_handoffs()
+    got = de.generate_batch([dataclasses.replace(req, request_id=2,
+                                                 handoff_state=payload)])[0]
+    colo = de.generate_batch([dataclasses.replace(req, request_id=3)])[0]
+    assert got.text == colo.text and got.completion_tokens == colo.completion_tokens
+    assert not pe.audit() and not de.audit()

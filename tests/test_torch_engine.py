@@ -226,7 +226,7 @@ def test_cli_no_prefix_cache_runs(tmp_path):
     assert "prefix_cache" not in report["engine_metrics"]
 
 
-@pytest.mark.parametrize("flag", [["--profile"], ["--host-kv"],
+@pytest.mark.parametrize("flag", [["--profile"],
                                   ["--kv-quantize", "int4"], ["--mesh", "1,2"]])
 def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     """Flags of later slices are refused by name; since int8 is ported,
@@ -243,9 +243,34 @@ def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     assert want in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("var,field,want", [
+    ("LMRS_HOST_KV", "host_kv", False), ("LMRS_KV_DISK", "kv_disk", True)])
+def test_host_kv_environment_switches(monkeypatch, tmp_path, var, field,
+                                      want, capsys):
+    """The spill tiers are set, as in the reference, through the
+    environment and ``EngineConfig``: ``LMRS_HOST_KV=0`` disarms the host
+    tier, ``LMRS_KV_DISK=1`` arms the disk tier under it.  The CLI has no
+    ``--host-kv`` flag (the reference's ``lmrs`` has none)."""
+    from lmrs_tpu_torch.cli import build_parser
+
+    monkeypatch.setenv(var, "1" if want else "0")
+    monkeypatch.setenv("LMRS_KV_DISK_DIR", str(tmp_path))
+    cfg = EngineConfig(page_size=16, num_pages=16)
+    assert getattr(cfg, field) is want
+    eng = TorchEngine(cfg, TModelConfig(**CFG), device="cpu",
+                      tokenizer=IdTokenizer())
+    pc = eng._scheduler._prefix_cache
+    assert (pc.pool is not None) is cfg.host_kv
+    assert (pc.disk is not None) is (cfg.host_kv and cfg.kv_disk)
+    assert eng.engine_metrics()["host_kv"]["enabled"] is cfg.host_kv
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--input", "x.json", "--host-kv"])
+    assert "unrecognized arguments: --host-kv" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("flag,slice_", [
     (["--mesh", "1,2"], "A8"),
-    (["--host-kv"], "A4"), (["--profile"], "A10"),
+    (["--profile"], "A10"),
     (["--trace-out", "t.json"], "A10"), (["--no-trace"], "A10")])
 def test_cli_refuses_reference_flags_by_name(tmp_path, flag, slice_, capsys):
     """The reference CLI's flags of features the port lacks are refused by
@@ -294,6 +319,7 @@ def test_package_imports_no_jax_and_no_reference_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import lmrs_tpu_torch\n"
         "for m in pkgutil.walk_packages(lmrs_tpu_torch.__path__, 'lmrs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -301,6 +327,9 @@ def test_package_imports_no_jax_and_no_reference_package():
         "bad = [k for k in sys.modules if k == 'lmrs_tpu' or k.startswith('lmrs_tpu.')]\n"
         "assert not bad, bad\n"
         "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['ml_dtypes'] is None\n"
+        "for m in ('engine.host_kv', 'serving.handoff'):\n"
+        "    assert 'lmrs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -2,10 +2,10 @@
 reference's on the same requests (the demo transcript's map prompts, stop
 strings, ``fail_pattern``, deadlines, cancel), its ``engine_metrics`` and
 ``prefix_summary``, and ``TranscriptSummarizer`` with ``backend="mock"`` in
-both packages.  Held exactly.  The reference runs with its observability
-switched off (cost ledger, SLO, anatomy, QoS) and its host KV tier off: the
-port's mock has neither (A10, A4), so the reference's ``host_kv`` metrics
-block is left out of the comparison.  No JAX compile, no sockets."""
+both packages.  Held exactly, the ``host_kv`` and ``kv_migrate`` blocks
+included (both mocks run their default host tier).  The reference runs
+with its observability switched off (cost ledger, SLO, anatomy, QoS): the
+port's mock does not carry it yet (A10).  No JAX compile, no sockets."""
 
 import dataclasses
 import time
@@ -32,7 +32,7 @@ from lmrs_tpu_torch.utils.timing import StageTimer
 
 # the reference's observability surfaces the port's mock does not carry
 REF_OFF = {"LMRS_COST_LEDGER": "0", "LMRS_SLO": "0", "LMRS_ANATOMY": "0",
-           "LMRS_QOS": "0", "LMRS_KV_MIGRATE": "0"}
+           "LMRS_QOS": "0"}
 RESULT_FIELDS = ("request_id", "text", "prompt_tokens", "completion_tokens",
                  "finish_reason", "stop_sequence", "error")
 
@@ -44,7 +44,7 @@ def ref_surfaces_off(monkeypatch):
 
 
 def ref_mock(**kw):
-    return JMock(host_kv=False, cost_ledger=False, slo=False, qos=False, **kw)
+    return JMock(cost_ledger=False, slo=False, qos=False, **kw)
 
 
 def to_ref(req: GenerationRequest) -> JRequest:
@@ -57,7 +57,7 @@ def fields(results) -> list[dict]:
 
 
 def metrics(engine) -> dict:
-    return {k: v for k, v in engine.engine_metrics().items() if k != "host_kv"}
+    return engine.engine_metrics()
 
 
 def map_requests(n_segments: int = 200) -> list[GenerationRequest]:
@@ -92,20 +92,29 @@ def test_map_prompts_match_reference(kw):
         assert port.engine_metrics()["spec_tree"]["dispatches"] > 0
 
 
-def test_emulated_cache_evicts_like_reference():
-    """Past the resident budget the LRU preamble drops (host tier off)."""
+@pytest.mark.parametrize("host_kv", [False, True])
+def test_emulated_cache_evicts_like_reference(host_kv):
+    """Past the resident budget the LRU preamble drops (host tier off) or
+    spills to the emulated host pool, where a later hit restores it (the
+    default, tier on)."""
     reqs = [GenerationRequest(prompt=f"preamble {i} " * 200 + "body",
                               request_id=i, cache_prefix=1500)
             for i in range(6)]
     reqs += [dataclasses.replace(reqs[0], request_id=6),
              dataclasses.replace(reqs[5], request_id=7)]
-    port, ref = MockEngine(), ref_mock()
+    kw = {} if host_kv else {"host_kv": False}
+    port, ref = MockEngine(**kw), ref_mock(**kw)
     for r in reqs:  # one request a batch: an LRU walk per request
         assert fields(port.generate_batch([dataclasses.replace(r)])) == \
             fields(ref.generate_batch([to_ref(r)]))
     assert metrics(port) == metrics(ref)
     assert port.prefix_summary() == ref.prefix_summary()
-    assert len(port.prefix_summary()) < 6
+    if host_kv:
+        tier = metrics(port)["host_kv"]
+        assert tier["spill_pages"] > 0 and tier["spilled_hits"] > 0
+        assert any(r["spilled_tokens"] for r in port.prefix_summary())
+    else:
+        assert len(port.prefix_summary()) < 6
 
 
 def test_stop_strings_and_fail_pattern_match_reference():
@@ -214,8 +223,7 @@ def test_pipeline_backend_mock_matches_reference(streaming):
     a, b = ref.summarize(data), port.summarize(data)
     assert comparable(b) == comparable(a)
     assert b["hierarchical"] and b["failed_requests"] == 0
-    ea = {k: v for k, v in a["engine_metrics"].items() if k != "host_kv"}
-    assert b["engine_metrics"] == ea
+    assert b["engine_metrics"] == a["engine_metrics"]
     assert isinstance(port.executor.engine, MockEngine)
 
 

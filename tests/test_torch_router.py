@@ -63,7 +63,7 @@ class Fleet:
                 srv = EngineHTTPServer(MockEngine(**mock_kw), port=port,
                                        batch_window_s=0.01)
             else:
-                srv = JServer(JMock(host_kv=False, cost_ledger=False,
+                srv = JServer(JMock(cost_ledger=False,
                                     slo=False, qos=False, **mock_kw),
                               port=port, batch_window_s=0.01)
             srv.start_background()
@@ -440,18 +440,40 @@ def test_make_engine_http_floors_the_socket_timeout(monkeypatch):
 @pytest.mark.parametrize("kw,match", [
     ({"backend": "jax"}, "backend 'torch'"),
     ({"backend": "openai"}, "'torch', 'mock' and 'http'"),
-    ({"prefill_hosts": ("h:1",)}, r"\(A4\) slice"),
-    ({"decode_hosts": ("h:1",)}, r"\(A4\) slice")])
+    ({"prefill_hosts": ("h:1",)}, None),
+    ({"decode_hosts": ("h:1",)}, None)])
 def test_config_refusals(kw, match):
-    with pytest.raises(ValueError, match=match):
-        EngineConfig(**kw)
+    """Unknown backends are refused; role pools are accepted and form the
+    router's pools."""
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            EngineConfig(**kw)
+        return
+    router = make_engine(EngineConfig(backend="http", **kw))
+    try:
+        role = "prefill" if "prefill_hosts" in kw else "decode"
+        assert [h.netloc for h in router.pools[role]] == ["h:1"]
+        assert router.pools["both"] == [] and not router._disagg_ready()
+    finally:
+        router.shutdown()
 
 
 @pytest.mark.parametrize("var", ["LMRS_PREFILL_HOSTS", "LMRS_DECODE_HOSTS"])
 def test_role_pool_environment_is_refused(monkeypatch, var):
-    monkeypatch.setenv(var, "127.0.0.1:1")
-    with pytest.raises(ValueError, match=r"\(A4\) slice"):
-        EngineConfig()
+    """``LMRS_PREFILL_HOSTS``/``LMRS_DECODE_HOSTS`` form the router's role
+    pools behind ``--backend http`` (no ``--hosts`` needed)."""
+    monkeypatch.setenv(var, "127.0.0.1:1, 127.0.0.1:2")
+    cfg = EngineConfig(backend="http")
+    field = var.removeprefix("LMRS_").lower()
+    assert getattr(cfg, field) == ("127.0.0.1:1", "127.0.0.1:2")
+    router = make_engine(cfg)
+    try:
+        role = field.split("_")[0]
+        assert [h.role for h in router.hosts] == [role, role]
+        assert set(router.pools) == {"both", "prefill", "decode"}
+        assert len(router.pools[role]) == 2
+    finally:
+        router.shutdown()
 
 
 def test_router_refusals(monkeypatch):

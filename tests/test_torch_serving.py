@@ -1,10 +1,11 @@
 """Port parity of the serving surface: the port's ``EngineHTTPServer`` over
 the port's ``MockEngine`` against the reference's server over the
 reference's mock, on the same request bodies.  The JSON must agree less
-``id``, ``created`` and timing fields (``uptime_s``), and less the keys
-whose features wait for later slices (``handoff`` and ``kv_migrate`` in
-``/metrics``, ``slo`` in ``/healthz``, the mock's ``host_kv`` block); the
-SSE event sequences agree the same way.  Then the port's own engine behind
+``id``, ``created`` and timing fields (``uptime_s``), the random ticket
+ids (``ticket``, ``trace``), and less ``slo`` in ``/healthz`` (a later
+slice's); the ``handoff`` and ``kv_migrate`` stats of ``/metrics`` and the
+mock's ``host_kv`` block are compared.  The SSE event sequences agree the
+same way.  Then the port's own engine behind
 the server on the CPU (``test_torch_engine.py``'s CFG): streamed deltas
 join to the non-streamed greedy text on every dispatch path, the stop and
 U+FFFD holdbacks hold, and in one case the ``on_tokens`` deltas equal the
@@ -45,9 +46,9 @@ from conftest import free_port
 
 REPO = Path(__file__).resolve().parents[1]
 REF_OFF = {"LMRS_COST_LEDGER": "0", "LMRS_SLO": "0", "LMRS_ANATOMY": "0",
-           "LMRS_QOS": "0", "LMRS_KV_MIGRATE": "0"}
-# ids, clocks, and the keys of later slices
-DROP = {"id", "created", "uptime_s", "handoff", "kv_migrate", "slo", "host_kv"}
+           "LMRS_QOS": "0"}
+# ids, clocks, random ticket ids, and the key of a later slice
+DROP = {"id", "created", "uptime_s", "ticket", "trace", "slo"}
 TIMEOUT = 10.0
 CFG = dict(vocab_size=300, dim=128, n_layers=2, n_heads=2, n_kv_heads=1,
            hidden_dim=160, max_seq_len=128, dtype="float32",
@@ -82,8 +83,7 @@ class PortMock(Recording, MockEngine):
 
 class RefMock(Recording, JMock):
     def __init__(self, **kw):
-        super().__init__(host_kv=False, cost_ledger=False, slo=False,
-                         qos=False, **kw)
+        super().__init__(cost_ledger=False, slo=False, qos=False, **kw)
 
 
 @pytest.fixture
@@ -422,9 +422,6 @@ def test_trace_header_adopted_or_minted(servers):
     ("GET", "/v1/sessions?x=1", 501, "A13"),
     ("POST", "/v1/sessions/s1/segments", 501, "A13"),
     ("DELETE", "/v1/sessions/s1", 501, "A13"),
-    ("GET", "/v1/handoff/t1", 404, "A4"),
-    ("POST", "/v1/handoff/t1/ack", 404, "A4"),
-    ("POST", "/v1/kv/export", 404, "A4"), ("GET", "/v1/kv/t1", 404, "A4"),
     ("GET", "/v1/usage", 404, "A10"), ("GET", "/v1/anatomy", 404, "A10"),
     ("GET", "/v1/trace", 404, "A10"),
     ("POST", "/v1/debug/profile", 404, "A10"),
@@ -441,12 +438,28 @@ def test_later_routes_are_refused_by_name(shared, method, path, status,
                     {} if method == "POST" else None)[0] == 501
 
 
+@pytest.mark.parametrize("method,path,status", [
+    ("GET", "/v1/handoff/t1", 410), ("POST", "/v1/handoff/t1/ack", 410),
+    ("POST", "/v1/kv/export", 400), ("GET", "/v1/kv/t1", 410)])
+def test_handoff_and_kv_routes_answer_like_reference(shared, method, path,
+                                                     status):
+    """The ``/v1/handoff`` and ``/v1/kv`` routes answer as the reference's
+    do: an unknown ticket is gone (410), an export without a preamble is a
+    400."""
+    body = {} if method == "POST" else None
+    got = both(shared, method, path, body)
+    assert got[0] == got[1] and got[0][0] == status
+
+
 def test_handoff_field_refused_tenant_headers_inert(shared):
+    """``"handoff": true`` is served as in the reference (the mock pins its
+    completion and the answer is a ticket); the tenant and QoS headers stay
+    inert."""
     pair = shared
     body = {"messages": [{"role": "user", "content": TEXT}]}
-    code, _, text = call(pair[0], "POST", "/v1/chat/completions",
-                         {**body, "handoff": True})
-    assert code == 409 and "(A4) slice" in text
+    got = both(pair, "POST", "/v1/chat/completions", {**body, "handoff": True})
+    assert got[0] == got[1] and got[0][0] == 200
+    assert got[0][1]["object"] == "handoff.ticket"
     plain = both(pair, "POST", "/v1/chat/completions", body)
     tagged = both(pair, "POST", "/v1/chat/completions", body,
                   headers={"X-LMRS-Tenant": "acme",
@@ -611,9 +624,7 @@ def test_engine_prefix_summary_publishes_donated_preambles():
 # ------------------------------------------------------ lmrs-serve-torch
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--mesh", "1,2"], "A8"), (["--role", "prefill"], "A4"),
-    (["--role", "decode"], "A4"), (["--handoff-ttl", "5"], "A4"),
-    (["--jobs-dir", "j"], "A13"), (["--live-dir", "l"], "A13"),
+    (["--mesh", "1,2"], "A8"), (["--jobs-dir", "j"], "A13"), (["--live-dir", "l"], "A13"),
     (["--supervise"], "A10"), (["--trace"], "A10")])
 def test_serve_cli_refuses_later_flags(flag, slice_, capsys):
     from lmrs_tpu_torch.serving.cli import main
@@ -624,6 +635,28 @@ def test_serve_cli_refuses_later_flags(flag, slice_, capsys):
     err = capsys.readouterr().err
     assert f"{flag[0]} is not in the port yet" in err
     assert f"({slice_}) slice" in err
+
+
+@pytest.mark.parametrize("flags,role,ttl", [
+    (["--role", "prefill"], "prefill", 60.0),
+    (["--role", "decode"], "decode", 60.0),
+    (["--handoff-ttl", "5"], "both", 5.0)])
+def test_serve_cli_role_flags(monkeypatch, flags, role, ttl):
+    """``--role`` and ``--handoff-ttl`` reach the server (its constructor
+    is stubbed to record them and fail the bind, so ``main`` returns 1)."""
+    from lmrs_tpu_torch.serving import cli, server
+
+    monkeypatch.delenv("LMRS_HANDOFF_TTL", raising=False)
+    seen = {}
+
+    class Stub:
+        def __init__(self, engine, **kw):
+            seen.update(kw)
+            raise OSError("stub bind")
+
+    monkeypatch.setattr(server, "EngineHTTPServer", Stub)
+    assert cli.main([*flags, "--backend", "mock", "-q"]) == 1
+    assert (seen["role"], seen["handoff_ttl_s"]) == (role, ttl)
 
 
 def test_serve_cli_fails_when_the_engine_cannot_build():
