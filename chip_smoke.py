@@ -230,7 +230,35 @@ anything wrong.  Phases, one JSON object per line:
               kernel with the warm host's text, and a same-preamble group
               of 8 through a colocated router ends with
               ``lmrs_kv_migrate_prefetches_total`` above 0.
-17. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+17. jobs-live — durable jobs and live sessions at full bench-8b (random-
+              init bf16, byte tokenizer), each sub-phase on a line of its
+              own with the card's name and power limit.  17a:
+              ``lmrs-serve-torch --jobs-dir --max-tokens-cap 64`` as a
+              child on the card (this script with ``--jobs-child``: the
+              CLI, each chunk record appended 0.3 s late so the kill lands
+              between records, the launch counts printed at exit); a job
+              of 60 demo segments (16 map prompts) is SIGKILLed once its
+              journal holds 3 chunk records, a new server on the same
+              directory recovers it: ``done``, the journaled chunks not
+              mapped again (map requests = the chunks left) and their
+              records unchanged, no corrupt record on replay, flash and the
+              decode kernel launched in the resumed server; start-up,
+              resume and fsync seconds, journal bytes, requests and prefill
+              tokens against the uninterrupted map wave.  17b: an in-process
+              server with ``live_dir`` (and ``jobs_dir``) over a
+              ``speculate_k=4`` engine (tree speculation): a session fed
+              120 demo segments in three appends, a refresh after each:
+              refresh 1 carries no draft hint, 2 and 3 the previous
+              summary (read on the requests the engine saw), 2 and 3 reuse
+              chunk summaries and reduce nodes, the chunks equal a cold
+              session's, the ancestor-mask build launched in refreshes 2-3;
+              the server shut down, a new manager recovers the session with
+              equal status and summary docs; refresh 3's requests rerun with
+              and without the hint (accept depths printed, not gated).  17c:
+              a ``RouterEngine`` front over 17b's server: a job and a
+              session's create, append and refresh through it, pinned to
+              the host, the routed docs equal the host's.
+18. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -3958,6 +3986,396 @@ def run_kv_path(smi: str) -> dict:
             "handoffs": c["handoff_exports"], "prefetches": d["prefetches"]}
 
 
+# ------------------------------------------------------------ phase 17
+
+JOBS_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "jobs17"
+JOB_SEGMENTS = 60   # demo segments of 17a's job: 16 map prompts ...
+JOB_CHUNK = 350     # ... at this many approx tokens a chunk (the served
+                    # surface chunks with the approx counter: <= 1,690 bytes)
+JOB_STALL = 0.3     # seconds the first 17a server waits before each chunk
+                    # record: a kill window between records
+LIVE_SEGMENTS = 120  # 17b's transcript: 6, 10 and 14 chunks after its appends
+
+
+def jobs_child(args: list[str]) -> int:
+    """``python3 chip_smoke.py --jobs-child STALL <lmrs-serve-torch args>``:
+    17a's server.  With ``STALL`` > 0 each chunk record is appended
+    ``STALL`` seconds late (it changes when a record lands, never what it
+    says).  On a clean exit it prints the kernels' launch counts as one
+    JSON line (the counters live in this process)."""
+    from lmrs_tpu_torch.jobs import journal as jl
+    from lmrs_tpu_torch.serving import cli
+
+    stall = float(args[0])
+    if stall > 0:
+        plain_append = jl.Journal.append
+
+        def paced_append(self, rec):
+            if rec.get("type") == "chunk_done":
+                time.sleep(stall)
+            return plain_append(self, rec)
+
+        jl.Journal.append = paced_append
+    counted = kernel_counters()
+    rc = cli.main(args[1:])
+    print(json.dumps({"launches": {n: getattr(fn, a)
+                                   for n, (fn, a) in counted.items()}}),
+          flush=True)
+    return rc
+
+
+def _spawn_jobs_server(port: int, stall: float, log_path: Path, model: str,
+                       device: str):
+    import os
+
+    here = Path(__file__).resolve().parent
+    with open(log_path, "w", encoding="utf-8") as log:
+        return subprocess.Popen(
+            [sys.executable, str(here / "chip_smoke.py"), "--jobs-child",
+             str(stall), "--model", model, "--tokenizer", "byte", "--port",
+             str(port), "--device", device, "--jobs-dir", str(JOBS_DIR / "dir"),
+             "--max-tokens-cap", "64", "-q"],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(here)})
+
+
+def _wait_healthz(proc, port: int, log_path: Path, t0: float) -> float:
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"17a: the server exited {proc.returncode} "
+                                 f"before /healthz: "
+                                 f"{log_path.read_text()[-2000:]}")
+        if time.time() - t0 > SERVE_TIMEOUT:
+            raise AssertionError(f"17a: no /healthz in {SERVE_TIMEOUT} s")
+        try:
+            if http_call(port, "GET", "/healthz", timeout=5)[0] == 200:
+                return time.time() - t0
+        except OSError:
+            time.sleep(0.1)
+
+
+def run_job_kill_path(smi: str, model: str = "bench-8b",
+                      device: str = "cuda") -> dict:
+    """17a: a job on ``lmrs-serve-torch --jobs-dir`` survives a SIGKILL
+    mid-journal and finishes ``done`` on a restarted server."""
+    import shutil
+    import signal
+
+    from lmrs_tpu_torch.jobs import journal as jl
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    shutil.rmtree(JOBS_DIR, ignore_errors=True)
+    JOBS_DIR.mkdir(parents=True)
+    port = free_port()
+    procs = []
+    try:
+        t0 = time.time()
+        procs.append(_spawn_jobs_server(port, JOB_STALL, JOBS_DIR / "cold.log",
+                                        model, device))
+        cold_s = _wait_healthz(procs[0], port, JOBS_DIR / "cold.log", t0)
+        body = {"transcript": load_demo_transcript(max_segments=JOB_SEGMENTS),
+                "params": {"max_tokens_per_chunk": JOB_CHUNK}}
+        status, raw = http_call(port, "POST", "/v1/jobs", body)
+        if status != 200:
+            raise AssertionError(f"17a: submit answered {status}: {raw[:300]}")
+        jid = json.loads(raw)["id"]
+        wal = JOBS_DIR / "dir" / f"{jid}.wal"
+        while True:
+            recs = jl.replay(wal)[0]
+            n_chunks = max((r.get("num_chunks", 0) for r in recs
+                            if r["type"] == "job_header"), default=0)
+            done = [r for r in recs if r["type"] == "chunk_done"]
+            if len(done) >= 3:
+                break
+            if time.time() - t0 > SERVE_TIMEOUT:
+                raise AssertionError("17a: fewer than 3 chunk records in "
+                                     f"{SERVE_TIMEOUT} s")
+            time.sleep(0.02)
+        # the map wave is over (records land after it): the uninterrupted
+        # map stage's engine counters
+        first = json.loads(http_call(port, "GET", "/metrics")[1])["engine"]
+        procs[0].send_signal(signal.SIGKILL)
+        procs[0].wait(timeout=60)
+        recs, meta = jl.replay(wal)
+        pre = {jl.chunk_key(r["chunk_index"], r["start_time"], r["end_time"]):
+               r["summary"] for r in recs if r["type"] == "chunk_done"}
+        if not 3 <= len(pre) < n_chunks:
+            raise AssertionError(f"17a: {len(pre)} of {n_chunks} chunk "
+                                 "records at the kill")
+        wal_bytes, wal_records = wal.stat().st_size, meta["records"]
+        t1 = time.time()
+        procs.append(_spawn_jobs_server(port, 0.0, JOBS_DIR / "resumed.log",
+                                        model, device))
+        resumed_s = _wait_healthz(procs[1], port, JOBS_DIR / "resumed.log", t1)
+        t2 = time.time()
+        while True:
+            doc = json.loads(http_call(port, "GET", f"/v1/jobs/{jid}")[1])
+            if doc["status"] not in ("queued", "running"):
+                break
+            if time.time() - t2 > SERVE_TIMEOUT:
+                raise AssertionError(f"17a: the job is {doc['status']} after "
+                                     f"{SERVE_TIMEOUT} s")
+            time.sleep(0.1)
+        resume_s = time.time() - t2
+        second = json.loads(http_call(port, "GET", "/metrics")[1])["engine"]
+        procs[1].send_signal(signal.SIGINT)
+        rc = procs[1].wait(timeout=120)
+        log = (JOBS_DIR / "resumed.log").read_text()
+        if rc != 0:
+            raise AssertionError(f"17a: SIGINT exit {rc}: {log[-2000:]}")
+        launches = json.loads([ln for ln in log.splitlines()
+                               if ln.startswith('{"launches"')][-1])["launches"]
+        result, prog = doc.get("result") or {}, doc["progress"]
+        if doc["status"] != "done" or not doc["recovered"]:
+            raise AssertionError(f"17a: resumed job {doc['status']}: "
+                                 f"{doc.get('error')}")
+        if prog["num_resumed_chunks"] != len(pre):
+            raise AssertionError(f"17a: {prog['num_resumed_chunks']} chunks "
+                                 f"resumed, {len(pre)} journaled")
+        map_requests = result["total_requests"] - prog["reduce_nodes_done"]
+        if map_requests != n_chunks - len(pre) or second["requests"] != \
+                result["total_requests"]:
+            raise AssertionError(f"17a: {map_requests} map requests for "
+                                 f"{n_chunks - len(pre)} chunks left")
+        recs, meta = jl.replay(wal)
+        if meta["corrupt"]:
+            raise AssertionError(f"17a: replay found a corrupt record: {meta}")
+        state = jl.rebuild_state(recs)
+        again = [r for r in recs if r["type"] == "chunk_done"
+                 and jl.chunk_key(r["chunk_index"], r["start_time"],
+                                  r["end_time"]) in pre]
+        if len(again) != len(pre) or any(
+                state["chunks"][k]["summary"] != s for k, s in pre.items()):
+            raise AssertionError("17a: a journaled chunk was recomputed or "
+                                 "its summary changed")
+        require_launches(launches, "resumed job server",
+                         ("flash_prefill", "paged_decode_fused"))
+        # the journal's fsync'd append on this disk: the chunk records
+        # again, into a scratch journal in the same directory
+        probe = jl.Journal(JOBS_DIR / "probe.wal")
+        t3 = time.time()
+        for r in recs[:50]:
+            probe.append(r)
+        fsync_s = (time.time() - t3) / min(50, len(recs))
+        probe.close()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(JOBS_DIR, ignore_errors=True)
+    return {"phase": "jobs-17a", "card": smi, "job": jid,
+            "num_chunks": n_chunks, "journaled_at_kill": len(pre),
+            "cold_startup_seconds": cold_s,
+            "resumed_startup_seconds": resumed_s,
+            "resume_to_done_seconds": resume_s,
+            "uninterrupted_map": {"requests": first["requests"],
+                                  "prefill_tokens": first["prefill_tokens"]},
+            "resumed": {"map_requests": map_requests,
+                        "reduce_requests": prog["reduce_nodes_done"],
+                        "prefill_tokens": second["prefill_tokens"]},
+            "journal_bytes_at_kill": wal_bytes,
+            "journal_records_at_kill": wal_records,
+            "journal_records_final": meta["records"],
+            "fsync_seconds_per_record": fsync_s,
+            "launches": nonzero(launches)}
+
+
+def _live_call(port: int, method: str, path: str, body=None) -> dict:
+    status, raw = http_call(port, method, path, body)
+    if status != 200:
+        raise AssertionError(f"{method} {path} answered {status}: {raw[:300]}")
+    return json.loads(raw)
+
+
+def _tree_delta(m0: dict, m1: dict) -> dict:
+    rows = m1["spec_tree_rows"] - m0["spec_tree_rows"]
+    return {"dispatches": m1["spec_tree"]["dispatches"]
+            - m0["spec_tree"]["dispatches"],
+            "mean_accept_depth": ((m1["spec_accept_depth_sum"]
+                                   - m0["spec_accept_depth_sum"]) / rows)
+            if rows else 0.0}
+
+
+def run_live_path(smi: str, model: str = "bench-8b",
+                  device: str = "cuda") -> tuple[dict, dict]:
+    """17b and 17c over one in-process ``lmrs-serve-torch`` server (jobs and
+    live sessions on) on a full ``model`` engine with tree speculation."""
+    import dataclasses
+    import gc
+    import shutil
+
+    from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig, LiveConfig,
+                                       PipelineConfig, ReduceConfig)
+    from lmrs_tpu_torch.live import SessionManager
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.serving.router import RouterEngine
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    cfg = PipelineConfig(
+        engine=EngineConfig(model=model, max_tokens=64, seed=0,
+                            temperature=0.0, speculate_k=4),
+        # byte chunks as phase 5's; arity 4 keeps a reduce node's four
+        # 64-token summaries inside the 2,048 window
+        chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=1400),
+        reduce=ReduceConfig(max_summaries_per_batch=4),
+        live=LiveConfig(class_default="bulk"))
+    live_dir = JOBS_DIR / "live"
+    shutil.rmtree(JOBS_DIR, ignore_errors=True)
+    engine = TranscriptSummarizer(cfg, device=device).executor.engine
+    rec = WaveRecorder(engine)
+    srv = EngineHTTPServer(rec, port=0, model_name=model, batch_window_s=0.02,
+                           max_tokens_cap=64, jobs_dir=str(JOBS_DIR / "jobs"),
+                           live_dir=str(live_dir), pipeline_config=cfg)
+    srv.start_background()
+    front = router = None
+    try:
+        p = srv.port
+        _live_call(p, "POST", "/v1/sessions", {"session_id": "live17"})
+        segs = load_demo_transcript(max_segments=LIVE_SEGMENTS)["segments"]
+        cut = [0, int(len(segs) * 0.4), int(len(segs) * 0.7), len(segs)]
+        refreshes, prev, reqs3 = [], None, []
+        counted = kernel_counters()
+        for i in range(3):
+            if i == 1:  # refreshes 2-3: the ones with a hint
+                for fn, attr in counted.values():
+                    setattr(fn, attr, 0)
+            w0, m0, t0 = len(rec.waves), engine.engine_metrics(), time.time()
+            doc = _live_call(p, "POST", "/v1/sessions/live17/segments",
+                             {"segments": segs[cut[i]:cut[i + 1]],
+                              "refresh": True})["refresh"]
+            torch.cuda.synchronize()
+            wall, m1 = time.time() - t0, engine.engine_metrics()
+            reqs = [r for w in rec.waves[w0:] for r in w]
+            hints = {r.draft_hint for r in reqs}
+            if hints != {prev}:
+                raise AssertionError(f"17b: refresh {i + 1} carried hints "
+                                     f"{[h and h[:40] for h in hints]}")
+            if i and not (doc["chunk_summaries_reused"] > 0
+                          and doc["reduce_nodes_reused"] > 0
+                          and doc["dirty_chunks"] < doc["num_chunks"]):
+                raise AssertionError(f"17b: refresh {i + 1} reused nothing: "
+                                     f"{ {k: v for k, v in doc.items() if k != 'summary'} }")
+            if doc["final_error"] or doc["map_failed"]:
+                raise AssertionError(f"17b: refresh {i + 1} degraded")
+            refreshes.append({
+                "wall_seconds": wall, "requests": len(reqs),
+                "hint_chars": len(prev or ""),
+                "dirty_chunks": doc["dirty_chunks"],
+                "num_chunks": doc["num_chunks"],
+                "chunk_summaries_reused": doc["chunk_summaries_reused"],
+                "reduce_nodes_reused": doc["reduce_nodes_reused"],
+                "reduce_nodes_computed": doc["reduce_nodes_computed"],
+                "prefill_tokens": m1["prefill_tokens"] - m0["prefill_tokens"],
+                "spec_tree": _tree_delta(m0, m1)})
+            prev = doc["summary"]
+            if i == 2:
+                reqs3 = reqs
+        launches = {n: getattr(fn, a) for n, (fn, a) in counted.items()}
+        require_launches(launches, "live session's refreshes 2-3",
+                         ("flash_prefill", "ragged_spans_anc"),
+                         never=("paged_decode_fused", "paged_decode_multi"))
+        cold = SessionManager(None, JOBS_DIR / "cold", config=cfg)
+        cold.create(session_id="cold")
+        cold.append("cold", segs)
+        ident = [(c.chunk_index, c.start_time, c.end_time, c.text)
+                 for c in cold.get("cold").inc.chunks()]
+        if ident != [(c.chunk_index, c.start_time, c.end_time, c.text)
+                     for c in srv.live.get("live17").inc.chunks()]:
+            raise AssertionError("17b: chunk boundaries differ from a cold "
+                                 "session's")
+        before = (_live_call(p, "GET", "/v1/sessions/live17"),
+                  _live_call(p, "GET", "/v1/sessions/live17/summary"))
+        # 17c: a router front over this server
+        router = RouterEngine([f"127.0.0.1:{p}"], timeout_s=SERVE_TIMEOUT)
+        front = EngineHTTPServer(router, port=0, batch_window_s=0.01)
+        front.start_background()
+        f, host = front.port, f"127.0.0.1:{p}"
+        t0 = time.time()
+        job = _live_call(f, "POST", "/v1/jobs", {
+            "transcript": load_demo_transcript(max_segments=20)})
+        while job["status"] in ("queued", "running"):
+            if time.time() - t0 > SERVE_TIMEOUT:
+                raise AssertionError("17c: the routed job did not finish")
+            time.sleep(0.1)
+            job = _live_call(f, "GET", f"/v1/jobs/{job['id']}")
+        job_s = time.time() - t0
+        t0 = time.time()
+        _live_call(f, "POST", "/v1/sessions", {"session_id": "routed17"})
+        _live_call(f, "POST", "/v1/sessions/routed17/segments",
+                   {"segments": segs[:20], "refresh": True})
+        session_s = time.time() - t0
+        for kind, ident_, path in (("job", job["id"], f"/v1/jobs/{job['id']}"),
+                                   ("session", "routed17",
+                                    "/v1/sessions/routed17")):
+            if router._job_hosts.get(ident_) != host:
+                raise AssertionError(f"17c: the {kind} is not pinned to "
+                                     f"{host}")
+            if _live_call(f, path=path, method="GET") != _live_call(
+                    p, path=path, method="GET"):
+                raise AssertionError(f"17c: the routed {kind} doc differs "
+                                     "from the host's")
+        if job["status"] != "done":
+            raise AssertionError(f"17c: the routed job is {job['status']}")
+    finally:
+        if front is not None:
+            front.shutdown()
+        if router is not None:
+            router.shutdown()
+        srv.shutdown()  # closes the session journals
+    try:
+        again = SessionManager(engine, live_dir, config=cfg)
+        if again.recover() != 2:
+            raise AssertionError("17b: the sessions did not recover")
+        after = (again.status_doc(again.get("live17")),
+                 again.summary_doc("live17"))
+        for d in (before[0], after[0]):
+            d.pop("recovered"), d.pop("journal")
+        if after != before:
+            raise AssertionError("17b: the recovered session's docs differ")
+        # refresh 3's requests again, the hint suppressed and kept
+        depth = {}
+        for name, keep in (("without_hint", False), ("with_hint", True)):
+            m0 = engine.engine_metrics()
+            engine.generate_batch([dataclasses.replace(
+                r, request_id=k, draft_hint=r.draft_hint if keep else None)
+                for k, r in enumerate(reqs3)])
+            depth[name] = _tree_delta(m0, engine.engine_metrics())
+        audit = engine.audit()
+        if audit:
+            raise AssertionError(f"17b: allocator audit: {audit}")
+    finally:
+        shutil.rmtree(JOBS_DIR, ignore_errors=True)
+        del srv, rec, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ({"phase": "live-17b", "card": smi, "refreshes": refreshes,
+             "launches_refreshes_2_3": nonzero(launches),
+             "refresh_3_rerun": depth, "recovered_docs_equal": True},
+            {"phase": "router-17c", "card": smi, "pinned_host": host,
+             "job_seconds": job_s, "job_chunks": job["progress"]["num_chunks"],
+             "session_create_append_refresh_seconds": session_s})
+
+
+def run_jobs_live_path(smi: str) -> dict:
+    """Phase 17: 17a (a job survives a SIGKILL) once the earlier phases'
+    engines are freed, then 17b and 17c.  Each sub-phase prints its own
+    line."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = run_job_kill_path(smi)
+    emit(a)
+    b, c = run_live_path(smi)
+    emit(b)
+    emit(c)
+    return {"phase": "jobs-live", "card": smi,
+            "resumed_map_requests": a["resumed"]["map_requests"],
+            "anc_launches": b["launches_refreshes_2_3"]["ragged_spans_anc"]}
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
                launches_3c: dict) -> list[dict]:
@@ -4126,6 +4544,7 @@ def main() -> int:
     emit(timed(run_mixtral_path))
     emit(timed(run_serve_path, smi, main_out))
     emit(timed(run_kv_path, smi))
+    emit(timed(run_jobs_live_path, smi))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),
@@ -4162,4 +4581,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(jobs_child(sys.argv[2:]) if sys.argv[1:2] == ["--jobs-child"]
+             else main())

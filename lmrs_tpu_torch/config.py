@@ -10,7 +10,9 @@ weights and KV pages (``quantize``, ``kv_quantize``), and the executor's
 request cap, retries and deadline budget (``max_concurrent_requests``,
 ``retry_attempts``, ``retry_delay``, ``request_deadline_s``).
 ``ReduceConfig.streaming`` feeds the reduce tree into the map stage's
-engine stream.  ``backend`` picks the engine: ``"torch"`` (the default, the
+engine stream and ``ReduceConfig.stable_tree`` gives it the append-stable
+shape of live sessions; ``JobsConfig`` and ``LiveConfig`` carry the durable
+job and live session knobs (``jobs/``, ``live/``).  ``backend`` picks the engine: ``"torch"`` (the default, the
 card's engine), ``"mock"`` (the deterministic no-device engine,
 ``engine/mock.py``) or ``"http"`` (``serving/router.py`` over the running
 ``lmrs-serve-torch`` servers named by ``hosts``).  ``EngineConfig.checkpoint_path`` names a native checkpoint
@@ -254,6 +256,67 @@ class ReduceConfig:
     streaming: bool = False
     max_levels: int = 4
     temperature: float = 0.2
+    # append-stable tree for append-only workloads (live sessions,
+    # ``live/session.py``): fixed-arity (``max_summaries_per_batch``)
+    # leaf-aligned batches with no positional batch metadata, so appended
+    # leaves change only the last batch per level and the root path.  Off
+    # by default: the batch pipeline keeps its token-budget tree
+    stable_tree: bool = False
+
+
+@dataclass
+class JobsConfig:
+    """Durable-job knobs (``jobs/``).  ``jobs_dir`` empty disables the job
+    API (the server answers 501).  ``max_failed_chunk_fraction`` is the
+    degraded-completion policy: a job whose failed-chunk fraction stays at
+    or under it finishes ``status="degraded"``, above it ``"failed"``."""
+
+    jobs_dir: str = field(
+        default_factory=lambda: _envmod.env_str("LMRS_JOBS_DIR", ""))
+    max_failed_chunk_fraction: float = field(
+        default_factory=lambda: _envmod.env_float(
+            "LMRS_JOBS_DEGRADED_FRACTION", 0.2))
+
+    def __post_init__(self) -> None:
+        if not 0.0 <= self.max_failed_chunk_fraction <= 1.0:
+            raise ValueError(
+                f"max_failed_chunk_fraction must be in [0, 1] "
+                f"(got {self.max_failed_chunk_fraction}); 0 = any failed "
+                "chunk fails the job, 1 = always finish degraded")
+
+
+@dataclass
+class LiveConfig:
+    """Live-session knobs (``live/``).  ``sessions_dir`` empty disables the
+    session API (501).  ``refresh_tokens`` > 0 auto-refreshes a session
+    once that many appended tokens are unsummarized (0 = on request only);
+    ``class_default`` is a refresh's deadline class when the request names
+    none: ``interactive`` stamps ``interactive_deadline_s`` on its
+    requests, ``bulk`` runs unbounded."""
+
+    sessions_dir: str = field(
+        default_factory=lambda: _envmod.env_str("LMRS_LIVE_DIR", ""))
+    refresh_tokens: int = field(
+        default_factory=lambda: _envmod.env_int("LMRS_LIVE_REFRESH_TOKENS", 0))
+    class_default: str = field(
+        default_factory=lambda: _envmod.env_str("LMRS_LIVE_CLASS_DEFAULT",
+                                                "interactive"))
+    interactive_deadline_s: float = 120.0
+
+    def __post_init__(self) -> None:
+        if self.class_default not in ("interactive", "bulk"):
+            raise ValueError(
+                f"unknown live deadline class {self.class_default!r}; "
+                "want interactive|bulk")
+        if self.refresh_tokens < 0:
+            raise ValueError(
+                f"refresh_tokens must be >= 0 (got {self.refresh_tokens}); "
+                "0 disables auto-refresh")
+        if self.interactive_deadline_s <= 0:
+            raise ValueError(
+                f"interactive_deadline_s must be > 0 "
+                f"(got {self.interactive_deadline_s}); use class 'bulk' "
+                "for unbounded refreshes")
 
 
 @dataclass
@@ -265,6 +328,8 @@ class PipelineConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
     model: ModelConfig | None = None  # None: the preset named by engine.model
     reduce: ReduceConfig = field(default_factory=ReduceConfig)
+    jobs: JobsConfig = field(default_factory=JobsConfig)
+    live: LiveConfig = field(default_factory=LiveConfig)
 
 
 _PRESETS: dict[str, dict] = {

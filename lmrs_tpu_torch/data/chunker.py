@@ -78,6 +78,23 @@ class Chunk:
     error: str | None = None
     system_prompt: str | None = None
 
+    def to_dict(self) -> dict:
+        return {
+            "segments": self.segments,
+            "text": self.text,
+            "token_count": self.token_count,
+            "start_time": self.start_time,
+            "end_time": self.end_time,
+            "speakers": self.speakers,
+            "chunk_index": self.chunk_index,
+            "total_chunks": self.total_chunks,
+            "position_percentage": self.position_percentage,
+            "text_with_context": self.text_with_context,
+            "summary": self.summary,
+            "tokens_used": self.tokens_used,
+            "error": self.error,
+        }
+
 
 class TranscriptChunker:
     """Greedy token-budget packer (reference BigChunkeroosky,
@@ -227,6 +244,23 @@ class TranscriptChunker:
             f"[POSITION: {chunk.position_percentage:.0f}% through the transcript]\n\n"
         )
 
+    def stable_context_header(self, chunk: Chunk) -> str:
+        """Append-stable variant of the context header (live sessions,
+        ``live/session.py``): no ``of N`` total and no position percentage —
+        both change on every append, so a map prompt carrying them could
+        never be cached across refreshes (the summary a sealed chunk got
+        at 8 chunks would differ from the one a cold run of 31 chunks
+        gives it).  Everything left is a pure function of the chunk
+        itself."""
+        time_range = (
+            f"{format_timestamp(chunk.start_time)} - {format_timestamp(chunk.end_time)}"
+        )
+        return (
+            f"[TRANSCRIPT SECTION {chunk.chunk_index + 1}]\n"
+            f"[TIME RANGE: {time_range}]\n"
+            f"[SPEAKERS: {', '.join(chunk.speakers)}]\n\n"
+        )
+
     def _chunk_large_segment(self, seg: Segment) -> list[Segment]:
         """Split an oversized segment into sentence-level pieces, each under
         the budget, with timestamps interpolated by character position
@@ -330,6 +364,24 @@ class IncrementalChunking:
         self._t0: float | None = None    # running min(start) over the stream
         self._t1: float | None = None    # running max(end)
         self._n_segments = 0
+
+    @property
+    def sealed_count(self) -> int:
+        """Chunks whose identity and text can never change again."""
+        return len(self._sealed)
+
+    @property
+    def chunk_count(self) -> int:
+        """Sealed chunks + the open tail (what ``chunks()`` would return)."""
+        return len(self._sealed) + (1 if self._current else 0)
+
+    @property
+    def chunker(self) -> TranscriptChunker:
+        return self._ck
+
+    @property
+    def n_segments(self) -> int:
+        return self._n_segments
 
     def append(self, segments: list[Segment]) -> None:
         """Extend the stream.  Continues the greedy pack exactly where the

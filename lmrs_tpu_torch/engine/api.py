@@ -1,6 +1,7 @@
 """Engine protocol of the port: requests, results, the deadline and
-degraded-result helpers, post-hoc streaming delivery and the engine factory
-(trimmed copy of the reference's ``engine/api.py``).  The factory builds
+degraded-result helpers, post-hoc streaming delivery, the tenant and
+draft-hint stamp of jobs and sessions and the engine factory (trimmed copy
+of the reference's ``engine/api.py``).  The factory builds
 the ``"torch"`` engine, the ``"mock"`` engine (``engine/mock.py``) and the
 ``"http"`` router over running servers (``serving/router.py``)."""
 
@@ -57,6 +58,19 @@ class GenerationRequest:
     # instead of prefilling.
     handoff_export: bool = False
     handoff_state: dict | None = None
+    # Cost-attribution label, adopted at ingress from ``X-LMRS-Tenant`` and
+    # resent on forwards; jobs and live sessions stamp their own identity
+    # (``TenantStampEngine``).  The cost ledger that reads it is A10's.
+    tenant: str | None = None
+    # QoS priority class ("interactive" | "batch"); the policy that stamps
+    # and reads it is A10's, so the port carries it unset.
+    qos_class: str | None = None
+    # Cross-refresh draft hint: text whose tokens are likely to recur in
+    # the completion (a live session passes its previous summary).  Under
+    # tree speculation the scheduler seeds it ahead of the row's token
+    # history in the draft buffer, so the n-gram lookup drafts from it.
+    # Advisory only: verification is exact, so outputs do not change.
+    draft_hint: str | None = None
 
 
 def preamble_text(system_prompt: str | None, prompt: str,
@@ -191,6 +205,47 @@ def drain_with_callback(run_batch, requests: list[GenerationRequest],
             on_result(res, submit)
         pending, submitted = submitted, []
     return all_results
+
+
+class TenantStampEngine:
+    """Engine facade that stamps ``tenant`` and ``draft_hint`` onto every
+    request that carries none (how jobs and live sessions label their
+    chunk and reduce traffic, and how a refresh threads its previous
+    summary to the draft buffer); every other attribute passes through to
+    the wrapped engine.  The reference also stamps a QoS class and rolls
+    up each result's ledger usage: both are A10's, absent here."""
+
+    def __init__(self, engine: Engine, tenant: str | None,
+                 draft_hint: str | None = None):
+        self._engine = engine
+        self.tenant = tenant
+        self.draft_hint = draft_hint or None
+
+    def generate_batch(self, requests: list[GenerationRequest],
+                       on_result=None, on_tokens=None):
+        self._stamp(requests)
+        if on_result is None:
+            return self._engine.generate_batch(requests, on_tokens=on_tokens)
+
+        def wrapped(res, submit):
+            def stamped_submit(more: list[GenerationRequest]) -> None:
+                self._stamp(more)
+                submit(more)
+
+            on_result(res, stamped_submit)
+
+        return self._engine.generate_batch(requests, on_result=wrapped,
+                                           on_tokens=on_tokens)
+
+    def _stamp(self, requests: list[GenerationRequest]) -> None:
+        for req in requests:
+            if self.tenant and req.tenant is None:
+                req.tenant = self.tenant
+            if self.draft_hint and req.draft_hint is None:
+                req.draft_hint = self.draft_hint
+
+    def __getattr__(self, name: str):
+        return getattr(self._engine, name)
 
 
 HTTP_NEEDS_HOSTS = (

@@ -105,7 +105,8 @@ class MockEngine:
         self._rpa_dispatches = 0       # guarded-by: _mixed_lock
         self._rpa_shapes: set = set()  # guarded-by: _mixed_lock
         # tree speculation's gates and report keys, emulated: a request
-        # accepts half its chain depth a step
+        # accepts its full chain depth a step when it carries a draft hint,
+        # half of it otherwise
         self.spec_k = max(0, int(speculate_k))
         self.spec_width = env_int("LMRS_SPEC_TREE_WIDTH", 2, lo=1, hi=8)
         while (self.spec_width > 1
@@ -121,6 +122,10 @@ class MockEngine:
         self._spec_nodes_sum = 0   # guarded-by: _mixed_lock
         self._spec_depth_sum = 0   # guarded-by: _mixed_lock
         self._spec_accepted = 0    # guarded-by: _mixed_lock
+        # the draft hints of the requests generated, in generation order
+        # (recorded whether or not speculation is armed: tests assert the
+        # live layer's previous summary reached the engine)
+        self.draft_hints: list[str] = []
         self._tok = ApproxTokenizer()
         # ids cancel() was called for: generation is instantaneous, so the
         # hook records them (tests read it) and a request of the current
@@ -136,9 +141,11 @@ class MockEngine:
         # no start-of-batch clear of the cancel set (a cancel may race the
         # batch boundary), a full clear at the end, as the scheduler does
         def one(req: GenerationRequest) -> GenerationResult:
+            if req.draft_hint is not None:
+                self.draft_hints.append(req.draft_hint)
             res = self._one(req)
             if self.spec_tree and res.completion_tokens:
-                self._note_spec(res.completion_tokens)
+                self._note_spec(req, res.completion_tokens)
             if on_tokens is not None and res.text:
                 # no incremental decode here: one delta per result
                 on_tokens(res.request_id, res.text)
@@ -178,11 +185,13 @@ class MockEngine:
                         self._rpa_shapes.add(pow2_bucket(total, 16))
                     remaining -= c
 
-    def _note_spec(self, completion_tokens: int) -> None:
+    def _note_spec(self, req: GenerationRequest,
+                   completion_tokens: int) -> None:
         """Tree-speculation accounting for one generated request: each step
-        accepts ``max(1, k // 2)`` drafts and emits one more token."""
+        accepts ``k`` drafts with a draft hint, else ``max(1, k // 2)``, and
+        emits one more token."""
         k, width = self.spec_k, self.spec_width
-        acc = max(1, k // 2)
+        acc = k if req.draft_hint else max(1, k // 2)
         steps = -(-completion_tokens // (1 + acc))
         with self._mixed_lock:
             self._spec_dispatches += steps

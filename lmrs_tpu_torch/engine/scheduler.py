@@ -195,11 +195,15 @@ class _SlotState:
     # tree speculation: the accepted tokens of a NON-FIRST chain, re-sent
     # as the next span's leading tokens to rewrite their K/V at the true
     # columns; the acceptance EMA, chain depth and depth-0 probe timer of
-    # the adaptive ramp (_spec_ramp)
+    # the adaptive ramp (_spec_ramp); the token ids of a cross-refresh
+    # draft hint and the history-buffer offset it was seeded at (the token
+    # at kv position p sits in buffer column p + spec_hoff)
     spec_heal: list[int] = field(default_factory=list)
     spec_ema: float = 0.5
     spec_depth: int = 0
     spec_probe: int = 0
+    spec_hint: list[int] = field(default_factory=list)
+    spec_hoff: int = 0
 
 
 class ContinuousScheduler:
@@ -505,7 +509,8 @@ class ContinuousScheduler:
                     t_start=t0 if t0 is not None else now, t_admit=now,
                     n_prompt=n_prompt, prior=list(prior),
                     # tree speculation starts at full depth
-                    spec_depth=self.spec_k if self._spec_tree else 0)
+                    spec_depth=self.spec_k if self._spec_tree else 0,
+                    spec_hint=self._hint_ids(req, len(ids), max_new))
                 # a row mid-prefill carries length 0 into any dispatch
                 kv_lens[b] = 0
                 last_tok[b] = 0
@@ -1352,18 +1357,35 @@ class ContinuousScheduler:
 
     # ------------------------------------------------ speculative decode
 
+    def _hint_ids(self, req: GenerationRequest, n_ids: int,
+                  max_new: int) -> list[int]:
+        """A request's draft hint as token ids, under tree speculation only,
+        clipped so hint + prompt + budget + one tree span still fit the
+        history buffer (tokenized once, at admission)."""
+        if not (self._spec_tree and req.draft_hint):
+            return []
+        room = (self.max_len - n_ids - max_new - 1
+                - self._spec_width * self.spec_k)
+        return self.tokenizer.encode(req.draft_hint)[:room] if room > 0 else []
+
     def _seed_history(self, b: int, st: _SlotState) -> None:
-        """Load slot b's token history (prompt + generated, the last
-        ``max_len``) into the device buffer: one row upload at decode
-        admission; the speculative blocks append from then on."""
+        """Load slot b's token history (prompt + generated) into the device
+        buffer: one row upload at decode admission; the speculative steps
+        append from then on.  A draft hint (tree speculation) goes ahead of
+        the history, which then starts at column ``st.spec_hoff``."""
         if not self.spec_k:
             return
         if self._spec_buf is None:
             self._spec_buf = torch.zeros((self.B, self.max_len),
                                          dtype=torch.int32, device=self.device)
-        hist = (st.prompt_ids + st.generated)[-self.max_len:]
         row = np.zeros((self.max_len,), np.int32)
-        row[: len(hist)] = hist
+        hint = st.spec_hint if self._spec_tree else []
+        hist = st.prompt_ids + st.generated
+        hoff = min(len(hint), max(0, self.max_len - len(hist)))
+        row[:hoff] = hint[:hoff]
+        hist = hist[-(self.max_len - hoff):] if hoff < self.max_len else []
+        row[hoff: hoff + len(hist)] = hist
+        st.spec_hoff = hoff
         self._spec_buf[b] = torch.from_numpy(row).to(self.device)
 
     def _spec_decode_block(self, slots, last_tok, kv_lens, active, temps,
@@ -1664,16 +1686,20 @@ class ContinuousScheduler:
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
         buf = self._spec_buf
         dr = t(np.asarray(rows, np.int64))
-        kvl = t((base + hl).astype(np.int64))  # the rows' true kv_len
+        # the rows' true kv_len, shifted by each row's draft-hint offset
+        # (0 without a hint): the buffer column of the current token
+        hoff = np.zeros((B,), np.int64)
+        for b in rows:
+            hoff[b] = slots[b].spec_hoff
+        col = t((base + hl).astype(np.int64) + hoff)
         cur = t(last_tok.astype(np.int64))
-        # the current token enters the history at its kv position
-        buf[dr, torch.clamp(kvl[dr], max=max_len - 1)] = cur[dr].int()
+        buf[dr, torch.clamp(col[dr], max=max_len - 1)] = cur[dr].int()
         eos, ngram = self.tokenizer.eos_id, max(2, self.cfg.speculate_ngram)
         if tree:
-            chains, n_valid = draft_tree_lookup(buf, kvl + 1, k, W, pad_id=eos,
+            chains, n_valid = draft_tree_lookup(buf, col + 1, k, W, pad_id=eos,
                                                 n=ngram, depth=t(depth))
         else:
-            draft, n_lin = draft_lookup(buf, kvl + 1, k, pad_id=eos, n=ngram)
+            draft, n_lin = draft_lookup(buf, col + 1, k, pad_id=eos, n=ngram)
             chains, n_valid = draft[:, None], n_lin[:, None]
         n_valid = torch.where(t(is_dec)[:, None], n_valid,
                               torch.zeros_like(n_valid))
@@ -1700,7 +1726,7 @@ class ContinuousScheduler:
         # accepted tokens extend the decode rows' history (the last one at
         # the next step's write index: idempotent)
         offs = torch.arange(k + 1, device=dev)[None]
-        buf[dr[:, None], torch.clamp(kvl[dr][:, None] + 1 + offs,
+        buf[dr[:, None], torch.clamp(col[dr][:, None] + 1 + offs,
                                      max=max_len - 1)] = out[0][dr]
         self.counters["rpa_dispatches"] += 1
         self.counters["rpa_span_tokens"] += int(q_lens.sum())

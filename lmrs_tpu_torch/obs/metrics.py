@@ -1,12 +1,22 @@
-"""Counters, gauges, a registry with Prometheus text exposition, and the
-cross-host relabel and merge the router's fleet page needs (a trimmed copy
-of the reference's ``obs/metrics.py``: what the server and the router use;
-histograms and the scheduler's typed registry come with the observability
-slice).  Standard library only."""
+"""Counters, gauges, fixed-bucket histograms, a registry with Prometheus
+text exposition, and the cross-host relabel and merge the router's fleet
+page needs (a trimmed copy of the reference's ``obs/metrics.py``: what the
+server, the router and the job and session managers use; the histograms'
+sample reservoir and the scheduler's typed registry come with the
+observability slice).  Standard library only."""
 
 from __future__ import annotations
 
 import threading
+from bisect import bisect_left
+
+# one-two-five per decade, 1 ms .. 100 s
+DEFAULT_LATENCY_BUCKETS_S: tuple[float, ...] = tuple(
+    round(m * 10.0 ** e, 6) for e in range(-3, 2) for m in (1.0, 2.5, 5.0)
+) + (100.0,)
+
+# ratios in [0, 1]: linear tenths
+RATIO_BUCKETS: tuple[float, ...] = tuple(round(i / 10.0, 1) for i in range(1, 11))
 
 
 class Counter:
@@ -41,11 +51,45 @@ class Gauge:
         self.value = value
 
 
+class Histogram:
+    """Fixed-bucket histogram: bucket upper bounds (le), strictly
+    increasing, +Inf implicit; a count, a sum and per-bucket counts."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, buckets: tuple[float, ...],
+                 help: str = "", unit: str = ""):
+        if not buckets or list(buckets) != sorted(set(buckets)):
+            raise ValueError(f"histogram {name}: buckets must be strictly "
+                             f"increasing and non-empty (got {buckets})")
+        self.name = name
+        self.help = help
+        self.unit = unit
+        self.buckets = tuple(float(b) for b in buckets)
+        self.counts = [0] * (len(self.buckets) + 1)  # last = +Inf overflow
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        self.counts[bisect_left(self.buckets, v)] += 1
+        self.sum += v
+        self.count += 1
+
+    def cumulative_counts(self) -> list[int]:
+        """Prometheus-style cumulative per-le counts, +Inf last."""
+        out, acc = [], 0
+        for c in self.counts:
+            acc += c
+            out.append(acc)
+        return out
+
+
 class MetricsRegistry:
     """Name-keyed metric store; get-or-create."""
 
     def __init__(self):
-        self._metrics: dict[str, Counter | Gauge] = {}
+        self._metrics: dict[str, Counter | Gauge | Histogram] = {}
         self._lock = threading.Lock()
 
     def counter(self, name: str, help: str = "", unit: str = "") -> Counter:
@@ -53,6 +97,12 @@ class MetricsRegistry:
 
     def gauge(self, name: str, help: str = "", unit: str = "") -> Gauge:
         return self._register(name, lambda: Gauge(name, help, unit), Gauge)
+
+    def histogram(self, name: str,
+                  buckets: tuple[float, ...] = DEFAULT_LATENCY_BUCKETS_S,
+                  help: str = "", unit: str = "") -> Histogram:
+        return self._register(
+            name, lambda: Histogram(name, buckets, help, unit), Histogram)
 
     def _register(self, name: str, make, want_type):
         with self._lock:
@@ -71,7 +121,17 @@ class MetricsRegistry:
             if m.help:
                 lines.append(f"# HELP {m.name} {_escape_help(m.help)}")
             lines.append(f"# TYPE {m.name} {m.kind}")
-            lines.append(_sample(m.name, labels, m.value))
+            if isinstance(m, Histogram):
+                cum = m.cumulative_counts()
+                for le, c in zip(m.buckets, cum[:-1]):
+                    lines.append(_sample(f"{m.name}_bucket",
+                                         {**(labels or {}), "le": _fmt(le)}, c))
+                lines.append(_sample(f"{m.name}_bucket",
+                                     {**(labels or {}), "le": "+Inf"}, cum[-1]))
+                lines.append(_sample(f"{m.name}_sum", labels, m.sum))
+                lines.append(_sample(f"{m.name}_count", labels, m.count))
+            else:
+                lines.append(_sample(m.name, labels, m.value))
         return "\n".join(lines) + "\n"
 
 

@@ -30,6 +30,43 @@ from lmrs_tpu_torch.utils.timing import StageTimer, format_duration
 logger = logging.getLogger("lmrs_torch.pipeline")
 
 
+def prepare_segments(config: PipelineConfig,
+                     transcript_data: dict[str, Any]) -> tuple[int, list]:
+    """Limit -> preprocess, the one implementation the batch pipeline and
+    the durable jobs (``jobs/manager.py``) share: a resumed job's chunks
+    must match the run that journaled them.  Returns
+    ``(n_input_segments, processed_segments)``."""
+    d = config.data
+    segments = transcript_data.get("segments", [])
+    if d.limit_segments:
+        segments = segments[: d.limit_segments]
+    processed = preprocess_transcript(
+        segments, merge_same_speaker=d.merge_same_speaker,
+        time_interval_seconds=d.time_interval_seconds,
+        max_segment_duration=d.max_segment_duration,
+        preserve_timestamps=d.preserve_timestamps)
+    return len(segments), processed
+
+
+def build_chunker(config: PipelineConfig, engine: Any = None,
+                  max_tokens_per_chunk: int | None = None
+                  ) -> TranscriptChunker:
+    """The one place a chunker is built from config.  With an ``engine``,
+    an "approx" chunk tokenizer becomes the serving model's tokenizer (the
+    token-count authority); ``engine=None`` chunks from the config alone,
+    which the job and session journals' chunk keys need."""
+    tokenizer = config.chunk.tokenizer
+    if tokenizer == "approx" and engine is not None:
+        engine_tok = getattr(engine, "tokenizer", None)
+        if engine_tok is not None:
+            tokenizer = engine_tok
+    return TranscriptChunker(
+        max_tokens_per_chunk=(max_tokens_per_chunk
+                              or config.chunk.max_tokens_per_chunk),
+        overlap_tokens=config.chunk.overlap_tokens,
+        context_tokens=config.chunk.context_tokens, tokenizer=tokenizer)
+
+
 class TranscriptSummarizer:
     """End-to-end map-reduce transcript summarizer on the port's engine.
     ``device`` None runs on ``cuda`` (raising without a card); pass
@@ -64,14 +101,8 @@ class TranscriptSummarizer:
     @property
     def chunker(self) -> TranscriptChunker:
         if self._chunker is None:
-            c = self.config.chunk
-            tokenizer = c.tokenizer
-            if tokenizer == "approx":  # the serving model's tokenizer counts
-                tokenizer = getattr(self.executor.engine, "tokenizer", tokenizer)
-            self._chunker = TranscriptChunker(
-                max_tokens_per_chunk=c.max_tokens_per_chunk,
-                overlap_tokens=c.overlap_tokens,
-                context_tokens=c.context_tokens, tokenizer=tokenizer)
+            self._chunker = build_chunker(self.config,
+                                          engine=self.executor.engine)
         return self._chunker
 
     @property
@@ -99,19 +130,11 @@ class TranscriptSummarizer:
     def _prep(self, transcript_data: dict[str, Any], timer: StageTimer):
         """Limit -> preprocess -> chunk; returns (n_input_segments,
         processed_segments, chunks)."""
-        d = self.config.data
-        segments = transcript_data.get("segments", [])
-        if d.limit_segments:
-            segments = segments[: d.limit_segments]
         with timer.stage("preprocess"):
-            processed = preprocess_transcript(
-                segments, merge_same_speaker=d.merge_same_speaker,
-                time_interval_seconds=d.time_interval_seconds,
-                max_segment_duration=d.max_segment_duration,
-                preserve_timestamps=d.preserve_timestamps)
+            n_input, processed = prepare_segments(self.config, transcript_data)
         with timer.stage("chunk"):
             chunks = self.chunker.chunk_transcript(processed)
-        return len(segments), processed, chunks
+        return n_input, processed, chunks
 
     def summarize(self, transcript_data: dict[str, Any], *,
                   prompt_template: str | None = None,

@@ -1,14 +1,18 @@
 """Reduce stage: combine per-chunk summaries into one final summary (the
-port of the reference's ``reduce/aggregator.py``, without the node cache
-and the append-stable tree).  Single pass when the time-tagged summaries
-fit ``max_tokens_per_batch``, else a recursive batch tree bounded by
-``max_levels``; every call goes through the same engine as the map stage.
+port of the reference's ``reduce/aggregator.py``).  Single pass when the
+time-tagged summaries fit ``max_tokens_per_batch``, else a recursive batch
+tree bounded by ``max_levels``; ``ReduceConfig.stable_tree`` swaps in the
+append-stable tree of live sessions.  Every call goes through the same
+engine as the map stage.  A ``node_cache`` (durable jobs, live sessions)
+answers tree nodes by content and records the ones computed.
 ``reduce/streaming.py`` reuses its request formatting, batch-size math,
 tokenizer and config.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 import time
 from typing import Any, Sequence
@@ -27,6 +31,21 @@ from lmrs_tpu_torch.prompts import (DEFAULT_BATCH_REDUCE_PROMPT,
 logger = logging.getLogger("lmrs_torch.reduce")
 
 
+def content_node_id(display: str, summaries: Sequence[str],
+                    template: str | None,
+                    metadata: dict | None = None) -> str:
+    """A reduce node's identity: the positional name (``L<level>.B<batch>``,
+    for logs and journal records) and a hash of the node's prompt inputs
+    (children's text, template and metadata).  Caches key on the hash, so
+    a leaf inserted before a subtree leaves that subtree addressable."""
+    digest = hashlib.sha256(json.dumps(
+        [template or "", metadata or {}, list(summaries)],
+        sort_keys=True, separators=(",", ":"), ensure_ascii=False,
+        default=str,
+    ).encode("utf-8", "replace")).hexdigest()[:12]
+    return f"{display}@{digest}"
+
+
 class ResultAggregator:
     """Single-pass or hierarchical reduce over chunk summaries."""
 
@@ -40,7 +59,13 @@ class ResultAggregator:
 
     def aggregate(self, processed_chunks: Sequence[Chunk],
                   prompt_template: str | None = None,
-                  metadata: dict[str, Any] | None = None) -> dict[str, Any]:
+                  metadata: dict[str, Any] | None = None,
+                  node_cache: Any | None = None) -> dict[str, Any]:
+        """Reduce the chunk summaries.  ``node_cache`` has
+        ``lookup(node_id, summaries, template, metadata) -> str | None``
+        and ``record(node_id, summaries, template, metadata, text)``: each
+        node is offered to it before the engine runs it, and each node
+        computed is recorded (error markers are not)."""
         t0 = time.time()
         self._wave_errors = 0
         chunks = sorted(processed_chunks, key=lambda c: c.chunk_index)
@@ -50,15 +75,28 @@ class ResultAggregator:
             for c in chunks
         ]
         total_tokens = self._total_tokens(summaries)
-        hierarchical = (self.config.hierarchical
-                        and total_tokens > self.config.max_tokens_per_batch)
-        logger.info("reduce: %d summaries, %d tokens -> %s", len(summaries),
-                    total_tokens, "hierarchical" if hierarchical else "single-pass")
-        if hierarchical:
-            summary, levels = self._hierarchical(summaries, prompt_template, metadata)
+        stable = self.config.stable_tree
+        if stable:
+            # the shape depends on the leaf count alone (token totals grow
+            # with every append and would reshape the tree)
+            hierarchical = (self.config.hierarchical
+                            and len(summaries) > self._stable_arity())
+        else:
+            hierarchical = (self.config.hierarchical
+                            and total_tokens > self.config.max_tokens_per_batch)
+        logger.info("reduce: %d summaries, %d tokens -> %s%s", len(summaries),
+                    total_tokens, "hierarchical" if hierarchical else "single-pass",
+                    " (stable tree)" if stable else "")
+        if hierarchical and stable:
+            summary, levels = self._hierarchical_stable(
+                summaries, prompt_template, metadata, node_cache)
+        elif hierarchical:
+            summary, levels = self._hierarchical(summaries, prompt_template,
+                                                 metadata, node_cache)
         else:
             summary = self._reduce_wave(
-                [(summaries, prompt_template or DEFAULT_REDUCE_PROMPT, metadata)])[0]
+                [("final", summaries, prompt_template or DEFAULT_REDUCE_PROMPT,
+                  metadata)], node_cache)[0]
             levels = 1
         return {
             "final_summary": summary,
@@ -89,24 +127,46 @@ class ResultAggregator:
             cache_prefix=shared_prefix_chars(
                 template, "summaries", "metadata", "num_summaries"))
 
-    def _reduce_wave(self, jobs: list[tuple[list[str], str, dict | None]]) -> list[str]:
-        """One level's reduce calls as a single engine wave."""
-        requests = [self._build_request(s, t, m, request_id=i)
-                    for i, (s, t, m) in enumerate(jobs)]
-        out = []
-        for res in self.executor.run_requests(requests):
+    def _reduce_wave(self, jobs: list[tuple[str, list[str], str, dict | None]],
+                     node_cache: Any | None = None) -> list[str]:
+        """One level's reduce calls as a single engine wave.  ``jobs`` are
+        ``(node_id, summaries, template, metadata)``; with a ``node_cache``
+        only its misses reach the engine."""
+        out: list[str | None] = [None] * len(jobs)
+        idents: list[str | None] = [None] * len(jobs)
+        misses: list[int] = []
+        for i, (node_id, summaries, template, metadata) in enumerate(jobs):
+            if node_cache is not None:
+                idents[i] = content_node_id(node_id, summaries, template,
+                                            metadata)
+                text = node_cache.lookup(idents[i], summaries, template,
+                                         metadata)
+                if text is not None:
+                    out[i] = text
+                    continue
+            misses.append(i)
+        requests = [self._build_request(jobs[i][1], jobs[i][2], jobs[i][3],
+                                        request_id=k)
+                    for k, i in enumerate(misses)]
+        results = self.executor.run_requests(requests) if requests else []
+        for i, res in zip(misses, results):
+            _node_id, summaries, template, metadata = jobs[i]
             # degraded_reason, not res.error: a shed or expired node carries
             # no error and may carry no text
             reason = degraded_reason(res)
             if reason is None:
-                out.append(res.text)
+                out[i] = res.text
+                if node_cache is not None:
+                    node_cache.record(idents[i], summaries, template,
+                                      metadata, res.text)
             else:
-                out.append(f"[Error aggregating summaries: {reason}]")
+                out[i] = f"[Error aggregating summaries: {reason}]"
                 self._wave_errors += 1
-        return out
+        return out  # type: ignore[return-value]
 
     def _hierarchical(self, summaries: list[str], prompt_template: str | None,
-                      metadata: dict[str, Any] | None) -> tuple[str, int]:
+                      metadata: dict[str, Any] | None,
+                      node_cache: Any | None = None) -> tuple[str, int]:
         level = 0
         current = summaries
         while (len(current) > 1
@@ -124,12 +184,48 @@ class ResultAggregator:
                 meta.update({"batch": f"{i + 1}/{n}",
                              "position": f"{100.0 * i / n:.0f}%-"
                                          f"{100.0 * (i + 1) / n:.0f}% of the transcript"})
-                jobs.append((batch, prompt_template or DEFAULT_BATCH_REDUCE_PROMPT, meta))
-            current = self._reduce_wave(jobs)
+                jobs.append((f"L{level}.B{i}", batch,
+                             prompt_template or DEFAULT_BATCH_REDUCE_PROMPT, meta))
+            current = self._reduce_wave(jobs, node_cache)
         if len(current) == 1:
             return current[0], level
         final = self._reduce_wave(
-            [(current, prompt_template or DEFAULT_FINAL_REDUCE_PROMPT, metadata)])[0]
+            [(f"L{level + 1}.final", current,
+              prompt_template or DEFAULT_FINAL_REDUCE_PROMPT, metadata)],
+            node_cache)[0]
+        return final, level + 1
+
+    def _stable_arity(self) -> int:
+        return max(2, self.config.max_summaries_per_batch)
+
+    def _hierarchical_stable(self, summaries: list[str],
+                             prompt_template: str | None,
+                             metadata: dict[str, Any] | None,
+                             node_cache: Any | None = None) -> tuple[str, int]:
+        """The append-stable tree (``ReduceConfig.stable_tree``): batch i of
+        a level always holds children [i*a, (i+1)*a) for the fixed arity a,
+        batch nodes carry no metadata (a "batch i/n" would bake the leaf
+        count into every prompt), the transcript metadata goes to the final
+        node only, and the levels follow the leaf count.  Appending leaves
+        then recomputes the last batch per level and the root; every other
+        node answers from the cache."""
+        arity = self._stable_arity()
+        level = 0
+        current = summaries
+        while len(current) > arity and level < self.config.max_levels:
+            level += 1
+            batches = [current[i: i + arity]
+                       for i in range(0, len(current), arity)]
+            logger.info("reduce level %d (stable): %d summaries in %d batches "
+                        "of <=%d", level, len(current), len(batches), arity)
+            current = self._reduce_wave(
+                [(f"L{level}.B{i}", batch,
+                  prompt_template or DEFAULT_BATCH_REDUCE_PROMPT, None)
+                 for i, batch in enumerate(batches)], node_cache)
+        final = self._reduce_wave(
+            [(f"L{level + 1}.final", current,
+              prompt_template or DEFAULT_FINAL_REDUCE_PROMPT, metadata)],
+            node_cache)[0]
         return final, level + 1
 
     def _calculate_batch_size(self, summaries: list[str]) -> int:

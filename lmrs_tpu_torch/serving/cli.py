@@ -7,17 +7,23 @@ engine, on the card by default.
     lmrs-serve-torch --role prefill --port 8001   # a disaggregated pair
     lmrs-serve-torch --role decode --port 8002
 
+    lmrs-serve-torch --model bench-8b --tokenizer byte \
+        --jobs-dir jobs/ --live-dir live/   # /v1/jobs and /v1/sessions
+
 Flag spellings follow the reference's ``lmrs-serve``.  ``--backend`` takes
 ``torch`` (the default) or ``mock``; ``--device`` takes ``cuda`` (the
 default) or ``cpu``.  ``--role`` picks the disaggregated serving role
 (``prefill`` mints KV handoff tickets, ``decode`` imports them, ``both``
 serves colocated) and ``--handoff-ttl`` the seconds an un-acked ticket
-keeps its pages pinned (default ``LMRS_HANDOFF_TTL`` or 60).  A server
+keeps its pages pinned (default ``LMRS_HANDOFF_TTL`` or 60).  ``--jobs-dir``
+turns on the durable job API and ``--live-dir`` the live session API
+(default ``LMRS_JOBS_DIR`` / ``LMRS_LIVE_DIR``; unset answers 501): their
+journals live there, and interrupted jobs and sessions recover at
+start-up.  The jobs' map requests ask ``--max-tokens-cap`` tokens.  A server
 whose engine fails to build exits non-zero; it never moves to the CPU
 because no card was found.  Flags of features the port does not carry yet
 are refused by name with the slice that brings them: ``--mesh`` (A8),
-``--jobs-dir`` and ``--live-dir`` (A13), ``--supervise`` and ``--trace``
-(A10).
+``--supervise`` and ``--trace`` (A10).
 """
 
 from __future__ import annotations
@@ -31,8 +37,6 @@ logger = logging.getLogger("lmrs_torch.serving")
 # flag -> the slice of the port that brings it
 _LATER = {
     "mesh": "multi-GPU (A8)",
-    "jobs_dir": "durable jobs and live sessions (A13)",
-    "live_dir": "durable jobs and live sessions (A13)",
     "supervise": "observability (A10)",
     "trace": "observability (A10)",
 }
@@ -73,11 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds an un-acked handoff ticket pins its KV "
                         "pages before the orphan sweep reclaims them "
                         "(default: LMRS_HANDOFF_TTL or 60)")
+    p.add_argument("--jobs-dir", default=None,
+                   help="enable the durable job API (POST/GET/DELETE "
+                        "/v1/jobs): write-ahead journals live here and "
+                        "interrupted jobs resume on startup (default: "
+                        "LMRS_JOBS_DIR; unset disables: 501)")
+    p.add_argument("--live-dir", default=None,
+                   help="enable the live-session API (POST/GET/DELETE "
+                        "/v1/sessions*): growing transcripts summarized "
+                        "incrementally, journaled here and rehydrated on "
+                        "startup (default: LMRS_LIVE_DIR; unset disables: "
+                        "501)")
     p.add_argument("--quiet", "-q", action="store_true")
     # not in the port yet: accepted only to refuse them by name
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    for flag in ("--jobs-dir", "--live-dir"):
-        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--supervise", "--trace"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return p
@@ -93,7 +106,7 @@ def main(argv: list[str] | None = None) -> int:
                          f"yet; it arrives with the {later} slice")
     logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    from lmrs_tpu_torch.config import EngineConfig
+    from lmrs_tpu_torch.config import EngineConfig, PipelineConfig
     from lmrs_tpu_torch.engine.api import make_engine
     from lmrs_tpu_torch.serving.server import EngineHTTPServer
 
@@ -116,7 +129,10 @@ def main(argv: list[str] | None = None) -> int:
             engine, host=args.host, port=args.port, model_name=args.model,
             max_tokens_cap=args.max_tokens_cap,
             batch_window_s=args.batch_window_ms / 1000.0,
-            role=args.role, handoff_ttl_s=engine_cfg.handoff_ttl_s)
+            role=args.role, handoff_ttl_s=engine_cfg.handoff_ttl_s,
+            jobs_dir=args.jobs_dir, live_dir=args.live_dir,
+            # the job and session fingerprints follow the SERVED config
+            pipeline_config=PipelineConfig(engine=engine_cfg))
     except OSError as e:
         logger.error("cannot bind %s:%d: %s", args.host, args.port, e)
         engine.shutdown()

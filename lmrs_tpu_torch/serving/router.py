@@ -34,12 +34,19 @@ h:p,...`` fans the pipeline's requests over them.
   host (counted in the ``handoff`` block) — unless deltas already
   streamed, when the failure surfaces instead.
 
+* **Job and session forwarding** (``job_request`` / ``session_request``,
+  called by a front server without managers of its own): a job submit
+  hashes its body onto the host ring, a session create rendezvous-hashes
+  its id (an existing session's host wins), and the returned id pins
+  follow-up calls to that host; an unknown id scans the fleet and
+  re-pins.  Jobs and sessions share one bounded pin cache.
+
 SLO-aware placement reads a ``slo`` block from ``/healthz``; the port's
 servers publish none, so the reference's router treats them as healthy,
 and this router has no SLO placement.  Not in the port yet, refused by
-name: job and session forwarding (A13), tail hedging (``LMRS_HEDGE_MS`` >
-0), SLO and tenant placement, fleet usage, anatomy and trace, and adding,
-draining (with its KV migration) or removing hosts at run time (A10).
+name: tail hedging (``LMRS_HEDGE_MS`` > 0), SLO and tenant placement,
+fleet usage, anatomy and trace, and adding, draining (with its KV
+migration) or removing hosts at run time (A10).
 """
 
 from __future__ import annotations
@@ -292,6 +299,14 @@ class RouterEngine:
         self._prefix_routed = 0     # guarded-by: _stats_lock
         self._prefix_predicted = 0  # guarded-by: _stats_lock
         self._prefix_fallback = 0   # guarded-by: _stats_lock
+        # job and session forwarding: id -> backend netloc.  A cache, not
+        # the truth (the journals live with the backends): bounded, oldest
+        # pin evicted, an evicted or unknown id re-scans the fleet
+        self._job_hosts: dict[str, str] = {}  # guarded-by: _job_lock
+        self._job_hosts_max = 4096
+        self._job_lock = threading.Lock()
+        self._jobs_forwarded = 0      # guarded-by: _stats_lock
+        self._sessions_forwarded = 0  # guarded-by: _stats_lock
 
     def _count(self, attr: str) -> None:
         with self._stats_lock:
@@ -461,6 +476,12 @@ class RouterEngine:
         reg.counter("lmrs_handoff_fallbacks_total",
                     "handoff flows degraded to colocated re-prefill"
                     ).inc(self._handoff_fallbacks)
+        reg.counter("lmrs_router_jobs_forwarded_total",
+                    "durable-job API calls forwarded to backends"
+                    ).inc(self._jobs_forwarded)
+        reg.counter("lmrs_router_sessions_forwarded_total",
+                    "live-session API calls forwarded to backends "
+                    "(sticky by session id)").inc(self._sessions_forwarded)
         reg.counter("lmrs_router_prefix_routed_total",
                     "requests placed sticky-by-prefix (summary-predicted "
                     "or rendezvous)").inc(self._prefix_routed)
@@ -483,6 +504,324 @@ class RouterEngine:
                         "the preamble re-prefills cold").inc(self._kv_failures)
         pages.append(reg.render_prometheus())
         return merge_expositions(pages)
+
+    # ------------------------------------------------------- job forwarding
+
+    def job_request(self, method: str, path: str, body: dict | None,
+                    trace_id: str | None = None,
+                    tenant: str | None = None) -> tuple[int, dict]:
+        """Forward one /v1/jobs call to the backend fleet (the front
+        server's ``_job_http`` delegates here when it has no local
+        JobManager).  Placement is STICKY: a submit hashes its transcript
+        onto the host ring — so a duplicate POST (client retry after a
+        crash) lands on the same backend and converges on the same
+        content-addressed journal — and the returned job id pins follow-up
+        GET/DELETE traffic to that host.  Unknown ids scan the fleet
+        (rebuilding the stickiness cache after a router restart: the
+        journals live with the backends, not here)."""
+        with self._stats_lock:
+            self._jobs_forwarded += 1
+        if method == "POST":
+            digest = int(hashlib.sha256(
+                json.dumps(body or {}, sort_keys=True).encode()
+            ).hexdigest(), 16)
+            ring = sorted(self.hosts, key=lambda h: h.netloc)
+            start = digest % len(ring)
+            last: tuple[int, dict] = (503, {"error": {
+                "message": "no backend accepted the job",
+                "type": "job_error"}})
+            for k in range(len(ring)):
+                host = ring[(start + k) % len(ring)]
+                if not host.healthy and k < len(ring) - 1:
+                    continue  # same optimism as _targets: try someone
+                try:
+                    status, payload = self._job_call(host, method, path,
+                                                     body, trace_id,
+                                                     tenant=tenant)
+                except Exception as e:  # noqa: BLE001 - next host
+                    host.note_failed()
+                    last = (502, {"error": {
+                        "message": f"{host.netloc}: {type(e).__name__}: {e}",
+                        "type": "job_error"}})
+                    continue
+                if status == 501:  # backend has no jobs_dir: keep looking
+                    last = (status, payload)
+                    continue
+                jid = payload.get("id") if isinstance(payload, dict) else None
+                if jid:
+                    self._pin_job(jid, host.netloc)
+                return status, payload
+            return last
+        # Fleet scans run CONCURRENTLY on the dispatch pool: sequential
+        # probing would hold the HTTP handler thread one connect timeout
+        # per partitioned host (connect HANGS rather than refuses there);
+        # gathered, the whole scan is bounded by the slowest single host.
+        if method == "GET" and path.rstrip("/") == "/v1/jobs":
+            futures = [self._pool.submit(self._job_call_safe, h, method,
+                                         path, None)
+                       for h in self.hosts]
+            data: list = []
+            errors = 0
+            for host, fut in zip(self.hosts, futures):
+                status, payload = fut.result()
+                if status == 200:
+                    for doc in payload.get("data", []):
+                        if doc.get("id"):
+                            self._pin_job(doc["id"], host.netloc)
+                        data.append(doc)
+                elif status == 502:
+                    errors += 1
+            return 200, {"object": "list", "data": data,
+                         "hosts_unreachable": errors}
+        # GET/DELETE /v1/jobs/<id>: sticky host alone first (the common
+        # case pays no fleet cost), then a concurrent fleet scan —
+        # rebuilding stickiness after a router restart
+        jid = path.split("/v1/jobs/", 1)[-1].strip("/")
+        with self._job_lock:
+            pinned = self._job_hosts.get(jid)
+        if pinned is not None:
+            host = next((h for h in self.hosts if h.netloc == pinned), None)
+            if host is not None:
+                status, payload = self._job_call_safe(host, method, path,
+                                                      None)
+                if status not in (404, 501, 502):
+                    return status, payload
+        ordered = sorted(self.hosts,
+                         key=lambda h: (not h.healthy, h.netloc))
+        futures = [self._pool.submit(self._job_call_safe, h, method, path,
+                                     None)
+                   for h in ordered]
+        results = [f.result() for f in futures]
+        last = (404, {"error": {"message": f"no job {jid} on any backend",
+                                "type": "job_error"}})
+        for host, (status, payload) in zip(ordered, results):
+            if status in (404, 501):
+                continue
+            if status == 502:
+                last = (status, payload)
+                continue
+            self._pin_job(jid, host.netloc)
+            return status, payload
+        return last
+
+    # -------------------------------------------- live-session forwarding
+
+    def session_request(self, method: str, path: str, body: dict | None,
+                        trace_id: str | None = None,
+                        tenant: str | None = None) -> tuple[int, dict]:
+        """Forward one /v1/sessions call (the front server's
+        ``_session_http`` delegates here when it has no local
+        SessionManager).  Placement is STICKY BY SESSION ID — stronger
+        than load balancing wants, and on purpose: a session's journal
+        lives on one backend, and so does the warm radix prefix tree its
+        refresh traffic keeps hitting (the shared map/reduce preambles +
+        the transcript prefix).  Bouncing a session between hosts would
+        both orphan its journal and cold-start its cache on every hop.
+
+        Creates rendezvous-hash onto the host ring (a client-supplied
+        session_id lands deterministically, so a duplicate create
+        converges host-side); follow-up traffic routes to the pinned
+        host, and an unknown id fleet-scans to rebuild stickiness after
+        a router restart — the journals live with the backends, not
+        here."""
+        with self._stats_lock:
+            self._sessions_forwarded += 1
+        if method == "POST" and path.rstrip("/") == "/v1/sessions":
+            key = (body or {}).get("session_id")
+            # a client-supplied id may already live somewhere (create
+            # retry, router restart): the existing backend must win, or a
+            # fleet-membership change would fork the session onto a
+            # second journal that silently misses the earlier segments
+            ring: list[_Host] = []
+            if key:
+                existing = self._locate_session(key)
+                if existing is not None:
+                    ring = [existing]
+                if not ring:
+                    # TRUE rendezvous (highest-random-weight over (key,
+                    # host)): membership changes move only ~1/N of ids,
+                    # unlike modulo-on-the-sorted-list which reshuffles
+                    # every placement
+                    ring = sorted(
+                        self.hosts,
+                        key=lambda h: hashlib.sha256(
+                            f"{key}|{h.netloc}".encode()).hexdigest(),
+                        reverse=True)
+            if not ring:
+                # anonymous create (server mints the id): nothing stable
+                # to hash — hashing the (constant) body would pile every
+                # default-params session onto one backend, so place by
+                # load/health instead; the returned id pins follow-ups
+                ring = sorted(self.hosts,
+                              key=lambda h: (not h.healthy, h.served,
+                                             h.netloc))
+            last: tuple[int, dict] = (503, {"error": {
+                "message": "no backend accepted the session",
+                "type": "session_error"}})
+            for k, host in enumerate(ring):
+                if not host.healthy and k < len(ring) - 1:
+                    continue
+                try:
+                    status, payload = self._job_call(host, method, path,
+                                                     body, trace_id,
+                                                     tenant=tenant)
+                except Exception as e:  # noqa: BLE001 - next host
+                    host.note_failed()
+                    last = (502, {"error": {
+                        "message": f"{host.netloc}: {type(e).__name__}: {e}",
+                        "type": "session_error"}})
+                    continue
+                if status == 501:  # backend has no live_dir: keep looking
+                    last = (status, payload)
+                    continue
+                sid = (payload.get("id")
+                       if isinstance(payload, dict) else None)
+                if sid:
+                    self._pin_job(sid, host.netloc)
+                return status, payload
+            return last
+        if method == "GET" and path.split("?", 1)[0].rstrip("/") \
+                == "/v1/sessions":
+            futures = [self._pool.submit(self._job_call_safe, h, method,
+                                         path, None)
+                       for h in self.hosts]
+            data: list = []
+            errors = 0
+            for host, fut in zip(self.hosts, futures):
+                status, payload = fut.result()
+                if status == 200:
+                    for doc in payload.get("data", []):
+                        if doc.get("id"):
+                            self._pin_job(doc["id"], host.netloc)
+                        data.append(doc)
+                elif status == 502:
+                    errors += 1
+            return 200, {"object": "list", "data": data,
+                         "hosts_unreachable": errors}
+        # /v1/sessions/<id>[/sub]: the REAL call goes to the pinned host
+        # directly (the jobs pattern — no validation pre-flight doubling
+        # every hot-path append's round trips); only a MISS there (404 =
+        # session not on that backend, 501 = API off) falls back to a
+        # concurrent fleet scan by session STATUS and re-forwards.  A 502
+        # (timeout, connection fault) on a MUTATING call is surfaced, not
+        # retried: the backend may well have journaled the append before
+        # the fault, and a blind re-forward would duplicate segments in
+        # the transcript forever.  Refresh-bearing calls run real engine
+        # work, so they get the router's generation timeout, not the 10 s
+        # control-plane one.
+        from urllib.parse import parse_qs, urlsplit
+
+        sid = path.split("/v1/sessions/", 1)[-1].split("?", 1)[0] \
+                  .strip("/").split("/")[0]
+        # "does this call run engine work?": appends/refreshes/deletes,
+        # plus a summary GET whose refresh param the BACKEND would treat
+        # as true (same truthiness rule as server._session_http — the
+        # two sides must agree or a ?refresh=true would run minutes of
+        # refresh under the 10 s control-plane timeout)
+        q = parse_qs(urlsplit(path).query)
+        wants_refresh = q.get("refresh", ["0"])[-1] not in ("0", "false", "")
+        heavy = method in ("POST", "DELETE") or wants_refresh
+        tmo = self.timeout_s if heavy else 10.0
+        # a 502 on a HEAVY call is surfaced, never blindly re-forwarded:
+        # the backend may have journaled the append / started the refresh
+        # before the fault, and a retry would duplicate the work (or the
+        # transcript)
+        rescan_on = (404, 501) if heavy else (404, 501, 502)
+        with self._job_lock:
+            pinned = self._job_hosts.get(sid)
+        if pinned is not None:
+            host = next((h for h in self.hosts if h.netloc == pinned), None)
+            if host is not None:
+                status, payload = self._job_call_safe(host, method, path,
+                                                      body, trace_id,
+                                                      timeout=tmo)
+                if status == 502:
+                    # the health signal must degrade whether or not we
+                    # rescan — these ARE request-path failures
+                    host.note_failed()
+                if status not in rescan_on:
+                    return status, payload
+        host = self._locate_session(sid)
+        if host is None:
+            return 404, {"error": {
+                "message": f"no session {sid} on any backend",
+                "type": "session_error"}}
+        status, payload = self._job_call_safe(host, method, path, body,
+                                              trace_id, timeout=tmo)
+        if status == 502:
+            host.note_failed()
+        return status, payload
+
+    def _locate_session(self, sid: str) -> _Host | None:
+        """The backend holding ``sid``: a concurrent fleet scan (GET
+        status) that re-pins on a hit — how stickiness survives a router
+        restart (callers try the pinned host's real call first)."""
+        ordered = sorted(self.hosts,
+                         key=lambda h: (not h.healthy, h.netloc))
+        futures = [self._pool.submit(self._job_call_safe, h, "GET",
+                                     f"/v1/sessions/{sid}", None)
+                   for h in ordered]
+        for host, fut in zip(ordered, futures):
+            status, _payload = fut.result()
+            if status == 200:
+                self._pin_job(sid, host.netloc)
+                return host
+        return None
+
+    def _job_call_safe(self, host: _Host, method: str, path: str,
+                       body: dict | None,
+                       trace_id: str | None = None,
+                       timeout: float = 10.0) -> tuple[int, dict]:
+        """_job_call with exceptions folded into a 502 tuple (scan legs
+        run on the pool; a raise there would surface at .result())."""
+        try:
+            return self._job_call(host, method, path, body, trace_id,
+                                  timeout=timeout)
+        except Exception as e:  # noqa: BLE001 - aggregate what answers
+            return 502, {"error": {
+                "message": f"{host.netloc}: {type(e).__name__}: {e}",
+                "type": "job_error"}}
+
+    def _pin_job(self, jid: str, netloc: str) -> None:
+        """Record job->host stickiness, bounded: oldest pins evict past
+        ``_job_hosts_max`` (an evicted id just pays one fleet re-scan)."""
+        with self._job_lock:
+            self._job_hosts[jid] = netloc
+            while len(self._job_hosts) > self._job_hosts_max:
+                self._job_hosts.pop(next(iter(self._job_hosts)))
+
+    def _job_call(self, host: _Host, method: str, path: str,
+                  body: dict | None,
+                  trace_id: str | None = None,
+                  timeout: float = 10.0,
+                  tenant: str | None = None) -> tuple[int, dict]:
+        """One forwarded job/session call, on a bare connection (like
+        probes).  The default timeout is short because job calls are
+        control-plane (submit returns immediately, GET is a status read)
+        and a sequential fleet scan must not hold an HTTP handler thread
+        30 s per partitioned host; session calls that run ENGINE work
+        (appends with refresh, explicit refreshes) pass the router's
+        generation timeout instead."""
+        conn = http.client.HTTPConnection(host.netloc, timeout=timeout)
+        headers = {"Content-Type": "application/json"}
+        if trace_id:
+            headers["X-LMRS-Trace"] = trace_id
+        if tenant:
+            headers["X-LMRS-Tenant"] = tenant
+        try:
+            conn.request(method, path,
+                         body=None if body is None else json.dumps(body),
+                         headers=headers)
+            resp = conn.getresponse()
+            raw = resp.read()
+            try:
+                payload = json.loads(raw) if raw else {}
+            except ValueError:
+                payload = {"error": {"message": raw.decode("utf-8",
+                                                           "replace")[:200]}}
+            return resp.status, payload
+        finally:
+            conn.close()
 
     def _refuse(self, what: str):
         raise NotImplementedError(f"{what} is not in the port yet; it "

@@ -35,12 +35,24 @@ streamed requests ride the same wave through ``on_tokens``.  Headers:
 seconds, anchored at ingress; garbage is a 400).  A client that goes away
 cancels its request through the engine's ``cancel`` hook.
 
-Not in the port yet, refused by name: ``/v1/jobs*`` and ``/v1/sessions*``
-answer 501 (durable jobs and live sessions, A13); ``/v1/usage``,
-``/v1/anatomy``, ``/v1/trace`` and ``/v1/debug/profile`` (observability,
-A10) answer 404 naming the slice.  The
-``X-LMRS-Tenant`` and ``X-LMRS-QoS-Class`` headers are accepted and not
-acted on: their consumers, the cost ledger and QoS, are A10's.
+* durable jobs (``jobs_dir``): ``POST /v1/jobs {"transcript", "params"}``,
+  ``GET /v1/jobs``, ``GET`` and ``DELETE /v1/jobs/{id}``, over a
+  ``JobManager`` whose engine traffic rides the micro-batcher; journals
+  found in the directory recover at start-up;
+* live sessions (``live_dir``): ``POST /v1/sessions``, ``GET
+  /v1/sessions``, ``POST /v1/sessions/{id}/segments`` (``"refresh"``
+  optional), ``POST /v1/sessions/{id}/refresh``, ``GET
+  /v1/sessions/{id}[/summary[?refresh=1]]`` and ``DELETE
+  /v1/sessions/{id}``, over a ``SessionManager`` on the same batcher.
+  Without a manager, both surfaces forward to an engine that has
+  ``job_request`` / ``session_request`` (a ``RouterEngine``), else answer
+  501.  ``X-LMRS-Tenant`` labels a job or session.
+
+Not in the port yet, refused by name: ``/v1/usage``, ``/v1/anatomy``,
+``/v1/trace`` and ``/v1/debug/profile`` (observability, A10) answer 404
+naming the slice.  On completions the ``X-LMRS-Tenant`` and
+``X-LMRS-QoS-Class`` headers are accepted and not acted on: their
+consumers, the cost ledger and QoS, are A10's.
 
 Standard library only (``http.server``).
 """
@@ -71,7 +83,6 @@ logger = logging.getLogger("lmrs_torch.serving")
 _TRACE_ID_RE = re.compile(r"^[A-Za-z0-9_.:-]{1,64}$")
 
 _A10 = "observability (A10)"
-_A13 = "durable jobs and live sessions (A13)"
 # GET/POST route prefix -> the slice that brings it
 _LATER_ROUTES = (("/v1/usage", _A10), ("/v1/anatomy", _A10),
                  ("/v1/trace", _A10), ("/v1/debug/profile", _A10))
@@ -96,9 +107,11 @@ def _not_ported(what: str, later: str) -> dict:
 
 
 class _Job:
-    __slots__ = ("request", "result", "event", "deltas", "rid", "cancelled")
+    __slots__ = ("request", "result", "event", "deltas", "rid", "cancelled",
+                 "done_cb")
 
-    def __init__(self, request: GenerationRequest, stream: bool = False):
+    def __init__(self, request: GenerationRequest, stream: bool = False,
+                 done_cb=None):
         self.request = request
         self.result: GenerationResult | None = None
         self.event = threading.Event()
@@ -108,10 +121,15 @@ class _Job:
             queue.Queue() if stream else None)
         self.rid: int | None = None  # set at enqueue
         self.cancelled = False  # set by _Batcher.cancel (handler threads)
+        # fired right after ``event`` (_BatcherEngine waits on one shared
+        # event for a whole request set)
+        self.done_cb = done_cb
 
     def finish(self, result: GenerationResult) -> None:
         self.result = result
         self.event.set()
+        if self.done_cb is not None:
+            self.done_cb()
         if self.deltas is not None:  # sentinel strictly after the result
             self.deltas.put(None)
 
@@ -176,6 +194,12 @@ class _Batcher:
         """Enqueue without blocking; the caller reads ``job.deltas`` until
         the None sentinel, after which ``job.result`` is set."""
         return self._enqueue(_Job(request, stream=True))
+
+    def submit_job(self, request: GenerationRequest, done_cb=None) -> _Job:
+        """Enqueue without blocking or a delta stream; the caller waits on
+        ``job.event``.  ``done_cb`` (set before enqueue, so no completion
+        races past it) fires on completion."""
+        return self._enqueue(_Job(request, done_cb=done_cb))
 
     def cancel(self, job: _Job) -> None:
         """Abort ``job``: a queued job is dropped before dispatch, one in
@@ -267,6 +291,86 @@ class _Batcher:
             job.finish(by_id.get(job.rid, GenerationResult(
                 request_id=job.rid, finish_reason="error",
                 error="engine returned no result")))
+
+
+class _BatcherEngine:
+    """Engine facade that routes the job and session managers' requests
+    through the server's micro-batcher (``_Batcher.submit_job``): their
+    chunk and reduce work pools into the same engine waves as interactive
+    traffic, and never calls the raw engine concurrently with the
+    dispatcher.  ``on_result`` deliveries (and so journal appends) come as
+    each batcher job completes."""
+
+    schedules_internally = True  # the batcher admission-controls
+
+    def __init__(self, batcher: _Batcher):
+        self._batcher = batcher
+        self._inflight: dict[int, _Job] = {}  # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def generate_batch(self, requests: list[GenerationRequest],
+                       on_result=None,
+                       on_tokens=None) -> list[GenerationResult]:
+        import dataclasses
+
+        # one completion signal for the whole call: every finishing job
+        # sets it, and the streaming loop wakes exactly then
+        wake = threading.Event()
+
+        def submit_one(req: GenerationRequest) -> _Job:
+            # the batcher reassigns request_id at enqueue: submit a COPY so
+            # the caller's id survives for the result
+            job = self._batcher.submit_job(dataclasses.replace(req),
+                                           done_cb=wake.set)
+            with self._lock:
+                self._inflight[req.request_id] = job
+            return job
+
+        def finish(req: GenerationRequest, job: _Job) -> GenerationResult:
+            with self._lock:
+                self._inflight.pop(req.request_id, None)
+            return dataclasses.replace(job.result, request_id=req.request_id)
+
+        if on_result is None:
+            jobs = [(r, submit_one(r)) for r in requests]
+            for _, job in jobs:
+                job.event.wait()
+            return [finish(r, j) for r, j in jobs]
+        # streaming: deliver each result as its batcher job completes,
+        # collecting retry submissions into the run
+        pending = list(requests)
+        live: list[tuple[GenerationRequest, _Job]] = []
+        results: list[GenerationResult] = []
+
+        def submit(more: list[GenerationRequest]) -> None:
+            pending.extend(more)
+
+        while pending or live:
+            while pending:
+                req = pending.pop(0)
+                live.append((req, submit_one(req)))
+            idx = next((k for k, (_r, j) in enumerate(live)
+                        if j.event.is_set()), None)
+            if idx is None:
+                # clear-then-rescan: a completion between the scan and
+                # this wait already set ``wake``
+                wake.wait()
+                wake.clear()
+                continue
+            req, job = live.pop(idx)
+            res = finish(req, job)
+            results.append(res)
+            on_result(res, submit)
+        return results
+
+    def cancel(self, request_id: int) -> None:
+        with self._lock:
+            job = self._inflight.get(request_id)
+        if job is not None:
+            self._batcher.cancel(job)
+
+    def shutdown(self) -> None:  # the server owns the real engine
+        pass
 
 
 def _anthropic_stop_reason(res: GenerationResult) -> str:
@@ -367,7 +471,9 @@ class EngineHTTPServer:
     def __init__(self, engine: Engine, host: str = "127.0.0.1",
                  port: int = 8000, model_name: str = "lmrs-tpu",
                  max_tokens_cap: int = 4096, batch_window_s: float = 0.02,
-                 role: str = "both", handoff_ttl_s: float = 60.0):
+                 role: str = "both", handoff_ttl_s: float = 60.0,
+                 jobs_dir: str | None = None, live_dir: str | None = None,
+                 pipeline_config=None):
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"unknown serving role {role!r}; "
                              "want prefill|decode|both")
@@ -376,6 +482,39 @@ class EngineHTTPServer:
         self.max_tokens_cap = max_tokens_cap
         self.batcher = _Batcher(engine, window_s=batch_window_s)
         self.started = time.time()
+        # durable jobs and live sessions: each manager's engine traffic
+        # rides the micro-batcher, and journals found in its directory
+        # recover here.  A None directory falls back to LMRS_JOBS_DIR /
+        # LMRS_LIVE_DIR (the config); empty disables the API (501, or
+        # forwarding when the engine is a router)
+        self.jobs = None
+        self.live = None
+        if jobs_dir is None or live_dir is None or pipeline_config is not None:
+            from lmrs_tpu_torch.config import PipelineConfig
+
+            pipeline_config = pipeline_config or PipelineConfig()
+            if jobs_dir is None:
+                jobs_dir = pipeline_config.jobs.jobs_dir
+            if live_dir is None:
+                live_dir = pipeline_config.live.sessions_dir
+        if jobs_dir:
+            from lmrs_tpu_torch.jobs.manager import JobManager
+
+            self.jobs = JobManager(_BatcherEngine(self.batcher), jobs_dir,
+                                   config=pipeline_config)
+            recovered = self.jobs.recover()
+            if recovered:
+                logger.info("job recovery: %d interrupted job(s) re-queued "
+                            "from %s", recovered, jobs_dir)
+        if live_dir:
+            from lmrs_tpu_torch.live.session import SessionManager
+
+            self.live = SessionManager(_BatcherEngine(self.batcher),
+                                       live_dir, config=pipeline_config)
+            rehydrated = self.live.recover()
+            if rehydrated:
+                logger.info("session recovery: %d live session(s) "
+                            "rehydrated from %s", rehydrated, live_dir)
         # the role is a policy, not a capability: a prefill-role server
         # short-circuits only requests that ask for a handoff (plain ones
         # run whole, which keeps the router's colocated fallback open),
@@ -438,15 +577,9 @@ class EngineHTTPServer:
                 self._send(404, {"error": {"message": f"no route {self.path}"}})
 
             def _later_route(self) -> bool:
-                """Answer a route of a later slice: 501 for jobs and
-                sessions (as the reference with them off), 404 naming the
-                slice for the rest.  False when the path is none of them."""
+                """Answer a route of a later slice with a 404 naming the
+                slice; False when the path is none of them."""
                 path = self.path.split("?", 1)[0]
-                if path in ("/v1/jobs", "/v1/sessions") or path.startswith(
-                        ("/v1/jobs/", "/v1/sessions/")):
-                    what = "job" if path.startswith("/v1/jobs") else "session"
-                    self._send(501, _not_ported(f"the {what} API", _A13))
-                    return True
                 for prefix, later in _LATER_ROUTES:
                     if path == prefix.rstrip("/") or path.startswith(prefix):
                         self._send(404, _not_ported(f"route {path}", later))
@@ -482,16 +615,33 @@ class EngineHTTPServer:
                     summary = outer.prefix_summary()
                     if summary is not None:
                         payload["prefix_summary"] = summary
+                    if outer.jobs is not None:
+                        payload["jobs"] = outer.jobs.stats()
+                    if outer.live is not None:
+                        payload["live"] = outer.live.stats()
                     self._send(200, payload)
                 elif self.path.startswith("/v1/handoff/"):
                     self._get_handoff(self.path.split("/")[3])
                 elif self.path.startswith("/v1/kv/"):
                     self._get_kv(self.path.split("/")[3])
+                elif self.path == "/v1/jobs" or self.path.startswith(
+                        "/v1/jobs/"):
+                    self._send(*outer._job_http("GET", self.path, None))
+                elif (self.path.split("?", 1)[0] == "/v1/sessions"
+                        or self.path.startswith("/v1/sessions/")):
+                    path, _, query = self.path.partition("?")
+                    self._send(*outer._session_http("GET", path, None,
+                                                    query=query))
                 elif not self._later_route():
                     self._no_route()
 
             def do_DELETE(self):
-                if not self._later_route():
+                if self.path.startswith("/v1/jobs/"):
+                    self._send(*outer._job_http("DELETE", self.path, None))
+                elif self.path.startswith("/v1/sessions/"):
+                    self._send(*outer._session_http("DELETE", self.path,
+                                                    None))
+                elif not self._later_route():
                     self._no_route()
 
             def _client_gone(self) -> bool:
@@ -747,6 +897,21 @@ class EngineHTTPServer:
                 if body is None:
                     self._send(400, {"error": {"message": "invalid JSON body"}})
                     return
+                # a tenant label takes the trace id's alphabet; absent or
+                # garbage, a job or session bills to its own id
+                labels = {"trace_id": clean_trace_id(
+                              self.headers.get("X-LMRS-Trace")),
+                          "tenant": clean_trace_id(
+                              self.headers.get("X-LMRS-Tenant"))}
+                if self.path == "/v1/jobs":
+                    self._send(*outer._job_http("POST", self.path, body,
+                                                **labels))
+                    return
+                if (self.path == "/v1/sessions"
+                        or self.path.startswith("/v1/sessions/")):
+                    self._send(*outer._session_http("POST", self.path, body,
+                                                    **labels))
+                    return
                 if self.path in ("/v1/kv/export", "/v1/kv/import"):
                     if not self._kv_disarmed():
                         try:
@@ -968,6 +1133,159 @@ class EngineHTTPServer:
             logger.debug("prefix summary failed", exc_info=True)
             return None
 
+    # ------------------------------------------- job and session plumbing
+
+    def _job_http(self, method: str, path: str, body: dict | None,
+                  trace_id: str | None = None,
+                  tenant: str | None = None):
+        """The /v1/jobs surface: returns ``(status, payload)``.
+
+        Local-first: a configured JobManager answers here.  Without one,
+        an engine exposing ``job_request`` (RouterEngine) forwards to the
+        backend fleet: jobs live next to the engine that runs them, so
+        their journals survive that host's restarts.  Neither: 501.
+        ``trace_id`` (the submit header) rides into the job journal."""
+        if self.jobs is None:
+            forward = getattr(self.engine, "job_request", None)
+            if forward is not None:
+                try:
+                    return forward(method, path, body, trace_id=trace_id,
+                                   tenant=tenant)
+                except Exception as e:  # noqa: BLE001 - marked, never a 500 crash
+                    logger.exception("job forward failed")
+                    return 502, {"error": {
+                        "message": f"job forward failed: "
+                                   f"{type(e).__name__}: {e}",
+                        "type": "job_error"}}
+            return 501, {"error": {
+                "message": "job API disabled on this host; start "
+                           "lmrs-serve-torch with --jobs-dir (or "
+                           "LMRS_JOBS_DIR)",
+                "type": "job_error"}}
+        if method == "POST":
+            transcript = (body or {}).get("transcript")
+            if not isinstance(transcript, dict) or not isinstance(
+                    transcript.get("segments"), list):
+                return 400, {"error": {
+                    "message": "body needs transcript.segments (a transcript "
+                               "JSON object), plus optional params",
+                    "type": "job_error"}}
+            try:
+                job = self.jobs.submit(transcript,
+                                       (body or {}).get("params"),
+                                       trace_id=trace_id, tenant=tenant)
+            except ValueError as e:  # unknown/malformed param values
+                return 400, {"error": {"message": str(e),
+                                       "type": "job_error"}}
+            except Exception as e:  # noqa: BLE001 - e.g. jobs_dir disk full:
+                # a 5xx body, never a dropped connection
+                logger.exception("job submit failed")
+                return 500, {"error": {
+                    "message": f"job submit failed: {type(e).__name__}: {e}",
+                    "type": "job_error"}}
+            return 200, self.jobs.status_doc(job)
+        if method == "GET" and path == "/v1/jobs":
+            return 200, {"object": "list",
+                         "data": [self.jobs.status_doc(j)
+                                  for j in self.jobs.jobs()]}
+        jid = path.split("/v1/jobs/", 1)[-1].strip("/")
+        job = self.jobs.get(jid)
+        if job is None:
+            return 404, {"error": {"message": f"no job {jid}",
+                                   "type": "job_error"}}
+        if method == "DELETE":
+            job = self.jobs.cancel(jid) or job
+        return 200, self.jobs.status_doc(job)
+
+    def _session_http(self, method: str, path: str, body: dict | None,
+                      trace_id: str | None = None, query: str = "",
+                      tenant: str | None = None):
+        """The /v1/sessions surface: returns ``(status, payload)``.
+
+        Local-first like jobs: a configured SessionManager answers here;
+        without one, an engine exposing ``session_request``
+        (RouterEngine) forwards to the backend fleet sticky by session id
+        (a session's journal and its warm prefix tree live with the
+        backend that runs it).  Neither: 501."""
+        if self.live is None:
+            forward = getattr(self.engine, "session_request", None)
+            if forward is not None:
+                try:
+                    full = path + (f"?{query}" if query else "")
+                    return forward(method, full, body, trace_id=trace_id,
+                                   tenant=tenant)
+                except Exception as e:  # noqa: BLE001 - marked, never a crash
+                    logger.exception("session forward failed")
+                    return 502, {"error": {
+                        "message": f"session forward failed: "
+                                   f"{type(e).__name__}: {e}",
+                        "type": "session_error"}}
+            return 501, {"error": {
+                "message": "session API disabled on this host; start "
+                           "lmrs-serve-torch with --live-dir (or "
+                           "LMRS_LIVE_DIR)",
+                "type": "session_error"}}
+        body = body or {}
+        try:
+            if method == "POST" and path.rstrip("/") == "/v1/sessions":
+                session = self.live.create(body.get("params"),
+                                           session_id=body.get("session_id"),
+                                           trace_id=trace_id,
+                                           tenant=tenant)
+                return 200, self.live.status_doc(session)
+            if method == "GET" and path.rstrip("/") == "/v1/sessions":
+                return 200, {"object": "list",
+                             "data": [self.live.status_doc(s)
+                                      for s in self.live.sessions()]}
+            rest = path.split("/v1/sessions/", 1)[-1].strip("/")
+            sid, _, sub = rest.partition("/")
+            if not sid:
+                return 404, {"error": {"message": f"no route {path}",
+                                       "type": "session_error"}}
+            if self.live.get(sid) is None:
+                # cross-host resume: an unknown session may have a journal
+                # in a SHARED live directory, written by a drained or
+                # killed sibling; rehydrate it before answering 404
+                self.live.recover_one(sid)
+            if method == "POST" and sub == "segments":
+                return 200, self.live.append(sid, body.get("segments"),
+                                             refresh=body.get("refresh"),
+                                             klass=body.get("class"))
+            if method == "POST" and sub == "refresh":
+                return 200, self.live.refresh(sid, body.get("class"))
+            if method == "GET" and sub == "summary":
+                from urllib.parse import parse_qs
+
+                q = parse_qs(query or "")
+                if q.get("refresh", ["0"])[-1] not in ("0", "false", ""):
+                    self.live.refresh(sid, (q.get("class") or [None])[-1])
+                return 200, self.live.summary_doc(sid)
+            if method == "GET" and not sub:
+                session = self.live.get(sid)
+                if session is None or session.closed:
+                    raise KeyError(sid)
+                return 200, self.live.status_doc(session)
+            if method == "DELETE" and not sub:
+                session = self.live.close(sid)
+                if session is None:
+                    raise KeyError(sid)
+                return 200, {"object": "session", "id": sid,
+                             "status": "closed"}
+            return 404, {"error": {"message": f"no route {method} {path}",
+                                   "type": "session_error"}}
+        except KeyError:
+            return 404, {"error": {"message": f"no session {sid}",
+                                   "type": "session_error"}}
+        except ValueError as e:
+            return 400, {"error": {"message": str(e),
+                                   "type": "session_error"}}
+        except Exception as e:  # noqa: BLE001 - a 5xx body, never a crash
+            logger.exception("session request failed")
+            return 500, {"error": {
+                "message": f"session request failed: "
+                           f"{type(e).__name__}: {e}",
+                "type": "session_error"}}
+
     # ------------------------------------------------- handoff plumbing
 
     def _fetch_blob(self, path: str, source: str, kind: str):
@@ -1104,6 +1422,10 @@ class EngineHTTPServer:
             time.time() - self.started)
         parts.append(reg.render_prometheus())
         parts.append(self._handoff_reg.render_prometheus())
+        if self.jobs is not None:
+            parts.append(self.jobs.registry.render_prometheus())
+        if self.live is not None:
+            parts.append(self.live.registry.render_prometheus())
         return merge_expositions(parts)
 
     def serve_forever(self) -> None:
@@ -1120,6 +1442,12 @@ class EngineHTTPServer:
         self._sweep_stop.set()
         self.httpd.shutdown()
         self.httpd.server_close()
+        # the managers before the batcher: their in-flight requests drain
+        # (or fast-fail) through a still-open dispatch queue
+        if self.jobs is not None:
+            self.jobs.shutdown()
+        if self.live is not None:
+            self.live.shutdown()
         self.batcher.shutdown()
 
 

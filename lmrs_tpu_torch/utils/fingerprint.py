@@ -1,6 +1,6 @@
-"""Config fingerprints for chunk dumps (copy of the reference's
-``jobs/journal.py`` helpers): the same fields give the same 16-hex digest
-in both packages."""
+"""Canonical JSON and config fingerprints for chunk dumps and the job and
+session journals (copy of the reference's ``jobs/journal.py`` helpers):
+the same fields give the same 16-hex digest in both packages."""
 
 from __future__ import annotations
 

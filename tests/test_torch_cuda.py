@@ -966,3 +966,131 @@ def test_handoff_between_two_engines(cuda_device):
     colo = de.generate_batch([dataclasses.replace(req, request_id=3)])[0]
     assert got.text == colo.text and got.completion_tokens == colo.completion_tokens
     assert not pe.audit() and not de.audit()
+
+
+# ------------------------------------------------ jobs and live sessions
+
+def _demo_transcript(n: int = 40) -> dict:
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    return load_demo_transcript(max_segments=n)
+
+
+@pytest.mark.cuda
+def test_job_recovers_on_card_after_torn_journal(cuda_device, tmp_path):
+    """A job on a CUDA ``TorchEngine`` (``tiny``, 2 layers, bf16): after a
+    simulated crash (the journal cut inside its third chunk record, no
+    terminal record) a new manager over a new engine (a restarted server)
+    recovers it, replay reports the torn tail, the two whole chunk records
+    are reused verbatim, only the other chunks are mapped, and the job
+    ends ``done`` through flash prefill and the decode kernel."""
+    import dataclasses
+    import json
+
+    from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig,
+                                       PipelineConfig, model_preset)
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.jobs import journal as jl
+    from lmrs_tpu_torch.jobs.manager import JobManager
+
+    cfg = PipelineConfig(
+        engine=EngineConfig(max_tokens=16, temperature=0.0, seed=0),
+        chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=900,
+                          overlap_tokens=0, context_tokens=100))
+    mcfg = dataclasses.replace(model_preset("tiny"), n_layers=2)
+    eng = TorchEngine(cfg.engine, mcfg, device=cuda_device)
+    transcript = _demo_transcript()
+    jm = JobManager(eng, tmp_path / "a", config=cfg, start_worker=False)
+    job = jm.submit(transcript)
+    jm.run_job(job)
+    jm.shutdown()
+    assert job.status == "done" and job.n_chunks >= 4
+    lines = job.wal_path.read_bytes().split(b"\n")[:-1]
+    chunks = [ln for ln in lines if json.loads(ln[9:])["type"] == "chunk_done"]
+    header = [ln for ln in lines if json.loads(ln[9:])["type"] == "job_header"]
+    d = tmp_path / "b"
+    d.mkdir()
+    (d / job.req_path.name).write_bytes(job.req_path.read_bytes())
+    wal = d / job.wal_path.name
+    wal.write_bytes(b"\n".join(header + chunks[:2]) + b"\n"
+                    + chunks[2][: len(chunks[2]) // 2])
+    assert jl.replay(wal)[1]["torn"]
+    kernels = [(tfa.flash_attention, "launches"),
+               (tpa.paged_decode_fused, "launches")]
+    for fn, attr in kernels:
+        setattr(fn, attr, 0)
+    eng2 = TorchEngine(cfg.engine, mcfg, device=cuda_device)
+    jm2 = JobManager(eng2, d, config=cfg, start_worker=False)
+    assert jm2.recover() == 1
+    resumed = jm2.get(job.job_id)
+    jm2.run_job(resumed)
+    jm2.shutdown()
+    torch.cuda.synchronize()
+    assert resumed.status == "done" and resumed.resumed_chunks == 2
+    assert resumed.result["summary"]
+    state = jl.rebuild_state(jl.replay(wal)[0])
+    for ln in chunks[:2]:
+        rec = json.loads(ln[9:])
+        key = jl.chunk_key(rec["chunk_index"], rec["start_time"],
+                           rec["end_time"])
+        assert state["chunks"][key]["summary"] == rec["summary"]
+    n_reduce = job.result["total_requests"] - job.n_chunks
+    assert resumed.result["total_requests"] >= job.n_chunks - 2
+    assert resumed.result["total_requests"] <= job.n_chunks - 2 + n_reduce
+    assert all(getattr(fn, attr) > 0 for fn, attr in kernels), [
+        getattr(fn, attr) for fn, attr in kernels]
+    assert eng.audit() == [] and eng2.audit() == []
+
+
+@pytest.mark.cuda
+def test_session_refresh_drafts_from_hint_on_card(cuda_device, tmp_path):
+    """A live session on a CUDA ``TorchEngine`` (``tiny``, 2 layers, tree
+    speculation at ``speculate_k=4``): refresh 1 carries no hint, refresh
+    2 carries refresh 1's summary, and its tree steps run the span
+    kernel's ancestor-mask build on rows whose history sits behind a
+    non-zero hint offset."""
+    import dataclasses
+
+    from lmrs_tpu_torch.config import (ChunkConfig, EngineConfig, LiveConfig,
+                                       PipelineConfig, model_preset)
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.live import SessionManager
+
+    cfg = PipelineConfig(
+        engine=EngineConfig(max_tokens=24, temperature=0.0, seed=0,
+                            speculate_k=4),
+        chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=900,
+                          overlap_tokens=0, context_tokens=100),
+        live=LiveConfig(class_default="bulk"))
+    eng = TorchEngine(cfg.engine, dataclasses.replace(
+        model_preset("tiny"), n_layers=2), device=cuda_device)
+    sched = eng._scheduler
+    seen = {"hints": [], "hoff": []}
+    dispatch, generate = sched._dispatch_spec_spans, eng.generate_batch
+
+    def spy_dispatch(slots, rows, *a, **kw):
+        seen["hoff"].append(max((slots[b].spec_hoff for b in rows), default=0))
+        return dispatch(slots, rows, *a, **kw)
+
+    def spy_generate(requests, **kw):
+        seen["hints"].extend(r.draft_hint for r in requests)
+        return generate(requests, **kw)
+
+    sched._dispatch_spec_spans = spy_dispatch
+    eng.generate_batch = spy_generate
+    segs = _demo_transcript(60)["segments"]
+    m = SessionManager(eng, tmp_path, config=cfg)
+    m.create(session_id="s")
+    r1 = m.append("s", segs[:30], refresh=True)["refresh"]
+    assert seen["hints"] and set(seen["hints"]) == {None}
+    seen["hints"], seen["hoff"] = [], []
+    tpa.ragged_spans.launches_anc = 0
+    r2 = m.append("s", segs[30:], refresh=True)["refresh"]
+    torch.cuda.synchronize()
+    m.shutdown()
+    assert set(seen["hints"]) == {r1["summary"]}
+    assert max(seen["hoff"]) > 0
+    assert tpa.ragged_spans.launches_anc > 0
+    assert r2["chunk_summaries_reused"] > 0
+    assert eng.engine_metrics()["spec_tree"]["dispatches"] > 0
+    assert eng.audit() == []

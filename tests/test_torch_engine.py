@@ -328,7 +328,8 @@ def test_package_imports_no_jax_and_no_reference_package():
         "assert not bad, bad\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['ml_dtypes'] is None\n"
-        "for m in ('engine.host_kv', 'serving.handoff'):\n"
+        "for m in ('engine.host_kv', 'serving.handoff', 'jobs.journal',\n"
+        "          'jobs.manager', 'live.session'):\n"
         "    assert 'lmrs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

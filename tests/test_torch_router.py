@@ -484,9 +484,12 @@ def test_router_refusals(monkeypatch):
                      lambda: router.remove_host("127.0.0.1:1")):
             with pytest.raises(NotImplementedError, match=r"\(A10\) slice"):
                 call()
-        for name in ("job_request", "session_request", "usage_report",
-                     "anatomy_report", "stitched_trace", "slo_report"):
+        # job and session forwarding came with A13; the rest is A10's
+        for name in ("usage_report", "anatomy_report", "stitched_trace",
+                     "slo_report"):
             assert not hasattr(router, name)
+        assert callable(router.job_request)
+        assert callable(router.session_request)
     finally:
         router.shutdown()
     monkeypatch.setenv("LMRS_HEDGE_MS", "50")
@@ -495,9 +498,10 @@ def test_router_refusals(monkeypatch):
 
 
 def test_server_fronting_a_router_refuses_jobs_and_sessions():
-    """A server over a router: completions go through, the job and session
-    routes answer 501 naming their slice (the reference would forward
-    them to the fleet)."""
+    """A server over a router: completions go through, and the job and
+    session routes forward to the fleet, as in the reference.  The backend
+    has neither API on, so the job submit comes back as the backend's own
+    501 and the session list is an empty fleet list."""
     import http.client
 
     fleet = Fleet("port", (0,))
@@ -507,19 +511,24 @@ def test_server_fronting_a_router_refuses_jobs_and_sessions():
     try:
         for method, path, want in (("POST", "/v1/chat/completions", 200),
                                    ("POST", "/v1/jobs", 501),
-                                   ("GET", "/v1/sessions", 501)):
+                                   ("GET", "/v1/sessions", 200)):
             conn = http.client.HTTPConnection("127.0.0.1", front.port,
                                               timeout=TIMEOUT)
             conn.request(method, path, body=json.dumps(
-                {"messages": [{"role": "user", "content": BODY}]})
+                {"messages": [{"role": "user", "content": BODY}],
+                 "transcript": {"segments": []}})
                 if method == "POST" else None)
             resp = conn.getresponse()
             text = resp.read().decode()
             conn.close()
             assert resp.status == want, (path, text)
-            if want == 501:
-                assert "(A13) slice" in text
+            if path == "/v1/jobs":
+                assert "job API disabled on this host" in text
+            if path == "/v1/sessions":
+                assert json.loads(text) == {"object": "list", "data": [],
+                                            "hosts_unreachable": 0}
         assert router.hosts[0].served == 1
+        assert router._jobs_forwarded == router._sessions_forwarded == 1
     finally:
         front.shutdown()
         router.shutdown()

@@ -428,14 +428,22 @@ def test_trace_header_adopted_or_minted(servers):
 ])
 def test_later_routes_are_refused_by_name(shared, method, path, status,
                                           slice_):
+    """Observability routes (A10) are refused naming their slice.  The job
+    and session routes came with A13: a server started without
+    ``jobs_dir`` / ``live_dir`` answers them as the reference does with
+    the feature off (501, the same error type)."""
     pair = shared
-    code, _, text = call(pair[0], method, path,
-                         {} if method == "POST" else None)
+    body = {} if method == "POST" else None
+    code, _, text = call(pair[0], method, path, body)
     assert code == status
-    assert f"({slice_}) slice" in json.loads(text)["error"]["message"]
-    if slice_ == "A13":  # the reference with jobs and sessions off: 501
-        assert call(pair[1], method, path,
-                    {} if method == "POST" else None)[0] == 501
+    err = json.loads(text)["error"]
+    if slice_ == "A13":
+        ref_code, _, ref_text = call(pair[1], method, path, body)
+        assert ref_code == 501
+        assert err["type"] == json.loads(ref_text)["error"]["type"]
+        assert "disabled on this host" in err["message"]
+    else:
+        assert f"({slice_}) slice" in err["message"]
 
 
 @pytest.mark.parametrize("method,path,status", [
@@ -626,11 +634,27 @@ def test_engine_prefix_summary_publishes_donated_preambles():
 @pytest.mark.parametrize("flag,slice_", [
     (["--mesh", "1,2"], "A8"), (["--jobs-dir", "j"], "A13"), (["--live-dir", "l"], "A13"),
     (["--supervise"], "A10"), (["--trace"], "A10")])
-def test_serve_cli_refuses_later_flags(flag, slice_, capsys):
-    from lmrs_tpu_torch.serving.cli import main
+def test_serve_cli_refuses_later_flags(flag, slice_, capsys, monkeypatch):
+    """Flags of later slices are refused by name.  ``--jobs-dir`` and
+    ``--live-dir`` came with A13: they reach the server (its constructor
+    is stubbed to record them and fail the bind, so ``main`` returns 1)."""
+    from lmrs_tpu_torch.serving import cli, server
 
+    if slice_ == "A13":
+        seen = {}
+
+        def fake_server(engine, **kw):
+            seen.update(kw)
+            raise OSError("bind refused (test)")
+
+        monkeypatch.setattr(server, "EngineHTTPServer", fake_server)
+        assert cli.main([*flag, "--backend", "mock", "-q"]) == 1
+        key = flag[0][2:].replace("-", "_")
+        assert seen[key] == flag[1]
+        assert seen["pipeline_config"].engine.backend == "mock"
+        return
     with pytest.raises(SystemExit) as exc:
-        main([*flag, "--backend", "mock"])
+        cli.main([*flag, "--backend", "mock"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert f"{flag[0]} is not in the port yet" in err
