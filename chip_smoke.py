@@ -65,7 +65,8 @@ anything wrong.  Phases, one JSON object per line:
               8 x 1,501 tokens; spans phase 5's mixed step; verify 8 x 5
               tokens after 1,500; the ancestor-mask build phase 12's step)
               with its bound, plain time and times at other split sizes.
-4. model    — bench-8b widths at 2 layers: one packed prefill of 3 prompts,
+4. model    — bench-8b widths at 2 layers (``MODEL_CHECK_LAYERS``): one
+              packed prefill of 3 prompts,
               16 teacher-forced decode steps, one span dispatch (2 decode
               rows + a 100-token slice) and one 5-token verify step
               (``multi_decode``) through ``forward_paged``, on the card
@@ -106,13 +107,15 @@ anything wrong.  Phases, one JSON object per line:
               a fresh-prefill dispatch profile (one 1,600-token row, all
               32 layers: device time by kernel kind).
 6. spec     — the same transcript and config with linear speculation
-              (``speculate_k=4, mixed_batch=False``) at full depth; counters
+              (``speculate_k=4, mixed_batch=False``) at 8 layers
+              (``VARIANT_LAYERS``; full depth before phase 18); counters
               zeroed just before and read just after: the verify kernel,
               flash prefill and the span kernel (prefix-hit tails) launched,
               the write-fused decode kernel not at all (every decode
               dispatch is a speculative block); a clean audit.
 7. int8      — phase 5's transcript and config with ``quantize="int8",
-              kv_quantize="int8"`` at full depth (params quantized on the
+              kv_quantize="int8"`` at 8 layers (``VARIANT_LAYERS``; full
+              depth before phase 18) (params quantized on the
               card after random init; the prefix cache is then off):
               flash prefill and the int8 span and decode kernels launched,
               mixed steps > 0, no prefix-cache query, a clean audit; a
@@ -120,7 +123,8 @@ anything wrong.  Phases, one JSON object per line:
               weight products and the rest.
 8. int8-spec — phase 7 with ``speculate_k=4, mixed_batch=False``: the int8
               verify kernel launched, the int8 decode kernel not at all.
-9. gemma-7b — phase 5 at full gemma-7b (28 layers, hd 256, random-init
+9. gemma-7b — phase 5 at gemma-7b's widths, 8 of its 28 layers
+              (``VARIANT_LAYERS``; full before phase 18; hd 256, random-init
               bf16): phase 5's gates and a preemption; a decode-step
               profile with the attention kernel's ms a launch beside its
               bound; peak memory.
@@ -130,7 +134,8 @@ anything wrong.  Phases, one JSON object per line:
               the int8 verify and span kernels and flash launched, the
               int8 decode kernel not at all, no prefix-cache query.
 11. parity  — the pipeline, executor and CLI parity flows at bench-8b widths
-              and 8 layers (``PARITY_LAYERS``; 32 before phases 13-14
+              and 4 layers (``PARITY_LAYERS``; 8 before phase 18, 32
+              before phases 13-14
               took the script past ~650 s), with phase 5's settings, over
               one engine shared by five
               sub-phases, each on a line of its own with its wall, request
@@ -166,15 +171,18 @@ anything wrong.  Phases, one JSON object per line:
               ``quantize_params`` of the bf16 ones, 8 greedy requests on
               each with a clean audit; bytes written and read, seconds a
               step; the files deleted.
-14. mixtral — phase 5's transcript and config at full ``mixtral-8x7b``
-              (32 layers, int8 weights drawn a layer at a time on the
+14. mixtral — phase 5's transcript and config at ``mixtral-8x7b``'s
+              widths, all 32 layers (``MIXTRAL_LAYERS``), int8 weights
+              drawn a layer at a time on the
               card, bf16 KV, prefix cache on): no failed request, a clean
               audit, a tree, flash, decode and span kernels launched (no
               verify, ancestor-mask or int8-KV build), mixed steps and
               prefix hits, peak memory < 64 GiB; a decode-step profile
               split into attention, expert products, routing/dispatch,
               the other int8 products and the rest.
-15. serve   — the serving surface at full bench-8b (random-init bf16,
+15. serve   — the serving surface at bench-8b widths (15a-15b at 8
+              layers, ``VARIANT_LAYERS``, full before phase 18; 15c's child
+              at full depth; random-init bf16,
               byte tokenizer, phase 5's engine settings with a 512-token
               cap), each sub-phase on a line of its own with the card's
               name and power limit.  15a: ``EngineHTTPServer`` in this
@@ -200,7 +208,8 @@ anything wrong.  Phases, one JSON object per line:
               --tokenizer byte`` as a child on the card: ``/healthz``
               within 300 s, one chat completion, SIGINT exits 0; start-up
               seconds.
-16. kv      — KV movement at full bench-8b (random-init bf16, byte
+16. kv      — KV movement at bench-8b widths, 8 layers
+              (``VARIANT_LAYERS``; full before phase 18) (random-init bf16, byte
               tokenizer, phase 5's engine settings), each sub-phase on a
               line of its own with the card's name and power limit.  16a
               (host tier, on by default): 8 of phase 5's map prompts cold,
@@ -230,7 +239,8 @@ anything wrong.  Phases, one JSON object per line:
               kernel with the warm host's text, and a same-preamble group
               of 8 through a colocated router ends with
               ``lmrs_kv_migrate_prefetches_total`` above 0.
-17. jobs-live — durable jobs and live sessions at full bench-8b (random-
+17. jobs-live — durable jobs and live sessions at bench-8b widths (17a's
+              child at full depth, 17b at 8 layers, ``VARIANT_LAYERS``; random-
               init bf16, byte tokenizer), each sub-phase on a line of its
               own with the card's name and power limit.  17a:
               ``lmrs-serve-torch --jobs-dir --max-tokens-cap 64`` as a
@@ -258,7 +268,47 @@ anything wrong.  Phases, one JSON object per line:
               a ``RouterEngine`` front over 17b's server: a job and a
               session's create, append and refresh through it, pinned to
               the host, the routed docs equal the host's.
-18. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+18. obs     — the measurement half of observability at full bench-8b
+              (random-init bf16, byte tokenizer, phase 5's config), each
+              sub-phase on a line of its own with the card's name and
+              power limit.  18a: phase 5's workload with the tracer on
+              (the ledger, anatomy, SLO and attribution on by default):
+              the exported trace validates; every request's track runs
+              enqueue → admit → prefill → first_token → decode → finish (a
+              preempted one inserts preempt and a new admit); the pipeline
+              track holds map_stage and one reduce_level a level; every
+              decode_block span carries hbm_gb > 0; a clean audit (ledger
+              conservation and the anatomy identity included); every live
+              decode HBM-utilisation and prefill-MFU sample in (0, 1.05];
+              ``chip_spec().known``; flash, decode and span kernels
+              launched; decode and prefill tokens, mixed steps and
+              preemptions equal phase 5's.  Printed: the wall, the trace's
+              events and bytes, the anatomy's per-class segment means with
+              the residual, the medians, the ledger's totals.  18b: the
+              same with tracing off and ``LMRS_ANATOMY=0
+              LMRS_COST_LEDGER=0 LMRS_SLO=0``: its wall beside 18a's and
+              phase 5's (not gated).  18c: ``python -m lmrs_tpu_torch.cli
+              --model bench-8b`` on 60 demo segments with ``--trace-out F
+              --profile`` as a child (exit 0, F validates), then
+              ``--trace-out F2 --no-trace`` (mock backend) writes no F2.
+              18d: an in-process server with tracing on over a bench-8b
+              engine: 8 chat requests under two ``X-LMRS-Tenant`` labels
+              (``/v1/usage`` per tenant equals the responses' usage,
+              device-seconds equal the ledger's fed walls), ``/v1/anatomy``
+              and a clean audit, ``/v1/trace`` validates, ``/healthz``
+              ``slo`` ok, ``/metrics`` text with the scheduler's
+              instruments, ``POST /v1/debug/profile`` for 2 s while a
+              request decodes (the Chrome trace names
+              ``paged_decode_kernel``), and with ``LMRS_POSTMORTEM_DIR``
+              armed 8 requests whose deadline (from the TTFT and 18a's
+              block wall) runs out in decode: all ``deadline``, a
+              ``deadline_storm`` postmortem that validates and holds the
+              ring's spans.  18e: a ``RouterEngine`` over 18d's server and
+              a mock server (a child with ``--trace``): the stitched trace
+              validates, each routed request's trace id is on the router's
+              ``route`` instant and on the host that finished it, fleet
+              usage totals equal the hosts' sum, fleet anatomy merges both.
+19. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -276,18 +326,37 @@ from pathlib import Path
 
 import torch
 
-H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (H100 SXM data sheet)
-H100_HBM_BYTES = 3.35e12   # HBM3 bandwidth (H100 SXM data sheet)
 TOL = 2e-2                 # bf16 kernel vs bf16 plain version, |out| ~ O(1)
-LOGIT_TOL = 0.25           # bf16 card vs f32 CPU logits through 2 layers
+LOGIT_TOL = 0.25           # bf16 card vs f32 CPU logits through 1-2 layers
+# Depths cut when phase 18 took the script past ~900 s (on the slower of
+# the card's hosts, past ~1,100 s): phases 6-9, 12, 15a-15b, 16 and 17b
+# (full until then) and phase 11 (8).  Their gates and flows do not depend
+# on depth.  Two depths are not cut because a check needs them: the
+# phase-4 model checks run 2 layers, so a layer's offset into the pool's
+# folded page axis is compared with the CPU, and phase 14 runs all 32 of
+# Mixtral's layers, so its 64 GiB gate shows the whole int8 model fits one
+# card.  Phases 5, 10, 12b, 13, 15c, 17a and 18 keep full depth.
+MODEL_CHECK_LAYERS = 2
+VARIANT_LAYERS = 8
+MIXTRAL_LAYERS = 32
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def peaks() -> tuple[float, float]:
+    """(dense bf16 FLOP/s, HBM bytes/s) of the card, from the port's one
+    table of data-sheet peaks (``utils/perf_model.chip_spec``)."""
+    from lmrs_tpu_torch.utils.perf_model import chip_spec
+
+    spec = chip_spec()
+    return spec.peak_flops, spec.peak_hbm_bw
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
+    peak_flops, peak_bytes = peaks()
+    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1052,8 +1121,8 @@ def anc_main_shapes(gen: torch.Generator, widths: dict = BENCH8B) -> list[dict]:
                      "ms": time_ms(lambda: pa.ragged_spans(**x)),
                      "plain_ms": time_ms(lambda: pa.ragged_spans_ref(**x2), reps=3),
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                     "bound_bytes_ms": nbytes / H100_HBM_BYTES * 1e3,
-                     "bound_operations_ms": flops / H100_BF16_FLOPS * 1e3,
+                     "bound_bytes_ms": nbytes / peaks()[1] * 1e3,
+                     "bound_operations_ms": flops / peaks()[0] * 1e3,
                      "unmasked_ms": time_ms(lambda: pa.ragged_spans(**unmasked)),
                      "shape": "8 rows x (heal + 9) tokens after 1500, heals "
                               f"{[n - 9 for n in x['q_lens'].tolist()]}, "
@@ -1290,7 +1359,8 @@ def moe_routes(cfg, records: list) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def check_model(int8: bool = False, preset: str = "bench-8b",
-                n_layers: int = 2, params_cpu: dict | None = None) -> dict:
+                n_layers: int = MODEL_CHECK_LAYERS,
+                params_cpu: dict | None = None) -> dict:
     """``preset``'s widths at ``n_layers`` layers.  ``int8``: the same
     weights quantized (``quantize_params`` on the CPU; the card gets the
     same int8 values and scales), int8 KV pools with per-slot scale
@@ -1908,6 +1978,19 @@ def kernel_counters() -> dict:
     return out
 
 
+def at_depth(cfg, layers: int | None):
+    """``cfg`` with its engine's preset cut to ``layers`` layers (None:
+    the full preset)."""
+    if layers is None:
+        return cfg
+    import dataclasses
+
+    from lmrs_tpu_torch.config import model_preset
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        model_preset(cfg.engine.model), n_layers=layers))
+
+
 def phase5_config(model: str = "bench-8b", streaming: bool = False,
                   **engine_kw):
     """Phase 5's ``PipelineConfig`` at the preset ``model``."""
@@ -1931,9 +2014,11 @@ def phase5_config(model: str = "bench-8b", streaming: bool = False,
                             streaming=streaming))
 
 
-def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
+def summarize_once(model: str = "bench-8b", layers: int | None = None,
+                   **engine_kw) -> tuple:
     """``TranscriptSummarizer`` over the demo transcript at the full
-    preset ``model`` (bench-8b unless given), every launch counter zeroed
+    preset ``model`` (bench-8b unless given; ``layers`` deep when given),
+    every launch counter zeroed
     just before ``summarize`` and read just after; the checks every path
     must pass (a summary, no failed request, a clean audit, a hierarchical
     reduce).  Returns (summarizer, engine, stats, wall seconds,
@@ -1941,7 +2026,7 @@ def summarize_once(model: str = "bench-8b", **engine_kw) -> tuple:
     from lmrs_tpu_torch.pipeline import TranscriptSummarizer
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
 
-    cfg = phase5_config(model, **engine_kw)
+    cfg = at_depth(phase5_config(model, **engine_kw), layers)
     transcript = load_demo_transcript(max_segments=200)
     summarizer = TranscriptSummarizer(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -2026,7 +2111,7 @@ def run_spec_path() -> dict:
     """Phase 5's transcript and config with linear speculation: every
     decode dispatch is a speculative block through the verify kernel."""
     summarizer, engine, stats, wall, launches = summarize_once(
-        speculate_k=4, mixed_batch=False)
+        layers=VARIANT_LAYERS, speculate_k=4, mixed_batch=False)
     em = stats["engine_metrics"]
     require_launches(launches, "spec path",
                      ("paged_decode_multi", "flash_prefill", "ragged_spans"),
@@ -2038,7 +2123,7 @@ def run_spec_path() -> dict:
         raise AssertionError(f"allocator audit after profiling: {engine.audit()}")
     summarizer.shutdown()
     return {"phase": "spec", "speculate_k": 4, "mixed_batch": False,
-            "model": "bench-8b (32 layers, random-init bf16)",
+            "model": f"bench-8b ({VARIANT_LAYERS} layers, random-init bf16)",
             "verify_step_profile": step,
             "requests": em["requests"], "reduce_levels": stats["reduce_levels"],
             "prefill_tokens": em["prefill_tokens"],
@@ -2061,11 +2146,13 @@ def run_spec_path() -> dict:
 # ------------------------------------------------------------ phase 9
 
 def run_gemma_path() -> dict:
-    """Phase 5's transcript and engine settings at full gemma-7b (28
+    """Phase 5's transcript and engine settings at gemma-7b's widths
+    (``VARIANT_LAYERS`` of its 28
     layers, hd 256, 16 query over 16 kv heads, random-init bf16, byte
     tokenizer), with phase 5's gates and a preemption besides; its decode-step
     profile puts the attention kernel's time a launch beside its bound."""
-    summarizer, engine, stats, wall, launches = summarize_once("gemma-7b")
+    summarizer, engine, stats, wall, launches = summarize_once(
+        "gemma-7b", layers=VARIANT_LAYERS)
     em = stats["engine_metrics"]
     require_launches(launches, "gemma-7b path",
                      ("flash_prefill", "paged_decode_fused", "ragged_spans"))
@@ -2127,7 +2214,8 @@ def run_tree_path(model: str = "bench-8b", **engine_kw) -> dict:
     span kernel launched, the decode and verify kernels did not, tree
     dispatches ran and drafts were accepted (and summarize_once's gates)."""
     summarizer, engine, stats, wall, launches = summarize_once(
-        model, speculate_k=4, **engine_kw)
+        model, layers=VARIANT_LAYERS if model == "bench-8b" else None,
+        speculate_k=4, **engine_kw)
     em = stats["engine_metrics"]
     sched = engine._scheduler
     int8 = sched.kv_scales is not None
@@ -2187,7 +2275,9 @@ def run_int8_path(spec: bool = False, model: str = "bench-8b",
     kw = dict(quantize="int8", kv_quantize="int8", **engine_kw)
     if spec:
         kw.update(speculate_k=4, mixed_batch=False)
-    summarizer, engine, stats, wall, launches = summarize_once(model, **kw)
+    # phases 7-8 at VARIANT_LAYERS; phase 10 at gemma-2b's full depth
+    summarizer, engine, stats, wall, launches = summarize_once(
+        model, layers=VARIANT_LAYERS if model == "bench-8b" else None, **kw)
     em = stats["engine_metrics"]
     sched = engine._scheduler
     if sched.cache.k.dtype != torch.int8:
@@ -2434,8 +2524,9 @@ def run_checkpoint_path(preset: str = "mixtral-8x7b", n_layers: int = 1) -> dict
 # ------------------------------------------------------------ phase 14
 
 def run_mixtral_path() -> dict:
-    """Phase 14: phase 5's transcript and config at full ``mixtral-8x7b``
-    (32 layers, 8 experts, 2 a token), int8 weights drawn and quantized one
+    """Phase 14: phase 5's transcript and config at ``mixtral-8x7b``'s
+    widths, ``MIXTRAL_LAYERS`` deep (8 experts, 2 a token), int8 weights
+    drawn and quantized one
     layer at a time on the card, bf16 KV, the prefix cache on.  Fails
     unless nothing failed, the audit is clean, the reduce formed a tree,
     flash, the write-fused decode and the span kernel launched (the
@@ -2444,7 +2535,7 @@ def run_mixtral_path() -> dict:
     profile split into attention, expert products, routing and dispatch,
     the other int8 products and the rest."""
     summarizer, engine, stats, wall, launches = summarize_once(
-        "mixtral-8x7b", quantize="int8")
+        "mixtral-8x7b", layers=MIXTRAL_LAYERS, quantize="int8")
     em = stats["engine_metrics"]
     never = ("paged_decode_multi", "ragged_spans_anc", "paged_decode_fused_int8",
              "ragged_spans_int8", "paged_decode_multi_int8",
@@ -2494,7 +2585,7 @@ def run_mixtral_path() -> dict:
 PARITY_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "parity"
 # phase 11 runs bench-8b's widths at this depth (32 until phases 13-14 took
 # the script past ~650 s); its flows and gates do not depend on depth
-PARITY_LAYERS = 8
+PARITY_LAYERS = 4
 
 
 class ObservedEngine:
@@ -2895,6 +2986,15 @@ def sse_stream(port: int, path: str, body: dict) -> dict:
             "total_ms": (time.time() - t0) * 1e3}
 
 
+def usage_counts(usage: dict) -> dict:
+    """A response's usage less the ledger's measured seconds: the token
+    counts and the bill's tenant and tokens, which two runs of the same
+    request share (their walls differ)."""
+    cost = usage.get("cost") or {}
+    return {**usage, "cost": {k: v for k, v in cost.items()
+                              if not k.endswith("seconds")}}
+
+
 def serve_pair(port: int, sched, path: str, body: dict) -> dict:
     """15a's check of one wire: the request non-streamed, then streamed,
     each from an empty prefix cache (the same dispatch shapes, so the same
@@ -2917,7 +3017,7 @@ def serve_pair(port: int, sched, path: str, body: dict) -> dict:
         n_in = usage["prompt_tokens"]
         last = s["events"][-2]
         stream_ok = (last["choices"][0]["finish_reason"] == reason
-                     and last["usage"] == usage)
+                     and usage_counts(last["usage"]) == usage_counts(usage))
         reason_ok = reason == ("length" if n_out == body["max_tokens"] else "stop")
     else:
         text, usage = doc["content"][0]["text"], doc["usage"]
@@ -2925,7 +3025,7 @@ def serve_pair(port: int, sched, path: str, body: dict) -> dict:
         n_in = usage["input_tokens"]
         last = next(e for e in s["events"] if e.get("type") == "message_delta")
         stream_ok = (last["delta"]["stop_reason"] == reason
-                     and last["usage"] == usage)
+                     and usage_counts(last["usage"]) == usage_counts(usage))
         reason_ok = reason == ("max_tokens" if n_out == body["max_tokens"]
                                else "end_turn")
     if "".join(s["deltas"]) != text:
@@ -3123,7 +3223,8 @@ def serve_checks(srv, rec, engine, smi: str, build_s: float) -> dict:
             or "lmrs_http_requests_total" not in prom):
         raise AssertionError("15a: /v1/models or /metrics did not parse")
     return {"phase": "serve-15a", "card": smi,
-            "model": "bench-8b (32 layers, random-init bf16, byte tokenizer)",
+            "model": f"bench-8b ({engine.model_cfg.n_layers} layers, "
+                     "random-init bf16, byte tokenizer)",
             "engine_build_seconds": build_s, "phase_seconds": phase_s,
             **out, "wave": {"requests": 8, "wall_seconds": wave_wall,
                             "prompt_chars": [len(b.prompt) for b in
@@ -3268,7 +3369,7 @@ def serve_cli_child(smi: str) -> dict:
 
 
 def run_serve_path(smi: str, main_out: dict) -> dict:
-    """Phase 15: 15a and 15b over one in-process server on a full bench-8b
+    """Phase 15: 15a and 15b over one in-process server on a bench-8b
     ``TorchEngine`` (phase 5's engine settings, a token cap of
     ``SERVE_CAP``), then 15c once that engine is freed.  Each sub-phase
     prints its own line."""
@@ -3279,8 +3380,8 @@ def run_serve_path(smi: str, main_out: dict) -> dict:
     from lmrs_tpu_torch.serving.server import EngineHTTPServer
 
     cfg = phase5_config()
-    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
-        cfg.engine, max_tokens=SERVE_CAP))
+    cfg = at_depth(dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, max_tokens=SERVE_CAP)), VARIANT_LAYERS)
     t0 = time.time()
     engine = TranscriptSummarizer(cfg, device="cuda").executor.engine
     torch.cuda.synchronize()
@@ -3349,7 +3450,7 @@ def kv_engine(**engine_kw):
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
     from lmrs_tpu_torch.utils.timing import StageTimer
 
-    cfg = phase5_config(**engine_kw)
+    cfg = at_depth(phase5_config(**engine_kw), VARIANT_LAYERS)
     summ = TranscriptSummarizer(cfg, device="cuda")
     engine = summ.executor.engine
     _n, _p, chunks = summ._prep(load_demo_transcript(max_segments=200),
@@ -3978,7 +4079,8 @@ def run_handoff_path(smi: str) -> tuple[dict, dict]:
 
 def run_kv_path(smi: str) -> dict:
     """Phase 16: the spill tiers (16a, 16b), the disaggregated handoff
-    (16c) and the ``/v1/kv`` wire (16d) at full bench-8b."""
+    (16c) and the ``/v1/kv`` wire (16d) at bench-8b widths,
+    ``VARIANT_LAYERS`` deep."""
     a, b = run_host_tier_path(smi)
     c, d = run_handoff_path(smi)
     return {"phase": "kv", "card": smi,
@@ -4213,14 +4315,14 @@ def run_live_path(smi: str, model: str = "bench-8b",
     from lmrs_tpu_torch.serving.server import EngineHTTPServer
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
 
-    cfg = PipelineConfig(
+    cfg = at_depth(PipelineConfig(
         engine=EngineConfig(model=model, max_tokens=64, seed=0,
                             temperature=0.0, speculate_k=4),
         # byte chunks as phase 5's; arity 4 keeps a reduce node's four
         # 64-token summaries inside the 2,048 window
         chunk=ChunkConfig(tokenizer="byte", max_tokens_per_chunk=1400),
         reduce=ReduceConfig(max_summaries_per_batch=4),
-        live=LiveConfig(class_default="bulk"))
+        live=LiveConfig(class_default="bulk")), VARIANT_LAYERS)
     live_dir = JOBS_DIR / "live"
     shutil.rmtree(JOBS_DIR, ignore_errors=True)
     engine = TranscriptSummarizer(cfg, device=device).executor.engine
@@ -4331,7 +4433,9 @@ def run_live_path(smi: str, model: str = "bench-8b",
         after = (again.status_doc(again.get("live17")),
                  again.summary_doc("live17"))
         for d in (before[0], after[0]):
-            d.pop("recovered"), d.pop("journal")
+            # the usage block bills this manager's own refreshes: a
+            # recovered manager has run none
+            d.pop("recovered"), d.pop("journal"), d.pop("usage", None)
         if after != before:
             raise AssertionError("17b: the recovered session's docs differ")
         # refresh 3's requests again, the hint suppressed and kept
@@ -4374,6 +4478,532 @@ def run_jobs_live_path(smi: str) -> dict:
     return {"phase": "jobs-live", "card": smi,
             "resumed_map_requests": a["resumed"]["map_requests"],
             "anc_launches": b["launches_refreshes_2_3"]["ragged_spans_anc"]}
+
+
+# ------------------------------------------------------------ phase 18
+
+OBS_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "obs"
+# the lifecycle milestones of a request's trace track (decode_block
+# instants and queue_wait spans ride between them)
+OBS_MILESTONES = ("enqueue", "admit", "prefix_match", "prefill",
+                  "first_token", "decode", "preempt", "finish")
+OBS_OFF = {"LMRS_ANATOMY": "0", "LMRS_COST_LEDGER": "0", "LMRS_SLO": "0"}
+OBS_WAVE = 8  # 18d's requests a wave
+
+
+def chain_problems(spans: dict) -> list[str]:
+    """Requests whose engine track does not run enqueue → admit → prefill
+    → first_token → decode → finish (a preempted request may insert
+    preempt and a new admit)."""
+    from lmrs_tpu_torch.obs.trace import REQ_TID_BASE
+
+    bad = []
+    for tid, evs in spans.items():
+        if tid < REQ_TID_BASE:
+            continue
+        names = [e["name"] for e in evs if e["name"] in OBS_MILESTONES]
+        ok = (names and names[0] == "enqueue" and names[-1] == "finish"
+              and all(x in names for x in ("admit", "prefill", "first_token",
+                                           "decode")))
+        if ok:
+            order = [names.index(x) for x in ("enqueue", "admit",
+                                              "first_token", "finish")]
+            ok = order == sorted(order) and names.count("first_token") == 1
+            # every admit after the first follows a preempt
+            ok = ok and names.count("admit") == 1 + names.count("preempt")
+        if not ok:
+            bad.append(f"track {tid}: {names}")
+    return bad
+
+
+def anatomy_means(an) -> dict:
+    """Per step class: iterations kept and the mean of each host segment,
+    the residual and the wall (ms), over the anatomy's per-class records
+    (``LMRS_ANATOMY_RESERVOIR`` is set past the run's iterations, so the
+    means cover every iteration)."""
+    from lmrs_tpu_torch.obs import SEGMENTS
+
+    out = {}
+    for cls, recs in an._res.items():
+        if not recs:
+            continue
+        n = len(recs)
+        row = {"iterations": an._cls_iters[cls], "kept": n,
+               "wall_ms": sum(r[0] for r in recs) / n * 1e3}
+        for i, seg in enumerate(SEGMENTS):
+            row[f"{seg}_ms"] = sum(r[1][i] for r in recs) / n * 1e3
+        row["residual_ms"] = sum(r[2] for r in recs) / n * 1e3
+        out[cls] = row
+    return out
+
+
+def free_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def obs_traced_path(smi: str, main_out: dict) -> dict:
+    """18a: phase 5's workload and config with the tracer on (ledger,
+    anatomy, SLO and attribution on by default)."""
+    import os
+
+    import numpy as np
+
+    from lmrs_tpu_torch.obs import (PID_ENGINE, PID_PIPELINE, TID_SCHED,
+                                    disable_tracing, enable_tracing,
+                                    export_current, validate_trace_file)
+    from lmrs_tpu_torch.utils.perf_model import chip_spec
+
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    os.environ["LMRS_ANATOMY_RESERVOIR"] = "100000"
+    tr = enable_tracing()
+    try:
+        summarizer, engine, stats, wall, launches = summarize_once()
+        path = OBS_DIR / "trace-18a.json"
+        n_events, err = export_current(path)
+    finally:
+        disable_tracing()
+        del os.environ["LMRS_ANATOMY_RESERVOIR"]
+    if err is not None:
+        raise AssertionError(f"18a: trace export failed: {err}")
+    events = validate_trace_file(path)
+    require_launches(launches, "traced main path (18a)",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"))
+    problems = chain_problems(tr.spans_by_tid(PID_ENGINE))
+    if problems:
+        raise AssertionError(f"18a: {len(problems)} request chains broken, "
+                             f"e.g. {problems[:3]}")
+    pipe = [e["name"] for e in events if e["pid"] == PID_PIPELINE
+            and e["ph"] == "X"]
+    if "map_stage" not in pipe or (pipe.count("reduce_level")
+                                   != stats["reduce_levels"]):
+        raise AssertionError(f"18a: pipeline track {sorted(set(pipe))}: "
+                             f"{pipe.count('reduce_level')} reduce_level "
+                             f"spans for {stats['reduce_levels']} levels")
+    blocks = [e for e in events if e["name"] == "decode_block"
+              and e["ph"] == "X" and e["tid"] == TID_SCHED
+              and e["pid"] == PID_ENGINE]
+    if not blocks or any(not e["args"]["hbm_gb"] > 0 for e in blocks):
+        raise AssertionError("18a: a decode_block span without hbm_gb > 0")
+    sched = engine._scheduler
+    perf = sched._perf
+    hbm, mfu = list(perf.h_hbm.samples), list(perf.h_mfu.samples)
+    for what, xs in (("decode HBM utilisation", hbm), ("prefill MFU", mfu)):
+        if not xs or not all(0.0 < x <= 1.05 for x in xs):
+            raise AssertionError(f"18a: {what} samples outside (0, 1.05]: "
+                                 f"n={len(xs)}, min {min(xs, default=None)}, "
+                                 f"max {max(xs, default=None)}")
+    spec = chip_spec()
+    if not spec.known:
+        raise AssertionError(f"18a: chip_spec() does not know {spec.kind!r}")
+    # a mixed step observes its one combined roofline ratio into both
+    # histograms; the rest of the HBM samples are clean decode blocks and
+    # the rest of the MFU samples clean synchronous prefills
+    blocks_only, clean_prefill = list(hbm), []
+    for x in mfu:
+        if x in blocks_only:
+            blocks_only.remove(x)
+        else:
+            clean_prefill.append(x)
+    em = stats["engine_metrics"]
+    same = {k: (em[k], main_out[k]) for k in ("decode_tokens",
+                                               "prefill_tokens")}
+    same["mixed_steps"] = (em["mixed_batch"]["dispatches"],
+                           main_out["mixed_batch"]["dispatches"])
+    same["preemptions"] = (em["preemptions"], main_out["preemptions"])
+    if any(a != b for a, b in same.values()):
+        raise AssertionError(f"18a: schedule differs from phase 5's: {same}")
+    cost = em["cost"]
+    out = {"phase": "obs-18a", "card": smi, "wall_seconds": wall,
+           "phase5_wall_seconds": main_out["wall_seconds"],
+           "trace_events": n_events, "trace_bytes": path.stat().st_size,
+           "decode_block_spans": len(blocks),
+           "anatomy_means_ms": anatomy_means(sched._an),
+           "anatomy": {k: em["anatomy"][k] for k in (
+               "iterations", "aborted_iterations", "wall_ms", "residual_ms",
+               "segments_ms", "host_overhead_us_step")},
+           "decode_hbm_util": {"p50": float(np.median(hbm)), "n": len(hbm),
+                               "min": min(hbm), "max": max(hbm),
+                               "decode_blocks_p50": float(np.median(
+                                   blocks_only)) if blocks_only else None,
+                               "decode_blocks_n": len(blocks_only)},
+           "prefill_mfu": {"p50": float(np.median(mfu)), "n": len(mfu),
+                           "min": min(mfu), "max": max(mfu),
+                           "mixed_step_combined_n": len(mfu)
+                           - len(clean_prefill),
+                           "clean_prefill_n": len(clean_prefill)},
+           "rtt_ms": em["perf_attribution"]["rtt_ms"],
+           "chip_spec": {"kind": spec.kind, "peak_flops": spec.peak_flops,
+                         "peak_hbm_bw": spec.peak_hbm_bw},
+           "ledger_totals": cost["totals"],
+           "ledger_attributed_wall_seconds": cost["attributed_wall_seconds"],
+           "slo_state": em["slo"]["state"], "same_as_phase5": same,
+           "decode_block_seconds": em["decode_block_seconds"],
+           "decode_blocks": em["decode_blocks"],
+           "ttft_ms": em["ttft_ms"], "launches": nonzero(launches)}
+    summarizer.shutdown()
+    return out
+
+
+def obs_off_path(smi: str, traced: dict, main_out: dict) -> dict:
+    """18b: the same workload and config with tracing off and the ledger,
+    anatomy and SLO switched off before the engine is built."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in OBS_OFF}
+    os.environ.update(OBS_OFF)
+    try:
+        summarizer, engine, stats, wall, launches = summarize_once()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    em = stats["engine_metrics"]
+    if "anatomy" in em or em["cost"]["enabled"] or em["slo"]["enabled"]:
+        raise AssertionError("18b: an observability switch did not hold")
+    if (em["decode_tokens"], em["prefill_tokens"]) != (
+            main_out["decode_tokens"], main_out["prefill_tokens"]):
+        raise AssertionError("18b: the schedule moved with obs off")
+    summarizer.shutdown()
+    return {"phase": "obs-18b", "card": smi, "obs_off_wall_seconds": wall,
+            "traced_wall_seconds": traced["wall_seconds"],
+            "phase5_wall_seconds": main_out["wall_seconds"],
+            "decode_tokens": em["decode_tokens"],
+            "launches": nonzero(launches)}
+
+
+def obs_cli_path(smi: str) -> dict:
+    """18c: ``python -m lmrs_tpu_torch.cli`` on the card at bench-8b over
+    60 demo segments with ``--trace-out F --profile``; then ``--trace-out
+    F2 --no-trace`` (on the mock backend: the flag's behaviour does not
+    depend on the engine) must write no F2."""
+    import os
+
+    from lmrs_tpu_torch.obs import validate_trace_file
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    here = Path(__file__).resolve().parent
+    demo = OBS_DIR / "demo.json"
+    demo.write_text(json.dumps(load_demo_transcript(max_segments=200)))
+    f1, f2 = OBS_DIR / "trace-18c.json", OBS_DIR / "trace-18c-off.json"
+    for f in (f1, f2):
+        f.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(here)}
+    argv = [sys.executable, "-m", "lmrs_tpu_torch.cli", "-i", str(demo),
+            "-o", str(OBS_DIR / "summary-18c.txt"), "--limit-segments", "60",
+            "--max-tokens", "64", "--max-tokens-per-chunk", "1400", "-q"]
+    t0 = time.time()
+    proc = subprocess.run(argv + ["--model", "bench-8b", "--tokenizer",
+                                  "byte", "--trace-out", str(f1),
+                                  "--profile"],
+                          cwd=here, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"18c: exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    events = validate_trace_file(f1)
+    names = {e["name"] for e in events}
+    want = {"map_stage", "enqueue", "first_token", "finish", "decode_block"}
+    if not want <= names:
+        raise AssertionError(f"18c: trace lacks {sorted(want - names)}")
+    off = subprocess.run(argv + ["--backend", "mock", "--trace-out", str(f2),
+                                 "--no-trace"],
+                         cwd=here, env=env, capture_output=True, text=True,
+                         timeout=300)
+    if off.returncode != 0 or f2.exists():
+        raise AssertionError(f"18c: --no-trace exit {off.returncode}, "
+                             f"file written: {f2.exists()}")
+    return {"phase": "obs-18c", "card": smi, "cli_seconds": wall,
+            "trace_events": len(events), "trace_bytes": f1.stat().st_size,
+            "no_trace_exit": off.returncode, "no_trace_file": f2.exists()}
+
+
+def obs_post(port: int, path: str, body: dict, headers=None) -> dict:
+    status, raw = http_call(port, "POST", path, body, headers)
+    if status != 200:
+        raise AssertionError(f"18d: {path} answered {status}: {raw[:300]}")
+    return json.loads(raw)
+
+
+def obs_get(port: int, path: str, headers=None):
+    status, raw = http_call(port, "GET", path, headers=headers)
+    if status != 200:
+        raise AssertionError(f"18d: GET {path} answered {status}: {raw[:300]}")
+    return raw if path == "/metrics" else json.loads(raw)
+
+
+def obs_wave(port: int, prompts: list[str], **kw) -> list[dict]:
+    """One concurrent wave of chat completions (they share a batch
+    window); ``kw`` per request: tenants, deadline, max_tokens."""
+    import threading
+
+    out: list = [None] * len(prompts)
+
+    def one(i: int) -> None:
+        headers = {}
+        if kw.get("tenants"):
+            headers["X-LMRS-Tenant"] = kw["tenants"][i % len(kw["tenants"])]
+        if kw.get("deadline") is not None:
+            headers["X-LMRS-Deadline"] = str(kw["deadline"])
+        out[i] = obs_post(port, CHAT, {
+            "messages": [{"role": "user", "content": prompts[i]}],
+            "max_tokens": kw.get("max_tokens", 32), "temperature": 0},
+            headers)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT)
+    if any(r is None for r in out):
+        raise AssertionError("18d: a wave request did not answer")
+    return out
+
+
+def obs_server_path(smi: str, traced: dict):
+    """18d: an in-process server with tracing on (as ``--trace`` turns it
+    on) over a bench-8b engine; returns (line, server, engine) for 18e."""
+    import dataclasses
+    import os
+    import threading
+
+    from lmrs_tpu_torch.obs import (enable_tracing, validate_postmortem_file,
+                                    validate_trace_events)
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    enable_tracing()
+    cfg = phase5_config()
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, max_tokens=SERVE_CAP))
+    engine = TranscriptSummarizer(cfg, device="cuda").executor.engine
+    srv = EngineHTTPServer(engine, port=0, model_name="bench-8b",
+                           batch_window_s=0.02)
+    srv.start_background()
+    port, sched = srv.port, engine._scheduler
+    segs = load_demo_transcript(max_segments=200)["segments"]
+    prompts = ["Summarize: " + " ".join(s["text"] for s in segs[i * 6:
+                                                                i * 6 + 6])
+               for i in range(OBS_WAVE)]
+    # the wave under two tenants: /v1/usage bills what the responses say
+    resps = obs_wave(port, prompts, tenants=("alpha", "beta"))
+    usage = obs_get(port, "/v1/usage")
+    for t in ("alpha", "beta"):
+        mine = [r["usage"] for i, r in enumerate(resps)
+                if ("alpha", "beta")[i % 2] == t]
+        roll = usage["tenants"][t]
+        if (roll["prompt_tokens"] != sum(u["prompt_tokens"] for u in mine)
+                or roll["generated_tokens"] != sum(u["completion_tokens"]
+                                                   for u in mine)):
+            raise AssertionError(f"18d: tenant {t}: {roll} against {mine}")
+    fed = sched._cost.report()["attributed_wall_seconds_raw"]
+    if abs(usage["totals"]["device_seconds"] - fed) > 1e-6:
+        raise AssertionError(f"18d: device-seconds {usage['totals']} != the "
+                             f"ledger's fed walls {fed}")
+    anatomy = obs_get(port, "/v1/anatomy")
+    if not (anatomy["enabled"] and anatomy["iterations"] > 0) or engine.audit():
+        raise AssertionError(f"18d: anatomy {anatomy}, audit {engine.audit()}")
+    trace = obs_get(port, "/v1/trace")
+    validate_trace_events(trace["traceEvents"])
+    slo = obs_get(port, "/healthz")["slo"]
+    if slo["state"] != "ok":
+        raise AssertionError(f"18d: /healthz slo {slo}")
+    text = obs_get(port, "/metrics", headers={"Accept": "text/plain"})
+    fams = [f for f in ("lmrs_decode_hbm_util_ratio", "lmrs_decode_tokens_total",
+                        "lmrs_anatomy_wall_seconds_total", "lmrs_slo_state",
+                        "lmrs_http_requests_total")
+            if f"# TYPE {f} " not in text]
+    if fams:
+        raise AssertionError(f"18d: /metrics lacks {fams}")
+    # a 2 s capture while a request decodes: the Chrome trace names the
+    # port's decode kernel
+    prof_dir = OBS_DIR / "profile"
+    for f in prof_dir.glob("lmrs-profile-*.json"):
+        f.unlink()
+    t_prof = time.time()
+    obs_post(port, "/v1/debug/profile",
+             {"duration_s": 2.0, "out_dir": str(prof_dir)})
+    during = threading.Thread(target=obs_wave, args=(port, prompts[:1]),
+                              kwargs={"max_tokens": 256})
+    during.start()
+    during.join(timeout=SERVE_TIMEOUT)
+    while not list(prof_dir.glob("lmrs-profile-*.json")):
+        if time.time() - t_prof > SERVE_TIMEOUT:
+            raise AssertionError("18d: no profile written")
+        time.sleep(0.5)
+    time.sleep(2.0)  # the exporter writes the file in one call; settle
+    prof = next(prof_dir.glob("lmrs-profile-*.json"))
+    prof_text = prof.read_text()
+    prof_bytes = len(prof_text)
+    kernels_seen = {k: k in prof_text for k in ("paged_decode_kernel",
+                                                  "flash_prefill_kernel",
+                                                  "span_attn_kernel")}
+    if not kernels_seen["paged_decode_kernel"]:
+        raise AssertionError("18d: the profile names no paged_decode_kernel")
+    json.loads(prof_text)
+    del prof_text
+    prof.unlink()
+    # a deadline storm: 8 requests whose budget runs out during their
+    # decode, set from this server's TTFT and 18a's block wall
+    block_s = traced["decode_block_seconds"] / traced["decode_blocks"]
+    ttft_s = sched.metrics_report()["ttft_ms"]["p90"] / 1e3
+    budget = ttft_s + 2.5 * block_s
+    pm_dir = OBS_DIR / "postmortems"
+    for f in pm_dir.glob("*.json"):
+        f.unlink()
+    os.environ["LMRS_POSTMORTEM_DIR"] = str(pm_dir)
+    try:
+        storm = obs_wave(port, prompts, deadline=budget, max_tokens=SERVE_CAP)
+    finally:
+        del os.environ["LMRS_POSTMORTEM_DIR"]
+    # a request that misses the wave's batch window queues behind it and
+    # is shed once its budget has passed (before any work): every one ends
+    # deadline or shed, and one sweep expires at least LMRS_DEADLINE_STORM
+    # (3) of them in flight
+    reasons = [r["choices"][0]["finish_reason"] for r in storm]
+    pms = sorted(pm_dir.glob("postmortem-deadline_storm-*.json"))
+    if (set(reasons) - {"deadline", "shed"} or reasons.count("deadline") < 3
+            or not pms):
+        raise AssertionError(f"18d: storm reasons {reasons}, postmortems "
+                             f"{[p.name for p in pms]}")
+    pm = validate_postmortem_file(pms[0])
+    if (pm["extra"]["expired_this_sweep"] < 3
+            or not any(e["name"] == "decode_block" for e in pm["spans"])):
+        raise AssertionError(f"18d: the storm postmortem {pm['extra']} holds "
+                             "no ring spans or fewer than 3 expiries")
+    if engine.audit():
+        raise AssertionError(f"18d: audit after the storm {engine.audit()}")
+    line = {"phase": "obs-18d", "card": smi,
+            "usage_totals": usage["totals"], "ledger_fed_seconds": fed,
+            "anatomy_iterations": anatomy["iterations"],
+            "trace_events": len(trace["traceEvents"]),
+            "slo_state_before_storm": slo["state"],
+            "profile_bytes": prof_bytes, "profile_kernels": kernels_seen,
+            "storm_budget_s": budget, "storm_expired": reasons.count("deadline"),
+            "storm_shed": reasons.count("shed"),
+            "storm_expired_in_one_sweep": pm["extra"]["expired_this_sweep"],
+            "storm_postmortems": len(pms),
+            "storm_postmortem_spans": len(pm["spans"]),
+            "slo_after_storm": obs_get(port, "/healthz")["slo"]["state"]}
+    return line, srv, engine
+
+
+def obs_fleet_path(smi: str, srv, engine) -> dict:
+    """18e: a ``RouterEngine`` over 18d's server and a mock server (a child
+    process with ``--trace``, so its ring is its own): the stitched trace
+    validates and every routed request's trace id is on the router's
+    track and on the host that served it; fleet usage totals equal the
+    sum of the hosts'; fleet anatomy merges both."""
+    import os
+
+    from lmrs_tpu_torch.engine.api import GenerationRequest
+    from lmrs_tpu_torch.obs import stitched_chains, validate_trace_events
+    from lmrs_tpu_torch.serving.router import RouterEngine
+
+    here = Path(__file__).resolve().parent
+    mport = free_port()
+    log_path = OBS_DIR / "mock-18e.log"
+    with open(log_path, "w", encoding="utf-8") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lmrs_tpu_torch.serving.cli", "--backend",
+             "mock", "--trace", "--port", str(mport), "-q"],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(here)})
+    router = None
+    try:
+        t0 = time.time()
+        while True:
+            if proc.poll() is not None or time.time() - t0 > 60:
+                raise AssertionError(f"18e: mock server not up: "
+                                     f"{log_path.read_text()[-1000:]}")
+            try:
+                if http_call(mport, "GET", "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.25)
+        hosts = [f"127.0.0.1:{srv.port}", f"127.0.0.1:{mport}"]
+        router = RouterEngine(hosts, timeout_s=SERVE_TIMEOUT)
+        reqs = [GenerationRequest(
+            prompt=f"Summarize item {i}: the committee reviewed the budget "
+                   f"line {i * 7} and the maintenance plan.", request_id=i,
+            max_new_tokens=16, temperature=0.0, tenant="fleet",
+            trace_id=f"r18e-{i}") for i in range(8)]
+        out = router.generate_batch(reqs)
+        if any(r.error for r in out):
+            raise AssertionError(f"18e: {[r.error for r in out]}")
+        doc = router.stitched_trace()
+        validate_trace_events(doc["traceEvents"])
+        chains = stitched_chains(doc["traceEvents"])
+        served: dict[str, int] = {}
+        for r in reqs:
+            evs = chains.get(r.trace_id, [])
+            routes = [e["args"]["host"] for e in evs if e["name"] == "route"
+                      and e["args"].get("role") is not None
+                      and e["args"]["host"] in hosts]
+            on_host = {e["args"].get("host") for e in evs
+                       if e["name"] == "finish"}
+            if not routes or routes[-1] not in on_host:
+                raise AssertionError(f"18e: {r.trace_id}: routed {routes}, "
+                                     f"finished on {sorted(on_host)}")
+            served[routes[-1]] = served.get(routes[-1], 0) + 1
+        usage = router.usage_report()
+        for k in ("prompt_tokens", "generated_tokens", "requests"):
+            if usage["totals"].get(k, 0) != sum(
+                    h["totals"].get(k, 0) for h in usage["per_host"]):
+                raise AssertionError(f"18e: fleet {k} != the hosts' sum")
+        anatomy = router.anatomy_report()
+        if (len(anatomy["per_host"]) != 2 or anatomy["iterations"] != sum(
+                h["iterations"] for h in anatomy["per_host"])):
+            raise AssertionError(f"18e: fleet anatomy {anatomy}")
+        return {"phase": "obs-18e", "card": smi, "served": served,
+                "stitched_traces": len(doc["stitch"]["traces"]),
+                "offsets_ms": doc["stitch"]["offsets_ms"],
+                "fleet_totals": usage["totals"],
+                "fleet_anatomy_iterations": anatomy["iterations"]}
+    finally:
+        if router is not None:
+            router.shutdown()
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def run_obs_path(smi: str, main_out: dict) -> dict:
+    """Phase 18: 18a and 18b (each a fresh engine, freed after), 18c (a CLI
+    child), then 18d and 18e over one server.  Each sub-phase prints its
+    own line."""
+    from lmrs_tpu_torch.obs import disable_tracing
+
+    free_cuda()
+    a = obs_traced_path(smi, main_out)
+    emit(a)
+    free_cuda()
+    b = obs_off_path(smi, a, main_out)
+    emit(b)
+    free_cuda()
+    emit(obs_cli_path(smi))
+    srv = None
+    try:
+        d, srv, engine = obs_server_path(smi, a)
+        emit(d)
+        emit(obs_fleet_path(smi, srv, engine))
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        disable_tracing()
+    free_cuda()
+    return {"phase": "obs", "card": smi, "traced_wall_seconds":
+            a["wall_seconds"], "obs_off_wall_seconds": b["obs_off_wall_seconds"]}
 
 
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
@@ -4545,6 +5175,7 @@ def main() -> int:
     emit(timed(run_serve_path, smi, main_out))
     emit(timed(run_kv_path, smi))
     emit(timed(run_jobs_live_path, smi))
+    emit(timed(run_obs_path, smi, main_out))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),

@@ -21,9 +21,12 @@ running ``lmrs-serve-torch`` servers (``serving/router.py``;
 ``LMRS_PREFILL_HOSTS``/``LMRS_DECODE_HOSTS`` add disaggregated role pools).
 The host and disk KV tiers are set, as in the reference, through
 ``EngineConfig`` and the environment (``LMRS_HOST_KV``, ``LMRS_KV_DISK``
-and their budgets), not by flag.  Flags of features the port does not
-carry yet (meshes, profiling and tracing) are refused by name with the
-slice that brings them.
+and their budgets), not by flag.  ``--trace-out FILE`` records every
+request's lifecycle spans and the pipeline's stages and writes a Chrome
+trace (Perfetto) on every exit path; ``--no-trace`` forces tracing off even
+with ``--trace-out``; ``--profile`` wraps each stage in a
+``torch.profiler`` and NVTX range.  ``--mesh`` (multi-GPU) is refused by
+name with the slice that brings it.
 """
 
 from __future__ import annotations
@@ -44,13 +47,7 @@ from lmrs_tpu_torch.utils.timing import format_duration
 logger = logging.getLogger("lmrs_torch.cli")
 
 # flag -> the slice of the port that brings it
-_OBS = "observability (A10)"
-_LATER = {
-    "mesh": "multi-GPU (A8)",
-    "profile": _OBS,
-    "trace_out": _OBS,
-    "no_trace": _OBS,
-}
+_LATER = {"mesh": "multi-GPU (A8)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,11 +107,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hosts", default=None,
                    help="backend=http: comma-separated lmrs-serve-torch "
                         "addresses (host:port,...)")
-    # not in the port yet: accepted only to refuse them by name
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="record per-request lifecycle spans and write a "
+                        "Chrome-trace JSON loadable in Perfetto")
+    p.add_argument("--no-trace", action="store_true",
+                   help="force tracing off even if --trace-out is given "
+                        "(overhead A/B control)")
+    p.add_argument("--profile", action="store_true",
+                   help="wrap each stage in a torch.profiler and NVTX range")
+    # not in the port yet: accepted only to refuse it by name
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--trace-out", default=None, help=argparse.SUPPRESS)
-    for flag in ("--profile", "--no-trace"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -166,6 +168,19 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
     )
 
 
+def _export_trace(trace_out: str) -> None:
+    """Write the process tracer to ``trace_out``; a failure is logged,
+    never raised (it runs in a ``finally``)."""
+    from lmrs_tpu_torch.obs import export_current
+
+    n, err = export_current(trace_out)
+    if err is None:
+        logger.info("wrote %d trace events to %s (open in "
+                    "https://ui.perfetto.dev)", n, trace_out)
+    else:
+        logger.error("could not write trace %s: %s", trace_out, err)
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -175,12 +190,28 @@ def main(argv: list[str] | None = None) -> int:
         cfg = config_from_args(args)
     except ValueError as e:
         parser.error(str(e))
+    trace_out = None if args.no_trace else args.trace_out
+    if trace_out:
+        from lmrs_tpu_torch.obs import enable_tracing
+
+        enable_tracing()
+    try:
+        return _run(args, cfg)
+    finally:
+        # whatever the ring holds, on every exit path: a failed run is
+        # when the trace matters most
+        if trace_out:
+            _export_trace(trace_out)
+
+
+def _run(args: argparse.Namespace, cfg: PipelineConfig) -> int:
     try:
         transcript = json.loads(Path(args.input).read_text(encoding="utf-8"))
     except (OSError, json.JSONDecodeError) as e:
         logger.error("could not read transcript %s: %s", args.input, e)
         return 1
-    summarizer = TranscriptSummarizer(cfg, device=args.device)
+    summarizer = TranscriptSummarizer(cfg, device=args.device,
+                                      profile=args.profile)
     try:
         stats = summarizer.summarize(
             transcript, prompt_file=args.prompt_file,

@@ -60,10 +60,11 @@ class GenerationRequest:
     handoff_state: dict | None = None
     # Cost-attribution label, adopted at ingress from ``X-LMRS-Tenant`` and
     # resent on forwards; jobs and live sessions stamp their own identity
-    # (``TenantStampEngine``).  The cost ledger that reads it is A10's.
+    # (``TenantStampEngine``); the cost ledger rolls usage up under it.
     tenant: str | None = None
     # QoS priority class ("interactive" | "batch"); the policy that stamps
-    # and reads it is A10's, so the port carries it unset.
+    # and reads it (fair-share QoS, A10b) is not in the port, so the port
+    # carries it unset.
     qos_class: str | None = None
     # Cross-refresh draft hint: text whose tokens are likely to recur in
     # the completion (a live session passes its previous summary).  Under
@@ -133,6 +134,11 @@ class GenerationResult:
     stop_sequence: str | None = None
     device_seconds: float = 0.0
     error: str | None = None
+    # The cost ledger's bill for this request (obs/ledger.py
+    # ``CostLedger.finish``): device-seconds by phase, tokens, tokens
+    # saved, page-seconds, queue wait and the tenant.  None when the
+    # ledger is off or the engine keeps none.
+    usage: dict | None = None
 
     @property
     def total_tokens(self) -> int:
@@ -208,26 +214,52 @@ def drain_with_callback(run_batch, requests: list[GenerationRequest],
 
 
 class TenantStampEngine:
-    """Engine facade that stamps ``tenant`` and ``draft_hint`` onto every
-    request that carries none (how jobs and live sessions label their
-    chunk and reduce traffic, and how a refresh threads its previous
-    summary to the draft buffer); every other attribute passes through to
-    the wrapped engine.  The reference also stamps a QoS class and rolls
-    up each result's ledger usage: both are A10's, absent here."""
+    """Engine facade that (a) stamps ``tenant`` and ``draft_hint`` onto
+    every request that carries none (how jobs and live sessions bill their
+    chunk and reduce traffic to their own identity, and how a refresh
+    threads its previous summary to the draft buffer) and (b) accumulates
+    every result's ledger ``usage`` block into one rollup dict
+    (``obs.merge_usage``), the ``usage`` block of the job and session
+    status docs.  ``publish`` receives a snapshot dict after every merge
+    (readers hold a reference that is replaced, never mutated); ``seed``
+    carries a prior rollup forward across refreshes and resumes.  Every
+    other attribute passes through to the wrapped engine."""
 
     def __init__(self, engine: Engine, tenant: str | None,
+                 publish=None, seed: dict | None = None,
                  draft_hint: str | None = None):
+        import threading
+
         self._engine = engine
         self.tenant = tenant
         self.draft_hint = draft_hint or None
+        self.usage_rollup: dict = dict(seed or {})  # guarded-by: _rollup_lock
+        self._publish = publish
+        self._rollup_lock = threading.Lock()
 
     def generate_batch(self, requests: list[GenerationRequest],
                        on_result=None, on_tokens=None):
         self._stamp(requests)
+
+        def absorb(res: GenerationResult) -> None:
+            if res.usage:
+                from lmrs_tpu_torch.obs.ledger import merge_usage
+
+                with self._rollup_lock:
+                    merge_usage(self.usage_rollup, res.usage)
+                    snap = dict(self.usage_rollup)
+                if self._publish is not None:
+                    self._publish(snap)
+
         if on_result is None:
-            return self._engine.generate_batch(requests, on_tokens=on_tokens)
+            out = self._engine.generate_batch(requests, on_tokens=on_tokens)
+            for res in out:
+                absorb(res)
+            return out
 
         def wrapped(res, submit):
+            absorb(res)
+
             def stamped_submit(more: list[GenerationRequest]) -> None:
                 self._stamp(more)
                 submit(more)

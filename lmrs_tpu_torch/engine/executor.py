@@ -32,6 +32,7 @@ from lmrs_tpu_torch.data.chunker import Chunk
 from lmrs_tpu_torch.engine.api import (Engine, GenerationRequest,
                                        GenerationResult, degraded_reason,
                                        remaining_budget)
+from lmrs_tpu_torch.obs.trace import PID_PIPELINE, get_tracer
 from lmrs_tpu_torch.prompts import safe_format, shared_prefix_chars
 
 logger = logging.getLogger("lmrs_torch.executor")
@@ -178,6 +179,11 @@ class MapExecutor:
                 chunk.summary = res.text
             chunk.tokens_used = res.total_tokens
             chunk.device_seconds = res.device_seconds
+        tr = get_tracer()
+        if tr:
+            tr.complete("map_stage", t0, time.time(), pid=PID_PIPELINE,
+                        args={"chunks": len(flat), "groups": len(groups),
+                              "failed": failed})
         logger.info("map stage: %d chunks (%d groups) in %.2fs (%d failed)",
                     len(flat), len(groups), time.time() - t0, failed)
 

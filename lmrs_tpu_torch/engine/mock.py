@@ -12,8 +12,12 @@ host spill tier (on whenever the cache is, as in the reference) and its
 published radix summary, the disaggregated handoff (the "KV state" is the
 completion text, pinned and resumed through the same ticket lifecycle) and
 the ``/v1/kv`` page-set export and import (the page set is the emulated
-prefix entry).  The anatomy, cost ledger, SLO and QoS admission (A10) wait
-for their slice.
+prefix entry), and the observability surface: the cost ledger, the SLO
+engine and the step anatomy, deterministically emulated from token counts
+at ``EMU_SECONDS_PER_TOKEN`` (never wall clocks, so two arms running the
+same traffic give identical usage and anatomy documents), and a minimal
+trace chain (``generate`` then ``finish``, the handoff instants).  The
+reference's QoS admission gate (A10b) is not in the port.
 """
 
 from __future__ import annotations
@@ -28,10 +32,21 @@ from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
                                        apply_stop_sequences,
                                        drain_with_callback, preamble_key,
                                        preamble_text)
+from lmrs_tpu_torch.obs.anatomy import CLASSES, SEGMENTS, _pct, anatomy_enabled
+from lmrs_tpu_torch.obs.ledger import CostLedger
+from lmrs_tpu_torch.obs.slo import SLOEngine
+from lmrs_tpu_torch.obs.trace import get_tracer, req_tid
 from lmrs_tpu_torch.utils.env import env_bool, env_int
 from lmrs_tpu_torch.utils.perf_model import pow2_bucket
 
 _TS_RE = re.compile(r"\[(?:\d+:)?\d{2}:\d{2}\]")
+
+
+def _mock_tid(tr, req: GenerationRequest) -> int:
+    """The request's trace track, by the scheduler's rule: its propagated
+    trace id's when it carries one, else the request id's."""
+    return (tr.track_for(req.trace_id) if req.trace_id
+            else req_tid(req.request_id))
 
 
 class MockEngine:
@@ -49,6 +64,9 @@ class MockEngine:
     EMU_RESIDENT_TOKENS = 2048
     EMU_BYTES_PER_TOKEN = 1024
     EMU_PAGE_TOKENS = 128
+    # the emulated device time of one token: the ledger and the anatomy
+    # derive every second from token counts at this rate
+    EMU_SECONDS_PER_TOKEN = 1e-6
 
     def __init__(self, seed: int = 0, latency_s: float = 0.0,
                  fail_pattern: str | None = None,
@@ -58,7 +76,9 @@ class MockEngine:
                  prefix_cache: bool = True,
                  host_kv: bool | None = None,
                  host_kv_gb: float = 1.0,
-                 speculate_k: int = 0):
+                 speculate_k: int = 0,
+                 cost_ledger: bool | None = None,
+                 slo: bool | None = None):
         self.seed = seed
         self.latency_s = latency_s
         self.fail_pattern = fail_pattern
@@ -127,6 +147,24 @@ class MockEngine:
         # live layer's previous summary reached the engine)
         self.draft_hints: list[str] = []
         self._tok = ApproxTokenizer()
+        # the step anatomy, emulated: segments from token counts, so wall
+        # equals the segment sum (residual 0); LMRS_ANATOMY=0 disarms
+        self._an_lock = threading.Lock()
+        self._an_segs = {s: 0.0 for s in SEGMENTS}  # guarded-by: _an_lock
+        self._an_cls: dict[str, list] = {c: [] for c in CLASSES}
+        self._an_buckets: dict[tuple[int, int], dict] = {}
+        # the cost ledger and the SLO engine, with the scheduler's switches
+        # (LMRS_COST_LEDGER=0, LMRS_SLO=0, or a False argument, disarm).
+        # The ledger's clock is frozen: residency meters read 0, so usage
+        # sums are reproducible (the mock bills work, never wall time)
+        cl_on = (env_bool("LMRS_COST_LEDGER", True)
+                 and (cost_ledger is None or bool(cost_ledger)))
+        slo_on = env_bool("LMRS_SLO", True) and (slo is None or bool(slo))
+        self.ledger = CostLedger(enabled=cl_on, clock=lambda: 0.0)
+        self.slo = SLOEngine(enabled=slo_on)
+        # rid -> prompt tokens the emulated cache served: never billed as
+        # prefill, as on the scheduler
+        self._billing_saved: dict[int, int] = {}  # guarded-by: _prefix_lock
         # ids cancel() was called for: generation is instantaneous, so the
         # hook records them (tests read it) and a request of the current
         # batch not yet generated comes back "cancelled"
@@ -141,11 +179,35 @@ class MockEngine:
         # no start-of-batch clear of the cancel set (a cancel may race the
         # batch boundary), a full clear at the end, as the scheduler does
         def one(req: GenerationRequest) -> GenerationResult:
+            tr = get_tracer()
+            t0 = time.time()
             if req.draft_hint is not None:
                 self.draft_hints.append(req.draft_hint)
             res = self._one(req)
+            self._bill(req, res)
             if self.spec_tree and res.completion_tokens:
+                # the plain iteration carries the prompt; the emulated
+                # spec steps carry the decoded tokens
+                self._note_anatomy("plain", dispatch_tokens=res.prompt_tokens,
+                                   fetch_tokens=0)
                 self._note_spec(req, res.completion_tokens)
+            else:
+                # one emulated iteration a request: dispatch carries the
+                # prompt, fetch the completion
+                self._note_anatomy("plain", dispatch_tokens=res.prompt_tokens,
+                                   fetch_tokens=res.completion_tokens)
+            self.slo.observe_ttft(time.time() - t0)
+            self.slo.note_result(res.finish_reason, res.completion_tokens,
+                                 res.error)
+            if tr:  # a minimal chain: the mock has no queue or slots (the
+                # track is resolved after _one, so an imported handoff's
+                # trace id takes effect)
+                tid = _mock_tid(tr, req)
+                tr.complete("generate", t0, time.time(), tid=tid,
+                            args={"completion_tokens": res.completion_tokens})
+                tr.instant("cancel" if res.finish_reason == "cancelled"
+                           else "finish", tid=tid,
+                           args={"reason": res.finish_reason})
             if on_tokens is not None and res.text:
                 # no incremental decode here: one delta per result
                 on_tokens(res.request_id, res.text)
@@ -182,7 +244,13 @@ class MockEngine:
                         total = n_decode + c
                         self._rpa_dispatches += 1
                         self._rpa_span_tokens += total
-                        self._rpa_shapes.add(pow2_bucket(total, 16))
+                        bucket = pow2_bucket(total, 16)
+                        self._rpa_shapes.add(bucket)
+                        self._note_rpa_bucket(bucket, total)
+                    # each slice is one "mixed" iteration: dispatch carries
+                    # the span, fetch the decode tokens
+                    self._note_anatomy("mixed", dispatch_tokens=n_decode + c,
+                                       fetch_tokens=n_decode)
                     remaining -= c
 
     def _note_spec(self, req: GenerationRequest,
@@ -199,6 +267,137 @@ class MockEngine:
             self._spec_nodes_sum += steps * (1 + width * k)
             self._spec_depth_sum += steps * acc
             self._spec_accepted += steps * acc
+        # each step is one "spec" iteration: dispatch carries the tree
+        # span, fetch the emitted tokens
+        for _ in range(steps):
+            self._note_anatomy("spec", dispatch_tokens=1 + width * k,
+                               fetch_tokens=1 + acc)
+
+    def _note_anatomy(self, cls: str, *, dispatch_tokens: int,
+                      fetch_tokens: int) -> None:
+        """One emulated scheduler iteration: one-token admit, plan and
+        finish segments plus token-count dispatch and fetch, at
+        ``EMU_SECONDS_PER_TOKEN`` (wall == segment sum exactly)."""
+        if not anatomy_enabled():
+            return
+        spt = self.EMU_SECONDS_PER_TOKEN
+        segs = {s: 0.0 for s in SEGMENTS}
+        segs["admit"] = segs["plan"] = segs["finish"] = spt
+        segs["dispatch"] = max(0, int(dispatch_tokens)) * spt
+        segs["fetch"] = max(0, int(fetch_tokens)) * spt
+        with self._an_lock:
+            for s in SEGMENTS:
+                self._an_segs[s] += segs[s]
+            self._an_cls[cls].append(
+                (sum(segs.values()), tuple(segs[s] for s in SEGMENTS)))
+
+    def _note_rpa_bucket(self, tpb: int, real_tokens: int) -> None:
+        """Bucket economics of one emulated span dispatch: real and padded
+        tokens, and an emulated compile cost (bucket x
+        ``EMU_SECONDS_PER_TOKEN``) on a shape's first sight."""
+        if not anatomy_enabled():
+            return
+        pages = -(-max(1, int(real_tokens)) // self.EMU_PAGE_TOKENS)
+        w = pow2_bucket(pages, 4)
+        with self._an_lock:
+            first = (tpb, w) not in self._an_buckets
+            rec = self._an_buckets.setdefault((tpb, w), {
+                "dispatches": 0, "real": 0, "padded": 0, "compile_s": 0.0})
+            rec["dispatches"] += 1
+            rec["real"] += int(real_tokens)
+            rec["padded"] += max(tpb - int(real_tokens), 0)
+            if first:
+                rec["compile_s"] = tpb * self.EMU_SECONDS_PER_TOKEN
+
+    def anatomy_report(self) -> dict:
+        """The ``GET /v1/anatomy`` document, in the scheduler's shape,
+        derived from token counts."""
+        if not anatomy_enabled():
+            return {"object": "anatomy", "enabled": False}
+        with self._an_lock:
+            segs = dict(self._an_segs)
+            cls_recs = {c: list(rs) for c, rs in self._an_cls.items()}
+            bucket_recs = {k: dict(v) for k, v in self._an_buckets.items()}
+        iters = sum(len(rs) for rs in cls_recs.values())
+        wall = sum(segs.values())  # residual 0 by construction
+        host = wall - segs["dispatch"] - segs["fetch"]
+        classes: dict[str, dict] = {}
+        for cls in CLASSES:
+            rs = cls_recs[cls]
+            if not rs:
+                continue
+            walls = sorted(r[0] for r in rs)
+            p50: dict[str, float] = {}
+            p95: dict[str, float] = {}
+            for i, s in enumerate(SEGMENTS):
+                vals = sorted(r[1][i] for r in rs)
+                p50[s] = round(_pct(vals, 50) * 1e6, 1)
+                p95[s] = round(_pct(vals, 95) * 1e6, 1)
+            p50["wall"] = round(_pct(walls, 50) * 1e6, 1)
+            p95["wall"] = round(_pct(walls, 95) * 1e6, 1)
+            classes[cls] = {"iterations": len(rs),
+                            "p50_us": p50, "p95_us": p95}
+        buckets: dict[str, dict] = {}
+        tot_real = tot_pad = 0
+        for (tpb, w), rec in sorted(bucket_recs.items()):
+            span = rec["real"] + rec["padded"]
+            buckets[f"{tpb}x{w}"] = {
+                "dispatches": rec["dispatches"],
+                "real_tokens": rec["real"],
+                "padded_tokens": rec["padded"],
+                "pad_waste": round(rec["padded"] / span, 4) if span else 0.0,
+                "compile_ms": round(rec["compile_s"] * 1e3, 1),
+            }
+            tot_real += rec["real"]
+            tot_pad += rec["padded"]
+        return {
+            "object": "anatomy",
+            "enabled": True,
+            "iterations": iters,
+            "aborted_iterations": 0,
+            "wall_ms": round(wall * 1e3, 3),
+            "residual_ms": 0.0,
+            "segments_ms": {s: round(segs[s] * 1e3, 3) for s in SEGMENTS},
+            "host_overhead_us_step": (round(host * 1e6 / iters, 1)
+                                      if iters > 0 else None),
+            "classes": classes,
+            "buckets": buckets,
+            "rpa_pad_waste_ratio": (
+                round(tot_pad / (tot_real + tot_pad), 4)
+                if (tot_real + tot_pad) else None),
+        }
+
+    def _bill(self, req: GenerationRequest, res: GenerationResult) -> None:
+        """The ledger entry of one finished request: prompt tokens bill as
+        prefill, completion tokens as decode, at ``EMU_SECONDS_PER_TOKEN``
+        each (pages of ``EMU_PAGE_TOKENS``); tokens the emulated cache
+        served bill nothing, as on the scheduler."""
+        if not self.ledger.enabled:
+            return
+        spt = self.EMU_SECONDS_PER_TOKEN
+        with self._prefix_lock:
+            saved = self._billing_saved.pop(res.request_id, 0)
+        billed = max(0, res.prompt_tokens - saved)
+        if billed:
+            self.ledger.note_step(billed * spt,
+                                  prefill_rows=[(req, billed, float(billed))],
+                                  prefill_cost_s=1.0)
+        if res.completion_tokens:
+            pages = -(-(res.prompt_tokens + res.completion_tokens)
+                      // self.EMU_PAGE_TOKENS)
+            self.ledger.note_step(
+                res.completion_tokens * spt,
+                decode_rows=[(req, res.completion_tokens, pages)],
+                decode_cost_s=1.0)
+        res.usage = self.ledger.finish(req, res)
+
+    def usage_report(self) -> dict:
+        """The ``GET /v1/usage`` document (the scheduler's shape)."""
+        return self.ledger.usage_report()
+
+    def slo_report(self) -> dict:
+        """The ``/healthz`` ``slo`` block."""
+        return self.slo.report()
 
     def _note_prefix(self, req: GenerationRequest) -> None:
         """Emulated prefix cache and host tier for one generated request:
@@ -222,11 +421,21 @@ class MockEngine:
             if ent is not None:
                 self._prefix_hits += 1
                 self._prefix_tokens_reused += ent["tokens"]
-                if ent["tier"] == "spilled":
+                spilled = ent["tier"] == "spilled"
+                if spilled:
                     self._spilled_hits += 1
                     self._tokens_prefetched += ent["tokens"]
                     self._prefetch_pages += pages
                     ent["tier"] = "resident"
+                self.ledger.note_saved(
+                    req, prefix_tokens=0 if spilled else ent["tokens"],
+                    prefetched_tokens=ent["tokens"] if spilled else 0,
+                    prefetched_bytes=(ent["tokens"] * self.EMU_BYTES_PER_TOKEN
+                                      if spilled else 0.0))
+                if self.ledger.enabled:  # popped by _bill
+                    self._billing_saved[req.request_id] = (
+                        self._billing_saved.get(req.request_id, 0)
+                        + ent["tokens"])
             else:
                 ent = {"tokens": tokens, "tier": "resident", "tick": 0}
                 self._prefix[key] = ent
@@ -415,6 +624,15 @@ class MockEngine:
                     "imports": self._migrate_imports,
                     "tokens_imported": self._migrate_tokens,
                 }
+        # the cost and anatomy blocks once work flowed; no slo block here:
+        # engine_metrics stays deterministic for identical traffic, and SLO
+        # burns are wall-clock-fed (consumers read slo_report())
+        if self.ledger.enabled and self.ledger.finished_count:
+            out["cost"] = self.ledger.report()
+        if anatomy_enabled():
+            an = self.anatomy_report()
+            if an.get("iterations"):
+                out["anatomy"] = an
         return out
 
     def _one(self, req: GenerationRequest) -> GenerationResult:
@@ -446,6 +664,13 @@ class MockEngine:
             state = req.handoff_state
             if not req.trace_id and isinstance(state.get("trace_id"), str):
                 req.trace_id = state["trace_id"]
+            if not req.tenant and isinstance(state.get("tenant"), str):
+                req.tenant = state["tenant"]
+            tr = get_tracer()
+            if tr:
+                tr.instant("handoff_import", tid=_mock_tid(tr, req),
+                           args={"pages": 0,  # the state is pageless text
+                                 "kv_len": int(state.get("prompt_tokens", 0))})
             text = state["text"]
             return GenerationResult(
                 request_id=req.request_id, text=text,
@@ -469,10 +694,16 @@ class MockEngine:
                            "stop_sequence": stop_hit, "finish_reason": "stop"}
                 if req.trace_id:
                     payload["trace_id"] = req.trace_id
+                if req.tenant:
+                    payload["tenant"] = req.tenant
                 with self._pinned_lock:
                     self._pinned[req.request_id] = {
                         "payload": payload,
                         "deadline_t": time.time() + self.handoff_ttl_s}
+                tr = get_tracer()
+                if tr:  # the stitcher's skew anchor on the prefill side
+                    tr.instant("handoff_export", tid=_mock_tid(tr, req),
+                               args={"pages": 0, "kv_len": prompt_tokens})
                 return GenerationResult(
                     request_id=req.request_id, text=first,
                     prompt_tokens=prompt_tokens,

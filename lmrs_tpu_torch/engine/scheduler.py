@@ -7,7 +7,10 @@ per-slot scales on all of them, cancellation, deadlines and admission
 shedding, token streaming (``run(on_tokens=)``), the published radix
 summary (``prefix_summary``), the host-RAM and disk spill tiers behind the
 prefix cache, the disaggregated prefill→decode handoff and the ``/v1/kv``
-page-set export and import; no observability hooks.
+page-set export and import, and the reference's observability: a typed
+metric registry, the lifecycle tracer's events, live roofline attribution,
+the cost ledger, the SLO engine, the step anatomy and flight-recorder
+postmortems.
 
 * Admission: a request takes a free slot when the pool holds its PROMPT
   pages minus those a prefix-cache match supplies (the cache evicts before
@@ -98,6 +101,18 @@ page-set export and import; no observability hooks.
   ``admit`` sheds head entries whose budget cannot cover the TTFT estimate
   (``"shed"``, no engine work).  A swept slot tears down like a finish.
   A run with neither pays one empty-set and one flag test an iteration.
+* Observability (``obs/``), all host-side bookkeeping that adds no sync:
+  each request's trace track runs enqueue → admit (queue_wait,
+  prefix_match) → prefill → first_token → decode → finish (or preempt and
+  a new admit, cancel, shed, deadline, handoff_*), and the scheduler track
+  carries ``prefill_dispatch`` instants and ``decode_block`` spans with the
+  block's model bytes (``hbm_gb``).  Every dispatch wall, taken at the one
+  fetch its dispatch already makes, feeds the attribution (decode HBM
+  utilisation, prefill MFU) and the ledger (apportioned to its rows); each
+  loop pass is one anatomy iteration split into admit/plan/draft/dispatch/
+  fetch/finish/io segments.  ``audit()`` carries the ledger's conservation
+  and the anatomy's identity; postmortems fire on a dispatch fault, a
+  deadline storm and an audit failure.
 * Streaming: ``run(on_tokens=)`` emits ``on_tokens(rid, delta)`` from
   ``_maybe_finish``, which every dispatch path reaches at each host fetch
   (decode blocks, first tokens, mixed steps, span and tree steps).  A delta
@@ -130,20 +145,88 @@ from lmrs_tpu_torch.engine.kv_cache import (OutOfPages, PagedKVCache,
                                             SequencePages, audit_allocator)
 from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
 from lmrs_tpu_torch.models.transformer import forward_paged
+from lmrs_tpu_torch.obs import (POW2_TOKEN_BUCKETS, RATIO_BUCKETS,
+                                CostLedger, DispatchAttribution,
+                                MetricsRegistry, SLOEngine, dump_postmortem,
+                                get_tracer, maybe_anatomy, req_tid)
 from lmrs_tpu_torch.ops.paged_attention import pack_spans
 from lmrs_tpu_torch.ops.sampling import filtered_probs, sample_logits
 from lmrs_tpu_torch.ops.speculative import (draft_lookup, draft_tree_lookup,
                                             verify_tokens, verify_tree)
-from lmrs_tpu_torch.utils.env import env_bool, env_int
-from lmrs_tpu_torch.utils.perf_model import pow2_bucket
+from lmrs_tpu_torch.utils.env import env_bool, env_float, env_int
+from lmrs_tpu_torch.utils.perf_model import pow2_bucket, prefill_flops
 
 logger = logging.getLogger("lmrs_torch.scheduler")
 
-# dense bf16 tensor-core peak of an H100 SXM (data sheet): the admission
-# estimate's roofline fallback, where the reference divides by its TPU's
-H100_BF16_FLOPS = 989e12
 # ancestor bitmasks are 32-bit words over a span's offsets
 TREE_OFFSETS = 32
+
+
+# the scheduler's counters: (key in ``counters``, help, unit); each is the
+# registry counter ``lmrs_<key>_total``
+_COUNTERS: tuple[tuple[str, str, str], ...] = (
+    ("requests", "requests submitted to the scheduler", ""),
+    ("prefill_tokens", "prompt tokens prefilled", "tokens"),
+    ("prefill_dispatches", "prefill dispatches issued", ""),
+    ("packed_dispatches", "packed multi-prompt prefill dispatches", ""),
+    ("decode_tokens", "tokens generated by decode steps", "tokens"),
+    ("decode_blocks", "decode and verify blocks issued", ""),
+    ("decode_block_seconds", "host wall of decode blocks, fetch included",
+     "seconds"),
+    ("mixed_dispatches", "mixed prefill/decode steps issued", ""),
+    ("mixed_step_seconds", "host wall of mixed steps, fetch included",
+     "seconds"),
+    ("prefill_tokens_piggybacked", "prompt tokens prefilled inside mixed "
+     "steps", "tokens"),
+    ("prefix_queries", "admissions that queried the prefix tree", ""),
+    ("prefix_hits", "admissions that matched a cached prefix", ""),
+    ("prefix_tokens_reused", "prompt tokens served from cached pages",
+     "tokens"),
+    ("preemptions", "slots evicted to the queue under page pressure", ""),
+    ("stalls", "dispatches a slot sat out waiting for pages", ""),
+    ("run_seconds", "scheduler wall-clock inside run()", "seconds"),
+    ("spec_accepted_tokens", "draft tokens accepted (speculation)",
+     "tokens"),
+    ("cancelled", "requests aborted via cancel()", ""),
+    ("deadline", "requests expired (finish_reason=deadline)", ""),
+    ("shed", "requests shed at admission (finish_reason=shed)", ""),
+    ("spec_tree_dispatches", "tree-speculative span dispatches", ""),
+    ("spec_tree_nodes_sum", "drafted tree nodes over dispatched rows",
+     "nodes"),
+    ("spec_tree_rows", "decode rows of tree-speculative dispatches", ""),
+    ("spec_accept_depth_sum", "accepted draft depth over dispatched rows",
+     "tokens"),
+    ("spec_heal_spans", "tree spans that re-sent a heal prefix", ""),
+    ("prefix_spilled_hits", "admissions whose match extended into spilled "
+     "segments", ""),
+    ("prefix_tokens_prefetched", "prompt tokens restored from the spill "
+     "tiers", "tokens"),
+    ("prefix_spill_pages", "cache pages captured into the host tier",
+     "pages"),
+    ("prefix_prefetch_pages", "spilled pages restored into device pages",
+     "pages"),
+    ("spill_dropped_pages", "spilled pages dropped from the host pool",
+     "pages"),
+    ("prefetch_seconds", "host→device restore issue time", "seconds"),
+    ("disk_demoted_pages", "spilled pages demoted host→disk", "pages"),
+    ("disk_promoted_pages", "disk pages promoted back", "pages"),
+    ("disk_dropped_pages", "disk pages dropped", "pages"),
+    ("disk_read_failures", "disk spill reads that failed", ""),
+    ("handoff_exports", "requests pinned for prefill→decode handoff", ""),
+    ("handoff_imports", "sequences imported from a handoff payload", ""),
+    ("handoff_orphaned_pages", "pinned pages reclaimed by the orphan sweep",
+     "pages"),
+    ("handoff_capture_seconds", "pin-time host capture of exported pages",
+     "seconds"),
+    ("handoff_import_seconds", "device scatter of imported pages",
+     "seconds"),
+    ("kv_migrate_exports", "warm page sets exported", ""),
+    ("kv_migrate_imports", "migrated page sets imported", ""),
+    ("kv_migrate_tokens", "prompt tokens installed by migration", "tokens"),
+)
+# counters whose ``counters`` value stays a float (seconds)
+_FLOAT_COUNTERS = frozenset(k for k, _, unit in _COUNTERS
+                            if unit == "seconds")
 
 
 def spec_tree_width(cfg: EngineConfig) -> int:
@@ -160,19 +243,6 @@ def spec_tree_width(cfg: EngineConfig) -> int:
     while width > 1 and 1 + k * (width + 1) > TREE_OFFSETS:
         width -= 1
     return width if 1 + k * (width + 1) <= TREE_OFFSETS else 0
-
-
-class _Sink:
-    """``inc``/``observe`` into one key of the scheduler's counters (the
-    prefix cache's metric hooks)."""
-
-    def __init__(self, counters: dict, key: str):
-        self.counters, self.key = counters, key
-
-    def inc(self, n=1) -> None:
-        self.counters[self.key] += n
-
-    observe = inc
 
 
 @dataclass
@@ -204,6 +274,7 @@ class _SlotState:
     spec_probe: int = 0
     spec_hint: list[int] = field(default_factory=list)
     spec_hoff: int = 0
+    t_decode_start: float = 0.0  # this slot life's decode start (trace)
 
 
 class ContinuousScheduler:
@@ -262,33 +333,77 @@ class ContinuousScheduler:
                       model_cfg.hd)
             self.kv_scales = (torch.ones(sshape, device=device),
                               torch.ones(sshape, device=device))
-        self.counters = {
-            "requests": 0, "prefill_tokens": 0, "prefill_dispatches": 0,
-            "packed_dispatches": 0, "decode_tokens": 0, "decode_blocks": 0,
-            "decode_block_seconds": 0.0, "mixed_dispatches": 0,
-            "mixed_step_seconds": 0.0, "mixed_fill_sum": 0.0,
-            "prefill_tokens_piggybacked": 0, "rpa_dispatches": 0,
-            "rpa_span_tokens": 0, "prefix_queries": 0, "prefix_hits": 0,
-            "prefix_tokens_reused": 0, "preemptions": 0, "stalls": 0,
-            "run_seconds": 0.0, "occupancy_sum": 0.0, "peak_pages": 0,
-            "spec_accepted_tokens": 0, "cancelled": 0, "deadline": 0,
-            "shed": 0, "spec_tree_dispatches": 0, "spec_tree_nodes_sum": 0,
-            "spec_tree_rows": 0, "spec_accept_depth_sum": 0,
-            "spec_heal_spans": 0,
-            # spill tiers: pages captured, restored and dropped, and the
-            # seconds of capture (device→host) and restore (host→device)
-            "prefix_spilled_hits": 0, "prefix_tokens_prefetched": 0,
-            "prefix_spill_pages": 0, "prefix_prefetch_pages": 0,
-            "spill_dropped_pages": 0, "spill_capture_seconds": 0.0,
-            "prefetch_seconds": 0.0, "disk_demoted_pages": 0,
-            "disk_promoted_pages": 0, "disk_dropped_pages": 0,
-            "disk_read_failures": 0,
-            # handoff and page-set migration
-            "handoff_exports": 0, "handoff_imports": 0,
-            "handoff_orphaned_pages": 0, "handoff_capture_seconds": 0.0,
-            "handoff_import_seconds": 0.0, "kv_migrate_exports": 0,
-            "kv_migrate_imports": 0, "kv_migrate_tokens": 0,
-        }
+        # The scheduler's typed metrics (obs/metrics.py): one registry per
+        # engine, exposed in Prometheus text by the server's /metrics;
+        # ``counters`` and ``metrics_report()`` are derived views over it
+        self.registry = MetricsRegistry()
+        c, g, h = (self.registry.counter, self.registry.gauge,
+                   self.registry.histogram)
+        self._m = {key: c(f"lmrs_{key}_total", help_, unit)
+                   for key, help_, unit in _COUNTERS}
+        self._m["peak_pages"] = g("lmrs_peak_pages_in_use",
+                                  "max KV pages simultaneously allocated",
+                                  "pages")
+        self._h_occupancy = h("lmrs_decode_occupancy_ratio",
+                              buckets=RATIO_BUCKETS,
+                              help="fraction of batch slots live per decode "
+                                   "dispatch")
+        self._h_mixed_fill = h("lmrs_mixed_batch_fill_ratio",
+                               buckets=RATIO_BUCKETS,
+                               help="real tokens over mixed_token_budget "
+                                    "per mixed step")
+        self._h_rpa_span = h("lmrs_rpa_span_tokens",
+                             buckets=POW2_TOKEN_BUCKETS,
+                             help="real query-span tokens per ragged span "
+                                  "dispatch", unit="tokens")
+        self._h_spill_capture = h("lmrs_prefix_spill_capture_seconds",
+                                  help="device→host capture of one spilled "
+                                       "node's pages", unit="seconds")
+        self._h_ttft = h("lmrs_ttft_seconds",
+                         help="time to first token (engine-side)",
+                         unit="seconds")
+        self._h_block_gap = h("lmrs_decode_block_gap_seconds",
+                              help="gap between consecutive decode "
+                                   "dispatches", unit="seconds")
+        self._h_queue_wait = h("lmrs_queue_wait_seconds",
+                               help="enqueue -> slot admission wait",
+                               unit="seconds")
+        self._h_prefill_batch = h("lmrs_prefill_batch_tokens",
+                                  buckets=POW2_TOKEN_BUCKETS,
+                                  help="real prompt tokens per prefill "
+                                       "dispatch", unit="tokens")
+        self._tr = get_tracer()  # refreshed at each run()
+        # Live roofline attribution (obs/perf.py): model FLOPs and bytes
+        # of each dispatch over its wall (taken at the fetch the dispatch
+        # already makes) against chip_spec()'s peaks.  Prefill dispatches
+        # issued this iteration are sequenced on the device before the
+        # dispatch that fetches their first tokens, so their FLOPs (and
+        # the ledger's per-row view of them) wait here until that fetch.
+        self._perf = DispatchAttribution(model_cfg, engine_cfg,
+                                         self.registry, device=device)
+        self._attr_pending_flops = 0.0
+        self._attr_last_gb = 0.0  # last dispatch's model bytes (span arg)
+        self._cost_pending_prefill: list[tuple] = []
+        # (wall_s, decode_cost_s, prefill_cost_s, prefill_rows) of the last
+        # decode or verify block, billed where its per-row tokens are known
+        self._cost_step: tuple | None = None
+        # The cost ledger (obs/ledger.py), the SLO engine (obs/slo.py) and
+        # the step anatomy (obs/anatomy.py); LMRS_COST_LEDGER=0, LMRS_SLO=0
+        # and LMRS_ANATOMY=0 turn each off (pure host bookkeeping: outputs
+        # are the same either way)
+        self._cost = CostLedger(self.registry)
+        # the postmortems' counter snapshot, through a weak reference: a
+        # strong one would make a cycle that keeps a dropped engine's
+        # pools and weights on the card until a garbage collection
+        me = weakref.ref(self)
+        snapshot = lambda: me().counters if me() is not None else {}  # noqa: E731
+        self._slo = SLOEngine(self.registry, metrics_cb=snapshot)
+        self._an = maybe_anatomy(self.registry, metrics_cb=snapshot)
+        # LMRS_PROFILE_ON_SLOW_STEP: the first warm decode block slower
+        # than the threshold starts one torch.profiler capture per process
+        self._slow_step_fired = False
+        self._warm_kinds: set[str] = set()
+        self._last_block_t: float | None = None  # run-scoped (run())
         # LMRS_HOST_KV_SYNC=1 blocks on each restore (the A/B fallback for
         # the default asynchronous copy)
         self._host_kv_sync = env_bool("LMRS_HOST_KV_SYNC", False)
@@ -312,14 +427,14 @@ class ContinuousScheduler:
                 # keep a dropped engine's pool alive until a collection
                 export = weakref.WeakMethod(self.cache.export_pages)
                 capture = lambda pages: export()(pages)  # noqa: E731
-            sinks = {name: _Sink(self.counters, key) for name, key in (
+            sinks = {name: self._m[key] for name, key in (
                 ("spill_pages", "prefix_spill_pages"),
                 ("spill_dropped", "spill_dropped_pages"),
-                ("spill_capture_s", "spill_capture_seconds"),
                 ("disk_demoted", "disk_demoted_pages"),
                 ("disk_promoted", "disk_promoted_pages"),
                 ("disk_dropped", "disk_dropped_pages"),
                 ("disk_read_fail", "disk_read_failures"))}
+            sinks["spill_capture_s"] = self._h_spill_capture
             self._prefix_cache = PrefixCache(
                 self.cache.allocator, ps,
                 max_pages=engine_cfg.prefix_cache_max_pages,
@@ -398,6 +513,8 @@ class ContinuousScheduler:
         fetch with a request's new text (see the module docstring).
         request_ids must be unique within a run."""
         t_run = time.time()
+        # per-run tracer capture: a None tracer keeps every site one branch
+        tr = self._tr = get_tracer()
         # taken before the first allocator touch: an off-thread
         # release_handoff freeing inline holds this lock, so it either
         # completes before the flag flips or sees it set and defers
@@ -420,7 +537,11 @@ class ContinuousScheduler:
                 self._t_enq[req.request_id] = time.time()
                 if req.deadline_s is not None:
                     self._any_deadline = True
-                self.counters["requests"] += 1
+                self._m["requests"].inc(1)
+                if tr:
+                    tr.instant("enqueue", ts=self._t_enq[req.request_id],
+                               tid=self._tid(req),
+                               args={"prompt_tokens": len(ids)})
 
         self._finished_ids = set()
         self._t_enq = {}
@@ -484,11 +605,14 @@ class ContinuousScheduler:
                     break  # back-pressure: wait for pages to free up
                 queue.popleft()
                 fresh_pages = self.cache.alloc_pages(need)
+                prefetched_tokens = 0
                 if spill_chain:
                     try:
+                        before = cached_tokens
                         cached_pages, fresh_pages, cached_tokens = \
                             self._prefetch_spilled(spill_chain, cached_pages,
                                                    fresh_pages, cached_tokens)
+                        prefetched_tokens = cached_tokens - before
                     except BaseException:
                         # a device error: the pages held here belong to no
                         # slot yet, so they go back before the run unwinds
@@ -496,11 +620,39 @@ class ContinuousScheduler:
                         raise
                 seq = SequencePages(pages=cached_pages + fresh_pages)
                 if self._prefix_cache is not None:
-                    self.counters["prefix_queries"] += 1
+                    self._m["prefix_queries"].inc(1)
                     if cached_tokens:
-                        self.counters["prefix_hits"] += 1
-                        self.counters["prefix_tokens_reused"] += cached_tokens
+                        self._m["prefix_hits"].inc(1)
+                        self._m["prefix_tokens_reused"].inc(cached_tokens)
+                        self._cost.note_saved(
+                            req,
+                            prefix_tokens=cached_tokens - prefetched_tokens,
+                            prefetched_tokens=prefetched_tokens,
+                            prefetched_bytes=(
+                                self.cache.pages_needed(prefetched_tokens)
+                                * self.cache.page_payload_bytes()
+                                if prefetched_tokens else 0.0))
                 now = time.time()
+                rid = req.request_id
+                # queue wait = enqueue -> FIRST admission (a continuation
+                # carries its original t_start in t0)
+                t_q = self._t_enq.get(rid)
+                if t_q is not None and t0 is None:
+                    self._h_queue_wait.observe(max(0.0, now - t_q))
+                    self._cost.note_queue_wait(req, now - t_q)
+                    if tr:
+                        tr.complete("queue_wait", t_q, now,
+                                    tid=self._tid(req))
+                if tr:
+                    tr.instant("admit", ts=now, tid=self._tid(req),
+                               args={"slot": b,
+                                     "continuation": t0 is not None})
+                    if cached_tokens:
+                        tr.instant("prefix_match", ts=now,
+                                   tid=self._tid(req),
+                                   args={"tokens_reused": cached_tokens,
+                                         "tokens_prefetched":
+                                             prefetched_tokens})
                 # a continuation keeps its ORIGINAL t_start, so the same
                 # request never becomes the perpetual youngest victim
                 slots[b] = _SlotState(
@@ -527,98 +679,169 @@ class ContinuousScheduler:
                 if st is None:
                     continue  # preempted: its continuation resamples tok0
                 st.generated.append(int(tok0s[p][row]))
-                self._note_first_token(st.req.request_id)
+                self._note_first_token(st)
                 last_tok[b] = st.generated[-1]
-                self._seed_history(b, st)
+                with an.seg("draft"):
+                    self._seed_history(b, st)
                 if finish_all or not active[b]:
                     # a stalled row emitted nothing this dispatch, but its
                     # first token is real output: check for an early finish
                     self._maybe_finish(b, slots, results, fresh, active,
                                        kv_lens, last_tok)
 
+        def sync_first_tokens(pending, deferred, t_pf: float) -> None:
+            """Fetch this iteration's first tokens on their own (no decode
+            dispatch carries them): the wall from the wave's issue to this
+            fetch is a clean prefill sample and one ledger note."""
+            with an.seg("fetch"):
+                tok0s = [t.numpy() for t in
+                         _one_fetch([t for t, _ in pending])]
+            t_fetch = time.time()
+            with an.seg("finish"):
+                self._perf.note_prefill_sync(
+                    self._consume_prefill_attr(), t_pf, t_fetch,
+                    warm=self._warm("prefill"))
+                self._cost.note_step(max(0.0, t_fetch - t_pf),
+                                     prefill_rows=self._consume_prefill_cost(),
+                                     prefill_cost_s=1.0)
+                finish_first_tokens(deferred, tok0s, finish_all=True)
+
+        # step anatomy (obs/anatomy.py): one record per loop pass, closed by
+        # iter_end (classed) at every continue and at the bottom; the exit
+        # break discards it and the finally aborts what a fault left open
+        an = self._an
+        self._last_block_t = None
         try:
             while True:
-                # block boundary: sweep cancels and expired deadlines; their
-                # results go out with this iteration's fresh batch
-                if self._cancelled:
-                    self._sweep_cancelled(queue, slots, results, fresh,
-                                          active, kv_lens, last_tok)
-                # acked or orphaned handoffs released off-thread free here
-                if self._release_deferred:
-                    self._drain_released()
-                if self._any_deadline:
-                    self._sweep_deadlines(queue, slots, results, fresh,
-                                          active, kv_lens, last_tok)
-                if on_result is not None:
-                    while fresh:
-                        on_result(results[fresh.popleft()], submit)
+                an.iter_begin()
+                with an.seg("admit"):
+                    # block boundary: sweep cancels and expired deadlines;
+                    # their results go out with this iteration's fresh batch
+                    if self._cancelled:
+                        self._sweep_cancelled(queue, slots, results, fresh,
+                                              active, kv_lens, last_tok)
+                    # acked or orphaned handoffs released off-thread free
+                    # here
+                    if self._release_deferred:
+                        self._drain_released()
+                    if self._any_deadline:
+                        self._sweep_deadlines(queue, slots, results, fresh,
+                                              active, kv_lens, last_tok)
+                with an.seg("io"):
+                    if on_result is not None:
+                        while fresh:
+                            on_result(results[fresh.popleft()], submit)
                 if not (queue or any(s is not None for s in slots)):
+                    an.iter_discard()
                     break
-                admit()
-                if self._mixed and self._mixed_iteration(
-                        slots, queue, results, fresh, kv_lens, last_tok,
-                        active, temps, top_k, top_p):
-                    continue
-                pending = self._advance_prefills(slots)
+                with an.seg("admit"):
+                    admit()
+                if self._mixed:
+                    with an.seg("plan"):
+                        did = self._mixed_iteration(
+                            slots, queue, results, fresh, kv_lens, last_tok,
+                            active, temps, top_k, top_p)
+                    if did:
+                        an.iter_end("spec" if self.spec_k else "mixed")
+                        continue
+                t_pf = time.time()  # the prefill wave's issue anchor
+                with an.seg("plan"):
+                    pending = self._advance_prefills(slots)
                 deferred = []  # (slot, pending index, row)
-                for p, (_, rows) in enumerate(pending):
-                    for b, row in rows:
-                        self._enter_decode(b, slots[b], kv_lens, active)
-                        deferred.append((b, p, row))
+                with an.seg("finish"):
+                    for p, (_, rows) in enumerate(pending):
+                        for b, row in rows:
+                            self._enter_decode(b, slots[b], kv_lens, active)
+                            deferred.append((b, p, row))
                 if deferred and (self.spec_k or any(
                         slots[b].req.handoff_export for b, _, _ in deferred)):
                     # speculation seeds each new decode row's history with
                     # its first token, and a handoff slot (budget 1) pins
                     # on it: fetch the first tokens now
-                    tok0s = [t.numpy() for t in
-                             _one_fetch([t for t, _ in pending])]
-                    finish_first_tokens(deferred, tok0s, finish_all=True)
+                    sync_first_tokens(pending, deferred, t_pf)
                     deferred = []
                 if not active.any():
+                    an.iter_end("prefill")
                     continue
                 if self._spec_tree:
                     # pure-decode steps of tree speculation are span steps
                     # too: the verify kernel's block never sees a row with a
                     # heal pending.  Nothing dispatched means every row
                     # stalled: loop (preemption guarantees progress)
-                    self._spec_span_iteration(None, slots, queue, results,
-                                              fresh, kv_lens, last_tok,
-                                              active, temps, top_k, top_p)
+                    with an.seg("plan"):
+                        self._spec_span_iteration(None, slots, queue, results,
+                                                  fresh, kv_lens, last_tok,
+                                                  active, temps, top_k, top_p)
+                    an.iter_end("spec")
                     continue
-                stalled = self._ensure_decode_capacity(slots, queue, kv_lens,
-                                                       last_tok, active)
+                with an.seg("admit"):
+                    stalled = self._ensure_decode_capacity(
+                        slots, queue, kv_lens, last_tok, active)
                 if not active.any():
                     # no dispatch carries these first tokens: fetch now
                     if deferred:
-                        tok0s = [t.numpy() for t in
-                                 _one_fetch([t for t, _ in pending])]
-                        finish_first_tokens(deferred, tok0s, finish_all=True)
+                        sync_first_tokens(pending, deferred, t_pf)
                     self._rearm(stalled, slots, active)
+                    an.iter_end("prefill")
                     continue
-                if self.spec_k:
-                    emitted = self._spec_decode_block(
-                        slots, last_tok, kv_lens, active, temps, top_k, top_p)
-                else:
-                    toks, n_valid, tok0s = self._decode_block(
-                        slots, last_tok, kv_lens, active, temps, top_k,
-                        top_p, pending)
-                    finish_first_tokens(deferred, tok0s, finish_all=False)
-                    emitted = [toks[b, : int(n_valid[b])].tolist()
-                               for b in range(B)]
-                for b in range(B):
-                    st = slots[b]
-                    if st is None or not active[b]:
-                        continue
-                    new = emitted[b]
-                    st.generated.extend(new)
-                    st.kv_len += len(new)
-                    kv_lens[b] = st.kv_len
-                    last_tok[b] = st.generated[-1]
-                    self.counters["decode_tokens"] += len(new)
-                    self._maybe_finish(b, slots, results, fresh, active,
-                                       kv_lens, last_tok)
-                self._rearm(stalled, slots, active)
-        except Exception:
+                n_live = int(active.sum())
+                now = time.time()
+                self._note_dispatch_gap(now)
+                with an.seg("plan"):
+                    if self.spec_k:
+                        emitted = self._spec_decode_block(
+                            slots, last_tok, kv_lens, active, temps, top_k,
+                            top_p)
+                    else:
+                        toks, n_valid, tok0s = self._decode_block(
+                            slots, last_tok, kv_lens, active, temps, top_k,
+                            top_p, pending)
+                        emitted = [toks[b, : int(n_valid[b])].tolist()
+                                   for b in range(B)]
+                with an.seg("finish"):
+                    # billed before any of this iteration's finishes: a row
+                    # finishing on this block is billed while its ledger
+                    # entry is still open
+                    self._bill_block(slots, active, emitted)
+                    if not self.spec_k:
+                        finish_first_tokens(deferred, tok0s, finish_all=False)
+                    block_tokens = 0
+                    for b in range(B):
+                        st = slots[b]
+                        if st is None or not active[b]:
+                            continue
+                        new = emitted[b]
+                        st.generated.extend(new)
+                        st.kv_len += len(new)
+                        kv_lens[b] = st.kv_len
+                        last_tok[b] = st.generated[-1]
+                        self._m["decode_tokens"].inc(len(new))
+                        block_tokens += len(new)
+                        if tr and new:
+                            tr.instant("decode_block", ts=now,
+                                       tid=self._tid(st.req),
+                                       args={"tokens": len(new)})
+                        self._maybe_finish(b, slots, results, fresh, active,
+                                           kv_lens, last_tok)
+                    if tr:
+                        # the scheduler track's dispatch span: issue through
+                        # host-side result processing; hbm_gb is the block's
+                        # model byte cost (0 for verify blocks)
+                        tr.complete("decode_block", now, time.time(),
+                                    args={"active": n_live,
+                                          "tokens": block_tokens,
+                                          "hbm_gb": self._attr_last_gb})
+                    self._rearm(stalled, slots, active)
+                an.iter_end("spec" if self.spec_k else "plain")
+        except Exception as run_exc:
+            # the flight recorder first, so the postmortem holds the spans
+            # and counters as the fault left them (a no-op unless
+            # LMRS_POSTMORTEM_DIR is armed; never raises)
+            dump_postmortem(
+                "dispatch_fault", metrics=self.counters,
+                extra={"error": f"{type(run_exc).__name__}: {run_exc}",
+                       "live_slots": sum(s is not None for s in slots),
+                       "queued": len(queue)})
             # the engine must survive for the next batch: free every live
             # slot's pages and drop the cache (the caller turns the
             # exception into error results)
@@ -647,7 +870,14 @@ class ContinuousScheduler:
                 self._run_live = False
             # releases parked during the run free here, on this thread
             self._drain_released()
-            self.counters["run_seconds"] += time.time() - t_run
+            self._m["run_seconds"].inc(max(0.0, time.time() - t_run))
+            # an iteration a fault left open contributes nothing to the
+            # anatomy (a no-op after a clean close); un-consumed prefill
+            # work must not bill the next run's first dispatch
+            an.iter_abort()
+            self._attr_pending_flops = 0.0
+            self._cost_pending_prefill = []
+            self._cost_step = None
             self._cancelled.clear()
             self._slots = None
             self._on_tokens = None
@@ -734,13 +964,17 @@ class ContinuousScheduler:
             self._streamed[rid] = text[:frontier]
 
     def _record_result(self, results: dict, res: GenerationResult,
-                       fresh) -> None:
+                       fresh, req: GenerationRequest) -> None:
         """The one write into a run's results: an id terminating twice is
-        counted for the audit."""
+        counted for the audit.  Also the one place every outcome meets the
+        cost ledger (the usage bill attaches here) and the SLO stream."""
         rid = res.request_id
         if rid in self._finished_ids:
             self._double_finish += 1
         self._finished_ids.add(rid)
+        res.usage = self._cost.finish(req, res)
+        self._slo.note_result(res.finish_reason, res.completion_tokens,
+                              res.error)
         results[rid] = res
         fresh.append(rid)
 
@@ -750,23 +984,131 @@ class ContinuousScheduler:
         (prefix-cache matches drop their own reference), row state reset.
         Shared by a normal finish, a cancel and an in-flight expiry."""
         st = slots[b]
+        now = time.time()
         self._record_result(results, GenerationResult(
             request_id=st.req.request_id, text=text,
             prompt_tokens=st.n_prompt, completion_tokens=len(gen),
             finish_reason=finish_reason, stop_sequence=stop_hit,
-            device_seconds=time.time() - st.t_start), fresh)
+            device_seconds=now - st.t_start), fresh, st.req)
+        if self._tr:
+            tid = self._tid(st.req)
+            if st.t_decode_start:  # close this slot life's decode span
+                self._tr.complete("decode", st.t_decode_start, now, tid=tid,
+                                  args={"completion_tokens": len(gen)})
+            self._tr.instant(
+                "cancel" if finish_reason == "cancelled" else "finish",
+                ts=now, tid=tid,
+                args={"reason": finish_reason,
+                      "completion_tokens": len(gen)})
         self.cache.close_sequence(st.seq)
         slots[b] = None
         active[b] = False
         kv_lens[b] = 0  # a freed row carries length 0: the kernels skip it
         last_tok[b] = 0
 
-    def _note_first_token(self, rid: int) -> None:
+    def _note_first_token(self, st: _SlotState) -> None:
         """A TTFT sample at a request's first host-visible token (a
         preemption continuation's re-prefill takes none)."""
-        t = self._t_enq.pop(rid, None)
+        t = self._t_enq.pop(st.req.request_id, None)
         if t is not None:
-            self._ttft_min = min(self._ttft_min, time.time() - t)
+            now = time.time()
+            self._ttft_min = min(self._ttft_min, now - t)
+            self._h_ttft.observe(max(0.0, now - t))
+            self._slo.observe_ttft(now - t)
+            if self._tr:
+                self._tr.instant("first_token", ts=now,
+                                 tid=self._tid(st.req))
+
+    def _tid(self, req: GenerationRequest) -> int:
+        """The request's trace track: its distributed trace id's when it
+        carries one (one chain fleet-wide), else the per-run request id's.
+        Call only under an ``if self._tr:`` guard."""
+        if req.trace_id:
+            return self._tr.track_for(req.trace_id)
+        return req_tid(req.request_id)
+
+    def _warm(self, kind: str) -> bool:
+        """False the first time this engine dispatches ``kind``: that wall
+        holds one-time work (a kernel build, library handles), so it
+        counts work but never samples a ratio."""
+        if kind in self._warm_kinds:
+            return True
+        self._warm_kinds.add(kind)
+        return False
+
+    def _note_dispatch_gap(self, now: float) -> None:
+        """A decode-side dispatch starts at ``now``: the gap since the
+        previous one (the cadence a streaming client sees) feeds the
+        block-gap histogram and the SLO engine."""
+        if self._last_block_t is not None:
+            gap = max(0.0, now - self._last_block_t)
+            self._h_block_gap.observe(gap)
+            self._slo.observe_gap(gap)
+        self._last_block_t = now
+
+    def _note_prefill(self, req: GenerationRequest, tokens: int,
+                      kv_start: int = 0) -> float:
+        """One prefill row issued: its model FLOPs wait (with the ledger's
+        per-row view) for the fetch that charges the wave's wall."""
+        f = self._perf.prefill_flops(tokens, kv_start=kv_start)
+        self._attr_pending_flops += f
+        if self._cost.enabled:
+            self._cost_pending_prefill.append((req, tokens, f))
+        return f
+
+    def _consume_prefill_attr(self) -> float:
+        """Take (and reset) the model FLOPs of the prefill rows issued
+        since the last consumption."""
+        flops, self._attr_pending_flops = self._attr_pending_flops, 0.0
+        return flops
+
+    def _consume_prefill_cost(self) -> list[tuple]:
+        """Take (and reset) the ledger's per-row view of the same work."""
+        rows, self._cost_pending_prefill = self._cost_pending_prefill, []
+        return rows
+
+    def _roofline_phase_costs(self, nbytes: float,
+                              flops: float) -> tuple[float, float]:
+        """(decode_cost_s, prefill_cost_s): each phase's own roofline time,
+        the denominators the ledger splits a dispatch wall by."""
+        spec = self._perf._spec()
+        return (max(nbytes, 0.0) / spec.peak_hbm_bw,
+                max(flops, 0.0) / spec.peak_flops)
+
+    def _bill_block(self, slots, active, emitted) -> None:
+        """Bill the last decode or verify block (stashed by the block) to
+        its live rows by their emitted tokens, with the prefill rows whose
+        first tokens rode it."""
+        if self._cost_step is None:
+            return
+        wall, dcost, pcost, prows = self._cost_step
+        self._cost_step = None
+        self._cost.note_step(
+            wall, decode_rows=[(slots[b].req, len(emitted[b]),
+                                len(slots[b].seq.pages))
+                               for b in range(self.B)
+                               if slots[b] is not None and active[b]],
+            prefill_rows=prows, decode_cost_s=dcost, prefill_cost_s=pcost)
+
+    def _maybe_profile_slow_step(self, wall_s: float, warm: bool) -> None:
+        """``LMRS_PROFILE_ON_SLOW_STEP``: the first warm decode block slower
+        than the threshold starts one bounded torch.profiler capture
+        (``LMRS_PROFILE_DIR``), once per engine."""
+        if self._slow_step_fired:
+            return
+        from lmrs_tpu_torch.obs.perf import (default_profile_dir,
+                                             slow_step_threshold_s,
+                                             start_profile_capture)
+
+        thresh = slow_step_threshold_s()
+        if not thresh or not warm or wall_s <= thresh:
+            return
+        self._slow_step_fired = True
+        dur = env_float("LMRS_PROFILE_CAPTURE_S", 3.0, lo=0.1, hi=60.0)
+        ok, msg = start_profile_capture(default_profile_dir(), dur)
+        logger.warning("slow decode block (%.3fs > %.3fs threshold): "
+                       "profiler capture %s (%s)", wall_s, thresh,
+                       "started" if ok else "NOT started", msg)
 
     # ------------------------------------------------- cancel and deadlines
 
@@ -788,9 +1130,12 @@ class ContinuousScheduler:
             self._record_result(results, GenerationResult(
                 request_id=req.request_id, text=text, prompt_tokens=n_prompt,
                 completion_tokens=len(gen), finish_reason="cancelled",
-                stop_sequence=stop_hit), fresh)
+                stop_sequence=stop_hit), fresh, req)
             hit.add(req.request_id)
-            self.counters["cancelled"] += 1
+            self._m["cancelled"].inc(1)
+            if self._tr:  # cancelled while still queued: no spans open
+                self._tr.instant("cancel", tid=self._tid(req),
+                                 args={"state": "queued"})
         for b in range(self.B):
             st = slots[b]
             if st is None or st.req.request_id not in pending:
@@ -799,19 +1144,17 @@ class ContinuousScheduler:
             hit.add(st.req.request_id)
             self._finish_slot(b, slots, results, fresh, active, kv_lens,
                               last_tok, gen, text, stop_hit, "cancelled")
-            self.counters["cancelled"] += 1
+            self._m["cancelled"].inc(1)
         self._cancelled -= hit
 
     def _ttft_estimate(self, n_tokens: int) -> float:
         """Optimistic TTFT estimate for admission shedding: the fastest TTFT
         this engine has delivered, else the prefill's FLOPs at the card's
-        dense bf16 peak (``H100_BF16_FLOPS``)."""
+        dense bf16 peak (``chip_spec()``, through the attribution)."""
         if self._ttft_min != float("inf"):
             return self._ttft_min
-        from lmrs_tpu_torch.utils.perf_model import prefill_flops
-
         return prefill_flops(self.model_cfg, max(1, n_tokens),
-                             head_tokens=1) / H100_BF16_FLOPS
+                             head_tokens=1) / self._perf._spec().peak_flops
 
     def _expire_queue_entry(self, queue, i: int, results, fresh) -> None:
         """Terminate queue entry ``i``, which cannot (or can no longer) meet
@@ -830,8 +1173,11 @@ class ContinuousScheduler:
             prompt_tokens=n_prompt,
             completion_tokens=len(gen) if continuation else 0,
             finish_reason=reason,
-            stop_sequence=stop_hit if continuation else None), fresh)
-        self.counters[reason] += 1
+            stop_sequence=stop_hit if continuation else None), fresh, req)
+        self._m[reason].inc()
+        if self._tr:
+            self._tr.instant(reason, tid=self._tid(req),
+                             args={"queued": True})
 
     def _sweep_deadlines(self, queue, slots, results, fresh, active, kv_lens,
                          last_tok) -> None:
@@ -839,10 +1185,12 @@ class ContinuousScheduler:
         entry behind back-pressure must not wait to expire) and every live
         slot, which finishes as ``"deadline"`` with its output so far."""
         now = time.time()
+        expired = 0
         for i in range(len(queue) - 1, -1, -1):
             dl = queue[i][0].deadline_s
             if dl is not None and dl <= now:
                 self._expire_queue_entry(queue, i, results, fresh)
+                expired += 1
         for b in range(self.B):
             st = slots[b]
             if (st is None or st.req.deadline_s is None
@@ -851,7 +1199,16 @@ class ContinuousScheduler:
             gen, text, stop_hit, _ = self._trimmed_output(st)
             self._finish_slot(b, slots, results, fresh, active, kv_lens,
                               last_tok, gen, text, stop_hit, "deadline")
-            self.counters["deadline"] += 1
+            self._m["deadline"].inc(1)
+            expired += 1
+        # a deadline storm (one sweep reaping >= LMRS_DEADLINE_STORM
+        # requests, default 3): the engine is turning overload into
+        # expired work, so freeze the evidence (a no-op unless armed)
+        storm = env_int("LMRS_DEADLINE_STORM", 3, lo=0) if expired else 0
+        if storm > 0 and expired >= storm:
+            dump_postmortem("deadline_storm", metrics=self.counters,
+                            extra={"expired_this_sweep": expired,
+                                   "queued": len(queue)})
 
     def _enter_decode(self, b: int, st: _SlotState, kv_lens, active) -> None:
         """The slot's whole prompt is in the pool: it decodes from now on,
@@ -859,6 +1216,11 @@ class ContinuousScheduler:
         dispatch writing them is already issued, so later admissions of the
         same run can hit)."""
         st.phase = "decode"
+        st.t_decode_start = time.time()
+        if self._tr:
+            self._tr.complete("prefill", st.t_admit, st.t_decode_start,
+                              tid=self._tid(st.req),
+                              args={"prompt_tokens": len(st.prompt_ids)})
         st.kv_len = len(st.prompt_ids)
         kv_lens[b] = st.kv_len
         active[b] = True
@@ -872,7 +1234,7 @@ class ContinuousScheduler:
 
     def _note_peak_pages(self) -> None:
         in_use = self.cache.num_pages - 1 - self.cache.allocator.free_count
-        self.counters["peak_pages"] = max(self.counters["peak_pages"], in_use)
+        self._m["peak_pages"].track_max(in_use)
 
     # ------------------------------------------------- growth and preemption
 
@@ -904,7 +1266,7 @@ class ContinuousScheduler:
                     if victim is None:
                         stalled.append(b)
                         active[b] = False
-                        self.counters["stalls"] += 1
+                        self._m["stalls"].inc(1)
                         break
                     self._preempt(victim, slots, queue, kv_lens, last_tok,
                                   active)
@@ -945,7 +1307,17 @@ class ContinuousScheduler:
         active[b] = False
         kv_lens[b] = 0
         last_tok[b] = 0
-        self.counters["preemptions"] += 1
+        self._m["preemptions"].inc(1)
+        if self._tr:
+            now = time.time()
+            tid = self._tid(st.req)
+            if st.t_decode_start:  # close this slot life's decode span
+                self._tr.complete("decode", st.t_decode_start, now, tid=tid,
+                                  args={"preempted": True})
+            self._tr.instant("preempt", ts=now, tid=tid,
+                             args={"slot": b,
+                                   "generated_so_far": len(st.prior)
+                                   + len(st.generated)})
         logger.debug("preempted slot %d (request %d) under page pressure",
                      b, st.req.request_id)
 
@@ -1068,37 +1440,72 @@ class ContinuousScheduler:
             span_tokens[b] = [int(last_tok[b])]
         q_lens[pf], base[pf] = c, pos
         span_tokens[pf] = st_pf.prompt_ids[pos: pos + c]
+        live_tokens = int(sum(slots[b].kv_len for b in rows))
         t0 = time.time()
+        self._note_dispatch_gap(t0)
+        flops = self._perf.prefill_flops(c, kv_start=pos)
+        tr = self._tr
+        if tr:
+            tr.instant("prefill_dispatch",
+                       args={"rows": 1, "tokens": c, "mixed": True,
+                             "rpa": True, "flops_g": round(flops / 1e9, 3)})
         nxt = self._dispatch_spans(slots, q_lens, base, span_tokens,
                                    temps, top_k, top_p)
-        nxt = _one_fetch([nxt])[0].numpy()
-        c_ = self.counters
-        c_["mixed_step_seconds"] += time.time() - t0
-        c_["mixed_dispatches"] += 1
-        c_["mixed_fill_sum"] += (len(rows) + c) / self.mixed_token_budget
-        c_["prefill_tokens_piggybacked"] += c
-        c_["prefill_tokens"] += c
-        c_["occupancy_sum"] += len(rows) / self.B
-        st_pf.prefill_pos = pos + c
-        for b in rows:
-            st = slots[b]
-            st.generated.append(int(nxt[b]))
-            st.kv_len += 1
-            kv_lens[b] = st.kv_len
-            last_tok[b] = st.generated[-1]
-            c_["decode_tokens"] += 1
-            self._maybe_finish(b, slots, results, fresh, active, kv_lens,
-                               last_tok)
-        if is_final:
-            # the slice completed the prompt: enter decode with the token
-            # this very step sampled at the slice's last position
-            self._enter_decode(pf, st_pf, kv_lens, active)
-            st_pf.generated.append(int(nxt[pf]))
-            self._note_first_token(st_pf.req.request_id)
-            last_tok[pf] = st_pf.generated[-1]
-            self._maybe_finish(pf, slots, results, fresh, active, kv_lens,
-                               last_tok)
-        self._rearm(stalled, slots, active)
+        with self._an.seg("fetch"):
+            nxt = _one_fetch([nxt])[0].numpy()
+        t_done = time.time()
+        with self._an.seg("finish"):
+            self._m["mixed_step_seconds"].inc(max(0.0, t_done - t0))
+            self._m["mixed_dispatches"].inc(1)
+            self._h_mixed_fill.observe((len(rows) + c)
+                                       / self.mixed_token_budget)
+            self._m["prefill_tokens_piggybacked"].inc(c)
+            self._m["prefill_tokens"].inc(c)
+            self._h_occupancy.observe(len(rows) / self.B)
+            st_pf.prefill_pos = pos + c
+            # the fused step splits exactly: every decode row advanced one
+            # token, and the slice's work is known
+            extra = self._consume_prefill_attr()
+            nb = self._perf.note_mixed_step(t0, t_done, len(rows),
+                                            live_tokens, flops + extra,
+                                            warm=self._warm("mixed"))
+            self._attr_last_gb = round(nb / 1e9, 3)
+            if self._cost.enabled:
+                dcost, pcost = self._roofline_phase_costs(nb, flops + extra)
+                self._cost.note_step(
+                    max(0.0, t_done - t0),
+                    decode_rows=[(slots[b].req, 1, len(slots[b].seq.pages))
+                                 for b in rows],
+                    prefill_rows=(self._consume_prefill_cost()
+                                  + [(st_pf.req, c, flops)]),
+                    decode_cost_s=dcost, prefill_cost_s=pcost)
+            for b in rows:
+                st = slots[b]
+                st.generated.append(int(nxt[b]))
+                st.kv_len += 1
+                kv_lens[b] = st.kv_len
+                last_tok[b] = st.generated[-1]
+                self._m["decode_tokens"].inc(1)
+                if tr:
+                    tr.instant("decode_block", ts=t0, tid=self._tid(st.req),
+                               args={"tokens": 1})
+                self._maybe_finish(b, slots, results, fresh, active, kv_lens,
+                                   last_tok)
+            if is_final:
+                # the slice completed the prompt: enter decode with the token
+                # this very step sampled at the slice's last position
+                self._enter_decode(pf, st_pf, kv_lens, active)
+                st_pf.generated.append(int(nxt[pf]))
+                self._note_first_token(st_pf)
+                last_tok[pf] = st_pf.generated[-1]
+                self._maybe_finish(pf, slots, results, fresh, active,
+                                   kv_lens, last_tok)
+            if tr:
+                tr.complete("decode_block", t0, time.time(),
+                            args={"active": len(rows), "tokens": len(rows),
+                                  "hbm_gb": self._attr_last_gb,
+                                  "mixed": True, "prefill_tokens": c})
+            self._rearm(stalled, slots, active)
         return True
 
     def _span_layout(self, slots, q_lens, base):
@@ -1131,6 +1538,7 @@ class ContinuousScheduler:
         at its span's last token (device tensor [B], not fetched)."""
         dev = self.device
         q_starts, total, row_flat, table = self._span_layout(slots, q_lens, base)
+        self._an.note_bucket(total, table.shape[1], int(q_lens.sum()))
         tokens = np.zeros((1, total), np.int64)
         for b, toks in span_tokens.items():
             tokens[0, q_starts[b]: q_starts[b] + len(toks)] = toks
@@ -1142,15 +1550,16 @@ class ContinuousScheduler:
         # an inactive row samples some in-buffer token, never used
         gidx = np.minimum(q_starts + np.maximum(q_lens, 1) - 1, total - 1)
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        logits = forward_paged(
-            self.params, self.model_cfg, t(tokens), t(positions),
-            self.cache.k, self.cache.v, t(table), t(base), self.max_len,
-            packed_last_idx=t(gidx),
-            spans=(t(q_starts), t(q_lens), t(row_flat)),
-            kv_scales=self.kv_scales)
-        self.counters["rpa_dispatches"] += 1
-        self.counters["rpa_span_tokens"] += int(q_lens.sum())
-        return self._sample(logits[0], temps, top_k, top_p)
+        with self._an.seg("dispatch"):
+            logits = forward_paged(
+                self.params, self.model_cfg, t(tokens), t(positions),
+                self.cache.k, self.cache.v, t(table), t(base), self.max_len,
+                packed_last_idx=t(gidx),
+                spans=(t(q_starts), t(q_lens), t(row_flat)),
+                kv_scales=self.kv_scales)
+            out = self._sample(logits[0], temps, top_k, top_p)
+        self._h_rpa_span.observe(int(q_lens.sum()))
+        return out
 
     def _dispatch_rpa_chunks(self, items) -> tuple[torch.Tensor, list]:
         """Continuation chunks as ragged SPANS, all in one dispatch.
@@ -1161,19 +1570,28 @@ class ContinuousScheduler:
         span_tokens: dict[int, list[int]] = {}
         slots_view: list[_SlotState | None] = [None] * self.B
         finals = []
+        flops = 0.0
         for b, st, chunk, pos, is_final in items:
             q_lens[b], base[b] = len(chunk), pos
             span_tokens[b] = chunk
             slots_view[b] = st
             st.prefill_pos = pos + len(chunk)
-            self.counters["prefill_tokens"] += len(chunk)
+            self._m["prefill_tokens"].inc(len(chunk))
+            flops += self._note_prefill(st.req, len(chunk), kv_start=pos)
             if is_final:
                 finals.append((b, b))
+        n_tok = int(q_lens.sum())
+        self._h_prefill_batch.observe(n_tok)
+        if self._tr:
+            self._tr.instant("prefill_dispatch",
+                             args={"rows": len(items), "tokens": n_tok,
+                                   "fresh": False, "rpa": True,
+                                   "flops_g": round(flops / 1e9, 3)})
         temps, tks, tps = self._sampler_params(
             [st.req if st is not None else None for st in slots_view])
         tok0 = self._dispatch_spans(slots_view, q_lens, base, span_tokens,
                                     temps, tks, tps)
-        self.counters["prefill_dispatches"] += 1
+        self._m["prefill_dispatches"].inc(1)
         return tok0, finals
 
     # ------------------------------------------------------------ prefill
@@ -1249,14 +1667,22 @@ class ContinuousScheduler:
         positions = torch.arange(n, device=dev)[None]
         table = torch.tensor(self.cache.page_table_array([st.seq]), device=dev)
         lens = torch.tensor([n], dtype=torch.int32, device=dev)
-        logits = forward_paged(
-            self.params, self.model_cfg, tokens, positions, self.cache.k,
-            self.cache.v, table, lens, self.max_len,
-            last_pos=torch.tensor([n - 1], device=dev),
-            kv_scales=self.kv_scales, scale_rows=torch.tensor([b], device=dev))
-        tok0 = self._sample(logits[:, 0], *self._sampler_params([st.req]))
-        self.counters["prefill_tokens"] += n
-        self.counters["prefill_dispatches"] += 1
+        flops = self._note_prefill(st.req, n)
+        self._h_prefill_batch.observe(n)
+        if self._tr:
+            self._tr.instant("prefill_dispatch",
+                             args={"rows": 1, "tokens": n, "fresh": True,
+                                   "flops_g": round(flops / 1e9, 3)})
+        with self._an.seg("dispatch"):
+            logits = forward_paged(
+                self.params, self.model_cfg, tokens, positions, self.cache.k,
+                self.cache.v, table, lens, self.max_len,
+                last_pos=torch.tensor([n - 1], device=dev),
+                kv_scales=self.kv_scales,
+                scale_rows=torch.tensor([b], device=dev))
+            tok0 = self._sample(logits[:, 0], *self._sampler_params([st.req]))
+        self._m["prefill_tokens"].inc(n)
+        self._m["prefill_dispatches"].inc(1)
         return tok0, [(b, 0)]
 
     def _dispatch_packed(self, items: list):
@@ -1282,19 +1708,29 @@ class ContinuousScheduler:
             last_idx[si] = off + n - 1
             off += n
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        logits = forward_paged(
-            self.params, self.model_cfg, t(tokens), t(positions),
-            self.cache.k, self.cache.v,
-            torch.zeros((1, 1), dtype=torch.long, device=dev),  # unused
-            torch.tensor([s_real], dtype=torch.int32, device=dev), self.max_len,
-            token_pages=t(token_pages), segment_ids=t(seg_ids),
-            packed_last_idx=t(last_idx), kv_scales=self.kv_scales,
-            scale_rows=torch.tensor([b for b, _ in items], device=dev))
-        tok0 = self._sample(logits[0], *self._sampler_params(
-            [st.req for _, st in items]))
-        self.counters["prefill_tokens"] += s_real
-        self.counters["prefill_dispatches"] += 1
-        self.counters["packed_dispatches"] += 1
+        flops = sum(self._note_prefill(st.req, len(st.prompt_ids))
+                    for _, st in items)
+        self._h_prefill_batch.observe(s_real)
+        if self._tr:
+            self._tr.instant("prefill_dispatch",
+                             args={"rows": len(items), "tokens": s_real,
+                                   "packed": True,
+                                   "flops_g": round(flops / 1e9, 3)})
+        with self._an.seg("dispatch"):
+            logits = forward_paged(
+                self.params, self.model_cfg, t(tokens), t(positions),
+                self.cache.k, self.cache.v,
+                torch.zeros((1, 1), dtype=torch.long, device=dev),  # unused
+                torch.tensor([s_real], dtype=torch.int32, device=dev),
+                self.max_len, token_pages=t(token_pages),
+                segment_ids=t(seg_ids), packed_last_idx=t(last_idx),
+                kv_scales=self.kv_scales,
+                scale_rows=torch.tensor([b for b, _ in items], device=dev))
+            tok0 = self._sample(logits[0], *self._sampler_params(
+                [st.req for _, st in items]))
+        self._m["prefill_tokens"].inc(s_real)
+        self._m["prefill_dispatches"].inc(1)
+        self._m["packed_dispatches"].inc(1)
         return tok0, [(b, si) for si, (b, _) in enumerate(items)]
 
     # ------------------------------------------------------------- decode
@@ -1329,30 +1765,49 @@ class ContinuousScheduler:
         eos = self.tokenizer.eos_id
         # inactive rows: zero sampler temperature (greedy, masked anyway)
         t_rows = np.where(active, temps, 0.0).astype(np.float32)
+        n_live = int(active.sum())
+        live_tokens = int(kv_lens[active].sum())
         toks, valid = [], []
         t0 = time.time()
-        for _ in range(n_steps):
-            pos = torch.clamp(lens, max=self.max_len - 1)
-            kv_in = torch.where(act, torch.clamp(lens + 1, max=self.max_len),
-                                torch.zeros_like(lens)).to(torch.int32)
-            logits = forward_paged(
-                self.params, self.model_cfg, tok[:, None], pos[:, None],
-                self.cache.k, self.cache.v, table_d, kv_in, self.max_len,
-                kv_scales=self.kv_scales)
-            nxt = self._sample(logits[:, 0], t_rows, top_k, top_p)
-            nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
-            toks.append(nxt)
-            valid.append(~done)
-            lens = torch.where(done, lens, lens + 1)
-            done = done | (nxt == eos)
-            tok = nxt
-        out_toks = torch.stack(toks, 1)
-        out_valid = torch.stack(valid, 1).sum(dim=1)
-        fetched = [x.numpy() for x in _one_fetch(
-            [out_toks, out_valid] + [t0_ for t0_, _ in pending])]
-        self.counters["decode_block_seconds"] += time.time() - t0
-        self.counters["decode_blocks"] += 1
-        self.counters["occupancy_sum"] += float(active.mean())
+        with self._an.seg("dispatch"):
+            for _ in range(n_steps):
+                pos = torch.clamp(lens, max=self.max_len - 1)
+                kv_in = torch.where(act, torch.clamp(lens + 1,
+                                                     max=self.max_len),
+                                    torch.zeros_like(lens)).to(torch.int32)
+                logits = forward_paged(
+                    self.params, self.model_cfg, tok[:, None], pos[:, None],
+                    self.cache.k, self.cache.v, table_d, kv_in, self.max_len,
+                    kv_scales=self.kv_scales)
+                nxt = self._sample(logits[:, 0], t_rows, top_k, top_p)
+                nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+                toks.append(nxt)
+                valid.append(~done)
+                lens = torch.where(done, lens, lens + 1)
+                done = done | (nxt == eos)
+                tok = nxt
+            out_toks = torch.stack(toks, 1)
+            out_valid = torch.stack(valid, 1).sum(dim=1)
+        with self._an.seg("fetch"):
+            fetched = [x.numpy() for x in _one_fetch(
+                [out_toks, out_valid] + [t0_ for t0_, _ in pending])]
+        t_done = time.time()
+        with self._an.seg("finish"):
+            self._m["decode_block_seconds"].inc(max(0.0, t_done - t0))
+            self._m["decode_blocks"].inc(1)
+            self._h_occupancy.observe(float(active.mean()))
+            # the fetch waited out this block's device work and that of
+            # the prefills sequenced before it (their FLOPs are pending)
+            flops = self._consume_prefill_attr()
+            warm = self._warm("decode")
+            nb = self._perf.note_block(t0, t_done, n_steps, n_live,
+                                       live_tokens, flops, warm=warm)
+            self._attr_last_gb = round(nb / 1e9, 3)
+            if self._cost.enabled:
+                dcost, pcost = self._roofline_phase_costs(nb, flops)
+                self._cost_step = (max(0.0, t_done - t0), dcost, pcost,
+                                   self._consume_prefill_cost())
+            self._maybe_profile_slow_step(t_done - t0, warm)
         return fetched[0], fetched[1], fetched[2:]
 
     # ------------------------------------------------ speculative decode
@@ -1412,49 +1867,73 @@ class ContinuousScheduler:
         tk_bt, tp_bt = np.repeat(top_k, T), np.repeat(top_p, T)
         toks, counts = [], []
         t0 = time.time()
-        for _ in range(self.decode_steps):
-            # the current token enters the history at its KV position
-            buf[rows, torch.clamp(lens, max=max_len - 1)] = tok.int()
-            draft, n_valid = draft_lookup(buf, lens + 1, k, pad_id=eos, n=ngram)
-            logits = forward_paged(
-                self.params, self.model_cfg,
-                torch.cat([tok[:, None], draft.long()], dim=1),
-                torch.clamp(lens[:, None] + offs, max=max_len - 1),
-                self.cache.k, self.cache.v, table,
-                # UNclamped: the write base is lens (see forward_paged)
-                (lens + 1 + k).to(torch.int32), max_len, multi_decode=True,
-                kv_scales=self.kv_scales)
-            if self._vocab_limit is not None:  # as in _sample
-                logits[..., self._vocab_limit:] = float("-inf")
-            probs = filtered_probs(logits.reshape(B * T, -1), t_bt, tk_bt,
-                                   tp_bt).reshape(B, T, -1)
-            emit, count = verify_tokens(probs, draft, n_valid, self.generator)
-            emit = torch.where(done[:, None], torch.full_like(emit, eos), emit)
-            count = torch.where(done, torch.zeros_like(count), count)
-            hit_eos = ((offs < count[:, None]) & (emit == eos)).any(dim=1)
-            # accepted tokens extend the history (the last one lands at the
-            # next step's write index: idempotent)
-            buf[rows[:, None], torch.clamp(lens[:, None] + 1 + offs,
-                                           max=max_len - 1)] = emit
-            lens = torch.clamp(lens + count, max=max_len)
-            nxt = torch.gather(emit, 1, torch.clamp(count - 1, min=0)[:, None]
-                               .long())[:, 0]
-            tok = torch.where(done, tok, nxt.long())
-            done = done | hit_eos
-            toks.append(emit)
-            counts.append(count)
-        toks_h, counts_h = (x.numpy() for x in _one_fetch(
-            [torch.stack(toks, 1), torch.stack(counts, 1)]))
-        self.counters["decode_block_seconds"] += time.time() - t0
-        self.counters["decode_blocks"] += 1
-        self.counters["occupancy_sum"] += float(active.mean())
-        emitted: list[list[int]] = []
-        for b in range(B):
-            row: list[int] = []
-            for s, c in enumerate(counts_h[b].tolist()):
-                row.extend(toks_h[b, s, :c].tolist())
-                self.counters["spec_accepted_tokens"] += max(0, c - 1)
-            emitted.append(row)
+        with self._an.seg("dispatch"):
+            for _ in range(self.decode_steps):
+                # the current token enters the history at its KV position
+                buf[rows, torch.clamp(lens, max=max_len - 1)] = tok.int()
+                draft, n_valid = draft_lookup(buf, lens + 1, k, pad_id=eos,
+                                              n=ngram)
+                logits = forward_paged(
+                    self.params, self.model_cfg,
+                    torch.cat([tok[:, None], draft.long()], dim=1),
+                    torch.clamp(lens[:, None] + offs, max=max_len - 1),
+                    self.cache.k, self.cache.v, table,
+                    # UNclamped: the write base is lens (see forward_paged)
+                    (lens + 1 + k).to(torch.int32), max_len, multi_decode=True,
+                    kv_scales=self.kv_scales)
+                if self._vocab_limit is not None:  # as in _sample
+                    logits[..., self._vocab_limit:] = float("-inf")
+                probs = filtered_probs(logits.reshape(B * T, -1), t_bt, tk_bt,
+                                       tp_bt).reshape(B, T, -1)
+                emit, count = verify_tokens(probs, draft, n_valid,
+                                            self.generator)
+                emit = torch.where(done[:, None], torch.full_like(emit, eos),
+                                   emit)
+                count = torch.where(done, torch.zeros_like(count), count)
+                hit_eos = ((offs < count[:, None]) & (emit == eos)).any(dim=1)
+                # accepted tokens extend the history (the last one lands at the
+                # next step's write index: idempotent)
+                buf[rows[:, None], torch.clamp(lens[:, None] + 1 + offs,
+                                               max=max_len - 1)] = emit
+                lens = torch.clamp(lens + count, max=max_len)
+                nxt = torch.gather(emit, 1,
+                                   torch.clamp(count - 1, min=0)[:, None]
+                                   .long())[:, 0]
+                tok = torch.where(done, tok, nxt.long())
+                done = done | hit_eos
+                toks.append(emit)
+                counts.append(count)
+            toks_d, counts_d = torch.stack(toks, 1), torch.stack(counts, 1)
+        with self._an.seg("fetch"):
+            toks_h, counts_h = (x.numpy() for x in _one_fetch(
+                [toks_d, counts_d]))
+        t_done = time.time()
+        with self._an.seg("finish"):
+            self._m["decode_block_seconds"].inc(max(0.0, t_done - t0))
+            self._m["decode_blocks"].inc(1)
+            self._h_occupancy.observe(float(active.mean()))
+            # verify blocks give step gaps only (their byte model differs);
+            # pending prefill FLOPs are counted, never sampled, and the
+            # ledger splits the wall by tokens (no phase costs)
+            self._perf.note_gap(t0, t_done)
+            flops = self._consume_prefill_attr()
+            if flops > 0:
+                self._perf.c_flops.inc(flops)
+            self._attr_last_gb = 0.0
+            if self._cost.enabled:
+                self._cost_step = (max(0.0, t_done - t0), 0.0, 0.0,
+                                   self._consume_prefill_cost())
+            emitted: list[list[int]] = []
+            for b in range(B):
+                row: list[int] = []
+                accepted = 0
+                for s, c in enumerate(counts_h[b].tolist()):
+                    row.extend(toks_h[b, s, :c].tolist())
+                    accepted += max(0, c - 1)
+                self._m["spec_accepted_tokens"].inc(accepted)
+                if accepted and slots[b] is not None:
+                    self._cost.note_saved(slots[b].req, spec_tokens=accepted)
+                emitted.append(row)
         return emitted
 
     def _tree_span_template(self, hl: int) -> tuple[np.ndarray, np.ndarray]:
@@ -1546,9 +2025,10 @@ class ContinuousScheduler:
             return False
         if use_spec and self._spec_stale:
             # rows that took plain span steps missed their history appends
-            for b in sorted(self._spec_stale):
-                if slots[b] is not None and slots[b].phase == "decode":
-                    self._seed_history(b, slots[b])
+            with self._an.seg("draft"):
+                for b in sorted(self._spec_stale):
+                    if slots[b] is not None and slots[b].phase == "decode":
+                        self._seed_history(b, slots[b])
             self._spec_stale.clear()
         st_pf, pos, c, is_final = None, 0, 0, False
         if pf is not None:
@@ -1565,10 +2045,20 @@ class ContinuousScheduler:
             q_lens[b] = hl[b] + adv
             base[b] = slots[b].kv_len - hl[b]
         pf_tokens = []
+        flops = 0.0
+        tr = self._tr
         if pf is not None:
             q_lens[pf], base[pf] = c, pos
             pf_tokens = st_pf.prompt_ids[pos: pos + c]
+            flops = self._perf.prefill_flops(c, kv_start=pos)
+            if tr:
+                tr.instant("prefill_dispatch",
+                           args={"rows": 1, "tokens": c, "mixed": True,
+                                 "rpa": True,
+                                 "flops_g": round(flops / 1e9, 3)})
+        live_tokens = int(sum(slots[b].kv_len for b in rows))
         t0 = time.time()
+        self._note_dispatch_gap(t0)
         if use_spec:
             emit, count, chain, adepth = self._dispatch_spec_spans(
                 slots, rows, pf, q_lens, base, hl, depth, pf_tokens,
@@ -1577,67 +2067,101 @@ class ContinuousScheduler:
             span_tokens = {b: [int(last_tok[b])] for b in rows}
             if pf is not None:
                 span_tokens[pf] = pf_tokens
-            nxt = _one_fetch([self._dispatch_spans(
-                slots, q_lens, base, span_tokens, temps, top_k,
-                top_p)])[0].numpy()
-        c_ = self.counters
-        if pf is not None:
-            c_["mixed_step_seconds"] += time.time() - t0
-            c_["mixed_dispatches"] += 1
-            c_["mixed_fill_sum"] += (dec_tokens + c) / self.mixed_token_budget
-            c_["prefill_tokens_piggybacked"] += c
-            c_["prefill_tokens"] += c
-            st_pf.prefill_pos = pos + c
-        else:
-            c_["decode_block_seconds"] += time.time() - t0
-            c_["decode_blocks"] += 1
-        c_["occupancy_sum"] += len(rows) / self.B
-        if tree and use_spec:
-            c_["spec_tree_dispatches"] += 1
-        for b in rows:
-            st = slots[b]
-            if use_spec:
-                cnt = int(count[b])
-                new = emit[b, :cnt].tolist()
-                c_["spec_accepted_tokens"] += max(0, cnt - 1)
-                if tree:
-                    c_["spec_heal_spans"] += int(hl[b] > 0)
-                    cs, ad, d_used = int(chain[b]), int(adepth[b]), int(depth[b])
-                    # a non-first chain's drafts sit at THAT chain's
-                    # span-offset columns: the next span re-sends them
-                    st.spec_heal = new[:ad] if cs > 0 and ad > 0 else []
-                    c_["spec_tree_nodes_sum"] += 1 + W * d_used
-                    c_["spec_tree_rows"] += 1
-                    c_["spec_accept_depth_sum"] += ad
-                    if not pressure:
-                        if d_used > 0:
-                            st.spec_ema = 0.8 * st.spec_ema + 0.2 * ad / d_used
-                        if self._spec_adaptive:
-                            st.spec_depth = self._spec_ramp(st, d_used)
+            nxt = self._dispatch_spans(slots, q_lens, base, span_tokens,
+                                       temps, top_k, top_p)
+            with self._an.seg("fetch"):
+                nxt = _one_fetch([nxt])[0].numpy()
+        t_done = time.time()
+        with self._an.seg("finish"):
+            # span-level exact split: a decode row's side of the step is its
+            # whole span, not one token
+            extra = self._consume_prefill_attr()
+            nb = self._perf.note_mixed_step(
+                t0, t_done, len(rows), live_tokens, flops + extra,
+                warm=self._warm("spec-span" if use_spec else "span"),
+                span_tokens=dec_tokens)
+            self._attr_last_gb = round(nb / 1e9, 3)
+            if self._cost.enabled:
+                dcost, pcost = self._roofline_phase_costs(nb, flops + extra)
+                self._cost.note_step(
+                    max(0.0, t_done - t0),
+                    decode_rows=[(slots[b].req,
+                                  int(count[b]) if use_spec else 1,
+                                  len(slots[b].seq.pages)) for b in rows],
+                    prefill_rows=(self._consume_prefill_cost()
+                                  + ([(st_pf.req, c, flops)]
+                                     if pf is not None else [])),
+                    decode_cost_s=dcost, prefill_cost_s=pcost)
+            if pf is not None:
+                self._m["mixed_step_seconds"].inc(max(0.0, t_done - t0))
+                self._m["mixed_dispatches"].inc(1)
+                self._h_mixed_fill.observe((dec_tokens + c) / self.mixed_token_budget)
+                self._m["prefill_tokens_piggybacked"].inc(c)
+                self._m["prefill_tokens"].inc(c)
+                st_pf.prefill_pos = pos + c
             else:
-                new = [int(nxt[b])]
-                self._spec_stale.add(b)
-                if self._spec_adaptive and not pressure:
-                    st.spec_depth = self._spec_ramp(st, 0)
-            st.generated.extend(new)
-            st.kv_len += len(new)
-            kv_lens[b] = st.kv_len
-            last_tok[b] = st.generated[-1]
-            c_["decode_tokens"] += len(new)
-            self._maybe_finish(b, slots, results, fresh, active, kv_lens,
-                               last_tok)
-        if is_final:
-            # the slice completed the prompt: enter decode with the token
-            # this step drew at its last position, and seed the history
-            self._enter_decode(pf, st_pf, kv_lens, active)
-            st_pf.generated.append(int(emit[pf, 0]) if use_spec
-                                   else int(nxt[pf]))
-            self._note_first_token(st_pf.req.request_id)
-            last_tok[pf] = st_pf.generated[-1]
-            self._seed_history(pf, st_pf)
-            self._maybe_finish(pf, slots, results, fresh, active, kv_lens,
-                               last_tok)
-        self._rearm(stalled, slots, active)
+                self._m["decode_block_seconds"].inc(max(0.0, t_done - t0))
+                self._m["decode_blocks"].inc(1)
+            self._h_occupancy.observe(len(rows) / self.B)
+            if tree and use_spec:
+                self._m["spec_tree_dispatches"].inc(1)
+            for b in rows:
+                st = slots[b]
+                if use_spec:
+                    cnt = int(count[b])
+                    new = emit[b, :cnt].tolist()
+                    self._m["spec_accepted_tokens"].inc(max(0, cnt - 1))
+                    if cnt > 1:
+                        self._cost.note_saved(st.req, spec_tokens=cnt - 1)
+                    if tree:
+                        self._m["spec_heal_spans"].inc(int(hl[b] > 0))
+                        cs, ad, d_used = int(chain[b]), int(adepth[b]), int(depth[b])
+                        # a non-first chain's drafts sit at THAT chain's
+                        # span-offset columns: the next span re-sends them
+                        st.spec_heal = new[:ad] if cs > 0 and ad > 0 else []
+                        self._m["spec_tree_nodes_sum"].inc(1 + W * d_used)
+                        self._m["spec_tree_rows"].inc(1)
+                        self._m["spec_accept_depth_sum"].inc(ad)
+                        if not pressure:
+                            if d_used > 0:
+                                st.spec_ema = 0.8 * st.spec_ema + 0.2 * ad / d_used
+                            if self._spec_adaptive:
+                                st.spec_depth = self._spec_ramp(st, d_used)
+                else:
+                    new = [int(nxt[b])]
+                    self._spec_stale.add(b)
+                    if self._spec_adaptive and not pressure:
+                        st.spec_depth = self._spec_ramp(st, 0)
+                st.generated.extend(new)
+                st.kv_len += len(new)
+                kv_lens[b] = st.kv_len
+                last_tok[b] = st.generated[-1]
+                self._m["decode_tokens"].inc(len(new))
+                if tr:
+                    tr.instant("decode_block", ts=t0, tid=self._tid(st.req),
+                               args={"tokens": len(new)})
+                self._maybe_finish(b, slots, results, fresh, active, kv_lens,
+                                   last_tok)
+            if is_final:
+                # the slice completed the prompt: enter decode with the token
+                # this step drew at its last position, and seed the history
+                self._enter_decode(pf, st_pf, kv_lens, active)
+                st_pf.generated.append(int(emit[pf, 0]) if use_spec
+                                       else int(nxt[pf]))
+                self._note_first_token(st_pf)
+                last_tok[pf] = st_pf.generated[-1]
+                with self._an.seg("draft"):
+                    self._seed_history(pf, st_pf)
+                self._maybe_finish(pf, slots, results, fresh, active, kv_lens,
+                                   last_tok)
+            if tr:
+                tr.complete("decode_block", t0, time.time(),
+                            args={"active": len(rows), "tokens": dec_tokens,
+                                  "hbm_gb": self._attr_last_gb,
+                                  "mixed": pf is not None, "rpa": True,
+                                  "spec_tree": bool(tree and use_spec),
+                                  "prefill_tokens": c})
+            self._rearm(stalled, slots, active)
         return True
 
     def _dispatch_spec_spans(self, slots, rows, pf, q_lens, base, hl, depth,
@@ -1658,6 +2182,7 @@ class ContinuousScheduler:
         W = self._spec_width if tree else 1
         n_nodes = 1 + W * k
         q_starts, total, row_flat, table = self._span_layout(slots, q_lens, base)
+        self._an.note_bucket(total, table.shape[1], int(q_lens.sum()))
         tokens = np.zeros((total,), np.int64)
         pos_off = np.zeros((total,), np.int64)
         anc = np.zeros((total,), np.int32)
@@ -1684,53 +2209,54 @@ class ContinuousScheduler:
                         lead[:, None] + np.arange(n_nodes)[None],
                         last[:, None]).reshape(-1)
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        buf = self._spec_buf
-        dr = t(np.asarray(rows, np.int64))
-        # the rows' true kv_len, shifted by each row's draft-hint offset
-        # (0 without a hint): the buffer column of the current token
-        hoff = np.zeros((B,), np.int64)
-        for b in rows:
-            hoff[b] = slots[b].spec_hoff
-        col = t((base + hl).astype(np.int64) + hoff)
-        cur = t(last_tok.astype(np.int64))
-        buf[dr, torch.clamp(col[dr], max=max_len - 1)] = cur[dr].int()
-        eos, ngram = self.tokenizer.eos_id, max(2, self.cfg.speculate_ngram)
-        if tree:
-            chains, n_valid = draft_tree_lookup(buf, col + 1, k, W, pad_id=eos,
-                                                n=ngram, depth=t(depth))
-        else:
-            draft, n_lin = draft_lookup(buf, col + 1, k, pad_id=eos, n=ngram)
-            chains, n_valid = draft[:, None], n_lin[:, None]
-        n_valid = torch.where(t(is_dec)[:, None], n_valid,
-                              torch.zeros_like(n_valid))
-        flat = t(tokens)
-        nodes = torch.cat([cur[:, None], chains.reshape(B, W * k).long()], 1)
-        at = t(lead)[dr][:, None] + torch.arange(n_nodes, device=dev)[None]
-        flat[at.reshape(-1)] = nodes[dr].reshape(-1)
-        logits = forward_paged(
-            self.params, self.model_cfg, flat[None], t(positions)[None],
-            self.cache.k, self.cache.v, t(table), t(base), max_len,
-            packed_last_idx=t(gidx),
-            spans=(t(q_starts), t(q_lens), t(row_flat)),
-            kv_scales=self.kv_scales, span_anc=t(anc) if tree else None)
-        if self._vocab_limit is not None:  # as in _sample
-            logits[..., self._vocab_limit:] = float("-inf")
-        probs = filtered_probs(logits[0], np.repeat(temps, n_nodes),
-                               np.repeat(top_k, n_nodes),
-                               np.repeat(top_p, n_nodes)).reshape(B, n_nodes, -1)
-        if tree:
-            out = list(verify_tree(probs, chains, n_valid, self.generator))
-        else:
-            out = list(verify_tokens(probs, chains[:, 0], n_valid[:, 0],
-                                     self.generator))
-        # accepted tokens extend the decode rows' history (the last one at
-        # the next step's write index: idempotent)
-        offs = torch.arange(k + 1, device=dev)[None]
-        buf[dr[:, None], torch.clamp(col[dr][:, None] + 1 + offs,
-                                     max=max_len - 1)] = out[0][dr]
-        self.counters["rpa_dispatches"] += 1
-        self.counters["rpa_span_tokens"] += int(q_lens.sum())
-        fetched = [x.numpy() for x in _one_fetch(out)]
+        with self._an.seg("dispatch"):
+            buf = self._spec_buf
+            dr = t(np.asarray(rows, np.int64))
+            # the rows' true kv_len, shifted by each row's draft-hint offset
+            # (0 without a hint): the buffer column of the current token
+            hoff = np.zeros((B,), np.int64)
+            for b in rows:
+                hoff[b] = slots[b].spec_hoff
+            col = t((base + hl).astype(np.int64) + hoff)
+            cur = t(last_tok.astype(np.int64))
+            buf[dr, torch.clamp(col[dr], max=max_len - 1)] = cur[dr].int()
+            eos, ngram = self.tokenizer.eos_id, max(2, self.cfg.speculate_ngram)
+            if tree:
+                chains, n_valid = draft_tree_lookup(buf, col + 1, k, W, pad_id=eos,
+                                                    n=ngram, depth=t(depth))
+            else:
+                draft, n_lin = draft_lookup(buf, col + 1, k, pad_id=eos, n=ngram)
+                chains, n_valid = draft[:, None], n_lin[:, None]
+            n_valid = torch.where(t(is_dec)[:, None], n_valid,
+                                  torch.zeros_like(n_valid))
+            flat = t(tokens)
+            nodes = torch.cat([cur[:, None], chains.reshape(B, W * k).long()], 1)
+            at = t(lead)[dr][:, None] + torch.arange(n_nodes, device=dev)[None]
+            flat[at.reshape(-1)] = nodes[dr].reshape(-1)
+            logits = forward_paged(
+                self.params, self.model_cfg, flat[None], t(positions)[None],
+                self.cache.k, self.cache.v, t(table), t(base), max_len,
+                packed_last_idx=t(gidx),
+                spans=(t(q_starts), t(q_lens), t(row_flat)),
+                kv_scales=self.kv_scales, span_anc=t(anc) if tree else None)
+            if self._vocab_limit is not None:  # as in _sample
+                logits[..., self._vocab_limit:] = float("-inf")
+            probs = filtered_probs(logits[0], np.repeat(temps, n_nodes),
+                                   np.repeat(top_k, n_nodes),
+                                   np.repeat(top_p, n_nodes)).reshape(B, n_nodes, -1)
+            if tree:
+                out = list(verify_tree(probs, chains, n_valid, self.generator))
+            else:
+                out = list(verify_tokens(probs, chains[:, 0], n_valid[:, 0],
+                                         self.generator))
+            # accepted tokens extend the decode rows' history (the last one at
+            # the next step's write index: idempotent)
+            offs = torch.arange(k + 1, device=dev)[None]
+            buf[dr[:, None], torch.clamp(col[dr][:, None] + 1 + offs,
+                                         max=max_len - 1)] = out[0][dr]
+        self._h_rpa_span.observe(int(q_lens.sum()))
+        with self._an.seg("fetch"):
+            fetched = [x.numpy() for x in _one_fetch(out)]
         return tuple(fetched) if tree else (*fetched, None, None)
 
     def _spec_tree_report(self) -> dict:
@@ -1779,11 +2305,13 @@ class ContinuousScheduler:
             used += npg
             got += n_tok
         if used:
-            c = self.counters
-            c["prefetch_seconds"] += time.time() - t0
-            c["prefix_prefetch_pages"] += used
-            c["prefix_tokens_prefetched"] += got
-            c["prefix_spilled_hits"] += 1
+            m = self._m
+            m["prefetch_seconds"].inc(max(0.0, time.time() - t0))
+            m["prefix_prefetch_pages"].inc(used)
+            m["prefix_tokens_prefetched"].inc(got)
+            m["prefix_spilled_hits"].inc()
+            # the restore's scatter rides into the next dispatch's wall
+            self._perf.note_prefetch(used * self.cache.page_payload_bytes())
         return cached_pages + fresh[:used], fresh[used:], cached_tokens + got
 
     def _host_kv_report(self) -> dict:
@@ -1832,7 +2360,7 @@ class ContinuousScheduler:
             # into its slot's scale rows at admission
             payload["kscale"] = self.kv_scales[0][:, b].cpu().numpy()
             payload["vscale"] = self.kv_scales[1][:, b].cpu().numpy()
-        self.counters["handoff_capture_seconds"] += time.time() - t0
+        self._m["handoff_capture_seconds"].inc(max(0.0, time.time() - t0))
         # resume state: the tokens whose K/V is exported, plus the sampled
         # first token the decode side feeds next
         payload["tokens"] = [int(t) for t in st.prompt_ids]
@@ -1840,6 +2368,8 @@ class ContinuousScheduler:
         payload["n_prompt"] = st.n_prompt
         if st.req.trace_id:
             payload["trace_id"] = st.req.trace_id
+        if st.req.tenant:
+            payload["tenant"] = st.req.tenant
         # pages grown past the prompt for decode are not part of the
         # handoff: release them before pinning
         if len(st.seq.pages) > keep:
@@ -1854,11 +2384,19 @@ class ContinuousScheduler:
         with self._pinned_lock:
             self._pinned[rid] = {"seq": st.seq, "payload": payload,
                                  "deadline_t": now + ttl, "t_pinned": now}
-        self.counters["handoff_exports"] += 1
+        self._m["handoff_exports"].inc(1)
         self._record_result(results, GenerationResult(
             request_id=rid, text=text, prompt_tokens=st.n_prompt,
             completion_tokens=len(gen), finish_reason="handoff",
-            device_seconds=now - st.t_start), fresh)
+            device_seconds=now - st.t_start), fresh, st.req)
+        if self._tr:
+            tid = self._tid(st.req)
+            if st.t_decode_start:
+                self._tr.complete("decode", st.t_decode_start, now, tid=tid,
+                                  args={"completion_tokens": len(gen)})
+            self._tr.instant("handoff_export", ts=now, tid=tid,
+                             args={"pages": len(st.seq.pages),
+                                   "kv_len": len(st.prompt_ids)})
         slots[b] = None
         active[b] = False
         kv_lens[b] = 0
@@ -1887,9 +2425,15 @@ class ContinuousScheduler:
             else:
                 self.cache.close_sequence(rec["seq"])
         if orphaned:
-            self.counters["handoff_orphaned_pages"] += n
+            self._m["handoff_orphaned_pages"].inc(n)
             logger.warning("handoff %d orphaned: %d pinned pages reclaimed",
                            request_id, n)
+        tr = get_tracer()
+        if tr:
+            trace = rec["payload"].get("trace_id")
+            tr.instant("handoff_release",
+                       tid=tr.track_for(trace) if trace else req_tid(request_id),
+                       args={"pages": n, "orphaned": orphaned})
         return n
 
     def _drain_released(self) -> None:
@@ -1927,6 +2471,11 @@ class ContinuousScheduler:
         the router falls back from; a device error raises."""
         req, ids, max_new, n_prompt, _prior, _t0 = queue[0]
         state = req.handoff_state
+        # the decode leg continues the exporter's trace and bills its tenant
+        if not req.trace_id and isinstance(state.get("trace_id"), str):
+            req.trace_id = state["trace_id"]
+        if not req.tenant and isinstance(state.get("tenant"), str):
+            req.tenant = state["tenant"]
 
         def fail(why: str) -> bool:
             queue.popleft()
@@ -1935,7 +2484,7 @@ class ContinuousScheduler:
             self._record_result(results, GenerationResult(
                 request_id=req.request_id, prompt_tokens=n_prompt,
                 finish_reason="error",
-                error=f"handoff import failed: {why}"), fresh)
+                error=f"handoff import failed: {why}"), fresh, req)
             return True
 
         try:
@@ -1989,7 +2538,8 @@ class ContinuousScheduler:
                         phase="decode", prefill_pos=len(ids), kv_len=kv_len,
                         t_start=now, t_admit=now, n_prompt=n_prompt,
                         generated=gen,
-                        spec_depth=self.spec_k if self._spec_tree else 0)
+                        spec_depth=self.spec_k if self._spec_tree else 0,
+                        t_decode_start=now)
         slots[b] = st
         kv_lens[b] = kv_len
         last_tok[b] = gen[-1]
@@ -2002,9 +2552,13 @@ class ContinuousScheduler:
             for buf, sc in zip(self.kv_scales, scales):
                 buf[:, b] = torch.from_numpy(sc).to(self.device)
         self._seed_history(b, st)
-        self.counters["handoff_imports"] += 1
-        self.counters["handoff_import_seconds"] += time.time() - t_imp
-        self._note_first_token(req.request_id)
+        self._m["handoff_imports"].inc(1)
+        self._m["handoff_import_seconds"].inc(max(0.0, time.time() - t_imp))
+        if self._tr:
+            self._tr.instant("handoff_import", ts=now, tid=self._tid(req),
+                             args={"slot": b, "kv_len": kv_len,
+                                   "pages": len(seq.pages)})
+        self._note_first_token(st)
         self._note_peak_pages()
         # stream the first token at once (it is never terminal: the pin
         # guard kept terminal first tokens from becoming handoffs)
@@ -2053,7 +2607,7 @@ class ContinuousScheduler:
             k = as_dtype(np.concatenate(k_parts, axis=1), wire)
             v = as_dtype(np.concatenate(v_parts, axis=1), wire)
             kh, _ps, hd = (int(x) for x in self.cache.k.shape[1:])
-            self.counters["kv_migrate_exports"] += 1
+            self._m["kv_migrate_exports"].inc(1)
             return {"kind": "kv_pageset", "version": 1, "preamble": preamble,
                     "tokens": tokens, "ids": [int(t) for t in ids[:tokens]],
                     "n_pages": tokens // ps, "page_size": ps,
@@ -2106,8 +2660,8 @@ class ContinuousScheduler:
                 self._preambles[key] = {"ids": tuple(ids),
                                         "tick": self._preamble_tick}
                 self._summary_memo = None
-            self.counters["kv_migrate_imports"] += 1
-            self.counters["kv_migrate_tokens"] += tokens
+            self._m["kv_migrate_imports"].inc(1)
+            self._m["kv_migrate_tokens"].inc(tokens)
             return tokens
 
     # ------------------------------------------------------------ reporting
@@ -2135,6 +2689,13 @@ class ContinuousScheduler:
         if self._double_finish:
             violations.append(f"{self._double_finish} request(s) finished "
                               "more than once")
+        # the ledger's conservation and the anatomy's identity (totals
+        # only advance at iteration ends: safe mid-run)
+        violations += self._cost.audit()
+        violations += self._an.audit()
+        if violations:
+            dump_postmortem("audit_failure", metrics=self.counters,
+                            extra={"violations": violations})
         return violations
 
     def metrics_report(self) -> dict:
@@ -2199,7 +2760,56 @@ class ContinuousScheduler:
             out["kv_migrate"] = {"exports": c["kv_migrate_exports"],
                                  "imports": c["kv_migrate_imports"],
                                  "tokens_imported": c["kv_migrate_tokens"]}
+        out["ttft_ms"] = self._h_ttft.percentile_report()
+        out["decode_block_gap_ms"] = self._h_block_gap.percentile_report()
+        out["queue_wait_ms"] = self._h_queue_wait.percentile_report()
+        out["perf_attribution"] = self._perf.report()
+        out["cost"] = self._cost.report()
+        out["slo"] = self._slo.report()
+        if self._an.enabled:  # LMRS_ANATOMY=0: no anatomy key at all
+            out["anatomy"] = self.anatomy_report()
         return out
+
+    @property
+    def counters(self) -> dict:
+        """The scheduler's cumulative counts as a plain dict (a snapshot
+        read off the registry; seconds and ratio sums stay floats)."""
+        out = {k: (m.value if k in _FLOAT_COUNTERS else int(m.value))
+               for k, m in self._m.items()}
+        out["occupancy_sum"] = self._h_occupancy.sum
+        out["mixed_fill_sum"] = self._h_mixed_fill.sum
+        out["rpa_dispatches"] = self._h_rpa_span.count
+        out["rpa_span_tokens"] = int(self._h_rpa_span.sum)
+        out["spill_capture_seconds"] = self._h_spill_capture.sum
+        return out
+
+    def metrics_registry(self) -> MetricsRegistry:
+        """The registry behind ``metrics_report()``, for Prometheus
+        exposition (the server's ``GET /metrics`` merges it in)."""
+        return self.registry
+
+    def perf_attribution_report(self) -> dict:
+        """Live per-phase roofline attribution (obs/perf.py)."""
+        return self._perf.report()
+
+    def usage_report(self) -> dict:
+        """Per-tenant cost rollups (the ``GET /v1/usage`` document)."""
+        return self._cost.usage_report()
+
+    def slo_report(self) -> dict:
+        """Burn-rate SLO evaluation (the ``/healthz`` ``slo`` block)."""
+        return self._slo.report()
+
+    def anatomy_report(self, before: dict | None = None) -> dict:
+        """Step anatomy and span-bucket economics (the ``GET /v1/anatomy``
+        document); ``before`` is an ``anatomy_snapshot()`` window anchor.
+        The round trip rides along so a stale sample is flagged, not
+        subtracted."""
+        return self._an.report(before, rtt=self._perf.rtt_sample())
+
+    def anatomy_snapshot(self) -> dict:
+        """Window anchor for ``anatomy_report(before=...)``."""
+        return self._an.snapshot()
 
     @property
     def metrics(self) -> dict:

@@ -6,8 +6,10 @@ server use: ``generate_batch`` (with ``on_tokens`` streaming), ``cancel``,
 ``schedules_internally``, ``engine_metrics``, ``prefix_summary``,
 ``shutdown`` and ``tokenizer``, and the handoff and page-set hooks
 (``supports_handoff``, ``export_handoff``, ``release_handoff``,
-``sweep_handoffs``, ``kv_export``, ``kv_import``).  Runs on ``cuda`` unless ``device="cpu"``
-is asked for.  A CUDA engine checks, when it is built, that its kernels take
+``sweep_handoffs``, ``kv_export``, ``kv_import``), and the observability
+hooks (``metrics_registry``, ``usage_report``, ``slo_report``,
+``anatomy_report``, ``debug_profile``).  Runs on ``cuda`` unless
+``device="cpu"`` is asked for.  A CUDA engine checks, when it is built, that its kernels take
 the model and engine configuration (``check_cuda_config``), so no request
 reaches a kernel only to be refused there.  The weights come from, in turn:
 the caller's ``params``; ``engine_cfg.checkpoint_path``, a native
@@ -167,6 +169,36 @@ class TorchEngine:
         """Install a migrated page set into the prefix cache; returns the
         tokens now warm."""
         return self._scheduler.kv_import(payload)
+
+    # --------------------------------------------------- observability hooks
+    # (optional Engine surface, looked up by the server with getattr)
+
+    def metrics_registry(self):
+        """The scheduler's typed registry behind ``engine_metrics()``; the
+        server merges its Prometheus text into ``/metrics``."""
+        return self._scheduler.registry
+
+    def usage_report(self) -> dict:
+        """Per-tenant cost-ledger rollups (the ``GET /v1/usage`` page)."""
+        return self._scheduler.usage_report()
+
+    def slo_report(self) -> dict:
+        """The burn-rate SLO evaluation (the ``/healthz`` ``slo`` block)."""
+        return self._scheduler.slo_report()
+
+    def anatomy_report(self) -> dict:
+        """The step anatomy (the ``GET /v1/anatomy`` page)."""
+        return self._scheduler.anatomy_report()
+
+    def debug_profile(self, duration_s: float,
+                      out_dir: str) -> tuple[bool, str]:
+        """``POST /v1/debug/profile``: a bounded ``torch.profiler`` capture
+        of this process (CPU and CUDA activities; one at a time, stopped
+        by its own timer), exported as a Chrome trace into ``out_dir``.
+        Returns ``(ok, dir_or_reason)``."""
+        from lmrs_tpu_torch.obs.perf import start_profile_capture
+
+        return start_profile_capture(out_dir, duration_s)
 
     def shutdown(self) -> None:
         """Nothing to stop: the engine runs on the caller's thread."""

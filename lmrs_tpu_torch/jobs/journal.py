@@ -17,7 +17,7 @@ work redone; a record that fails its CRC before the tail stops replay
 idempotent (``rebuild_state`` keys chunks by identity and nodes by
 content).  A failed append or fsync degrades (the journal marks itself
 non-durable and the job goes on); it never raises.  The reference's
-``journal.append`` / ``journal.fsync`` fault-injection sites are A10's.
+``journal.append`` / ``journal.fsync`` fault-injection sites are A10b's.
 """
 
 from __future__ import annotations

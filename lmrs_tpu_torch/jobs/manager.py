@@ -18,8 +18,12 @@ journal (the port of the reference's ``jobs/manager.py``).
 
 Chunking, prompts and the tree shape are deterministic in (transcript,
 config) and the journal keeps exact summary text, so a killed-and-resumed
-greedy job ends on the same final summary as an uninterrupted one.  The
-reference's trace events, fault sites and usage rollup are A10's.
+greedy job ends on the same final summary as an uninterrupted one.  Each
+job's engine results roll their ledger ``usage`` up into the status doc's
+``usage`` block (this process life's engine work: journal-answered chunks
+cost nothing), and the manager records ``job_submit``, ``job_recover``,
+``job_resume`` and ``job_done`` on the tracer's pipeline track.  The
+reference's fault-injection sites are A10b's.
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ from lmrs_tpu_torch.data.preprocessor import (extract_speakers,
 from lmrs_tpu_torch.engine.api import TenantStampEngine, degraded_reason
 from lmrs_tpu_torch.engine.executor import MapExecutor
 from lmrs_tpu_torch.jobs import journal as jl
-from lmrs_tpu_torch.obs import (DEFAULT_LATENCY_BUCKETS_S, MetricsRegistry,
-                                new_trace_id)
+from lmrs_tpu_torch.obs import (DEFAULT_LATENCY_BUCKETS_S, PID_PIPELINE,
+                                MetricsRegistry, get_tracer, new_trace_id)
 from lmrs_tpu_torch.pipeline import build_chunker, prepare_segments
 from lmrs_tpu_torch.prompts import (resolve_map_prompt, resolve_reduce_prompt,
                                     resolve_system_prompt)
@@ -77,6 +81,9 @@ class Job:
     # own id; persisted like the trace id and stamped on every chunk and
     # reduce request the job runs
     tenant: str | None = None
+    # ledger usage rolled up from this process life's results
+    # (obs.merge_usage shape; journal-answered chunks cost nothing)
+    usage: dict = field(default_factory=dict)
     # progress (GET /v1/jobs/<id> partial-progress contract)
     n_chunks: int = 0
     chunks_done: int = 0
@@ -284,6 +291,10 @@ class JobManager:
                 self._g_active.set(self._active_count())
             job.done_ev.set()
             raise
+        tr = get_tracer()
+        if tr:
+            tr.instant("job_submit", pid=PID_PIPELINE,
+                       args={"job": jid, "trace": job.trace_id})
         self._queue.put(jid)
         return job
 
@@ -321,7 +332,7 @@ class JobManager:
         fails (``jobs.recover`` fault site; unreadable request file) is
         registered ``status="failed"`` so the interruption stays visible
         instead of silently vanishing — the others still recover.  (The
-        reference's ``jobs.recover`` fault-injection site is A10's.)"""
+        reference's ``jobs.recover`` fault-injection site is A10b's.)"""
         recovered = 0
         for wal in sorted(self.dir.glob("*.wal")):
             jid = wal.stem
@@ -368,6 +379,10 @@ class JobManager:
                 job.n_chunks = (state["header"] or {}).get("num_chunks", 0)
                 self._c_recovered.inc()
                 self._g_active.set(self._active_count())
+            tr = get_tracer()
+            if tr:
+                tr.instant("job_recover", pid=PID_PIPELINE,
+                           args={"job": jid, "trace": job.trace_id})
             logger.info("job %s: interrupted journal found; re-queued "
                         "(%d chunk record(s), %d reduce node(s))", jid,
                         len(state["chunks"]), len(state["nodes"]))
@@ -403,6 +418,8 @@ class JobManager:
         }
         if job.result is not None:
             doc["result"] = job.result
+        if job.usage:
+            doc["usage"] = job.usage
         if job.degraded_reasons:
             doc["degraded_reasons"] = job.degraded_reasons
         if job.error is not None:
@@ -604,11 +621,23 @@ class JobManager:
         job.chunks_done = resumed
         if resumed:
             self._c_chunks_resumed.inc(resumed)
+            tr = get_tracer()
+            if tr:
+                tr.instant("job_resume", pid=PID_PIPELINE,
+                           args={"job": job.job_id, "resumed_chunks": resumed,
+                                 "journaled_nodes": len(state["nodes"]),
+                                 "trace": job.trace_id})
             logger.info("job %s: resumed %d/%d chunk summaries and %d "
                         "reduce node(s) from the journal", job.job_id,
                         resumed, len(chunks), len(state["nodes"]))
 
-        stamp = TenantStampEngine(self.engine, job.tenant)
+        def _publish_usage(snap: dict) -> None:
+            # a reference swap: status_doc serializes whatever snapshot it
+            # holds, never a dict a merge is resizing
+            job.usage = snap
+
+        stamp = TenantStampEngine(self.engine, job.tenant,
+                                  publish=_publish_usage, seed=job.usage)
         executor = MapExecutor(stamp, self.config.engine)
         job._executor = executor
         self._run_map(job, executor, chunks, map_prompt, summary_type,
@@ -748,6 +777,11 @@ class JobManager:
             counter.inc()
         if t0 is not None:
             self._h_duration.observe(time.time() - t0)
+        tr = get_tracer()
+        if tr:
+            tr.instant("job_done", pid=PID_PIPELINE,
+                       args={"job": job.job_id, "status": status,
+                             "trace": job.trace_id})
         logger.info("job %s: %s (%d/%d chunks, %d failed, %d resumed, "
                     "%d node(s) reused)", job.job_id, status,
                     job.chunks_done, job.n_chunks, job.chunks_failed,

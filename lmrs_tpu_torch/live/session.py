@@ -28,8 +28,12 @@ concatenated segment stream, never on how appends were batched.
 An ``interactive`` refresh stamps ``LiveConfig.interactive_deadline_s``
 onto its requests; ``bulk`` runs unbounded.  Each refresh passes the
 previous summary as every request's ``draft_hint`` (tree speculation
-drafts from it).  The reference's trace events, QoS stamp and usage
-rollup are A10's.
+drafts from it).  Each refresh's engine results roll their ledger
+``usage`` up into the session doc's ``usage`` block (this process life's
+refresh work: journal- and cache-answered nodes cost nothing), and the
+manager records ``session_open``, ``session_append``, ``session_resume``
+and ``session_refresh`` on the tracer's pipeline track.  The reference's
+QoS class stamp is A10b's.
 """
 
 from __future__ import annotations
@@ -49,8 +53,9 @@ from lmrs_tpu_torch.data.preprocessor import preprocess_transcript
 from lmrs_tpu_torch.engine.api import TenantStampEngine, degraded_reason
 from lmrs_tpu_torch.engine.executor import MapExecutor
 from lmrs_tpu_torch.jobs import journal as jl
-from lmrs_tpu_torch.obs import (DEFAULT_LATENCY_BUCKETS_S, RATIO_BUCKETS,
-                                MetricsRegistry, new_trace_id)
+from lmrs_tpu_torch.obs import (DEFAULT_LATENCY_BUCKETS_S, PID_PIPELINE,
+                                RATIO_BUCKETS, MetricsRegistry, get_tracer,
+                                new_trace_id)
 from lmrs_tpu_torch.pipeline import build_chunker
 from lmrs_tpu_torch.prompts import (resolve_map_prompt, resolve_reduce_prompt,
                                     resolve_system_prompt)
@@ -156,6 +161,8 @@ class LiveSession:
     # session's own id; persisted in the header, stamped on every refresh
     # request
     tenant: str | None = None
+    # ledger usage rolled up from this process life's refresh waves
+    usage: dict = field(default_factory=dict)
     journal: jl.Journal | None = None
     closed: bool = False
     # transcript + chunking state (all appended-so-far; serialized by the
@@ -300,6 +307,10 @@ class SessionManager:
             "type": REC_SESSION, "session_id": sid, "fingerprint": fp,
             "params": params, "created_t": session.created_t,
             "trace_id": session.trace_id, "tenant": session.tenant})
+        tr = get_tracer()
+        if tr:
+            tr.instant("session_open", pid=PID_PIPELINE,
+                       args={"session": sid, "trace": session.trace_id})
         logger.info("session %s: opened (class default %s)", sid,
                     params.get("class", self.live_cfg.class_default))
         return session
@@ -338,6 +349,13 @@ class SessionManager:
                 "segments": segments})
             self._ingest(session, segments)
             self._c_segments.inc(len(segments))
+            tr = get_tracer()
+            if tr:
+                tr.instant("session_append", pid=PID_PIPELINE,
+                           args={"session": session.session_id,
+                                 "segments": len(segments),
+                                 "seq": session.append_seq,
+                                 "trace": session.trace_id})
             doc = self.status_doc(session)
             auto = (self.live_cfg.refresh_tokens > 0
                     and session.stale_tokens >= self.live_cfg.refresh_tokens)
@@ -500,6 +518,14 @@ class SessionManager:
                 self._g_active.set(self._active_count())
             return False
         self._c_recovered.inc()
+        tr = get_tracer()
+        if tr:
+            tr.instant("session_resume", pid=PID_PIPELINE,
+                       args={"session": sid,
+                             "segments": session.n_raw_segments,
+                             "chunk_records": len(state["chunks"]),
+                             "node_records": len(state["nodes"]),
+                             "trace": session.trace_id})
         logger.info(
             "session %s: recovered (%d segment batch(es), %d chunk "
             "record(s), %d reduce node(s)%s)", sid, session.append_seq,
@@ -528,6 +554,8 @@ class SessionManager:
                 "pending_tokens": session.stale_tokens,
             },
         }
+        if session.usage:
+            doc["usage"] = session.usage
         if session.journal is not None:
             doc["journal"] = session.journal.stats()
         return doc
@@ -804,7 +832,12 @@ class SessionManager:
         # text is a near-perfect n-gram draft source.  Advisory only
         # (exact-distribution verify): outputs are unchanged either way.
         prior = session.summary or {}
+
+        def _publish_usage(snap: dict) -> None:
+            session.usage = snap  # a reference swap (see status_doc)
+
         stamp = TenantStampEngine(self.engine, session.tenant,
+                                  publish=_publish_usage, seed=session.usage,
                                   draft_hint=prior.get("summary"))
         executor = MapExecutor(stamp, engine_cfg)
         with session.ctl:
@@ -868,6 +901,16 @@ class SessionManager:
         if chunks:
             self._h_dirty.observe(len(dirty) / len(chunks))
         self._h_refresh.observe(wall)
+        tr = get_tracer()
+        if tr:
+            tr.instant("session_refresh", pid=PID_PIPELINE,
+                       args={"session": session.session_id,
+                             "dirty_chunks": len(dirty),
+                             "total_chunks": len(chunks),
+                             "nodes_reused": cache.reused,
+                             "nodes_computed": cache.computed,
+                             "class": klass,
+                             "trace": session.trace_id})
         logger.info(
             "session %s: refresh (%s%s) %d/%d dirty chunks, %d/%d reduce "
             "nodes reused, %.2fs", session.session_id, klass,

@@ -70,12 +70,14 @@ def build_chunker(config: PipelineConfig, engine: Any = None,
 class TranscriptSummarizer:
     """End-to-end map-reduce transcript summarizer on the port's engine.
     ``device`` None runs on ``cuda`` (raising without a card); pass
-    ``device="cpu"`` for the plain PyTorch path."""
+    ``device="cpu"`` for the plain PyTorch path.  ``profile`` wraps each
+    stage in a ``torch.profiler.record_function`` and an NVTX range."""
 
     def __init__(self, config: PipelineConfig | None = None, device=None,
-                 engine=None):
+                 engine=None, profile: bool = False):
         self.config = config or PipelineConfig()
         self.device = device
+        self.profile = profile
         self._engine = engine
         self._executor: MapExecutor | None = None
         self._chunker: TranscriptChunker | None = None
@@ -149,7 +151,7 @@ class TranscriptSummarizer:
         """Run the full pipeline; returns the stats dict.  ``save_chunks``
         dumps the chunk summaries after the map stage; ``resume_from``
         takes the summaries of such a dump and maps only the rest."""
-        timer = StageTimer()
+        timer = StageTimer(profile=self.profile)
         t_start = time.time()
         n_input, processed, chunks = self._prep(transcript_data, timer)
         duration = get_transcript_duration(processed)
@@ -230,7 +232,7 @@ class TranscriptSummarizer:
         then gets its own reduce tree and a stats dict shaped like
         ``summarize``'s.  ``resume_from`` aligns with ``transcripts`` (None
         = no dump for that one); only un-resumed chunks enter the queue."""
-        timer = StageTimer()
+        timer = StageTimer(profile=self.profile)
         t_start = time.time()
         map_prompt = resolve_map_prompt(prompt_template, prompt_file)
         sys_prompt = resolve_system_prompt(system_prompt, system_prompt_file)

@@ -23,6 +23,7 @@ from lmrs_tpu_torch.data.preprocessor import format_timestamp
 from lmrs_tpu_torch.data.tokenizer import Tokenizer, get_tokenizer
 from lmrs_tpu_torch.engine.api import GenerationRequest, degraded_reason
 from lmrs_tpu_torch.engine.executor import MapExecutor
+from lmrs_tpu_torch.obs.trace import PID_PIPELINE, get_tracer
 from lmrs_tpu_torch.prompts import (DEFAULT_BATCH_REDUCE_PROMPT,
                                     DEFAULT_FINAL_REDUCE_PROMPT,
                                     DEFAULT_REDUCE_PROMPT, safe_format,
@@ -186,14 +187,27 @@ class ResultAggregator:
                                          f"{100.0 * (i + 1) / n:.0f}% of the transcript"})
                 jobs.append((f"L{level}.B{i}", batch,
                              prompt_template or DEFAULT_BATCH_REDUCE_PROMPT, meta))
+            t_level = time.time()
             current = self._reduce_wave(jobs, node_cache)
+            self._trace_level(level, n, t_level)
         if len(current) == 1:
             return current[0], level
+        t_final = time.time()
         final = self._reduce_wave(
             [(f"L{level + 1}.final", current,
               prompt_template or DEFAULT_FINAL_REDUCE_PROMPT, metadata)],
             node_cache)[0]
+        self._trace_level(level + 1, 1, t_final)
         return final, level + 1
+
+    @staticmethod
+    def _trace_level(level: int, batches: int, t0: float) -> None:
+        """One ``reduce_level`` span per tree level on the tracer's
+        pipeline track: the per-level time the stage total cannot give."""
+        tr = get_tracer()
+        if tr:
+            tr.complete("reduce_level", t0, time.time(), pid=PID_PIPELINE,
+                        args={"level": level, "batches": batches})
 
     def _stable_arity(self) -> int:
         return max(2, self.config.max_summaries_per_batch)
@@ -218,14 +232,18 @@ class ResultAggregator:
                        for i in range(0, len(current), arity)]
             logger.info("reduce level %d (stable): %d summaries in %d batches "
                         "of <=%d", level, len(current), len(batches), arity)
+            t_level = time.time()
             current = self._reduce_wave(
                 [(f"L{level}.B{i}", batch,
                   prompt_template or DEFAULT_BATCH_REDUCE_PROMPT, None)
                  for i, batch in enumerate(batches)], node_cache)
+            self._trace_level(level, len(batches), t_level)
+        t_final = time.time()
         final = self._reduce_wave(
             [(f"L{level + 1}.final", current,
               prompt_template or DEFAULT_FINAL_REDUCE_PROMPT, metadata)],
             node_cache)[0]
+        self._trace_level(level + 1, 1, t_final)
         return final, level + 1
 
     def _calculate_batch_size(self, summaries: list[str]) -> int:

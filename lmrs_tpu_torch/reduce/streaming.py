@@ -28,6 +28,7 @@ from typing import Any, Sequence
 from lmrs_tpu_torch.data.chunker import Chunk
 from lmrs_tpu_torch.data.preprocessor import format_timestamp
 from lmrs_tpu_torch.engine.api import degraded_reason
+from lmrs_tpu_torch.obs.trace import PID_PIPELINE, get_tracer
 from lmrs_tpu_torch.prompts import (DEFAULT_BATCH_REDUCE_PROMPT,
                                     DEFAULT_FINAL_REDUCE_PROMPT,
                                     DEFAULT_REDUCE_PROMPT)
@@ -267,6 +268,18 @@ class StreamingMapReduce:
         self.executor.run_requests_streaming(map_requests, on_final)
 
         t_end = time.time()
+        tr = get_tracer()
+        if tr:
+            # no barrier, so the spans OVERLAP: map_stage ends at the last
+            # map summary, reduce_stream runs from the first reduce to the
+            # end (the overlap window shows in Perfetto)
+            tr.complete("map_stage", t0, st["t_map_done"] or t_end,
+                        pid=PID_PIPELINE,
+                        args={"chunks": len(map_requests), "streaming": True})
+            if st["first_reduce_t"] is not None:
+                tr.complete("reduce_stream", st["first_reduce_t"], t_end,
+                            pid=PID_PIPELINE, tid=1,
+                            args={"levels": max(st["levels"], 1)})
         if st["final"] is None:  # defensive: stream ended without a final
             logger.error("stream ended without a final summary; falling back "
                          "to barrier reduce")

@@ -19,11 +19,13 @@ keeps its pages pinned (default ``LMRS_HANDOFF_TTL`` or 60).  ``--jobs-dir``
 turns on the durable job API and ``--live-dir`` the live session API
 (default ``LMRS_JOBS_DIR`` / ``LMRS_LIVE_DIR``; unset answers 501): their
 journals live there, and interrupted jobs and sessions recover at
-start-up.  The jobs' map requests ask ``--max-tokens-cap`` tokens.  A server
-whose engine fails to build exits non-zero; it never moves to the CPU
-because no card was found.  Flags of features the port does not carry yet
-are refused by name with the slice that brings them: ``--mesh`` (A8),
-``--supervise`` and ``--trace`` (A10).
+start-up.  The jobs' map requests ask ``--max-tokens-cap`` tokens.
+``--trace`` (or ``LMRS_TRACE=1``) turns the lifecycle tracer on before the
+engine is built; ``GET /v1/trace`` then serves this host's span ring.  A
+server whose engine fails to build exits non-zero; it never moves to the
+CPU because no card was found.  Flags of features the port does not carry
+yet are refused by name with the slice that brings them: ``--mesh`` (A8)
+and ``--supervise`` (the supervisor, A10b).
 """
 
 from __future__ import annotations
@@ -37,8 +39,7 @@ logger = logging.getLogger("lmrs_torch.serving")
 # flag -> the slice of the port that brings it
 _LATER = {
     "mesh": "multi-GPU (A8)",
-    "supervise": "observability (A10)",
-    "trace": "observability (A10)",
+    "supervise": "robustness (A10b)",
 }
 
 
@@ -88,11 +89,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "incrementally, journaled here and rehydrated on "
                         "startup (default: LMRS_LIVE_DIR; unset disables: "
                         "501)")
+    p.add_argument("--trace", action="store_true",
+                   help="enable the in-process lifecycle tracer; GET "
+                        "/v1/trace then serves this host's span ring "
+                        "(Chrome-trace JSON) for the router-side fleet "
+                        "stitcher (also: LMRS_TRACE=1)")
     p.add_argument("--quiet", "-q", action="store_true")
     # not in the port yet: accepted only to refuse them by name
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    for flag in ("--supervise", "--trace"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--supervise", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -109,6 +114,13 @@ def main(argv: list[str] | None = None) -> int:
     from lmrs_tpu_torch.config import EngineConfig, PipelineConfig
     from lmrs_tpu_torch.engine.api import make_engine
     from lmrs_tpu_torch.serving.server import EngineHTTPServer
+    from lmrs_tpu_torch.utils.env import env_bool
+
+    if args.trace or env_bool("LMRS_TRACE", False):
+        # before the engine builds: serving spans cover the first request
+        from lmrs_tpu_torch.obs import enable_tracing
+
+        enable_tracing()
 
     try:
         engine_cfg = EngineConfig(

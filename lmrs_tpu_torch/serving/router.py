@@ -41,12 +41,23 @@ h:p,...`` fans the pipeline's requests over them.
   follow-up calls to that host; an unknown id scans the fleet and
   re-pins.  Jobs and sessions share one bounded pin cache.
 
-SLO-aware placement reads a ``slo`` block from ``/healthz``; the port's
-servers publish none, so the reference's router treats them as healthy,
-and this router has no SLO placement.  Not in the port yet, refused by
-name: tail hedging (``LMRS_HEDGE_MS`` > 0), SLO and tenant placement,
-fleet usage, anatomy and trace, and adding, draining (with its KV
-migration) or removing hosts at run time (A10).
+* **Fleet observability**: ``usage_report()`` (every host's ``/v1/usage``
+  merged by ``obs.merge_usage``: per-tenant fleet rollups sum to the fleet
+  totals), ``anatomy_report()`` (``obs.merge_anatomy`` over every host's
+  ``/v1/anatomy``, each host's document beside it) and
+  ``stitched_trace()`` (every host's ``/v1/trace`` clock-aligned and merged
+  by ``obs.stitch_traces``), served by a fronting server as its own
+  ``/v1/usage``, ``/v1/anatomy`` and ``/v1/trace``.  With tracing on in
+  the router's process, each forwarded leg records a ``route`` instant
+  (the host that took it) on the request's trace track, and the stitched
+  trace carries the router's own ring as its first page (``router``), so
+  a request reads router → host on one timeline.  Completions forward the
+  tenant (``X-LMRS-Tenant``) and bring back the ledger's ``usage.cost``.
+
+Not in the port yet, refused by name (robustness, A10b): tail hedging
+(``LMRS_HEDGE_MS`` > 0), SLO and tenant placement (``/healthz`` ``slo``
+blocks are published but no placement reads them), and adding, draining
+(with its KV migration) or removing hosts at run time.
 """
 
 from __future__ import annotations
@@ -66,12 +77,14 @@ from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
                                        drain_with_callback, preamble_key,
                                        remaining_budget)
 from lmrs_tpu_torch.obs import (MetricsRegistry, add_label_to_exposition,
-                                merge_expositions, new_trace_id)
+                                get_tracer, merge_anatomy, merge_expositions,
+                                new_trace_id, stitch_traces)
+from lmrs_tpu_torch.obs.ledger import merge_usage, totals_from_tenants
 from lmrs_tpu_torch.utils.env import env_bool, env_float, env_int
 
 logger = logging.getLogger("lmrs_torch.router")
 
-_A10 = "observability (A10)"
+_A10B = "robustness (A10b)"
 
 
 def _request_body(req: GenerationRequest) -> dict:
@@ -235,7 +248,7 @@ class RouterEngine:
         if env_float("LMRS_HEDGE_MS", 0.0, lo=0.0) > 0:
             raise ValueError(
                 "LMRS_HEDGE_MS (tail hedging) is not in the port yet; it "
-                f"arrives with the {_A10} slice")
+                f"arrives with the {_A10B} slice")
         self.hosts = ([_Host(h, clock=clock) for h in hosts]
                       + [_Host(h, "prefill", clock=clock)
                          for h in prefill_hosts]
@@ -823,9 +836,106 @@ class RouterEngine:
         finally:
             conn.close()
 
+    # ------------------------------------------------ fleet observability
+
+    @staticmethod
+    def _trace_route(req: GenerationRequest, host: "_Host") -> None:
+        """A ``route`` instant on the request's trace track: which host
+        took this leg (the router's side of the stitched chain)."""
+        tr = get_tracer()
+        if tr and req.trace_id:
+            tr.instant("route", tid=tr.track_for(req.trace_id),
+                       args={"host": host.netloc, "role": host.role})
+
+    def _pull_pages(self, path: str) -> tuple[list[tuple[str, dict]],
+                                              list[str]]:
+        """GET ``path`` from every host concurrently (control plane: bare
+        connections, short timeouts, the dispatch pool); returns the
+        (netloc, document) pages that answered 200 and the netlocs that
+        did not."""
+        def fetch(h: _Host):
+            conn = None
+            try:
+                conn = http.client.HTTPConnection(h.netloc, timeout=5.0)
+                conn.request("GET", path)
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    logger.debug("%s from %s: HTTP %d", path, h.netloc,
+                                 resp.status)
+                    return None
+                return json.loads(resp.read())
+            except Exception as e:  # noqa: BLE001 - best-effort per host
+                logger.debug("%s fetch failed for %s: %s: %s", path,
+                             h.netloc, type(e).__name__, e)
+                return None
+            finally:
+                if conn is not None:
+                    conn.close()
+
+        futures = [(h, self._pool.submit(fetch, h)) for h in self.hosts]
+        pages: list[tuple[str, dict]] = []
+        unreachable: list[str] = []
+        for h, fut in futures:
+            try:
+                doc = fut.result(timeout=10.0)
+            except Exception:  # noqa: BLE001 - pool saturation or timeout
+                doc = None
+            if isinstance(doc, dict):
+                pages.append((h.netloc, doc))
+            else:
+                unreachable.append(h.netloc)
+        return pages, unreachable
+
+    def usage_report(self) -> dict:
+        """Fleet ``GET /v1/usage``: every host's per-tenant rollups merged
+        by the one merge rule (``merge_usage``), so the per-tenant fleet
+        rollups sum to the fleet totals; hosts down or ledger-less are
+        listed in ``unreachable``."""
+        pages, unreachable = self._pull_pages("/v1/usage")
+        tenants: dict[str, dict] = {}
+        per_host: list[dict] = []
+        enabled = False
+        for netloc, doc in pages:
+            enabled = enabled or bool(doc.get("enabled"))
+            per_host.append({"host": netloc,
+                             "totals": doc.get("totals") or {}})
+            for t, roll in (doc.get("tenants") or {}).items():
+                merge_usage(tenants.setdefault(t, {}), roll)
+        with self._stats_lock:
+            router = {"handoff_retries": self._handoff_retries}
+        return {"object": "usage", "enabled": enabled, "fleet": True,
+                "tenants": tenants, "totals": totals_from_tenants(tenants),
+                "per_host": per_host, "unreachable": unreachable,
+                "router": router}
+
+    def anatomy_report(self) -> dict:
+        """Fleet ``GET /v1/anatomy``: ``merge_anatomy`` over every host's
+        document (additive totals exact, per-class percentiles
+        iteration-weighted estimates), each host's document in
+        ``per_host``."""
+        pages, unreachable = self._pull_pages("/v1/anatomy")
+        merged = merge_anatomy([doc for _, doc in pages])
+        merged.update({"fleet": True,
+                       "per_host": [{"host": n, **doc} for n, doc in pages],
+                       "unreachable": unreachable})
+        return merged
+
+    def stitched_trace(self) -> dict:
+        """Every host's ``GET /v1/trace`` page, clock-aligned and merged
+        into one Perfetto document (``stitch_traces``), with the router's
+        own ring first (as ``router``) when tracing is on here; hosts down
+        or not tracing are listed in ``stitch.unreachable``."""
+        pages, unreachable = self._pull_pages("/v1/trace")
+        tr = get_tracer()
+        if tr is not None:
+            pages.insert(0, ("router", tr.payload(host="router")))
+        merged = stitch_traces(pages)
+        merged["stitch"]["unreachable"] = unreachable
+        return merged
+
     def _refuse(self, what: str):
         raise NotImplementedError(f"{what} is not in the port yet; it "
-                                  f"arrives with the {_A10} slice")
+                                  f"arrives with the {_A10B} slice")
 
     def add_host(self, url: str, role: str = "both"):
         self._refuse("add_host")
@@ -1284,6 +1394,9 @@ class RouterEngine:
             headers = {"Content-Type": "application/json"}
             if req.trace_id:
                 headers["X-LMRS-Trace"] = req.trace_id
+            if req.tenant:
+                headers["X-LMRS-Tenant"] = req.tenant
+            self._trace_route(req, host)
             conn.request("POST", "/v1/chat/completions",
                          body=json.dumps(body), headers=headers)
             if rid in cancelled:
@@ -1304,7 +1417,8 @@ class RouterEngine:
                 request_id=rid, text=choice["message"]["content"],
                 prompt_tokens=int(usage.get("prompt_tokens", 0)),
                 completion_tokens=int(usage.get("completion_tokens", 0)),
-                finish_reason=choice.get("finish_reason") or "stop")
+                finish_reason=choice.get("finish_reason") or "stop",
+                usage=usage.get("cost") or None)
         finally:
             with self._inflight_lock:
                 self._inflight.pop(rid, None)
@@ -1342,6 +1456,9 @@ class RouterEngine:
             headers = {"Content-Type": "application/json"}
             if req.trace_id:
                 headers["X-LMRS-Trace"] = req.trace_id
+            if req.tenant:
+                headers["X-LMRS-Tenant"] = req.tenant
+            self._trace_route(req, host)
             conn.request("POST", "/v1/chat/completions",
                          body=json.dumps(body), headers=headers)
             # a cancel that closed the socketless conn before connect()
@@ -1363,7 +1480,8 @@ class RouterEngine:
                 text=choice["message"]["content"],
                 prompt_tokens=int(usage.get("prompt_tokens", 0)),
                 completion_tokens=int(usage.get("completion_tokens", 0)),
-                finish_reason=choice.get("finish_reason") or "stop")
+                finish_reason=choice.get("finish_reason") or "stop",
+                usage=usage.get("cost") or None)
         finally:
             with self._inflight_lock:
                 self._inflight.pop(rid, None)
@@ -1434,4 +1552,4 @@ class RouterEngine:
             prompt_tokens=int(usage.get("prompt_tokens", 0)),
             completion_tokens=int(usage.get("completion_tokens",
                                             len(text_parts))),
-            finish_reason=finish)
+            finish_reason=finish, usage=usage.get("cost") or None)

@@ -48,11 +48,20 @@ cancels its request through the engine's ``cancel`` hook.
   ``job_request`` / ``session_request`` (a ``RouterEngine``), else answer
   501.  ``X-LMRS-Tenant`` labels a job or session.
 
-Not in the port yet, refused by name: ``/v1/usage``, ``/v1/anatomy``,
-``/v1/trace`` and ``/v1/debug/profile`` (observability, A10) answer 404
-naming the slice.  On completions the ``X-LMRS-Tenant`` and
-``X-LMRS-QoS-Class`` headers are accepted and not acted on: their
-consumers, the cost ledger and QoS, are A10's.
+* observability: ``GET /v1/usage`` (the engine's per-tenant cost-ledger
+  rollups; a router's fleet aggregation), ``GET /v1/anatomy`` (the step
+  anatomy; 501 with ``LMRS_ANATOMY=0``), ``GET /v1/trace`` (this host's
+  span ring as Chrome-trace JSON, 409 unless tracing is on; a router's
+  stitched fleet trace) and ``POST /v1/debug/profile {"duration_s",
+  "out_dir"}`` (a bounded ``torch.profiler`` capture through the engine's
+  ``debug_profile`` hook, written under ``LMRS_PROFILE_DIR`` by default;
+  501 for an engine without the hook).  ``/healthz`` carries the engine's
+  ``slo`` block and ``/metrics`` text merges the engine's registry.  A
+  completion's tenant is ``X-LMRS-Tenant`` (else the body's ``tenant``,
+  else ``"default"``), minted at ingress and carried through handoffs;
+  responses carry the ledger's bill as ``usage.cost``.  The
+  ``X-LMRS-QoS-Class`` header is accepted and not acted on: fair-share
+  QoS is A10b's.
 
 Standard library only (``http.server``).
 """
@@ -72,7 +81,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from lmrs_tpu_torch.engine.api import Engine, GenerationRequest, GenerationResult
-from lmrs_tpu_torch.obs import MetricsRegistry, merge_expositions, new_trace_id
+from lmrs_tpu_torch.obs import (DEFAULT_TENANT, MetricsRegistry, get_tracer,
+                                merge_expositions, new_trace_id)
 from lmrs_tpu_torch.serving.handoff import (ImportLog, TicketRegistry,
                                             decode_payload, encode_payload)
 from lmrs_tpu_torch.utils.env import env_bool
@@ -81,12 +91,6 @@ logger = logging.getLogger("lmrs_torch.serving")
 
 # X-LMRS-Trace values: a safe alphabet and length, else a fresh id is minted
 _TRACE_ID_RE = re.compile(r"^[A-Za-z0-9_.:-]{1,64}$")
-
-_A10 = "observability (A10)"
-# GET/POST route prefix -> the slice that brings it
-_LATER_ROUTES = (("/v1/usage", _A10), ("/v1/anatomy", _A10),
-                 ("/v1/trace", _A10), ("/v1/debug/profile", _A10))
-
 
 def _handoff_error(message: str, kind: str = "handoff_error") -> dict:
     return {"error": {"message": message, "type": kind}}
@@ -100,10 +104,18 @@ def clean_trace_id(raw) -> str | None:
     return raw if _TRACE_ID_RE.match(raw) else None
 
 
-def _not_ported(what: str, later: str) -> dict:
-    return {"error": {"message": f"{what} is not in the port yet; it "
-                                 f"arrives with the {later} slice",
-                      "type": "not_ported"}}
+def clean_tenant(raw, default: str | None = None) -> str | None:
+    """A wire-supplied ``X-LMRS-Tenant`` label, validated against the trace
+    id's alphabet; ``default`` when absent or garbage (completion ingress
+    passes ``DEFAULT_TENANT``, so anonymous traffic bills to one named
+    tenant; adoption sites keep None so absence stays observable)."""
+    return clean_trace_id(raw) or default
+
+
+def _cost(res: GenerationResult) -> dict:
+    """The ledger's bill as the wire ``usage.cost`` block, when there is
+    one."""
+    return {"cost": res.usage} if res.usage else {}
 
 
 class _Job:
@@ -576,16 +588,6 @@ class EngineHTTPServer:
             def _no_route(self) -> None:
                 self._send(404, {"error": {"message": f"no route {self.path}"}})
 
-            def _later_route(self) -> bool:
-                """Answer a route of a later slice with a 404 naming the
-                slice; False when the path is none of them."""
-                path = self.path.split("?", 1)[0]
-                for prefix, later in _LATER_ROUTES:
-                    if path == prefix.rstrip("/") or path.startswith(prefix):
-                        self._send(404, _not_ported(f"route {path}", later))
-                        return True
-                return False
-
             def do_GET(self):
                 if self.path == "/healthz":
                     payload = {"status": "ok", "wedged": False,
@@ -594,7 +596,23 @@ class EngineHTTPServer:
                     summary = outer.prefix_summary()
                     if summary is not None:
                         payload["prefix_summary"] = summary
+                    # the burn-rate SLO state rides the probe (the router's
+                    # placement reads it); health answers even if it breaks
+                    slo = getattr(outer.engine, "slo_report", None)
+                    if slo is not None:
+                        try:
+                            payload["slo"] = slo()
+                        except Exception:  # noqa: BLE001 - stay healthy
+                            logger.debug("slo report failed", exc_info=True)
                     self._send(200, payload)
+                elif self.path == "/v1/usage":
+                    self._get_report("usage_report", "usage",
+                                     "no cost ledger")
+                elif self.path == "/v1/anatomy":
+                    self._get_report("anatomy_report", "anatomy",
+                                     "no step anatomy")
+                elif self.path == "/v1/trace":
+                    self._get_trace()
                 elif self.path == "/v1/models":
                     self._send(200, {"object": "list", "data": [
                         {"id": outer.model_name, "object": "model",
@@ -632,7 +650,7 @@ class EngineHTTPServer:
                     path, _, query = self.path.partition("?")
                     self._send(*outer._session_http("GET", path, None,
                                                     query=query))
-                elif not self._later_route():
+                else:
                     self._no_route()
 
             def do_DELETE(self):
@@ -641,8 +659,93 @@ class EngineHTTPServer:
                 elif self.path.startswith("/v1/sessions/"):
                     self._send(*outer._session_http("DELETE", self.path,
                                                     None))
-                elif not self._later_route():
+                else:
                     self._no_route()
+
+            # ------------------------------------------------ observability
+
+            def _get_report(self, hook_name: str, what: str,
+                            missing: str) -> None:
+                """``GET /v1/usage`` / ``GET /v1/anatomy``: the engine's
+                report (a router's fleet merge); 501 when the engine has
+                no such hook, or the anatomy is off."""
+                hook = getattr(outer.engine, hook_name, None)
+                if hook is None:
+                    self._send(501, {"error": {
+                        "message": f"this engine backend has {missing}",
+                        "type": f"{what}_error"}})
+                    return
+                try:
+                    doc = hook()
+                except Exception as e:  # noqa: BLE001 - marked error
+                    logger.exception("%s report failed", what)
+                    self._send(502, {"error": {
+                        "message": f"{what} report failed: "
+                                   f"{type(e).__name__}: {e}",
+                        "type": f"{what}_error"}})
+                    return
+                if what == "anatomy" and not doc.get("enabled"):
+                    self._send(501, {"error": {
+                        "message": "step anatomy is disabled "
+                                   "(LMRS_ANATOMY=0)",
+                        "type": "anatomy_error"}})
+                    return
+                self._send(200, doc)
+
+            def _get_trace(self) -> None:
+                """``GET /v1/trace``: this host's trace ring as Chrome-trace
+                JSON, or, when the engine is a router (``stitched_trace``),
+                the fleet's rings pulled, clock-aligned and merged.  409
+                when tracing is off here (``--trace`` / ``LMRS_TRACE=1``)."""
+                stitch = getattr(outer.engine, "stitched_trace", None)
+                if stitch is not None:
+                    try:
+                        self._send(200, stitch())
+                    except Exception as e:  # noqa: BLE001 - marked error
+                        logger.exception("trace stitch failed")
+                        self._send(502, {"error": {
+                            "message": f"trace stitch failed: "
+                                       f"{type(e).__name__}: {e}",
+                            "type": "trace_error"}})
+                    return
+                tr = get_tracer()
+                if tr is None:
+                    self._send(409, {"error": {
+                        "message": "tracing is not enabled on this host "
+                                   "(start lmrs-serve-torch with --trace or "
+                                   "LMRS_TRACE=1)",
+                        "type": "trace_error"}})
+                    return
+                self._send(200, tr.payload(host=f"{outer.host}:{outer.port}"))
+
+            def _post_profile(self, body: dict) -> None:
+                """``POST /v1/debug/profile``: a bounded torch.profiler
+                capture through the engine's ``debug_profile`` hook.  Body
+                ``{"duration_s": 2.0, "out_dir": "..."}`` (``out_dir``
+                defaults to ``LMRS_PROFILE_DIR``)."""
+                hook = getattr(outer.engine, "debug_profile", None)
+                if hook is None:
+                    self._send(501, {"error": {
+                        "message": "this engine backend has no profiler",
+                        "type": "profile_error"}})
+                    return
+                try:
+                    duration = float(body.get("duration_s", 2.0))
+                except (TypeError, ValueError):
+                    self._send(400, {"error": {
+                        "message": "duration_s must be a number",
+                        "type": "profile_error"}})
+                    return
+                from lmrs_tpu_torch.obs.perf import default_profile_dir
+
+                out_dir = body.get("out_dir") or default_profile_dir()
+                ok, msg = hook(duration, str(out_dir))
+                if not ok:
+                    self._send(409, {"error": {"message": msg,
+                                               "type": "profile_error"}})
+                    return
+                self._send(200, {"status": "capturing", "dir": msg,
+                                 "duration_s": duration})
 
             def _client_gone(self) -> bool:
                 """Disconnect probe for non-streaming waits: a MSG_PEEK read
@@ -668,8 +771,15 @@ class EngineHTTPServer:
                 field) is anchored to this server's clock; a non-finite or
                 unparseable one is a 400 (dropping it would run the
                 request unbounded)."""
-                req.trace_id = (clean_trace_id(self.headers.get("X-LMRS-Trace"))
-                                or new_trace_id())
+                supplied = clean_trace_id(self.headers.get("X-LMRS-Trace"))
+                req.trace_id = supplied or new_trace_id()
+                # the tenant: header, else body field, else the explicit
+                # default (minted here, so it yields to a handoff
+                # payload's label)
+                tenant = (clean_tenant(self.headers.get("X-LMRS-Tenant"))
+                          or clean_tenant(body.get("tenant")))
+                self._tenant_minted = tenant is None
+                req.tenant = tenant or DEFAULT_TENANT
                 raw = self.headers.get("X-LMRS-Deadline")
                 if raw is None:
                     raw = body.get("deadline_s")
@@ -717,6 +827,11 @@ class EngineHTTPServer:
                     self._send(*err)
                     return False
                 req.handoff_state = payload
+                # the decode leg bills to the tenant the prefill leg did
+                # (a locally minted default counts as absent)
+                if (getattr(self, "_tenant_minted", False)
+                        and clean_tenant(payload.get("tenant"))):
+                    req.tenant = payload["tenant"]
                 return True
 
             # ---------------------------------------- disaggregated handoff
@@ -891,17 +1006,18 @@ class EngineHTTPServer:
                     if not self._kv_disarmed():
                         self._ack_kv(self.path.split("/")[3])
                     return
-                if self._later_route():
-                    return
                 body = self._read_json()
                 if body is None:
                     self._send(400, {"error": {"message": "invalid JSON body"}})
+                    return
+                if self.path == "/v1/debug/profile":
+                    self._post_profile(body)
                     return
                 # a tenant label takes the trace id's alphabet; absent or
                 # garbage, a job or session bills to its own id
                 labels = {"trace_id": clean_trace_id(
                               self.headers.get("X-LMRS-Trace")),
-                          "tenant": clean_trace_id(
+                          "tenant": clean_tenant(
                               self.headers.get("X-LMRS-Tenant"))}
                 if self.path == "/v1/jobs":
                     self._send(*outer._job_http("POST", self.path, body,
@@ -1023,7 +1139,8 @@ class EngineHTTPServer:
                         chunk({}, finish=res.finish_reason,
                               usage={"prompt_tokens": res.prompt_tokens,
                                      "completion_tokens": res.completion_tokens,
-                                     "total_tokens": res.total_tokens}
+                                     "total_tokens": res.total_tokens,
+                                     **_cost(res)}
                               if want_usage else None)
                     self._sse("[DONE]")
                 except OSError:  # the client went away: abort the request
@@ -1071,7 +1188,8 @@ class EngineHTTPServer:
                         "delta": {"stop_reason": _anthropic_stop_reason(res),
                                   "stop_sequence": res.stop_sequence},
                         "usage": {"input_tokens": res.prompt_tokens,
-                                  "output_tokens": res.completion_tokens}}),
+                                  "output_tokens": res.completion_tokens,
+                                  **_cost(res)}}),
                         event="message_delta")
                     self._sse(json.dumps({"type": "message_stop"}),
                               event="message_stop")
@@ -1096,7 +1214,8 @@ class EngineHTTPServer:
                     }],
                     "usage": {"prompt_tokens": res.prompt_tokens,
                               "completion_tokens": res.completion_tokens,
-                              "total_tokens": res.total_tokens},
+                              "total_tokens": res.total_tokens,
+                              **_cost(res)},
                 })
 
             def _respond_anthropic(self, body: dict,
@@ -1115,7 +1234,8 @@ class EngineHTTPServer:
                     "stop_reason": _anthropic_stop_reason(res),
                     "stop_sequence": res.stop_sequence,
                     "usage": {"input_tokens": res.prompt_tokens,
-                              "output_tokens": res.completion_tokens},
+                              "output_tokens": res.completion_tokens,
+                              **_cost(res)},
                 })
 
         self.httpd = ThreadingHTTPServer((host, port), Handler)
@@ -1405,12 +1525,16 @@ class EngineHTTPServer:
 
     def prometheus_text(self) -> str:
         """``GET /metrics`` under ``Accept: text/plain``: the engine's page
-        (a router's merged fleet page) and this server's HTTP counters,
-        merged so each family has one header."""
+        (a router's merged fleet page, else the scheduler's registry) and
+        this server's HTTP counters, merged so each family has one
+        header."""
         parts: list[str] = []
         prom = getattr(self.engine, "prometheus_metrics", None)
+        reg_fn = getattr(self.engine, "metrics_registry", None)
         if prom is not None:
             parts.append(prom())
+        elif reg_fn is not None:
+            parts.append(reg_fn().render_prometheus())
         reg = MetricsRegistry()
         reg.counter("lmrs_http_batches_total",
                     "engine waves dispatched by the micro-batcher"

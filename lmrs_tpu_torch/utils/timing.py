@@ -1,5 +1,8 @@
-"""Per-stage wall-clock spans (the reference's stage report, without the
-profiler hooks: tracing is not ported yet)."""
+"""Per-stage wall-clock spans (a copy of the reference's
+``utils/timing.py``): each stage is mirrored onto the lifecycle tracer's
+pipeline track, and with ``profile=True`` wrapped in a
+``torch.profiler.record_function`` range and an NVTX range (on a card), the
+port's counterpart of the reference's ``jax.profiler.TraceAnnotation``."""
 
 from __future__ import annotations
 
@@ -20,20 +23,50 @@ def format_duration(seconds: float) -> str:
     return f"{s}s"
 
 
+@contextlib.contextmanager
+def _profiler_range(name: str):
+    """A named range in a ``torch.profiler`` capture and, on a card, in
+    NVTX (what an external CUDA profiler shows)."""
+    import torch
+
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
 @dataclass
 class StageTimer:
-    """Collects named stage spans (seconds, summed per name)."""
+    """Collects named stage spans (seconds, summed per name); mirrors each
+    onto the tracer's pipeline track, and with ``profile`` into profiler
+    ranges."""
 
+    profile: bool = False
     spans: dict[str, float] = field(default_factory=dict)
     _t0: float = field(default_factory=time.time)
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        ctx = (_profiler_range(name) if self.profile
+               else contextlib.nullcontext())
         start = time.time()
         try:
-            yield
+            with ctx:
+                yield
         finally:
-            self.spans[name] = self.spans.get(name, 0.0) + (time.time() - start)
+            end = time.time()
+            self.spans[name] = self.spans.get(name, 0.0) + (end - start)
+            # the engine-level spans nest under these in Perfetto
+            from lmrs_tpu_torch.obs import PID_PIPELINE, get_tracer
+
+            tr = get_tracer()
+            if tr:
+                tr.complete(name, start, end, pid=PID_PIPELINE)
 
     @property
     def total(self) -> float:

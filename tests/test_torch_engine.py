@@ -232,10 +232,16 @@ def test_cli_refuses_later_slices(tmp_path, flag, capsys):
     """Flags of later slices are refused by name; since int8 is ported,
     ``--kv-quantize`` is refused only for a mode the reference lacks (and
     since tree speculation is, ``--speculate-k`` is accepted, since
-    checkpoints are, ``--checkpoint``, and since the serving surface is,
-    ``--backend`` and ``--hosts``)."""
+    checkpoints are, ``--checkpoint``, since the serving surface is,
+    ``--backend`` and ``--hosts``, and since observability is,
+    ``--profile``: the missing transcript then fails the run, not the
+    flag)."""
     from lmrs_tpu_torch.cli import main
 
+    if flag == ["--profile"]:
+        assert main(["--input", str(tmp_path / "missing.json"), *flag]) == 1
+        assert "not in the port" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as exc:
         main(["--input", str(tmp_path / "missing.json"), *flag])
     assert exc.value.code == 2
@@ -274,9 +280,32 @@ def test_host_kv_environment_switches(monkeypatch, tmp_path, var, field,
     (["--trace-out", "t.json"], "A10"), (["--no-trace"], "A10")])
 def test_cli_refuses_reference_flags_by_name(tmp_path, flag, slice_, capsys):
     """The reference CLI's flags of features the port lacks are refused by
-    name with the slice that brings them, not as unrecognized arguments."""
+    name with the slice that brings them, not as unrecognized arguments.
+    Since observability (A10) came, its flags work: a mock-backend run
+    with ``--trace-out`` writes a valid trace on the way out, ``--no-trace``
+    beside it writes none, and ``--profile`` runs the stages in profiler
+    ranges."""
     from lmrs_tpu_torch.cli import main
 
+    if slice_ == "A10":
+        from lmrs_tpu_torch.obs import disable_tracing, validate_trace_file
+
+        src = tmp_path / "in.json"
+        src.write_text(json.dumps({"segments": make_segments(6)}))
+        out = tmp_path / "t.json"
+        args = flag if flag[0] != "--trace-out" else ["--trace-out", str(out)]
+        extra = ["--trace-out", str(out)] if flag == ["--no-trace"] else []
+        try:
+            assert main(["--input", str(src), "--backend", "mock", "-q",
+                         *args, *extra]) == 0
+        finally:
+            disable_tracing()
+        assert out.exists() is (flag[0] == "--trace-out")
+        if out.exists():
+            names = {e["name"] for e in validate_trace_file(out)}
+            assert {"map_stage", "generate", "finish"} <= names
+        assert "not in the port" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as exc:
         main(["--input", str(tmp_path / "missing.json"), *flag])
     assert exc.value.code == 2
@@ -329,7 +358,9 @@ def test_package_imports_no_jax_and_no_reference_package():
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['ml_dtypes'] is None\n"
         "for m in ('engine.host_kv', 'serving.handoff', 'jobs.journal',\n"
-        "          'jobs.manager', 'live.session'):\n"
+        "          'jobs.manager', 'live.session', 'obs.trace', 'obs.flight',\n"
+        "          'obs.perf', 'obs.anatomy', 'obs.ledger', 'obs.slo',\n"
+        "          'obs.metrics', 'utils.perf_model', 'utils.timing'):\n"
         "    assert 'lmrs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

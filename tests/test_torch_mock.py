@@ -3,9 +3,10 @@ reference's on the same requests (the demo transcript's map prompts, stop
 strings, ``fail_pattern``, deadlines, cancel), its ``engine_metrics`` and
 ``prefix_summary``, and ``TranscriptSummarizer`` with ``backend="mock"`` in
 both packages.  Held exactly, the ``host_kv`` and ``kv_migrate`` blocks
-included (both mocks run their default host tier).  The reference runs
-with its observability switched off (cost ledger, SLO, anatomy, QoS): the
-port's mock does not carry it yet (A10).  No JAX compile, no sockets."""
+included (both mocks run their default host tier).  Both run with the
+cost ledger, SLO and anatomy switched off here (``tests/test_torch_obs_
+serving.py`` holds those blocks) and the reference's QoS off (A10b in the
+port).  No JAX compile, no sockets."""
 
 import dataclasses
 import time
@@ -30,7 +31,7 @@ from lmrs_tpu_torch.prompts import resolve_map_prompt
 from lmrs_tpu_torch.utils.demo import load_demo_transcript
 from lmrs_tpu_torch.utils.timing import StageTimer
 
-# the reference's observability surfaces the port's mock does not carry
+# observability held elsewhere, and the reference's QoS (A10b in the port)
 REF_OFF = {"LMRS_COST_LEDGER": "0", "LMRS_SLO": "0", "LMRS_ANATOMY": "0",
            "LMRS_QOS": "0"}
 RESULT_FIELDS = ("request_id", "text", "prompt_tokens", "completion_tokens",

@@ -49,7 +49,7 @@ from lmrs_tpu_torch.models.transformer import param_count
 from lmrs_tpu_torch.ops import moe as tmoe
 from lmrs_tpu_torch.ops.quant import (is_quantized, quantize_layer,
                                       quantize_params)
-from lmrs_tpu_torch.utils.perf_model import _matmul_params
+from lmrs_tpu_torch.utils.perf_model import matmul_params as t_matmul_params
 
 from test_torch_engine import CFG, IdTokenizer
 from test_torch_model import _pools, _route_inputs
@@ -193,7 +193,7 @@ def test_moe_params_round_trip_and_counts(moe_tree):
     assert param_count(params) == sum(a.size for a in flat)  # every expert
     from lmrs_tpu.utils.perf_model import matmul_params
     for name in ("tiny-moe", "mixtral-8x7b", "bench-8b"):
-        assert _matmul_params(t_preset(name)) == matmul_params(j_preset(name))
+        assert t_matmul_params(t_preset(name)) == matmul_params(j_preset(name))
     # random init draws the same shapes the reference draws
     t_tree = params_to_jax(t_init_params(tcfg, seed=0), tcfg)
     assert jax.tree.map(np.shape, t_tree) == jax.tree.map(np.shape, moe_tree)

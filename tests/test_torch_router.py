@@ -482,18 +482,19 @@ def test_router_refusals(monkeypatch):
         for call in (lambda: router.add_host("127.0.0.1:2"),
                      lambda: router.drain_host("127.0.0.1:1"),
                      lambda: router.remove_host("127.0.0.1:1")):
-            with pytest.raises(NotImplementedError, match=r"\(A10\) slice"):
+            with pytest.raises(NotImplementedError, match=r"\(A10b\) slice"):
                 call()
-        # job and session forwarding came with A13; the rest is A10's
+        # job and session forwarding came with A13, the fleet usage,
+        # anatomy and stitched trace with A10; elasticity, hedging and SLO
+        # placement are A10b's
         for name in ("usage_report", "anatomy_report", "stitched_trace",
-                     "slo_report"):
-            assert not hasattr(router, name)
-        assert callable(router.job_request)
-        assert callable(router.session_request)
+                     "job_request", "session_request"):
+            assert callable(getattr(router, name))
+        assert not hasattr(router, "slo_report")
     finally:
         router.shutdown()
     monkeypatch.setenv("LMRS_HEDGE_MS", "50")
-    with pytest.raises(ValueError, match=r"LMRS_HEDGE_MS.*\(A10\) slice"):
+    with pytest.raises(ValueError, match=r"LMRS_HEDGE_MS.*\(A10b\) slice"):
         RouterEngine(["127.0.0.1:1"])
 
 

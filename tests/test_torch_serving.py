@@ -422,20 +422,40 @@ def test_trace_header_adopted_or_minted(servers):
     ("GET", "/v1/sessions?x=1", 501, "A13"),
     ("POST", "/v1/sessions/s1/segments", 501, "A13"),
     ("DELETE", "/v1/sessions/s1", 501, "A13"),
-    ("GET", "/v1/usage", 404, "A10"), ("GET", "/v1/anatomy", 404, "A10"),
-    ("GET", "/v1/trace", 404, "A10"),
-    ("POST", "/v1/debug/profile", 404, "A10"),
+    # the observability routes came with A10: the ids keep the status the
+    # routes answered before (404); the status now held is the second one
+    pytest.param("GET", "/v1/usage", 200, "A10",
+                 id="GET-/v1/usage-404-A10"),
+    pytest.param("GET", "/v1/anatomy", 501, "A10",
+                 id="GET-/v1/anatomy-404-A10"),
+    pytest.param("GET", "/v1/trace", 409, "A10",
+                 id="GET-/v1/trace-404-A10"),
+    pytest.param("POST", "/v1/debug/profile", 501, "A10",
+                 id="POST-/v1/debug/profile-404-A10"),
 ])
 def test_later_routes_are_refused_by_name(shared, method, path, status,
                                           slice_):
-    """Observability routes (A10) are refused naming their slice.  The job
-    and session routes came with A13: a server started without
+    """The job and session routes came with A13: a server started without
     ``jobs_dir`` / ``live_dir`` answers them as the reference does with
-    the feature off (501, the same error type)."""
+    the feature off (501, the same error type).  The observability routes
+    came with A10 and answer as the reference's do over a mock with the
+    ledger, SLO and anatomy off and tracing off: the usage page (200,
+    ledger disabled), 501 for the anatomy, 409 for the trace and 501 for a
+    profile on an engine without the hook, with the same error types."""
     pair = shared
     body = {} if method == "POST" else None
     code, _, text = call(pair[0], method, path, body)
     assert code == status
+    ref_code, _, ref_text = call(pair[1], method, path, body)
+    if slice_ == "A10":
+        assert ref_code == code
+        doc, ref = json.loads(text), json.loads(ref_text)
+        if code == 200:
+            assert doc["enabled"] is ref["enabled"] is False
+            assert doc["tenants"] == ref["tenants"] == {}
+        else:
+            assert doc["error"]["type"] == ref["error"]["type"]
+        return
     err = json.loads(text)["error"]
     if slice_ == "A13":
         ref_code, _, ref_text = call(pair[1], method, path, body)
@@ -585,9 +605,14 @@ def test_engine_deltas_equal_reference_scheduler():
 
 
 @pytest.mark.parametrize("path", ["/v1/chat/completions", "/v1/messages"])
-def test_server_streams_the_engine_greedy_text(path):
+def test_server_streams_the_engine_greedy_text(path, monkeypatch):
     """The port's server over the port's CPU engine: the SSE deltas join to
-    the non-streamed greedy text, and usage counts agree."""
+    the non-streamed greedy text, and usage counts agree (the ledger's
+    ``usage.cost`` bill on its tokens and tenant: its seconds are each
+    response's own walls, and the second request hits the first's
+    prefix).  The ledger is on, whatever this module's shared servers
+    switched off."""
+    monkeypatch.delenv("LMRS_COST_LEDGER", raising=False)
     eng, _ = torch_engine(max_tokens=32)
     srv = EngineHTTPServer(eng, port=0, batch_window_s=0.01)
     srv.start_background()
@@ -601,14 +626,22 @@ def test_server_streams_the_engine_greedy_text(path):
     finally:
         srv.shutdown()
     assert status == 200
+
+    def counts(usage: dict) -> dict:
+        cost = {k: usage["cost"][k] for k in (
+            "tenant", "prompt_tokens", "generated_tokens", "goodput_tokens",
+            "wasted_tokens")}
+        return {**usage, "cost": cost}
+
     if path.endswith("messages"):
         assert joined(events) == plain["content"][0]["text"]
-        assert events[-2]["data"]["usage"] == plain["usage"]
+        assert counts(events[-2]["data"]["usage"]) == counts(plain["usage"])
         assert plain["usage"]["output_tokens"] == 32
     else:
         assert joined(events) == plain["choices"][0]["message"]["content"]
-        assert events[-2]["data"]["usage"] == plain["usage"]
+        assert counts(events[-2]["data"]["usage"]) == counts(plain["usage"])
         assert plain["choices"][0]["finish_reason"] == "length"
+    assert plain["usage"]["cost"]["generated_tokens"] == 32
     assert len(deltas_of(events)) > 1  # streamed at each host fetch
 
 
@@ -633,13 +666,26 @@ def test_engine_prefix_summary_publishes_donated_preambles():
 
 @pytest.mark.parametrize("flag,slice_", [
     (["--mesh", "1,2"], "A8"), (["--jobs-dir", "j"], "A13"), (["--live-dir", "l"], "A13"),
-    (["--supervise"], "A10"), (["--trace"], "A10")])
+    pytest.param(["--supervise"], "A10b", id="flag3-A10"),
+    pytest.param(["--trace"], "A10", id="flag4-A10")])
 def test_serve_cli_refuses_later_flags(flag, slice_, capsys, monkeypatch):
-    """Flags of later slices are refused by name.  ``--jobs-dir`` and
-    ``--live-dir`` came with A13: they reach the server (its constructor
-    is stubbed to record them and fail the bind, so ``main`` returns 1)."""
+    """Flags of later slices are refused by name (``--supervise`` names
+    A10b, the robustness half of A10).  ``--jobs-dir`` and ``--live-dir``
+    came with A13 and ``--trace`` with A10: they reach the server (its
+    constructor is stubbed to record them and fail the bind, so ``main``
+    returns 1); ``--trace`` has turned the tracer on by then."""
+    from lmrs_tpu_torch.obs import disable_tracing, get_tracer
     from lmrs_tpu_torch.serving import cli, server
 
+    if slice_ == "A10":
+        monkeypatch.setattr(server, "EngineHTTPServer", lambda engine, **kw: (
+            _ for _ in ()).throw(OSError("bind refused (test)")))
+        try:
+            assert cli.main([*flag, "--backend", "mock", "-q"]) == 1
+            assert get_tracer() is not None
+        finally:
+            disable_tracing()
+        return
     if slice_ == "A13":
         seen = {}
 
