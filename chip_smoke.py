@@ -308,7 +308,36 @@ anything wrong.  Phases, one JSON object per line:
               validates, each routed request's trace id is on the router's
               ``route`` instant and on the host that finished it, fleet
               usage totals equal the hosts' sum, fleet anatomy merges both.
-19. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+19. train   — training and evaluation on the card, each sub-phase on a
+              line of its own with the card's name and power limit; the
+              models train through ``training.train`` (plain PyTorch
+              under autograd: no kernel, as in the reference).  19a: the
+              whole gemma-2b (18 layers, 2.51 B params, bf16, AdamW states
+              bf16) three steps on a [4, 512] byte-token batch of the demo
+              transcript, once without and once with remat, from the same
+              init: finite losses, the 3rd below the 1st, first-step
+              losses within 1e-2, remat's peak memory below the other's,
+              no attention kernel launched; step ms (median of steps 2-3),
+              tokens/s, share of the bf16 peak (6·N·T) and peak GiB.  19b:
+              ``tests/test_quality.py``'s synthetic gate at bench-smoke's
+              widths, trained in f32 (200 AdamW steps at 4e-3, final loss
+              < 0.5), served in bf16 by a continuous engine: mean ROUGE-L
+              of 8 held-out prompts >= 0.30 and > 3x lead-1, >= 0.28 with
+              int8 KV pages, the flash, decode and span kernels (int8
+              builds under int8 KV) launched; then linear speculation
+              (the verify kernel launched) and its accepted drafts,
+              printed.  19c: its CLI gate: bench-smoke widths trained in
+              f32 on CLI-format pairs (1,500 steps, warmup-cosine, loss <
+              0.25), a native checkpoint, then ``lmrs-torch --checkpoint``
+              on a held-out transcript plain, ``--quantize int8`` and
+              ``--kv-quantize int8``: ROUGE-L >= 0.45, >= 2 chunks, no
+              failed request, flash and decode kernels launched.  19d:
+              ``python -m lmrs_tpu_torch.training.cli`` as a child (exit
+              0, its checkpoint served by ``lmrs-torch --checkpoint``),
+              then phase 5's configuration at ``VARIANT_LAYERS`` with
+              ``scheduler="static"`` on 60 demo segments: a summary, no
+              failed request, no kernel launched; its wall.
+20. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -1739,15 +1768,13 @@ def run_cli_default() -> dict:
     DEFAULT_DIR.mkdir(parents=True, exist_ok=True)
     src, dst = DEFAULT_DIR / "demo.json", DEFAULT_DIR / "summary.txt"
     src.write_text(json.dumps(load_demo_transcript()), encoding="utf-8")
-    counted = kernel_counters()
-    for fn, attr in counted.values():
-        setattr(fn, attr, 0)
+    counted = zero_launches()
     t0 = time.time()
     rc = cli_main(["-i", str(src), "-o", str(dst), "--max-tokens", "64",
                    "--report", "-q"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+    launches = read_launches(counted)
     if rc != 0:
         raise AssertionError(f"lmrs-torch with the default preset exited {rc}")
     summary = dst.read_text(encoding="utf-8")
@@ -1978,6 +2005,19 @@ def kernel_counters() -> dict:
     return out
 
 
+def zero_launches() -> dict:
+    """Every kernel's launch counter set to 0; the counters, for
+    ``read_launches``."""
+    counted = kernel_counters()
+    for fn, attr in counted.values():
+        setattr(fn, attr, 0)
+    return counted
+
+
+def read_launches(counted: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+
+
 def at_depth(cfg, layers: int | None):
     """``cfg`` with its engine's preset cut to ``layers`` layers (None:
     the full preset)."""
@@ -2034,14 +2074,12 @@ def summarize_once(model: str = "bench-8b", layers: int | None = None,
     torch.cuda.synchronize()
     build_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    counted = kernel_counters()
-    for fn, attr in counted.values():
-        setattr(fn, attr, 0)
+    counted = zero_launches()
     t0 = time.time()
     stats = summarizer.summarize(transcript)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+    launches = read_launches(counted)
     violations = engine.audit()
     if not stats["summary"]:
         raise AssertionError("empty summary")
@@ -2709,15 +2747,13 @@ def run_parity_path(smi: str) -> dict:
 
     def drive(fn):
         em0 = engine.engine_metrics()
-        counted = kernel_counters()
-        for f, attr in counted.values():
-            setattr(f, attr, 0)
+        counted = zero_launches()
         torch.cuda.synchronize()
         t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {n: getattr(f, attr) for n, (f, attr) in counted.items()}
+        launches = read_launches(counted)
         return out, {"wall_seconds": wall,
                      **metrics_delta(em0, engine.engine_metrics()),
                      "launches": launches, "card": smi}
@@ -3068,9 +3104,7 @@ def serve_checks(srv, rec, engine, smi: str, build_s: float) -> dict:
             "max_tokens": 64, "temperature": 0}
     msgs = {"system": SERVE_SYSTEM, "max_tokens": 64, "temperature": 0,
             "messages": [{"role": "user", "content": prompt}]}
-    counted = kernel_counters()
-    for fn, attr in counted.values():
-        setattr(fn, attr, 0)
+    counted = zero_launches()
     em0 = engine.engine_metrics()
     torch.cuda.synchronize()
     t_phase = time.time()
@@ -3193,7 +3227,7 @@ def serve_checks(srv, rec, engine, smi: str, build_s: float) -> dict:
             raise AssertionError(f"15a: warm repeat answered {status}")
     torch.cuda.synchronize()
     phase_s = time.time() - t_phase
-    launches = {n: getattr(f, attr) for n, (f, attr) in counted.items()}
+    launches = read_launches(counted)
     em1 = engine.engine_metrics()
     require_launches(launches, "serving path (phase 15a)",
                      ("flash_prefill", "paged_decode_fused", "ragged_spans"))
@@ -3258,9 +3292,7 @@ def serve_router_pipeline(srv, engine, smi: str, main_out: dict) -> dict:
     src.write_text(json.dumps(load_demo_transcript(max_segments=200)),
                    encoding="utf-8")
     dead = f"127.0.0.1:{free_port()}"
-    counted = kernel_counters()
-    for fn, attr in counted.values():
-        setattr(fn, attr, 0)
+    counted = zero_launches()
     em0 = engine.engine_metrics()
     t0 = time.time()
     proc = subprocess.run(
@@ -3273,7 +3305,7 @@ def serve_router_pipeline(srv, engine, smi: str, main_out: dict) -> dict:
         env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(here)})
     wall = time.time() - t0
     torch.cuda.synchronize()
-    launches = {n: getattr(f, attr) for n, (f, attr) in counted.items()}
+    launches = read_launches(counted)
     em1 = engine.engine_metrics()
     if proc.returncode != 0:
         raise AssertionError(f"15b: lmrs-torch --backend http exited "
@@ -3426,7 +3458,7 @@ class LaunchTally:
         self.tally = {name: 0 for name in self.counted}
 
     def generate_batch(self, requests, on_result=None, on_tokens=None):
-        before = {n: getattr(fn, a) for n, (fn, a) in self.counted.items()}
+        before = read_launches(self.counted)
         try:
             return self.engine.generate_batch(requests, on_result=on_result,
                                               on_tokens=on_tokens)
@@ -3475,9 +3507,7 @@ def kv_wave(engine, reqs, rid0: int) -> dict:
     import dataclasses
 
     sched = engine._scheduler
-    counted = kernel_counters()
-    for fn, attr in counted.values():
-        setattr(fn, attr, 0)
+    counted = zero_launches()
     c0 = dict(sched.counters)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3490,7 +3520,7 @@ def kv_wave(engine, reqs, rid0: int) -> dict:
         raise AssertionError(f"16: wave errors {bad[:2]}, audit {engine.audit()}")
     return {"texts": [r.text for r in res], "wall_seconds": wall,
             "delta": {k: v - c0[k] for k, v in sched.counters.items()},
-            "launches": {n: getattr(fn, a) for n, (fn, a) in counted.items()}}
+            "launches": read_launches(counted)}
 
 
 def _node_path(node) -> tuple:
@@ -4120,9 +4150,7 @@ def jobs_child(args: list[str]) -> int:
         jl.Journal.append = paced_append
     counted = kernel_counters()
     rc = cli.main(args[1:])
-    print(json.dumps({"launches": {n: getattr(fn, a)
-                                   for n, (fn, a) in counted.items()}}),
-          flush=True)
+    print(json.dumps({"launches": read_launches(counted)}), flush=True)
     return rc
 
 
@@ -4341,8 +4369,7 @@ def run_live_path(smi: str, model: str = "bench-8b",
         counted = kernel_counters()
         for i in range(3):
             if i == 1:  # refreshes 2-3: the ones with a hint
-                for fn, attr in counted.values():
-                    setattr(fn, attr, 0)
+                zero_launches()
             w0, m0, t0 = len(rec.waves), engine.engine_metrics(), time.time()
             doc = _live_call(p, "POST", "/v1/sessions/live17/segments",
                              {"segments": segs[cut[i]:cut[i + 1]],
@@ -4374,7 +4401,7 @@ def run_live_path(smi: str, model: str = "bench-8b",
             prev = doc["summary"]
             if i == 2:
                 reqs3 = reqs
-        launches = {n: getattr(fn, a) for n, (fn, a) in counted.items()}
+        launches = read_launches(counted)
         require_launches(launches, "live session's refreshes 2-3",
                          ("flash_prefill", "ragged_spans_anc"),
                          never=("paged_decode_fused", "paged_decode_multi"))
@@ -5006,6 +5033,482 @@ def run_obs_path(smi: str, main_out: dict) -> dict:
             a["wall_seconds"], "obs_off_wall_seconds": b["obs_off_wall_seconds"]}
 
 
+# ------------------------------------------------------------ phase 19
+
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch" / "train19"
+TRAIN_SHAPE = (4, 512)  # 19a's batch: byte tokens of the demo transcript
+QUALITY_STEPS = 200     # 19b (tests/test_quality.py's trained_summarizer)
+CLI_STEPS = 1500        # 19c (its cli_checkpoint, warmup-cosine)
+MAP_TEMPLATE = "List the topics.\n{transcript}\nTopics:"
+REDUCE_TEMPLATE = "List the topics.\n{summaries}\nTopics:"
+CLI_CHUNK_TOKENS = 384  # forces a multi-chunk map on the held-out transcript
+ATTENTION_KERNELS = ("flash_prefill", "paged_decode", "paged_decode_fused",
+                     "paged_decode_fused_int8", "ragged_spans",
+                     "ragged_spans_int8", "paged_decode_multi",
+                     "paged_decode_multi_int8", "ragged_spans_anc",
+                     "ragged_spans_anc_int8")
+
+
+def demo_batch() -> torch.Tensor:
+    """19a's fixed [4, 512] batch: the demo transcript's text as byte
+    tokens, cut into rows."""
+    from lmrs_tpu_torch.data.tokenizer import ByteTokenizer
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    text = " ".join(s["text"] for s in load_demo_transcript()["segments"])
+    ids = ByteTokenizer().encode(text)[: TRAIN_SHAPE[0] * TRAIN_SHAPE[1]]
+    return torch.tensor(ids, device="cuda").view(*TRAIN_SHAPE)
+
+
+def gemma_train_run(tokens: torch.Tensor, remat: bool) -> dict:
+    """Three AdamW steps (lr 1e-4) of the whole gemma-2b from the seed-0
+    init on one batch: losses, step seconds and peak memory (params, grads
+    and AdamW's states included)."""
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.transformer import init_params, param_count
+    from lmrs_tpu_torch.training.train import (adamw, make_train_step,
+                                               trainable)
+
+    cfg = model_preset("gemma-2b")
+    params = trainable(init_params(cfg, 0, "cuda"))
+    n_params = param_count(params)
+    step = make_train_step(cfg, adamw(params, 1e-4), remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(3):
+        t = time.time()
+        losses.append(float(step(params, tokens)))  # the step's host sync
+        secs.append(time.time() - t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, step
+    free_cuda()
+    return {"remat": remat, "losses": losses, "step_seconds": secs,
+            "params": n_params, "peak_memory_gib": peak}
+
+
+def run_gemma_train(smi: str) -> dict:
+    """19a: the whole gemma-2b trains three steps at full width and depth
+    with and without remat, from the same init."""
+    import math
+    import statistics
+
+    free_cuda()
+    tokens = demo_batch()
+    counted = kernel_counters()
+    before = read_launches(counted)
+    runs = [gemma_train_run(tokens, remat) for remat in (False, True)]
+    after = read_launches(counted)
+    for r in runs:
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"19a: a loss is not finite: {r}")
+        if not r["losses"][2] < r["losses"][0]:
+            raise AssertionError(f"19a: the 3rd loss is not below the 1st: {r}")
+    if abs(runs[0]["losses"][0] - runs[1]["losses"][0]) > 1e-2:
+        raise AssertionError(f"19a: first-step losses differ: {runs}")
+    if not runs[1]["peak_memory_gib"] < runs[0]["peak_memory_gib"]:
+        raise AssertionError(f"19a: remat did not lower the peak: {runs}")
+    if after != before:
+        raise AssertionError(f"19a: training launched an attention kernel: "
+                             f"{before} -> {after}")
+    n_tok = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    peak_flops = peaks()[0]
+    for r in runs:
+        s = statistics.median(r["step_seconds"][1:])
+        flops = 6.0 * r["params"] * n_tok  # remat's recompute not counted
+        r.update(step_ms=s * 1e3, tokens_per_sec=n_tok / s,
+                 share_of_peak=flops / s / peak_flops, flops_per_step=flops)
+    return {"phase": "train-19a", "card": smi, "model": "gemma-2b (whole "
+            "model, random init bf16, AdamW states bf16)",
+            "batch": list(TRAIN_SHAPE), "peak_flops": peak_flops,
+            "runs": runs}
+
+
+def write_pairs(pairs: list[dict], name: str) -> Path:
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRAIN_DIR / name
+    path.write_text("\n".join(json.dumps(p) for p in pairs))
+    return path
+
+
+def train_small(cfg, pairs: list[dict], name: str, steps: int, batch: int,
+                seq_len: int, lr, seed: int = 0) -> tuple:
+    """Train ``cfg`` from the ``seed`` init on (prompt, summary) ``pairs``
+    through ``lmrs-train-torch``'s data path (``load_examples``,
+    ``batches``) and ``make_train_step``; ``lr`` is a number or a schedule
+    of the step.  Returns (params, final loss, seconds)."""
+    from lmrs_tpu_torch.data.tokenizer import ByteTokenizer
+    from lmrs_tpu_torch.models.transformer import init_params
+    from lmrs_tpu_torch.training.cli import batches, load_examples
+    from lmrs_tpu_torch.training.train import (adamw, make_train_step,
+                                               set_lr, trainable)
+
+    seqs, masks = load_examples(str(write_pairs(pairs, name)), ByteTokenizer())
+    params = trainable(init_params(cfg, seed, "cuda"))
+    schedule = lr if callable(lr) else None
+    opt = adamw(params, schedule(0) if schedule else lr)
+    step = make_train_step(cfg, opt, masked=True)
+    it = batches(seqs, masks, batch, seq_len, 0)
+    t0 = time.time()
+    loss = None
+    for i in range(steps):
+        if schedule:
+            set_lr(opt, schedule(i))
+        t, m = next(it)
+        loss = step(params, torch.from_numpy(t).cuda(),
+                    torch.from_numpy(m).cuda())
+    loss = float(loss)
+    return params, loss, time.time() - t0
+
+
+def quality_engine_run(cfg, params, reqs, **engine_kw) -> tuple:
+    """The trained model served by a continuous ``TorchEngine`` (4 slots,
+    48 tokens, blocks of 8, greedy) over ``reqs``; launch counters zeroed
+    just before and read just after."""
+    from lmrs_tpu_torch.config import EngineConfig
+    from lmrs_tpu_torch.data.tokenizer import ByteTokenizer
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+
+    engine = TorchEngine(
+        EngineConfig(scheduler="continuous", max_tokens=48, max_batch_slots=4,
+                     seed=0, decode_block=8, **engine_kw),
+        cfg, device="cuda", params=params, tokenizer=ByteTokenizer())
+    counted = zero_launches()
+    outs = engine.generate_batch(reqs)
+    torch.cuda.synchronize()
+    launches = read_launches(counted)
+    if engine.audit():
+        raise AssertionError(f"19b: allocator audit: {engine.audit()}")
+    return outs, launches, engine.engine_metrics()
+
+
+def quality_task(seed: int = 0) -> dict:
+    """19b's model trained from the ``seed`` init (the reference's recipe)
+    and cast to bf16, its 8 held-out requests and the lead-1 score."""
+    import dataclasses
+
+    import numpy as np
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.engine.api import GenerationRequest
+    from lmrs_tpu_torch.eval.rouge import rouge_l
+    from lmrs_tpu_torch.eval.synthetic import extractive_baseline, make_dataset
+    from lmrs_tpu_torch.training.train import map_params
+
+    serve_cfg = model_preset("bench-smoke")
+    cfg = dataclasses.replace(serve_cfg, dtype="float32")
+    train = make_dataset(192, seed=0)
+    pairs = [{"prompt": ex["prompt"], "summary": ex["summary"]} for ex in train]
+    params, loss, train_s = train_small(cfg, pairs, "synthetic.jsonl",
+                                        QUALITY_STEPS, 16, 320, 4e-3,
+                                        seed=seed)
+    served = map_params(lambda t: t.detach().to(torch.bfloat16), params)
+    train_prompts = {ex["prompt"] for ex in train}
+    held = [ex for ex in make_dataset(32, seed=999)
+            if ex["prompt"] not in train_prompts][:8]
+    if len(held) != 8:
+        raise AssertionError("19b: the generator collided on the held-out set")
+    reqs = [GenerationRequest(prompt=ex["prompt"], request_id=i,
+                              temperature=0.0, max_new_tokens=48)
+            for i, ex in enumerate(held)]
+    extract = float(np.mean([rouge_l(extractive_baseline(ex["prompt"]),
+                                     ex["summary"])["f"] for ex in held]))
+    return {"serve_cfg": serve_cfg, "params": served, "loss": loss,
+            "train_s": train_s, "held": held, "reqs": reqs,
+            "lead1": extract}
+
+
+def quality_scores(task: dict, outs) -> list[float]:
+    from lmrs_tpu_torch.eval.rouge import rouge_l
+
+    return [rouge_l(o.text, ex["summary"])["f"]
+            for ex, o in zip(task["held"], outs)]
+
+
+def run_quality_gate(smi: str) -> dict:
+    """19b: ``tests/test_quality.py``'s synthetic gate at bench-smoke's
+    widths, trained in f32 on the card, served in bf16 through the
+    kernels."""
+    import numpy as np
+
+    t0 = time.time()
+    task = quality_task()
+    loss, extract = task["loss"], task["lead1"]
+    if not loss < 0.5:
+        raise AssertionError(f"19b: training did not converge: loss {loss}")
+    out = {"phase": "quality-19b", "card": smi,
+           "model": "bench-smoke widths (dim 128, 2 layers, H 4, K 2, hd 32), "
+                    "trained f32, served bf16",
+           "train_steps": QUALITY_STEPS, "final_loss": loss,
+           "train_seconds": task["train_s"], "lead1_rouge_l": extract}
+    runs = (("plain", {}, ("flash_prefill", "paged_decode_fused",
+                           "ragged_spans")),
+            ("kv_int8", dict(kv_quantize="int8", page_size=32),
+             ("flash_prefill", "paged_decode_fused_int8", "ragged_spans_int8")),
+            ("spec_linear", dict(speculate_k=4, mixed_batch=False),
+             ("flash_prefill", "paged_decode_multi")))
+    for name, kw, want in runs:
+        outs, launches, metrics = quality_engine_run(
+            task["serve_cfg"], task["params"], task["reqs"], **kw)
+        scores = quality_scores(task, outs)
+        require_launches(launches, f"19b {name} run", want)
+        row = {"rouge_l": float(np.mean(scores)), "per_prompt": scores,
+               "launches": nonzero(launches)}
+        if name == "spec_linear":
+            acc = metrics["spec_accepted_tokens"]
+            row.update(spec_accepted_tokens=acc,
+                       decode_tokens=metrics["decode_tokens"],
+                       accepted_per_decode_token=acc / max(
+                           1, metrics["decode_tokens"]))
+        out[name] = row
+    plain, kv8 = out["plain"]["rouge_l"], out["kv_int8"]["rouge_l"]
+    if not (plain >= 0.30 and plain > 3 * extract):
+        raise AssertionError(f"19b: ROUGE-L {plain} (lead-1 {extract})")
+    if not kv8 >= 0.28:
+        raise AssertionError(f"19b: ROUGE-L with int8 KV {kv8}")
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def _make_cli_transcript(rng):
+    """A transcript in the CLI input schema whose ground-truth summary is
+    its topic list in order of appearance (``tests/test_quality.py``)."""
+    from lmrs_tpu_torch.eval.synthetic import _FILLER, _OPENERS, TOPICS
+
+    n_topics = int(rng.integers(3, 6))
+    topics = [TOPICS[i] for i in rng.choice(len(TOPICS), n_topics,
+                                            replace=False)]
+    segs, t = [], 0.0
+    for topic in topics:
+        if rng.random() < 0.6:
+            segs.append({"start": t, "end": t + 4.0, "speaker": "SPEAKER_00",
+                         "text": str(rng.choice(_FILLER))})
+            t += float(rng.integers(20, 50))
+        opener = str(rng.choice(_OPENERS)).format(t=topic)
+        segs.append({"start": t, "end": t + 4.0, "speaker": "SPEAKER_00",
+                     "text": opener + "."})
+        t += float(rng.integers(20, 50))
+    return {"segments": segs}, topics
+
+
+def _product_format_pairs(transcript, topics):
+    """(prompt, summary) pairs in the exact formats the CLI produces: map
+    prompts through the real preprocessor and chunker (context header
+    included), the reduce prompt through the real aggregator
+    (``tests/test_quality.py``)."""
+    from types import SimpleNamespace
+
+    from lmrs_tpu_torch.config import EngineConfig
+    from lmrs_tpu_torch.data.chunker import TranscriptChunker
+    from lmrs_tpu_torch.data.preprocessor import (format_timestamp,
+                                                  preprocess_transcript)
+    from lmrs_tpu_torch.data.tokenizer import ByteTokenizer
+    from lmrs_tpu_torch.prompts import safe_format
+    from lmrs_tpu_torch.reduce.aggregator import ResultAggregator
+
+    chunker = TranscriptChunker(max_tokens_per_chunk=CLI_CHUNK_TOKENS,
+                                overlap_tokens=0, context_tokens=150,
+                                tokenizer=ByteTokenizer())
+    agg = ResultAggregator(SimpleNamespace(config=EngineConfig(backend="mock")),
+                           tokenizer=ByteTokenizer())
+    chunks = chunker.chunk_transcript(
+        preprocess_transcript(transcript["segments"]))
+    pairs, tagged = [], []
+    for c in chunks:
+        in_chunk = sorted((t for t in topics if t in c.text), key=c.text.find)
+        target = " " + ", ".join(in_chunk) + "." if in_chunk else " none."
+        pairs.append({"prompt": safe_format(MAP_TEMPLATE,
+                                            transcript=c.text_with_context),
+                      "summary": target})
+        tagged.append(f"[Time: {format_timestamp(c.start_time)} - "
+                      f"{format_timestamp(c.end_time)}]\n{target}")
+    red = agg._build_request(tagged, REDUCE_TEMPLATE, metadata=None)
+    pairs.append({"prompt": red.prompt,
+                  "summary": " " + ", ".join(topics) + "."})
+    return pairs
+
+
+def cli_format_pairs(n: int = 1000) -> list[dict]:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    pairs = []
+    for _ in range(n):
+        transcript, topics = _make_cli_transcript(rng)
+        pairs.extend(_product_format_pairs(transcript, topics))
+    return pairs
+
+
+def run_cli_quality(smi: str) -> dict:
+    """19c: bench-smoke widths trained in f32 on CLI-format pairs (1,500
+    steps, the reference's warmup-cosine schedule), saved as a native
+    checkpoint, then ``lmrs-torch --checkpoint`` on a held-out transcript:
+    plain, ``--quantize int8`` and ``--kv-quantize int8``."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from lmrs_tpu_torch import cli
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.eval.rouge import rouge_l
+    from lmrs_tpu_torch.models.loader import save_checkpoint
+    from lmrs_tpu_torch.training.train import warmup_cosine_decay
+
+    t0 = time.time()
+    pairs = cli_format_pairs()
+    data_s = time.time() - t0
+    cfg = dataclasses.replace(model_preset("bench-smoke"), dtype="float32")
+    schedule = warmup_cosine_decay(0.0, 3e-3, 100, CLI_STEPS, 3e-3 * 0.02)
+    params, loss, train_s = train_small(cfg, pairs, "cli.jsonl", CLI_STEPS, 8,
+                                        704, schedule)
+    if not loss < 0.25:
+        raise AssertionError(f"19c: CLI-format training failed: loss {loss}")
+    ckpt = TRAIN_DIR / "cli-ckpt"
+    save_checkpoint(str(ckpt), params)
+    del params
+    held, topics = _make_cli_transcript(np.random.default_rng(4242))
+    truth = " " + ", ".join(topics) + "."
+    inp, mapf, redf = (TRAIN_DIR / n for n in ("held.json", "map.txt",
+                                                "reduce.txt"))
+    inp.write_text(json.dumps(held))
+    mapf.write_text(MAP_TEMPLATE)
+    redf.write_text(REDUCE_TEMPLATE)
+    out = {"phase": "cli-quality-19c", "card": smi,
+           "model": "bench-smoke widths, trained f32, served bf16 from the "
+                    "checkpoint", "train_pairs": len(pairs),
+           "data_seconds": data_s, "train_steps": CLI_STEPS,
+           "final_loss": loss, "train_seconds": train_s, "truth": truth}
+    saved = {k: os.environ.get(k) for k in ("TEMPERATURE", "MAX_TOKENS")}
+    os.environ.update(TEMPERATURE="0.0", MAX_TOKENS="96")
+    try:
+        for name, extra in (("plain", []), ("w8", ["--quantize", "int8"]),
+                            ("kv8", ["--kv-quantize", "int8"])):
+            summary = TRAIN_DIR / f"summary-{name}.txt"
+            counted = zero_launches()
+            rc = cli.main([
+                "--input", str(inp), "--output", str(summary),
+                "--device", "cuda", "--model", "bench-smoke",
+                "--checkpoint", str(ckpt), "--tokenizer", "byte",
+                "--max-tokens-per-chunk", str(CLI_CHUNK_TOKENS),
+                "--overlap-tokens", "0", "--prompt-file", str(mapf),
+                "--aggregator-prompt-file", str(redf), "--report", "-q",
+                *extra])
+            torch.cuda.synchronize()
+            launches = read_launches(counted)
+            if rc != 0:
+                raise AssertionError(f"19c {name}: lmrs-torch exited {rc}")
+            text = summary.read_text()
+            report = json.loads(Path(str(summary) + ".report.json").read_text())
+            score = rouge_l(text, truth)["f"]
+            decode = ("paged_decode_fused_int8" if name == "kv8"
+                      else "paged_decode_fused")
+            require_launches(launches, f"19c {name} run",
+                             ("flash_prefill", decode))
+            if score < 0.45 or report["num_chunks"] < 2 or \
+                    report["failed_requests"] != 0:
+                raise AssertionError(
+                    f"19c {name}: ROUGE-L {score}, {report['num_chunks']} "
+                    f"chunks, {report['failed_requests']} failed: {text!r}")
+            out[name] = {"rouge_l": score, "summary": text,
+                         "chunks": report["num_chunks"],
+                         "failed_requests": report["failed_requests"],
+                         "launches": nonzero(launches)}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def run_train_cli_and_static(smi: str) -> dict:
+    """19d: (i) ``lmrs-train-torch`` as a child on the card, its checkpoint
+    served by ``lmrs-torch --checkpoint``; (ii) phase 5's configuration at
+    ``VARIANT_LAYERS`` with ``scheduler="static"`` on 60 demo segments:
+    no kernel on that path."""
+    from lmrs_tpu_torch import cli
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    t0 = time.time()
+    ckpt = TRAIN_DIR / "child-ckpt"
+    child = subprocess.run(
+        [sys.executable, "-m", "lmrs_tpu_torch.training.cli", "--model",
+         "bench-smoke", "--data", str(TRAIN_DIR / "synthetic.jsonl"),
+         "--steps", "20", "--output", str(ckpt), "--device", "cuda"],
+        capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    child_s = time.time() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"19d: lmrs-train-torch exited "
+                             f"{child.returncode}: {child.stderr[-2000:]}")
+    summary = TRAIN_DIR / "summary-child.txt"
+    rc = cli.main(["--input", str(TRAIN_DIR / "held.json"), "--output",
+                   str(summary), "--device", "cuda", "--model", "bench-smoke",
+                   "--checkpoint", str(ckpt), "--tokenizer", "byte",
+                   "--max-tokens", "16", "-q"])
+    if rc != 0 or not summary.read_text():
+        raise AssertionError(f"19d: lmrs-torch --checkpoint exited {rc}")
+    free_cuda()
+    cfg = at_depth(phase5_config("bench-8b", scheduler="static"),
+                   VARIANT_LAYERS)
+    summarizer = TranscriptSummarizer(cfg, device="cuda")
+    summarizer.executor.engine  # builds + random-inits the model
+    torch.cuda.synchronize()
+    counted = zero_launches()
+    t1 = time.time()
+    stats = summarizer.summarize(load_demo_transcript(max_segments=60))
+    torch.cuda.synchronize()
+    static_wall = time.time() - t1
+    launches = read_launches(counted)
+    summarizer.shutdown()
+    del summarizer
+    free_cuda()
+    if not stats["summary"] or stats["failed_requests"] != 0:
+        raise AssertionError(f"19d: static path: {stats['failed_requests']} "
+                             "failed or an empty summary")
+    if any(launches[k] for k in ATTENTION_KERNELS):
+        raise AssertionError(f"19d: the static path launched a kernel: "
+                             f"{nonzero(launches)}")
+    return {"phase": "train-cli-static-19d", "card": smi,
+            "train_child_seconds": child_s,
+            "train_child_log": child.stderr.strip().splitlines()[-2:],
+            "checkpoint_summary_chars": len(summary.read_text()),
+            "static_model": f"bench-8b ({VARIANT_LAYERS} layers, random-init "
+                            "bf16)",
+            "static_wall_seconds": static_wall,
+            "static_chunks": stats["num_chunks"],
+            "static_requests": stats["total_requests"],
+            "static_failed_requests": stats["failed_requests"],
+            "static_summary_chars": len(stats["summary"]),
+            "static_launches": nonzero(launches),
+            "seconds": time.time() - t0}
+
+
+def run_train_eval_path(smi: str) -> dict:
+    """Phase 19: 19a-19d, each on a line of its own."""
+    t0 = time.time()
+    a = run_gemma_train(smi)
+    emit(a)
+    b = run_quality_gate(smi)
+    emit(b)
+    c = run_cli_quality(smi)
+    emit(c)
+    d = run_train_cli_and_static(smi)
+    emit(d)
+    return {"phase": "train-eval", "card": smi,
+            "step_ms": {("remat" if r["remat"] else "no_remat"): r["step_ms"]
+                        for r in a["runs"]},
+            "rouge_l": {"19b": b["plain"]["rouge_l"],
+                        "19b_kv_int8": b["kv_int8"]["rouge_l"],
+                        **{f"19c_{k}": c[k]["rouge_l"]
+                           for k in ("plain", "w8", "kv8")}},
+            "seconds": time.time() - t0}
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
                launches_3c: dict) -> list[dict]:
@@ -5130,16 +5633,14 @@ def main() -> int:
     for r in hd32:
         emit({"phase": "hd32", **r})
     anc_launches = ragged_spans.launches_anc_int8  # phases 3 and 3b
-    counted = kernel_counters()
-    for fn, attr in counted.values():
-        setattr(fn, attr, 0)
+    counted = zero_launches()
     hd256 = check_hd256(gen)
     for r in hd256:
         emit({"phase": "hd256", **r})
     hd256_main = hd256_main_shapes(gen)
     for r in hd256_main:
         emit({"phase": "hd256-main-shape", **r})
-    launches_3c = {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
+    launches_3c = read_launches(counted)
     emit(timed(check_model))
     emit(timed(check_model, int8=True))
     emit(timed(check_model, preset="gemma-7b"))
@@ -5176,6 +5677,7 @@ def main() -> int:
     emit(timed(run_kv_path, smi))
     emit(timed(run_jobs_live_path, smi))
     emit(timed(run_obs_path, smi, main_out))
+    emit(timed(run_train_eval_path, smi))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),
@@ -5212,5 +5714,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(jobs_child(sys.argv[2:]) if sys.argv[1:2] == ["--jobs-child"]
-             else main())
+    if sys.argv[1:2] == ["--jobs-child"]:
+        sys.exit(jobs_child(sys.argv[2:]))
+    sys.exit(main())

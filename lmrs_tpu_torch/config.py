@@ -2,7 +2,8 @@
 ``config.py``).
 
 ``EngineConfig`` carries only the fields the port honours: the
-continuous scheduler with packed fresh prefill, decode blocks, mixed
+static path (``scheduler="static"``: lockstep waves over a dense cache)
+and the continuous scheduler with packed fresh prefill, decode blocks, mixed
 prefill/decode steps, chunked continuation prefill and the shared-prefix
 KV cache (the reference's defaults), speculation (``speculate_k``: tree
 speculation under mixed steps, linear with ``mixed_batch=False``), int8
@@ -84,9 +85,20 @@ class ModelConfig:
         return self.head_dim or self.dim // self.n_heads
 
 
+def _env_backend() -> str:
+    """The backend the environment names: ``LMRS_BACKEND``, else
+    ``DEFAULT_PROVIDER``, else ``"torch"``.  The reference's
+    ``DEFAULT_PROVIDER`` values name HTTP vendors; from the environment
+    both map to the local default, as there, which in the port is the
+    card's engine: only ``LMRS_BACKEND=mock`` chooses the mock."""
+    name = _envmod.env_str("LMRS_BACKEND",
+                           _envmod.env_str("DEFAULT_PROVIDER", "torch"))
+    return "torch" if name in ("openai", "anthropic") else name
+
+
 @dataclass
 class EngineConfig:
-    """Generation engine knobs (continuous scheduler only).
+    """Generation engine knobs.
 
     ``prefill_chunk`` caps the prompt tokens one prefill dispatch advances
     a slot by; a longer prompt, or the tail after a
@@ -105,9 +117,10 @@ class EngineConfig:
     ``kv_disk`` adds a disk tier under it (``engine/host_kv.py``).
     """
 
-    # "torch" | "mock" | "http" (the reference's default, "mock", is not
-    # the port's: the port exists to run the card's engine)
-    backend: str = "torch"
+    # "torch" | "mock" | "http", from LMRS_BACKEND or DEFAULT_PROVIDER as
+    # in the reference (whose default, "mock", is not the port's: the port
+    # exists to run the card's engine)
+    backend: str = field(default_factory=lambda: _env_backend())
     model: str = field(default_factory=lambda: _envmod.env_str("LMRS_MODEL", "tiny"))
     scheduler: str = "continuous"
     max_batch_slots: int = 8
@@ -202,10 +215,9 @@ class EngineConfig:
         if self.kv_quantize not in (None, "int8"):
             raise ValueError(f"unknown kv_quantize mode {self.kv_quantize!r}; "
                              "supported: int8")
-        if self.scheduler != "continuous":
-            raise ValueError(
-                f"scheduler {self.scheduler!r} is not ported; the static "
-                "engine path is a later slice of the port")
+        if self.scheduler not in ("continuous", "static"):
+            raise ValueError(f"unknown scheduler {self.scheduler!r}; "
+                             "want continuous|static")
         for name in ("max_batch_slots", "page_size", "num_pages",
                      "prefill_chunk", "decode_block", "max_tokens"):
             if getattr(self, name) < 1:

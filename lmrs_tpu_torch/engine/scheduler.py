@@ -19,7 +19,8 @@ postmortems.
 * Prefill, when no slot decodes: every prefilling slot advances one chunk
   per iteration.  Whole prompts go in first-fit-decreasing packed bins of
   at most ``max_len`` tokens (``_dispatch_packed``; a lone prompt takes
-  ``_dispatch_fresh``); continuation chunks — a prefix hit's tail, a
+  ``_dispatch_fresh``; ``LMRS_PACK_PREFILL=0``: every prompt alone);
+  continuation chunks — a prefix hit's tail, a
   prompt longer than ``prefill_chunk`` — ride ONE ragged span dispatch
   (``_dispatch_rpa_chunks``).
 * Mixed steps, once any slot decodes: every decoding row advances ONE
@@ -308,6 +309,12 @@ class ContinuousScheduler:
         self._spec_tmpl: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._spec_stale: set[int] = set()
         self.prefill_chunk = engine_cfg.prefill_chunk
+        # the reference's A/B switches: LMRS_PACK_PREFILL=0 prefills each
+        # whole prompt in its own dispatch; LMRS_DEFER_TOK0=0 fetches the
+        # first tokens of a prefill wave on their own instead of with the
+        # next decode block
+        self._pack_prefill = env_bool("LMRS_PACK_PREFILL", True)
+        self.defer_tok0 = env_bool("LMRS_DEFER_TOK0", True)
         self._mixed = engine_cfg.mixed_batch
         self.mixed_token_budget = engine_cfg.mixed_token_budget
         ps = engine_cfg.page_size
@@ -408,10 +415,12 @@ class ContinuousScheduler:
         # the default asynchronous copy)
         self._host_kv_sync = env_bool("LMRS_HOST_KV_SYNC", False)
         self._prefix_cache: PrefixCache | None = None
-        if engine_cfg.prefix_cache and kv_quant:
+        # LMRS_PREFIX_CACHE=0 is the kill switch, as in the reference
+        pc_on = engine_cfg.prefix_cache and env_bool("LMRS_PREFIX_CACHE", True)
+        if pc_on and kv_quant:
             logger.info("prefix cache disabled: incompatible with int8 KV "
                         "(per-slot scales cannot cover donor pages)")
-        elif engine_cfg.prefix_cache:
+        elif pc_on:
             pool = None
             if engine_cfg.host_kv and engine_cfg.host_kv_gb > 0:
                 disk = None
@@ -753,11 +762,12 @@ class ContinuousScheduler:
                         for b, row in rows:
                             self._enter_decode(b, slots[b], kv_lens, active)
                             deferred.append((b, p, row))
-                if deferred and (self.spec_k or any(
+                if deferred and (self.spec_k or not self.defer_tok0 or any(
                         slots[b].req.handoff_export for b, _, _ in deferred)):
                     # speculation seeds each new decode row's history with
                     # its first token, and a handoff slot (budget 1) pins
-                    # on it: fetch the first tokens now
+                    # on it: fetch the first tokens now (LMRS_DEFER_TOK0=0:
+                    # always)
                     sync_first_tokens(pending, deferred, t_pf)
                     deferred = []
                 if not active.any():
@@ -1631,7 +1641,9 @@ class ContinuousScheduler:
             else:
                 chunks.append((b, st, chunk, pos, is_final))
         pending = []
-        for bin_items in self._pack_bins(whole, self.max_len):
+        bins = (self._pack_bins(whole, self.max_len) if self._pack_prefill
+                else [[it] for it in whole])
+        for bin_items in bins:
             if len(bin_items) == 1:
                 pending.append(self._dispatch_fresh(*bin_items[0]))
             else:

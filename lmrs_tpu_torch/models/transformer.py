@@ -1,8 +1,15 @@
-"""Decoder-only transformer (Llama-3 / Gemma family) on a paged KV cache.
+"""Decoder-only transformer (Llama-3 / Gemma family).
 
-The port of the reference's ``models/transformer.py`` for the routes the
-port serves: fresh prefill, packed fresh prefill, single-token decode,
-multi-token verify and ragged spans (``forward_paged``).  Params are a plain dict of tensors (see
+The port of the reference's ``models/transformer.py``: ``forward_paged``
+for the routes the continuous engine serves (fresh prefill, packed fresh
+prefill, single-token decode, multi-token verify and ragged spans), and
+``forward`` for training (cache-less) and the static engine (a dense
+[L, B, S_max, K, hd] cache).  ``forward`` reaches no kernel, as the
+reference's reaches no Pallas call: its attention is the plain
+``ops.attention.attention`` (XLA's in the reference), so autograd
+differentiates it, and ``remat=True`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``).  Params are a plain dict of tensors (see
 ``init_params``); each layer's q/k/v projections are stored fused as one
 [D, (H + 2K)·hd] matrix and gate/up as one [D, 2F] matrix, so a layer is
 four matmuls.  A mixture-of-experts model (``cfg.n_experts``; Mixtral)
@@ -39,8 +46,10 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from lmrs_tpu_torch.config import ModelConfig
+from lmrs_tpu_torch.ops.attention import attention
 from lmrs_tpu_torch.ops.flash_attention import flash_attention
 from lmrs_tpu_torch.ops.moe import moe_mlp
 from lmrs_tpu_torch.ops.norms import rms_norm
@@ -164,6 +173,137 @@ def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def embed_tokens(params: Params, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding lookup (+ Gemma's sqrt(dim) scale)."""
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = (x.float() * math.sqrt(cfg.dim)).to(x.dtype)
+    return x
+
+
+def qkv_proj(lp: dict, cfg: ModelConfig, h: torch.Tensor):
+    """Project a normed [B, S, D] into (q [B, S, H, hd], k, v [B, S, K, hd])
+    through the fused ``wqkv``."""
+    b, s = h.shape[:2]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    qkv = qmatmul(h, lp["wqkv"])
+    return (qkv[..., : H * hd].view(b, s, H, hd),
+            qkv[..., H * hd: (H + K) * hd].view(b, s, K, hd),
+            qkv[..., (H + K) * hd:].view(b, s, K, hd))
+
+
+def ffn_block(lp: dict, cfg: ModelConfig, h: torch.Tensor):
+    """Post-norm FFN body, dense gated or MoE: h [B, S, D] (normed) ->
+    (out [B, S, D], aux: the MoE load-balance loss as an f32 scalar, None
+    dense, so a dense layer launches nothing for it)."""
+    if cfg.n_experts:
+        return moe_mlp(lp, cfg, h)
+    gate, up = qmatmul(h, lp["w_gate_up"]).chunk(2, dim=-1)
+    return qmatmul(gate_act(cfg, gate).to(h.dtype) * up, lp["w_down"]), None
+
+
+def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, sin: torch.Tensor,
+                  cos: torch.Tensor, kv_length: torch.Tensor | None = None,
+                  cache_kv: tuple | None = None):
+    """One decoder block (pre-norm attention + FFN): causal attention over
+    the sequence, ``kv_length`` [B] masking padded keys; with ``cache_kv``
+    (this layer's dense K and V [B, S_max, K, hd]) the block's K/V are
+    written into it at ``positions`` and attention reads it.  Returns (x,
+    aux)."""
+    b, s = x.shape[:2]
+    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    q, k, v = qkv_proj(lp, cfg, h)
+    q = apply_rope(q, positions, sin, cos)
+    k = apply_rope(k, positions, sin, cos)
+    if cache_kv is not None:
+        rows = torch.arange(b, device=x.device)[:, None]
+        cache_kv[0][rows, positions] = k
+        cache_kv[1][rows, positions] = v
+        k, v = cache_kv
+    attn = attention(q, k, v, positions, kv_length)
+    x = x + qmatmul(attn.reshape(b, s, cfg.n_heads * cfg.hd), lp["wo"])
+    ff, aux = ffn_block(lp, cfg, rms_norm(x, lp["ln_mlp"], cfg.norm_eps))
+    return x + ff, aux
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                  dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """Dense per-row KV cache ``{"k", "v"}`` [L, B, max_len, K, hd] (the
+    static engine's; the continuous engine's is ``engine/kv_cache``)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dt = dtype or model_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,     # [B, S] int
+    positions: torch.Tensor,  # [B, S] absolute positions
+    cache: dict[str, torch.Tensor] | None = None,  # dense KV cache or None
+    kv_length: torch.Tensor | None = None,  # [B] valid KV AFTER this call
+    attn_fn=None,
+    return_aux: bool = False,  # also return the layer-mean MoE aux loss
+    remat: bool = False,  # recompute each layer in the backward pass
+    last_pos: torch.Tensor | None = None,  # [B] LM head on this row only
+) -> tuple:
+    """Forward pass; returns (logits [B, S, V] f32, cache), plus the
+    layer-mean MoE load-balance loss as a third element when
+    ``return_aux``.  ``last_pos`` runs the LM head only on row b's token
+    ``last_pos[b]`` (logits [B, 1, V]), as ``forward_paged`` does.
+
+    With a cache: K/V of ``tokens`` are written into ``cache["k"]`` /
+    ``["v"]`` [L, B, S_max, K, hd] at ``positions`` (in place; the same
+    dict comes back) and attention reads the cache, masked causally and by
+    ``kv_length`` (prefill S > 1 and decode S == 1 alike).  Without one:
+    plain causal self-attention over the sequence, differentiable, each
+    layer recomputed in backward under ``remat``.  ``attn_fn`` (ring
+    attention over a sequence-sharded mesh) is refused: it arrives with
+    the multi-GPU slice."""
+    if attn_fn is not None:
+        raise ValueError("attn_fn (ring attention) is not in the port yet; "
+                         "it arrives with the multi-GPU (A8) slice")
+    b, s = tokens.shape
+    dev = tokens.device
+    x = embed_tokens(params, cfg, tokens)
+    positions = positions.long()
+    max_pos = cache["k"].shape[2] if cache is not None else s
+    sin, cos = rope_table(max_pos, cfg.hd, cfg.rope_theta, device=dev)
+    aux = None
+    if cache is not None:
+        for li, lp in enumerate(params["layers"]):
+            x, _ = decoder_layer(lp, cfg, x, positions, sin, cos, kv_length,
+                                 (cache["k"][li], cache["v"][li]))
+    else:
+        def one_layer(lp, x):
+            return decoder_layer(lp, cfg, x, positions, sin, cos, kv_length)
+
+        for lp in params["layers"]:
+            if remat:
+                # keep only each layer's input; recompute the rest in
+                # backward (activation memory O(L * [B, S, D]))
+                x, layer_aux = torch.utils.checkpoint.checkpoint(
+                    one_layer, lp, x, use_reentrant=False)
+            else:
+                x, layer_aux = one_layer(lp, x)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
+        if aux is not None:
+            aux = aux / cfg.n_layers
+    if last_pos is not None:
+        idx = torch.clamp(last_pos.long().to(dev), 0, s - 1)
+        x = x[torch.arange(b, device=dev), idx][:, None]
+    logits = lm_head(params, cfg, x)
+    if return_aux:
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
+        return logits, cache, aux
+    return logits, cache
+
+
 def forward_paged(
     params: Params,
     cfg: ModelConfig,
@@ -226,17 +366,14 @@ def forward_paged(
     quantized rows; every pool reader dequantizes."""
     dev = tokens.device
     b, s = tokens.shape
-    hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    hd, H = cfg.hd, cfg.n_heads
     ps = k_pages.shape[2]
     n_pool = k_pages.shape[0] // cfg.n_layers  # logical pages per layer
-    dt = params["embed"].dtype
     if kv_scales is not None:
         ksc_all, vsc_all = kv_scales
         rows_i = (torch.arange(page_tables.shape[0], device=dev)
                   if scale_rows is None else scale_rows.long().to(dev))
-    x = params["embed"][tokens]
-    if cfg.embed_scale:
-        x = (x.float() * math.sqrt(cfg.dim)).to(dt)
+    x = embed_tokens(params, cfg, tokens)
     sin, cos = rope_table(rope_max, hd, cfg.rope_theta, device=dev)
     positions = positions.long()
     tables = page_tables.long()
@@ -254,10 +391,7 @@ def forward_paged(
 
     for li, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        qkv = qmatmul(h, lp["wqkv"])
-        q = qkv[..., : H * hd].view(b, s, H, hd)
-        k = qkv[..., H * hd: (H + K) * hd].view(b, s, K, hd)
-        v = qkv[..., (H + K) * hd:].view(b, s, K, hd)
+        q, k, v = qkv_proj(lp, cfg, h)
         q = apply_rope(q, positions, sin, cos)
         k = apply_rope(k, positions, sin, cos)
         base = li * n_pool
@@ -294,12 +428,7 @@ def forward_paged(
             # computed, never their quantized copies
             attn = flash_attention(q, k, v, kv_lens, segment_ids)
         x = x + qmatmul(attn.reshape(b, s, H * hd), lp["wo"])
-        h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        if cfg.n_experts:
-            x = x + moe_mlp(lp, cfg, h)[0]
-        else:
-            gate, up = qmatmul(h, lp["w_gate_up"]).chunk(2, dim=-1)
-            x = x + qmatmul(gate_act(cfg, gate).to(dt) * up, lp["w_down"])
+        x = x + ffn_block(lp, cfg, rms_norm(x, lp["ln_mlp"], cfg.norm_eps))[0]
 
     if packed_last_idx is not None:
         x = x[:, packed_last_idx.long()]

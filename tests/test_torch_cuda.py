@@ -1094,3 +1094,108 @@ def test_session_refresh_drafts_from_hint_on_card(cuda_device, tmp_path):
     assert r2["chunk_summaries_reused"] > 0
     assert eng.engine_metrics()["spec_tree"]["dispatches"] > 0
     assert eng.audit() == []
+
+
+def _tiny_train_model(seed: int = 0):
+    from lmrs_tpu_torch.config import ModelConfig
+
+    return ModelConfig(name="t", vocab_size=96, dim=64, n_layers=2, n_heads=4,
+                       n_kv_heads=2, hidden_dim=96, max_seq_len=64,
+                       dtype="float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_card_matches_cpu(cuda_device, remat):
+    """One f32 training step of a tiny model on the card against the CPU
+    from the same weights and batch: loss rtol 1e-4, every gradient within
+    1e-4 * max(1, max |g|) (f32 products on both devices; reduction orders
+    differ); no attention kernel launched."""
+    from lmrs_tpu_torch.models.transformer import init_params
+    from lmrs_tpu_torch.training.train import (adamw, grads_of,
+                                               make_train_step, map_params,
+                                               param_leaves, trainable)
+
+    cfg = _tiny_train_model()
+    base = init_params(cfg, 3)
+    r = np.random.default_rng(4)
+    tokens = torch.from_numpy(r.integers(0, 96, (2, 48)))
+    mask = torch.from_numpy((r.random((2, 48)) < 0.8).astype(np.int32))
+    out = {}
+    n_flash = tfa.flash_attention.launches
+    for dev in ("cpu", cuda_device):
+        params = trainable(map_params(lambda t: t.clone().to(dev), base))
+        step = make_train_step(cfg, adamw(params, 1e-3), remat=remat)
+        loss = step(params, tokens.to(dev), mask.to(dev))
+        out[str(dev)] = (float(loss), [g.cpu() for g in
+                                       param_leaves(grads_of(params))])
+    assert tfa.flash_attention.launches == n_flash
+    (l0, g0), (l1, g1) = out["cpu"], out[str(cuda_device)]
+    assert l1 == pytest.approx(l0, rel=1e-4)
+    for a, b in zip(g1, g0):
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_synthetic_quality_gate_trained_on_card(cuda_device):
+    """The reference's synthetic quality gate (``tests/test_quality.py``)
+    with a model trained on the card: bench-smoke widths in f32, 200 AdamW
+    steps at 4e-3 on 16 x 320 batches (final loss < 0.5), served in bf16
+    by the continuous engine through the kernels; mean ROUGE-L of the 8
+    held-out prompts >= 0.30 and > 3x the lead-1 baseline, >= 0.28 with
+    int8 KV pages."""
+    import dataclasses
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from lmrs_tpu_torch.config import EngineConfig, model_preset
+    from lmrs_tpu_torch.data.tokenizer import ByteTokenizer
+    from lmrs_tpu_torch.engine.api import GenerationRequest
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.eval.rouge import rouge_l
+    from lmrs_tpu_torch.eval.synthetic import extractive_baseline, make_dataset
+    from lmrs_tpu_torch.models.transformer import init_params
+    from lmrs_tpu_torch.training.cli import batches, load_examples
+    from lmrs_tpu_torch.training.train import (adamw, make_train_step,
+                                               map_params, trainable)
+
+    serve_cfg = model_preset("bench-smoke")
+    cfg = dataclasses.replace(serve_cfg, dtype="float32")
+    tok = ByteTokenizer()
+    train = make_dataset(192, seed=0)
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "train.jsonl"
+        path.write_text("\n".join(json.dumps(
+            {"prompt": ex["prompt"], "summary": ex["summary"]})
+            for ex in train))
+        seqs, masks = load_examples(str(path), tok)
+    params = trainable(init_params(cfg, 0, cuda_device))
+    step = make_train_step(cfg, adamw(params, 4e-3), masked=True)
+    it = batches(seqs, masks, 16, 320, 0)
+    for _ in range(200):
+        t, m = next(it)
+        loss = step(params, torch.from_numpy(t).to(cuda_device),
+                    torch.from_numpy(m).to(cuda_device))
+    assert float(loss) < 0.5
+    served = map_params(lambda t: t.detach().to(torch.bfloat16), params)
+    train_prompts = {ex["prompt"] for ex in train}
+    held = [ex for ex in make_dataset(32, seed=999)
+            if ex["prompt"] not in train_prompts][:8]
+    reqs = [GenerationRequest(prompt=ex["prompt"], request_id=i,
+                              temperature=0.0, max_new_tokens=48)
+            for i, ex in enumerate(held)]
+    extract = np.mean([rouge_l(extractive_baseline(ex["prompt"]),
+                               ex["summary"])["f"] for ex in held])
+    for kw, gate in (({}, 0.30), (dict(kv_quantize="int8", page_size=32), 0.28)):
+        engine = TorchEngine(EngineConfig(max_tokens=48, max_batch_slots=4,
+                                          seed=0, decode_block=8, **kw),
+                             serve_cfg, device=cuda_device, params=served,
+                             tokenizer=tok)
+        outs = engine.generate_batch(reqs)
+        score = np.mean([rouge_l(o.text, ex["summary"])["f"]
+                         for ex, o in zip(held, outs)])
+        assert score >= gate, (kw, score)
+        if not kw:
+            assert score > 3 * extract, (score, extract)

@@ -360,10 +360,214 @@ def test_package_imports_no_jax_and_no_reference_package():
         "for m in ('engine.host_kv', 'serving.handoff', 'jobs.journal',\n"
         "          'jobs.manager', 'live.session', 'obs.trace', 'obs.flight',\n"
         "          'obs.perf', 'obs.anatomy', 'obs.ledger', 'obs.slo',\n"
-        "          'obs.metrics', 'utils.perf_model', 'utils.timing'):\n"
+        "          'obs.metrics', 'utils.perf_model', 'utils.timing',\n"
+        "          'training.train', 'training.cli', 'eval.rouge',\n"
+        "          'eval.synthetic', 'eval.parity'):\n"
         "    assert 'lmrs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# ------------------------------------------------------------ static path
+
+STATIC_PROMPTS = ["alpha beta gamma", "the quick brown fox jumps", "x" * 70]
+
+
+class WideIdTokenizer(IdTokenizer):
+    """``IdTokenizer`` over the whole model vocabulary: the port's rule of
+    never sampling an id the tokenizer cannot decode does not bind."""
+
+    vocab_size = CFG["vocab_size"]
+
+
+def _static_engines(max_new: int = 6):
+    from lmrs_tpu.config import EngineConfig as JEngineConfig
+    from lmrs_tpu.engine.jax_engine import JaxEngine
+
+    jcfg = JModelConfig(name="t", **CFG)
+    tcfg = TModelConfig(name="t", **CFG)
+    tree = jax.tree.map(np.asarray, j_init_params(jcfg, jax.random.PRNGKey(11)))
+    kw = dict(scheduler="static", max_batch_slots=2, max_tokens=max_new,
+              seed=0)
+    ref = JaxEngine(JEngineConfig(backend="jax", **kw), jcfg,
+                    params=jax.tree.map(jnp.asarray, tree),
+                    tokenizer=WideIdTokenizer())
+    port = TorchEngine(EngineConfig(**kw), tcfg, device="cpu",
+                       params=params_from_jax(tree, tcfg),
+                       tokenizer=WideIdTokenizer())
+    return ref, port, tree
+
+
+def test_static_engine_greedy_matches_jax_static():
+    """``scheduler="static"``: lockstep waves (2 slots, 3 prompts of three
+    lengths: two waves, buckets 64 and 128), greedy tokens identical to the
+    reference's static engine, finish reasons and token counts too; with a
+    tokenizer narrower than the model's vocabulary no id past it is
+    sampled (as on the continuous path)."""
+    ref, port, tree = _static_engines()
+    reqs = [GenerationRequest(prompt=p, request_id=i, temperature=0.0)
+            for i, p in enumerate(STATIC_PROMPTS)]
+    from lmrs_tpu.engine.api import GenerationRequest as JRequest
+
+    want = ref.generate_batch([JRequest(prompt=p, request_id=i,
+                                        temperature=0.0)
+                               for i, p in enumerate(STATIC_PROMPTS)])
+    got = port.generate_batch(reqs)
+    assert [(r.request_id, r.text, r.completion_tokens, r.prompt_tokens,
+             r.finish_reason) for r in got] == \
+        [(r.request_id, r.text, r.completion_tokens, r.prompt_tokens,
+          r.finish_reason) for r in want]
+    assert all(r.completion_tokens > 0 for r in got)
+    assert max(int(t) for r in got for t in r.text.split()) >= \
+        IdTokenizer.vocab_size  # the wide tokenizer lets the limit go
+    ref.shutdown()
+    tcfg = TModelConfig(name="t", **CFG)
+    narrow = TorchEngine(EngineConfig(scheduler="static", max_batch_slots=2,
+                                      max_tokens=6, seed=0), tcfg,
+                         device="cpu", params=params_from_jax(tree, tcfg),
+                         tokenizer=IdTokenizer())
+    ids = [int(t) for r in narrow.generate_batch(reqs) for t in r.text.split()]
+    assert ids and max(ids) < IdTokenizer.vocab_size
+
+
+def test_static_engine_surface():
+    """The static engine's hooks answer with the reference's empty shapes;
+    an expired deadline sheds at admission; ``on_tokens``/``on_result``
+    arrive once per finished request, and what ``on_result`` submits runs
+    in a later wave."""
+    import time as _time
+
+    tcfg = TModelConfig(name="t", **CFG)
+    eng = TorchEngine(EngineConfig(scheduler="static", max_batch_slots=2,
+                                   max_tokens=4), tcfg, device="cpu",
+                      tokenizer=IdTokenizer())
+    assert not eng.schedules_internally and not eng.supports_handoff
+    assert eng.engine_metrics() == {} and eng.prefix_summary() == []
+    assert eng.audit() == [] and eng.kv_export("x") is None
+    assert eng.metrics_registry() is None
+    assert eng.usage_report()["enabled"] is False
+    assert eng.anatomy_report() == {"object": "anatomy", "enabled": False}
+    assert eng.slo_report()["state"] == "ok"
+    with pytest.raises(RuntimeError, match="no prefix cache"):
+        eng.kv_import({})
+    with pytest.raises(KeyError):
+        eng.export_handoff(1)
+    eng.cancel(1)  # no abort point: a no-op
+    streamed, seen = [], []
+
+    def on_result(res, submit):
+        seen.append(res.request_id)
+        if res.request_id == 0:
+            submit([GenerationRequest(prompt="late", request_id=9,
+                                      temperature=0.0)])
+
+    out = eng.generate_batch(
+        [GenerationRequest(prompt="abc", request_id=0, temperature=0.0),
+         GenerationRequest(prompt="old", request_id=1,
+                           deadline_s=_time.time() - 1)],
+        on_result=on_result,
+        on_tokens=lambda rid, text: streamed.append(rid))
+    assert [r.request_id for r in out] == [0, 1, 9]
+    assert out[1].finish_reason == "shed" and out[1].completion_tokens == 0
+    assert seen == [0, 1, 9] and streamed == [0, 9]
+
+
+def test_static_config_accepted_unknown_refused():
+    assert EngineConfig(scheduler="static").scheduler == "static"
+    with pytest.raises(ValueError, match="want continuous|static"):
+        EngineConfig(scheduler="lockstep")
+
+
+# ------------------------------------------------ environment switches
+
+
+def test_prefix_cache_env_kill_switch(monkeypatch):
+    """``LMRS_PREFIX_CACHE=0`` disarms the prefix cache in both packages'
+    engines: neither reports a ``prefix_cache`` block."""
+    from lmrs_tpu.config import EngineConfig as JEngineConfig
+    from lmrs_tpu.engine.jax_engine import JaxEngine
+
+    jcfg = JModelConfig(name="t", **CFG)
+    tcfg = TModelConfig(name="t", **CFG)
+    tree = jax.tree.map(np.asarray, j_init_params(jcfg, jax.random.PRNGKey(1)))
+    kw = dict(max_batch_slots=2, page_size=16, num_pages=40)
+    for env, on in (("1", True), ("0", False)):
+        monkeypatch.setenv("LMRS_PREFIX_CACHE", env)
+        ref = JaxEngine(JEngineConfig(backend="jax", **kw), jcfg,
+                        params=jax.tree.map(jnp.asarray, tree),
+                        tokenizer=IdTokenizer())
+        port = TorchEngine(EngineConfig(**kw), tcfg, device="cpu",
+                           params=params_from_jax(tree, tcfg),
+                           tokenizer=IdTokenizer())
+        assert ("prefix_cache" in ref.engine_metrics()) is on
+        assert ("prefix_cache" in port.engine_metrics()) is on
+        ref.shutdown()
+
+
+@pytest.mark.parametrize("env,want", [
+    ({}, "torch"),
+    ({"LMRS_BACKEND": "mock"}, "mock"),
+    ({"DEFAULT_PROVIDER": "http"}, "http"),
+    ({"DEFAULT_PROVIDER": "openai"}, "torch"),
+    ({"LMRS_BACKEND": "anthropic"}, "torch"),
+    ({"LMRS_BACKEND": "mock", "DEFAULT_PROVIDER": "anthropic"}, "mock"),
+    ({"LMRS_BACKEND": "torch", "DEFAULT_PROVIDER": "anthropic"}, "torch"),
+    ({"LMRS_BACKEND": "jax"}, None),
+])
+def test_backend_environment_switches(monkeypatch, env, want):
+    """``LMRS_BACKEND`` then ``DEFAULT_PROVIDER`` pick the backend as in the
+    reference; its HTTP-vendor names in the environment map to the local
+    default, which in the port is ``torch`` (the mock only when named);
+    unset, the backend is ``torch``; ``jax`` is refused by name."""
+    for name in ("LMRS_BACKEND", "DEFAULT_PROVIDER"):
+        monkeypatch.delenv(name, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if want is None:
+        with pytest.raises(ValueError, match="JAX package's engine"):
+            EngineConfig()
+    else:
+        assert EngineConfig().backend == want
+
+
+def _switch_run(monkeypatch, var, value, **engine_kw):
+    monkeypatch.setenv(var, value)
+    tcfg = TModelConfig(name="t", **CFG)
+    eng = TorchEngine(EngineConfig(max_batch_slots=2, page_size=16,
+                                   num_pages=40, decode_block=4, max_tokens=6,
+                                   **engine_kw),
+                      tcfg, device="cpu", tokenizer=IdTokenizer())
+    syncs = []
+    note = eng._scheduler._perf.note_prefill_sync
+    eng._scheduler._perf.note_prefill_sync = (
+        lambda *a, **k: (syncs.append(1), note(*a, **k)))
+    res = eng.generate_batch([
+        GenerationRequest(prompt=p, request_id=i, temperature=0.0)
+        for i, p in enumerate(STATIC_PROMPTS[:2])])
+    assert eng.audit() == []
+    return [r.text for r in res], eng.engine_metrics(), len(syncs)
+
+
+def test_pack_prefill_environment_switch(monkeypatch):
+    """``LMRS_PACK_PREFILL=0`` prefills each whole prompt in its own
+    dispatch (no packed dispatch); the tokens do not change."""
+    on, m_on, _ = _switch_run(monkeypatch, "LMRS_PACK_PREFILL", "1")
+    off, m_off, _ = _switch_run(monkeypatch, "LMRS_PACK_PREFILL", "0")
+    assert m_on["packed_prefill_dispatches"] == 1
+    assert m_off["packed_prefill_dispatches"] == 0
+    assert m_off["prefill_dispatches"] == 2
+    assert off == on
+
+
+def test_defer_tok0_environment_switch(monkeypatch):
+    """``LMRS_DEFER_TOK0=0`` fetches a prefill wave's first tokens on their
+    own (a synchronous prefill sample) instead of with the next decode
+    block; the tokens do not change."""
+    kw = dict(mixed_batch=False)
+    on, _, n_on = _switch_run(monkeypatch, "LMRS_DEFER_TOK0", "1", **kw)
+    off, _, n_off = _switch_run(monkeypatch, "LMRS_DEFER_TOK0", "0", **kw)
+    assert n_on == 0 and n_off >= 1
+    assert off == on
