@@ -105,7 +105,13 @@ anything wrong.  Phases, one JSON object per line:
               counters (mixed steps, prefix hits, preemptions) and a clean
               audit (allocator + prefix cache); a decode-step profile and
               a fresh-prefill dispatch profile (one 1,600-token row, all
-              32 layers: device time by kernel kind).
+              32 layers: device time by kernel kind).  The default engine
+              runs under the dispatch watchdog (the scheduler on its
+              dispatch thread): decode and prefill tokens, mixed steps and
+              the three kernels' launches must equal the counts measured
+              inline before the watchdog (``PHASE5_INLINE``), and
+              ``watchdog_fires`` is printed (0); the wall is printed beside
+              the inline one, not gated.
 6. spec     — the same transcript and config with linear speculation
               (``speculate_k=4, mixed_batch=False``) at 8 layers
               (``VARIANT_LAYERS``; full depth before phase 18); counters
@@ -128,7 +134,8 @@ anything wrong.  Phases, one JSON object per line:
               bf16): phase 5's gates and a preemption; a decode-step
               profile with the attention kernel's ms a launch beside its
               bound; peak memory.
-10. gemma-2b-int8-spec — full gemma-2b (18 layers, one kv head) with
+10. gemma-2b-int8-spec — gemma-2b (8 of its 18 layers, ``VARIANT_LAYERS``
+              since phase 20; one kv head) with
               int8 weights and KV and ``speculate_k=4, mixed_batch=False``,
               prompts past 1,024 tokens prefilled in continuation chunks:
               the int8 verify and span kernels and flash launched, the
@@ -160,7 +167,8 @@ anything wrong.  Phases, one JSON object per line:
               and the ancestor-mask kernel launched, the decode and verify
               kernels not at all, tree dispatches and accepted drafts > 0, a
               clean audit; a tree-step profile (8 rows x 9 nodes).
-12b. the same with full ``gemma-2b`` (18 layers, one kv head), int8
+12b. the same with ``gemma-2b`` (8 of its 18 layers since phase 20,
+              one kv head), int8
               weights and KV: the int8 ancestor-mask build at hd 256.
 13. checkpoint — an HF-layout Mixtral checkpoint (Mixtral-8x7B widths, one
               layer, random bf16, ~3.4 GB, the port's safetensors writer)
@@ -240,7 +248,7 @@ anything wrong.  Phases, one JSON object per line:
               of 8 through a colocated router ends with
               ``lmrs_kv_migrate_prefetches_total`` above 0.
 17. jobs-live — durable jobs and live sessions at bench-8b widths (17a's
-              child at full depth, 17b at 8 layers, ``VARIANT_LAYERS``; random-
+              child and 17b at 8 layers, ``VARIANT_LAYERS``; random-
               init bf16, byte tokenizer), each sub-phase on a line of its
               own with the card's name and power limit.  17a:
               ``lmrs-serve-torch --jobs-dir --max-tokens-cap 64`` as a
@@ -268,8 +276,10 @@ anything wrong.  Phases, one JSON object per line:
               a ``RouterEngine`` front over 17b's server: a job and a
               session's create, append and refresh through it, pinned to
               the host, the routed docs equal the host's.
-18. obs     — the measurement half of observability at full bench-8b
-              (random-init bf16, byte tokenizer, phase 5's config), each
+18. obs     — the measurement half of observability at bench-8b widths
+              (18a-18b at ``VARIANT_LAYERS`` since phase 20, 18c-18e at
+              full depth; random-init bf16, byte tokenizer, phase 5's
+              config), each
               sub-phase on a line of its own with the card's name and
               power limit.  18a: phase 5's workload with the tracer on
               (the ledger, anatomy, SLO and attribution on by default):
@@ -281,13 +291,13 @@ anything wrong.  Phases, one JSON object per line:
               conservation and the anatomy identity included); every live
               decode HBM-utilisation and prefill-MFU sample in (0, 1.05];
               ``chip_spec().known``; flash, decode and span kernels
-              launched; decode and prefill tokens, mixed steps and
-              preemptions equal phase 5's.  Printed: the wall, the trace's
+              launched.  Printed: the wall, the trace's
               events and bytes, the anatomy's per-class segment means with
               the residual, the medians, the ledger's totals.  18b: the
               same with tracing off and ``LMRS_ANATOMY=0
-              LMRS_COST_LEDGER=0 LMRS_SLO=0``: its wall beside 18a's and
-              phase 5's (not gated).  18c: ``python -m lmrs_tpu_torch.cli
+              LMRS_COST_LEDGER=0 LMRS_SLO=0``: decode and prefill tokens,
+              mixed steps and preemptions equal 18a's; its wall beside
+              18a's and phase 5's (not gated).  18c: ``python -m lmrs_tpu_torch.cli
               --model bench-8b`` on 60 demo segments with ``--trace-out F
               --profile`` as a child (exit 0, F validates), then
               ``--trace-out F2 --no-trace`` (mock backend) writes no F2.
@@ -337,7 +347,46 @@ anything wrong.  Phases, one JSON object per line:
               then phase 5's configuration at ``VARIANT_LAYERS`` with
               ``scheduler="static"`` on 60 demo segments: a summary, no
               failed request, no kernel launched; its wall.
-20. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+20. faults — faults and hangs, each sub-phase a line with the card's name
+              and power limit.  20a: phase 5's configuration (full depth,
+              the first ``CHAOS_SEGMENTS`` demo segments)
+              with a seeded plan in ``EngineConfig.fault_plan``
+              (``CHAOS_PLAN``: ``kv_cache.allocate`` every 11th occurrence,
+              ``scheduler.step`` once mid-map, ``engine.batch`` and
+              ``prefix_cache.insert`` once): a summary with no failed
+              request, a clean audit, the three kernels launched, the
+              plane's occurrence counts printed; a second run on a fresh
+              engine with the same plan gives the same counts, fires and
+              summary; the plan is uninstalled after.  20b (``VARIANT_LAYERS``,
+              ``LMRS_WATCHDOG_S`` = ``WEDGE_S``): a host stall
+              (``scheduler.heartbeat``, ``action: "stall"``) and a device
+              stall (``torch.cuda._sleep`` of ``DEVICE_STALL_S`` queued on
+              the engine's stream while the batch decodes): each declared
+              within the threshold plus ``WEDGE_MARGIN_S`` (the postmortem's
+              ``stalled_s``), the requests ``wedged`` with an error, a
+              ``watchdog`` postmortem that validates, ``wedged()`` and an
+              in-process server's ``/healthz`` 503 ``wedged: true``, the
+              executor's retries completing through the kernels with the
+              undisturbed run's greedy texts once the engine re-arms, a
+              clean audit; then ``LMRS_WATCHDOG=0`` (inline) gives the same
+              texts.  20c: ``lmrs-serve-torch --supervise`` (through
+              ``--layers-child``: the children at ``VARIANT_LAYERS``) with
+              ``--jobs-dir``:
+              the child in the pidfile SIGKILLed mid-job, respawned; its
+              successor, started on a plan file that stalls its
+              ``scheduler.heartbeat`` past its ``LMRS_WATCHDOG_S``, turns
+              ``/healthz`` 503 wedged and is SIGKILLed and respawned by the
+              supervisor; the plan file emptied once the wedge is seen; the
+              job ends ``done`` with no journaled chunk re-mapped;
+              start-up, kill-to-healthy and resume-to-done seconds; the
+              supervisor exits 0 on SIGTERM.  20d: a ``RouterEngine`` with
+              ``LMRS_HEDGE_MS`` over a straggling server (a child at
+              ``VARIANT_LAYERS`` whose heartbeat stalls under its watchdog
+              threshold) and one in this process: the hedge wins
+              (``{"hedges": 1, "wins": 1}``) with the winner's own text for
+              the request, the loser cancels it and exits with a clean
+              audit; a streamed request does not hedge.
+21. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -364,7 +413,11 @@ LOGIT_TOL = 0.25           # bf16 card vs f32 CPU logits through 1-2 layers
 # phase-4 model checks run 2 layers, so a layer's offset into the pool's
 # folded page axis is compared with the CPU, and phase 14 runs all 32 of
 # Mixtral's layers, so its 64 GiB gate shows the whole int8 model fits one
-# card.  Phases 5, 10, 12b, 13, 15c, 17a and 18 keep full depth.
+# card.  Phases 5, 13, 15c, 18c-18e and 20a keep full depth.  Since phase
+# 20 (with which the uncut script took 1,260 s on a slow card host), 10,
+# 12b, 17a's child and 18a-18b run 8 layers too: their gates count
+# launches, chunks, records and schedules (18b's against 18a's), not
+# depth.
 MODEL_CHECK_LAYERS = 2
 VARIANT_LAYERS = 8
 MIXTRAL_LAYERS = 32
@@ -2055,10 +2108,10 @@ def phase5_config(model: str = "bench-8b", streaming: bool = False,
 
 
 def summarize_once(model: str = "bench-8b", layers: int | None = None,
-                   **engine_kw) -> tuple:
+                   segments: int = 200, **engine_kw) -> tuple:
     """``TranscriptSummarizer`` over the demo transcript at the full
-    preset ``model`` (bench-8b unless given; ``layers`` deep when given),
-    every launch counter zeroed
+    preset ``model`` (bench-8b unless given; ``layers`` deep when given;
+    the first ``segments`` demo segments), every launch counter zeroed
     just before ``summarize`` and read just after; the checks every path
     must pass (a summary, no failed request, a clean audit, a hierarchical
     reduce).  Returns (summarizer, engine, stats, wall seconds,
@@ -2067,7 +2120,7 @@ def summarize_once(model: str = "bench-8b", layers: int | None = None,
     from lmrs_tpu_torch.utils.demo import load_demo_transcript
 
     cfg = at_depth(phase5_config(model, **engine_kw), layers)
-    transcript = load_demo_transcript(max_segments=200)
+    transcript = load_demo_transcript(max_segments=segments)
     summarizer = TranscriptSummarizer(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     engine = summarizer.executor.engine  # builds + random-inits the model
@@ -2104,12 +2157,33 @@ def require_launches(launches: dict, path: str, want: tuple,
                                  f"on the {path}")
 
 
+# phase 5's counts and launches on the card with the scheduler inline
+# (measured before the dispatch watchdog was on by default): the dispatch
+# thread must change no dispatch
+PHASE5_INLINE = {"decode_tokens": 3019, "prefill_tokens": 56650,
+                 "mixed_steps": 79, "flash_prefill": 480,
+                 "paged_decode_fused": 17408, "ragged_spans": 2656}
+PHASE5_INLINE_WALL_S = 23.56
+
+
 def run_main_path() -> dict:
     summarizer, engine, stats, wall, launches = summarize_once()
     em = stats["engine_metrics"]
     violations = engine.audit()
     require_launches(launches, "main path",
                      ("flash_prefill", "paged_decode_fused", "ragged_spans"))
+    if engine._runner is None:
+        raise AssertionError("the main path ran without the dispatch watchdog")
+    counts = {"decode_tokens": em["decode_tokens"],
+              "prefill_tokens": em["prefill_tokens"],
+              "mixed_steps": em["mixed_batch"]["dispatches"],
+              **{k: launches[k] for k in ("flash_prefill",
+                                          "paged_decode_fused",
+                                          "ragged_spans")}}
+    if counts != PHASE5_INLINE:
+        raise AssertionError(f"phase 5 under the watchdog: {counts}, inline "
+                             f"{PHASE5_INLINE}")
+    watchdog_fires = engine._scheduler.metrics["watchdog_fires"]
     if em["mixed_batch"]["dispatches"] <= 0:
         raise AssertionError("no mixed step ran on the main path")
     if em["prefix_cache"]["tokens_reused"] <= 0:
@@ -2140,7 +2214,10 @@ def run_main_path() -> dict:
             "wall_seconds": wall, "stage_times": stats["stage_times"],
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "failed_requests": stats["failed_requests"],
-            "summary_chars": len(stats["summary"]), "launches": launches}
+            "summary_chars": len(stats["summary"]), "launches": launches,
+            "watchdog": {"armed": True, "fires": watchdog_fires,
+                         "inline_wall_seconds": PHASE5_INLINE_WALL_S,
+                         "counts_equal_inline": True}}
 
 
 # ------------------------------------------------------------ phase 6
@@ -2252,8 +2329,7 @@ def run_tree_path(model: str = "bench-8b", **engine_kw) -> dict:
     span kernel launched, the decode and verify kernels did not, tree
     dispatches ran and drafts were accepted (and summarize_once's gates)."""
     summarizer, engine, stats, wall, launches = summarize_once(
-        model, layers=VARIANT_LAYERS if model == "bench-8b" else None,
-        speculate_k=4, **engine_kw)
+        model, layers=VARIANT_LAYERS, speculate_k=4, **engine_kw)
     em = stats["engine_metrics"]
     sched = engine._scheduler
     int8 = sched.kv_scales is not None
@@ -2313,9 +2389,9 @@ def run_int8_path(spec: bool = False, model: str = "bench-8b",
     kw = dict(quantize="int8", kv_quantize="int8", **engine_kw)
     if spec:
         kw.update(speculate_k=4, mixed_batch=False)
-    # phases 7-8 at VARIANT_LAYERS; phase 10 at gemma-2b's full depth
+    # phases 7-8 and 10 at VARIANT_LAYERS
     summarizer, engine, stats, wall, launches = summarize_once(
-        model, layers=VARIANT_LAYERS if model == "bench-8b" else None, **kw)
+        model, layers=VARIANT_LAYERS, **kw)
     em = stats["engine_metrics"]
     sched = engine._scheduler
     if sched.cache.k.dtype != torch.int8:
@@ -4129,15 +4205,30 @@ JOB_STALL = 0.3     # seconds the first 17a server waits before each chunk
 LIVE_SEGMENTS = 120  # 17b's transcript: 6, 10 and 14 chunks after its appends
 
 
+def cut_presets(layers: int) -> None:
+    """Every model preset of this process ``layers`` deep (a served
+    child's ``--model`` then builds the cut model)."""
+    import dataclasses
+
+    from lmrs_tpu_torch import config
+
+    plain = config.model_preset
+    config.model_preset = lambda name: dataclasses.replace(
+        plain(name), n_layers=layers)
+
+
 def jobs_child(args: list[str]) -> int:
-    """``python3 chip_smoke.py --jobs-child STALL <lmrs-serve-torch args>``:
-    17a's server.  With ``STALL`` > 0 each chunk record is appended
-    ``STALL`` seconds late (it changes when a record lands, never what it
-    says).  On a clean exit it prints the kernels' launch counts as one
-    JSON line (the counters live in this process)."""
+    """``python3 chip_smoke.py --jobs-child LAYERS STALL <lmrs-serve-torch
+    args>``: 17a's server, its model ``LAYERS`` deep.  With ``STALL`` > 0
+    each chunk record is appended ``STALL`` seconds late (it changes when
+    a record lands, never what it says).  On a clean exit it prints the
+    kernels' launch counts as one JSON line (the counters live in this
+    process)."""
     from lmrs_tpu_torch.jobs import journal as jl
     from lmrs_tpu_torch.serving import cli
 
+    cut_presets(int(args[0]))
+    args = args[1:]
     stall = float(args[0])
     if stall > 0:
         plain_append = jl.Journal.append
@@ -4162,7 +4253,7 @@ def _spawn_jobs_server(port: int, stall: float, log_path: Path, model: str,
     with open(log_path, "w", encoding="utf-8") as log:
         return subprocess.Popen(
             [sys.executable, str(here / "chip_smoke.py"), "--jobs-child",
-             str(stall), "--model", model, "--tokenizer", "byte", "--port",
+             str(VARIANT_LAYERS), str(stall), "--model", model, "--tokenizer", "byte", "--port",
              str(port), "--device", device, "--jobs-dir", str(JOBS_DIR / "dir"),
              "--max-tokens-cap", "64", "-q"],
             cwd=here, stdout=log, stderr=subprocess.STDOUT,
@@ -4571,6 +4662,14 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
+def schedule_counts(em: dict) -> dict:
+    """A run's dispatch schedule, as its engine metrics count it."""
+    return {"decode_tokens": em["decode_tokens"],
+            "prefill_tokens": em["prefill_tokens"],
+            "mixed_steps": em["mixed_batch"]["dispatches"],
+            "preemptions": em["preemptions"]}
+
+
 def obs_traced_path(smi: str, main_out: dict) -> dict:
     """18a: phase 5's workload and config with the tracer on (ledger,
     anatomy, SLO and attribution on by default)."""
@@ -4587,7 +4686,8 @@ def obs_traced_path(smi: str, main_out: dict) -> dict:
     os.environ["LMRS_ANATOMY_RESERVOIR"] = "100000"
     tr = enable_tracing()
     try:
-        summarizer, engine, stats, wall, launches = summarize_once()
+        summarizer, engine, stats, wall, launches = summarize_once(
+            layers=VARIANT_LAYERS)
         path = OBS_DIR / "trace-18a.json"
         n_events, err = export_current(path)
     finally:
@@ -4635,13 +4735,6 @@ def obs_traced_path(smi: str, main_out: dict) -> dict:
         else:
             clean_prefill.append(x)
     em = stats["engine_metrics"]
-    same = {k: (em[k], main_out[k]) for k in ("decode_tokens",
-                                               "prefill_tokens")}
-    same["mixed_steps"] = (em["mixed_batch"]["dispatches"],
-                           main_out["mixed_batch"]["dispatches"])
-    same["preemptions"] = (em["preemptions"], main_out["preemptions"])
-    if any(a != b for a, b in same.values()):
-        raise AssertionError(f"18a: schedule differs from phase 5's: {same}")
     cost = em["cost"]
     out = {"phase": "obs-18a", "card": smi, "wall_seconds": wall,
            "phase5_wall_seconds": main_out["wall_seconds"],
@@ -4666,7 +4759,8 @@ def obs_traced_path(smi: str, main_out: dict) -> dict:
                          "peak_hbm_bw": spec.peak_hbm_bw},
            "ledger_totals": cost["totals"],
            "ledger_attributed_wall_seconds": cost["attributed_wall_seconds"],
-           "slo_state": em["slo"]["state"], "same_as_phase5": same,
+           "slo_state": em["slo"]["state"],
+           "schedule": schedule_counts(em),
            "decode_block_seconds": em["decode_block_seconds"],
            "decode_blocks": em["decode_blocks"],
            "ttft_ms": em["ttft_ms"], "launches": nonzero(launches)}
@@ -4682,7 +4776,8 @@ def obs_off_path(smi: str, traced: dict, main_out: dict) -> dict:
     saved = {k: os.environ.get(k) for k in OBS_OFF}
     os.environ.update(OBS_OFF)
     try:
-        summarizer, engine, stats, wall, launches = summarize_once()
+        summarizer, engine, stats, wall, launches = summarize_once(
+            layers=VARIANT_LAYERS)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -4692,9 +4787,10 @@ def obs_off_path(smi: str, traced: dict, main_out: dict) -> dict:
     em = stats["engine_metrics"]
     if "anatomy" in em or em["cost"]["enabled"] or em["slo"]["enabled"]:
         raise AssertionError("18b: an observability switch did not hold")
-    if (em["decode_tokens"], em["prefill_tokens"]) != (
-            main_out["decode_tokens"], main_out["prefill_tokens"]):
-        raise AssertionError("18b: the schedule moved with obs off")
+    if schedule_counts(em) != traced["schedule"]:
+        raise AssertionError(f"18b: the schedule moved with obs off: "
+                             f"{schedule_counts(em)} against 18a's "
+                             f"{traced['schedule']}")
     summarizer.shutdown()
     return {"phase": "obs-18b", "card": smi, "obs_off_wall_seconds": wall,
             "traced_wall_seconds": traced["wall_seconds"],
@@ -4878,9 +4974,10 @@ def obs_server_path(smi: str, traced: dict):
     del prof_text
     prof.unlink()
     # a deadline storm: 8 requests whose budget runs out during their
-    # decode, set from this server's TTFT and 18a's block wall
-    block_s = traced["decode_block_seconds"] / traced["decode_blocks"]
-    ttft_s = sched.metrics_report()["ttft_ms"]["p90"] / 1e3
+    # decode, set from this server's TTFT and decode-block wall
+    rep = sched.metrics_report()
+    block_s = rep["decode_block_seconds"] / max(1, rep["decode_blocks"])
+    ttft_s = rep["ttft_ms"]["p90"] / 1e3
     budget = ttft_s + 2.5 * block_s
     pm_dir = OBS_DIR / "postmortems"
     for f in pm_dir.glob("*.json"):
@@ -5509,6 +5606,671 @@ def run_train_eval_path(smi: str) -> dict:
             "seconds": time.time() - t0}
 
 
+# ------------------------------------------------------------ phase 20
+
+FAULTS_DIR = (Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch"
+              / "faults20")
+# 20a's seeded plan over phase 5's run: allocation pressure all along, one
+# dispatch fault inside the map run, one failed batch (the map's retry) and
+# one failed prefix-cache adoption
+CHAOS_PLAN = {"seed": 20, "faults": [
+    {"site": "kv_cache.allocate", "every": 11},
+    {"site": "scheduler.step", "at": [6], "max_fires": 1},
+    {"site": "engine.batch", "at": [2], "max_fires": 1},
+    {"site": "prefix_cache.insert", "at": [3], "max_fires": 1}]}
+CHAOS_SITES = ("kv_cache.allocate", "scheduler.step", "engine.batch",
+               "prefix_cache.insert")
+# 20a's transcript: the first 100 demo segments (15 map chunks, a reduce
+# tree), half of phase 5's, so its two full-depth runs fit the budget
+CHAOS_SEGMENTS = 100
+WEDGE_S = 2.0          # 20b's LMRS_WATCHDOG_S
+WEDGE_MARGIN_S = 1.0   # the caller polls every quarter of the threshold
+HOST_STALL_S = 3.0     # 20b(i): the heartbeat stall
+DEVICE_STALL_S = 5.0   # 20b(ii): the sleep kernel on the engine's stream
+WEDGE_WAVE = 8         # 20b's requests: 8 of phase 5's map prompts
+CHILD_WEDGE_S = 2.5    # 20c's children's LMRS_WATCHDOG_S
+HEDGE_MS = 500.0       # 20d's LMRS_HEDGE_MS
+STRAGGLE_S = 4.0       # 20d: the straggler's heartbeat stall
+
+
+def card_line(smi: str, phase: str) -> None:
+    print(f"{phase}: {smi}", flush=True)
+
+
+def run_chaos_path(smi: str) -> dict:
+    """20a: phase 5 at full depth under ``CHAOS_PLAN`` (installed by
+    ``make_engine`` from ``EngineConfig.fault_plan``), twice, each on a
+    fresh engine with the plan installed afresh."""
+    from lmrs_tpu_torch.testing import faults
+
+    card_line(smi, "faults-20a")
+    spec = json.dumps(CHAOS_PLAN)
+    runs = []
+    for _ in range(2):
+        faults.uninstall()
+        summ, engine, stats, wall, launches = summarize_once(
+            segments=CHAOS_SEGMENTS, fault_plan=spec, retry_delay=0.5,
+            retry_attempts=5)
+        inj = faults.active()
+        faults.uninstall()
+        if inj is None:
+            raise AssertionError("20a: make_engine installed no plan")
+        require_launches(launches, "chaos path (20a)",
+                         ("flash_prefill", "paged_decode_fused",
+                          "ragged_spans"))
+        fired = {}
+        for site, _n in inj.fires:
+            fired[site] = fired.get(site, 0) + 1
+        em = stats["engine_metrics"]
+        runs.append({"wall_seconds": wall, "fires": list(inj.fires),
+                     "fired": fired,
+                     "occurrences": {s: inj.occurrences(s)
+                                     for s in CHAOS_SITES
+                                     + ("scheduler.heartbeat",)},
+                     "summary": stats["summary"],
+                     "requests": em["requests"],
+                     "preemptions": em["preemptions"],
+                     "stalls": em["stalls"],
+                     "decode_tokens": em["decode_tokens"],
+                     "prefill_tokens": em["prefill_tokens"],
+                     "launches": nonzero(launches)})
+        summ.shutdown()
+        del summ, engine
+        free_cuda()
+    first, second = runs
+    if set(first["fired"]) != set(CHAOS_SITES) or any(
+            first["fired"][s] != 1 for s in CHAOS_SITES[1:]):
+        raise AssertionError(f"20a: fired {first['fired']}")
+    if (first["occurrences"], first["fires"], first["summary"]) != (
+            second["occurrences"], second["fires"], second["summary"]):
+        raise AssertionError("20a: the second run with the same plan "
+                             f"differs: {first['occurrences']} vs "
+                             f"{second['occurrences']}")
+    return {"phase": "faults-20a", "card": smi, "plan": CHAOS_PLAN,
+            "runs": [{k: v for k, v in r.items()
+                      if k not in ("summary", "fires")} for r in runs],
+            "summary_chars": len(first["summary"]),
+            "second_run_identical": True, "failed_requests": 0}
+
+
+class NoEosByte:
+    """The byte tokenizer with its end-of-sequence id past the byte range:
+    ids above the tokenizer's vocabulary are never sampled, so every 20b
+    request runs its whole budget and none finishes before a wedge."""
+
+    def __init__(self):
+        from lmrs_tpu_torch.data.tokenizer import ByteTokenizer
+
+        self._t = ByteTokenizer()
+        self.pad_id, self.bos_id = self._t.pad_id, self._t.bos_id
+        self.eos_id, self.vocab_size = 511, self._t.vocab_size
+
+    def encode(self, text):
+        return self._t.encode(text)
+
+    def decode(self, ids):
+        return self._t.decode(ids)
+
+    def count(self, text):
+        return self._t.count(text)
+
+
+def phase5_map_requests(cfg, engine) -> list:
+    """Phase 5's map requests for ``cfg``, greedy, in chunk order."""
+    import dataclasses
+
+    from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+    from lmrs_tpu_torch.prompts import resolve_map_prompt
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+    from lmrs_tpu_torch.utils.timing import StageTimer
+
+    summ = TranscriptSummarizer(cfg, engine=engine)
+    _n, _p, chunks = summ._prep(load_demo_transcript(max_segments=200),
+                                StageTimer())
+    return [dataclasses.replace(
+        summ.executor.build_map_request(c, resolve_map_prompt(),
+                                        request_id=i), temperature=0.0)
+        for i, c in enumerate(chunks)]
+
+
+def wedge_engine():
+    """An 8-layer bench-8b ``TorchEngine`` with phase 5's engine settings
+    (the prefix cache off: a retried wave then dispatches exactly as the
+    undisturbed one did) and ``WEDGE_WAVE`` of phase 5's map prompts,
+    greedy."""
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+
+    cfg = at_depth(phase5_config(prefix_cache=False), VARIANT_LAYERS)
+    engine = TorchEngine(cfg.engine, cfg.model, device="cuda",
+                         tokenizer=NoEosByte())
+    reqs = phase5_map_requests(cfg, engine)[:WEDGE_WAVE]
+    torch.cuda.synchronize()
+    return engine, reqs
+
+
+def _wave_texts(engine, reqs, where: str) -> tuple[list[str], dict, float]:
+    """The wave through the executor's retries (counters zeroed just
+    before and read just after): texts, launches, wall."""
+    from lmrs_tpu_torch.config import EngineConfig
+    from lmrs_tpu_torch.engine.executor import MapExecutor
+
+    ex = MapExecutor(engine, EngineConfig(retry_attempts=20, retry_delay=1.0))
+    counted = zero_launches()
+    t0 = time.time()
+    res = ex.run_requests(list(reqs))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches(counted)
+    bad = [r.error for r in res if r.error]
+    if bad or engine.audit():
+        raise AssertionError(f"{where}: errors {bad[:2]}, audit "
+                             f"{engine.audit()}")
+    return [r.text for r in res], launches, wall
+
+
+def _wedge_checks(engine, srv, out, pm_dir: Path, n_before: int,
+                  where: str) -> dict:
+    """The wedge's evidence while the engine is still degraded."""
+    from lmrs_tpu_torch.obs import validate_postmortem_file
+
+    reasons = [r.finish_reason for r in out]
+    if set(reasons) != {"wedged"} or not all(
+            r.error and "wedged" in r.error for r in out):
+        raise AssertionError(f"{where}: results {reasons}")
+    if not engine.wedged():
+        raise AssertionError(f"{where}: the engine is not degraded")
+    status, raw = http_call(srv.port, "GET", "/healthz", timeout=10)
+    if status != 503 or json.loads(raw).get("wedged") is not True:
+        raise AssertionError(f"{where}: /healthz {status} {raw[:200]}")
+    pms = sorted(pm_dir.glob("postmortem-watchdog-*.json"))
+    if len(pms) != n_before + 1:
+        raise AssertionError(f"{where}: {len(pms)} watchdog postmortems")
+    pm = validate_postmortem_file(pms[-1])
+    stalled = pm["extra"]["stalled_s"]
+    if not WEDGE_S < stalled <= WEDGE_S + WEDGE_MARGIN_S:
+        raise AssertionError(f"{where}: declared after {stalled} s of "
+                             f"silence (threshold {WEDGE_S} s)")
+    return {"declared_after_silent_seconds": stalled,
+            "undelivered": pm["extra"]["undelivered"],
+            "healthz": status}
+
+
+def run_wedge_path(smi: str) -> dict:
+    """20b: a host stall and a device stall on an 8-layer engine under a
+    ``WEDGE_S`` threshold, then the same wave inline."""
+    import dataclasses
+    import os
+    import shutil
+    import threading
+
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+    from lmrs_tpu_torch.testing import faults
+    from lmrs_tpu_torch.testing.faults import FaultPlan
+
+    card_line(smi, "faults-20b")
+    shutil.rmtree(FAULTS_DIR, ignore_errors=True)
+    pm_dir = FAULTS_DIR / "postmortems"
+    pm_dir.mkdir(parents=True)
+    engine, reqs = wedge_engine()
+    base, base_launches, base_wall = _wave_texts(engine, reqs, "20b baseline")
+    srv = EngineHTTPServer(engine, port=0, batch_window_s=0.02)
+    srv.start_background()
+    env = {"LMRS_WATCHDOG_S": str(WEDGE_S),
+           "LMRS_POSTMORTEM_DIR": str(pm_dir), "LMRS_POSTMORTEM_MIN_S": "0"}
+    os.environ.update(env)
+    out = {}
+    try:
+        # (i) the host stall: the second loop iteration's heartbeat site
+        # sleeps; the abandoned thread keeps its stall after the uninstall
+        faults.install(FaultPlan(faults=[
+            {"site": "scheduler.heartbeat", "at": [2], "action": "stall",
+             "stall_s": HOST_STALL_S}]))
+        t0 = time.time()
+        res = engine.generate_batch([dataclasses.replace(r, request_id=100 + i)
+                                     for i, r in enumerate(reqs)])
+        call_s = time.time() - t0
+        faults.uninstall()
+        host = _wedge_checks(engine, srv, res, pm_dir, 0, "20b(i)")
+        t1 = time.time()
+        texts, launches, wall = _wave_texts(engine, reqs, "20b(i) retry")
+        if texts != base:
+            raise AssertionError("20b(i): the retried texts differ from the "
+                                 "undisturbed run's")
+        require_launches(launches, "20b(i) retried wave",
+                         ("flash_prefill", "paged_decode_fused"))
+        out["host_stall"] = {**host, "call_seconds": call_s,
+                             "stall_seconds": HOST_STALL_S,
+                             "retried_wave_seconds": time.time() - t1,
+                             "watchdog_fires":
+                                 engine._scheduler.metrics["watchdog_fires"]}
+        if engine.wedged() or http_call(srv.port, "GET", "/healthz",
+                                        timeout=10)[0] != 200:
+            raise AssertionError("20b(i): the engine did not re-arm")
+        # (ii) the device stall: a sleep kernel queued on the engine's
+        # stream once the wave decodes; the dispatch thread then blocks in
+        # a CUDA call (the fetch, or a full launch queue) with the GIL
+        # released, and this thread declares the wedge
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        torch.cuda._sleep(int(1e8))
+        end.record()
+        end.synchronize()
+        cycles_per_s = 1e8 / (start.elapsed_time(end) / 1e3)
+        sched = engine._scheduler
+        queued = {}
+
+        def sleeper():
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                live = sched.live_tokens()
+                if live and min(live.values()) >= 2:
+                    break
+                time.sleep(0.002)
+            with torch.cuda.device(engine.device):
+                torch.cuda._sleep(int(DEVICE_STALL_S * cycles_per_s))
+            queued["t"] = time.time()
+
+        th = threading.Thread(target=sleeper, daemon=True)
+        th.start()
+        res = engine.generate_batch([dataclasses.replace(r, request_id=200 + i)
+                                     for i, r in enumerate(reqs)])
+        t_ret = time.time()
+        th.join(timeout=10)
+        if "t" not in queued:
+            raise AssertionError("20b(ii): the sleep kernel was never queued")
+        dev = _wedge_checks(engine, srv, res, pm_dir, 1, "20b(ii)")
+        t1 = time.time()
+        texts, launches, wall = _wave_texts(engine, reqs, "20b(ii) retry")
+        if texts != base:
+            raise AssertionError("20b(ii): the retried texts differ from the "
+                                 "undisturbed run's")
+        require_launches(launches, "20b(ii) retried wave",
+                         ("flash_prefill", "paged_decode_fused"))
+        out["device_stall"] = {**dev,
+                               "queued_to_declared_seconds":
+                                   t_ret - queued["t"],
+                               "stall_seconds": DEVICE_STALL_S,
+                               "retried_wave_seconds": time.time() - t1,
+                               "watchdog_fires": sched.metrics["watchdog_fires"]}
+        if engine.wedged() or engine.audit():
+            raise AssertionError(f"20b(ii): wedged {engine.wedged()}, audit "
+                                 f"{engine.audit()}")
+    finally:
+        faults.uninstall()
+        srv.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    engine.shutdown()
+    del engine, srv
+    free_cuda()
+    # the same wave inline: LMRS_WATCHDOG=0 builds no dispatch thread
+    os.environ["LMRS_WATCHDOG"] = "0"
+    try:
+        inline, reqs2 = wedge_engine()
+    finally:
+        del os.environ["LMRS_WATCHDOG"]
+    if inline._runner is not None:
+        raise AssertionError("20b: LMRS_WATCHDOG=0 built a dispatch thread")
+    texts, launches, inline_wall = _wave_texts(inline, reqs2, "20b inline")
+    if texts != base:
+        raise AssertionError("20b: the inline texts differ from the armed "
+                             "run's")
+    del inline
+    free_cuda()
+    shutil.rmtree(FAULTS_DIR, ignore_errors=True)
+    return {"phase": "faults-20b", "card": smi, "threshold_s": WEDGE_S,
+            "layers": VARIANT_LAYERS, "requests": len(reqs),
+            "armed_wave_seconds": base_wall,
+            "inline_wave_seconds": inline_wall, **out,
+            "inline_texts_equal": True,
+            "launches": nonzero(base_launches)}
+
+
+def layers_child(args: list[str]) -> int:
+    """``python3 chip_smoke.py --layers-child LAYERS <lmrs-serve-torch
+    args>``: the CLI with every preset cut to ``LAYERS`` layers (20c's
+    supervisor and its children, 20d's straggler).  Under ``--supervise``
+    the supervisor's children are this wrapper again, so they are cut
+    too.  On a clean exit a server prints its engine's audit, pinned
+    handoffs and counters as one JSON line."""
+    import types
+
+    from lmrs_tpu_torch.engine import api
+    from lmrs_tpu_torch.serving import cli, supervisor
+
+    layers = int(args[0])
+    cut_presets(layers)
+    plain_make = api.make_engine
+    serve_cli = ["-m", "lmrs_tpu_torch.serving.cli"]
+
+    def popen(cmd, *a, **kw):
+        if cmd[1:3] == serve_cli:
+            cmd = [cmd[0], str(Path(__file__).resolve()), "--layers-child",
+                   str(layers), *cmd[3:]]
+        return subprocess.Popen(cmd, *a, **kw)
+
+    supervisor.subprocess = types.SimpleNamespace(
+        Popen=popen, TimeoutExpired=subprocess.TimeoutExpired)
+    built = []
+
+    def make(*a, **kw):
+        built.append(plain_make(*a, **kw))
+        return built[-1]
+
+    api.make_engine = make
+    rc = cli.main(args[1:])
+    if built:
+        eng = built[0]
+        print(json.dumps({"audit": eng.audit(),
+                          "pinned": eng.pinned_handoffs(),
+                          "counters": eng._scheduler.counters}), flush=True)
+    return rc
+
+
+def _wait_for(pred, what: str, timeout: float = SERVE_TIMEOUT):
+    t0 = time.time()
+    while True:
+        try:
+            if pred():
+                return time.time() - t0
+        except (OSError, ValueError):
+            pass
+        if time.time() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout} s waiting for "
+                                 f"{what}")
+        time.sleep(0.05)
+
+
+def _healthz(port: int) -> int:
+    return http_call(port, "GET", "/healthz", timeout=5)[0]
+
+
+def run_supervise_path(smi: str) -> dict:
+    """20c: ``lmrs-serve-torch --supervise --jobs-dir`` (through
+    ``--layers-child``, so the children are ``VARIANT_LAYERS`` deep); child A is
+    SIGKILLed mid-job, its successor B (started on a plan file that stalls
+    its heartbeat past ``CHILD_WEDGE_S``) wedges on the resumed job and is
+    SIGKILLed by the supervisor, child C (the plan file emptied) finishes
+    the job; SIGTERM ends the supervisor."""
+    import os
+    import shutil
+    import signal
+
+    from lmrs_tpu_torch.jobs import journal as jl
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    card_line(smi, "faults-20c")
+    shutil.rmtree(FAULTS_DIR, ignore_errors=True)
+    jobs = FAULTS_DIR / "jobs"
+    jobs.mkdir(parents=True)
+    plan, pidfile = FAULTS_DIR / "plan.json", FAULTS_DIR / "child.pid"
+    # child A: each journal append paced, so the kill lands between records
+    plan.write_text(json.dumps({"faults": [
+        {"site": "journal.append", "every": 1, "action": "stall",
+         "stall_s": JOB_STALL}]}))
+    port = free_port()
+    here = Path(__file__).resolve().parent
+    log_path = FAULTS_DIR / "supervisor.log"
+    env = {**os.environ, "PYTHONPATH": str(here),
+           "LMRS_FAULT_PLAN": f"@{plan}", "LMRS_WATCHDOG_S": str(CHILD_WEDGE_S),
+           "LMRS_SUPERVISE_PIDFILE": str(pidfile),
+           "LMRS_SUPERVISE_POLL_S": "0.5", "LMRS_SUPERVISE_BACKOFF_S": "0.2"}
+    log = open(log_path, "w", encoding="utf-8")
+    t0 = time.time()
+    sup = subprocess.Popen(
+        [sys.executable, str(here / "chip_smoke.py"), "--layers-child",
+         str(VARIANT_LAYERS), "--supervise", "--model", "bench-8b",
+         "--tokenizer", "byte", "--device", "cuda", "--port", str(port),
+         "--jobs-dir", str(jobs), "--max-tokens-cap", "64", "-q"],
+        cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def pid() -> int:
+        return int(pidfile.read_text() or 0)
+
+    try:
+        startup_s = _wait_for(lambda: _healthz(port) == 200 and pid() > 0,
+                              "child A")
+        pid_a = pid()
+        body = {"transcript": load_demo_transcript(max_segments=JOB_SEGMENTS),
+                "params": {"max_tokens_per_chunk": JOB_CHUNK}}
+        status, raw = http_call(port, "POST", "/v1/jobs", body)
+        if status != 200:
+            raise AssertionError(f"20c: submit answered {status}: {raw[:300]}")
+        jid = json.loads(raw)["id"]
+        wal = jobs / f"{jid}.wal"
+
+        def chunk_records() -> int:
+            return sum(r["type"] == "chunk_done" for r in jl.replay(wal)[0])
+
+        _wait_for(lambda: chunk_records() >= 3, "3 chunk records")
+        # child B reads the wedge plan at its start: a heartbeat stall far
+        # past its threshold on the resumed job's third loop iteration
+        plan.write_text(json.dumps({"faults": [
+            {"site": "scheduler.heartbeat", "at": [3], "action": "stall",
+             "stall_s": 600.0}]}))
+        at_kill_a = chunk_records()
+        t_kill = time.time()
+        os.kill(pid_a, signal.SIGKILL)
+        kill_to_healthy_s = _wait_for(
+            lambda: pid() not in (0, pid_a) and _healthz(port) == 200,
+            "child B")
+        pid_b = pid()
+        seen = {}
+
+        def wedged_or_gone() -> bool:
+            if pid() != pid_b:
+                return True
+            if _healthz(port) == 503:
+                seen["503"] = time.time()
+                return True
+            return False
+
+        _wait_for(wedged_or_gone, "child B's wedge")
+        # the successor must read a disarmed plan
+        plan.write_text(json.dumps({"faults": []}))
+        t_b = time.time()
+        _wait_for(lambda: pid() not in (0, pid_b), "child C's spawn")
+        # the chunks the journal holds done as child C starts (it reads the
+        # journal only once its interpreter and engine are up, seconds
+        # later); the wedged child journaled its wedged chunks as errors,
+        # which a resume maps again by design
+        recs = jl.replay(wal)[0]
+        journaled = {jl.chunk_key(r["chunk_index"], r["start_time"],
+                                  r["end_time"]): r["summary"]
+                     for r in recs
+                     if r["type"] == "chunk_done" and not r.get("error")}
+        _wait_for(lambda: _healthz(port) == 200, "child C")
+        wedge_to_healthy_s = time.time() - t_b
+
+        def finished() -> bool:
+            doc = json.loads(http_call(port, "GET", f"/v1/jobs/{jid}")[1])
+            seen["doc"] = doc
+            return doc["status"] not in ("queued", "running")
+
+        resume_to_done_s = _wait_for(finished, "the resumed job")
+        doc = seen["doc"]
+        sup.send_signal(signal.SIGTERM)
+        rc = sup.wait(timeout=120)
+    finally:
+        if sup.poll() is None:
+            # a supervisor killed outright forwards nothing: its child
+            # (named in the pidfile) goes too
+            sup.kill()
+            sup.wait(timeout=60)
+            try:
+                left = pid()
+                if left > 0:
+                    os.kill(left, signal.SIGKILL)
+            except (OSError, ValueError):
+                pass
+        log.close()
+    text = log_path.read_text()
+    if rc != 0:
+        raise AssertionError(f"20c: the supervisor exited {rc}: {text[-2000:]}")
+    if "engine wedged (watchdog-degraded)" not in text:
+        raise AssertionError(f"20c: no wedge kill in the log: {text[-2000:]}")
+    if pidfile.exists():
+        raise AssertionError("20c: the pidfile outlived the supervisor")
+    prog = doc["progress"]
+    if doc["status"] != "done" or not doc["recovered"]:
+        raise AssertionError(f"20c: the job is {doc['status']}: "
+                             f"{doc.get('error')}")
+    if prog["num_resumed_chunks"] != len(journaled):
+        raise AssertionError(f"20c: {prog['num_resumed_chunks']} chunks "
+                             f"resumed, {len(journaled)} journaled")
+    recs = jl.replay(wal)[0]
+    again = [r for r in recs if r["type"] == "chunk_done"
+             and jl.chunk_key(r["chunk_index"], r["start_time"],
+                              r["end_time"]) in journaled]
+    state = jl.rebuild_state(recs)
+    errored = sum(r["type"] == "chunk_done" and bool(r.get("error"))
+                  for r in recs)
+    if len(again) != len(journaled) or any(
+            state["chunks"][k]["summary"] != v for k, v in journaled.items()):
+        raise AssertionError("20c: a journaled chunk was re-mapped")
+    shutil.rmtree(FAULTS_DIR, ignore_errors=True)
+    return {"phase": "faults-20c", "card": smi,
+            "child_layers": VARIANT_LAYERS,
+            "child_watchdog_s": CHILD_WEDGE_S,
+            "startup_seconds": startup_s,
+            "kill_to_healthy_seconds": kill_to_healthy_s,
+            "wedge_seen_as_503": "503" in seen,
+            "wedge_to_healthy_seconds": wedge_to_healthy_s,
+            "resume_to_done_seconds": resume_to_done_s,
+            "journaled_at_kill": at_kill_a,
+            "journaled_before_last_child": len(journaled),
+            "errored_records_of_the_wedged_child": errored,
+            "num_chunks": max((r.get("num_chunks", 0) for r in recs
+                               if r["type"] == "job_header"), default=0),
+            "supervisor_seconds": time.time() - t0,
+            "sigterm_exit": rc}
+
+
+def run_hedge_path(smi: str) -> dict:
+    """20d: tail hedging over a straggling child server and a server in
+    this process, both ``VARIANT_LAYERS`` deep."""
+    import dataclasses
+    import os
+    import signal
+
+    from lmrs_tpu_torch.data.tokenizer import get_tokenizer
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.serving.router import RouterEngine
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+
+    card_line(smi, "faults-20d")
+    FAULTS_DIR.mkdir(parents=True, exist_ok=True)
+    here = Path(__file__).resolve().parent
+    port = free_port()
+    log_path = FAULTS_DIR / "straggler.log"
+    env = {**os.environ, "PYTHONPATH": str(here),
+           "LMRS_WATCHDOG_S": str(4 * STRAGGLE_S),
+           "LMRS_FAULT_PLAN": json.dumps({"faults": [
+               {"site": "scheduler.heartbeat", "at": [2], "action": "stall",
+                "stall_s": STRAGGLE_S}]})}
+    log = open(log_path, "w", encoding="utf-8")
+    child = subprocess.Popen(
+        [sys.executable, str(here / "chip_smoke.py"), "--layers-child",
+         str(VARIANT_LAYERS), "--model", "bench-8b", "--tokenizer", "byte",
+         "--device", "cuda", "--port", str(port), "--max-tokens-cap", "64",
+         "-q"], cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+    # the prefix cache off: the request sent again alone dispatches as the
+    # hedge leg did (bf16 texts agree under equal dispatch shapes)
+    cfg = at_depth(phase5_config(prefix_cache=False), VARIANT_LAYERS)
+    engine = TorchEngine(cfg.engine, cfg.model, device="cuda",
+                         tokenizer=get_tokenizer("byte"))
+    srv = EngineHTTPServer(engine, port=0, batch_window_s=0.02)
+    srv.start_background()
+    hosts = [f"127.0.0.1:{port}", f"127.0.0.1:{srv.port}"]
+    router = alone = None
+    try:
+        _wait_for(lambda: _healthz(port) == 200, "the straggler")
+        req = phase5_map_requests(cfg, engine)[0]
+        os.environ["LMRS_HEDGE_MS"] = str(HEDGE_MS)
+        router = RouterEngine(hosts, timeout_s=SERVE_TIMEOUT,
+                              prefix_route=False)
+        t0 = time.time()
+        res = router.generate_batch([dataclasses.replace(req)])[0]
+        hedge_wall = time.time() - t0
+        hedge = router.engine_metrics()["hedge"]
+        if res.error or hedge != {"hedges": 1, "wins": 1}:
+            raise AssertionError(f"20d: {res.finish_reason} {res.error}, "
+                                 f"hedge {hedge}")
+        alone = RouterEngine([hosts[1]], timeout_s=SERVE_TIMEOUT)
+        t1 = time.time()
+        want = alone.generate_batch([dataclasses.replace(req)])[0]
+        alone_wall = time.time() - t1
+        if want.text != res.text:
+            raise AssertionError("20d: the hedged text differs from the "
+                                 "winner's own")
+
+        def loser_cancelled() -> bool:
+            doc = json.loads(http_call(port, "GET", "/metrics")[1])
+            return doc["engine"]["cancelled"] >= 1
+
+        _wait_for(loser_cancelled, "the loser's cancel", timeout=60)
+        got = router.generate_batch([dataclasses.replace(req)],
+                                    on_tokens=lambda rid, d: None)[0]
+        if got.error or router.engine_metrics()["hedge"]["hedges"] != 1:
+            raise AssertionError("20d: a streamed request hedged")
+    finally:
+        os.environ.pop("LMRS_HEDGE_MS", None)
+        for r in (router, alone):
+            if r is not None:
+                r.shutdown()
+        srv.shutdown()
+        if child.poll() is None:
+            child.send_signal(signal.SIGINT)
+            try:
+                child.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait(timeout=60)
+        log.close()
+    last = [ln for ln in log_path.read_text().splitlines()
+            if ln.startswith('{"audit"')]
+    if not last:
+        raise AssertionError("20d: the straggler printed no audit: "
+                             f"{log_path.read_text()[-2000:]}")
+    doc = json.loads(last[-1])
+    if doc["audit"] or doc["pinned"]:
+        raise AssertionError(f"20d: the loser's audit {doc['audit']}, pins "
+                             f"{doc['pinned']}")
+    engine.shutdown()
+    del engine, srv
+    free_cuda()
+    return {"phase": "faults-20d", "card": smi, "hedge_ms": HEDGE_MS,
+            "straggle_s": STRAGGLE_S, "layers": VARIANT_LAYERS,
+            "hedged_wall_seconds": hedge_wall,
+            "winner_alone_wall_seconds": alone_wall,
+            "hedge": hedge, "loser_cancelled": doc["counters"]["cancelled"],
+            "loser_audit": doc["audit"]}
+
+
+def run_faults_path(smi: str) -> dict:
+    """Phase 20: 20a-20d, each on a line of its own."""
+    t0 = time.time()
+    a = run_chaos_path(smi)
+    emit(a)
+    b = run_wedge_path(smi)
+    emit(b)
+    c = run_supervise_path(smi)
+    emit(c)
+    d = run_hedge_path(smi)
+    emit(d)
+    return {"phase": "faults", "card": smi,
+            "wedge_declared_after_s": {
+                "host": b["host_stall"]["declared_after_silent_seconds"],
+                "device": b["device_stall"]["declared_after_silent_seconds"]},
+            "supervise": {k: c[k] for k in ("startup_seconds",
+                                            "kill_to_healthy_seconds",
+                                            "wedge_to_healthy_seconds",
+                                            "resume_to_done_seconds")},
+            "hedged_wall_seconds": d["hedged_wall_seconds"],
+            "seconds": time.time() - t0}
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
                launches_3c: dict) -> list[dict]:
@@ -5678,6 +6440,7 @@ def main() -> int:
     emit(timed(run_jobs_live_path, smi))
     emit(timed(run_obs_path, smi, main_out))
     emit(timed(run_train_eval_path, smi))
+    emit(timed(run_faults_path, smi))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),
@@ -5716,4 +6479,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--jobs-child"]:
         sys.exit(jobs_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--layers-child"]:
+        sys.exit(layers_child(sys.argv[2:]))
     sys.exit(main())

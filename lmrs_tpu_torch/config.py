@@ -156,6 +156,11 @@ class EngineConfig:
     # orphan sweep reclaims them (a request deadline clips it)
     handoff_ttl_s: float = field(
         default_factory=lambda: _envmod.env_float("LMRS_HANDOFF_TTL", 60.0))
+    # the fault-injection plane (testing/faults.py): a JSON FaultPlan (or
+    # "@/path/to/plan.json") that make_engine installs process-wide; empty
+    # = disabled, every injection site a no-op
+    fault_plan: str = field(
+        default_factory=lambda: _envmod.env_str("LMRS_FAULT_PLAN", ""))
     # speculative decoding: k n-gram drafts per chain verified per step (0 =
     # off); with mixed_batch tree speculation (engine/scheduler.py
     # spec_tree_width), without it linear speculation

@@ -291,7 +291,13 @@ def make_engine(engine_cfg: "EngineConfig",
                 device=None, tokenizer=None) -> Engine:
     """Engine factory keyed on ``EngineConfig.backend``: ``"torch"`` on
     ``device`` (``cuda`` unless ``"cpu"`` is asked for), ``"mock"`` and
-    ``"http"`` (neither touches a device)."""
+    ``"http"`` (neither touches a device).  A non-empty
+    ``engine_cfg.fault_plan`` arms the fault-injection plane for the
+    process first (idempotent per plan string)."""
+    if engine_cfg.fault_plan:
+        from lmrs_tpu_torch.testing import faults
+
+        faults.install_spec(engine_cfg.fault_plan)
     if engine_cfg.backend == "mock":
         from lmrs_tpu_torch.engine.mock import MockEngine
 

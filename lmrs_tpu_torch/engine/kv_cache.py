@@ -29,6 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from lmrs_tpu_torch.testing import faults
+
 from lmrs_tpu_torch.config import ModelConfig
 from lmrs_tpu_torch.engine.host_kv import as_dtype, dtype_name
 
@@ -144,6 +146,10 @@ class PagedKVCache:
     def alloc_pages(self, n: int) -> list[int]:
         """``allocator.alloc`` with the reclaim hook applied: under pressure,
         ask the prefix cache to evict before declaring OutOfPages."""
+        # injection site: a fired plan forces the back-pressure path even
+        # with free pages on hand (every caller treats OutOfPages as
+        # pressure, not error)
+        faults.fire("kv_cache.allocate", OutOfPages)
         if n > self.allocator.free_count and self.reclaim_cb is not None:
             self.reclaim_cb(n - self.allocator.free_count)
         return self.allocator.alloc(n)
@@ -246,6 +252,9 @@ class PagedKVCache:
         tail).  bf16 and int8 pools alike (int8's per-slot scales are the
         scheduler's and ride the payload separately).  The sequence is
         untouched: the caller keeps its pages pinned until the ack."""
+        # injection site: the pin-time capture fails (the scheduler turns
+        # it into a marked per-request error)
+        faults.fire("handoff.export")
         n = self.pages_needed(max(1, length))
         if n > len(seq.pages):
             raise ValueError(
@@ -315,6 +324,9 @@ class PagedKVCache:
         ``ValueError``; pool pressure raises ``OutOfPages`` (back-pressure:
         the importer retries).  A failure after allocation frees the
         pages."""
+        # injection site: the decode-side scatter fails before any
+        # allocation (a marked import error, the pool untouched)
+        faults.fire("handoff.import")
         kh, ps, hd = (int(x) for x in self.k.shape[1:])
         want = {"page_size": self.page_size, "n_layers": self.n_layers,
                 "n_kv_heads": kh, "head_dim": hd, "dtype": self.wire_dtype}

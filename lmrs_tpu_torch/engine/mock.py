@@ -36,6 +36,8 @@ from lmrs_tpu_torch.obs.anatomy import CLASSES, SEGMENTS, _pct, anatomy_enabled
 from lmrs_tpu_torch.obs.ledger import CostLedger
 from lmrs_tpu_torch.obs.slo import SLOEngine
 from lmrs_tpu_torch.obs.trace import get_tracer, req_tid
+from lmrs_tpu_torch.testing import faults
+from lmrs_tpu_torch.testing.faults import InjectedFault
 from lmrs_tpu_torch.utils.env import env_bool, env_int
 from lmrs_tpu_torch.utils.perf_model import pow2_bucket
 
@@ -213,6 +215,9 @@ class MockEngine:
                 on_tokens(res.request_id, res.text)
             return res
 
+        # injection site: an engine-level batch fault (callers degrade it to
+        # per-request error results)
+        faults.fire("engine.batch")
         self._note_mixed_batch(requests)
         try:
             if on_result is not None:
@@ -660,7 +665,14 @@ class MockEngine:
         if req.handoff_state is not None:
             # decode role: resume from the TRANSFERRED state — the payload's
             # text comes back, never recomputed, so the result proves the
-            # handoff carried the prefill side's state
+            # handoff carried the prefill side's state.  The handoff.import
+            # site degrades per request: a marked import failure
+            try:
+                faults.fire("handoff.import")
+            except InjectedFault as e:
+                return GenerationResult(
+                    request_id=req.request_id, finish_reason="error",
+                    error=f"handoff import failed: {type(e).__name__}: {e}")
             state = req.handoff_state
             if not req.trace_id and isinstance(state.get("trace_id"), str):
                 req.trace_id = state["trace_id"]
@@ -690,6 +702,13 @@ class MockEngine:
             cut = text.find(" ")
             first = text if cut < 0 else text[:cut + 1]
             if first != text:
+                try:
+                    faults.fire("handoff.export")
+                except InjectedFault as e:
+                    return GenerationResult(
+                        request_id=req.request_id, finish_reason="error",
+                        error=f"handoff export failed: "
+                              f"{type(e).__name__}: {e}")
                 payload = {"text": text, "prompt_tokens": prompt_tokens,
                            "stop_sequence": stop_hit, "finish_reason": "stop"}
                 if req.trace_id:

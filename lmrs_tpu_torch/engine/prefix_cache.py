@@ -54,6 +54,8 @@ import os
 import time
 
 from lmrs_tpu_torch.engine.host_kv import DiskReadError
+from lmrs_tpu_torch.testing import faults
+from lmrs_tpu_torch.testing.faults import InjectedFault
 
 logger = logging.getLogger("lmrs_torch.prefix_cache")
 
@@ -314,6 +316,10 @@ class PrefixCache:
         one allocator reference (the cache's); the caller keeps its own.
         Spilled nodes the walk passes through are PROMOTED back to resident
         on the caller's pages (identical content, freshly computed)."""
+        # injection site: fires before any tree or refcount mutation, so a
+        # fault leaves the cache as it was (the scheduler treats it as a
+        # lost optimization)
+        faults.fire("prefix_cache.insert")
         ps = self.page_size
         limit = (len(ids) // ps) * ps
         if max_tokens is not None:
@@ -394,8 +400,11 @@ class PrefixCache:
 
     def _disk_read(self, desc: dict) -> dict:
         """Read a disk descriptor back into a host payload, counting a
-        ``DiskReadError`` before it propagates."""
+        ``DiskReadError`` before it propagates.  The ``kv.disk_read``
+        injection site raises a ``DiskReadError`` there, so every caller's
+        degrade path takes it."""
         try:
+            faults.fire("kv.disk_read", DiskReadError)
             return self.disk.read(desc)
         except DiskReadError:
             self.disk.read_failures_total += 1
@@ -509,6 +518,15 @@ class PrefixCache:
         if (spill and n and self.pool is not None
                 and self.capture_cb is not None
                 and self.pool.fits(n * self.page_bytes)):
+            try:
+                # injection site: the spill capture fails before any
+                # gather; the victim's pages free uncached (evict means
+                # gone), as with the tier off
+                faults.fire("prefix.spill")
+            except InjectedFault:
+                logger.warning("KV spill capture failed; pages free "
+                               "uncached", exc_info=True)
+                return self._drop_subtree(node)
             t0 = time.time()
             payload = self.capture_cb(node.pages)
             self._metric("spill_capture_s", "observe", time.time() - t0)

@@ -114,6 +114,15 @@ postmortems.
   fetch/finish/io segments.  ``audit()`` carries the ledger's conservation
   and the anatomy's identity; postmortems fire on a dispatch fault, a
   deadline storm and an audit failure.
+* Faults and hangs: the top of each loop iteration holds the
+  ``scheduler.step`` and ``scheduler.heartbeat`` injection sites
+  (``testing/faults.py``) and stamps the dispatch watchdog's heartbeat
+  (``engine/watchdog.py``; ``LMRS_WATCHDOG=0``: none), which
+  ``TorchEngine``'s runner watches from the caller's thread; a kernel
+  build at first use inside a run opens its grace window.  The sites'
+  degrade paths: an ``OutOfPages`` at admission requeues, a failed
+  prefix-cache adoption costs a hit, a failed restore re-prefills, a
+  failed handoff capture or import is a marked error.
 * Streaming: ``run(on_tokens=)`` emits ``on_tokens(rid, delta)`` from
   ``_maybe_finish``, which every dispatch path reaches at each host fetch
   (decode blocks, first tokens, mixed steps, span and tree steps).  A delta
@@ -150,10 +159,13 @@ from lmrs_tpu_torch.obs import (POW2_TOKEN_BUCKETS, RATIO_BUCKETS,
                                 CostLedger, DispatchAttribution,
                                 MetricsRegistry, SLOEngine, dump_postmortem,
                                 get_tracer, maybe_anatomy, req_tid)
+from lmrs_tpu_torch.ops import kernels
 from lmrs_tpu_torch.ops.paged_attention import pack_spans
 from lmrs_tpu_torch.ops.sampling import filtered_probs, sample_logits
 from lmrs_tpu_torch.ops.speculative import (draft_lookup, draft_tree_lookup,
                                             verify_tokens, verify_tree)
+from lmrs_tpu_torch.testing import faults
+from lmrs_tpu_torch.testing.faults import InjectedFault
 from lmrs_tpu_torch.utils.env import env_bool, env_float, env_int
 from lmrs_tpu_torch.utils.perf_model import pow2_bucket, prefill_flops
 
@@ -224,6 +236,10 @@ _COUNTERS: tuple[tuple[str, str, str], ...] = (
     ("kv_migrate_exports", "warm page sets exported", ""),
     ("kv_migrate_imports", "migrated page sets imported", ""),
     ("kv_migrate_tokens", "prompt tokens installed by migration", "tokens"),
+    ("watchdog_fires", "dispatch wedges declared by the watchdog (run "
+     "abandoned, engine degraded fail-fast)", ""),
+    ("wedged_requests", "requests terminated finish_reason=\"wedged\" by "
+     "the watchdog sweep", ""),
 )
 # counters whose ``counters`` value stays a float (seconds)
 _FLOAT_COUNTERS = frozenset(k for k, _, unit in _COUNTERS
@@ -409,6 +425,20 @@ class ContinuousScheduler:
         # LMRS_PROFILE_ON_SLOW_STEP: the first warm decode block slower
         # than the threshold starts one torch.profiler capture per process
         self._slow_step_fired = False
+        # the dispatch watchdog (engine/watchdog.py): the loop stamps a
+        # heartbeat each iteration and TorchEngine's WatchdogRunner watches
+        # it from the caller thread.  LMRS_WATCHDOG=0: no watchdog, run()
+        # executes inline on the caller thread
+        self.watchdog = None
+        if env_bool("LMRS_WATCHDOG", True):
+            from lmrs_tpu_torch.engine.watchdog import DispatchWatchdog
+
+            self.watchdog = DispatchWatchdog()
+        # the counters the watchdog's wedge sweep bumps, under the
+        # reference's attribute names
+        self._c_watchdog_fires = self._m["watchdog_fires"]
+        self._c_wedged = self._m["wedged_requests"]
+        self._c_deadline = self._m["deadline"]
         self._warm_kinds: set[str] = set()
         self._last_block_t: float | None = None  # run-scoped (run())
         # LMRS_HOST_KV_SYNC=1 blocks on each restore (the A/B fallback for
@@ -613,7 +643,16 @@ class ContinuousScheduler:
                         self.cache.allocator.free(cached_pages)
                     break  # back-pressure: wait for pages to free up
                 queue.popleft()
-                fresh_pages = self.cache.alloc_pages(need)
+                try:
+                    fresh_pages = self.cache.alloc_pages(need)
+                except OutOfPages:
+                    # pressure raced (or was injected) past the free-count
+                    # check: release the match references, requeue at the
+                    # head and wait (back-pressure, never failure)
+                    if cached_pages:
+                        self.cache.allocator.free(cached_pages)
+                    queue.appendleft((req, ids, max_new, n_prompt, prior, t0))
+                    break
                 prefetched_tokens = 0
                 if spill_chain:
                     try:
@@ -720,10 +759,26 @@ class ContinuousScheduler:
         # break discards it and the finally aborts what a fault left open
         an = self._an
         self._last_block_t = None
+        wd = self.watchdog
+        if wd is not None:
+            wd.run_started()
+        # a kernel built at first use inside this run opens the watchdog's
+        # grace window (ops/kernels.load, on this thread)
+        kernels.set_build_watchdog(wd)
         try:
             while True:
                 an.iter_begin()
                 with an.seg("admit"):
+                    # injection site: a fired plan fails this iteration the
+                    # way a bad dispatch would (the recovery path below)
+                    faults.fire("scheduler.step")
+                    # injection site + heartbeat: a "stall" plan here wedges
+                    # the loop as a hung card would (no beat lands and the
+                    # watchdog declares the wedge; with LMRS_WATCHDOG=0 the
+                    # stall just holds the run)
+                    faults.fire("scheduler.heartbeat")
+                    if wd is not None:
+                        wd.beat()
                     # block boundary: sweep cancels and expired deadlines;
                     # their results go out with this iteration's fresh batch
                     if self._cancelled:
@@ -876,6 +931,9 @@ class ContinuousScheduler:
                 self._prefix_cache.clear()
             raise
         finally:
+            if wd is not None:
+                wd.run_ended()
+            kernels.set_build_watchdog(None)
             with self._pinned_lock:
                 self._run_live = False
             # releases parked during the run free here, on this thread
@@ -987,6 +1045,15 @@ class ContinuousScheduler:
                               res.error)
         results[rid] = res
         fresh.append(rid)
+
+    def cost_finish(self, req: GenerationRequest, res: GenerationResult
+                    ) -> None:
+        """Close a request's ledger entry for a result made OUTSIDE the
+        loop (the watchdog's wedge sweep): the usage bill and the SLO
+        outcome, as ``_record_result`` does for the loop's own results."""
+        res.usage = self._cost.finish(req, res)
+        self._slo.note_result(res.finish_reason, res.completion_tokens,
+                              res.error)
 
     def _finish_slot(self, b, slots, results, fresh, active, kv_lens,
                      last_tok, gen, text, stop_hit, finish_reason) -> None:
@@ -1348,7 +1415,15 @@ class ContinuousScheduler:
             if not text:
                 return  # hint 0 and no system prompt: nothing shared
             cap = 1 + len(self.tokenizer.encode(text))
-        self._prefix_cache.insert(st.prompt_ids, st.seq.pages, max_tokens=cap)
+        try:
+            self._prefix_cache.insert(st.prompt_ids, st.seq.pages,
+                                      max_tokens=cap)
+        except InjectedFault:
+            # the prefix_cache.insert site fires before any tree mutation:
+            # caching is an optimization, so the fault costs a hit, never
+            # the request
+            logger.warning("prefix-cache insert failed; request continues "
+                           "uncached", exc_info=True)
 
     def _note_preamble(self, req: GenerationRequest) -> None:
         """Record a donated preamble for the published radix summary: key =
@@ -2298,8 +2373,9 @@ class ContinuousScheduler:
         positional order; each promotes its node to resident on those pages
         and extends the match.  The first segment that cannot be restored
         (an entry dropped since the match, a ``DiskReadError``, a payload
-        ``ValueError``) truncates the match there: its pages and every
-        later segment's become prefill tail.  A device error raises.
+        ``ValueError``, the ``prefix.prefetch`` fault) truncates the match
+        there: its pages and every later segment's become prefill tail.  A
+        device error raises.
         Returns ``(cached_pages, fresh_tail, cached_tokens)``."""
         ps = self.cfg.page_size
         used = got = 0
@@ -2307,10 +2383,13 @@ class ContinuousScheduler:
         for node, n_tok in chain:
             npg = n_tok // ps
             try:
+                # injection site: fires before any mutation for this
+                # segment, so a fault costs the segment's reuse only
+                faults.fire("prefix.prefetch")
                 self._prefix_cache.prefetch_into(
                     node, fresh[used: used + npg], self.cache,
                     sync=self._host_kv_sync)
-            except (LookupError, DiskReadError, ValueError):
+            except (LookupError, DiskReadError, ValueError, InjectedFault):
                 logger.warning("KV prefetch failed; re-prefilling the "
                                "spilled segment", exc_info=True)
                 break
@@ -2359,14 +2438,33 @@ class ContinuousScheduler:
         (pages covering the prompt, resume state, int8 scales) host-side
         NOW, on the scheduler thread, so a handler thread's export never
         touches the device; keep the prompt pages allocated (pinned) until
-        ``release_handoff`` or the orphan sweep.  A failed capture of a
-        device tensor raises (no degrade)."""
+        ``release_handoff`` or the orphan sweep.  The ``handoff.export``
+        fault degrades to a marked per-request error; a failed capture of a
+        device tensor raises."""
         st = slots[b]
         rid = st.req.request_id
         now = time.time()
         keep = self.cache.pages_needed(len(st.prompt_ids))
         t0 = time.time()
-        payload = self.cache.export_sequence(st.seq, len(st.prompt_ids))
+        try:
+            payload = self.cache.export_sequence(st.seq, len(st.prompt_ids))
+        except InjectedFault as e:
+            # the handoff.export site fires before any capture: the request
+            # errors marked (the router re-prefills elsewhere) and its
+            # pages free, so the pool stays clean
+            logger.warning("handoff export capture failed for request %d",
+                           rid, exc_info=True)
+            self._record_result(results, GenerationResult(
+                request_id=rid, prompt_tokens=st.n_prompt,
+                finish_reason="error",
+                error=f"handoff export failed: {type(e).__name__}: {e}"),
+                fresh, st.req)
+            self.cache.close_sequence(st.seq)
+            slots[b] = None
+            active[b] = False
+            kv_lens[b] = 0
+            last_tok[b] = 0
+            return
         if self.kv_scales is not None:
             # per-slot scales, fixed at prefill: the decode side writes them
             # into its slot's scale rows at admission
@@ -2540,7 +2638,8 @@ class ContinuousScheduler:
             seq = self.cache.import_sequence(state)
         except OutOfPages:
             return False
-        except (ValueError, KeyError, TypeError) as e:
+        except (ValueError, KeyError, TypeError, InjectedFault) as e:
+            # InjectedFault: the handoff.import site, before any allocation
             return fail(f"{type(e).__name__}: {e}")
         queue.popleft()
         # consumed: a preempted continuation re-admits through prefill
@@ -2845,6 +2944,9 @@ class ContinuousScheduler:
             "handoff_imports": c["handoff_imports"],
             "handoff_orphaned_pages": c["handoff_orphaned_pages"],
             "handoff_pinned_pages": pinned,
+            "deadline_exceeded": c["deadline"],
+            "watchdog_fires": c["watchdog_fires"],
+            "wedged_requests": c["wedged_requests"],
         }
 
 

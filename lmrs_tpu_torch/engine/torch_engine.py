@@ -4,11 +4,13 @@
 Exposes the surface ``MapExecutor``, ``ResultAggregator`` and the HTTP
 server use: ``generate_batch`` (with ``on_tokens`` streaming), ``cancel``,
 ``schedules_internally``, ``engine_metrics``, ``prefix_summary``,
-``shutdown`` and ``tokenizer``, and the handoff and page-set hooks
+``shutdown``, ``wedged`` and ``tokenizer``, and the handoff and page-set hooks
 (``supports_handoff``, ``export_handoff``, ``release_handoff``,
 ``sweep_handoffs``, ``kv_export``, ``kv_import``), and the observability
 hooks (``metrics_registry``, ``usage_report``, ``slo_report``,
-``anatomy_report``, ``debug_profile``).  Runs on ``cuda`` unless
+``anatomy_report``, ``debug_profile``).  A continuous engine runs its
+scheduler on the dispatch watchdog's thread (``engine/watchdog.py``,
+``LMRS_WATCHDOG``, on by default).  Runs on ``cuda`` unless
 ``device="cpu"`` is asked for.  A CUDA engine checks, when it is built, that its kernels take
 the model and engine configuration (``check_cuda_config``), so no request
 reaches a kernel only to be refused there.  The weights come from, in turn:
@@ -56,6 +58,7 @@ from lmrs_tpu_torch.models.transformer import (forward, init_kv_cache,
 from lmrs_tpu_torch.ops.kernels import check_shapes
 from lmrs_tpu_torch.ops.quant import quantize_params
 from lmrs_tpu_torch.ops.sampling import sample_logits
+from lmrs_tpu_torch.testing import faults
 from lmrs_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("lmrs_torch.engine")
@@ -132,23 +135,41 @@ class TorchEngine:
         logger.info("model %s: %.1fM params on %s in %.1fs", model_cfg.name,
                     param_count(params) / 1e6, self.device, time.time() - t0)
         self._scheduler: ContinuousScheduler | None = None
+        self._runner = None
         if static:
             self.generator = torch.Generator(device=self.device).manual_seed(
                 engine_cfg.seed)
         else:
             self._scheduler = ContinuousScheduler(
                 engine_cfg, model_cfg, params, tokenizer, self.device)
+            # the dispatch watchdog (engine/watchdog.py, LMRS_WATCHDOG, on
+            # by default): the scheduler runs on a daemon dispatch thread
+            # and the caller thread watches its heartbeat, so a wedged card
+            # becomes bounded wedged/deadline results and a fail-fast
+            # degraded engine instead of a silent freeze.  LMRS_WATCHDOG=0
+            # leaves _runner None: run() executes inline on the caller
+            if self._scheduler.watchdog is not None:
+                from lmrs_tpu_torch.engine.watchdog import WatchdogRunner
+
+                self._runner = WatchdogRunner(self._scheduler)
         # slot + page admission replaces the executor's wave cap; the
         # static path takes the executor's waves
         self.schedules_internally = not static
 
     def generate_batch(self, requests: list[GenerationRequest],
                        on_result=None, on_tokens=None) -> list[GenerationResult]:
-        """Run the requests through the scheduler; ``on_tokens(rid,
-        delta)`` streams each request's text at every host fetch (the
-        static path: once, when its wave finishes)."""
+        """Run the requests through the scheduler (on the watchdog's
+        dispatch thread when it is armed); ``on_tokens(rid, delta)``
+        streams each request's text at every host fetch (the static path:
+        once, when its wave finishes)."""
         if not requests:
             return []
+        # injection site: an engine-level batch fault (the executor and the
+        # server's batcher degrade it to per-request error results)
+        faults.fire("engine.batch")
+        if self._runner is not None:
+            return self._runner.run(requests, on_result=on_result,
+                                    on_tokens=on_tokens)
         if self._scheduler is not None:
             return self._scheduler.run(requests, on_result=on_result,
                                        on_tokens=on_tokens)
@@ -277,7 +298,16 @@ class TorchEngine:
         return start_profile_capture(out_dir, duration_s)
 
     def shutdown(self) -> None:
-        """Nothing to stop: the engine runs on the caller's thread."""
+        """Stop the dispatch thread (a wedged run is abandoned: the thread
+        is a daemon)."""
+        if self._runner is not None:
+            self._runner.shutdown()
+
+    def wedged(self) -> bool:
+        """True while a wedged run still holds the dispatch thread (the
+        engine is degraded fail-fast); ``/healthz`` answers 503 with it so
+        the supervisor can bounce the process."""
+        return self._runner is not None and self._runner.wedged
 
     # --------------------------------------------------------- static path
 

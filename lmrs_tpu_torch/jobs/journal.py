@@ -16,8 +16,9 @@ work redone; a record that fails its CRC before the tail stops replay
 (``meta["corrupt"]``; everything after it is untrusted); duplicates are
 idempotent (``rebuild_state`` keys chunks by identity and nodes by
 content).  A failed append or fsync degrades (the journal marks itself
-non-durable and the job goes on); it never raises.  The reference's
-``journal.append`` / ``journal.fsync`` fault-injection sites are A10b's.
+non-durable and the job goes on); it never raises.  The
+``journal.append`` and ``journal.fsync`` fault-injection sites
+(``testing/faults.py``, ``OSError``) fire inside ``Journal.append``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import threading
 import zlib
 from pathlib import Path
 
+from lmrs_tpu_torch.testing import faults
 from lmrs_tpu_torch.utils.fingerprint import canonical_json, config_fingerprint
 
 logger = logging.getLogger("lmrs_torch.jobs.journal")
@@ -97,6 +99,9 @@ class Journal:
         line = f"{zlib.crc32(data):08x} ".encode("ascii") + data + b"\n"
         with self._lock:
             try:
+                # injection site: the append itself fails (disk full,
+                # volume gone): the job degrades to non-durable progress
+                faults.fire("journal.append", OSError)
                 if self._fh is None:
                     # (re)opening: the file may end in a PARTIAL line — a
                     # torn tail from a crashed predecessor, or bytes a
@@ -119,6 +124,9 @@ class Journal:
                 return False
             self.appends += 1
             try:
+                # injection site: the write landed in the page cache but
+                # the fsync fails (the record may not survive a crash)
+                faults.fire("journal.fsync", OSError)
                 # the fsync runs inside the lock on purpose: append
                 # durability ordering is the journal's contract
                 os.fsync(self._fh.fileno())

@@ -23,7 +23,8 @@ job's engine results roll their ledger ``usage`` up into the status doc's
 ``usage`` block (this process life's engine work: journal-answered chunks
 cost nothing), and the manager records ``job_submit``, ``job_recover``,
 ``job_resume`` and ``job_done`` on the tracer's pipeline track.  The
-reference's fault-injection sites are A10b's.
+``jobs.recover`` fault-injection site (``testing/faults.py``, ``OSError``)
+fires in ``recover`` once a job.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from lmrs_tpu_torch.pipeline import build_chunker, prepare_segments
 from lmrs_tpu_torch.prompts import (resolve_map_prompt, resolve_reduce_prompt,
                                     resolve_system_prompt)
 from lmrs_tpu_torch.reduce.aggregator import ResultAggregator
+from lmrs_tpu_torch.testing import faults
 from lmrs_tpu_torch.utils.timing import format_duration
 
 logger = logging.getLogger("lmrs_torch.jobs")
@@ -331,8 +333,7 @@ class JobManager:
         re-queue.  Returns the number re-queued.  A job whose recovery
         fails (``jobs.recover`` fault site; unreadable request file) is
         registered ``status="failed"`` so the interruption stays visible
-        instead of silently vanishing — the others still recover.  (The
-        reference's ``jobs.recover`` fault-injection site is A10b's.)"""
+        instead of silently vanishing — the others still recover."""
         recovered = 0
         for wal in sorted(self.dir.glob("*.wal")):
             jid = wal.stem
@@ -340,6 +341,9 @@ class JobManager:
                 if jid in self._jobs:
                     continue
             try:
+                # injection site: recovery of THIS job fails (corrupt
+                # request file, permission loss): degrade per job
+                faults.fire("jobs.recover", OSError)
                 req = json.loads(
                     (self.dir / f"{jid}.req.json").read_text("utf-8"))
                 records, _meta = jl.replay(wal)

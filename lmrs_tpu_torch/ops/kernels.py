@@ -32,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -48,6 +49,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# the dispatch watchdog of the scheduler run on this thread (set for the
+# length of a run): a build at first use opens its grace window, so a cold
+# nvcc never reads as a wedge (engine/watchdog.py)
+_build_watch = threading.local()
 
 # the template builds of the attention kernels (csrc/*.cu dispatch)
 HEAD_DIMS = (32, 64, 128, 256)
@@ -143,14 +148,30 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
     return info
 
 
+def set_build_watchdog(wd) -> None:
+    """Name the watchdog (or None) of the scheduler run on this thread."""
+    _build_watch.wd = wd
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (``csrc/<name>.cu`` unless ``BUILDS``
-    says otherwise), building it if needed."""
+    says otherwise), building it if needed; a build inside a watched run
+    runs in the watchdog's grace window.  ``ctypes.CDLL``, never
+    ``PyDLL``: a call into the library releases the GIL, so a launch that
+    blocks on a full launch queue leaves the watching thread free to
+    declare a wedge."""
     lib = _loaded.get(name)
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
-            build_all((name,))
+            wd = getattr(_build_watch, "wd", None)
+            if wd is not None:
+                wd.grace_cold()
+            try:
+                build_all((name,))
+            finally:
+                if wd is not None:
+                    wd.grace_end()
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
 

@@ -10,6 +10,9 @@ engine, on the card by default.
     lmrs-serve-torch --model bench-8b --tokenizer byte \
         --jobs-dir jobs/ --live-dir live/   # /v1/jobs and /v1/sessions
 
+    lmrs-serve-torch --supervise --model bench-8b --tokenizer byte \
+        --jobs-dir jobs/                    # restarted on a wedge or crash
+
 Flag spellings follow the reference's ``lmrs-serve``.  ``--backend`` takes
 ``torch`` (the default) or ``mock``; ``--device`` takes ``cuda`` (the
 default) or ``cpu``.  ``--role`` picks the disaggregated serving role
@@ -21,11 +24,13 @@ turns on the durable job API and ``--live-dir`` the live session API
 journals live there, and interrupted jobs and sessions recover at
 start-up.  The jobs' map requests ask ``--max-tokens-cap`` tokens.
 ``--trace`` (or ``LMRS_TRACE=1``) turns the lifecycle tracer on before the
-engine is built; ``GET /v1/trace`` then serves this host's span ring.  A
-server whose engine fails to build exits non-zero; it never moves to the
-CPU because no card was found.  Flags of features the port does not carry
-yet are refused by name with the slice that brings them: ``--mesh`` (A8)
-and ``--supervise`` (the supervisor, A10b).
+engine is built; ``GET /v1/trace`` then serves this host's span ring.
+``--supervise`` runs the server in a child process that the parent
+(``serving/supervisor.py``) polls on ``/healthz`` and SIGKILL-respawns on a
+watchdog-declared wedge (503 ``"wedged": true``), a hang or a crash; jobs
+and sessions resume from their journals across the bounce.  A server whose
+engine fails to build exits non-zero; it never moves to the CPU because no
+card was found.  ``--mesh`` (multi-GPU, A8) is refused by name.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ logger = logging.getLogger("lmrs_torch.serving")
 # flag -> the slice of the port that brings it
 _LATER = {
     "mesh": "multi-GPU (A8)",
-    "supervise": "robustness (A10b)",
 }
 
 
@@ -94,10 +98,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "/v1/trace then serves this host's span ring "
                         "(Chrome-trace JSON) for the router-side fleet "
                         "stitcher (also: LMRS_TRACE=1)")
+    p.add_argument("--supervise", action="store_true",
+                   help="run the server in a supervised CHILD process: the "
+                        "parent polls /healthz and SIGKILL-respawns the "
+                        "child on a watchdog-declared wedge, a hang or a "
+                        "crash; jobs and sessions resume from their "
+                        "journals across the bounce")
     p.add_argument("--quiet", "-q", action="store_true")
-    # not in the port yet: accepted only to refuse them by name
+    # not in the port yet: accepted only to refuse it by name
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--supervise", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -111,6 +120,15 @@ def main(argv: list[str] | None = None) -> int:
                          f"yet; it arrives with the {later} slice")
     logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if args.supervise:
+        # parent mode: never builds an engine; it spawns this CLI (minus
+        # --supervise, stripped by exact match: the parser takes no
+        # abbreviations) as its child and owns only its lifecycle
+        from lmrs_tpu_torch.serving.supervisor import Supervisor
+
+        raw = list(argv) if argv is not None else sys.argv[1:]
+        child_argv = [a for a in raw if a != "--supervise"]
+        return Supervisor(child_argv, host=args.host, port=args.port).run()
     from lmrs_tpu_torch.config import EngineConfig, PipelineConfig
     from lmrs_tpu_torch.engine.api import make_engine
     from lmrs_tpu_torch.serving.server import EngineHTTPServer

@@ -54,10 +54,25 @@ h:p,...`` fans the pipeline's requests over them.
   a request reads router → host on one timeline.  Completions forward the
   tenant (``X-LMRS-Tenant``) and bring back the ledger's ``usage.cost``.
 
-Not in the port yet, refused by name (robustness, A10b): tail hedging
-(``LMRS_HEDGE_MS`` > 0), SLO and tenant placement (``/healthz`` ``slo``
-blocks are published but no placement reads them), and adding, draining
-(with its KV migration) or removing hosts at run time.
+* **Tail hedging** (``LMRS_HEDGE_MS`` > 0, read per request; off by
+  default): a NON-streamed request whose primary leg has not answered
+  within the hedge delay (the p99 of successful non-streamed walls once 20
+  exist, floored at the knob) is duplicated to the next host; the first
+  non-error result wins and the loser is hung up (its server's disconnect
+  detection cancels it).  A primary that fails fast still gets its
+  sibling, as a plain failover leg.  Counted in ``engine_metrics()
+  ["hedge"]``, ``lmrs_router_hedges_total`` / ``lmrs_router_hedge_wins_
+  total`` and the fleet usage's ``router`` block.
+
+Fault-injection sites (``testing/faults.py``): ``router.connect`` (a
+connect-phase failure, as a dead host), ``router.probe`` (a failed
+``/healthz`` probe), ``router.recv`` (a mid-stream SSE fault or stall) and
+``router.hedge`` (a hedge launch abandoned or delayed).
+
+Not in the port yet, refused by name (the fleet half of robustness,
+A10b): SLO and tenant placement (``/healthz`` ``slo`` blocks are published
+but no placement reads them), and adding, draining (with its KV
+migration) or removing hosts at run time.
 """
 
 from __future__ import annotations
@@ -70,7 +85,9 @@ import random
 import socket
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from collections import deque
+from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from urllib.parse import urlsplit
 
 from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
@@ -80,11 +97,12 @@ from lmrs_tpu_torch.obs import (MetricsRegistry, add_label_to_exposition,
                                 get_tracer, merge_anatomy, merge_expositions,
                                 new_trace_id, stitch_traces)
 from lmrs_tpu_torch.obs.ledger import merge_usage, totals_from_tenants
+from lmrs_tpu_torch.testing import faults
 from lmrs_tpu_torch.utils.env import env_bool, env_float, env_int
 
 logger = logging.getLogger("lmrs_torch.router")
 
-_A10B = "robustness (A10b)"
+_A10B_FLEET = "fleet robustness (A10b's fleet half)"
 
 
 def _request_body(req: GenerationRequest) -> dict:
@@ -215,6 +233,10 @@ class _Host:
         return ok
 
     def connect(self, timeout: float) -> http.client.HTTPConnection:
+        # injection site: a connection-phase fault, raised as the host-down
+        # class, so it takes the unhealthy-marking + failover path of a
+        # dead backend
+        faults.fire("router.connect", _HostConnectError)
         return http.client.HTTPConnection(self.netloc, timeout=timeout)
 
     def probe(self) -> bool:
@@ -222,6 +244,10 @@ class _Host:
         host answers (an open breaker closes only through its canary)."""
         conn = None
         try:
+            # its own injection site and connection: probes run on pool
+            # threads and must not consume the request path's
+            # ``router.connect`` occurrences
+            faults.fire("router.probe", _HostConnectError)
             conn = http.client.HTTPConnection(self.netloc, timeout=2.0)
             conn.request("GET", "/healthz")
             ok = conn.getresponse().status == 200
@@ -245,10 +271,6 @@ class RouterEngine:
                  clock=time.monotonic, prefix_route: bool | None = None,
                  summary_ttl_s: float | None = None,
                  prefill_hosts: list[str] = (), decode_hosts: list[str] = ()):
-        if env_float("LMRS_HEDGE_MS", 0.0, lo=0.0) > 0:
-            raise ValueError(
-                "LMRS_HEDGE_MS (tail hedging) is not in the port yet; it "
-                f"arrives with the {_A10B} slice")
         self.hosts = ([_Host(h, clock=clock) for h in hosts]
                       + [_Host(h, "prefill", clock=clock)
                          for h in prefill_hosts]
@@ -320,6 +342,11 @@ class RouterEngine:
         self._job_lock = threading.Lock()
         self._jobs_forwarded = 0      # guarded-by: _stats_lock
         self._sessions_forwarded = 0  # guarded-by: _stats_lock
+        # tail hedging (LMRS_HEDGE_MS): hedge legs launched and won, and
+        # the successful non-streamed walls the hedge delay's p99 reads
+        self._hedges = 0       # guarded-by: _stats_lock
+        self._hedge_wins = 0   # guarded-by: _stats_lock
+        self._lat_s: deque[float] = deque(maxlen=512)  # guarded-by: _stats_lock
 
     def _count(self, attr: str) -> None:
         with self._stats_lock:
@@ -343,8 +370,12 @@ class RouterEngine:
             for wave in self._wave_cancel_sets:
                 wave.add(request_id)
         with self._inflight_lock:
-            target = self._inflight.get(request_id)
-        self._hangup(target)
+            # hedge and failover legs register under ("hedge", rid): a
+            # cancel after the primary leg ended must still reach them
+            targets = [self._inflight.get(request_id),
+                       self._inflight.get(("hedge", request_id))]
+        for target in targets:
+            self._hangup(target)
 
     @staticmethod
     def _hangup(target) -> None:
@@ -394,6 +425,8 @@ class RouterEngine:
                "handoff": {"handoffs": self._handoffs,
                            "retries": self._handoff_retries,
                            "fallbacks": self._handoff_fallbacks},
+               "hedge": {"hedges": self._hedges,
+                         "wins": self._hedge_wins},
                "prefix_route": {"enabled": self.prefix_route,
                                 "routed": self._prefix_routed,
                                 "predicted": self._prefix_predicted,
@@ -489,6 +522,12 @@ class RouterEngine:
         reg.counter("lmrs_handoff_fallbacks_total",
                     "handoff flows degraded to colocated re-prefill"
                     ).inc(self._handoff_fallbacks)
+        reg.counter("lmrs_router_hedges_total",
+                    "hedge legs launched for straggling requests "
+                    "(LMRS_HEDGE_MS tail hedging)").inc(self._hedges)
+        reg.counter("lmrs_router_hedge_wins_total",
+                    "hedged requests whose duplicate leg answered first "
+                    "(the loser was hung up)").inc(self._hedge_wins)
         reg.counter("lmrs_router_jobs_forwarded_total",
                     "durable-job API calls forwarded to backends"
                     ).inc(self._jobs_forwarded)
@@ -902,7 +941,9 @@ class RouterEngine:
             for t, roll in (doc.get("tenants") or {}).items():
                 merge_usage(tenants.setdefault(t, {}), roll)
         with self._stats_lock:
-            router = {"handoff_retries": self._handoff_retries}
+            router = {"hedges": self._hedges,
+                      "hedge_wins": self._hedge_wins,
+                      "handoff_retries": self._handoff_retries}
         return {"object": "usage", "enabled": enabled, "fleet": True,
                 "tenants": tenants, "totals": totals_from_tenants(tenants),
                 "per_host": per_host, "unreachable": unreachable,
@@ -935,7 +976,7 @@ class RouterEngine:
 
     def _refuse(self, what: str):
         raise NotImplementedError(f"{what} is not in the port yet; it "
-                                  f"arrives with the {_A10B} slice")
+                                  f"arrives with the {_A10B_FLEET} slice")
 
     def add_host(self, url: str, role: str = "both"):
         self._refuse("add_host")
@@ -1232,6 +1273,17 @@ class RouterEngine:
             logger.warning("request %d: handoff degraded; re-prefilling "
                            "colocated", req.request_id)
             prefer = None
+        # tail hedging, read per request (a live router can be flipped):
+        # non-streamed only, since a duplicated stream would double every
+        # delta the client already holds
+        hedge_ms = env_float("LMRS_HEDGE_MS", 0.0, lo=0.0)
+        if hedge_ms > 0 and on_tokens is None and len(self.hosts) > 1:
+            return self._one_hedged(i, req, cancelled, prefer, hedge_ms)
+        return self._one_colocated(i, req, on_tokens, cancelled, prefer)
+
+    def _one_colocated(self, i: int, req: GenerationRequest, on_tokens,
+                       cancelled: set[int], prefer: _Host | None = None
+                       ) -> GenerationResult:
         rid = req.request_id
         last_err = "no healthy backend"
         for attempt, host in enumerate(self._targets(i, "full", prefer)[:2]):
@@ -1245,7 +1297,12 @@ class RouterEngine:
                                         finish_reason="deadline")
             streamed = [0]  # deltas already forwarded for this request
             try:
+                t_leg = time.time()
                 res = self._post(host, req, on_tokens, streamed, cancelled)
+                if on_tokens is None:
+                    # the hedge delay's pool holds non-streamed walls only
+                    # (SSE walls are client-paced)
+                    self._note_latency(time.time() - t_leg)
                 host.note_served()
                 host.healthy = True
                 return res
@@ -1262,6 +1319,161 @@ class RouterEngine:
                 if streamed[0]:
                     # a retry would replay deltas already forwarded
                     break
+        return GenerationResult(request_id=rid, finish_reason="error",
+                                error=last_err)
+
+    # ------------------------------------------------------- tail hedging
+
+    def _note_latency(self, dt: float) -> None:
+        """One successful non-streamed completion wall (the hedge delay's
+        p99 sample pool)."""
+        with self._stats_lock:
+            self._lat_s.append(dt)
+
+    def _hedge_delay_s(self, hedge_ms: float) -> float:
+        """How long the primary leg may run before the hedge launches: the
+        p99 of the observed walls once 20 exist (a hedge chases tail
+        stragglers only), floored at ``LMRS_HEDGE_MS``."""
+        base = hedge_ms / 1000.0
+        with self._stats_lock:
+            lat = sorted(self._lat_s)
+        if len(lat) >= 20:
+            return max(base, lat[int(0.99 * (len(lat) - 1))])
+        return base
+
+    def _one_hedged(self, i: int, req: GenerationRequest,
+                    cancelled: set[int], prefer: _Host | None,
+                    hedge_ms: float) -> GenerationResult:
+        """Colocated dispatch with tail hedging: the primary leg runs on
+        the first-choice host; if it has not answered within the hedge
+        delay, a duplicate leg launches on the next host.  The first
+        non-error result wins; every other leg is hung up (the server's
+        disconnect detection cancels it and frees its slot and pages).  A
+        primary that fails fast still gets the sibling, as a plain failover
+        leg (no hedge counted), so arming the knob never costs the
+        two-host availability of ``_one_colocated``.  A backend-answered
+        error result does not feed the breaker."""
+        rid = req.request_id
+        rem = remaining_budget(req)
+        if rem is not None and rem <= 0:
+            return GenerationResult(request_id=rid, finish_reason="deadline")
+        targets = self._targets(i, "full", prefer)
+        primary = targets[0]
+        sibling = targets[1] if len(targets) > 1 else None
+        # the losers' abort mark, set before the hangup: a loser still
+        # before connect (its in-flight target a socketless connection
+        # whose close does nothing) aborts itself at _post's re-check
+        aborted: set[int] = set()
+
+        class _Either:
+            __slots__ = ()
+
+            def __contains__(_self, x) -> bool:
+                return x in cancelled or x in aborted
+
+        leg_cancel = _Either()
+
+        def leg(host: _Host, key) -> GenerationResult:
+            t0 = time.time()
+            res = self._post(host, req, None, [0], leg_cancel,
+                             inflight_key=key)
+            self._note_latency(time.time() - t0)
+            return res
+
+        def spawn(host: _Host, key) -> Future:
+            # a daemon thread a leg, not the dispatch pool: _one already
+            # runs on a pool thread, and legs queued behind a saturated
+            # wave would deadlock it
+            fut: Future = Future()
+
+            def run_leg():
+                if not fut.set_running_or_notify_cancel():
+                    return
+                try:
+                    fut.set_result(leg(host, key))
+                except BaseException as e:  # noqa: BLE001 - future carries
+                    fut.set_exception(e)
+
+            threading.Thread(target=run_leg, daemon=True,
+                             name=f"lmrs-hedge-{rid}").start()
+            return fut
+
+        legs: dict = {}  # future -> (host, in-flight key, is_hedge)
+        fut_p = spawn(primary, rid)
+        legs[fut_p] = (primary, rid, False)
+        delay_s = self._hedge_delay_s(hedge_ms)
+        _done, running = futures_wait({fut_p}, timeout=delay_s)
+        if running and sibling is not None and rid not in cancelled:
+            try:
+                # injection site: "raise" abandons this hedge (the primary
+                # continues alone: hedging is an optimization), "stall"
+                # delays its launch
+                faults.fire("router.hedge")
+            except faults.InjectedFault:
+                logger.warning("hedge launch for %d abandoned", rid,
+                               exc_info=True)
+            else:
+                fut_h = spawn(sibling, ("hedge", rid))
+                legs[fut_h] = (sibling, ("hedge", rid), True)
+                self._count("_hedges")
+                logger.info("request %d: hedged to %s after %.0f ms",
+                            rid, sibling.netloc, delay_s * 1e3)
+        winner: GenerationResult | None = None
+        error_res: GenerationResult | None = None
+        last_err = "no healthy backend"
+        pending = set(legs)
+        while pending and winner is None:
+            done, pending = futures_wait(pending, return_when=FIRST_COMPLETED)
+            for f in done:
+                host, _key, is_hedge = legs[f]
+                try:
+                    res = f.result()
+                except Exception as e:  # noqa: BLE001 - per-leg degrade
+                    if rid in cancelled:
+                        winner = GenerationResult(request_id=rid,
+                                                  finish_reason="cancelled")
+                        break
+                    host.note_failed()
+                    if isinstance(e, _HostConnectError):
+                        host.healthy = False
+                    last_err = f"{host.netloc}: {type(e).__name__}: {e}"
+                    logger.warning("hedge leg for %d failed on %s: %s",
+                                   rid, host.netloc, last_err)
+                    # this leg died: with no other leg running and the
+                    # sibling never tried, launch it as a plain failover
+                    if (not pending and sibling is not None
+                            and not any(h is sibling
+                                        for h, _k, _x in legs.values())
+                            and rid not in cancelled):
+                        fut_f = spawn(sibling, ("hedge", rid))
+                        legs[fut_f] = (sibling, ("hedge", rid), False)
+                        pending = {fut_f}
+                    continue
+                if res.finish_reason != "error":
+                    host.note_served()
+                    host.healthy = True
+                    if is_hedge:
+                        self._count("_hedge_wins")
+                    winner = res
+                    break
+                # a backend-answered error: the host served it, so it feeds
+                # neither the breaker nor a failover; it is the outcome
+                # unless another leg wins outright
+                host.note_served()
+                error_res = res
+                last_err = res.error or "backend error"
+        # hang up the losers: abort mark first, then the socket
+        if winner is not None and any(not f.done() for f in legs):
+            aborted.add(rid)
+        for f, (_host, key, _h) in legs.items():
+            if not f.done():
+                with self._inflight_lock:
+                    target = self._inflight.get(key)
+                self._hangup(target)
+        if winner is not None:
+            return winner
+        if error_res is not None:
+            return error_res
         return GenerationResult(request_id=rid, finish_reason="error",
                                 error=last_err)
 
@@ -1429,7 +1641,8 @@ class RouterEngine:
 
     def _post(self, host: _Host, req: GenerationRequest, on_tokens,
               streamed: list[int], cancelled: set[int],
-              body_extra: dict | None = None) -> GenerationResult:
+              body_extra: dict | None = None,
+              inflight_key=None) -> GenerationResult:
         body = _request_body(req)
         if body_extra:
             body.update(body_extra)
@@ -1444,15 +1657,18 @@ class RouterEngine:
             timeout = max(1.0, min(timeout, rem + 5.0))
         conn = host.connect(timeout)
         rid = req.request_id
+        # a hedge leg registers under its own key, so two legs of one rid
+        # never clobber each other's hangup target
+        key = rid if inflight_key is None else inflight_key
         with self._inflight_lock:
-            self._inflight[rid] = conn
+            self._inflight[key] = conn
         try:
             try:
                 conn.connect()  # explicit: a connect failure = host down
             except OSError as e:
                 raise _HostConnectError(str(e)) from e
             with self._inflight_lock:
-                self._inflight[rid] = conn.sock
+                self._inflight[key] = conn.sock
             headers = {"Content-Type": "application/json"}
             if req.trace_id:
                 headers["X-LMRS-Trace"] = req.trace_id
@@ -1484,7 +1700,7 @@ class RouterEngine:
                 usage=usage.get("cost") or None)
         finally:
             with self._inflight_lock:
-                self._inflight.pop(rid, None)
+                self._inflight.pop(key, None)
             try:
                 conn.close()
             except Exception:  # noqa: BLE001
@@ -1513,6 +1729,10 @@ class RouterEngine:
         done_seen = False
         try:
             for raw in resp:
+                # injection site: a mid-stream fault ("raise": a worker
+                # dying mid-response, no retry once deltas went out;
+                # "stall": a backend gone slow)
+                faults.fire("router.recv", OSError)
                 line = raw.decode("utf-8", "replace").strip()
                 if not line.startswith("data:"):
                     continue

@@ -7,7 +7,8 @@ Routes, as in the reference (``docs/SERVING.md`` is the contract):
 * ``POST /v1/chat/completions`` (OpenAI) and ``POST /v1/messages``
   (Anthropic), plain or ``"stream": true`` (SSE in each wire's dialect);
 * ``GET /healthz`` (with the serving ``role`` and the engine's radix
-  ``prefix_summary``), ``GET /v1/models``, ``GET /metrics`` (JSON with the
+  ``prefix_summary``; 503 with ``"wedged": true`` while the engine's
+  dispatch watchdog holds it degraded), ``GET /v1/models``, ``GET /metrics`` (JSON with the
   ``handoff`` and ``kv_migrate`` ticket stats, or Prometheus text under
   ``Accept: text/plain``);
 * disaggregated handoff: ``role`` is ``prefill``, ``decode`` or ``both``.
@@ -61,7 +62,7 @@ cancels its request through the engine's ``cancel`` hook.
   else ``"default"``), minted at ingress and carried through handoffs;
   responses carry the ledger's bill as ``usage.cost``.  The
   ``X-LMRS-QoS-Class`` header is accepted and not acted on: fair-share
-  QoS is A10b's.
+  QoS is the fleet half of A10b's (not in the port yet).
 
 Standard library only (``http.server``).
 """
@@ -85,6 +86,7 @@ from lmrs_tpu_torch.obs import (DEFAULT_TENANT, MetricsRegistry, get_tracer,
                                 merge_expositions, new_trace_id)
 from lmrs_tpu_torch.serving.handoff import (ImportLog, TicketRegistry,
                                             decode_payload, encode_payload)
+from lmrs_tpu_torch.testing import faults
 from lmrs_tpu_torch.utils.env import env_bool
 
 logger = logging.getLogger("lmrs_torch.serving")
@@ -590,9 +592,23 @@ class EngineHTTPServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    payload = {"status": "ok", "wedged": False,
-                               "role": outer.role,
+                    # a watchdog-degraded engine answers 503 + wedged:true
+                    # (the optional ``wedged`` hook): the supervisor
+                    # SIGKILL-respawns on it and the router's probe does
+                    # not re-admit the host
+                    wedged = False
+                    hook = getattr(outer.engine, "wedged", None)
+                    if hook is not None:
+                        try:
+                            wedged = bool(hook())
+                        except Exception:  # noqa: BLE001 - stay healthy
+                            logger.debug("wedged hook failed", exc_info=True)
+                    payload = {"status": "wedged" if wedged else "ok",
+                               "wedged": wedged, "role": outer.role,
                                "uptime_s": round(time.time() - outer.started, 1)}
+                    if wedged:
+                        self._send(503, payload)
+                        return
                     summary = outer.prefix_summary()
                     if summary is not None:
                         payload["prefix_summary"] = summary
@@ -751,6 +767,10 @@ class EngineHTTPServer:
                 """Disconnect probe for non-streaming waits: a MSG_PEEK read
                 returning b'' means the peer sent FIN (a half-closed client
                 reads as gone, as in the reference)."""
+                # injection site: a fired plan reports the client gone (the
+                # disconnect -> cancel path without a socket teardown)
+                if faults.check("server.client_disconnect"):
+                    return True
                 try:
                     self.connection.setblocking(False)
                     try:
@@ -1408,7 +1428,8 @@ class EngineHTTPServer:
 
     # ------------------------------------------------- handoff plumbing
 
-    def _fetch_blob(self, path: str, source: str, kind: str):
+    def _fetch_blob(self, path: str, source: str, kind: str,
+                    site: str | None = None):
         """GET a payload blob from ``source`` and decode it: ``(payload,
         None)`` or ``(None, (status, error body))`` — a marked failure the
         router falls back from, never an empty success."""
@@ -1417,11 +1438,18 @@ class EngineHTTPServer:
             conn = http.client.HTTPConnection(source, timeout=30.0)
             conn.request("GET", path)
             resp = conn.getresponse()
-            data = resp.read()
             if resp.status != 200:
+                resp.read()
                 return None, (502, _handoff_error(
                     f"payload fetch from {source} failed: HTTP "
                     f"{resp.status}", kind))
+            data = resp.read(1 << 16)
+            if site:
+                # injection site: the transfer dies MID-PAYLOAD, after the
+                # first body read (one occurrence a transfer); the import
+                # is a marked failure
+                faults.fire(site, OSError)
+            data += resp.read()
             return decode_payload(data), None
         except (OSError, http.client.HTTPException, ValueError) as e:
             return None, (502, _handoff_error(
@@ -1445,24 +1473,32 @@ class EngineHTTPServer:
                 f"duplicate handoff import of ticket {tid} (already "
                 "imported on this host)"))
         payload, err = self._fetch_blob(f"/v1/handoff/{tid}", source,
-                                        "handoff_error")
+                                        "handoff_error",
+                                        site="handoff.transfer")
         if err is not None:
             return None, err
         if not self._imported.add(tid):  # raced a concurrent duplicate
             self._c_dup_rejects.inc()
             return None, (409, _handoff_error(
                 f"duplicate handoff import of ticket {tid}"))
-        if not self._send_ack(f"/v1/handoff/{tid}/ack", source):
+        if not self._send_ack(f"/v1/handoff/{tid}/ack", source,
+                              site="handoff.ack"):
             self._c_ack_failures.inc()
         return payload, None
 
-    def _send_ack(self, path: str, source: str) -> bool:
+    def _send_ack(self, path: str, source: str,
+                  site: str | None = None) -> bool:
         """Ack an import so the source releases its pins; one retry.  A
         lost ack is not the request's failure: the source's orphan sweep
-        reclaims the pins at the ticket deadline."""
+        reclaims the pins at the ticket deadline.  ``site`` names the
+        injection site each attempt fires."""
         for attempt in range(2):
             conn = None
             try:
+                if site:
+                    # injection site: the ack vanishes on the wire (pages
+                    # stay pinned until the orphan sweep)
+                    faults.fire(site, OSError)
                 conn = http.client.HTTPConnection(source, timeout=5.0)
                 conn.request("POST", path)
                 resp = conn.getresponse()

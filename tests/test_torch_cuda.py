@@ -1199,3 +1199,119 @@ def test_synthetic_quality_gate_trained_on_card(cuda_device):
         assert score >= gate, (kw, score)
         if not kw:
             assert score > 3 * extract, (score, extract)
+
+
+def _wedge_engine(dev):
+    """A 2-layer bf16 engine on the card whose byte tokenizer never samples
+    an end-of-sequence id (every request runs its whole budget)."""
+    from lmrs_tpu_torch.config import EngineConfig, ModelConfig
+    from lmrs_tpu_torch.data.tokenizer import ByteTokenizer
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+
+    class NoEos(ByteTokenizer):
+        eos_id = 511
+
+    cfg = ModelConfig(name="wd-cuda", vocab_size=512, dim=256, n_layers=2,
+                      n_heads=8, n_kv_heads=2, hidden_dim=512,
+                      max_seq_len=512, dtype="bfloat16")
+    return TorchEngine(EngineConfig(max_tokens=64, max_batch_slots=4,
+                                    page_size=32, num_pages=64, seed=0,
+                                    decode_block=4, prefix_cache=False),
+                       cfg, device=dev, tokenizer=NoEos())
+
+
+def _wedge_reqs(n=3):
+    from lmrs_tpu_torch.engine.api import GenerationRequest
+
+    return [GenerationRequest(prompt=f"device stall probe {i}", request_id=i,
+                              temperature=0.0, max_new_tokens=48)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_device_stall_is_declared_a_wedge(cuda_device, monkeypatch):
+    """A sleep kernel queued on the engine's stream for several thresholds
+    while a batch decodes: the dispatch thread blocks in a CUDA call (the
+    fetch, or a full launch queue) with the GIL released, the caller
+    declares the wedge within the threshold plus a margin, and once the
+    sleep drains the engine re-arms with the undisturbed run's texts."""
+    import threading
+    import time
+
+    eng = _wedge_engine(cuda_device)
+    try:
+        want = [r.text for r in eng.generate_batch(_wedge_reqs())]
+        monkeypatch.setenv("LMRS_WATCHDOG_S", "1.0")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(int(1e8))
+        end.record()
+        end.synchronize()
+        cycles_per_s = 1e8 / (start.elapsed_time(end) / 1e3)
+        sched = eng._scheduler
+        queued = {}
+
+        def sleeper():
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                live = sched.live_tokens()
+                if live and min(live.values()) >= 2:
+                    break
+                time.sleep(0.001)
+            torch.cuda._sleep(int(4.0 * cycles_per_s))
+            queued["t"] = time.monotonic()
+
+        th = threading.Thread(target=sleeper, daemon=True)
+        th.start()
+        out = eng.generate_batch(_wedge_reqs())
+        t_ret = time.monotonic()
+        th.join(timeout=10)
+        assert "t" in queued, "the sleep kernel was never queued"
+        assert [r.finish_reason for r in out] == ["wedged"] * 3
+        assert t_ret - queued["t"] < 1.0 + 1.0
+        assert eng.wedged()
+        assert eng._runner.wait_idle(60.0) and not eng.wedged()
+        assert [r.text for r in eng.generate_batch(_wedge_reqs())] == want
+        assert eng.audit() == []
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_host_stall_wedge_and_rearm_on_card(cuda_device, monkeypatch):
+    """A ``scheduler.heartbeat`` stall on the card: ``wedged`` results, the
+    engine fail-fast until the stall ends, then the same texts; the
+    dispatch thread runs on the engine's device without grad mode."""
+    import time
+
+    from lmrs_tpu_torch.engine import scheduler as sched_mod
+    from lmrs_tpu_torch.testing import faults
+    from lmrs_tpu_torch.testing.faults import FaultPlan
+
+    eng = _wedge_engine(cuda_device)
+    seen = []
+    real = sched_mod.forward_paged
+
+    def forward(*a, **kw):
+        seen.append((torch.cuda.current_device(), torch.is_grad_enabled()))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(sched_mod, "forward_paged", forward)
+    try:
+        want = [r.text for r in eng.generate_batch(_wedge_reqs())]
+        assert set(seen) == {(eng.device.index or 0, False)}
+        monkeypatch.setenv("LMRS_WATCHDOG_S", "0.5")
+        with faults.injected(FaultPlan(faults=[
+                {"site": "scheduler.heartbeat", "at": [2],
+                 "action": "stall", "stall_s": 2.0}])):
+            t0 = time.monotonic()
+            out = eng.generate_batch(_wedge_reqs())
+            assert time.monotonic() - t0 < 1.5
+        assert [r.finish_reason for r in out] == ["wedged"] * 3
+        assert eng._runner.wait_idle(30.0)
+        assert [r.text for r in eng.generate_batch(_wedge_reqs())] == want
+        assert eng.audit() == []
+    finally:
+        eng.shutdown()
+

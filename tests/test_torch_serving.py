@@ -669,14 +669,34 @@ def test_engine_prefix_summary_publishes_donated_preambles():
     pytest.param(["--supervise"], "A10b", id="flag3-A10"),
     pytest.param(["--trace"], "A10", id="flag4-A10")])
 def test_serve_cli_refuses_later_flags(flag, slice_, capsys, monkeypatch):
-    """Flags of later slices are refused by name (``--supervise`` names
-    A10b, the robustness half of A10).  ``--jobs-dir`` and ``--live-dir``
-    came with A13 and ``--trace`` with A10: they reach the server (its
-    constructor is stubbed to record them and fail the bind, so ``main``
-    returns 1); ``--trace`` has turned the tracer on by then."""
+    """Flags of later slices are refused by name (``--mesh`` names A8).
+    ``--jobs-dir`` and ``--live-dir`` came with A13 and ``--trace`` with
+    A10: they reach the server (its constructor is stubbed to record them
+    and fail the bind, so ``main`` returns 1); ``--trace`` has turned the
+    tracer on by then.  ``--supervise`` came with A10b's first half: it
+    hands the argv minus the flag to the supervisor (stubbed to record it)
+    and builds no engine in the parent."""
     from lmrs_tpu_torch.obs import disable_tracing, get_tracer
-    from lmrs_tpu_torch.serving import cli, server
+    from lmrs_tpu_torch.serving import cli, server, supervisor
 
+    if slice_ == "A10b":
+        seen = {}
+
+        class FakeSupervisor:
+            def __init__(self, child_argv, host, port):
+                seen.update(argv=child_argv, host=host, port=port)
+
+            def run(self):
+                return 0
+
+        monkeypatch.setattr(supervisor, "Supervisor", FakeSupervisor)
+        monkeypatch.setattr(server, "EngineHTTPServer", lambda engine, **kw: (
+            _ for _ in ()).throw(AssertionError("the parent built a server")))
+        assert cli.main([*flag, "--backend", "mock", "--port", "8123",
+                         "-q"]) == 0
+        assert seen == {"argv": ["--backend", "mock", "--port", "8123", "-q"],
+                        "host": "127.0.0.1", "port": 8123}
+        return
     if slice_ == "A10":
         monkeypatch.setattr(server, "EngineHTTPServer", lambda engine, **kw: (
             _ for _ in ()).throw(OSError("bind refused (test)")))
