@@ -72,7 +72,13 @@ anything wrong.  Phases, one JSON object per line:
               (``multi_decode``) through ``forward_paged``, on the card
               (bf16, kernels) and on the CPU (f32, plain versions), same
               weights; max logit difference, and greedy agreement wherever
-              the CPU top-2 margin exceeds the tolerance.  Then the same
+              the CPU top-2 margin exceeds the tolerance.  The CPU passes
+              (``model_pass``) run in a child (``--model-refs``, every
+              phase-4 case in ``MODEL_CASES`` order) started before phase
+              3, and phases 4-4e run after phase 14, so the child's ~200 s
+              of f32 CPU work overlaps the card's phases 3-14; each check
+              loads its case's weights and CPU logits from the child's
+              file.  Then the same
               check with int8 weights and int8 KV pages (``quantize_params``
               on the CPU, the same int8 values and scales on the card; the
               span dispatch re-prefills row 2 from position 0, a base-0 row
@@ -386,7 +392,33 @@ anything wrong.  Phases, one JSON object per line:
               (``{"hedges": 1, "wins": 1}``) with the winner's own text for
               the request, the loser cancels it and exits with a clean
               audit; a streamed request does not hedge.
-21. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+21. fleet (``run_fleet_path``; each sub-phase prints the card's name and
+    power limit): 21a, QoS on the main path at full bench-8b depth:
+    ``FLEET_WAVE`` = 16 of phase 5's map prompts as tenant ``bulk`` class
+    ``batch`` (``TenantStampEngine``) then 4 as tenant ``live`` class
+    ``interactive``, one ``generate_batch`` of 64 tokens each over
+    ``FLEET_PAGES`` pages with the tracer on: the interactive requests
+    admitted first, ``lmrs_qos_reorders_total`` >= 1, a preemption whose
+    every ``qos_preempt`` victim is batch and
+    ``lmrs_qos_preempt_victims_total`` equal to the preemptions, no failed
+    request, a clean audit, flash, decode and span launches; the same wave
+    with ``LMRS_QOS=0`` admits FIFO with no reorder.  Median TTFT per class
+    and each wall are printed, not gated.  21b: two ``role="both"``
+    servers over 8-layer bench-8b engines (B built under ``FLEET_SLO``: a
+    1 ms TTFT target, 3 s windows) and a colocated ``RouterEngine``: a
+    tenant's second request follows its first (``tenant_route.routed``),
+    B burns its objective and the next requests go to A
+    (``slo_route.penalized``), then a warm host is drained: its page set
+    moves to the sibling over ``/v1/kv``, whose rerun is a prefix hit
+    through the span kernel with fewer prefill tokens than cold and the
+    warm host's own prefix-hit text; the drained host is removed, the
+    last one cannot be, audits clean.  21c: an ``Autoscaler`` ticked by
+    hand over B alone: one tick spawns one ``SupervisedHostPool`` child on
+    the card (through ``--layers-child``), which serves a request; once
+    B's burn clears, a tick drains the child, a later one removes it, the
+    supervisor exits 0 and the three ``lmrs_autoscale_*`` counters read 1.
+    Then the script's total seconds.
+22. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -1440,15 +1472,238 @@ def moe_routes(cfg, records: list) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(sets), torch.stack(kept)
 
 
-def check_model(int8: bool = False, preset: str = "bench-8b",
-                n_layers: int = MODEL_CHECK_LAYERS,
-                params_cpu: dict | None = None) -> dict:
-    """``preset``'s widths at ``n_layers`` layers.  ``int8``: the same
-    weights quantized (``quantize_params`` on the CPU; the card gets the
-    same int8 values and scales), int8 KV pools with per-slot scale
-    buffers on both devices — except for a mixture-of-experts preset,
-    whose path keeps bf16 KV.  ``params_cpu``: the f32 weights to use
-    (drawn here from seed 1 when None).
+def model_pass(dev: str, cfg, params: dict, kv8: bool,
+               cpu: dict | None = None) -> dict:
+    """Every forward of one phase-4 model check on ``dev``: a packed
+    prefill of three prompts (517, 300 and 129 tokens), 16 decode steps,
+    one span dispatch (rows 0 and 1 decode a token, row 2 takes a
+    100-token slice after its 145-token context; int8 KV: row 2
+    re-prefills from position 0, a preempted request's continuation that
+    owns its slot's scales) and, for a dense model, one 5-token verify
+    step.  Inputs come from seeded draws, so both devices see the same;
+    the decode steps are teacher-forced with the greedy tokens of ``cpu``
+    (the CPU pass) when given, else of this pass.  Returns each compared
+    step's logits (f32, on the host), the token rows its comparison reads,
+    its ``moe.route`` records, and the KV scale buffers at the end."""
+    import numpy as np
+
+    from lmrs_tpu_torch.models.transformer import forward_paged
+    from lmrs_tpu_torch.ops import moe
+    from lmrs_tpu_torch.ops.paged_attention import pack_spans
+
+    ps, n_pool, steps = 128, 48, 16
+    g = torch.Generator().manual_seed(3)
+    prompt_lens = [517, 300, 129]
+    prompts = [torch.randint(3, 259, (n,), generator=g) for n in prompt_lens]
+    # pages: prompt + decode steps per sequence, disjoint, page 0 reserved
+    tables, nxt = [], 1
+    for n in prompt_lens:
+        need = -(-(n + steps) // ps)
+        tables.append(list(range(nxt, nxt + need)))
+        nxt += need
+    W = max(len(t) for t in tables)
+    table = torch.tensor([t + [0] * (W - len(t)) for t in tables]).to(dev)
+    shape = (cfg.n_layers * n_pool, cfg.n_kv_heads, ps, cfg.hd)
+    pool_dt = (torch.int8 if kv8 else
+               torch.float32 if dev == "cpu" else torch.bfloat16)
+    kp = torch.zeros(shape, dtype=pool_dt, device=dev)
+    vp = torch.zeros(shape, dtype=pool_dt, device=dev)
+    # int8: per-slot scale buffers (3 slots = the 3 prompts' rows)
+    sshape = (cfg.n_layers, len(prompt_lens), cfg.n_kv_heads, cfg.hd)
+    scales = ((torch.ones(sshape, device=dev), torch.ones(sshape, device=dev))
+              if kv8 else None)
+    tokens = torch.cat(prompts)[None]
+    positions = torch.cat([torch.arange(n) for n in prompt_lens])[None]
+    seg = torch.cat([torch.full((n,), i) for i, n in enumerate(prompt_lens)])[None]
+    tok_pages = torch.cat([torch.tensor(t)[torch.arange(n) // ps]
+                           for t, n in zip(tables, prompt_lens)])[None]
+    last_idx = torch.tensor(prompt_lens).cumsum(0) - 1
+    total = torch.tensor([sum(prompt_lens)], dtype=torch.int32)
+    out: list[dict] = []
+    routes: list = []
+    route = moe.route
+
+    def recording_route(router, cfg_, xt):
+        res = route(router, cfg_, xt)
+        routes.append((xt.shape[0], res[2].cpu()))
+        return res
+
+    def run(toks, pos, lens, **kw):
+        return forward_paged(params, cfg, toks.to(dev), pos.to(dev), kp, vp,
+                             table, lens.to(dev), cfg.max_seq_len,
+                             kv_scales=scales,
+                             **{k: (v.to(dev) if torch.is_tensor(v) else v)
+                                for k, v in kw.items()}).float().cpu()
+
+    def step(logits, rows) -> torch.Tensor:
+        """Record one compared step; its greedy tokens for teacher
+        forcing (the CPU pass's when given)."""
+        out.append({"logits": logits, "rows": rows, "routes": list(routes)})
+        routes.clear()
+        return (cpu["steps"][len(out) - 1]["logits"] if cpu else logits
+                ).argmax(-1)
+
+    moe.route = recording_route
+    try:
+        cur = step(run(tokens, positions, total, token_pages=tok_pages,
+                       segment_ids=seg, packed_last_idx=last_idx,
+                       scale_rows=torch.arange(3))[0], last_idx)
+        lens = torch.tensor(prompt_lens)
+        for _ in range(steps):
+            cur = step(run(cur[:, None], lens[:, None],
+                           (lens + 1).to(torch.int32))[:, 0], torch.arange(3))
+            lens = lens + 1
+        q_lens = np.array([1, 1, 100], np.int32)
+        q_starts, n_flat = pack_spans(q_lens)
+        flat = torch.zeros(n_flat, dtype=torch.long)
+        row_flat = np.full((n_flat,), 3, np.int32)
+        for i, n in enumerate(q_lens):
+            row_flat[q_starts[i]: q_starts[i] + n] = i
+        flat[q_starts[0]], flat[q_starts[1]] = cur[0], cur[1]
+        flat[q_starts[2]: q_starts[2] + 100] = torch.randint(
+            3, 259, (100,), generator=g)
+        base = lens.numpy().astype(np.int32)
+        if kv8:
+            base[2] = 0
+        rf = np.clip(row_flat, 0, 2)
+        pos = torch.from_numpy(np.clip(base[rf] + np.arange(n_flat)
+                                       - q_starts[rf], 0, cfg.max_seq_len - 1))
+        gidx = torch.from_numpy(q_starts + q_lens - 1)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        step(forward_paged(
+            params, cfg, flat[None].to(dev), pos[None].to(dev), kp, vp, table,
+            t(base), cfg.max_seq_len, packed_last_idx=gidx.to(dev),
+            kv_scales=scales, spans=(t(q_starts), t(q_lens), t(row_flat))
+        )[0].float().cpu(), gidx)
+        ctx = torch.from_numpy(base + q_lens).long()
+        if not cfg.n_experts:
+            # one verify step (speculative decoding's shape): 5 tokens per
+            # row after each row's context; kv_lens count the 5 tokens
+            multi = torch.randint(3, 259, (3, 5), generator=g)
+            step(run(multi, ctx[:, None] + torch.arange(5),
+                     (ctx + 5).to(torch.int32), multi_decode=True), None)
+    finally:
+        moe.route = route
+    return {"steps": out, "prompts": prompt_lens, "decode_steps": steps,
+            "q_lens": q_lens.tolist(), "bases": base.tolist(),
+            "contexts": ctx.tolist(),
+            "scales": ([s.cpu() for s in scales] if kv8 else None)}
+
+
+# phase 4's model checks, in the order the script runs them (Mixtral's two
+# on one f32 draw, one layer: at two the CPU's f32 copy is ~12 GB)
+MODEL_CASES = (("bench-8b", False), ("bench-8b", True), ("gemma-7b", False),
+               ("gemma-7b", True), ("mixtral-8x7b", False),
+               ("mixtral-8x7b", True))
+MODEL_REFS_DIR = (Path(__file__).resolve().parent / "build" / "lmrs_tpu_torch"
+                  / "model_refs")
+
+
+def model_case_name(preset: str, int8: bool) -> str:
+    return preset + ("-int8" if int8 else "")
+
+
+def model_refs_child(out_dir: str) -> int:
+    """``python3 chip_smoke.py --model-refs DIR``: the CPU side of every
+    phase-4 model check, in ``MODEL_CASES`` order, each written to
+    ``DIR/<case>.pt`` (atomically): the weights in the form the card gets
+    them (bf16, or the int8 values and scales) and the f32 CPU pass
+    (``model_pass``).  The card's phases 3-3c run meanwhile; phase 4 reads
+    the files."""
+    import dataclasses
+    import os
+
+    from lmrs_tpu_torch.config import model_preset
+    from lmrs_tpu_torch.models.transformer import init_params
+    from lmrs_tpu_torch.ops.quant import is_quantized, quantize_params
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    drawn: dict = {}
+    for preset, int8 in MODEL_CASES:
+        n_layers = 1 if preset == "mixtral-8x7b" else MODEL_CHECK_LAYERS
+        cfg = dataclasses.replace(model_preset(preset), n_layers=n_layers)
+        if preset not in drawn:
+            drawn = {preset: init_params(cfg, seed=1, device="cpu",
+                                         dtype=torch.float32)}
+        params = drawn[preset]
+        if int8:
+            params = quantize_params(params)
+        kv8 = int8 and not cfg.n_experts
+        ref = model_pass("cpu", cfg, params, kv8)
+
+        def card_form(v):
+            return v if is_quantized(v) else v.to(torch.bfloat16)
+
+        weights = {k: (card_form(v) if k != "layers" else
+                       [{n: card_form(x) for n, x in lp.items()} for lp in v])
+                   for k, v in params.items()}
+        name = model_case_name(preset, int8)
+        tmp = out / f"{name}.pt.tmp"
+        torch.save({"weights": weights, "cpu": ref, "n_layers": n_layers}, tmp)
+        tmp.rename(out / f"{name}.pt")
+        print(f"model-refs: {name} written", flush=True)
+    return 0
+
+
+class ModelRefs:
+    """The ``--model-refs`` child, started before phase 3 so its f32 CPU
+    passes overlap the card's kernel phases; ``take`` waits for one case's
+    file and loads it, ``close`` joins the child.  The child is killed if
+    the script exits first."""
+
+    def __init__(self):
+        import atexit
+        import shutil
+
+        shutil.rmtree(MODEL_REFS_DIR, ignore_errors=True)
+        MODEL_REFS_DIR.mkdir(parents=True)
+        self.log_path = MODEL_REFS_DIR / "child.log"
+        self.log = open(self.log_path, "w", encoding="utf-8")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--model-refs",
+             str(MODEL_REFS_DIR)], stdout=self.log, stderr=subprocess.STDOUT)
+        atexit.register(self._kill)
+
+    def _kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def take(self, preset: str, int8: bool) -> dict:
+        path = MODEL_REFS_DIR / f"{model_case_name(preset, int8)}.pt"
+        while not path.exists():
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"the --model-refs child exited {self.proc.returncode} "
+                    f"before {path.name}: "
+                    f"{self.log_path.read_text()[-2000:]}")
+            time.sleep(0.2)
+        refs = torch.load(path, weights_only=False)
+        path.unlink()
+        return refs
+
+    def close(self) -> dict:
+        """Join the child; its seconds from start to the last file."""
+        rc = self.proc.wait()
+        self.log.close()
+        if rc != 0:
+            raise AssertionError(f"the --model-refs child exited {rc}: "
+                                 f"{self.log_path.read_text()[-2000:]}")
+        return {"child_seconds": round(time.time() - self.t0, 3)}
+
+
+def check_model(refs: ModelRefs, int8: bool = False,
+                preset: str = "bench-8b") -> dict:
+    """``preset``'s widths at ``MODEL_CHECK_LAYERS`` layers (Mixtral's at
+    one), the card's bf16 pass (``model_pass``) against the f32 CPU pass
+    the ``--model-refs`` child made from the same weights and inputs.
+    ``int8``: the same weights quantized (``quantize_params`` on the CPU;
+    the card gets the same int8 values and scales), int8 KV pools with
+    per-slot scale buffers on both devices — except for a
+    mixture-of-experts preset, whose path keeps bf16 KV.
 
     A mixture-of-experts preset (phase 4e) records every routing decision
     on both devices (``moe.route``): bf16 hidden states on the card can
@@ -1460,88 +1715,33 @@ def check_model(int8: bool = False, preset: str = "bench-8b",
     that path)."""
     import dataclasses
 
-    import numpy as np
-
     from lmrs_tpu_torch.config import model_preset
-    from lmrs_tpu_torch.models.transformer import forward_paged, init_params
-    from lmrs_tpu_torch.ops import moe
-    from lmrs_tpu_torch.ops.paged_attention import pack_spans
-    from lmrs_tpu_torch.ops.quant import is_quantized, quantize_params
+    from lmrs_tpu_torch.ops.quant import is_quantized
 
+    got = refs.take(preset, int8)
+    n_layers, cpu = got["n_layers"], got["cpu"]
     cfg = dataclasses.replace(model_preset(preset), n_layers=n_layers)
-    ps, n_pool, steps = 128, 48, 16
-    if params_cpu is None:
-        params_cpu = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
-    if int8:
-        params_cpu = quantize_params(params_cpu)
     kv8 = int8 and not cfg.n_experts
-    records = {"cpu": [], "cuda": []}
-    route = moe.route
-
-    def recording_route(router, cfg_, xt):
-        out = route(router, cfg_, xt)
-        records[xt.device.type].append((xt.shape[0], out[2].cpu()))
-        return out
 
     def to_card(t):
         if is_quantized(t):
             return {k: v.to("cuda") for k, v in t.items()}
-        return t.to("cuda", torch.bfloat16)
+        return t.to("cuda")
 
     params_gpu = {k: (to_card(v) if k != "layers" else
                       [{n: to_card(t) for n, t in lp.items()} for lp in v])
-                  for k, v in params_cpu.items()}
-    g = torch.Generator().manual_seed(3)
-    prompt_lens = [517, 300, 129]
-    prompts = [torch.randint(3, 259, (n,), generator=g) for n in prompt_lens]
-    # pages: prompt + decode steps per sequence, disjoint, page 0 reserved
-    tables, nxt = [], 1
-    for n in prompt_lens:
-        need = -(-(n + steps) // ps)
-        tables.append(list(range(nxt, nxt + need)))
-        nxt += need
-    W = max(len(t) for t in tables)
-    table = torch.tensor([t + [0] * (W - len(t)) for t in tables])
-    shape = (cfg.n_layers * n_pool, cfg.n_kv_heads, ps, cfg.hd)
-    pool_dt = {"cpu": torch.int8 if kv8 else torch.float32,
-               "cuda": torch.int8 if kv8 else torch.bfloat16}
-    pools = {d: (torch.zeros(shape, dtype=pool_dt[d], device=d),
-                 torch.zeros(shape, dtype=pool_dt[d], device=d))
-             for d in ("cpu", "cuda")}
-    params = {"cpu": params_cpu, "cuda": params_gpu}
-    # int8: per-slot scale buffers (3 slots = the 3 prompts' rows)
-    sshape = (cfg.n_layers, len(prompt_lens), cfg.n_kv_heads, cfg.hd)
-    scales = {d: ((torch.ones(sshape, device=d), torch.ones(sshape, device=d))
-                  if kv8 else None) for d in ("cpu", "cuda")}
-
-    tokens = torch.cat(prompts)[None]
-    positions = torch.cat([torch.arange(n) for n in prompt_lens])[None]
-    seg = torch.cat([torch.full((n,), i) for i, n in enumerate(prompt_lens)])[None]
-    tok_pages = torch.cat([torch.tensor(t)[torch.arange(n) // ps]
-                           for t, n in zip(tables, prompt_lens)])[None]
-    last_idx = torch.tensor(prompt_lens).cumsum(0) - 1
-    total = torch.tensor([sum(prompt_lens)], dtype=torch.int32)
-
-    def run(dev, toks, pos, lens, **kw):
-        kp, vp = pools[dev]
-        return forward_paged(params[dev], cfg, toks.to(dev), pos.to(dev), kp, vp,
-                             table.to(dev), lens.to(dev), cfg.max_seq_len,
-                             kv_scales=scales[dev],
-                             **{k: (v.to(dev) if torch.is_tensor(v) else v)
-                                for k, v in kw.items()}).float().cpu()
-
+                  for k, v in got.pop("weights").items()}
+    card = model_pass("cuda", cfg, params_gpu, kv8, cpu=cpu)
     diffs, agree, checked = [], 0, 0
     routing = {"decisions": 0, "topk_agree": 0, "tokens": 0,
                "tokens_agree": 0, "logit_rows": 0, "logit_rows_checked": 0}
 
-    def agreed_rows(rows):
-        """Tokens ``rows`` of the last call on both devices whose routing
-        agreed in every layer (all True for a dense model)."""
+    def agreed_rows(rows, rc, rg):
+        """Tokens ``rows`` of one step whose routing agreed on both
+        devices in every layer (None for a dense model)."""
         if not cfg.n_experts:
             return None
-        (sc, kc), (sg, kg) = (moe_routes(cfg, records[d]) for d in ("cpu", "cuda"))
-        records["cpu"].clear()
-        records["cuda"].clear()
+        (sc, kc), (sg, kg) = moe_routes(cfg, rc), moe_routes(cfg, rg)
         same_set = (sc == sg).all(-1)                       # [L, N]
         same = (same_set & (kc == kg).all(-1)).all(0)       # [N]
         routing["decisions"] += same_set.numel()
@@ -1550,15 +1750,15 @@ def check_model(int8: bool = False, preset: str = "bench-8b",
         routing["tokens_agree"] += int(same.sum())
         return same[rows]
 
-    def compare(a, b, rows=None):
-        nonlocal agree, checked
-        ok = agreed_rows(rows)
+    for c, d in zip(cpu["steps"], card["steps"], strict=True):
+        a, b = c["logits"], d["logits"]
+        ok = agreed_rows(c["rows"], c["routes"], d["routes"])
         if ok is not None:
             routing["logit_rows"] += ok.numel()
             routing["logit_rows_checked"] += int(ok.sum())
             a, b = a[ok], b[ok]
         if a.numel() == 0:
-            return
+            continue
         diffs.append((a - b).abs().max().item())
         top2 = torch.topk(a, 2, dim=-1).values
         sure = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
@@ -1567,64 +1767,6 @@ def check_model(int8: bool = False, preset: str = "bench-8b",
         agree += int((same & sure).sum())
         if not bool(same[sure].all()):
             raise AssertionError("greedy disagreement above the margin tolerance")
-
-    # a failure exits the script, so the recorder is put back only at the end
-    moe.route = recording_route
-    packed_kw = dict(token_pages=tok_pages, segment_ids=seg,
-                     packed_last_idx=last_idx, scale_rows=torch.arange(3))
-    lo_cpu = run("cpu", tokens, positions, total, **packed_kw)[0]
-    lo_gpu = run("cuda", tokens, positions, total, **packed_kw)[0]
-    compare(lo_cpu, lo_gpu, last_idx)
-    lens = torch.tensor(prompt_lens)
-    cur = lo_cpu.argmax(-1)  # teacher forcing: the CPU's greedy tokens
-    for _ in range(steps):
-        pos = lens[:, None]
-        kv = (lens + 1).to(torch.int32)
-        a = run("cpu", cur[:, None], pos, kv)[:, 0]
-        b = run("cuda", cur[:, None], pos, kv)[:, 0]
-        compare(a, b, torch.arange(3))
-        cur = a.argmax(-1)
-        lens = lens + 1
-    # one span dispatch: rows 0 and 1 decode a token, row 2 takes a
-    # 100-token slice (a mixed step's shape) after its 145-token context —
-    # int8: row 2 re-prefills from position 0 instead (a preempted
-    # request's continuation), a base-0 row that owns its slot's scales
-    q_lens = np.array([1, 1, 100], np.int32)
-    q_starts, total = pack_spans(q_lens)
-    flat = torch.zeros(total, dtype=torch.long)
-    row_flat = np.full((total,), 3, np.int32)
-    for i, n in enumerate(q_lens):
-        row_flat[q_starts[i]: q_starts[i] + n] = i
-    flat[q_starts[0]], flat[q_starts[1]] = cur[0], cur[1]
-    flat[q_starts[2]: q_starts[2] + 100] = torch.randint(3, 259, (100,), generator=g)
-    base = lens.numpy().astype(np.int32)
-    if kv8:
-        base[2] = 0
-    rf = np.clip(row_flat, 0, 2)
-    pos = torch.from_numpy(np.clip(base[rf] + np.arange(total) - q_starts[rf], 0,
-                                   cfg.max_seq_len - 1))
-    gidx = torch.from_numpy(q_starts + q_lens - 1)
-    span_logits = {}
-    for dev in ("cpu", "cuda"):
-        kp, vp = pools[dev]
-        span_logits[dev] = forward_paged(
-            params[dev], cfg, flat[None].to(dev), pos[None].to(dev), kp, vp,
-            table.to(dev), torch.from_numpy(base).to(dev), cfg.max_seq_len,
-            packed_last_idx=gidx.to(dev), kv_scales=scales[dev],
-            spans=tuple(torch.from_numpy(a).to(dev)
-                        for a in (q_starts, q_lens, row_flat)))[0].float().cpu()
-    compare(span_logits["cpu"], span_logits["cuda"], gidx)
-    ctx = torch.from_numpy(base + q_lens).long()
-    t = 5
-    if not cfg.n_experts:
-        # one verify step (speculative decoding's shape): 5 tokens per row
-        # after each row's context so far; kv_lens count the 5 tokens
-        multi_tokens = torch.randint(3, 259, (3, t), generator=g)
-        multi_logits = {dev: run(dev, multi_tokens, ctx[:, None] + torch.arange(t),
-                                 (ctx + t).to(torch.int32), multi_decode=True)
-                        for dev in ("cpu", "cuda")}
-        compare(multi_logits["cpu"], multi_logits["cuda"])
-    moe.route = route
     max_diff = max(diffs)
     if not max_diff <= LOGIT_TOL:
         raise AssertionError(f"model logits: max |diff| {max_diff} > {LOGIT_TOL}")
@@ -1636,9 +1778,9 @@ def check_model(int8: bool = False, preset: str = "bench-8b",
         if routing["logit_rows_checked"] == 0:
             raise AssertionError("routing: no compared token agreed")
     if kv8:
-        sdiff = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
-                    for a, b in zip(scales["cuda"], scales["cpu"]))
-    del params, pools, params_gpu, scales
+        sdiff = max((a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(card["scales"], cpu["scales"]))
+    del params_gpu, card
     torch.cuda.empty_cache()
     phase = {"bench-8b": "model", "mixtral-8x7b": "model-moe"}.get(
         preset, "model-gemma")
@@ -1648,10 +1790,10 @@ def check_model(int8: bool = False, preset: str = "bench-8b",
                       + (", kv_quantize=int8" if kv8 else ""),
             **({"scale_buffers_max_rel_diff": sdiff} if kv8 else {}),
             **({"routing": routing} if cfg.n_experts else {}),
-            "prompts": prompt_lens, "decode_steps": steps,
-            "span_dispatch": {"q_lens": q_lens.tolist(), "bases": base.tolist()},
+            "prompts": cpu["prompts"], "decode_steps": cpu["decode_steps"],
+            "span_dispatch": {"q_lens": cpu["q_lens"], "bases": cpu["bases"]},
             **({} if cfg.n_experts else
-               {"verify_step": {"tokens": t, "contexts": ctx.tolist()}}),
+               {"verify_step": {"tokens": 5, "contexts": cpu["contexts"]}}),
             "max_logit_diff": max_diff, "logit_tol": LOGIT_TOL,
             "greedy_checked": checked, "greedy_agree": agree}
 
@@ -1785,21 +1927,13 @@ def check_tree_dispatch(int8: bool = False, preset: str = "bench-8b") -> dict:
             "greedy_checked": checked, "greedy_agree": agree}
 
 
-def check_moe_model() -> dict:
-    """Phase 4e: ``check_model`` at Mixtral-8x7B's widths, one layer (at
-    two the CPU's f32 copy is ~12 GB), bf16 and then int8 weights (bf16
-    KV) on the same f32 draw; one line with both."""
-    import dataclasses
-
-    from lmrs_tpu_torch.config import model_preset
-    from lmrs_tpu_torch.models.transformer import init_params
-
-    cfg = dataclasses.replace(model_preset("mixtral-8x7b"), n_layers=1)
-    params = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+def check_moe_model(refs: ModelRefs) -> dict:
+    """Phase 4e: ``check_model`` at Mixtral-8x7B's widths, one layer, bf16
+    and then int8 weights (bf16 KV) on the same f32 draw; one line with
+    both."""
     out = {"phase": "model-moe"}
     for label, int8 in (("bf16", False), ("int8", True)):
-        out[label] = check_model(int8=int8, preset="mixtral-8x7b", n_layers=1,
-                                 params_cpu=params)
+        out[label] = check_model(refs, int8=int8, preset="mixtral-8x7b")
     return out
 
 
@@ -6115,7 +6249,10 @@ def run_supervise_path(smi: str) -> dict:
     prog = doc["progress"]
     if doc["status"] != "done" or not doc["recovered"]:
         raise AssertionError(f"20c: the job is {doc['status']}: "
-                             f"{doc.get('error')}")
+                             f"{doc.get('error')}, reasons "
+                             f"{doc.get('degraded_reasons')}, recovered "
+                             f"{doc.get('recovered')}; supervisor log: "
+                             f"{log_path.read_text()[-3000:]}")
     if prog["num_resumed_chunks"] != len(journaled):
         raise AssertionError(f"20c: {prog['num_resumed_chunks']} chunks "
                              f"resumed, {len(journaled)} journaled")
@@ -6271,6 +6408,438 @@ def run_faults_path(smi: str) -> dict:
             "seconds": time.time() - t0}
 
 
+# ------------------------------------------------------------ phase 21
+
+FLEET_WAVE = (16, 4)   # 21a: batch map prompts, then interactive ones
+FLEET_PAGES = 112      # 21a's pool: phase 5's, so decode growth preempts
+FLEET_SLO = {"LMRS_SLO_SPEC": json.dumps({"ttft_p95_ms": 1}),
+             "LMRS_SLO_FAST_S": "3", "LMRS_SLO_SLOW_S": "3"}
+FLEET_BURN_WAVE = 6    # 21b/21c: host B's requests that burn its SLO
+
+
+def _env(**env):
+    """A context that sets environment variables and puts them back."""
+    import os
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, env)
+
+
+def qos_wave(qos: bool) -> dict:
+    """21a's wave: ``FLEET_WAVE[0]`` of phase 5's map prompts through
+    ``TenantStampEngine(engine, "bulk", qos_class="batch")``, then
+    ``FLEET_WAVE[1]`` more as tenant ``live``, class ``interactive``, in
+    one ``generate_batch`` over a fresh full-depth bench-8b engine (phase
+    5's settings, ``FLEET_PAGES`` pages, 64 tokens each), the tracer on,
+    ``LMRS_QOS`` set to ``qos``."""
+    import dataclasses
+    import gc
+    import statistics
+
+    from lmrs_tpu_torch.engine.api import TenantStampEngine
+    from lmrs_tpu_torch.engine.torch_engine import TorchEngine
+    from lmrs_tpu_torch.obs import trace as t_trace
+
+    from lmrs_tpu_torch.config import model_preset
+
+    cfg = phase5_config()
+    ecfg = dataclasses.replace(cfg.engine, num_pages=FLEET_PAGES)
+    with _env(LMRS_QOS="1" if qos else "0"):
+        engine = TorchEngine(ecfg, model_preset(ecfg.model), device="cuda",
+                             tokenizer=NoEosByte())
+        base = phase5_map_requests(cfg, engine)
+        n_b, n_i = FLEET_WAVE
+        reqs = [dataclasses.replace(base[k % len(base)], request_id=k,
+                                    max_new_tokens=64)
+                for k in range(n_b + n_i)]
+        for r in reqs[n_b:]:
+            r.tenant, r.qos_class = "live", "interactive"
+        stamp = TenantStampEngine(engine, "bulk", qos_class="batch")
+        torch.cuda.synchronize()
+        t_trace.enable_tracing()
+        counted = zero_launches()
+        t0 = time.time()
+        try:
+            res = stamp.generate_batch(reqs)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = read_launches(counted)
+            events = sorted(sum(t_trace.get_tracer().spans_by_tid().values(),
+                                []), key=lambda e: e["ts"])
+        finally:
+            t_trace.disable_tracing()
+    sched = engine._scheduler
+    em = engine.engine_metrics()
+    rid = lambda e: e["tid"] - t_trace.REQ_TID_BASE  # noqa: E731
+    admits = [rid(e) for e in events if e["name"] == "admit"]
+    first = list(dict.fromkeys(admits))
+    enq = {rid(e): e["ts"] for e in events if e["name"] == "enqueue"}
+    ttft = {}
+    for e in events:
+        if e["name"] == "first_token" and rid(e) not in ttft:
+            ttft[rid(e)] = (e["ts"] - enq[rid(e)]) / 1e3
+    reg = sched.registry
+    out = {"qos": qos, "wall_seconds": wall, "first_admits": first,
+           "reorders": [e["args"] for e in events
+                        if e["name"] == "qos_reorder"],
+           "qos_preempt": [e["args"] for e in events
+                           if e["name"] == "qos_preempt"],
+           "preempted": [rid(e) for e in events if e["name"] == "preempt"],
+           "preemptions": em["preemptions"],
+           "errors": [r.error for r in res if r.error],
+           "finish": sorted({r.finish_reason for r in res}),
+           "completion_tokens": sorted({r.completion_tokens for r in res}),
+           "audit": engine.audit(), "launches": launches,
+           "ttft_median_ms": {
+               "batch": statistics.median(
+                   [v for k, v in ttft.items() if k < n_b]),
+               "interactive": statistics.median(
+                   [v for k, v in ttft.items() if k >= n_b])},
+           "qos_report": engine.qos_report()}
+    if qos:
+        out["counters"] = {k: reg.counter(k).value for k in (
+            "lmrs_qos_reorders_total", "lmrs_qos_preempt_victims_total")}
+    engine.shutdown()
+    del engine, stamp, sched, reg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_qos_path(smi: str) -> dict:
+    """21a: the QoS-armed wave, then the same wave with ``LMRS_QOS=0``."""
+    card_line(smi, "fleet-21a")
+    n_b, n_i = FLEET_WAVE
+    live = set(range(n_b, n_b + n_i))
+    on = qos_wave(True)
+    emit({"phase": "fleet-21a-qos", "card": smi, **on,
+          "launches": nonzero(on["launches"])})
+    if set(on["first_admits"][:n_i]) != live:
+        raise AssertionError(f"21a: first admissions {on['first_admits']}: "
+                             "the interactive requests were not first")
+    c = on["counters"]
+    if c["lmrs_qos_reorders_total"] < 1:
+        raise AssertionError(f"21a: no QoS reorder ({c})")
+    victims = {a["tenant"] for a in on["qos_preempt"]}
+    if on["preemptions"] < 1 or victims != {"bulk"} or any(
+            k in live for k in on["preempted"]):
+        raise AssertionError(f"21a: preemptions {on['preemptions']}, QoS "
+                             f"victims {on['qos_preempt']}, preempted "
+                             f"{on['preempted']}")
+    if c["lmrs_qos_preempt_victims_total"] != on["preemptions"]:
+        raise AssertionError(f"21a: QoS victims {c} against "
+                             f"{on['preemptions']} preemptions")
+    if on["errors"] or on["audit"] or on["finish"] != ["length"]:
+        raise AssertionError(f"21a: errors {on['errors'][:2]}, audit "
+                             f"{on['audit']}, finish {on['finish']}")
+    require_launches(on["launches"], "QoS wave (21a)",
+                     ("flash_prefill", "paged_decode_fused", "ragged_spans"))
+    off = qos_wave(False)
+    emit({"phase": "fleet-21a-fifo", "card": smi, **off,
+          "launches": nonzero(off["launches"])})
+    if off["reorders"] or off["qos_preempt"]:
+        raise AssertionError(f"21a: LMRS_QOS=0 reordered {off['reorders']}")
+    if off["first_admits"] != list(range(n_b + n_i)):
+        raise AssertionError(f"21a: LMRS_QOS=0 admitted {off['first_admits']}")
+    if off["errors"] or off["audit"] or off["finish"] != ["length"]:
+        raise AssertionError(f"21a off: errors {off['errors'][:2]}, audit "
+                             f"{off['audit']}, finish {off['finish']}")
+    return {"qos": {k: on[k] for k in ("wall_seconds", "ttft_median_ms",
+                                       "preemptions", "counters")},
+            "fifo": {k: off[k] for k in ("wall_seconds", "ttft_median_ms",
+                                         "preemptions")}}
+
+
+def _burn_slo(engine, reqs, rid0: int) -> None:
+    """``FLEET_BURN_WAVE`` short requests straight into host B's engine:
+    every TTFT misses its 1 ms target."""
+    import dataclasses
+
+    res = engine.generate_batch([
+        dataclasses.replace(r, request_id=rid0 + k, cache_prefix=-1,
+                            max_new_tokens=4)
+        for k, r in enumerate(reqs[:FLEET_BURN_WAVE])])
+    if any(r.error for r in res):
+        raise AssertionError(f"21: burn wave {[r.error for r in res]}")
+
+
+def run_placement_path(smi: str, ea, eb, reqs, asrv, bsrv) -> dict:
+    """21b over two ``role="both"`` servers (A, and B whose SLO cannot be
+    met) and a colocated ``RouterEngine``: tenant stickiness, SLO
+    placement, then a drain of a warm host with its KV moved to the
+    sibling."""
+    import dataclasses
+
+    from lmrs_tpu_torch.engine.api import preamble_key
+    from lmrs_tpu_torch.serving.router import RouterEngine
+
+    card_line(smi, "fleet-21b")
+    na, nb = (f"127.0.0.1:{s.port}" for s in (asrv, bsrv))
+    router = RouterEngine([na, nb], timeout_s=SERVE_TIMEOUT)
+    log, inner = [], router._post
+
+    def post(host, req, *a, **kw):
+        log.append((req.request_id, host.netloc))
+        return inner(host, req, *a, **kw)
+
+    router._post = post
+    plain = [dataclasses.replace(r, cache_prefix=-1) for r in reqs[1:]]
+    try:
+        # tenant stickiness: the second request follows the first
+        for k in range(2):
+            res = router.generate_batch([dataclasses.replace(
+                plain[k], request_id=1 + k, tenant="acme")])[0]
+            if res.error:
+                raise AssertionError(f"21b: tenant request {k}: {res.error}")
+        tenant_hosts = [n for _r, n in log[-2:]]
+        routed = router.engine_metrics()["tenant_route"]["routed"]
+        if tenant_hosts[0] != tenant_hosts[1] or routed < 1:
+            raise AssertionError(f"21b: tenant legs {tenant_hosts}, routed "
+                                 f"{routed}")
+        # SLO placement: B burns its TTFT objective, then is sunk
+        _burn_slo(eb, plain, 100)
+        for h in router.hosts:
+            router._fetch_summary(h)
+        hb = next(h for h in router.hosts if h.netloc == nb)
+        b_state = eb.slo_report()["state"]
+        if router._slo_penalty(hb) < 1:
+            raise AssertionError(f"21b: B's published state {b_state}")
+        n0 = len(log)
+        for k in range(2):
+            res = router.generate_batch([dataclasses.replace(
+                plain[2 + k], request_id=10 + k)])[0]
+            if res.error:
+                raise AssertionError(f"21b: SLO request {k}: {res.error}")
+        slo_hosts = [n for _r, n in log[n0:]]
+        slo = router.engine_metrics()["slo_route"]
+        if slo_hosts != [na, na] or slo["penalized"] < 1:
+            raise AssertionError(f"21b: SLO legs {slo_hosts}, {slo}")
+        # drain: a warm preamble moves to the sibling with the host's exit
+        engines = {na: ea, nb: eb}
+        req = reqs[0]
+        c0 = {n: dict(e._scheduler.counters) for n, e in engines.items()}
+        res = router.generate_batch([dataclasses.replace(
+            req, request_id=300)])[0]
+        warm = log[-1][1]
+        sib = nb if warm == na else na
+        we, se = engines[warm], engines[sib]
+        cold_prefill = (we._scheduler.counters["prefill_tokens"]
+                        - c0[warm]["prefill_tokens"])
+        if res.error or cold_prefill <= 0:
+            raise AssertionError(f"21b: warm-up {res.error}, prefill "
+                                 f"{cold_prefill}")
+        sc0 = dict(se._scheduler.counters)
+        # the answer can arrive before the warm run's end (an export answers
+        # 404, busy, until then), and the published summary the drain reads
+        # is memoized for 1 s
+        key = preamble_key(req.system_prompt, req.prompt, req.cache_prefix)
+        _wait_for(lambda: not we._scheduler._run_live and any(
+            r["hash"] == key for r in we.prefix_summary()),
+            "the warm preamble's summary row")
+        t0 = time.time()
+        if not router.drain_host(warm):
+            raise AssertionError("21b: drain_host refused")
+        _wait_for(lambda: not router.migrations_pending(warm),
+                  "the drain's KV migration")
+        migrate_s = time.time() - t0
+        moved = (se._scheduler.counters["kv_migrate_tokens"]
+                 - sc0["kv_migrate_tokens"])
+        if router._kv_moves < 1 or router._kv_failures or moved <= 0:
+            raise AssertionError(f"21b: moves {router._kv_moves}, failures "
+                                 f"{router._kv_failures}, tokens {moved}")
+        # the warm host's own prefix-hit text over exactly the moved pages
+        apc = we._scheduler._prefix_cache
+        ids, _n = we._scheduler._encode(dataclasses.replace(req))
+        node, pos = apc.root, 0
+        while pos < moved:
+            node = node.children[tuple(ids[pos: pos + apc.page_size])]
+            pos += len(node.tokens)
+        for child in list(node.children.values()):
+            apc._drop_subtree(child)
+        warm_text = we.generate_batch([dataclasses.replace(
+            req, request_id=301)])[0].text
+        stally = (asrv if sib == na else bsrv).engine
+        stally.reset()
+        sc1 = dict(se._scheduler.counters)
+        res = router.generate_batch([dataclasses.replace(
+            req, request_id=302)])[0]
+        sib_prefill = (se._scheduler.counters["prefill_tokens"]
+                       - sc1["prefill_tokens"])
+        hits = se._scheduler.counters["prefix_hits"] - sc1["prefix_hits"]
+        spans = stally.tally["ragged_spans"]
+        if (res.error or log[-1][1] != sib or hits != 1
+                or not 0 < sib_prefill < cold_prefill
+                or res.text != warm_text):
+            raise AssertionError(
+                f"21b: sibling leg on {log[-1][1]}, error {res.error}, hits "
+                f"{hits}, prefill {sib_prefill} of {cold_prefill}, text "
+                f"equal {res.text == warm_text}")
+        require_launches(stally.tally, "sibling's prefix-hit rerun (21b)",
+                         ("ragged_spans",))
+        idle = router.host_idle(warm)
+        removed = router.remove_host(warm)
+        last = router.remove_host(sib)
+        if not (idle and removed) or last:
+            raise AssertionError(f"21b: idle {idle}, removed {removed}, last "
+                                 f"host removed {last}")
+        if ea.audit() or eb.audit():
+            raise AssertionError(f"21b: audits {ea.audit()} {eb.audit()}")
+        return {"phase": "fleet-21b", "card": smi,
+                "tenant_hosts": tenant_hosts, "tenant_routed": routed,
+                "b_slo_state": b_state, "slo_hosts": slo_hosts,
+                "slo_penalized": slo["penalized"],
+                "warm_host": "A" if warm == na else "B",
+                "cold_prefill_tokens": cold_prefill,
+                "migrated_tokens": moved, "kv_moves": router._kv_moves,
+                "drain_to_migrated_seconds": migrate_s,
+                "sibling_prefill_tokens": sib_prefill,
+                "sibling_prefix_hits": hits,
+                "sibling_span_launches": spans,
+                "sibling_text_equal_warm_host": True}
+    finally:
+        router.shutdown()
+
+
+def run_autoscale_path(smi: str, eb, reqs, bsrv) -> dict:
+    """21c: an ``Autoscaler`` ticked by hand (its clock too) over a router
+    with host B alone, whose SLO burns: one tick spawns one supervised
+    child (``lmrs-serve-torch --supervise`` through ``--layers-child``, so
+    it is ``VARIANT_LAYERS`` deep) on the card, which serves a request;
+    once B's burn has cleared and the forecast idles, a tick drains the
+    child and a later one removes it, and the supervisor exits 0."""
+    import dataclasses
+    import types
+
+    from lmrs_tpu_torch.fleet import autoscale
+    from lmrs_tpu_torch.obs import MetricsRegistry
+    from lmrs_tpu_torch.serving.router import RouterEngine
+
+    card_line(smi, "fleet-21c")
+    here = Path(__file__).resolve()
+    serve_cli = ["-m", "lmrs_tpu_torch.serving.cli"]
+    procs = []
+
+    def popen(cmd, *a, **kw):
+        if cmd[1:3] == serve_cli:
+            cmd = [cmd[0], str(here), "--layers-child", str(VARIANT_LAYERS),
+                   *cmd[3:]]
+        procs.append(subprocess.Popen(cmd, *a, **kw))
+        return procs[-1]
+
+    plain = autoscale.subprocess
+    autoscale.subprocess = types.SimpleNamespace(
+        Popen=popen, TimeoutExpired=subprocess.TimeoutExpired)
+    nb = f"127.0.0.1:{bsrv.port}"
+    router = RouterEngine([nb], timeout_s=SERVE_TIMEOUT)
+    pool = autoscale.SupervisedHostPool(
+        base_argv=["--model", "bench-8b", "--tokenizer", "byte",
+                   "--device", "cuda", "--max-tokens-cap", "64"],
+        startup_timeout_s=SERVE_TIMEOUT)
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clk, reg = Clock(), MetricsRegistry()
+    scaler = autoscale.Autoscaler(
+        router, pool.spawn, remove_cb=pool.remove, clock=clk, registry=reg,
+        enabled=True, min_hosts=1, max_hosts=2, cooldown_ticks=1,
+        drain_timeout_s=SERVE_TIMEOUT)
+    try:
+        _burn_slo(eb, [dataclasses.replace(r, cache_prefix=-1)
+                       for r in reqs[1:]], 400)
+        router._fetch_summary(router.hosts[0])
+        if router._slo_penalty(router.hosts[0]) < 1:
+            raise AssertionError("21c: B's SLO does not burn")
+        t0 = time.time()
+        up = scaler.tick()
+        startup_s = time.time() - t0
+        if len(up["actions"]) != 1 or not up["actions"][0].startswith(
+                "spawned:"):
+            raise AssertionError(f"21c: scale-up tick {up}")
+        child = router.hosts[1]
+        sup = pool._procs[child.netloc]
+        res = router.generate_batch([dataclasses.replace(
+            r, request_id=500 + k, cache_prefix=-1)
+            for k, r in enumerate(reqs[1:3])])
+        if any(r.error for r in res) or child.served < 1:
+            raise AssertionError(f"21c: child served {child.served}, errors "
+                                 f"{[r.error for r in res]}")
+        # B's burn clears once its samples leave its 3 s windows
+        _wait_for(lambda: eb.slo_report()["state"] == "ok", "B's SLO to clear")
+        router._fetch_summary(router.hosts[0])
+        clk.t += 60.0
+        down = scaler.tick()
+        if down["actions"] != [f"draining:{child.netloc}"]:
+            raise AssertionError(f"21c: scale-down tick {down}")
+        _wait_for(lambda: not router.migrations_pending(child.netloc),
+                  "the drain's KV migration")
+        clk.t += 1.0
+        t0 = time.time()
+        gone = scaler.tick()
+        stop_s = time.time() - t0
+        if gone["actions"] != [f"removed:{child.netloc}"] \
+                or sup.returncode != 0:
+            raise AssertionError(f"21c: removal tick {gone}, supervisor rc "
+                                 f"{sup.returncode}")
+        counters = {k: reg.counter(k).value for k in (
+            "lmrs_autoscale_scale_ups_total", "lmrs_autoscale_drains_total",
+            "lmrs_autoscale_scale_downs_total")}
+        if list(counters.values()) != [1.0, 1.0, 1.0] or eb.audit():
+            raise AssertionError(f"21c: counters {counters}, audit "
+                                 f"{eb.audit()}")
+        return {"phase": "fleet-21c", "card": smi,
+                "spawn_to_healthy_seconds": startup_s,
+                "child_served": child.served, "ticks": [up, down, gone],
+                "stop_seconds": stop_s, "supervisor_rc": sup.returncode,
+                "counters": counters, "report": scaler.report()}
+    finally:
+        autoscale.subprocess = plain
+        router.shutdown()
+        pool.shutdown()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def run_fleet_path(smi: str) -> dict:
+    """Phase 21: QoS on the main path (21a), placement and drain (21b), the
+    autoscaler (21c)."""
+    import gc
+
+    from lmrs_tpu_torch.serving.server import EngineHTTPServer
+
+    t0 = time.time()
+    a = run_qos_path(smi)
+    ea, reqs = kv_engine()
+    with _env(**FLEET_SLO):
+        eb, _ = kv_engine()
+    asrv = EngineHTTPServer(LaunchTally(ea), port=0)
+    bsrv = EngineHTTPServer(LaunchTally(eb), port=0)
+    for srv in (asrv, bsrv):
+        srv.start_background()
+    try:
+        b = run_placement_path(smi, ea, eb, reqs, asrv, bsrv)
+        emit(b)
+        c = run_autoscale_path(smi, eb, reqs, bsrv)
+        emit(c)
+    finally:
+        asrv.shutdown()
+        bsrv.shutdown()
+    del ea, eb, asrv, bsrv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "fleet", "card": smi, "qos": a,
+            "placement": {k: b[k] for k in ("tenant_routed", "slo_penalized",
+                                            "kv_moves", "migrated_tokens")},
+            "autoscale": {k: c[k] for k in ("spawn_to_healthy_seconds",
+                                            "stop_seconds", "counters")},
+            "seconds": time.time() - t0}
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
                launches_3c: dict) -> list[dict]:
@@ -6343,6 +6912,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    t_script = time.time()
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0),
@@ -6359,6 +6929,10 @@ def main() -> int:
           "ptxas": {n: [e for e in ptxas_entries(i["ptxas"]) if "ILi256E" in e]
                     for n, i in info.items()}})
     from lmrs_tpu_torch.ops.paged_attention import paged_decode, ragged_spans
+
+    # phase 4's f32 CPU references run in a child while the card runs
+    # phases 3-14
+    refs = ModelRefs()
 
     def timed(fn, *args, **kw) -> dict:
         t = time.time()
@@ -6403,13 +6977,6 @@ def main() -> int:
     for r in hd256_main:
         emit({"phase": "hd256-main-shape", **r})
     launches_3c = read_launches(counted)
-    emit(timed(check_model))
-    emit(timed(check_model, int8=True))
-    emit(timed(check_model, preset="gemma-7b"))
-    emit(timed(check_model, int8=True, preset="gemma-7b"))
-    emit(timed(check_tree_dispatch))
-    emit(timed(check_tree_dispatch, int8=True))
-    emit(timed(check_moe_model))
     emit(timed(run_cli_default))
     main_out = timed(run_main_path)
     emit(main_out)
@@ -6435,12 +7002,23 @@ def main() -> int:
     emit(tree2b_out)
     emit(timed(run_checkpoint_path))
     emit(timed(run_mixtral_path))
+    # phase 4 (its CPU references ready by now; the phases after 14 time
+    # host paths, so the child is done before them)
+    emit(timed(check_model, refs))
+    emit(timed(check_model, refs, int8=True))
+    emit(timed(check_model, refs, preset="gemma-7b"))
+    emit(timed(check_model, refs, int8=True, preset="gemma-7b"))
+    emit(timed(check_tree_dispatch))
+    emit(timed(check_tree_dispatch, int8=True))
+    emit(timed(check_moe_model, refs))
+    emit({"phase": "model-refs", **refs.close()})
     emit(timed(run_serve_path, smi, main_out))
     emit(timed(run_kv_path, smi))
     emit(timed(run_jobs_live_path, smi))
     emit(timed(run_obs_path, smi, main_out))
     emit(timed(run_train_eval_path, smi))
     emit(timed(run_faults_path, smi))
+    emit(timed(run_fleet_path, smi))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),
@@ -6469,6 +7047,8 @@ def main() -> int:
                 for r in rows + rows8 + rows_anc]
     out_rows += hd256_rows(rows + rows8 + rows_anc, hd256, hd256_main,
                            gemma_out, gemma2b_out, tree2b_out, launches_3c)
+    emit({"phase": "script", "card": smi,
+          "seconds": round(time.time() - t_script, 3)})
     emit({"kernels": [{k: r[k] for k in keys} for r in out_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -6481,4 +7061,6 @@ if __name__ == "__main__":
         sys.exit(jobs_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--layers-child"]:
         sys.exit(layers_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--model-refs"]:
+        sys.exit(model_refs_child(sys.argv[2]))
     sys.exit(main())

@@ -62,9 +62,13 @@ class GenerationRequest:
     # resent on forwards; jobs and live sessions stamp their own identity
     # (``TenantStampEngine``); the cost ledger rolls usage up under it.
     tenant: str | None = None
-    # QoS priority class ("interactive" | "batch"); the policy that stamps
-    # and reads it (fair-share QoS, A10b) is not in the port, so the port
-    # carries it unset.
+    # QoS priority class (fleet/qos.py): "interactive" | "batch".  Stamped
+    # at ingress from ``X-LMRS-QoS-Class`` (or the body's ``qos_class``)
+    # and propagated like the tenant label; jobs stamp their fan-out
+    # "batch", live sessions by session class.  None resolves to
+    # "interactive", so QoS never demotes traffic that carries no label.
+    # Stamping happens only while LMRS_QOS is armed, so the kill switch
+    # keeps the wire byte-identical.
     qos_class: str | None = None
     # Cross-refresh draft hint: text whose tokens are likely to recur in
     # the completion (a live session passes its previous summary).  Under
@@ -214,10 +218,11 @@ def drain_with_callback(run_batch, requests: list[GenerationRequest],
 
 
 class TenantStampEngine:
-    """Engine facade that (a) stamps ``tenant`` and ``draft_hint`` onto
-    every request that carries none (how jobs and live sessions bill their
-    chunk and reduce traffic to their own identity, and how a refresh
-    threads its previous summary to the draft buffer) and (b) accumulates
+    """Engine facade that (a) stamps ``tenant``, ``qos_class`` and
+    ``draft_hint`` onto every request that carries none (how jobs and live
+    sessions bill their chunk and reduce traffic to their own identity,
+    rank it in the fair-share policy, and how a refresh threads its
+    previous summary to the draft buffer) and (b) accumulates
     every result's ledger ``usage`` block into one rollup dict
     (``obs.merge_usage``), the ``usage`` block of the job and session
     status docs.  ``publish`` receives a snapshot dict after every merge
@@ -227,11 +232,17 @@ class TenantStampEngine:
 
     def __init__(self, engine: Engine, tenant: str | None,
                  publish=None, seed: dict | None = None,
+                 qos_class: str | None = None,
                  draft_hint: str | None = None):
         import threading
 
+        from lmrs_tpu_torch.fleet.qos import qos_enabled
+
         self._engine = engine
         self.tenant = tenant
+        # jobs pass "batch", live sessions their session's class; applied
+        # only while LMRS_QOS is armed and never over a submit's own label
+        self.qos_class = qos_class if qos_enabled() else None
         self.draft_hint = draft_hint or None
         self.usage_rollup: dict = dict(seed or {})  # guarded-by: _rollup_lock
         self._publish = publish
@@ -273,6 +284,8 @@ class TenantStampEngine:
         for req in requests:
             if self.tenant and req.tenant is None:
                 req.tenant = self.tenant
+            if self.qos_class and req.qos_class is None:
+                req.qos_class = self.qos_class
             if self.draft_hint and req.draft_hint is None:
                 req.draft_hint = self.draft_hint
 

@@ -15,9 +15,11 @@ the ``/v1/kv`` page-set export and import (the page set is the emulated
 prefix entry), and the observability surface: the cost ledger, the SLO
 engine and the step anatomy, deterministically emulated from token counts
 at ``EMU_SECONDS_PER_TOKEN`` (never wall clocks, so two arms running the
-same traffic give identical usage and anatomy documents), and a minimal
-trace chain (``generate`` then ``finish``, the handoff instants).  The
-reference's QoS admission gate (A10b) is not in the port.
+same traffic give identical usage and anatomy documents), a minimal trace
+chain (``generate`` then ``finish``, the handoff instants), and the
+fair-share QoS admission gate (``slots > 0`` bounds the requests running
+at once across handler threads; waiting tickets are admitted in the
+policy's order, FIFO under ``LMRS_QOS=0``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from lmrs_tpu_torch.engine.api import (GenerationRequest, GenerationResult,
                                        apply_stop_sequences,
                                        drain_with_callback, preamble_key,
                                        preamble_text)
+from lmrs_tpu_torch.fleet.qos import maybe_qos
 from lmrs_tpu_torch.obs.anatomy import CLASSES, SEGMENTS, _pct, anatomy_enabled
 from lmrs_tpu_torch.obs.ledger import CostLedger
 from lmrs_tpu_torch.obs.slo import SLOEngine
@@ -80,7 +83,9 @@ class MockEngine:
                  host_kv_gb: float = 1.0,
                  speculate_k: int = 0,
                  cost_ledger: bool | None = None,
-                 slo: bool | None = None):
+                 slo: bool | None = None,
+                 slots: int = 0,
+                 qos: bool | None = None):
         self.seed = seed
         self.latency_s = latency_s
         self.fail_pattern = fail_pattern
@@ -175,12 +180,75 @@ class MockEngine:
         # threads release while generate_batch pins
         self._pinned: dict[int, dict] = {}  # guarded-by: _pinned_lock
         self._pinned_lock = threading.Lock()
+        # the fair-share admission gate (fleet/qos.py): slots=0 (the
+        # default) runs every generate_batch call at once, no gate; slots>0
+        # bounds the requests running at once across handler threads, and
+        # waiting tickets are admitted FIFO with QoS off and in the
+        # policy's order (class, windowed usage, arrival) with it armed
+        self.qos = maybe_qos() if (qos is None or bool(qos)) else None
+        if self.qos is not None:
+            # the ledger fires the observer after releasing its own lock
+            self.ledger.observer = self.qos.note_usage
+        self.slots = max(0, int(slots))
+        self._adm_cv = threading.Condition()
+        self._adm_queue: list = []  # waiting (seq, req) tickets  guarded-by: _adm_cv
+        self._adm_seq = 0           # guarded-by: _adm_cv
+        self._adm_running = 0       # guarded-by: _adm_cv
+
+    def _adm_pick_locked(self):
+        """Next ticket to admit: FIFO by arrival with QoS off, the policy's
+        pick with it armed.  The queue stays in arrival order, so a list
+        index is the FIFO rank ``pick_index`` breaks ties by."""
+        # holds-lock: _adm_cv
+        if self.qos is None:
+            return self._adm_queue[0]
+        return self._adm_queue[self.qos.pick_index(
+            [t[1] for t in self._adm_queue])]
+
+    def _admit_wait(self, req: GenerationRequest) -> None:
+        """Block until a run slot is free and this request is the admission
+        policy's pick.  A no-op with slots=0."""
+        if self.slots <= 0:
+            return
+        with self._adm_cv:
+            ticket = (self._adm_seq, req)
+            self._adm_seq += 1
+            self._adm_queue.append(ticket)
+            while not (self._adm_running < self.slots
+                       and self._adm_pick_locked() is ticket):
+                # a timed wait: a lost wakeup only delays
+                self._adm_cv.wait(timeout=0.2)
+            self._adm_queue.remove(ticket)
+            self._adm_running += 1
+            # another slot may still be free for the next pick
+            self._adm_cv.notify_all()
+
+    def _admit_release(self) -> None:
+        if self.slots <= 0:
+            return
+        with self._adm_cv:
+            self._adm_running -= 1
+            self._adm_cv.notify_all()
+
+    def qos_report(self) -> dict:
+        """The fair-share window (the scheduler's shape; the ``qos`` block
+        of ``GET /v1/usage``)."""
+        if self.qos is None:
+            return {"object": "qos", "enabled": False}
+        return self.qos.report()
 
     def generate_batch(self, requests: list[GenerationRequest],
                        on_result=None, on_tokens=None) -> list[GenerationResult]:
         # no start-of-batch clear of the cancel set (a cancel may race the
         # batch boundary), a full clear at the end, as the scheduler does
         def one(req: GenerationRequest) -> GenerationResult:
+            self._admit_wait(req)
+            try:
+                return one_admitted(req)
+            finally:
+                self._admit_release()
+
+        def one_admitted(req: GenerationRequest) -> GenerationResult:
             tr = get_tracer()
             t0 = time.time()
             if req.draft_hint is not None:
@@ -503,6 +571,7 @@ class MockEngine:
         the exporting cache keeps its entry."""
         if not self.prefix_cache:
             return None
+        faults.fire("migrate.export")
         with self._prefix_lock:
             ent = self._prefix.get(preamble)
             if ent is None:
@@ -526,6 +595,7 @@ class MockEngine:
         tokens = int(payload["tokens"])
         if not key or tokens <= 0:
             raise ValueError("malformed kv_pageset payload")
+        faults.fire("migrate.import")
         with self._prefix_lock:
             self._prefix_tick += 1
             self._prefix[key] = {"tokens": tokens, "tier": "resident",
@@ -715,6 +785,8 @@ class MockEngine:
                     payload["trace_id"] = req.trace_id
                 if req.tenant:
                     payload["tenant"] = req.tenant
+                if req.qos_class:
+                    payload["qos_class"] = req.qos_class
                 with self._pinned_lock:
                     self._pinned[req.request_id] = {
                         "payload": payload,

@@ -154,6 +154,7 @@ from lmrs_tpu_torch.engine.host_kv import (DiskKVPool, DiskReadError,
 from lmrs_tpu_torch.engine.kv_cache import (OutOfPages, PagedKVCache,
                                             SequencePages, audit_allocator)
 from lmrs_tpu_torch.engine.prefix_cache import PrefixCache
+from lmrs_tpu_torch.fleet.qos import maybe_qos
 from lmrs_tpu_torch.models.transformer import forward_paged
 from lmrs_tpu_torch.obs import (POW2_TOKEN_BUCKETS, RATIO_BUCKETS,
                                 CostLedger, DispatchAttribution,
@@ -415,6 +416,15 @@ class ContinuousScheduler:
         # and LMRS_ANATOMY=0 turn each off (pure host bookkeeping: outputs
         # are the same either way)
         self._cost = CostLedger(self.registry)
+        # Fair-share QoS (fleet/qos.py): admission picks by (class rank,
+        # windowed device-seconds / weight, FIFO) and preemption victimizes
+        # over-quota bulk work first; the ledger's apportionments feed the
+        # policy's sliding window (the observer fires outside the ledger
+        # lock).  LMRS_QOS=0 leaves _qos None: FIFO admission and the
+        # youngest victim exactly
+        self._qos = maybe_qos(self.registry)
+        if self._qos is not None:
+            self._cost.observer = self._qos.note_usage
         # the postmortems' counter snapshot, through a weak reference: a
         # strong one would make a cycle that keeps a dropped engine's
         # pools and weights on the card until a garbage collection
@@ -601,6 +611,23 @@ class ContinuousScheduler:
             for b in range(B):
                 if slots[b] is not None:
                     continue
+                # fair-share admission (fleet/qos.py): promote the policy's
+                # pick from the queue's 64-entry head window to the front;
+                # the others keep their order (a promotion, not a rotation,
+                # so skipped entries do not starve)
+                if self._qos is not None and len(queue) > 1:
+                    win = min(len(queue), 64)
+                    k = self._qos.pick_index(
+                        [queue[i][0] for i in range(win)])
+                    if k:
+                        ent = queue[k]
+                        del queue[k]
+                        queue.appendleft(ent)
+                        if tr:
+                            tr.instant("qos_reorder",
+                                       args={"picked": k, "window": win,
+                                             "tenant": ent[0].tenant
+                                             or "default"})
                 # deadline admission control: shed head entries whose
                 # remaining budget cannot cover the TTFT estimate, before
                 # any prefill
@@ -1321,7 +1348,8 @@ class ContinuousScheduler:
         """Grow each active decode slot's pages to cover the coming
         dispatch (``extra_tokens`` overrides the decode-block growth: a
         mixed step advances decode rows by ONE token).  On pool exhaustion,
-        preempt the YOUNGEST other decode slot and retry; with no other
+        preempt the youngest other decode slot (under QoS, the policy's
+        worst: ``_qos_victim_slot``) and retry; with no other
         decode slot the row is STALLED for this dispatch (masked off, its
         progress kept).  Returns the stalled rows; the caller re-activates
         them after the dispatch."""
@@ -1338,8 +1366,12 @@ class ContinuousScheduler:
                     self.cache.grow(st.seq, target)
                     break
                 except OutOfPages:
-                    victim = self._youngest_decode_slot(slots, active,
-                                                        exclude=b)
+                    if self._qos is not None:
+                        victim = self._qos_victim_slot(slots, active,
+                                                       exclude=b)
+                    else:
+                        victim = self._youngest_decode_slot(slots, active,
+                                                            exclude=b)
                     if victim is None:
                         stalled.append(b)
                         active[b] = False
@@ -1349,6 +1381,30 @@ class ContinuousScheduler:
                                   active)
         self._note_peak_pages()
         return stalled
+
+    def _qos_victim_slot(self, slots, active, exclude: int) -> int | None:
+        """QoS preemption policy (fleet/qos.py): the worst active decode
+        slot by (batch class first, highest normalized windowed usage,
+        youngest), so over-quota bulk work pays for the pool before a live
+        session does.  Uniform traffic ties the first two keys and the
+        rule is ``_youngest_decode_slot``'s."""
+        best, best_key = None, None
+        for b in range(self.B):
+            st = slots[b]
+            if (b == exclude or st is None or not active[b]
+                    or st.phase != "decode"):
+                continue
+            key = self._qos.victim_key(st.req, st.t_start)
+            if best_key is None or key >= best_key:
+                best, best_key = b, key
+        if best is not None:
+            self._qos.note_preempt()
+            if self._tr:
+                self._tr.instant("qos_preempt",
+                                 args={"slot": best,
+                                       "tenant": slots[best].req.tenant
+                                       or "default"})
+        return best
 
     def _youngest_decode_slot(self, slots, active, exclude: int) -> int | None:
         """Latest-admitted active decode slot, or None if only ``exclude``
@@ -2480,6 +2536,10 @@ class ContinuousScheduler:
             payload["trace_id"] = st.req.trace_id
         if st.req.tenant:
             payload["tenant"] = st.req.tenant
+        # ... and the QoS class: the decode leg competes in the class the
+        # prefill leg was admitted under
+        if st.req.qos_class:
+            payload["qos_class"] = st.req.qos_class
         # pages grown past the prompt for decode are not part of the
         # handoff: release them before pinning
         if len(st.seq.pages) > keep:
@@ -2692,6 +2752,7 @@ class ContinuousScheduler:
             ent = self._preambles.get(preamble)
             if ent is None:
                 return None
+            faults.fire("migrate.export")
             ids = list(ent["ids"])
             ps = self.cfg.page_size
             pages, matched, chain = self._prefix_cache.match_hier(ids)
@@ -2738,6 +2799,7 @@ class ContinuousScheduler:
                                    "runs")
             if self._prefix_cache is None:
                 raise ValueError("prefix cache off; nothing to import into")
+            faults.fire("migrate.import")
             kh, ps, hd = (int(x) for x in self.cache.k.shape[1:])
             want = {"page_size": self.cache.page_size,
                     "n_layers": self.cache.n_layers, "n_kv_heads": kh,
@@ -2906,6 +2968,12 @@ class ContinuousScheduler:
     def usage_report(self) -> dict:
         """Per-tenant cost rollups (the ``GET /v1/usage`` document)."""
         return self._cost.usage_report()
+
+    def qos_report(self) -> dict:
+        """Fair-share window state (the ``GET /v1/usage`` ``qos`` block)."""
+        if self._qos is None:
+            return {"object": "qos", "enabled": False}
+        return self._qos.report()
 
     def slo_report(self) -> dict:
         """Burn-rate SLO evaluation (the ``/healthz`` ``slo`` block)."""

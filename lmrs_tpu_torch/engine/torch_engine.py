@@ -281,6 +281,13 @@ class TorchEngine:
             return {"enabled": False, "state": "ok", "specs": {}}
         return self._scheduler.slo_report()
 
+    def qos_report(self) -> dict:
+        """The fair-share window state (fleet/qos.py; the ``GET /v1/usage``
+        ``qos`` block)."""
+        if self._scheduler is None:
+            return {"object": "qos", "enabled": False}
+        return self._scheduler.qos_report()
+
     def anatomy_report(self) -> dict:
         """The step anatomy (the ``GET /v1/anatomy`` page)."""
         if self._scheduler is None:

@@ -640,8 +640,11 @@ class JobManager:
             # holds, never a dict a merge is resizing
             job.usage = snap
 
+        # batch class: a job's map fan-out is the bulk work the QoS
+        # preemption policy victimizes before a live session's refresh
         stamp = TenantStampEngine(self.engine, job.tenant,
-                                  publish=_publish_usage, seed=job.usage)
+                                  publish=_publish_usage, seed=job.usage,
+                                  qos_class="batch")
         executor = MapExecutor(stamp, self.config.engine)
         job._executor = executor
         self._run_map(job, executor, chunks, map_prompt, summary_type,

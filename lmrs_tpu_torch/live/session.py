@@ -32,8 +32,9 @@ drafts from it).  Each refresh's engine results roll their ledger
 ``usage`` up into the session doc's ``usage`` block (this process life's
 refresh work: journal- and cache-answered nodes cost nothing), and the
 manager records ``session_open``, ``session_append``, ``session_resume``
-and ``session_refresh`` on the tracer's pipeline track.  The reference's
-QoS class stamp is A10b's.
+and ``session_refresh`` on the tracer's pipeline track.  A refresh's
+requests carry its session's QoS class (``interactive`` or ``batch``), so
+an interactive refresh outranks a job's map wave in the scheduler.
 """
 
 from __future__ import annotations
@@ -836,8 +837,14 @@ class SessionManager:
         def _publish_usage(snap: dict) -> None:
             session.usage = snap  # a reference swap (see status_doc)
 
+        # the QoS class rides the refresh's deadline class: an interactive
+        # refresh outranks batch job fan-out (fleet/qos.py); a bulk refresh
+        # competes as batch like any other bulk work
         stamp = TenantStampEngine(self.engine, session.tenant,
                                   publish=_publish_usage, seed=session.usage,
+                                  qos_class=("interactive"
+                                             if klass == "interactive"
+                                             else "batch"),
                                   draft_hint=prior.get("summary"))
         executor = MapExecutor(stamp, engine_cfg)
         with session.ctl:

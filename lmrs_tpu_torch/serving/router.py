@@ -64,15 +64,34 @@ h:p,...`` fans the pipeline's requests over them.
   ["hedge"]``, ``lmrs_router_hedges_total`` / ``lmrs_router_hedge_wins_
   total`` and the fleet usage's ``router`` block.
 
+* **SLO placement** (``LMRS_SLO_ROUTE``, default on): each host's
+  ``/healthz`` ``slo`` state rides the summary cache, and the dispatch
+  order sinks warn and critical hosts as a graded penalty (a stable sort,
+  so an ok fleet keeps its rotation); a critical host is never fronted by
+  a sticky preference.  Counted in ``engine_metrics()["slo_route"]`` and
+  ``lmrs_router_slo_penalized_total``.
+* **Tenant placement** (``LMRS_TENANT_ROUTE``, default on): with no prefix
+  opinion, a tenant's request goes first to the host that last served it
+  (a bounded LRU), while that host is healthy and its SLO state ok.
+  Counted in ``engine_metrics()["tenant_route"]`` and
+  ``lmrs_router_tenant_routed_total``.
+* **Elasticity**: ``add_host(url, role)`` joins a server at run time,
+  ``drain_host(netloc)`` takes it out of the dispatch order (its legs in
+  flight finish; its tenant, job and session pins are released) and,
+  with ``LMRS_KV_MIGRATE`` armed, moves its hottest warm page sets to the
+  least-loaded healthy sibling over ``/v1/kv`` and re-pins its jobs and
+  sessions there (``migrations_pending(netloc)`` until done);
+  ``host_idle(netloc)`` reads its legs in flight and
+  ``remove_host(netloc, force=False)`` completes the exit (never the last
+  host).  ``fleet/autoscale.py`` drives these calls.
+* **QoS forwarding**: a request's ``qos_class`` rides the body to the
+  server's fair-share admission; the fleet usage merges every host's
+  ``qos`` block over the fleet's sums.
+
 Fault-injection sites (``testing/faults.py``): ``router.connect`` (a
 connect-phase failure, as a dead host), ``router.probe`` (a failed
 ``/healthz`` probe), ``router.recv`` (a mid-stream SSE fault or stall) and
 ``router.hedge`` (a hedge launch abandoned or delayed).
-
-Not in the port yet, refused by name (the fleet half of robustness,
-A10b): SLO and tenant placement (``/healthz`` ``slo`` blocks are published
-but no placement reads them), and adding, draining (with its KV
-migration) or removing hosts at run time.
 """
 
 from __future__ import annotations
@@ -97,12 +116,11 @@ from lmrs_tpu_torch.obs import (MetricsRegistry, add_label_to_exposition,
                                 get_tracer, merge_anatomy, merge_expositions,
                                 new_trace_id, stitch_traces)
 from lmrs_tpu_torch.obs.ledger import merge_usage, totals_from_tenants
+from lmrs_tpu_torch.obs.slo import state_rank
 from lmrs_tpu_torch.testing import faults
 from lmrs_tpu_torch.utils.env import env_bool, env_float, env_int
 
 logger = logging.getLogger("lmrs_torch.router")
-
-_A10B_FLEET = "fleet robustness (A10b's fleet half)"
 
 
 def _request_body(req: GenerationRequest) -> dict:
@@ -128,6 +146,10 @@ def _request_body(req: GenerationRequest) -> dict:
         # the hint caps what the server's prefix cache takes and keys the
         # summary this router places on
         body["cache_prefix"] = int(req.cache_prefix)
+    if req.qos_class is not None:
+        # fair-share admission runs on the server: the class must cross
+        # the wire (None while QoS is off, so that wire is unchanged)
+        body["qos_class"] = req.qos_class
     return body
 
 
@@ -140,8 +162,8 @@ class _Host:
     """One backend server.  ``role`` is its pool ("prefill" | "decode" |
     "both"): a routing policy, every host can serve a whole request.
     Health is the connect-phase belief (``_down``) AND a circuit breaker
-    (closed | open | half_open): see the module docstring.
-    ``healthy = True`` force-closes both."""
+    (closed | open | half_open) AND not draining: see the module
+    docstring.  ``healthy = True`` force-closes the first two."""
 
     def __init__(self, url: str, role: str = "both", clock=time.monotonic):
         u = urlsplit(url if "//" in url else f"http://{url}")
@@ -151,9 +173,14 @@ class _Host:
         self._down = False
         self.breaker_state = "closed"
         self.breaker_opened_t = 0.0
+        # a draining host leaves the dispatch order like an open breaker
+        # but is never probed back: its legs in flight finish, nothing new
+        # lands, and remove_host() completes the exit once it is idle
+        self.draining = False
         self._count_lock = threading.Lock()
         self.served = 0           # guarded-by: _count_lock
         self.failed = 0           # guarded-by: _count_lock
+        self.inflight = 0         # request legs on this host  guarded-by: _count_lock
         self.consec_failures = 0  # guarded-by: _count_lock
         self.breaker_opens = 0    # guarded-by: _count_lock
         # earliest clock time of the next recovery probe
@@ -161,9 +188,15 @@ class _Host:
 
     @property
     def healthy(self) -> bool:
-        """Not condemned and the breaker closed (a half-open host gets only
-        its canary)."""
-        return not self._down and self.breaker_state == "closed"
+        """Not condemned, not draining and the breaker closed (a half-open
+        host gets only its canary)."""
+        return (not self._down and not self.draining
+                and self.breaker_state == "closed")
+
+    def note_leg(self, delta: int) -> None:
+        """Legs in flight (drain-until-idle needs an exact count)."""
+        with self._count_lock:
+            self.inflight += delta
 
     @healthy.setter
     def healthy(self, value: bool) -> None:
@@ -195,6 +228,12 @@ class _Host:
             self.breaker_opened_t = self.clock()
             logger.warning("host %s: breaker OPEN after %d consecutive "
                            "failures", self.netloc, threshold)
+
+    def reopen_breaker(self) -> None:
+        """A half-open canary failed: back to open, cooldown restarts."""
+        if self.breaker_state != "closed":
+            self.breaker_state = "open"
+            self.breaker_opened_t = self.clock()
 
     def breaker_due(self) -> bool:
         """An open breaker whose cooldown has elapsed (canary due)."""
@@ -228,8 +267,7 @@ class _Host:
                         self.netloc)
             self.healthy = True
         else:
-            self.breaker_state = "open"
-            self.breaker_opened_t = self.clock()
+            self.reopen_breaker()
         return ok
 
     def connect(self, timeout: float) -> http.client.HTTPConnection:
@@ -270,7 +308,8 @@ class RouterEngine:
                  probe_floor_s: float = 5.0, probe_jitter_s: float = 2.5,
                  clock=time.monotonic, prefix_route: bool | None = None,
                  summary_ttl_s: float | None = None,
-                 prefill_hosts: list[str] = (), decode_hosts: list[str] = ()):
+                 prefill_hosts: list[str] = (), decode_hosts: list[str] = (),
+                 slo_route: bool | None = None):
         self.hosts = ([_Host(h, clock=clock) for h in hosts]
                       + [_Host(h, "prefill", clock=clock)
                          for h in prefill_hosts]
@@ -291,6 +330,8 @@ class RouterEngine:
         # the kv_migrate keys are omitted
         self.kv_migrate = env_bool("LMRS_KV_MIGRATE", True)
         self._kv_lock = threading.Lock()
+        # draining hosts whose warm page sets are being moved to a sibling
+        self._kv_migrating: set[str] = set()  # guarded-by: _kv_lock
         # (sibling netloc, preamble) -> last attempt, bounded
         self._kv_prefetched: dict[tuple[str, str], float] = {}  # guarded-by: _kv_lock
         self._kv_prefetched_max = 256
@@ -334,6 +375,19 @@ class RouterEngine:
         self._prefix_routed = 0     # guarded-by: _stats_lock
         self._prefix_predicted = 0  # guarded-by: _stats_lock
         self._prefix_fallback = 0   # guarded-by: _stats_lock
+        # SLO placement: the summary cache carries each host's published
+        # burn state, and the dispatch order sinks degraded hosts (ok <
+        # warn < critical); LMRS_SLO_ROUTE=0 keeps the plain order
+        self.slo_route = (env_bool("LMRS_SLO_ROUTE", True)
+                          if slo_route is None else bool(slo_route))
+        self._slo_penalized = 0     # guarded-by: _stats_lock
+        # tenant placement: tenant -> the host that last served it, a
+        # bounded LRU (a cache, not the truth); the weakest preference,
+        # consulted only when prefix placement has none
+        self.tenant_route = env_bool("LMRS_TENANT_ROUTE", True)
+        self._tenant_hosts: dict[str, str] = {}  # guarded-by: _stats_lock
+        self._tenant_hosts_max = 1024
+        self._tenant_routed = 0     # guarded-by: _stats_lock
         # job and session forwarding: id -> backend netloc.  A cache, not
         # the truth (the journals live with the backends): bounded, oldest
         # pin evicted, an evicted or unknown id re-scans the fleet
@@ -432,6 +486,13 @@ class RouterEngine:
                                 "predicted": self._prefix_predicted,
                                 "fallback": self._prefix_fallback,
                                 "summary_age_s": ages},
+               "slo_route": {"enabled": self.slo_route,
+                             "penalized": self._slo_penalized,
+                             "states": {h.netloc: self._slo_penalty(h)
+                                        for h in self.hosts}},
+               "tenant_route": {"enabled": self.tenant_route,
+                                "routed": self._tenant_routed,
+                                "tenants": len(self._tenant_hosts)},
                "per_host": per}
         if self.kv_migrate:
             doc["kv_migrate"] = {"enabled": True, "moves": self._kv_moves,
@@ -499,6 +560,10 @@ class RouterEngine:
                         "times this host's breaker opened "
                         "(consecutive-failure threshold crossed)"
                         ).inc(h.breaker_opens)
+            reg.gauge("lmrs_router_host_slo_state",
+                      "the host's last published SLO burn-rate state "
+                      "(0=ok/unknown, 1=warn, 2=critical)").set(
+                float(self._slo_penalty(h)))
             pages.append(add_label_to_exposition(
                 reg.render_prometheus(), "host", h.netloc))
         for role, pool in self.pools.items():
@@ -543,6 +608,13 @@ class RouterEngine:
         reg.counter("lmrs_router_prefix_fallback_total",
                     "prefix-eligible requests that degraded to plain "
                     "load/health ordering").inc(self._prefix_fallback)
+        reg.counter("lmrs_router_slo_penalized_total",
+                    "dispatch orders whose first choice was demoted by a "
+                    "published SLO state (LMRS_SLO_ROUTE)"
+                    ).inc(self._slo_penalized)
+        reg.counter("lmrs_router_tenant_routed_total",
+                    "requests placed sticky on the tenant's last-served "
+                    "host (LMRS_TENANT_ROUTE)").inc(self._tenant_routed)
         if self.kv_migrate:
             reg.counter("lmrs_kv_migrate_moves_total",
                         "KV page sets moved off draining hosts over the "
@@ -929,25 +1001,61 @@ class RouterEngine:
         """Fleet ``GET /v1/usage``: every host's per-tenant rollups merged
         by the one merge rule (``merge_usage``), so the per-tenant fleet
         rollups sum to the fleet totals; hosts down or ledger-less are
-        listed in ``unreachable``."""
+        listed in ``unreachable``.  The hosts' ``qos`` blocks merge into
+        one: windowed device-seconds summed per tenant, weights their
+        largest, shares recomputed over the fleet's sums (omitted when
+        every host has QoS off)."""
         pages, unreachable = self._pull_pages("/v1/usage")
         tenants: dict[str, dict] = {}
         per_host: list[dict] = []
         enabled = False
+        qos_burn: dict[str, float] = {}
+        qos_weight: dict[str, float] = {}
+        qos_window = 0.0
+        qos_on = False
         for netloc, doc in pages:
             enabled = enabled or bool(doc.get("enabled"))
             per_host.append({"host": netloc,
                              "totals": doc.get("totals") or {}})
             for t, roll in (doc.get("tenants") or {}).items():
                 merge_usage(tenants.setdefault(t, {}), roll)
+            q = doc.get("qos")
+            if isinstance(q, dict) and q.get("enabled"):
+                qos_on = True
+                qos_window = max(qos_window, float(q.get("window_s") or 0.0))
+                for t, row in (q.get("tenants") or {}).items():
+                    qos_burn[t] = (qos_burn.get(t, 0.0)
+                                   + float(row.get("window_device_seconds")
+                                           or 0.0))
+                    qos_weight[t] = max(qos_weight.get(t, 0.0),
+                                        float(row.get("weight") or 1.0))
         with self._stats_lock:
             router = {"hedges": self._hedges,
                       "hedge_wins": self._hedge_wins,
-                      "handoff_retries": self._handoff_retries}
-        return {"object": "usage", "enabled": enabled, "fleet": True,
-                "tenants": tenants, "totals": totals_from_tenants(tenants),
-                "per_host": per_host, "unreachable": unreachable,
-                "router": router}
+                      "handoff_retries": self._handoff_retries,
+                      "slo_penalized": self._slo_penalized,
+                      "tenant_routed": self._tenant_routed}
+        doc = {"object": "usage", "enabled": enabled, "fleet": True,
+               "tenants": tenants, "totals": totals_from_tenants(tenants),
+               "per_host": per_host, "unreachable": unreachable,
+               "router": router}
+        if qos_on:
+            total = sum(qos_burn.values())
+            wsum = sum(qos_weight.get(t, 1.0) for t in qos_burn) or 1.0
+            qt = {}
+            for t, s in sorted(qos_burn.items()):
+                w = qos_weight.get(t, 1.0)
+                fair = total * w / wsum
+                qt[t] = {"weight": w,
+                         "window_device_seconds": round(s, 6),
+                         "share": round(s / total, 4) if total > 0 else 0.0,
+                         "fair_share": round(w / wsum, 4),
+                         "over_quota": bool(len(qos_burn) > 1 and s > fair)}
+            doc["qos"] = {"object": "qos", "enabled": True, "fleet": True,
+                          "window_s": qos_window,
+                          "window_device_seconds": round(total, 6),
+                          "tenants": qt}
+        return doc
 
     def anatomy_report(self) -> dict:
         """Fleet ``GET /v1/anatomy``: ``merge_anatomy`` over every host's
@@ -974,18 +1082,208 @@ class RouterEngine:
         merged["stitch"]["unreachable"] = unreachable
         return merged
 
-    def _refuse(self, what: str):
-        raise NotImplementedError(f"{what} is not in the port yet; it "
-                                  f"arrives with the {_A10B_FLEET} slice")
+    # ---------------------------------------------------- fleet elasticity
 
-    def add_host(self, url: str, role: str = "both"):
-        self._refuse("add_host")
+    def add_host(self, url: str, role: str = "both") -> _Host:
+        """Admit a server into the fleet at run time (the autoscaler's
+        scale-up, or an operator).  Idempotent by netloc: re-adding a host
+        clears its drain flag and returns it.  A new host enters healthy;
+        one that never came up costs one failover leg through the
+        breaker."""
+        h = _Host(url, role, clock=self._clock)
+        for existing in self.hosts:
+            if existing.netloc == h.netloc:
+                existing.draining = False
+                return existing
+        # list appends are atomic and dispatch only iterates, so a wave
+        # sees the fleet before or after the join, never a torn list
+        self.hosts.append(h)
+        self.pools.setdefault(h.role, []).append(h)
+        logger.info("fleet: host %s joined (role %s, %d hosts)",
+                    h.netloc, h.role, len(self.hosts))
+        return h
 
-    def drain_host(self, netloc: str):
-        self._refuse("drain_host")
+    def drain_host(self, netloc: str) -> bool:
+        """Begin a graceful exit: the host leaves the dispatch order (not
+        ``healthy``) but keeps its legs in flight, and no probe re-admits
+        it.  Its tenant pins, summary and job/session pins are released
+        now, so it stops attracting placement; with ``LMRS_KV_MIGRATE``
+        armed its warm page sets move to a sibling, which inherits the
+        released job/session pins.  False for an unknown netloc."""
+        for h in self.hosts:
+            if h.netloc != netloc:
+                continue
+            h.draining = True
+            with self._summary_lock:
+                self._summaries.pop(netloc, None)
+                self._summary_inflight.discard(netloc)
+            with self._stats_lock:
+                for t, n in list(self._tenant_hosts.items()):
+                    if n == netloc:
+                        del self._tenant_hosts[t]
+            with self._job_lock:
+                pinned = [j for j, n in self._job_hosts.items()
+                          if n == netloc]
+                for j in pinned:
+                    del self._job_hosts[j]
+            logger.info("fleet: host %s draining (%d legs in flight, "
+                        "%d pins released)", netloc, h.inflight,
+                        len(pinned))
+            if self.kv_migrate:
+                self._start_kv_migration(h, pinned)
+            return True
+        return False
 
-    def remove_host(self, netloc: str, force: bool = False):
-        self._refuse("remove_host")
+    def host_idle(self, netloc: str) -> bool:
+        """No request legs in flight on the host (the drain-complete
+        signal the autoscaler polls); True for an unknown netloc."""
+        for h in self.hosts:
+            if h.netloc == netloc:
+                return h.inflight == 0
+        return True
+
+    def remove_host(self, netloc: str, force: bool = False) -> bool:
+        """Complete a drain: drop the host from the fleet and every routing
+        structure.  False while legs are in flight (unless ``force``), for
+        an unknown netloc, and for the last host of the fleet."""
+        for h in list(self.hosts):
+            if h.netloc != netloc:
+                continue
+            if h.inflight and not force:
+                return False
+            if len(self.hosts) <= 1:
+                logger.warning("fleet: refusing to remove last host %s",
+                               netloc)
+                return False
+            self.hosts.remove(h)
+            for pool in self.pools.values():
+                if h in pool:
+                    pool.remove(h)
+            with self._summary_lock:
+                self._summaries.pop(netloc, None)
+                self._summary_inflight.discard(netloc)
+            with self._stats_lock:
+                for t, n in list(self._tenant_hosts.items()):
+                    if n == netloc:
+                        del self._tenant_hosts[t]
+            # job and session pins too: a forced remove (no drain first)
+            # must not leave clients pinned to a host that is gone
+            with self._job_lock:
+                for j, n in list(self._job_hosts.items()):
+                    if n == netloc:
+                        del self._job_hosts[j]
+            with self._kv_lock:
+                for key in [k for k in self._kv_prefetched
+                            if k[0] == netloc]:
+                    del self._kv_prefetched[key]
+            logger.info("fleet: host %s removed (%d hosts remain)",
+                        netloc, len(self.hosts))
+            return True
+        return False
+
+    # --------------------------------------------- drain-time KV migration
+
+    def migrations_pending(self, netloc: str) -> bool:
+        """A drain's KV migration off ``netloc`` is still running (the
+        autoscaler holds its removal until it clears or times out)."""
+        with self._kv_lock:
+            return netloc in self._kv_migrating
+
+    def _start_kv_migration(self, src: _Host, pinned: list[str]) -> None:
+        """Queue the migration of ``src``'s warm KV on the pool, one per
+        netloc at a time (a second drain call must not race a copy)."""
+        with self._kv_lock:
+            if src.netloc in self._kv_migrating:
+                return
+            self._kv_migrating.add(src.netloc)
+        self._pool.submit(self._migrate_host_kv, src, pinned)
+
+    def _migrate_host_kv(self, src: _Host, pinned: list[str]) -> None:
+        """Move the draining host's hottest preambles (at most 8, resident
+        tokens weighing twice spilled ones) to one healthy sibling over
+        ``/v1/kv``, then re-pin the drained host's jobs and sessions there
+        (pool thread).  A failure leaves the preamble to re-prefill cold
+        wherever placement sends it; a torch or CUDA error raises."""
+        moved = 0
+        try:
+            dst = self._kv_sibling(src)
+            if dst is None:
+                logger.info("fleet: no healthy sibling for %s; its KV "
+                            "stays (re-prefill on demand)", src.netloc)
+                return
+            rows = self._fetch_kv_rows(src)
+            rows.sort(key=lambda e: -(2 * int(e.get("resident_tokens") or 0)
+                                      + int(e.get("spilled_tokens") or 0)))
+            for ent in rows[:8]:
+                if self._kv_move(src, dst, str(ent["hash"])):
+                    moved += 1
+            with self._job_lock:
+                for jid in pinned:
+                    self._job_hosts[jid] = dst.netloc
+                while len(self._job_hosts) > self._job_hosts_max:
+                    self._job_hosts.pop(next(iter(self._job_hosts)))
+            logger.info("fleet: migrated %d KV page sets %s -> %s "
+                        "(%d pins re-homed)", moved, src.netloc,
+                        dst.netloc, len(pinned))
+        except (OSError, http.client.HTTPException, ValueError,
+                faults.InjectedFault):
+            logger.warning("fleet: KV migration off %s failed after %d "
+                           "moves", src.netloc, moved, exc_info=True)
+            self._count("_kv_failures")
+        finally:
+            with self._kv_lock:
+                self._kv_migrating.discard(src.netloc)
+
+    def _kv_sibling(self, src: _Host) -> _Host | None:
+        """Where a drained host's KV lands: the least-served healthy host
+        other than ``src`` (role membership is policy: a migrated preamble
+        is useful wherever follow-up traffic goes)."""
+        healthy = [h for h in self.hosts if h is not src and h.healthy]
+        if not healthy:
+            return None
+        return sorted(healthy, key=lambda h: (h.served, h.netloc))[0]
+
+    def _fetch_kv_rows(self, src: _Host) -> list[dict]:
+        """The draining host's current prefix summary, fetched directly
+        (its cached copy went at the drain); none from a host that does
+        not answer."""
+        conn = None
+        try:
+            conn = http.client.HTTPConnection(src.netloc, timeout=5.0)
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            if resp.status != 200:
+                return []
+            doc = json.loads(resp.read())
+        except (OSError, http.client.HTTPException, ValueError) as e:
+            logger.debug("KV summary fetch failed for %s: %s: %s",
+                         src.netloc, type(e).__name__, e)
+            return []
+        finally:
+            if conn is not None:
+                conn.close()
+        return [ent for ent in (doc.get("prefix_summary") or ())
+                if isinstance(ent, dict) and ent.get("hash")]
+
+    def _kv_move(self, src: _Host, dst: _Host, preamble: str) -> bool:
+        """One page-set move: export on ``src`` (404: cold or busy, 501:
+        the wire is off there; neither is a failure), then a pull-import on
+        ``dst``, which fetches the blob and acks the ticket (an unacked
+        ticket is reclaimed by ``src``'s orphan sweep)."""
+        status, doc = self._kv_call(src, "/v1/kv/export",
+                                    {"preamble": preamble})
+        if status != 200 or not doc.get("ticket"):
+            if status not in (404, 501):
+                self._count("_kv_failures")
+            return False
+        status, _ = self._kv_call(dst, "/v1/kv/import",
+                                  {"ticket": doc["ticket"],
+                                   "source": src.netloc})
+        if status == 200:
+            self._count("_kv_moves")
+            return True
+        self._count("_kv_failures")
+        return False
 
     # ------------------------------------------------------------- dispatch
 
@@ -1022,6 +1320,8 @@ class RouterEngine:
             for host in self.hosts:
                 if host.healthy or now < host.next_probe_t:
                     continue
+                if host.draining:
+                    continue  # a deliberate exit: nothing re-admits it
                 if (not host._down and host.breaker_state == "open"
                         and not host.breaker_due()):
                     continue  # cooldown running: no canary yet
@@ -1055,21 +1355,81 @@ class RouterEngine:
                  prefer: _Host | None = None) -> list[_Host]:
         """Hosts of ``role`` in round-robin order from ``start``, healthy
         first (every host of it when none is healthy: a transient fault
-        must not brick the fleet); ``prefer`` goes to the front."""
+        must not brick the fleet), sunk by published SLO state under
+        ``slo_route``; ``prefer`` goes to the front unless its state is
+        critical."""
         pool = self._role_pool(role)
         n = len(pool)
         order = [pool[(start + k) % n] for k in range(n)]
         out = [h for h in order if h.healthy] or order
+        if self.slo_route:
+            # a stable sort: an ok fleet keeps its rotation, and a degraded
+            # host sinks in the failover order instead of vanishing (it
+            # still serves when every host is degraded)
+            penalties = {h.netloc: self._slo_penalty(h) for h in out}
+            if any(penalties.values()):
+                first = out[0]
+                out = sorted(out, key=lambda h: penalties[h.netloc])
+                if out and out[0] is not first:
+                    with self._stats_lock:
+                        self._slo_penalized += 1
+            # prefix warmth never outranks a host burning its SLOs
+            if prefer is not None and penalties.get(prefer.netloc, 0) >= 2:
+                prefer = None
         if prefer is not None and prefer in out:
             out = [prefer] + [h for h in out if h is not prefer]
         return out
+
+    def _tenant_pref(self, req: GenerationRequest,
+                     role: str) -> _Host | None:
+        """The host that last served this request's tenant, while it is
+        healthy and its published SLO state ok; else no opinion."""
+        if not self.tenant_route or not req.tenant:
+            return None
+        with self._stats_lock:
+            netloc = self._tenant_hosts.get(req.tenant)
+        if netloc is None:
+            return None
+        for h in self._role_pool(role):
+            if h.netloc == netloc:
+                if h.healthy and self._slo_penalty(h) == 0:
+                    with self._stats_lock:
+                        self._tenant_routed += 1
+                    return h
+                return None
+        return None
+
+    def _note_tenant_host(self, req: GenerationRequest,
+                          host: _Host) -> None:
+        """Record a served request's host as its tenant's warm host (an
+        LRU: a re-insert moves to the back, the oldest evicts)."""
+        if not self.tenant_route or not req.tenant:
+            return
+        with self._stats_lock:
+            self._tenant_hosts.pop(req.tenant, None)
+            self._tenant_hosts[req.tenant] = host.netloc
+            while len(self._tenant_hosts) > self._tenant_hosts_max:
+                self._tenant_hosts.pop(next(iter(self._tenant_hosts)))
+
+    def _slo_penalty(self, host: _Host) -> int:
+        """The host's placement penalty from its last published SLO state
+        (0 ok or unknown, 1 warn, 2 critical); a state older than the
+        summary TTL decays to 0 (a host that stopped publishing is not
+        penalized on old news)."""
+        with self._summary_lock:
+            s = self._summaries.get(host.netloc)
+            if s is None or (self._clock() - s.get("slo_at", s["at"])
+                             > self.summary_ttl_s):
+                return 0
+            return state_rank(s.get("slo"))
 
     # ------------------------------------------------- prefix-aware routing
 
     def _refresh_summaries(self) -> None:
         """Queue a ``/healthz`` summary fetch for every healthy host whose
-        summary is older than half the TTL; never blocks a wave."""
-        if not self.prefix_route:
+        summary is older than half the TTL (prefix or SLO placement on);
+        never blocks a wave."""
+        if not (self.prefix_route or self.slo_route):
             return
         now = self._clock()
         due: list[_Host] = []
@@ -1103,15 +1463,28 @@ class RouterEngine:
             if conn is not None:
                 conn.close()
         smap: dict[str, dict] | None = None
+        slo_state: str | None = None
         if isinstance(doc, dict):
             smap = {str(ent["hash"]): ent
                     for ent in doc.get("prefix_summary") or ()
                     if isinstance(ent, dict) and ent.get("hash")}
+            slo = doc.get("slo")
+            if isinstance(slo, dict) and slo.get("enabled"):
+                slo_state = str(slo.get("state") or "ok")
         with self._summary_lock:
+            now = self._clock()
+            slo_at = now
             if smap is None:
+                # a failed fetch keeps the last map (stale warmth is still
+                # the best guess) but the SLO state keeps its last
+                # success's stamp, so its penalty decays
                 prev = self._summaries.get(host.netloc)
                 smap = prev["map"] if prev else {}
-            self._summaries[host.netloc] = {"at": self._clock(), "map": smap}
+                slo_state = (prev or {}).get("slo")
+                slo_at = (prev or {}).get("slo_at", 0.0)
+            self._summaries[host.netloc] = {"at": now, "map": smap,
+                                            "slo": slo_state,
+                                            "slo_at": slo_at}
             self._summary_inflight.discard(host.netloc)
 
     def _prefix_target(self, req: GenerationRequest, role: str = "full"
@@ -1263,6 +1636,10 @@ class RouterEngine:
         # and handoff leg resends the id, so one request is one trace
         if req.trace_id is None:
             req.trace_id = new_trace_id()
+        if prefer is None:
+            # no prefix opinion: tenant placement, the weakest preference
+            prefer = self._tenant_pref(
+                req, "prefill" if self._disagg_ready() else "full")
         if self._disagg_ready():
             res = self._one_disagg(i, req, on_tokens, cancelled, prefer)
             if res is not None:
@@ -1305,6 +1682,7 @@ class RouterEngine:
                     self._note_latency(time.time() - t_leg)
                 host.note_served()
                 host.healthy = True
+                self._note_tenant_host(req, host)
                 return res
             except Exception as e:  # noqa: BLE001 - degrade per request
                 if rid in cancelled:  # the hangup WE caused
@@ -1452,6 +1830,7 @@ class RouterEngine:
                 if res.finish_reason != "error":
                     host.note_served()
                     host.healthy = True
+                    self._note_tenant_host(req, host)
                     if is_hedge:
                         self._count("_hedge_wins")
                     winner = res
@@ -1594,6 +1973,7 @@ class RouterEngine:
         if rem is not None:
             timeout = max(1.0, min(timeout, rem + 5.0))
         conn = host.connect(timeout)
+        host.note_leg(+1)
         with self._inflight_lock:
             self._inflight[rid] = conn
         try:
@@ -1632,6 +2012,7 @@ class RouterEngine:
                 finish_reason=choice.get("finish_reason") or "stop",
                 usage=usage.get("cost") or None)
         finally:
+            host.note_leg(-1)
             with self._inflight_lock:
                 self._inflight.pop(rid, None)
             try:
@@ -1656,6 +2037,7 @@ class RouterEngine:
             # own deadline result
             timeout = max(1.0, min(timeout, rem + 5.0))
         conn = host.connect(timeout)
+        host.note_leg(+1)
         rid = req.request_id
         # a hedge leg registers under its own key, so two legs of one rid
         # never clobber each other's hangup target
@@ -1699,6 +2081,7 @@ class RouterEngine:
                 finish_reason=choice.get("finish_reason") or "stop",
                 usage=usage.get("cost") or None)
         finally:
+            host.note_leg(-1)
             with self._inflight_lock:
                 self._inflight.pop(key, None)
             try:

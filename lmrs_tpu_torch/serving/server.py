@@ -60,9 +60,12 @@ cancels its request through the engine's ``cancel`` hook.
   ``slo`` block and ``/metrics`` text merges the engine's registry.  A
   completion's tenant is ``X-LMRS-Tenant`` (else the body's ``tenant``,
   else ``"default"``), minted at ingress and carried through handoffs;
-  responses carry the ledger's bill as ``usage.cost``.  The
-  ``X-LMRS-QoS-Class`` header is accepted and not acted on: fair-share
-  QoS is the fleet half of A10b's (not in the port yet).
+  responses carry the ledger's bill as ``usage.cost``.  While
+  ``LMRS_QOS`` is armed a completion's QoS class is ``X-LMRS-QoS-Class``
+  (else the body's ``qos_class``; ``interactive`` or ``batch``, anything
+  else none), carried through handoffs; the batcher dispatches a wave in
+  the engine's fair-share order when the engine has a policy (the mock's
+  gate), and ``GET /v1/usage`` carries the policy's ``qos`` block.
 
 Standard library only (``http.server``).
 """
@@ -82,6 +85,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from lmrs_tpu_torch.engine.api import Engine, GenerationRequest, GenerationResult
+from lmrs_tpu_torch.fleet.qos import clean_qos_class as _clean_qos_class
+from lmrs_tpu_torch.fleet.qos import qos_enabled
 from lmrs_tpu_torch.obs import (DEFAULT_TENANT, MetricsRegistry, get_tracer,
                                 merge_expositions, new_trace_id)
 from lmrs_tpu_torch.serving.handoff import (ImportLog, TicketRegistry,
@@ -112,6 +117,13 @@ def clean_tenant(raw, default: str | None = None) -> str | None:
     passes ``DEFAULT_TENANT``, so anonymous traffic bills to one named
     tenant; adoption sites keep None so absence stays observable)."""
     return clean_trace_id(raw) or default
+
+
+def clean_qos_class(raw) -> str | None:
+    """A wire-supplied ``X-LMRS-QoS-Class`` label (or ``qos_class`` body
+    field): "interactive" | "batch", else None (fleet/qos.py resolves None
+    to "interactive")."""
+    return _clean_qos_class(raw)
 
 
 def _cost(res: GenerationResult) -> dict:
@@ -268,6 +280,23 @@ class _Batcher:
                                             finish_reason="error",
                                             error="server shutting down"))
 
+    def _qos_order(self, jobs: list[_Job]) -> list[_Job]:
+        """Fair-share wave order (fleet/qos.py): when the engine carries an
+        armed policy (the mock's admission gate; the scheduler reorders in
+        its own admission instead) the wave dispatches in repeated
+        policy-pick order, interactive before batch and under-served
+        tenants before flooding ones.  The identity when the engine has no
+        policy or ``LMRS_QOS=0``."""
+        pol = getattr(self.engine, "qos", None)
+        if pol is None or len(jobs) < 2:
+            return jobs
+        remaining = list(jobs)
+        out: list[_Job] = []
+        while remaining:
+            out.append(remaining.pop(
+                pol.pick_index([j.request for j in remaining])))
+        return out
+
     def _run(self, jobs: list[_Job]) -> None:
         # publish the wave BEFORE dispatch so cancel() can reach it, then
         # drop the jobs cancelled while queued (no engine work for them)
@@ -276,7 +305,7 @@ class _Batcher:
             if job.cancelled:
                 job.finish(GenerationResult(request_id=job.rid,
                                             finish_reason="cancelled"))
-        jobs = [j for j in jobs if not j.cancelled]
+        jobs = self._qos_order([j for j in jobs if not j.cancelled])
         if not jobs:
             self._inflight = {}
             return
@@ -546,7 +575,7 @@ class EngineHTTPServer:
         # ticket -> encoded blob, held until ack or expiry
         self._kv_payloads: dict[str, bytes] = {}  # guarded-by: _kv_lock
         self._handoff_reg = MetricsRegistry()
-        hc = self._handoff_reg.counter
+        hc, hh = self._handoff_reg.counter, self._handoff_reg.histogram
         self._c_tickets = hc("lmrs_handoff_tickets_total",
                              "handoff tickets published (prefill side)")
         self._c_acks = hc("lmrs_handoff_acks_total",
@@ -557,6 +586,9 @@ class EngineHTTPServer:
         self._c_ack_failures = hc("lmrs_handoff_ack_failures_total",
                                   "acks lost after retries (pages left to "
                                   "the prefill orphan sweep)")
+        self._h_transfer = hh("lmrs_handoff_transfer_seconds",
+                              help="payload fetch prefill→decode",
+                              unit="seconds")
         self._sweep_stop = threading.Event()
         self._sweeper = threading.Thread(target=self._sweep_loop, daemon=True)
         self._sweeper.start()
@@ -693,6 +725,15 @@ class EngineHTTPServer:
                     return
                 try:
                     doc = hook()
+                    # the per-tenant fair-share block (fleet/qos.py),
+                    # omitted when the policy is off or a router's fleet
+                    # merge already carries one
+                    qos = getattr(outer.engine, "qos_report", None)
+                    if (what == "usage" and qos is not None
+                            and "qos" not in doc):
+                        q = qos()
+                        if q.get("enabled"):
+                            doc["qos"] = q
                 except Exception as e:  # noqa: BLE001 - marked error
                     logger.exception("%s report failed", what)
                     self._send(502, {"error": {
@@ -800,6 +841,13 @@ class EngineHTTPServer:
                           or clean_tenant(body.get("tenant")))
                 self._tenant_minted = tenant is None
                 req.tenant = tenant or DEFAULT_TENANT
+                # the QoS class rides the same ingress, parsed only while
+                # LMRS_QOS is armed (the kill switch keeps the wire as it
+                # was)
+                if qos_enabled():
+                    req.qos_class = (
+                        clean_qos_class(self.headers.get("X-LMRS-QoS-Class"))
+                        or clean_qos_class(body.get("qos_class")))
                 raw = self.headers.get("X-LMRS-Deadline")
                 if raw is None:
                     raw = body.get("deadline_s")
@@ -852,6 +900,10 @@ class EngineHTTPServer:
                 if (getattr(self, "_tenant_minted", False)
                         and clean_tenant(payload.get("tenant"))):
                     req.tenant = payload["tenant"]
+                # the decode leg competes in the class the prefill leg was
+                # admitted under
+                if req.qos_class is None:
+                    req.qos_class = clean_qos_class(payload.get("qos_class"))
                 return True
 
             # ---------------------------------------- disaggregated handoff
@@ -1472,11 +1524,13 @@ class EngineHTTPServer:
             return None, (409, _handoff_error(
                 f"duplicate handoff import of ticket {tid} (already "
                 "imported on this host)"))
+        t0 = time.time()
         payload, err = self._fetch_blob(f"/v1/handoff/{tid}", source,
                                         "handoff_error",
                                         site="handoff.transfer")
         if err is not None:
             return None, err
+        self._h_transfer.observe(time.time() - t0)
         if not self._imported.add(tid):  # raced a concurrent duplicate
             self._c_dup_rejects.inc()
             return None, (409, _handoff_error(

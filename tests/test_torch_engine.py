@@ -363,7 +363,8 @@ def test_package_imports_no_jax_and_no_reference_package():
         "          'obs.metrics', 'utils.perf_model', 'utils.timing',\n"
         "          'training.train', 'training.cli', 'eval.rouge',\n"
         "          'eval.synthetic', 'eval.parity', 'testing.faults',\n"
-        "          'engine.watchdog', 'serving.supervisor'):\n"
+        "          'engine.watchdog', 'serving.supervisor', 'fleet',\n"
+        "          'fleet.qos', 'fleet.autoscale'):\n"
         "    assert 'lmrs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -57,9 +57,10 @@ REPO = Path(__file__).resolve().parents[1]
 TIMEOUT = 10.0
 VALID_REASONS = {"stop", "length", "error", "cancelled", "deadline",
                  "shed", "wedged"}
-# the reference's sites this slice carries (migrate.export/import belong to
-# the fleet half, replicated.shard to multi-GPU)
+# the reference's sites the port carries (replicated.shard belongs to
+# multi-GPU)
 SITES = frozenset((
+    "migrate.export", "migrate.import",
     "kv_cache.allocate", "handoff.export", "handoff.import",
     "scheduler.step", "scheduler.heartbeat", "prefix.prefetch",
     "prefix_cache.insert", "kv.disk_read", "prefix.spill", "engine.batch",
@@ -243,7 +244,7 @@ def test_make_engine_installs_the_config_plan():
 
 def test_port_sites_are_the_reference_sites():
     """Every ``faults.fire``/``faults.check`` site name in the port is one
-    of the 20 this slice carries, and all 20 are there."""
+    of the 22 it carries, and all 22 are there."""
     found = set()
     for path in (REPO / "lmrs_tpu_torch").rglob("*.py"):
         found |= set(re.findall(r'faults\.(?:fire|check)\(\s*"([a-z_.]+)"',

@@ -5,8 +5,8 @@ strings, ``fail_pattern``, deadlines, cancel), its ``engine_metrics`` and
 both packages.  Held exactly, the ``host_kv`` and ``kv_migrate`` blocks
 included (both mocks run their default host tier).  Both run with the
 cost ledger, SLO and anatomy switched off here (``tests/test_torch_obs_
-serving.py`` holds those blocks) and the reference's QoS off (A10b in the
-port).  No JAX compile, no sockets."""
+serving.py`` holds those blocks) and fair-share QoS at both packages'
+default (on).  No JAX compile, no sockets."""
 
 import dataclasses
 import time
@@ -31,9 +31,8 @@ from lmrs_tpu_torch.prompts import resolve_map_prompt
 from lmrs_tpu_torch.utils.demo import load_demo_transcript
 from lmrs_tpu_torch.utils.timing import StageTimer
 
-# observability held elsewhere, and the reference's QoS (A10b in the port)
-REF_OFF = {"LMRS_COST_LEDGER": "0", "LMRS_SLO": "0", "LMRS_ANATOMY": "0",
-           "LMRS_QOS": "0"}
+# observability held elsewhere
+REF_OFF = {"LMRS_COST_LEDGER": "0", "LMRS_SLO": "0", "LMRS_ANATOMY": "0"}
 RESULT_FIELDS = ("request_id", "text", "prompt_tokens", "completion_tokens",
                  "finish_reason", "stop_sequence", "error")
 
@@ -45,7 +44,7 @@ def ref_surfaces_off(monkeypatch):
 
 
 def ref_mock(**kw):
-    return JMock(cost_ledger=False, slo=False, qos=False, **kw)
+    return JMock(cost_ledger=False, slo=False, **kw)
 
 
 def to_ref(req: GenerationRequest) -> JRequest:

@@ -499,32 +499,30 @@ def engines():
     prompts = [pre + "alpha beta", pre + "gamma delta", "x" * 20,
                pre + "epsilon"]
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("LMRS_QOS", "0")  # the reference's QoS is A10b
-        for name in ("ref", "port"):
-            tmod = PKGS[name].trace
-            tmod.enable_tracing()
-            try:
-                if name == "ref":
-                    eng = JaxEngine(
-                        JEngineConfig(backend="jax", scheduler="continuous",
-                                      retry_delay=0.0, **ekw), jcfg,
-                        params=jax.tree.map(jax.numpy.asarray, tree),
-                        tokenizer=IdTokenizer())
-                    mk = JRequest
-                else:
-                    eng = TorchEngine(EngineConfig(**ekw), tcfg, device="cpu",
-                                      params=params_from_jax(tree, tcfg),
-                                      tokenizer=IdTokenizer())
-                    mk = GenerationRequest
-                res = eng.generate_batch([
-                    mk(prompt=p, request_id=i, temperature=0.0,
-                       max_new_tokens=8, cache_prefix=len(pre))
-                    for i, p in enumerate(prompts)])
-                spans = tmod.get_tracer().spans_by_tid()
-            finally:
-                tmod.disable_tracing()
-            out[name] = (eng, res, spans)
+    for name in ("ref", "port"):
+        tmod = PKGS[name].trace
+        tmod.enable_tracing()
+        try:
+            if name == "ref":
+                eng = JaxEngine(
+                    JEngineConfig(backend="jax", scheduler="continuous",
+                                  retry_delay=0.0, **ekw), jcfg,
+                    params=jax.tree.map(jax.numpy.asarray, tree),
+                    tokenizer=IdTokenizer())
+                mk = JRequest
+            else:
+                eng = TorchEngine(EngineConfig(**ekw), tcfg, device="cpu",
+                                  params=params_from_jax(tree, tcfg),
+                                  tokenizer=IdTokenizer())
+                mk = GenerationRequest
+            res = eng.generate_batch([
+                mk(prompt=p, request_id=i, temperature=0.0,
+                   max_new_tokens=8, cache_prefix=len(pre))
+                for i, p in enumerate(prompts)])
+            spans = tmod.get_tracer().spans_by_tid()
+        finally:
+            tmod.disable_tracing()
+        out[name] = (eng, res, spans)
     return out
 
 

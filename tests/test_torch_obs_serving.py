@@ -1,8 +1,8 @@
 """Port parity, observability on the serving surface: the port's server and
 router over the port's mock against the reference's over its mock, on
 ``GET /v1/usage``, ``GET /v1/anatomy``, ``GET /v1/trace`` and the
-``/healthz`` ``slo`` block (the reference's QoS and KV migration off, its
-ledger, SLO and anatomy on, as the port's are); one cross-package pairing,
+``/healthz`` ``slo`` block (KV migration off; ledger, SLO, anatomy and
+fair-share QoS on in both packages); one cross-package pairing,
 the reference's router over port servers; tenant minting at ingress and
 the wire's ``usage.cost``; ``POST /v1/debug/profile`` and the merged
 ``/metrics`` text over the tiny CPU engine; and the job and session
@@ -30,9 +30,8 @@ from lmrs_tpu_torch.serving.router import RouterEngine
 from lmrs_tpu_torch.serving.server import EngineHTTPServer
 
 TIMEOUT = 10.0
-# the reference surfaces that are A10b's in the port, and KV migration
-# (placement noise between runs)
-OFF = {"LMRS_QOS": "0", "LMRS_KV_MIGRATE": "0"}
+# KV migration (placement noise between runs)
+OFF = {"LMRS_KV_MIGRATE": "0"}
 BODY = ("Transcript section: [00:01] The committee opened with the budget "
         "review for the coming year. [00:05] Several members raised the "
         "question of maintenance costs for the old building.")
@@ -49,7 +48,7 @@ def _surfaces(monkeypatch):
 
 PKG = {
     "ref": dict(server=JServer, router=JRouter, obs=j_obs,
-                mock=lambda: JMock(seed=0, qos=False)),
+                mock=lambda: JMock(seed=0)),
     "port": dict(server=EngineHTTPServer, router=RouterEngine, obs=t_obs,
                  mock=lambda: MockEngine(seed=0)),
 }

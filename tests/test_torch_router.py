@@ -477,19 +477,33 @@ def test_role_pool_environment_is_refused(monkeypatch, var):
 
 
 def test_router_refusals(monkeypatch):
+    """No refusal is left: add, drain and remove work (the last host is
+    never removed), and the fleet placement blocks are in
+    ``engine_metrics()``."""
+    monkeypatch.setenv("LMRS_KV_MIGRATE", "0")
     router = RouterEngine(["127.0.0.1:1"])
     try:
-        for call in (lambda: router.add_host("127.0.0.1:2"),
-                     lambda: router.drain_host("127.0.0.1:1"),
-                     lambda: router.remove_host("127.0.0.1:1")):
-            with pytest.raises(NotImplementedError,
-                               match=r"A10b's fleet half\) slice"):
-                call()
+        added = router.add_host("127.0.0.1:2")
+        assert added.netloc == "127.0.0.1:2" and added.healthy
+        assert router.add_host("http://127.0.0.1:2") is added
+        assert router.drain_host("127.0.0.1:2") is True
+        assert not added.healthy and added.draining
+        assert router.drain_host("127.0.0.1:9") is False
+        assert router.host_idle("127.0.0.1:2")
+        assert router.remove_host("127.0.0.1:2") is True
+        assert [h.netloc for h in router.hosts] == ["127.0.0.1:1"]
+        assert router.remove_host("127.0.0.1:1") is False
+        doc = router.engine_metrics()
+        assert doc["slo_route"] == {"enabled": True, "penalized": 0,
+                                    "states": {"127.0.0.1:1": 0}}
+        assert doc["tenant_route"] == {"enabled": True, "routed": 0,
+                                       "tenants": 0}
         # job and session forwarding came with A13, the fleet usage,
-        # anatomy and stitched trace with A10; elasticity and SLO
-        # placement are A10b's fleet half
+        # anatomy and stitched trace with A10, elasticity with A10b
         for name in ("usage_report", "anatomy_report", "stitched_trace",
-                     "job_request", "session_request"):
+                     "job_request", "session_request", "add_host",
+                     "drain_host", "host_idle", "remove_host",
+                     "migrations_pending"):
             assert callable(getattr(router, name))
         assert not hasattr(router, "slo_report")
     finally:

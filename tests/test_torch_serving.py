@@ -481,8 +481,8 @@ def test_handoff_and_kv_routes_answer_like_reference(shared, method, path,
 
 def test_handoff_field_refused_tenant_headers_inert(shared):
     """``"handoff": true`` is served as in the reference (the mock pins its
-    completion and the answer is a ticket); the tenant and QoS headers stay
-    inert."""
+    completion and the answer is a ticket); the tenant and QoS headers
+    change no text."""
     pair = shared
     body = {"messages": [{"role": "user", "content": TEXT}]}
     got = both(pair, "POST", "/v1/chat/completions", {**body, "handoff": True})
