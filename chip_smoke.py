@@ -117,7 +117,8 @@ anything wrong.  Phases, one JSON object per line:
               the three kernels' launches must equal the counts measured
               inline before the watchdog (``PHASE5_INLINE``), and
               ``watchdog_fires`` is printed (0); the wall is printed beside
-              the inline one, not gated.
+              the inline one, not gated.  The engine's page allocator must
+              be the native runtime's (``NativePageAllocator``).
 6. spec     — the same transcript and config with linear speculation
               (``speculate_k=4, mixed_batch=False``) at 8 layers
               (``VARIANT_LAYERS``; full depth before phase 18); counters
@@ -417,8 +418,18 @@ anything wrong.  Phases, one JSON object per line:
     the card (through ``--layers-child``), which serves a request; once
     B's burn clears, a tick drains the child, a later one removes it, the
     supervisor exits 0 and the three ``lmrs_autoscale_*`` counters read 1.
+22. tooling (``run_tooling_path``, on the card's host): the native host
+    runtime (``lmrs_tpu_torch/runtime/native.py``) against the port's
+    Python versions on every segment of the demo transcript (cleaning,
+    one batch call, and approximate counts) and on a seeded script of
+    ``TOOLING_OPS`` alloc/incref/free/refcount operations over phase 5's
+    112-page pool (``testing/alloc_script.py``): every outcome equal; each
+    run timed both ways (best of ``TOOLING_REPS``, MB/s and ops/s).  Then
+    ``python -m lmrs_tpu_torch.analysis --json`` (``lmrs-lint-torch``) on
+    this checkout in a child: exit 0, no new finding, its seconds.  The
+    phase must take under ``TOOLING_BUDGET_S`` seconds.
     Then the script's total seconds.
-22. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
+23. the ``{"kernels": [...]}`` line (each kernel, then each hd-256 build
     as ``<name>@hd256``; the ancestor-mask builds as ``ragged_spans_anc``
     and ``ragged_spans_anc_int8``), then ``{"ok": true, "device": ...}``.
 
@@ -2308,6 +2319,10 @@ def run_main_path() -> dict:
                      ("flash_prefill", "paged_decode_fused", "ragged_spans"))
     if engine._runner is None:
         raise AssertionError("the main path ran without the dispatch watchdog")
+    allocator = type(engine._scheduler.cache.allocator).__name__
+    if allocator != "NativePageAllocator":
+        raise AssertionError(f"the main path ran on {allocator}, not the "
+                             "native runtime's page allocator")
     counts = {"decode_tokens": em["decode_tokens"],
               "prefill_tokens": em["prefill_tokens"],
               "mixed_steps": em["mixed_batch"]["dispatches"],
@@ -2330,6 +2345,7 @@ def run_main_path() -> dict:
     return {"phase": "main", "decode_step_profile": step,
             "prefill_dispatch_profile": prefill,
             "model": "bench-8b (32 layers, random-init bf16)",
+            "allocator": allocator,
             "segments": stats["num_input_segments"],
             "chunks": stats["num_chunks"], "requests": em["requests"],
             "reduce_levels": stats["reduce_levels"],
@@ -4817,7 +4833,7 @@ def obs_traced_path(smi: str, main_out: dict) -> dict:
     from lmrs_tpu_torch.utils.perf_model import chip_spec
 
     OBS_DIR.mkdir(parents=True, exist_ok=True)
-    os.environ["LMRS_ANATOMY_RESERVOIR"] = "100000"
+    os.environ["LMRS_ANATOMY_RESERVOIR"] = "100000"  # lint: ignore[env.direct-read] a write: the knob for this phase
     tr = enable_tracing()
     try:
         summarizer, engine, stats, wall, launches = summarize_once(
@@ -4826,7 +4842,7 @@ def obs_traced_path(smi: str, main_out: dict) -> dict:
         n_events, err = export_current(path)
     finally:
         disable_tracing()
-        del os.environ["LMRS_ANATOMY_RESERVOIR"]
+        del os.environ["LMRS_ANATOMY_RESERVOIR"]  # lint: ignore[env.direct-read] a write: the knob for this phase
     if err is not None:
         raise AssertionError(f"18a: trace export failed: {err}")
     events = validate_trace_file(path)
@@ -5116,11 +5132,11 @@ def obs_server_path(smi: str, traced: dict):
     pm_dir = OBS_DIR / "postmortems"
     for f in pm_dir.glob("*.json"):
         f.unlink()
-    os.environ["LMRS_POSTMORTEM_DIR"] = str(pm_dir)
+    os.environ["LMRS_POSTMORTEM_DIR"] = str(pm_dir)  # lint: ignore[env.direct-read] a write: the knob for this phase
     try:
         storm = obs_wave(port, prompts, deadline=budget, max_tokens=SERVE_CAP)
     finally:
-        del os.environ["LMRS_POSTMORTEM_DIR"]
+        del os.environ["LMRS_POSTMORTEM_DIR"]  # lint: ignore[env.direct-read] a write: the knob for this phase
     # a request that misses the wave's batch window queues behind it and
     # is shed once its budget has passed (before any work): every one ends
     # deadline or shed, and one sweep expires at least LMRS_DEADLINE_STORM
@@ -6039,11 +6055,11 @@ def run_wedge_path(smi: str) -> dict:
     del engine, srv
     free_cuda()
     # the same wave inline: LMRS_WATCHDOG=0 builds no dispatch thread
-    os.environ["LMRS_WATCHDOG"] = "0"
+    os.environ["LMRS_WATCHDOG"] = "0"  # lint: ignore[env.direct-read] a write: the knob for this phase
     try:
         inline, reqs2 = wedge_engine()
     finally:
-        del os.environ["LMRS_WATCHDOG"]
+        del os.environ["LMRS_WATCHDOG"]  # lint: ignore[env.direct-read] a write: the knob for this phase
     if inline._runner is not None:
         raise AssertionError("20b: LMRS_WATCHDOG=0 built a dispatch thread")
     texts, launches, inline_wall = _wave_texts(inline, reqs2, "20b inline")
@@ -6324,7 +6340,7 @@ def run_hedge_path(smi: str) -> dict:
     try:
         _wait_for(lambda: _healthz(port) == 200, "the straggler")
         req = phase5_map_requests(cfg, engine)[0]
-        os.environ["LMRS_HEDGE_MS"] = str(HEDGE_MS)
+        os.environ["LMRS_HEDGE_MS"] = str(HEDGE_MS)  # lint: ignore[env.direct-read] a write: the knob for this phase
         router = RouterEngine(hosts, timeout_s=SERVE_TIMEOUT,
                               prefix_route=False)
         t0 = time.time()
@@ -6840,6 +6856,100 @@ def run_fleet_path(smi: str) -> dict:
             "seconds": time.time() - t0}
 
 
+# ------------------------------------------------------------ phase 22
+
+TOOLING_OPS = 100_000   # 22's allocator script, over phase 5's pool
+TOOLING_PAGES = 112
+TOOLING_REPS = 3
+TOOLING_BUDGET_S = 20.0
+
+
+def _best_s(fn, reps: int = TOOLING_REPS) -> tuple[float, object]:
+    """The fastest of ``reps`` runs of ``fn`` (seconds) and its result."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t)
+    return best, out
+
+
+def run_tooling_path(smi: str) -> dict:
+    """Phase 22 (on the card's host): the native runtime against the
+    port's Python versions, both timed, and ``lmrs-lint-torch`` on this
+    checkout in a child."""
+    import os
+
+    from lmrs_tpu_torch.data.preprocessor import clean_text_py
+    from lmrs_tpu_torch.data.tokenizer import ApproxTokenizer
+    from lmrs_tpu_torch.engine.kv_cache import PageAllocator
+    from lmrs_tpu_torch.runtime import native
+    from lmrs_tpu_torch.testing.alloc_script import make_script, replay
+    from lmrs_tpu_torch.utils.demo import load_demo_transcript
+
+    card_line(smi, "tooling-22")
+    t_phase = time.time()
+    texts = [s.get("text") or "" for s in load_demo_transcript()["segments"]]
+    mb = sum(len(t.encode("utf-8")) for t in texts) / 1e6
+    tok = ApproxTokenizer()
+    runs = {
+        "clean": (lambda: native.clean_text_batch(texts),
+                  lambda: [clean_text_py(t) for t in texts]),
+        "count": (lambda: native.count_approx_batch(texts),
+                  lambda: [tok.count_py(t) for t in texts]),
+    }
+    out: dict = {"phase": "tooling-22", "card": smi, "segments": len(texts),
+                 "megabytes": mb, "parity": {}, "throughput": {}}
+    for name, (nat, py) in runs.items():
+        s_nat, got = _best_s(nat)
+        s_py, want = _best_s(py)
+        if got != want:
+            bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"22: native {name} differs from the Python "
+                                 f"version at segment {bad}: {got[bad]!r} != "
+                                 f"{want[bad]!r}")
+        out["parity"][name] = "equal"
+        out["throughput"][name] = {
+            "native_mb_s": mb / s_nat, "python_mb_s": mb / s_py,
+            "native_seconds": s_nat, "python_seconds": s_py}
+    t = time.perf_counter()
+    script, outcomes = make_script(0, TOOLING_OPS, TOOLING_PAGES)
+    gen_s = time.perf_counter() - t
+    s_nat, got = _best_s(lambda: replay(
+        native.NativePageAllocator(TOOLING_PAGES), script))
+    s_py, want = _best_s(lambda: replay(PageAllocator(TOOLING_PAGES), script))
+    if got != outcomes or want != outcomes:
+        bad = next(i for i, o in enumerate(outcomes)
+                   if got[i] != o or want[i] != o)
+        raise AssertionError(f"22: the allocators disagree at op {bad} "
+                             f"{script[bad]}: native {got[bad]}, Python "
+                             f"{want[bad]}, script {outcomes[bad]}")
+    refused = sum(isinstance(o, str) for o in outcomes)
+    out["parity"]["allocator"] = "equal"
+    out["throughput"]["allocator"] = {
+        "ops": TOOLING_OPS, "refused": refused, "pages": TOOLING_PAGES,
+        "native_ops_s": TOOLING_OPS / s_nat,
+        "python_ops_s": TOOLING_OPS / s_py, "script_seconds": gen_s}
+    here = Path(__file__).resolve().parent
+    t = time.time()
+    proc = subprocess.run([sys.executable, "-m", "lmrs_tpu_torch.analysis",
+                           "--json", str(here)], cwd=here,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(here)})
+    lint_s = time.time() - t
+    doc = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    if proc.returncode != 0 or doc.get("new"):
+        raise AssertionError(f"22: lmrs-lint-torch exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out["lint"] = {"exit": proc.returncode, "new": len(doc["new"]),
+                   "accepted": len(doc["accepted"]), "seconds": lint_s}
+    out["phase_seconds"] = round(time.time() - t_phase, 3)
+    if out["phase_seconds"] > TOOLING_BUDGET_S:
+        raise AssertionError(f"22: the phase took {out['phase_seconds']} s, "
+                             f"over its {TOOLING_BUDGET_S} s budget")
+    return out
+
+
 def hd256_rows(rows: list[dict], checks: list[dict], main_shapes: list[dict],
                gemma_out: dict, gemma2b_out: dict, tree2b_out: dict,
                launches_3c: dict) -> list[dict]:
@@ -6902,6 +7012,11 @@ def main() -> int:
         return 1
     import lmrs_tpu_torch
     from lmrs_tpu_torch.ops import kernels
+    from lmrs_tpu_torch.utils.logging import setup_logging
+
+    # the port's logs go to stderr before any phase: stdout is one JSON
+    # object a line
+    setup_logging(stream=sys.stderr)
 
     here = Path(__file__).resolve().parent
     if Path(lmrs_tpu_torch.__file__).resolve().parents[1] != here:
@@ -7019,6 +7134,7 @@ def main() -> int:
     emit(timed(run_train_eval_path, smi))
     emit(timed(run_faults_path, smi))
     emit(timed(run_fleet_path, smi))
+    emit(run_tooling_path(smi))
     by = {"flash_prefill": (main_out, "main path (phase 5)"),
           "paged_decode_fused": (main_out, "main path (phase 5)"),
           "ragged_spans": (main_out, "main path (phase 5)"),

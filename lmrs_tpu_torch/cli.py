@@ -42,6 +42,7 @@ from lmrs_tpu_torch.config import (ChunkConfig, DataConfig, EngineConfig,
                                    PipelineConfig, ReduceConfig)
 from lmrs_tpu_torch.engine.api import HTTP_NEEDS_HOSTS
 from lmrs_tpu_torch.pipeline import TranscriptSummarizer
+from lmrs_tpu_torch.utils.logging import setup_logging
 from lmrs_tpu_torch.utils.timing import format_duration
 
 logger = logging.getLogger("lmrs_torch.cli")
@@ -184,8 +185,9 @@ def _export_trace(trace_out: str) -> None:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # logs on stderr, as the port's CLIs always had them: stdout carries
+    # their output
+    setup_logging(quiet=args.quiet, stream=sys.stderr)
     try:
         cfg = config_from_args(args)
     except ValueError as e:

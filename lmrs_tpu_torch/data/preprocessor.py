@@ -17,6 +17,8 @@ import logging
 import re
 from typing import Any, Iterable
 
+from lmrs_tpu_torch.runtime import native
+
 logger = logging.getLogger("lmrs_torch.preprocessor")
 
 Segment = dict[str, Any]
@@ -26,14 +28,8 @@ _REPEAT_WORD_RE = re.compile(r"\b(\w+)(\s+\1\b)+", re.IGNORECASE)
 _PUNCT_SPACE_RE = re.compile(r"([.!?,;:])([A-Za-z])")
 
 
-def clean_text(text: str) -> str:
-    """Normalize a segment's text (reference clean_text, preprocessor.py:69-89).
-
-    Collapses whitespace, dedups immediately-repeated words ("the the" →
-    "the"), and restores a missing space after sentence punctuation
-    ("end.Next" → "end. Next").  The pure-Python path of the reference
-    package's cleaner (the port does not load its native library).
-    """
+def clean_text_py(text: str) -> str:
+    """The Python cleaner: the plain version of the native scan."""
     if not text:
         return ""
     text = _WS_RE.sub(" ", text).strip()
@@ -42,10 +38,29 @@ def clean_text(text: str) -> str:
     return text
 
 
+def clean_text(text: str) -> str:
+    """Normalize a segment's text (reference clean_text, preprocessor.py:69-89).
+
+    Collapses whitespace, dedups immediately-repeated words ("the the" →
+    "the"), and restores a missing space after sentence punctuation
+    ("end.Next" → "end. Next").  Runs the C++ scan (``runtime/native``)
+    unless ``LMRS_NATIVE=0`` selects ``clean_text_py``.
+    """
+    if not text:
+        return ""
+    if native.enabled():
+        return native.clean_text_native(text)
+    return clean_text_py(text)
+
+
 def _clean_all(texts: list) -> list[str]:
-    """Clean a list of texts.  Non-string entries (e.g. ``"text": null`` in
+    """Clean a list of texts: one native batch call, or the Python cleaner
+    under ``LMRS_NATIVE=0``.  Non-string entries (e.g. ``"text": null`` in
     the input JSON) clean to "" and are dropped by the caller."""
-    return [clean_text(t if isinstance(t, str) else "") for t in texts]
+    texts = [t if isinstance(t, str) else "" for t in texts]
+    if native.enabled():
+        return native.clean_text_batch(texts)
+    return [clean_text_py(t) for t in texts]
 
 
 def format_timestamp(seconds: float) -> str:

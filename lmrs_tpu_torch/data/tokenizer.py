@@ -1,6 +1,7 @@
-"""Tokenization authority (pure-Python copy of the reference's tokenizers).
+"""Tokenization authority (a copy of the reference's tokenizers).
 
-* ``ApproxTokenizer`` — deterministic ~4 chars/token counter.
+* ``ApproxTokenizer`` — deterministic ~4 chars/token counter (the native
+  runtime's count unless ``LMRS_NATIVE=0``).
 * ``ByteTokenizer`` — reversible UTF-8 byte mapping (pad 0, bos 1, eos 2,
   byte b -> id b+3, vocab 259): the vocabulary of random-init models.
 * ``HFTokenizer`` — a checkpoint's local ``tokenizer.json`` through the
@@ -20,6 +21,8 @@ import re
 import zlib
 from pathlib import Path
 from typing import Protocol, Sequence
+
+from lmrs_tpu_torch.runtime import native
 
 
 class Tokenizer(Protocol):
@@ -45,10 +48,25 @@ class ApproxTokenizer:
 
     _word_re = re.compile(r"\S+")
 
-    def count(self, text: str) -> int:
+    def count_py(self, text: str) -> int:
+        """The Python counter: the plain version of the native count."""
         if not text:
             return 0
         return max(len(text) // 4, len(self._word_re.findall(text)) // 2, 1)
+
+    def count(self, text: str) -> int:
+        if not text:
+            return 0
+        if native.enabled():
+            return native.count_approx_native(text)
+        return self.count_py(text)
+
+    def count_batch(self, texts: list[str]) -> list[int]:
+        """Counts of many strings: one native call (the chunker's hot
+        loop), or the Python counter under ``LMRS_NATIVE=0``."""
+        if native.enabled():
+            return native.count_approx_batch(texts)
+        return [self.count_py(t) for t in texts]
 
     def encode(self, text: str) -> list[int]:
         return [

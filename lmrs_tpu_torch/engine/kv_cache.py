@@ -1,7 +1,8 @@
 """Paged KV cache: a page pool on the device + a host-side page allocator
 (the port of the reference's ``engine/kv_cache.py``: pool, ref-counted
 allocator, page growth, the prefix cache's reclaim hook, and the page-set
-moves of the spill tiers and the disaggregated handoff).
+moves of the spill tiers and the disaggregated handoff).  The allocator is
+the native runtime's (``runtime/native``) unless ``LMRS_NATIVE=0``.
 
 Pool layout [n_layers * num_pages, K, page_size, hd], PAGE-major with the
 layer axis flattened into the page axis: layer ``li``'s copy of logical page
@@ -33,6 +34,7 @@ from lmrs_tpu_torch.testing import faults
 
 from lmrs_tpu_torch.config import ModelConfig
 from lmrs_tpu_torch.engine.host_kv import as_dtype, dtype_name
+from lmrs_tpu_torch.runtime import native
 
 logger = logging.getLogger("lmrs_torch.kv_cache")
 
@@ -104,6 +106,15 @@ class PageAllocator:
                 self._free.append(p)
 
 
+def make_page_allocator(num_pages: int):
+    """The C++ allocator (``runtime/native``), or ``PageAllocator`` under
+    ``LMRS_NATIVE=0``.  Both keep the same contract and hand out the same
+    pages in the same order; a native build that fails raises."""
+    if native.enabled():
+        return native.NativePageAllocator(num_pages)
+    return PageAllocator(num_pages)
+
+
 @dataclass
 class SequencePages:
     """Page table of one active sequence."""
@@ -119,7 +130,8 @@ class PagedKVCache:
     """Device page pool + host page tables."""
 
     def __init__(self, model_cfg: ModelConfig, num_pages: int, page_size: int,
-                 max_pages_per_slot: int, device, dtype: torch.dtype):
+                 max_pages_per_slot: int, device, dtype: torch.dtype,
+                 allocator=None):
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_pages_per_slot = max_pages_per_slot
@@ -127,7 +139,7 @@ class PagedKVCache:
                  page_size, model_cfg.hd)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
-        self.allocator = PageAllocator(num_pages)
+        self.allocator = allocator or make_page_allocator(num_pages)
         # page-pressure reclaim hook (engine/prefix_cache.py): an allocation
         # that would exceed the free list first asks it to release
         # reclaimable pages (LRU cache eviction), so cached pages never

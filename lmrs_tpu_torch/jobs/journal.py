@@ -128,8 +128,9 @@ class Journal:
                 # the fsync fails (the record may not survive a crash)
                 faults.fire("journal.fsync", OSError)
                 # the fsync runs inside the lock on purpose: append
-                # durability ordering is the journal's contract
-                os.fsync(self._fh.fileno())
+                # durability ordering is the journal's contract, so every
+                # appender serializes on the disk here
+                os.fsync(self._fh.fileno())  # lint: ignore[race.blocking-under-lock]
             except Exception as e:  # noqa: BLE001 - degrade, never fatal
                 self.fsync_failures += 1
                 self.degraded = True

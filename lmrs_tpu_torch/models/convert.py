@@ -50,7 +50,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
     lt = tree["layers"]
     D = cfg.dim
 
-    def proj(leaves, li, rows, experts=None):
+    def proj(leaves: list, li: int, rows: int, experts: int | None = None):
         """Layer li's matrices as one [rows, out] port matrix (fused
         along the output axis; [E, rows, out] for an expert stack) — or
         one quantized leaf."""
@@ -106,8 +106,9 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
     quantized leaves come back as ``{"q", "s"}`` in the reference's
     shapes, ``s`` with size-1 contracting axes)."""
     def arr(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        # the bridge's output is host numpy by design: one copy a leaf
+        t = t.detach().cpu()  # lint: ignore[tracing.host-sync-in-step]
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()  # lint: ignore[tracing.host-sync-in-step]
 
     def split(w, widths, shapes, n_contract=1, n_lead=0):
         """Cut a port matrix along its output axis into the reference's
@@ -115,7 +116,8 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
         ``n_contract`` axes contract)."""
         cuts = np.cumsum(widths)[:-1]
         ax = n_lead + 1
-        if not is_quantized(w):
+        # a type test (a dict or a tensor): no device value is read
+        if not is_quantized(w):  # lint: ignore[tracing.python-branch-on-tensor]
             return [p.reshape(sh) for p, sh in
                     zip(np.split(arr(w), cuts, axis=ax), shapes)]
         qs = np.split(arr(w["q"]), cuts, axis=ax)
@@ -125,7 +127,7 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> dict:
                                  + tuple(sh[n_lead + n_contract:]))}
                 for q, sc, sh in zip(qs, ss, shapes)]
 
-    def stack(leaves):
+    def stack(leaves: list):
         if is_quantized(leaves[0]):
             return {k: np.stack([x[k] for x in leaves]) for k in ("q", "s")}
         return np.stack(leaves)

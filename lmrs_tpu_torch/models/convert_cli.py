@@ -21,6 +21,8 @@ import argparse
 import logging
 import sys
 
+from lmrs_tpu_torch.utils.logging import setup_logging
+
 logger = logging.getLogger("lmrs_torch.convert")
 
 
@@ -43,8 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # logs on stderr, as the port's CLIs always had them: stdout carries
+    # their output
+    setup_logging(quiet=args.quiet, stream=sys.stderr)
     from lmrs_tpu_torch.config import model_preset
     from lmrs_tpu_torch.models.loader import hf_params, save_checkpoint
 

@@ -44,7 +44,8 @@ def flash_attention_ref(
     return torch.where(valid[:, :, None, None], out, torch.zeros_like(out))
 
 
-def _check_operand(name: str, t: torch.Tensor, device) -> None:
+def _check_operand(name: str, t: torch.Tensor,
+                   device: torch.device) -> None:
     if t.device != device or t.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention: {name} must be bfloat16 on "
                          f"{device} (got {t.dtype} on {t.device})")

@@ -189,7 +189,8 @@ def paged_decode_fused_ref(
                             kscale, vscale)
 
 
-def _check(op: str, dev, dtype: torch.dtype, **tensors) -> None:
+def _check(op: str, dev: torch.device, dtype: torch.dtype,
+           **tensors) -> None:
     for name, t in tensors.items():
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous {dtype} on {dev}")
@@ -469,7 +470,8 @@ paged_decode_multi.launches_int8 = 0
 # ------------------------------------------------------- ragged span kernel
 
 
-def pack_spans(q_lens, floor: int = 16) -> tuple[np.ndarray, int]:
+def pack_spans(q_lens: np.ndarray | list[int],
+               floor: int = 16) -> tuple[np.ndarray, int]:
     """Host-side span packer: per-row query lengths (0 = inactive row) ->
     ``(q_starts, total)``; span i occupies flat tokens [q_starts[i],
     q_starts[i] + q_lens[i]) of a buffer whose spans start SPAN_QT-aligned,
@@ -510,7 +512,8 @@ def ragged_spans_ref(
     n_rep = h // kh
     cap = w * ps if max_pos is None else min(w * ps, max_pos)
     tables = page_tables.long()
-    starts, lens, bases = (x.tolist() for x in (q_starts, q_lens, kv_lens))
+    # the plain version walks its rows on the host: one fetch a call
+    starts, lens, bases = (x.tolist() for x in (q_starts, q_lens, kv_lens))  # lint: ignore[tracing.host-sync-in-step]
     rows = [r for r in range(b) if lens[r] > 0]
     out = torch.zeros_like(q)
     for r in rows:  # 1. writes: in-span tokens at positions < cap only

@@ -39,6 +39,8 @@ import argparse
 import logging
 import sys
 
+from lmrs_tpu_torch.utils.logging import setup_logging
+
 logger = logging.getLogger("lmrs_torch.serving")
 
 # flag -> the slice of the port that brings it
@@ -118,8 +120,9 @@ def main(argv: list[str] | None = None) -> int:
         if val not in (None, False):
             parser.error(f"--{name.replace('_', '-')} is not in the port "
                          f"yet; it arrives with the {later} slice")
-    logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # logs on stderr, as the port's CLIs always had them: stdout carries
+    # their output
+    setup_logging(quiet=args.quiet, stream=sys.stderr)
     if args.supervise:
         # parent mode: never builds an engine; it spawns this CLI (minus
         # --supervise, stripped by exact match: the parser takes no

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import numpy as np
 
+from lmrs_tpu_torch.utils.logging import setup_logging
+
 logger = logging.getLogger("lmrs_torch.train")
 
 
@@ -110,8 +112,9 @@ def batches(seqs, masks, batch_size: int, seq_len: int, seed: int):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # logs on stderr, as the port's CLIs always had them: stdout carries
+    # their output
+    setup_logging(quiet=args.quiet, stream=sys.stderr)
     if args.mesh:
         parser.error("--mesh is not in the port yet; it arrives with the "
                      "multi-GPU (A8) slice")

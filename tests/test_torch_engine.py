@@ -364,7 +364,11 @@ def test_package_imports_no_jax_and_no_reference_package():
         "          'training.train', 'training.cli', 'eval.rouge',\n"
         "          'eval.synthetic', 'eval.parity', 'testing.faults',\n"
         "          'engine.watchdog', 'serving.supervisor', 'fleet',\n"
-        "          'fleet.qos', 'fleet.autoscale'):\n"
+        "          'fleet.qos', 'fleet.autoscale', 'analysis',\n"
+        "          'analysis.__main__', 'analysis.cli', 'analysis.core',\n"
+        "          'analysis.drift', 'analysis.envpass', 'analysis.locks',\n"
+        "          'analysis.tracing', 'runtime', 'runtime.native',\n"
+        "          'utils.logging', 'testing.alloc_script'):\n"
         "    assert 'lmrs_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
